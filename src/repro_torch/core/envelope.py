@@ -1,0 +1,172 @@
+"""ULISSE Envelope construction (paper §4, Algorithms 1 and 2).
+
+The JAX package vmaps a per-series function; here the series axis is a
+batch dimension of every tensor, and the build walks the collection in
+blocks of series so that the (series, anchor, master, segment) grid of
+one block stays within a fixed element budget on the device.
+
+  non-normalized (Alg. 1):  a (S, n_env, gamma+1, w) grid of master-series
+    PAA coefficients, min/max-reduced over the master axis;
+  Z-normalized (Alg. 2):    a loop over subsequence lengths l' in
+    [lmin, lmax]; each step normalizes every master's segment sums by the
+    (offset, l') window statistics.
+
+Segments not covered by any represented subsequence get (-inf, +inf)
+bounds so they contribute zero to every lower bound.
+
+The prefix sums here are float32 cumsums, as in the reference; their
+rounding may differ from XLA's, so an iSAX symbol of the port's own build
+can flip at a breakpoint (the tests bound the agreement rate).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import isax
+from repro_torch.core.types import Collection, EnvelopeParams, EnvelopeSet
+
+_INF = float("inf")
+
+# elements of one block's (S, n_env, g, w) grid
+_BUILD_BLOCK_ELEMS = 1 << 25
+
+
+def _anchors(series_len: int, p: EnvelopeParams, device) -> torch.Tensor:
+    n_env = p.num_envelopes(series_len)
+    return torch.arange(n_env, dtype=torch.int32, device=device) * (p.gamma + 1)
+
+
+def _master_offsets(series_len: int, p: EnvelopeParams, device):
+    """(n_env, g) master offsets and validity (master fits lmin)."""
+    a = _anchors(series_len, p, device)
+    g = torch.arange(p.gamma + 1, dtype=torch.int32, device=device)
+    off = a[:, None] + g[None, :]
+    return off, off + p.lmin <= series_len
+
+
+def _prefix(x: torch.Tensor) -> torch.Tensor:
+    """(S, n) -> (S, n + 1) float32 cumsum with a leading zero."""
+    zero = torch.zeros((x.shape[0], 1), dtype=torch.float32, device=x.device)
+    return torch.cat([zero, torch.cumsum(x, dim=-1)], dim=-1)
+
+
+def _segment_sums(csum: torch.Tensor, off: torch.Tensor, p: EnvelopeParams):
+    """Segment sums for each master offset: (S, n_env, g, w) + mask."""
+    n = csum.shape[-1] - 1
+    z = torch.arange(p.w, dtype=torch.int32, device=csum.device)
+    start = off[..., None] + z * p.seg_len                  # (n_env, g, w)
+    end = start + p.seg_len
+    seg_ok = end <= n
+    sums = (csum[:, end.clamp(0, n).long()]
+            - csum[:, start.clamp(0, n).long()])
+    return sums, seg_ok
+
+
+def _masked_minmax(vals, mask, dim: int):
+    lo = torch.where(mask, vals, _INF).amin(dim=dim)
+    hi = torch.where(mask, vals, -_INF).amax(dim=dim)
+    return lo, hi
+
+
+def _finalize(lo, hi):
+    """Mark never-touched segments as unconstrained (-inf, +inf)."""
+    untouched = lo > hi
+    return (torch.where(untouched, -_INF, lo),
+            torch.where(untouched, _INF, hi))
+
+
+def build_envelopes_raw(series: torch.Tensor, p: EnvelopeParams):
+    """Alg. 1 — non Z-normalized Envelopes for a block of series.
+
+    series: (S, n) float32.  Returns (paa_lo, paa_hi) (S, n_env, w) and
+    n_master (n_env,).
+    """
+    n = series.shape[-1]
+    csum = _prefix(series.to(torch.float32))
+    off, master_ok = _master_offsets(n, p, series.device)
+    sums, seg_ok = _segment_sums(csum, off, p)
+    mask = master_ok[..., None] & seg_ok
+    lo, hi = _masked_minmax(sums / p.seg_len, mask, dim=2)
+    lo, hi = _finalize(lo, hi)
+    return lo, hi, master_ok.sum(dim=1, dtype=torch.int32)
+
+
+def build_envelopes_znorm(series: torch.Tensor, p: EnvelopeParams):
+    """Alg. 2 — Z-normalized Envelopes for a block of series.
+
+    Loops over subsequence lengths l' = lmin..lmax (the paper's second
+    loop); each step evaluates Eq. 2 for every (series, anchor, master,
+    segment):
+
+        paaNorm(o, l', z) = (segsum(o, z)/s - mu(o, l')) / sigma(o, l')
+
+    subject to (z+1)*s <= l' and o + l' <= n.
+    """
+    n = series.shape[-1]
+    dev = series.device
+    x = series.to(torch.float32)
+    xc = x - x.mean(dim=-1, keepdim=True)
+    csum = _prefix(xc)
+    csum2 = _prefix(xc * xc)
+
+    off, master_ok = _master_offsets(n, p, dev)             # (n_env, g)
+    sums, seg_ok = _segment_sums(csum, off, p)              # (S, n_env, g, w)
+    base_mask = master_ok[..., None] & seg_ok
+    seg_mean = sums / p.seg_len
+    z_end = (torch.arange(p.w, device=dev) + 1) * p.seg_len  # (w,)
+    start = off.clamp(0, n).long()
+    c_start, c2_start = csum[:, start], csum2[:, start]     # (S, n_env, g)
+
+    shape = seg_mean.shape[:2] + (p.w,)
+    lo = torch.full(shape, _INF, device=dev)
+    hi = torch.full(shape, -_INF, device=dev)
+    for lprime in range(p.lmin, p.lmax + 1):
+        end = off + lprime
+        sub_ok = end <= n                                   # (n_env, g)
+        end_c = end.clamp(0, n).long()
+        s1 = csum[:, end_c] - c_start
+        s2 = csum2[:, end_c] - c2_start
+        mu = s1 / lprime
+        var = (s2 / lprime - mu * mu).clamp_min(0.0)
+        sigma = torch.sqrt(var).clamp_min(1e-8)
+        vals = (seg_mean - mu[..., None]) / sigma[..., None]
+        mask = base_mask & sub_ok[..., None] & (z_end <= lprime)
+        step_lo, step_hi = _masked_minmax(vals, mask, dim=2)
+        lo = torch.minimum(lo, step_lo)
+        hi = torch.maximum(hi, step_hi)
+    lo, hi = _finalize(lo, hi)
+    return lo, hi, master_ok.sum(dim=1, dtype=torch.int32)
+
+
+def build_envelope_set(collection: Collection, p: EnvelopeParams,
+                       breakpoints: torch.Tensor) -> EnvelopeSet:
+    """Build the full (unsorted) EnvelopeSet of a collection (paper Alg. 3):
+    per-block envelope bounds, flattened series-major, symbolized with
+    iSAX."""
+    n = collection.series_len
+    n_env = p.num_envelopes(n)
+    if n_env == 0:
+        raise ValueError(f"series_len={n} shorter than lmin={p.lmin}")
+    dev = collection.device
+    s = collection.num_series
+    build_fn = build_envelopes_znorm if p.znorm else build_envelopes_raw
+    block = max(1, _BUILD_BLOCK_ELEMS // (n_env * (p.gamma + 1) * p.w))
+    lo = torch.empty((s, n_env, p.w), dtype=torch.float32, device=dev)
+    hi = torch.empty_like(lo)
+    n_master = None
+    for start in range(0, s, block):
+        stop = min(start + block, s)
+        blo, bhi, n_master = build_fn(collection.data[start:stop], p)
+        lo[start:stop] = blo
+        hi[start:stop] = bhi
+    lo = lo.reshape(s * n_env, p.w)
+    hi = hi.reshape(s * n_env, p.w)
+    n_master = n_master.repeat(s)
+    return EnvelopeSet(
+        paa_lo=lo, paa_hi=hi,
+        sym_lo=isax.symbolize(lo, breakpoints),
+        sym_hi=isax.symbolize(hi, breakpoints),
+        series_id=torch.arange(s, dtype=torch.int32,
+                               device=dev).repeat_interleave(n_env),
+        anchor=_anchors(n, p, dev).repeat(s),
+        n_master=n_master, valid=n_master > 0)

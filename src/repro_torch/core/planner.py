@@ -1,0 +1,171 @@
+"""Query planning for ULISSE search (the *planner* half of the engine).
+
+A plan is everything derivable from (query, index params) before any raw
+data is touched: the (possibly Z-normalized) query, its PAA interval,
+lower bounds of blocks and envelopes, and the LB-sorted candidate packs
+the executor scans.  Everything here stays on the device: the only host
+syncs of a search are the executor's stop tests and the engine's one
+result readback.
+
+Main-path part of `repro/core/planner.py` (ED): the lower bounds go
+through the `mindist` kernels; every argsort is stable, as `jnp.argsort`
+is.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.paa import paa, znormalize
+from repro_torch.core.types import EnvelopeParams, EnvelopeSet
+from repro_torch.kernels.mindist import mindist_paa, mindist_sym
+
+_INF = float("inf")
+
+
+def prepare_query_batch(q: torch.Tensor, seg_len: int, znorm: bool,
+                        measure: str = "ed"):
+    """Query prep for a (B, qlen) same-length batch.
+
+    Returns (qn, dtw_lo, dtw_hi, paa_lo, paa_hi), each (B, ...); for ED
+    the dtw slots alias qn and the PAA interval is degenerate.
+    """
+    if measure != "ed":
+        raise NotImplementedError(
+            "DTW query prep is ROADMAP Queue 1 item 7 (not ported yet)")
+    qn = znormalize(q) if znorm else q
+    qp = paa(qn, seg_len).contiguous()
+    return qn, qn, qn, qp, qp
+
+
+def length_bucket(qlen: int, cap: int) -> int:
+    """The pow2 length bucket (capped at `cap`, normally lmax)."""
+    return min(1 << max(qlen - 1, 0).bit_length(), cap)
+
+
+def admit_query(q, p: EnvelopeParams) -> Tuple[np.ndarray, int]:
+    """Admission-time planning for one request: validate + route.
+
+    Returns (query as float32 ndarray, bucket); malformed requests raise
+    ValueError.
+    """
+    arr = np.asarray(q, np.float32)
+    if arr.ndim != 1:
+        raise ValueError(
+            f"a request is one 1-D query (got shape {arr.shape}); "
+            "submit batch members individually — the serving tier does "
+            "the batching")
+    if arr.size == 0 or not np.all(np.isfinite(arr)):
+        raise ValueError("query values must be finite and non-empty")
+    if not (p.lmin <= arr.size <= p.lmax):
+        raise ValueError(
+            f"query length {arr.size} outside the index's "
+            f"[{p.lmin}, {p.lmax}]")
+    return arr, length_bucket(arr.size, p.lmax)
+
+
+def env_lower_bounds_batch(paa_lo, paa_hi, env: EnvelopeSet, breakpoints,
+                           seg_len: int, nseg: int, use_paa: bool):
+    """Lower bounds (B, N) of a stacked (B, w) query batch to every
+    envelope (Eq. 5): the iSAX breakpoint intervals, or the raw PAA
+    bounds when `use_paa`; +inf for invalid (padding) rows."""
+    if use_paa:
+        return mindist_paa(paa_lo, paa_hi, env.paa_lo, env.paa_hi,
+                           env.valid, seg_len, nseg)
+    return mindist_sym(paa_lo, paa_hi, env.sym_lo, env.sym_hi, breakpoints,
+                       env.valid, seg_len, nseg)
+
+
+def block_lower_bounds_batch(paa_lo, paa_hi, blk_lo, blk_hi, blk_valid,
+                             seg_len: int, nseg: int):
+    """Lower bounds (B, Nb) to block-level envelope unions (always
+    PAA-valued: block unions are built from raw L/U PAA bounds)."""
+    return mindist_paa(paa_lo, paa_hi, blk_lo, blk_hi, blk_valid, seg_len,
+                       nseg)
+
+
+def device_leaf_pack(env_sid, env_anchor, env_nm, env_valid, blk_lb,
+                     n_main: int, block_size: int, chunk: int,
+                     n_leaves: int):
+    """Pack the approximate pass's candidates (paper Alg. 4, batched).
+
+    The `n_leaves` best leaves in ascending block-LB order, each leaf
+    padded to `chunk` rows (chunk = pow2ceil(block_size)), every row
+    carrying its BLOCK's squared lower bound — so the scan core's
+    per-chunk stop IS Alg. 4's "next leaf cannot improve" stop.  (The
+    JAX package also sweeps an ingestion delta first; the port has no
+    delta yet, so `n_main` is the whole set.)
+
+    Returns (sids, anchors, n_master, lbs2, comb_idx, blk_lb_sorted):
+    all (B, n_pad) except blk_lb_sorted (B, Nb); comb_idx maps each
+    packed row back to its envelope index (N for padding).
+    """
+    b_sz, _ = blk_lb.shape
+    n_comb = env_sid.shape[0]
+    if n_comb != n_main:
+        raise NotImplementedError(
+            "an ingestion delta is ROADMAP Queue 1 item 10 (not ported yet)")
+    dev = blk_lb.device
+
+    order = torch.argsort(blk_lb, dim=1, stable=True)       # (B, Nb)
+    blk_sorted = torch.gather(blk_lb, 1, order)
+    leaf_lb2 = blk_sorted[:, :n_leaves] ** 2
+
+    member = torch.arange(chunk, dtype=torch.int64, device=dev)
+    lidx = order[:, :n_leaves, None] * block_size + member  # (B, L, chunk)
+    lidx = torch.where(member < block_size, lidx, n_comb)
+    comb_idx = lidx.reshape(b_sz, n_leaves * chunk)
+
+    real = comb_idx < n_comb
+    safe = comb_idx.clamp(max=n_comb - 1)
+    sids = torch.where(real, env_sid[safe], 0).to(torch.int32)
+    anchors = torch.where(real, env_anchor[safe], 0).to(torch.int32)
+    nm = torch.where(real & env_valid[safe], env_nm[safe],
+                     0).to(torch.int32)
+    row_lb2 = leaf_lb2.repeat_interleave(chunk, dim=1)
+    lbs2 = torch.where(real & (nm > 0), row_lb2, _INF)
+    # each chunk's FIRST row decides the scan core's stop test: the sorted
+    # main set puts valid rows first, so re-pin the first row of every
+    # chunk to its block bound even when that row is individually invalid
+    first = (torch.arange(comb_idx.shape[1], device=dev) % chunk) == 0
+    any_valid = torch.isfinite(leaf_lb2).repeat_interleave(chunk, dim=1)
+    lbs2 = torch.where(first[None, :] & any_valid, row_lb2, lbs2)
+    return (sids.contiguous(), anchors.contiguous(), nm.contiguous(),
+            lbs2.contiguous(), comb_idx.to(torch.int32), blk_sorted)
+
+
+def device_scan_pack(env_sid, env_anchor, env_nm, lbs, comb_idx,
+                     visited_chunks, chunk: int, n_pad: int):
+    """LB-sort + pack the exact scan's candidate rows on the device.
+
+    `lbs` (B, N) are the candidate set's lower bounds; rows the
+    approximate pass already verified — packed positions
+    `< visited_chunks * chunk` of `comb_idx` (see device_leaf_pack) — are
+    excluded by scatter-setting their bound to +inf (the device pool has
+    no dedup).  Candidates are stably argsorted per query and
+    right-padded to `n_pad` columns.
+
+    Returns (sids, anchors, n_master, lbs2, order).
+    """
+    b_sz, n = lbs.shape
+    dev = lbs.device
+    pos = torch.arange(comb_idx.shape[1], device=dev)
+    verified = pos[None, :] < (visited_chunks[:, None] * chunk)
+    # index n is the padding sink (the "drop" of the reference scatter)
+    hits = torch.zeros((b_sz, n + 1), dtype=torch.int32, device=dev)
+    hits.scatter_add_(1, comb_idx.long(), verified.to(torch.int32))
+    lbs = torch.where(hits[:, :n] > 0, _INF, lbs)
+    order = torch.argsort(lbs, dim=1, stable=True)
+    lbs_sorted = torch.gather(lbs, 1, order)
+
+    pad = n_pad - n
+
+    def pack(col, fill):
+        out = col[order].to(torch.int32)
+        return torch.nn.functional.pad(out, (0, pad), value=fill)
+
+    lbs2 = torch.nn.functional.pad(lbs_sorted ** 2, (0, pad), value=_INF)
+    return (pack(env_sid, 0), pack(env_anchor, 0), pack(env_nm, 0),
+            lbs2, order)

@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into a
+shared library with a plain C interface, and loaded with `ctypes`; no
+PyTorch headers are involved, so a build takes seconds.  Libraries go to
+`kernels/build/` (listed in `.gitignore`), named by a hash of the source
+and the flags, so an edited source is rebuilt and an unchanged one is
+reused.  `load_all()` starts one `nvcc` per stale source, all at once,
+and waits for them together.
+
+Every exported function takes device pointers and the CUDA stream as
+`void*` and returns `cudaGetLastError()` after its launch; `check` turns
+a nonzero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# exported C functions per source: name -> argtypes (restype is int)
+SIGNATURES = {
+    "mindist": {
+        # lo, hi, breakpoints, card, q_lo, q_hi, q_stride, valid, out,
+        # n, w, nseg, batch, seg_len, stream
+        "ulisse_mindist_sym": [_V, _V, _V, _I, _V, _V, _I, _V, _V,
+                               _L, _I, _I, _I, _F, _V],
+        # lo, hi, q_lo, q_hi, q_stride, valid, out, n, w, nseg, batch,
+        # seg_len, stream
+        "ulisse_mindist_paa": [_V, _V, _V, _V, _I, _V, _V,
+                               _L, _I, _I, _I, _F, _V],
+    },
+    "fused_verify": {
+        # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        # qs, out, num_series, n, batch, rows, qlen, g, znorm, stream
+        "ulisse_fused_gather_ed": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
+                                   _L, _I, _I, _I, _I, _I, _I, _V],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((str(Path(home) / "bin" / "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the repro_torch CUDA kernels")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (registers, shared memory, spills) of the
+    last build of `name`, or '' when it was reused from an earlier run."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Build every stale kernel library in parallel, then load them all."""
+    pending = {n: _target(n) for n in SIGNATURES
+               if n not in _LIBS and not _target(n).exists()}
+    if pending:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name, target in pending.items():
+            tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+            procs[name] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, target)
+        failed = []
+        for name, (proc, tmp, target) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu:\n{out}")
+                continue
+            target.with_suffix(".log").write_text(out)
+            os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for name in SIGNATURES:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+    return _LIBS
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (builds on first use)."""
+    if name not in _LIBS:
+        load_all()
+    return _LIBS[name]
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
