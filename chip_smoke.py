@@ -9,7 +9,8 @@ Phases (any failed check raises, and the script exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card at
      the main path's shapes (fused_gather_ed: B = 8 queries, rows 64 and
      512, g = 49, znorm and raw, rtol 1e-4 / atol 1e-3; mindist: B = 8
-     against the full envelope and block counts, rtol 1e-6 / atol 1e-6);
+     point and interval queries against the full envelope and block
+     counts, rtol 1e-6 / atol 1e-6);
   3. build the index on the card: 1,000,000 random-walk series x 256
      points (`--series` may only shrink it) at lmin=160, lmax=256,
      seg_len=16, gamma=48, card=256, znorm — the repo's bench parameters;
@@ -19,7 +20,8 @@ Phases (any failed check raises, and the script exits non-zero):
   5. check a subset of answers against the plain-torch brute force on
      the card;
   6. time each kernel and its plain version on main-path inputs (CUDA
-     events), beside the least time the card could take (its bound).
+     events), beside the least time the card could take (its bound);
+     the inputs rotate through copies larger than L2, so reads are cold.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}.  Needs one
@@ -42,11 +44,13 @@ FULL_SERIES = 1_000_000
 SERIES_LEN = 256
 BENCH = dict(lmin=160, lmax=256, seg_len=16, gamma=48, card=256, znorm=True)
 BATCH = 8
+BATCHES = 4             # query batches of BATCH on the main path
 QLENS = (160, 256)
 K = 5
 # H100 SXM, NVIDIA data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+L2_BYTES = 50 * 2 ** 20     # H100 L2, where the device does not say
 TOL = {"fused_gather_ed": (1e-4, 1e-3), "mindist_sym": (1e-6, 1e-6),
        "mindist_paa": (1e-6, 1e-6)}
 REPLACES = {
@@ -145,8 +149,6 @@ def main() -> int:
     ap.add_argument("--series", type=int, default=FULL_SERIES,
                     help="series in the collection (at most 1,000,000)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=4,
-                    help="query batches of 8 on the main path")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the full results as JSON here")
     args = ap.parse_args()
@@ -230,19 +232,23 @@ def main() -> int:
     sym_lo = torch.searchsorted(bp, lo, right=True).to(torch.int32)
     sym_hi = torch.searchsorted(bp, hi, right=True).to(torch.int32)
     qp = torch.randn((BATCH, p.w), device=dev)
-    for nseg in (10, 16):
-        errs["mindist_sym"] = max(errs["mindist_sym"], check_close(
-            torch, "mindist_sym",
-            mindist_sym(qp, qp, sym_lo, sym_hi, bp, valid, p.seg_len, nseg),
-            ref.mindist_sym_ref(qp, qp, sym_lo, sym_hi, bp, valid,
+    nb = n_pad_env // 64
+    # a point query (ED) and a true interval (q_hi > q_lo), so that a
+    # kernel mixing up the two query bounds cannot pass
+    for qh in (qp, qp + torch.rand((BATCH, p.w), device=dev)):
+        for nseg in (10, 16):
+            errs["mindist_sym"] = max(errs["mindist_sym"], check_close(
+                torch, "mindist_sym",
+                mindist_sym(qp, qh, sym_lo, sym_hi, bp, valid, p.seg_len,
+                            nseg),
+                ref.mindist_sym_ref(qp, qh, sym_lo, sym_hi, bp, valid,
+                                    p.seg_len, nseg)))
+            errs["mindist_paa"] = max(errs["mindist_paa"], check_close(
+                torch, "mindist_paa",
+                mindist_paa(qp, qh, lo[:nb], hi[:nb], valid[:nb],
+                            p.seg_len, nseg),
+                ref.mindist_ref(qp, qh, lo[:nb], hi[:nb], valid[:nb],
                                 p.seg_len, nseg)))
-        nb = n_pad_env // 64
-        errs["mindist_paa"] = max(errs["mindist_paa"], check_close(
-            torch, "mindist_paa",
-            mindist_paa(qp, qp, lo[:nb], hi[:nb], valid[:nb], p.seg_len,
-                        nseg),
-            ref.mindist_ref(qp, qp, lo[:nb], hi[:nb], valid[:nb],
-                            p.seg_len, nseg)))
     del probe, lo, hi, valid, sym_lo, sym_hi
     torch.cuda.synchronize()
     log(f"[2] kernels agree with their plain versions: "
@@ -282,7 +288,7 @@ def main() -> int:
 
     spec = QuerySpec(k=K)
     engine.search(make_batch(QLENS[0]), spec)        # warm-up (host copy)
-    batches = [make_batch(QLENS[i % len(QLENS)]) for i in range(args.batches)]
+    batches = [make_batch(QLENS[i % len(QLENS)]) for i in range(BATCHES)]
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -345,34 +351,46 @@ def main() -> int:
 
     # -- 6. kernel timings at main-path inputs -------------------------------
     env = index.envelopes
+    fine = index.levels[-1]
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 0) or L2_BYTES
+    # enough copies of each kernel's envelope intervals that a round of
+    # calls streams twice the L2 through it, so every call reads from HBM
+    env_ins = {"mindist_sym": (env.sym_lo, env.sym_hi, env.valid),
+               "mindist_paa": (fine.paa_lo, fine.paa_hi, fine.valid)}
+    for name, ins in env_ins.items():
+        in_bytes = sum(t.numel() * t.element_size() for t in ins)
+        env_ins[name] = [ins] + [tuple(t.clone() for t in ins)
+                                 for _ in range(-(-2 * l2 // in_bytes) - 1)]
     kernels, timings = [], {}
     for qlen in QLENS:
         nseg = p.query_segments(qlen)
         q = torch.from_numpy(np.stack(make_batch(qlen))).to(dev)
         qs, _, _, qb, qh = planner.prepare_query_batch(q, p.seg_len,
                                                        p.znorm)
-        fine = index.levels[-1]
-        for name, call, plain, n_rows in (
-                ("mindist_sym",
-                 lambda: mindist_sym(qb, qh, env.sym_lo, env.sym_hi,
-                                     index.breakpoints, env.valid,
-                                     p.seg_len, nseg),
-                 lambda: ref.mindist_sym_ref(qb, qh, env.sym_lo, env.sym_hi,
-                                             index.breakpoints, env.valid,
-                                             p.seg_len, nseg), env.size),
-                ("mindist_paa",
-                 lambda: mindist_paa(qb, qh, fine.paa_lo, fine.paa_hi,
-                                     fine.valid, p.seg_len, nseg),
-                 lambda: ref.mindist_ref(qb, qh, fine.paa_lo, fine.paa_hi,
-                                         fine.valid, p.seg_len, nseg),
-                 fine.size)):
-            err = check_close(torch, name, call(), plain())
+        bpt = index.breakpoints
+        for name, n_rows in (("mindist_sym", env.size),
+                             ("mindist_paa", fine.size)):
+            ins = env_ins[name]
+            if name == "mindist_sym":
+                call = [lambda c=c: mindist_sym(qb, qh, c[0], c[1], bpt,
+                                                c[2], p.seg_len, nseg)
+                        for c in ins]
+                plain = [lambda c=c: ref.mindist_sym_ref(
+                    qb, qh, c[0], c[1], bpt, c[2], p.seg_len, nseg)
+                    for c in ins]
+            else:
+                call = [lambda c=c: mindist_paa(qb, qh, *c, p.seg_len, nseg)
+                        for c in ins]
+                plain = [lambda c=c: ref.mindist_ref(qb, qh, *c, p.seg_len,
+                                                     nseg) for c in ins]
+            err = check_close(torch, name, call[0](), plain[0]())
             nbytes = (2 * n_rows * nseg * 4 + n_rows + BATCH * n_rows * 4
                       + 2 * BATCH * nseg * 4 + (p.card - 1) * 4)
             ops = 7 * BATCH * n_rows * nseg
             timings[(name, qlen)] = timing(
-                torch, [call], [plain], nbytes, ops, err,
-                f"B={BATCH} N={n_rows} nseg={nseg}")
+                torch, call, plain, nbytes, ops, err,
+                f"B={BATCH} N={n_rows} nseg={nseg} x{len(ins)}")
         # the exact scan's and the approximate pass's real chunk inputs
         lbs = planner.env_lower_bounds_batch(qb, qh, env, index.breakpoints,
                                              p.seg_len, nseg, False)

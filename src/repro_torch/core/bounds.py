@@ -10,14 +10,14 @@ the Envelope contributes [beta_l(iSAX(L)), beta_u(iSAX(U))], and
 (with the JAX package's fix of Eq. 5's second branch: beta_l(iSAX(L)) is
 the safe breakpoint).  These are the plain tensor versions; the batched
 engine path goes through `repro_torch.kernels.mindist`, whose symbol
-entry does the lookup of `envelope_breakpoint_bounds` in the kernel.
+entry does the lookup of `envelope_breakpoint_bounds` in the kernel (its
+plain version, `kernels.ref.mindist_sym_ref`, calls this one).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import isax
-from repro_torch.core.types import EnvelopeSet
 
 
 def interval_mindist(q_lo: torch.Tensor, q_hi: torch.Tensor,
@@ -41,7 +41,9 @@ def interval_mindist(q_lo: torch.Tensor, q_hi: torch.Tensor,
     return d2 if squared else torch.sqrt(d2)
 
 
-def envelope_breakpoint_bounds(env: EnvelopeSet, breakpoints: torch.Tensor):
-    """[beta_l(iSAX(L)), beta_u(iSAX(U))] — what the paper's index stores."""
-    return (isax.beta_lower(env.sym_lo, breakpoints),
-            isax.beta_upper(env.sym_hi, breakpoints))
+def envelope_breakpoint_bounds(sym_lo: torch.Tensor, sym_hi: torch.Tensor,
+                               breakpoints: torch.Tensor):
+    """[beta_l(iSAX(L)), beta_u(iSAX(U))] of an EnvelopeSet's symbols
+    `sym_lo`/`sym_hi` — what the paper's index stores."""
+    return (isax.beta_lower(sym_lo, breakpoints),
+            isax.beta_upper(sym_hi, breakpoints))

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import isax
-from repro_torch.core.bounds import interval_mindist
+from repro_torch.core.bounds import (envelope_breakpoint_bounds,
+                                     interval_mindist)
 
 
 def mindist_ref(q_lo: torch.Tensor, q_hi: torch.Tensor, e_lo: torch.Tensor,
@@ -26,9 +26,8 @@ def mindist_sym_ref(q_lo, q_hi, sym_lo, sym_hi, breakpoints, valid,
                     seg_len: int, nseg: int) -> torch.Tensor:
     """mindist_ref on the envelopes' iSAX symbols: the intervals are the
     symbols' outer breakpoints [beta_l(sym_lo), beta_u(sym_hi)]."""
-    return mindist_ref(q_lo, q_hi, isax.beta_lower(sym_lo, breakpoints),
-                       isax.beta_upper(sym_hi, breakpoints), valid,
-                       seg_len, nseg)
+    e_lo, e_hi = envelope_breakpoint_bounds(sym_lo, sym_hi, breakpoints)
+    return mindist_ref(q_lo, q_hi, e_lo, e_hi, valid, seg_len, nseg)
 
 
 def fused_gather_ed_ref(data, csum, csum2, csum_lo, csum2_lo, center,

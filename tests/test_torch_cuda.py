@@ -71,17 +71,22 @@ def test_mindist_matches_plain(dev, b):
     sym_hi = np.searchsorted(bp, hi, side="right").astype(np.int32)
     valid = rng.random(n) > 0.1
     valid[1] = False
-    q = _t(rng.normal(size=(b, w)).astype(np.float32), dev)
+    q = rng.normal(size=(b, w)).astype(np.float32)
+    ql = _t(q, dev)
     e_lo, e_hi, v = _t(lo, dev), _t(hi, dev), _t(valid, dev)
     s_lo, s_hi, bpt = _t(sym_lo, dev), _t(sym_hi, dev), _t(bp, dev)
-    for got, want in (
-            (mindist_sym(q, q, s_lo, s_hi, bpt, v, 16, 12),
-             ref.mindist_sym_ref(q, q, s_lo, s_hi, bpt, v, 16, 12)),
-            (mindist_paa(q, q, e_lo, e_hi, v, 16, 16),
-             ref.mindist_ref(q, q, e_lo, e_hi, v, 16, 16))):
-        torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=1e-6, atol=1e-6)
+    # a point query (ED) and a true interval (q_hi > q_lo), so that a
+    # kernel mixing up the two query bounds cannot pass
+    for qh in (ql, _t(q + rng.random((b, w)).astype(np.float32), dev)):
+        for got, want in (
+                (mindist_sym(ql, qh, s_lo, s_hi, bpt, v, 16, 12),
+                 ref.mindist_sym_ref(ql, qh, s_lo, s_hi, bpt, v, 16, 12)),
+                (mindist_paa(ql, qh, e_lo, e_hi, v, 16, 16),
+                 ref.mindist_ref(ql, qh, e_lo, e_hi, v, 16, 16))):
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), rtol=1e-6,
+                                       atol=1e-6)
 
 
 @pytest.mark.parametrize("znorm", [True, False], ids=["znorm", "raw"])

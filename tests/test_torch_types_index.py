@@ -230,7 +230,8 @@ def test_envelope_breakpoint_bounds_match_reference(own_build):
     idx = index_from_arrays(_index_arrays(
         jidx, fields=[f.name for f in dataclasses.fields(JEnvelopeSet)]),
         own_build[0], device="cpu")
-    got = bounds.envelope_breakpoint_bounds(idx.envelopes, idx.breakpoints)
+    got = bounds.envelope_breakpoint_bounds(
+        idx.envelopes.sym_lo, idx.envelopes.sym_hi, idx.breakpoints)
     want = jbounds.envelope_breakpoint_bounds(jidx.envelopes,
                                               jidx.breakpoints)
     for a, b in zip(got, want):
