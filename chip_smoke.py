@@ -10,7 +10,12 @@ Phases (any failed check raises, and the script exits non-zero):
      the main path's shapes (fused_gather_ed: B = 8 queries, rows 64 and
      512, g = 49, znorm and raw, rtol 1e-4 / atol 1e-3; mindist: B = 8
      point and interval queries against the full envelope and block
-     counts, rtol 1e-6 / atol 1e-6);
+     counts, rtol 1e-6 / atol 1e-6), and the DTW path's at its shapes
+     (B = 8, rows 64 and 512, qlen 160 with r = 16 and qlen 256 with
+     r = 25 — the paper's Fig. 25 window of 10% of |Q| — with true
+     interval queries: fused_gather_lb_keogh lb2 rtol 2e-4 / atol 2e-3,
+     mu 1e-4 / 1e-4, sd 1e-3 / 1e-4; dtw_survivors and the dtw_band
+     entry rtol 1e-4 / atol 1e-3);
   3. build the index on the card: 1,000,000 random-walk series x 256
      points (`--series` may only shrink it) at lmin=160, lmax=256,
      seg_len=16, gamma=48, card=256, znorm — the repo's bench parameters;
@@ -21,7 +26,15 @@ Phases (any failed check raises, and the script exits non-zero):
      the card;
   6. time each kernel and its plain version on main-path inputs (CUDA
      events), beside the least time the card could take (its bound);
-     the inputs rotate through copies larger than L2, so reads are cold.
+     the inputs rotate through copies larger than L2, so reads are cold;
+  7. trace one batch of the main path (device busy and idle share);
+  8. the DTW path: one exact DTW k-NN batch (k=5, B=8) per length through
+     `UlisseEngine.search(..., QuerySpec(measure="dtw", r=r))`, counters
+     set to 0 just before and read just after; every qlen-256 answer and
+     the first two qlen-160 answers (DTW_BRUTE) checked against the
+     plain-DP brute force on the card;
+  9. time the DTW kernels on that path's inputs, as in 6;
+ 10. trace one DTW batch.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}.  Needs one
@@ -47,12 +60,25 @@ BATCH = 8
 BATCHES = 4             # query batches of BATCH on the main path
 QLENS = (160, 256)
 K = 5
+# DTW path: (qlen, r) with r = 10% of |Q| (the paper's Fig. 25 window)
+DTW_CASES = ((160, 16), (256, 25))
+# queries of each length held against the plain-DP brute force (at
+# qlen 160 it takes ~100 windows per series, so only the first few)
+DTW_BRUTE = {160: 2, 256: BATCH}
 # H100 SXM, NVIDIA data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 L2_BYTES = 50 * 2 ** 20     # H100 L2, where the device does not say
+# (rtol, atol).  LB_Keogh's mu and sd: the reference kernel test's
+# tolerances (sd = sqrt(s2 / L - mu^2) cancels when |mu| >> sd, so an ulp
+# of s2 / L moves sd by many).  The DTW DP: the kernel runs the
+# recurrence, the plain version the cumsum/cummin closed form, whose
+# float32 cumsum over the band cancels by up to ~1e-3 at these lengths.
 TOL = {"fused_gather_ed": (1e-4, 1e-3), "mindist_sym": (1e-6, 1e-6),
-       "mindist_paa": (1e-6, 1e-6)}
+       "mindist_paa": (1e-6, 1e-6), "fused_gather_lb_keogh": (2e-4, 2e-3),
+       "fused_gather_lb_keogh.mu": (1e-4, 1e-4),
+       "fused_gather_lb_keogh.sd": (1e-3, 1e-4),
+       "dtw_survivors": (1e-4, 1e-3), "dtw_band": (1e-4, 1e-3)}
 REPLACES = {
     "fused_gather_ed": ("src/repro_torch/kernels/csrc/fused_verify.cu",
                         "src/repro/kernels/fused_verify.py:181"),
@@ -60,6 +86,10 @@ REPLACES = {
                     "src/repro/kernels/mindist.py:40"),
     "mindist_paa": ("src/repro_torch/kernels/csrc/mindist.cu",
                     "src/repro/kernels/mindist.py:40"),
+    "fused_gather_lb_keogh": ("src/repro_torch/kernels/csrc/fused_verify.cu",
+                              "src/repro/kernels/fused_verify.py:219"),
+    "dtw_survivors": ("src/repro_torch/kernels/csrc/dtw_band.cu",
+                      "src/repro/kernels/dtw_band.py:73"),
 }
 
 
@@ -81,18 +111,24 @@ def device_ms(prof) -> float:
     return sum(ev.time_range.elapsed_us() for ev in device_events(prof)) / 1e3
 
 
-def time_calls(torch, fns, reps=20):
-    """(device ms, event ms) per call over `reps` rounds through `fns`
-    (several inputs, so a working set larger than L2 is read cold).
+def time_calls(torch, fns, reps=20, budget_s=0.25):
+    """(device ms, event ms) per call over up to `reps` rounds through
+    `fns` (several inputs, so a working set larger than L2 is read cold);
+    a slow function (a plain version of thousands of launches) gets as
+    few rounds as fit `budget_s`, at least 3.
 
     Device ms is the card's busy time from torch.profiler (None when the
     trace holds no device activity); event ms is CUDA events around the
     loop, which also counts the card waiting for the host to launch.
     """
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for fn in fns:
         fn()
     torch.cuda.synchronize()
+    per_call = (time.perf_counter() - t0) / len(fns)
+    reps = max(3, min(reps, int(budget_s / max(per_call, 1e-9))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -111,15 +147,16 @@ def time_calls(torch, fns, reps=20):
 
 
 def timing(torch, call, plain, nbytes, ops, err, shape):
-    """One timing record: kernel and plain version, device time where the
-    profiler sees the card (else CUDA events), beside the bound."""
+    """One timing record: kernel and plain version, each by its device
+    time where the profiler saw the card (else by CUDA events, and the
+    record says which), beside the bound."""
     k_dev, k_ev = time_calls(torch, call)
     p_dev, p_ev = time_calls(torch, plain)
     by_bytes = nbytes / PEAK_BYTES >= ops / PEAK_F32
     return dict(
-        shape=shape, timer="profiler" if k_dev and p_dev else "events",
-        ms=k_dev if k_dev and p_dev else k_ev,
-        plain_ms=p_dev if k_dev and p_dev else p_ev,
+        shape=shape, timer="profiler" if k_dev else "events",
+        plain_timer="profiler" if p_dev else "events",
+        ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
         event_ms=k_ev, plain_event_ms=p_ev,
         bound_ms=max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3,
         bound_by="bytes" if by_bytes else "operations", max_abs_err=err,
@@ -142,6 +179,157 @@ def check_close(torch, name, got, want):
             f"{name}: {int(bad.sum())} of {bad.numel()} entries outside "
             f"rtol {rtol} / atol {atol}; max abs err {float(err.max())}")
     return float(err.max()) if err.numel() else 0.0
+
+
+def trace_batch(torch, engine, queries, spec):
+    """One search call under torch.profiler: wall time, the card's busy
+    time and idle share, the top device and host items."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.search(queries, spec)
+        wall = time.perf_counter() - t0
+    busy = device_ms(prof) / 1e3
+    by_kernel = {}
+    for ev in device_events(prof):
+        row = by_kernel.setdefault(ev.name[:80], {"name": ev.name[:80],
+                                                  "count": 0, "ms": 0.0})
+        row["count"] += 1
+        row["ms"] += ev.time_range.elapsed_us() / 1e3
+    host = [{"name": e.key[:80], "count": e.count,
+             "ms": e.self_cpu_time_total / 1e3}
+            for e in sorted(prof.key_averages(),
+                            key=lambda e: -e.self_cpu_time_total)[:10]]
+    return {"qlen": len(queries[0]), "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1 - busy / wall,
+            "top_self_device": sorted(by_kernel.values(),
+                                      key=lambda r: -r["ms"])[:10],
+            "top_self_cpu": host}
+
+
+def log_trace(step, tr):
+    log(f"[{step}] one traced batch (qlen {tr['qlen']}): wall "
+        f"{tr['wall_s']:.3f} s under the profiler, device busy "
+        f"{tr['device_busy_s']:.3f} s, idle share "
+        f"{tr['device_idle_share']:.3f}")
+    for row in tr["top_self_device"][:6]:
+        log(f"    device {row['ms']:9.2f} ms  x{row['count']:6d}  "
+            f"{row['name']}")
+    for row in tr["top_self_cpu"][:6]:
+        log(f"    host   {row['ms']:9.2f} ms  x{row['count']:6d}  "
+            f"{row['name']}")
+
+
+def check_answers(results, k):
+    """Raise unless every result holds k finite ascending distances with
+    real (series, offset) ids."""
+    for r in results:
+        if r.dists.shape != (k,) or not np.isfinite(r.dists).all() \
+                or (r.series < 0).any() or (r.offsets < 0).any():
+            raise AssertionError(f"malformed result {r}")
+        if not (np.diff(r.dists) >= 0).all():
+            raise AssertionError("result distances not ascending")
+
+
+def dtw_cells(l: int, r: int) -> int:
+    """Cells of one banded DP of length l and window r inside the series."""
+    r = min(r, l - 1)
+    return l * (2 * r + 1) - r * (r + 1)
+
+
+def gather_bytes(torch, coll, sids, anchors, qlen: int, g: int) -> int:
+    """Bytes a fused-gather chunk must read from the collection: its
+    distinct region elements and distinct prefix-sum positions (x4
+    arrays)."""
+    dev = sids.device
+    n = coll.data.shape[1]
+    sid, anc = sids.long(), anchors.long()
+    reg = torch.arange(qlen + g - 1, device=dev)
+    region = torch.unique((sid[:, None] * n + anc[:, None] + reg).clamp(
+        0, coll.data.numel() - 1))
+    offs = (anc[:, None] + torch.arange(g, device=dev)).clamp(0, n - qlen)
+    pos = sid[:, None] * (n + 1) + offs
+    sums = torch.unique(torch.cat([pos, pos + qlen]).reshape(-1))
+    return region.numel() * 4 + 4 * sums.numel() * 4
+
+
+def survivor_args(torch, data, qn, lb_out, sids, anchors, n_master, kth,
+                  g: int):
+    """The `dtw_survivors` arguments of one chunk of (B, rows) envelope
+    rows, as the executor's chunk step builds them: the LB kernel's
+    output (lb2, mu, sd) masked to the real windows, and the survivors
+    lb2 < kth (B,) packed first."""
+    from repro_torch.core import executor
+    lb2, mu, sd = lb_out
+    b = sids.shape[0]
+    ok, cand_sid, cand_off = executor._chunk_candidates(
+        sids, anchors, n_master, torch.ones_like(sids, dtype=torch.bool),
+        qn.shape[1], data.shape[1], g)
+    surv = torch.where(ok, lb2.reshape(b, -1), float("inf")) < kth[:, None]
+    return (data, qn, executor._survivors_first(surv),
+            surv.sum(dim=1, dtype=torch.int32), cand_sid, cand_off,
+            mu.reshape(b, -1), sd.reshape(b, -1))
+
+
+def check_dtw_kernels(torch, dev, p, probe, rng):
+    """The DTW path's kernels against their plain versions at its shapes;
+    returns the max abs error of each, and the share of LB_Keogh's mu and
+    sd entries that are bit-equal to the plain version's."""
+    from repro_torch.core import planner
+    from repro_torch.core.paa import znormalize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
+    from repro_torch.kernels.fused_verify import fused_gather_lb_keogh
+    g = p.gamma + 1
+    s_probe, n = probe.data.shape
+    a0 = (probe.data, probe.csum, probe.csum2, probe.csum_lo,
+          probe.csum2_lo, probe.center)
+    errs = dict.fromkeys(("fused_gather_lb_keogh", "fused_gather_lb_keogh.mu",
+                          "fused_gather_lb_keogh.sd", "dtw_survivors",
+                          "dtw_band"), 0.0)
+    same, total = 0, 0
+
+    def close(name, got, want):
+        errs[name] = max(errs[name], check_close(torch, name, got, want))
+
+    for qlen, r in DTW_CASES:
+        q = torch.from_numpy(rng.normal(size=(BATCH, qlen)).astype(
+            np.float32)).to(dev)
+        qn, dlo, dhi, _, _ = planner.prepare_query_batch(
+            q, p.seg_len, True, "dtw", r)
+        for rows in (64, 512):
+            sids = torch.from_numpy(rng.integers(
+                0, s_probe, BATCH * rows).astype(np.int32)).to(dev)
+            anc = torch.from_numpy(rng.integers(
+                0, n - qlen + 1, BATCH * rows).astype(np.int32)).to(dev)
+            for znorm in (False, True):
+                got = fused_gather_lb_keogh(*a0, sids, anc, dlo, dhi, g=g,
+                                            rows=rows, znorm=znorm)
+                want = ref.fused_gather_lb_keogh_ref(
+                    *a0, sids, anc, dlo, dhi, g=g, rows=rows, znorm=znorm)
+                for suffix, x, y in zip(("", ".mu", ".sd"), got, want):
+                    close("fused_gather_lb_keogh" + suffix, x, y)
+                for x, y in zip(got[1:], want[1:]):
+                    same += int((x == y).sum())
+                    total += x.numel()
+        # the DP over one chunk's survivors (the last one, rows 512,
+        # znorm): each query keeps about its 600 least lower bounds,
+        # query 0 none
+        kth = got[0].reshape(BATCH, -1).sort(dim=1).values[:, 600]
+        kth[0] = -float("inf")
+        csid = sids.reshape(BATCH, rows)
+        args = survivor_args(torch, probe.data, qn, got, csid,
+                             anc.reshape(BATCH, rows),
+                             torch.full_like(csid, g), kth, g)
+        close("dtw_survivors", dtw_survivors(*args, r=r, znorm=True),
+              ref.dtw_survivors_ref(*args, r=r, znorm=True))
+        # the function entry: q_0 against 4096 z-normalized windows
+        cands = znormalize(probe.data[:, :qlen]).contiguous()
+        close("dtw_band", dtw_band(qn[0].contiguous(), cands, r),
+              ref.dtw_band_ref(qn[0], cands, r))
+    return errs, same / total
 
 
 def main() -> int:
@@ -167,8 +355,11 @@ def main() -> int:
                                   UlisseEngine, build_index, executor,
                                   planner)
     from repro_torch.core.search import brute_force_knn
+    from repro_torch.core.paa import znormalize
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.fused_verify import fused_gather_ed
+    from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
+    from repro_torch.kernels.fused_verify import (fused_gather_ed,
+                                                  fused_gather_lb_keogh)
     from repro_torch.kernels.mindist import mindist_paa, mindist_sym
     from repro_torch.train.data import series_batches
 
@@ -249,10 +440,15 @@ def main() -> int:
                             p.seg_len, nseg),
                 ref.mindist_ref(qp, qh, lo[:nb], hi[:nb], valid[:nb],
                                 p.seg_len, nseg)))
+    dtw_errs, results["lb_keogh_mu_sd_bit_equal"] = check_dtw_kernels(
+        torch, dev, p, probe, rng)
+    errs.update(dtw_errs)
     del probe, lo, hi, valid, sym_lo, sym_hi
     torch.cuda.synchronize()
     log(f"[2] kernels agree with their plain versions: "
-        + ", ".join(f"{k} max abs err {v:.3g}" for k, v in errs.items()))
+        + ", ".join(f"{k} max abs err {v:.3g}" for k, v in errs.items())
+        + f"; LB_Keogh mu/sd bit-equal to the plain version's: "
+        f"{results['lb_keogh_mu_sd_bit_equal']:.6f}")
 
     # -- 3. the index on the card ------------------------------------------
     t0 = time.perf_counter()
@@ -307,12 +503,7 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the main path")
     nq = sum(len(b) for b in batches)
     flat = [r for ans in answers for r in ans]
-    for r in flat:
-        if r.dists.shape != (K,) or not np.isfinite(r.dists).all() \
-                or (r.series < 0).any() or (r.offsets < 0).any():
-            raise AssertionError(f"malformed result {r}")
-        if not (np.diff(r.dists) >= 0).all():
-            raise AssertionError("result distances not ascending")
+    check_answers(flat, K)
     st = [r.stats for r in flat]
     results["main_path"] = {
         "queries": nq, "batches": len(batches), "wall_s": wall,
@@ -424,15 +615,7 @@ def main() -> int:
                               plain[0]())
             # bytes this input needs: distinct region elements, distinct
             # prefix-sum positions (x4 arrays), queries, plan, output
-            sid, anc = chunks[0][0].long(), chunks[0][1].long()
-            reg = torch.arange(qlen + g - 1, device=dev)
-            region = torch.unique((sid[:, None] * SERIES_LEN + anc[:, None]
-                                   + reg).clamp(0, coll.data.numel() - 1))
-            offs = (anc[:, None] + torch.arange(g, device=dev)).clamp(
-                0, SERIES_LEN - qlen)
-            pos = sid[:, None] * (SERIES_LEN + 1) + offs
-            sums = torch.unique(torch.cat([pos, pos + qlen]).reshape(-1))
-            nbytes = (region.numel() * 4 + 4 * sums.numel() * 4
+            nbytes = (gather_bytes(torch, coll, *chunks[0], qlen, g)
                       + BATCH * qlen * 4 + BATCH * rows * 8
                       + BATCH * rows * g * 4)
             ops = 2 * BATCH * rows * g * qlen
@@ -444,52 +627,202 @@ def main() -> int:
     for key, t in timings.items():
         log(f"[6] {key[0]:16s} {t['shape']:30s} kernel {t['ms']:.4f} ms  "
             f"plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}, {t['timer']}; events {t['event_ms']:.4f} / "
-            f"{t['plain_event_ms']:.4f} ms)")
+            f"({t['bound_by']}, {t['timer']}/{t['plain_timer']}; events "
+            f"{t['event_ms']:.4f} / {t['plain_event_ms']:.4f} ms)")
 
     # -- 7. where a batch's time goes (one traced batch) -------------------
-    from torch.profiler import ProfilerActivity, profile
+    results["traced_batch"] = trace_batch(torch, engine, batches[1], spec)
+    log_trace(7, results["traced_batch"])
+
+    # -- 8. the DTW path -----------------------------------------------------
+    dtw_wrappers = {"fused_gather_lb_keogh": fused_gather_lb_keogh,
+                    "dtw_survivors": dtw_survivors,
+                    "mindist_sym": mindist_sym, "mindist_paa": mindist_paa}
+    dtw_specs = [QuerySpec(k=K, measure="dtw", r=r) for _, r in DTW_CASES]
+    dtw_batches = [make_batch(qlen) for qlen, _ in DTW_CASES]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.search(batches[1], spec)
-        traced_wall = time.perf_counter() - t0
-    busy = device_ms(prof) / 1e3
-    by_kernel = {}
-    for ev in device_events(prof):
-        row = by_kernel.setdefault(ev.name[:80], {"name": ev.name[:80],
-                                                  "count": 0, "ms": 0.0})
-        row["count"] += 1
-        row["ms"] += ev.time_range.elapsed_us() / 1e3
-    host = [{"name": e.key[:80], "count": e.count,
-             "ms": e.self_cpu_time_total / 1e3}
-            for e in sorted(prof.key_averages(),
-                            key=lambda e: -e.self_cpu_time_total)[:10]]
-    results["traced_batch"] = {
-        "qlen": len(batches[1][0]), "wall_s": traced_wall,
-        "device_busy_s": busy, "device_idle_share": 1 - busy / traced_wall,
-        "top_self_device": sorted(by_kernel.values(),
-                                  key=lambda r: -r["ms"])[:10],
-        "top_self_cpu": host}
-    log(f"[7] one traced batch (qlen {len(batches[1][0])}): wall "
-        f"{traced_wall:.3f} s under the profiler, device busy {busy:.3f} s,"
-        f" idle share {1 - busy / traced_wall:.3f}")
-    for row in results["traced_batch"]["top_self_device"][:6]:
-        log(f"    device {row['ms']:9.2f} ms  x{row['count']:6d}  "
-            f"{row['name']}")
-    for row in results["traced_batch"]["top_self_cpu"][:6]:
-        log(f"    host   {row['ms']:9.2f} ms  x{row['count']:6d}  "
-            f"{row['name']}")
+    for w in (*wrappers.values(), *dtw_wrappers.values(), dtw_band):
+        w.launches = 0
+    executor.device_exact_scan.syncs = 0
+    dtw_answers, dtw_lat = [], []
+    t0 = time.perf_counter()
+    for qs, dspec in zip(dtw_batches, dtw_specs):
+        tb = time.perf_counter()
+        dtw_answers.append(engine.search(qs, dspec))
+        dtw_lat.append(time.perf_counter() - tb)
+    dtw_wall = time.perf_counter() - t0
+    dtw_launches = {name: w.launches for name, w in dtw_wrappers.items()}
+    dtw_syncs = executor.device_exact_scan.syncs
+    for name, n in dtw_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the DTW path")
+    if fused_gather_ed.launches:
+        raise AssertionError("the DTW path launched fused_gather_ed")
+    flat = [r for ans in dtw_answers for r in ans]
+    check_answers(flat, K)
+    st = [r.stats for r in flat]
+    nq = len(flat)
+    results["dtw_path"] = {
+        "cases": [{"qlen": qlen, "r": r} for qlen, r in DTW_CASES],
+        "queries": nq, "batches": len(dtw_batches), "wall_s": dtw_wall,
+        "queries_per_s": nq / dtw_wall, "batch_latency_s": dtw_lat,
+        "launches": dtw_launches, "stop_test_syncs": dtw_syncs,
+        "host_syncs_per_batch": dtw_syncs / len(dtw_batches) + 1,
+        "mean_chunks_visited": float(np.mean([s.chunks_visited for s in st])),
+        "mean_envelopes_checked": float(np.mean(
+            [s.envelopes_checked for s in st])),
+        "mean_pruning_power": float(np.mean([s.pruning_power for s in st])),
+        "mean_dtw_lb_keogh": float(np.mean([s.dtw_lb_keogh for s in st])),
+        "mean_dtw_full": float(np.mean([s.dtw_full for s in st])),
+        "mean_abandoning_power": float(np.mean(
+            [s.abandoning_power for s in st])),
+        "exact_from_approx": float(np.mean(
+            [s.exact_from_approx for s in st]))}
+    d = results["dtw_path"]
+    log(f"[8] DTW path: {nq} queries in {len(dtw_batches)} batches "
+        f"({', '.join(f'qlen {q} r {r}' for q, r in DTW_CASES)}), "
+        f"{d['queries_per_s']:.2f} queries/s, batch latency "
+        f"{', '.join(f'{x:.3f}' for x in dtw_lat)} s; launches "
+        f"{dtw_launches}; host syncs per batch "
+        f"{d['host_syncs_per_batch']:.2f}; mean chunks "
+        f"{d['mean_chunks_visited']:.1f}, pruning power "
+        f"{d['mean_pruning_power']:.5f}; LB_Keogh {d['mean_dtw_lb_keogh']:.1f}"
+        f" -> DP {d['mean_dtw_full']:.1f} per query, abandoning power "
+        f"{d['mean_abandoning_power']:.5f}")
+    worst, checked, brute_s = 0.0, 0, {}
+    tb = time.perf_counter()
+    for (qlen, r), ans, qs in zip(DTW_CASES, dtw_answers, dtw_batches):
+        tq = time.perf_counter()
+        for res, q in list(zip(ans, qs))[:DTW_BRUTE[qlen]]:
+            oracle = brute_force_knn(coll, q, k=K, znorm=p.znorm,
+                                     measure="dtw", r=r)
+            err = float(np.abs(res.dists - oracle.dists).max())
+            worst, checked = max(worst, err), checked + 1
+            if err > 5e-3:
+                raise AssertionError(
+                    f"DTW engine {res.dists} vs brute force {oracle.dists}")
+        brute_s[qlen] = (time.perf_counter() - tq) / DTW_BRUTE[qlen]
+    results["dtw_brute_force"] = {"queries": checked, "max_abs_err": worst,
+                                  "seconds": time.perf_counter() - tb,
+                                  "seconds_per_query": brute_s}
+    log(f"[8] DTW answers match the plain-DP brute force on the card "
+        f"({checked} queries: {DTW_BRUTE}; max |d - d_brute| {worst:.2e}, "
+        f"tolerance 5e-3; {time.perf_counter() - tb:.1f} s, per query "
+        + ", ".join(f"qlen {q}: {t:.1f} s" for q, t in brute_s.items())
+        + ")")
+
+    # -- 9. DTW kernel timings at the DTW path's inputs ----------------------
+    n_pad = executor.pow2ceil(env.size)
+    none = torch.full((BATCH, 1), env.size, dtype=torch.int32, device=dev)
+    zero = torch.zeros(BATCH, dtype=torch.int32, device=dev)
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    rows = 512
+    for (qlen, r), qs_np, ans in zip(DTW_CASES, dtw_batches, dtw_answers):
+        nseg = p.query_segments(qlen)
+        q = torch.from_numpy(np.stack(qs_np)).to(dev)
+        qn, dlo, dhi, qb, qh = planner.prepare_query_batch(
+            q, p.seg_len, p.znorm, "dtw", r)
+        lbs = planner.env_lower_bounds_batch(qb, qh, env, index.breakpoints,
+                                             p.seg_len, nseg, False)
+        ssids, sanc, snm, _, _ = planner.device_scan_pack(
+            env.series_id, env.anchor, env.n_master, lbs, none, zero,
+            chunk=1, n_pad=n_pad)
+        # the first 24 chunks of the LB order: their regions (~6 MB each)
+        # stream more than twice the L2 per round
+        chunks = [(ssids[:, i * rows:(i + 1) * rows].reshape(-1).contiguous(),
+                   sanc[:, i * rows:(i + 1) * rows].reshape(-1).contiguous(),
+                   snm[:, i * rows:(i + 1) * rows]) for i in range(24)]
+        call = [lambda c=c: fused_gather_lb_keogh(
+            *a0, c[0], c[1], dlo, dhi, g=g, rows=rows, znorm=p.znorm)
+            for c in chunks]
+        plain = [lambda c=c: ref.fused_gather_lb_keogh_ref(
+            *a0, c[0], c[1], dlo, dhi, g=g, rows=rows, znorm=p.znorm)
+            for c in chunks]
+        got, want = call[0](), plain[0]()
+        err = check_close(torch, "fused_gather_lb_keogh", got[0], want[0])
+        for suffix, x, y in zip((".mu", ".sd"), got[1:], want[1:]):
+            check_close(torch, "fused_gather_lb_keogh" + suffix, x, y)
+        nbytes = (gather_bytes(torch, coll, chunks[0][0], chunks[0][1],
+                               qlen, g)
+                  + 2 * BATCH * qlen * 4 + BATCH * rows * 8
+                  + 3 * BATCH * rows * g * 4)
+        # per window point: subtract, divide, two subtracts, two max,
+        # two multiplies, two adds
+        ops = 10 * BATCH * rows * g * qlen
+        timings[("fused_gather_lb_keogh", qlen, rows)] = timing(
+            torch, call, plain, nbytes, ops, err,
+            f"B={BATCH} rows={rows} qlen={qlen} g={g}")
+        # the DP over the LB survivors of the first 8 chunks, under the
+        # batch's final k-th distance
+        kth = torch.tensor([float(a.dists[-1]) ** 2 for a in ans],
+                           dtype=torch.float32, device=dev)
+        surv_inputs = [survivor_args(
+            torch, coll.data, qn, fused_gather_lb_keogh(
+                *a0, sid_c, anc_c, dlo, dhi, g=g, rows=rows, znorm=p.znorm),
+            sid_c.reshape(BATCH, rows), anc_c.reshape(BATCH, rows), nm_c,
+            kth, g) for sid_c, anc_c, nm_c in chunks[:8]]
+        nsurv_total = sum(int(a[3].sum()) for a in surv_inputs)
+        call = [lambda a=a: dtw_survivors(*a, r=r, znorm=p.znorm)
+                for a in surv_inputs]
+        plain = [lambda a=a: ref.dtw_survivors_ref(*a, r=r, znorm=p.znorm)
+                 for a in surv_inputs]
+        err = check_close(torch, "dtw_survivors", call[0](), plain[0]())
+        per_call = nsurv_total / len(surv_inputs)
+        # survivor windows and their five plan entries, queries, counts,
+        # the (B, M) output
+        nbytes = (per_call * (qlen * 4 + 5 * 4) + BATCH * qlen * 4
+                  + BATCH * 4 + BATCH * rows * g * 4)
+        ops = 5 * per_call * dtw_cells(qlen, r)
+        timings[("dtw_survivors", qlen)] = timing(
+            torch, call, plain, nbytes, ops, err,
+            f"B={BATCH} M={rows * g} r={r} surv/call={per_call:.0f}")
+        timings[("dtw_survivors", qlen)]["survivors_per_call"] = per_call
+        # the function entry: q_0 against windows of the collection, more
+        # than twice the L2 of them
+        cands = znormalize(coll.data[:-(-2 * l2 // (qlen * 4)), :qlen]
+                           ).contiguous()
+        ncand = cands.shape[0]
+        q0 = qn[0].contiguous()
+        call = [lambda: dtw_band(q0, cands, r)]
+        plain = [lambda: ref.dtw_band_ref(q0, cands, r)]
+        err = check_close(torch, "dtw_band", call[0](), plain[0]())
+        timings[("dtw_band", qlen)] = timing(
+            torch, call, plain, ncand * qlen * 4 + qlen * 4 + ncand * 4,
+            5 * ncand * dtw_cells(qlen, r), err,
+            f"N={ncand} qlen={qlen} r={r}")
+        del cands, surv_inputs, chunks
+    results["timings"] = {" ".join(map(str, k)): v
+                          for k, v in timings.items()}
+    for key, t in timings.items():
+        if key[0] in ("fused_gather_lb_keogh", "dtw_survivors", "dtw_band"):
+            log(f"[9] {key[0]:21s} {t['shape']:34s} kernel {t['ms']:.4f} ms"
+                f"  plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} "
+                f"ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']}; "
+                f"events {t['event_ms']:.4f} / {t['plain_event_ms']:.4f} "
+                f"ms)")
+
+    # -- 10. where a DTW batch's time goes (one traced batch) ---------------
+    results["traced_dtw_batch"] = trace_batch(torch, engine, dtw_batches[1],
+                                              dtw_specs[1])
+    log_trace(10, results["traced_dtw_batch"])
+
+    # launches: each kernel's count on the path it belongs to (the ED
+    # main path for the first three, the DTW path for the other two)
     headline = {"fused_gather_ed": ("fused_gather_ed", 256, 512),
                 "mindist_sym": ("mindist_sym", 256),
-                "mindist_paa": ("mindist_paa", 256)}
+                "mindist_paa": ("mindist_paa", 256),
+                "fused_gather_lb_keogh": ("fused_gather_lb_keogh", 256, 512),
+                "dtw_survivors": ("dtw_survivors", 256)}
+    path_launches = dict(launches, **{
+        name: dtw_launches[name]
+        for name in ("fused_gather_lb_keogh", "dtw_survivors")})
     for name, key in headline.items():
         t = timings[key]
         src, replaces = REPLACES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": max(errs[name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

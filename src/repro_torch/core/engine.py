@@ -4,13 +4,16 @@
     res = engine.search(q, QuerySpec(k=5))                   # one query
     ress = engine.search(q_batch, QuerySpec(k=5))            # many queries
 
-The port's first slice serves the default query shape end to end: exact
-ED k-NN on a local index, approx-first, `scan_backend="device"` (paper
-Alg. 5 including its line-1 approximate pass), batched per query length.
-Per batch: query prep -> block lower bounds (`mindist_paa`) -> leaf pack
--> approximate scan -> envelope lower bounds (`mindist_sym`) -> LB-sorted
-pack -> seeded exact scan (`fused_gather_ed`) -> one result readback ->
-float64 rescore of the reported rows on the host.
+The port serves exact k-NN on a local index end to end, under ED (the
+default query) and DTW (`QuerySpec(measure="dtw", r=...)`), approx-first,
+`scan_backend="device"` (paper Alg. 5 including its line-1 approximate
+pass), batched per query length.  Per batch: query prep (DTW: the
+query's warping envelope) -> block lower bounds (`mindist_paa`) -> leaf
+pack -> approximate scan -> envelope lower bounds (`mindist_sym`) ->
+LB-sorted pack -> seeded exact scan (ED: `fused_gather_ed`; DTW:
+`fused_gather_lb_keogh` then `dtw_survivors` on its survivors) -> one
+result readback -> for ED, a float64 rescore of the reported rows on the
+host (DTW reports the device's DP values, as the JAX package does).
 
 Every other shape raises NotImplementedError naming the ROADMAP item
 that ports it.  Engines run on CUDA unless built with device="cpu".
@@ -41,7 +44,7 @@ def _not_ported(what: str, item: str):
 class QuerySpec:
     """Everything about a query except its values (the JAX package's
     fields; see `repro.core.engine.QuerySpec` for each one's meaning).
-    The port serves measure="ed", eps=None, mode="exact",
+    The port serves measure="ed" or "dtw" with eps=None, mode="exact",
     scan_backend="device" so far."""
 
     measure: str = "ed"
@@ -87,8 +90,6 @@ class QuerySpec:
 
 
 def _check_ported(spec: QuerySpec) -> None:
-    if spec.measure == "dtw":
-        raise _not_ported("measure='dtw'", "7")
     if spec.is_range:
         raise _not_ported("eps-range search", "8")
     if spec.mode == "approx":
@@ -208,12 +209,13 @@ class UlisseEngine:
         """Shared per-length-group query prep on the device, no sync."""
         q = torch.from_numpy(np.stack(queries)).to(self.device)
         qn, dlo, dhi, qb, qh = planner.prepare_query_batch(
-            q, self.params.seg_len, self.params.znorm, spec.measure)
+            q, self.params.seg_len, self.params.znorm, spec.measure,
+            spec.r)
         nseg = self.params.query_segments(q.shape[1])
         return nseg, qn, dlo, dhi, qb, qh
 
-    def _device_approx_stage(self, qstack, qb, qh, nseg: int, k: int,
-                             spec: QuerySpec):
+    def _device_approx_stage(self, qstack, dlo, dhi, qb, qh, nseg: int,
+                             k: int, spec: QuerySpec):
         """Batched device approximate pass (paper Alg. 4).
 
         Best-first leaf visits run as the scan core over the leaf order
@@ -245,9 +247,10 @@ class UlisseEngine:
             n_leaves=n_leaves)
         neg = torch.full((b, k), -1, dtype=torch.int32, device=dev)
         ad2, asid, aoff, ast = executor.device_exact_scan(
-            index.collection, asids, aanc, anm, albs2, qstack,
+            index.collection, asids, aanc, anm, albs2, qstack, dlo, dhi,
             torch.full((b, k), float("inf"), device=dev), neg, neg,
-            k=k, g=p.gamma + 1, znorm=p.znorm, chunk_size=chunk)
+            k=k, g=p.gamma + 1, measure=spec.measure, r=spec.r,
+            znorm=p.znorm, chunk_size=chunk)
 
         visited = ast[:, 0]
         leaf_v = visited.clamp(0, n_leaves)
@@ -323,13 +326,13 @@ class UlisseEngine:
             for sub, queries, b in self._padded_batches(qs, idxs):
                 with span("query.exact_device"):
                     with span("prepare"):
-                        (nseg, qstack, _, _, qb,
+                        (nseg, qstack, dlo, dhi, qb,
                          qh) = self._stack_prepared(queries, spec)
                     if spec.approx_first:
                         with span("approx_pass"):
                             (seed, ast, cert, leaf_v, comb_idx, visited,
                              achunk, nblk) = self._device_approx_stage(
-                                qstack, qb, qh, nseg, k, spec)
+                                qstack, dlo, dhi, qb, qh, nseg, k, spec)
                     else:
                         neg = torch.full((b, k), -1, dtype=torch.int32,
                                          device=dev)
@@ -358,7 +361,8 @@ class UlisseEngine:
                     with span("device_scan"):
                         d2, sid, off, st = executor.device_exact_scan(
                             index.collection, ssids, sanc, snm, slbs2,
-                            qstack, *seed, k=k, g=g,
+                            qstack, dlo, dhi, *seed, k=k, g=g,
+                            measure=spec.measure, r=spec.r,
                             znorm=self.params.znorm,
                             chunk_size=spec.chunk_size)
                         # THE one result readback of the batch

@@ -1,9 +1,11 @@
-"""Verification for ULISSE search (the *executor* half), ED k-NN part.
+"""Verification for ULISSE search (the *executor* half), exact k-NN part.
 
 Everything that touches raw series data lives here: the chunked,
 LB-sorted, bsf-pruned exact scan over packed candidate rows, whose true
-distances come from the `fused_gather_ed` kernel, the (B, k) device
-pool, and the result/stats containers.
+distances come from the `fused_gather_ed` kernel (ED) or from the
+LB_Keogh tier `fused_gather_lb_keogh` and the banded DP `dtw_survivors`
+on its survivors (DTW), the (B, k) device pool, and the result/stats
+containers.
 
 The JAX package runs the scan as one `lax.while_loop` program.  Eager
 PyTorch pays a host sync for every stop test, so the scan here tests
@@ -22,7 +24,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import Collection
-from repro_torch.kernels.fused_verify import fused_gather_ed
+from repro_torch.kernels.dtw_band import dtw_survivors
+from repro_torch.kernels.fused_verify import (fused_gather_ed,
+                                              fused_gather_lb_keogh)
 
 _INF = float("inf")
 
@@ -117,6 +121,26 @@ def _chunk_candidates(csid, canc, cnm, keep, qlen: int, n: int, g: int):
             offs.reshape(b_sz, chunk * g))
 
 
+def _survivors_first(surv):
+    """Stable survivors-first position pack of a (B, M) mask.
+
+    Position j of the result is the j-th True column of its row;
+    positions >= nsurv hold M - 1, which every consumer masks by
+    `pos < nsurv` — the reference's `_survivors_first` (searchsorted over
+    the mask cumsum), here as one scatter: no nonzero, no boolean
+    indexing, no host sync.
+    """
+    b_sz, m = surv.shape
+    rank = torch.cumsum(surv, dim=1) - 1
+    # index m is the sink of the non-survivors
+    dest = torch.where(surv, rank, m)
+    packed = torch.full((b_sz, m + 1), m - 1, dtype=torch.int32,
+                        device=surv.device)
+    cols = torch.arange(m, dtype=torch.int32, device=surv.device)
+    packed.scatter_(1, dest, cols.expand(b_sz, m))
+    return packed[:, :m].contiguous()
+
+
 def _pool_merge(pool, cd2, csid, coff, k: int):
     """Merge (B, M) candidates into a (B, k) pool sorted by d2.
 
@@ -139,9 +163,20 @@ def _first_lb2(lbs2, i: int, chunk: int):
 
 
 def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
-                     i: int, pool, kth, active, *, k: int, g: int,
-                     chunk: int, znorm: bool):
-    """Verify chunk `i` of the packed plan into the (B, k) pool (ED).
+                     dtw_lo, dtw_hi, i: int, pool, kth, active, *, k: int,
+                     g: int, chunk: int, znorm: bool, measure: str, r: int):
+    """Verify chunk `i` of the packed plan into the (B, k) pool.
+
+    ED: one `fused_gather_ed` launch and one merge.  DTW: the LB_Keogh
+    tier (`fused_gather_lb_keogh`), the survivors (lb2 < kth) packed
+    first on the device, ONE `dtw_survivors` launch over every survivor
+    of the chunk, and ONE merge of the (B, chunk * g) packed distances.
+    The reference merges bucket by bucket (`lax.while_loop` over
+    buckets of 128 survivors); one merge gives the same pool, because
+    the survivors are packed in candidate-position order, the merge keeps
+    incumbents ahead of newcomers on ties, and the sort is stable, so
+    every bucket merge and the single merge pick the k least of the same
+    (d2, position) order — and no host sync is needed to size the loop.
 
     Returns (pool, dstats) where dstats (B, STATS_WIDTH) holds the
     per-query increments of [chunks, envelopes_checked, true_dists,
@@ -159,21 +194,40 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
     # carry lbs2 = +inf and are excluded by the isfinite test)
     pruned = (torch.isfinite(clb2) & active[:, None] & ~keep).sum(
         dim=1, dtype=torch.int32)
-    d2 = fused_gather_ed(coll.data, coll.csum, coll.csum2, coll.csum_lo,
-                         coll.csum2_lo, coll.center,
-                         csid.reshape(-1).contiguous(),
-                         canc.reshape(-1).contiguous(), qs, g=g, rows=chunk,
-                         znorm=znorm)
-    d2 = torch.where(ok, d2.reshape(b_sz, chunk * g), _INF)
-    pool = _pool_merge(pool, d2, cand_sid, cand_off, k)
-    tdist = ok.sum(dim=1, dtype=torch.int32)
-    zeros = torch.zeros_like(tdist)
+    flat_sid = csid.reshape(-1).contiguous()
+    flat_anc = canc.reshape(-1).contiguous()
+    zeros = torch.zeros_like(checked)
+    if measure == "ed":
+        d2 = fused_gather_ed(coll.data, coll.csum, coll.csum2, coll.csum_lo,
+                             coll.csum2_lo, coll.center, flat_sid, flat_anc,
+                             qs, g=g, rows=chunk, znorm=znorm)
+        d2 = torch.where(ok, d2.reshape(b_sz, chunk * g), _INF)
+        pool = _pool_merge(pool, d2, cand_sid, cand_off, k)
+        tdist = ok.sum(dim=1, dtype=torch.int32)
+        nlbk = ndtw = zeros
+    else:
+        lb2, mu, sd = fused_gather_lb_keogh(
+            coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+            coll.center, flat_sid, flat_anc, dtw_lo, dtw_hi, g=g,
+            rows=chunk, znorm=znorm)
+        lb2 = torch.where(ok, lb2.reshape(b_sz, chunk * g), _INF)
+        nlbk = ok.sum(dim=1, dtype=torch.int32)
+        surv = lb2 < kth[:, None]
+        tdist = ndtw = surv.sum(dim=1, dtype=torch.int32)
+        sidx = _survivors_first(surv)
+        db = dtw_survivors(coll.data, qs, sidx, ndtw, cand_sid, cand_off,
+                           mu.reshape(b_sz, chunk * g),
+                           sd.reshape(b_sz, chunk * g), r=r, znorm=znorm)
+        sl = sidx.long()
+        pool = _pool_merge(pool, db, torch.gather(cand_sid, 1, sl),
+                           torch.gather(cand_off, 1, sl), k)
     return pool, torch.stack([active.to(torch.int32), checked, tdist,
-                              zeros, zeros, pruned], dim=1)
+                              nlbk, ndtw, pruned], dim=1)
 
 
 def _device_scan_core(coll: Collection, sids, anchors, n_master, lbs2, qs,
-                      seed, *, k: int, g: int, chunk: int, znorm: bool):
+                      dtw_lo, dtw_hi, seed, *, k: int, g: int, chunk: int,
+                      znorm: bool, measure: str, r: int):
     """The natively batched LB-sorted bsf-pruned scan.
 
     Every chunk step verifies the i-th chunk of all B queries through one
@@ -200,23 +254,26 @@ def _device_scan_core(coll: Collection, sids, anchors, n_master, lbs2, qs,
         for _ in range(min(STOP_TEST_EVERY, n_chunks - i)):
             active = active_at(i, pool)
             pool, ds = _scan_chunk_step(
-                coll, sids, anchors, n_master, lbs2, qs, i, pool,
-                pool[0][:, k - 1], active, k=k, g=g, chunk=chunk,
-                znorm=znorm)
+                coll, sids, anchors, n_master, lbs2, qs, dtw_lo, dtw_hi, i,
+                pool, pool[0][:, k - 1], active, k=k, g=g, chunk=chunk,
+                znorm=znorm, measure=measure, r=r)
             stats = stats + ds
             i += 1
     return pool[0], pool[1], pool[2], stats
 
 
 def device_exact_scan(collection: Collection, sids, anchors, n_master, lbs2,
-                      qs, seed_d2, seed_sid, seed_off, *, k: int, g: int,
-                      znorm: bool, chunk_size: int):
-    """Batched device-resident exact scan (ED).
+                      qs, dtw_lo, dtw_hi, seed_d2, seed_sid, seed_off, *,
+                      k: int, g: int, measure: str, r: int, znorm: bool,
+                      chunk_size: int):
+    """Batched device-resident exact scan (ED or DTW).
 
     sids/anchors/n_master/lbs2 (B, n_pad) are LB-sorted padded candidate
     rows (`planner.device_scan_pack`, or `device_leaf_pack` for the
-    approximate stage), qs (B, qlen) the prepared queries, seed_* the
-    (B, k) pools the scan starts from (ascending d2, +inf filler).
+    approximate stage), qs/dtw_lo/dtw_hi (B, qlen) the prepared queries
+    and their DTW envelopes (ED: pass qs in the dtw slots; they are not
+    read), seed_* the (B, k) pools the scan starts from (ascending d2,
+    +inf filler).
 
     Returns device tensors (d2 (B, k) f32 ascending, sid/off (B, k)
     int32, stats (B, STATS_WIDTH) int32); the caller does the readback.
@@ -224,8 +281,9 @@ def device_exact_scan(collection: Collection, sids, anchors, n_master, lbs2,
     n_pad = sids.shape[1]
     chunk = min(pow2ceil(chunk_size), n_pad)
     return _device_scan_core(
-        collection, sids, anchors, n_master, lbs2, qs,
-        (seed_d2, seed_sid, seed_off), k=k, g=g, chunk=chunk, znorm=znorm)
+        collection, sids, anchors, n_master, lbs2, qs, dtw_lo, dtw_hi,
+        (seed_d2, seed_sid, seed_off), k=k, g=g, chunk=chunk, znorm=znorm,
+        measure=measure, r=r)
 
 
 device_exact_scan.syncs = 0

@@ -7,9 +7,9 @@ the executor scans.  Everything here stays on the device: the only host
 syncs of a search are the executor's stop tests and the engine's one
 result readback.
 
-Main-path part of `repro/core/planner.py` (ED): the lower bounds go
-through the `mindist` kernels; every argsort is stable, as `jnp.argsort`
-is.
+The exact k-NN part of `repro/core/planner.py` (ED and DTW): the lower
+bounds go through the `mindist` kernels; every argsort is stable, as
+`jnp.argsort` is.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import dtw
 from repro_torch.core.paa import paa, znormalize
 from repro_torch.core.types import EnvelopeParams, EnvelopeSet
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym
@@ -26,18 +27,24 @@ _INF = float("inf")
 
 
 def prepare_query_batch(q: torch.Tensor, seg_len: int, znorm: bool,
-                        measure: str = "ed"):
+                        measure: str = "ed", r: int = 0):
     """Query prep for a (B, qlen) same-length batch.
 
     Returns (qn, dtw_lo, dtw_hi, paa_lo, paa_hi), each (B, ...); for ED
-    the dtw slots alias qn and the PAA interval is degenerate.
+    the dtw slots alias qn and the PAA interval is degenerate; for DTW
+    they hold the query's warping envelope and the PAA of its two sides.
     """
-    if measure != "ed":
-        raise NotImplementedError(
-            "DTW query prep is ROADMAP Queue 1 item 7 (not ported yet)")
     qn = znormalize(q) if znorm else q
-    qp = paa(qn, seg_len).contiguous()
-    return qn, qn, qn, qp, qp
+    if measure == "ed":
+        qp = paa(qn, seg_len).contiguous()
+        return qn, qn, qn, qp, qp
+    if measure != "dtw":
+        raise ValueError(f"unknown measure {measure!r}")
+    if r <= 0:
+        raise ValueError("DTW search needs a warping window r > 0")
+    dlo, dhi = dtw.dtw_envelope(qn, r)
+    return (qn, dlo.contiguous(), dhi.contiguous(),
+            paa(dlo, seg_len).contiguous(), paa(dhi, seg_len).contiguous())
 
 
 def length_bucket(qlen: int, cap: int) -> int:

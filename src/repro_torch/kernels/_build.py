@@ -49,6 +49,20 @@ SIGNATURES = {
         # qs, out, num_series, n, batch, rows, qlen, g, znorm, stream
         "ulisse_fused_gather_ed": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
                                    _L, _I, _I, _I, _I, _I, _I, _V],
+        # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        # dtw_lo, dtw_hi, lb, mu, sd, num_series, n, batch, rows, qlen, g,
+        # znorm, stream
+        "ulisse_fused_gather_lb_keogh": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
+                                         _V, _V, _V, _V, _L, _I, _I, _I, _I,
+                                         _I, _I, _V],
+    },
+    "dtw_band": {
+        # q, candidates, out, num, l, r, stream
+        "ulisse_dtw_band": [_V, _V, _V, _L, _I, _I, _V],
+        # data, qs, sidx, nsurv, cand_sid, cand_off, mu, sd, out,
+        # num_series, n, batch, m, l, r, znorm, stream
+        "ulisse_dtw_survivors": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
+                                 _I, _I, _I, _I, _I, _V],
     },
 }
 
@@ -122,3 +136,15 @@ def library(name: str) -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def check_tensors(what: str, device, specs) -> None:
+    """Raise unless every (name, tensor, dtype, shape) of `specs` is a
+    contiguous tensor of that dtype and shape on `device` — what the
+    kernels take through their raw pointers."""
+    for name, t, dtype, shape in specs:
+        if t.device != device or t.dtype != dtype \
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(
+                f"{what}: {name} must be a contiguous {dtype} {shape} on "
+                f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")

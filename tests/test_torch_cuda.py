@@ -3,9 +3,14 @@ version, and the engine on CUDA against the same engine on the CPU.
 
 Needs a CUDA device and nvcc; imports neither jax nor repro, so it runs
 on the GPU machine (`python -m pytest -m cuda tests/test_torch_cuda.py`)
-and skips everywhere else.  Tolerances as in test_torch_kernels.py:
-fused_gather_ed rtol 1e-4 / atol 1e-3 (the float32 dot is summed in
-another order), mindist rtol 1e-6 / atol 1e-6.
+and skips everywhere else.  Tolerances as in test_torch_kernels.py and
+test_torch_dtw.py: fused_gather_ed rtol 1e-4 / atol 1e-3 (the float32
+dot is summed in another order), mindist rtol 1e-6 / atol 1e-6,
+fused_gather_lb_keogh lb2 rtol 2e-4 / atol 2e-3, mu 1e-4 / 1e-4 and
+sd 1e-3 / 1e-4 (the reference kernel test's: sd cancels when |mu| >>
+sd), the DTW kernels rtol 1e-4 / atol 1e-3
+(the kernel runs the recurrence; the plain closed form's cumsum over the
+band cancels in float32 by up to ~1e-3 at these lengths).
 """
 import dataclasses
 
@@ -16,9 +21,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import (Collection, EnvelopeParams,  # noqa: E402
                               QuerySpec, UlisseEngine)
+from repro_torch.core import dtw, executor  # noqa: E402
 from repro_torch.core.index import build_index  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.fused_verify import fused_gather_ed  # noqa: E402
+from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors  # noqa: E402
+from repro_torch.kernels.fused_verify import (  # noqa: E402
+    fused_gather_ed, fused_gather_lb_keogh)
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +125,113 @@ def test_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
         np.testing.assert_array_equal(a.offsets, b.offsets)
         np.testing.assert_allclose(a.dists, b.dists, rtol=0, atol=1e-9)
         assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats)
+
+
+def _close(got, want, rtol, atol):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("rows", [64, 512])
+@pytest.mark.parametrize("qlen,r", [(160, 16), (256, 25)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_lb_keogh_matches_plain(dev, rows, qlen, r, znorm):
+    rng = np.random.default_rng(rows + qlen + znorm)
+    s, n, g, b = 512, 256, 49, 8
+    data = rng.normal(size=(s, n)).astype(np.float32) * 2 + 1
+    sids = rng.integers(0, s, b * rows).astype(np.int32)
+    anchors = rng.integers(0, n - qlen + 1, b * rows).astype(np.int32)
+    anchors[0] = n - qlen
+    lo, hi = dtw.dtw_envelope(_t(rng.normal(size=(b, qlen)).astype(
+        np.float32), dev), r)
+    c = Collection.from_array(data, device=dev)
+    args = (c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center,
+            _t(sids, dev), _t(anchors, dev), lo.contiguous(),
+            hi.contiguous())
+    before = fused_gather_lb_keogh.launches
+    got = fused_gather_lb_keogh(*args, g=g, rows=rows, znorm=znorm)
+    want = ref.fused_gather_lb_keogh_ref(*args, g=g, rows=rows, znorm=znorm)
+    torch.cuda.synchronize()
+    assert fused_gather_lb_keogh.launches == before + 1
+    for x, y, tol in zip(got, want, ((2e-4, 2e-3), (1e-4, 1e-4),
+                                     (1e-3, 1e-4))):
+        _close(x, y, *tol)
+
+
+@pytest.mark.parametrize("l,r,n", [(256, 25, 700), (160, 16, 700),
+                                   (64, 64, 90), (100, 300, 40),
+                                   (600, 300, 12), (40, 1, 300), (1, 3, 5)])
+def test_dtw_band_matches_plain(dev, l, r, n):
+    """Path shapes (r = 16, 25), a band covering the row (r >= l), the
+    widest band the kernel keeps in registers (32 cells a lane), r = 1
+    and a single point."""
+    rng = np.random.default_rng(l + r)
+    q = _t(rng.normal(size=l).astype(np.float32), dev)
+    c = _t(rng.normal(size=(n, l)).astype(np.float32), dev)
+    before = dtw_band.launches
+    got = dtw_band(q, c, r)
+    torch.cuda.synchronize()
+    assert dtw_band.launches == before + 1
+    _close(got, ref.dtw_band_ref(q, c, r), 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("qlen,r", [(160, 16), (256, 25), (64, 100)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_dtw_survivors_matches_plain(dev, qlen, r, znorm):
+    """One launch over a chunk of B = 8 queries: survivors from none
+    (nsurv = 0) to all, offsets past both ends of the series (clipped)."""
+    rng = np.random.default_rng(qlen + r)
+    s, n, b, m = 300, 256, 8, 512 * 49
+    data = _t(np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32),
+              dev)
+    surv = _t(rng.random((b, m)) < np.linspace(0, 1, b)[:, None], dev)
+    nsurv = surv.sum(1, dtype=torch.int32)
+    sidx = executor._survivors_first(surv)
+    cand_sid = _t(rng.integers(0, s, (b, m)).astype(np.int32), dev)
+    cand_off = _t(rng.integers(-5, n - qlen + 6, (b, m)).astype(np.int32),
+                  dev)
+    mu = _t(rng.normal(size=(b, m)).astype(np.float32), dev)
+    sd = _t((rng.random((b, m)) + 0.5).astype(np.float32), dev)
+    qs = _t(rng.normal(size=(b, qlen)).astype(np.float32), dev)
+    args = (data, qs, sidx, nsurv, cand_sid, cand_off, mu, sd)
+    before = dtw_survivors.launches
+    got = dtw_survivors(*args, r=r, znorm=znorm)
+    torch.cuda.synchronize()
+    assert dtw_survivors.launches == before + 1
+    assert int(nsurv[0]) == 0 and torch.isinf(got[0]).all()
+    _close(got, ref.dtw_survivors_ref(*args, r=r, znorm=znorm), 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("znorm", [True, False], ids=["znorm", "raw"])
+def test_dtw_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
+    """DTW exact k-NN on one index, two devices: the same answers and
+    counters; distances to rtol 1e-3 (the card's DP is the recurrence,
+    the CPU's the closed form)."""
+    rng = np.random.default_rng(8)
+    data = np.cumsum(rng.normal(size=(64, 256)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, card=256, gamma=48,
+                       znorm=znorm)
+    idx = build_index(Collection.from_array(data, device="cpu"), p,
+                      block_size=16, num_levels=2)
+    cpu = UlisseEngine.from_index(idx, device="cpu")
+    gpu = UlisseEngine.from_index(idx, device=dev)
+    windows = [(i, 3 * i, 200) for i in range(5)] + [(5, 0, 256),
+                                                      (6, 0, 256)]
+    qs = [data[s, o:o + qlen] + rng.normal(size=qlen).astype(np.float32)
+          * 0.05 for s, o, qlen in windows]
+    for r in (16, 25):
+        spec = QuerySpec(k=5, measure="dtw", r=r)
+        before = (fused_gather_lb_keogh.launches, dtw_survivors.launches)
+        got = gpu.search(qs, spec)
+        after = (fused_gather_lb_keogh.launches, dtw_survivors.launches)
+        assert all(a > b for a, b in zip(after, before))
+        want = cpu.search(qs, spec)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.series, b.series)
+            np.testing.assert_array_equal(a.offsets, b.offsets)
+            np.testing.assert_allclose(a.dists, b.dists, rtol=1e-3,
+                                       atol=1e-4)
+            assert dataclasses.asdict(a.stats) == \
+                dataclasses.asdict(b.stats)

@@ -167,8 +167,10 @@ def test_admission_matches_reference(q):
 def test_unported_paths_raise(engines):
     _, data, _, port, _ = engines
     q = data[0, :96]
-    for kw, item in ((dict(measure="dtw", r=4), "7"), (dict(eps=1.0), "8"),
+    for kw, item in ((dict(eps=1.0), "8"), (dict(measure="dtw", r=4,
+                                                 eps=1.0), "8"),
                      (dict(mode="approx"), "9"),
+                     (dict(measure="dtw", r=4, mode="approx"), "9"),
                      (dict(scan_backend="host"), "9")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             port.search(q, QuerySpec(**kw))

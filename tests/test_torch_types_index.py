@@ -82,6 +82,73 @@ def test_gaussian_breakpoints_equal_reference(card):
     assert got.dtype == np.float32
 
 
+def test_gaussian_breakpoints_every_card_equal_reference():
+    """Every alphabet the index accepts, card in [2, 256]: the port's
+    breakpoints equal the reference's bit for bit.  The reference side is
+    `repro.core.isax.gaussian_breakpoints`'s own computation — float32
+    quantiles float32(i) / card through JAX's float32 ndtri — in one
+    vectorized call over all 32,640 quantiles."""
+    from jax.scipy.special import ndtri
+    cards = range(2, 257)
+    qs = np.concatenate([np.arange(1, c, dtype=np.float32) / np.float32(c)
+                         for c in cards])
+    want = np.asarray(ndtri(jnp.asarray(qs)).astype(jnp.float32))
+    got = np.concatenate([isax.gaussian_breakpoints(c).numpy()
+                          for c in cards])
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    for card in (3, 100, 255):       # the vectorized call is the per-card one
+        np.testing.assert_array_equal(
+            isax.gaussian_breakpoints(card).numpy(),
+            np.asarray(jisax.gaussian_breakpoints(card)))
+    for card in (1, 257):
+        with pytest.raises(ValueError):
+            isax.gaussian_breakpoints(card)
+
+
+@pytest.mark.parametrize("znorm", [True, False], ids=["znorm", "raw"])
+def test_card_100_index_answers_like_reference(znorm):
+    """A non-power-of-two alphabet: the reference's index carried over by
+    `index_from_arrays` (raw and znorm) and, for znorm, the port's own
+    build answer like the reference engine — identical (series,
+    offsets), distances to 1e-9 (float64 rescore), identical
+    SearchStats; the own build's breakpoints and symbols equal the
+    reference's.  (A raw build calibrates the breakpoints on its own
+    float32 PAA statistics, which may move an ulp: ROADMAP P2.)"""
+    data = _walk(21)
+    params = dict(PARAMS, card=100)
+    jp = JParams(znorm=znorm, **params)
+    p = EnvelopeParams(znorm=znorm, **params)
+    jidx = j_build_index(JCollection.from_array(data), jp, block_size=16,
+                         num_levels=2)
+    indexes = []
+    if znorm:
+        own = build_index(Collection.from_array(data, device="cpu"), p,
+                          block_size=16, num_levels=2)
+        np.testing.assert_array_equal(own.breakpoints.numpy(),
+                                      np.asarray(jidx.breakpoints))
+        for f in ("sym_lo", "sym_hi"):
+            np.testing.assert_array_equal(
+                getattr(own.envelopes, f).numpy(),
+                np.asarray(getattr(jidx.envelopes, f)), err_msg=f)
+        indexes.append(own)
+    converted = index_from_arrays(_index_arrays(
+        jidx, fields=[f.name for f in dataclasses.fields(JEnvelopeSet)]),
+        p, device="cpu")
+    rng = np.random.default_rng(8)
+    qs = [data[i, 7:7 + qlen] + rng.normal(size=qlen).astype(np.float32)
+          * 0.05 for i, qlen in ((1, 96), (4, 96), (10, 128))]
+    want = JEngine.from_index(jidx).search(qs, JQuerySpec(k=4))
+    for idx in [converted] + indexes:
+        got = UlisseEngine.from_index(idx, device="cpu").search(
+            qs, QuerySpec(k=4))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.series, b.series)
+            np.testing.assert_array_equal(a.offsets, b.offsets)
+            np.testing.assert_allclose(a.dists, b.dists, rtol=0, atol=1e-9)
+            assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats)
+
+
 def test_torch_ndtri_differs_from_reference():
     """Why the port stores the reference's quantiles: torch's float32
     ndtri rounds differently (so a computed table would move symbols)."""
