@@ -34,7 +34,25 @@ Phases (any failed check raises, and the script exits non-zero):
      the first two qlen-160 answers (DTW_BRUTE) checked against the
      plain-DP brute force on the card;
   9. time the DTW kernels on that path's inputs, as in 6;
- 10. trace one DTW batch.
+ 10. trace one DTW batch;
+ 11. the host backend (`scan_backend="host"`), ED and DTW: two queries
+     each, counters set to 0 just before and read just after; answers
+     equal the brute-force-checked device answers of the same queries as
+     (series, offset) sets, distances within 5e-3; host syncs per query;
+ 12. approx-only (`mode="approx"`), one ED and one DTW batch, counters
+     around each: the k-th distance is never below the exact one, and
+     the answer equals the exact one wherever `exact_from_approx` is set;
+ 13. time the index build's and the host backend's kernels at their
+     path's inputs, as in 6.
+
+Phase 2 also holds the slice-3 kernels against their plain versions:
+envelope_znorm bit for bit (both entries; the build entry also against
+the plain version on the CPU, from the same prefix sums), batch_ed at
+25,088 windows, qlen 160 and 256, Qb 1 and 8, znorm and raw (rtol 2e-4 /
+atol 2e-3), lb_keogh at the same windows (rtol 1e-5 / atol 1e-5).
+Phase 3 builds the index through envelope_znorm (launches counted) and
+checks on a sample of envelopes that no lower bound exceeds the true
+distance.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}.  Needs one
@@ -74,11 +92,17 @@ L2_BYTES = 50 * 2 ** 20     # H100 L2, where the device does not say
 # of s2 / L moves sd by many).  The DTW DP: the kernel runs the
 # recurrence, the plain version the cumsum/cummin closed form, whose
 # float32 cumsum over the band cancels by up to ~1e-3 at these lengths.
+# batch_ed and lb_keogh: the reference kernel tests' (sums in another
+# order); envelope_znorm: bit for bit (shared IEEE arithmetic).
 TOL = {"fused_gather_ed": (1e-4, 1e-3), "mindist_sym": (1e-6, 1e-6),
        "mindist_paa": (1e-6, 1e-6), "fused_gather_lb_keogh": (2e-4, 2e-3),
        "fused_gather_lb_keogh.mu": (1e-4, 1e-4),
        "fused_gather_lb_keogh.sd": (1e-3, 1e-4),
-       "dtw_survivors": (1e-4, 1e-3), "dtw_band": (1e-4, 1e-3)}
+       "dtw_survivors": (1e-4, 1e-3), "dtw_band": (1e-4, 1e-3),
+       "batch_ed": (2e-4, 2e-3), "lb_keogh": (1e-5, 1e-5),
+       "envelope_znorm": (0.0, 0.0)}
+# windows of one host-backend chunk: 512 envelopes x (gamma + 1) offsets
+HOST_CHUNK_WINDOWS = 512 * (BENCH["gamma"] + 1)
 REPLACES = {
     "fused_gather_ed": ("src/repro_torch/kernels/csrc/fused_verify.cu",
                         "src/repro/kernels/fused_verify.py:181"),
@@ -90,6 +114,14 @@ REPLACES = {
                               "src/repro/kernels/fused_verify.py:219"),
     "dtw_survivors": ("src/repro_torch/kernels/csrc/dtw_band.cu",
                       "src/repro/kernels/dtw_band.py:73"),
+    "dtw_band": ("src/repro_torch/kernels/csrc/dtw_band.cu",
+                 "src/repro/kernels/dtw_band.py:73"),
+    "envelope_znorm": ("src/repro_torch/kernels/csrc/envelope.cu",
+                       "src/repro/kernels/envelope.py:65"),
+    "batch_ed": ("src/repro_torch/kernels/csrc/batch_ed.cu",
+                 "src/repro/kernels/batch_ed.py:47"),
+    "lb_keogh": ("src/repro_torch/kernels/csrc/lb_keogh.cu",
+                 "src/repro/kernels/lb_keogh.py:27"),
 }
 
 
@@ -117,9 +149,11 @@ def time_calls(torch, fns, reps=20, budget_s=0.25):
     a slow function (a plain version of thousands of launches) gets as
     few rounds as fit `budget_s`, at least 3.
 
-    Device ms is the card's busy time from torch.profiler (None when the
-    trace holds no device activity); event ms is CUDA events around the
-    loop, which also counts the card waiting for the host to launch.
+    Device ms is the card's busy time from torch.profiler (None when
+    three traces in a row hold fewer device activities than calls: a
+    trace sometimes records none, or only some, of a loop's kernels);
+    event ms is CUDA events around the loop, which also counts the card
+    waiting for the host to launch.
     """
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -137,27 +171,35 @@ def time_calls(torch, fns, reps=20, budget_s=0.25):
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for r in range(reps):
-            fns[r % len(fns)]()
-        torch.cuda.synchronize()
-    busy = device_ms(prof) / reps
-    return (busy if busy > 0 else None), event_ms
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for r in range(reps):
+                fns[r % len(fns)]()
+            torch.cuda.synchronize()
+        # every call launches at least one kernel
+        if len(device_events(prof)) >= reps:
+            return device_ms(prof) / reps, event_ms
+    return None, event_ms
 
 
-def timing(torch, call, plain, nbytes, ops, err, shape):
-    """One timing record: kernel and plain version, each by its device
-    time where the profiler saw the card (else by CUDA events, and the
-    record says which), beside the bound."""
+def timing(torch, call, plain, nbytes, ops, err, shape, library=None):
+    """One timing record: kernel and plain version (and the one PyTorch
+    call computing the same function, where there is one), each by its
+    device time where the profiler saw the card (else by CUDA events,
+    and the record says which), beside the bound."""
     k_dev, k_ev = time_calls(torch, call)
     p_dev, p_ev = time_calls(torch, plain)
+    lib_ms = None
+    if library is not None:
+        l_dev, l_ev = time_calls(torch, library)
+        lib_ms = l_dev or l_ev
     by_bytes = nbytes / PEAK_BYTES >= ops / PEAK_F32
     return dict(
         shape=shape, timer="profiler" if k_dev else "events",
         plain_timer="profiler" if p_dev else "events",
         ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
-        event_ms=k_ev, plain_event_ms=p_ev,
+        event_ms=k_ev, plain_event_ms=p_ev, library_ms=lib_ms,
         bound_ms=max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3,
         bound_by="bytes" if by_bytes else "operations", max_abs_err=err,
         bytes=nbytes, ops=ops)
@@ -332,6 +374,165 @@ def check_dtw_kernels(torch, dev, p, probe, rng):
     return errs, same / total
 
 
+def envelope_work(p, n: int):
+    """Per series of length n: (valid (master, l', segment) cells,
+    valid (master, l') pairs, (master, segment) pairs with a cell) of the
+    Z-normalized build — what `envelope_znorm` computes."""
+    g, w = p.gamma + 1, p.w
+    cells = pairs = segs = 0
+    for off in range(p.num_envelopes(n) * g):
+        if off + p.lmin > n:
+            continue
+        longest = min(p.lmax, n - off)
+        pairs += longest - p.lmin + 1
+        for z in range(w):
+            first = max(p.lmin, (z + 1) * p.seg_len)
+            if first <= longest:
+                cells += longest - first + 1
+                segs += 1
+    return cells, pairs, segs
+
+
+def check_equal(torch, name, got, want):
+    """Raise unless `got` equals `want` value for value (bit for bit up to
+    the sign of zero); returns 0.0, the max abs error."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want.to(got.device)):
+        raise AssertionError(f"{name}: not equal to its plain version")
+    return 0.0
+
+
+def probe_windows(torch, probe, rng, qlen: int):
+    """HOST_CHUNK_WINDOWS windows of length qlen of the probe collection
+    at random (series, offset): one host chunk's worth."""
+    s, n = probe.data.shape
+    dev = probe.data.device
+    sid = torch.from_numpy(rng.integers(0, s, HOST_CHUNK_WINDOWS)).to(dev)
+    off = torch.from_numpy(rng.integers(0, n - qlen + 1,
+                                        HOST_CHUNK_WINDOWS)).to(dev)
+    return probe.data.unfold(1, qlen, 1)[sid, off].contiguous()
+
+
+def check_slice3_kernels(torch, dev, p, probe, rng):
+    """The index build's and the host backend's kernels against their
+    plain versions at the path's shapes; returns the max abs error of
+    each."""
+    from repro_torch.core import planner
+    from repro_torch.core.envelope import _prefix
+    from repro_torch.core.paa import znormalize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batch_ed import batch_ed
+    from repro_torch.kernels.envelope import (envelope_znorm,
+                                              envelope_znorm_masters)
+    from repro_torch.kernels.lb_keogh import lb_keogh
+    errs = dict.fromkeys(("envelope_znorm", "batch_ed", "lb_keogh"), 0.0)
+    # the build entry on the probe collection: kernel, plain version on
+    # the card and on the CPU, from the same prefix sums
+    x = probe.data
+    xc = x - x.mean(dim=-1, keepdim=True)
+    csum, csum2 = _prefix(xc), _prefix(xc * xc)
+    kw = dict(lmin=p.lmin, lmax=p.lmax, gamma=p.gamma, seg_len=p.seg_len)
+    got = envelope_znorm(csum, csum2, **kw)
+    card = ref.envelope_znorm_ref(csum, csum2, **kw)
+    cpu = ref.envelope_znorm_ref(csum.cpu(), csum2.cpu(), **kw)
+    for k, c, h in zip(got, card, cpu):
+        check_equal(torch, "envelope_znorm", k, c)
+        check_equal(torch, "envelope_znorm (plain on the CPU)", k, h)
+    # the per-master entry on every master of the first series
+    n = x.shape[1]
+    offs = torch.arange(n - p.lmin + 1, device=dev)
+    start = offs[:, None] + torch.arange(p.w, device=dev) * p.seg_len
+    segmean = ref.true_div(csum[0, (start + p.seg_len).clamp(max=n)]
+                           - csum[0, start.clamp(max=n)], p.seg_len)
+    ends = (offs[:, None] + torch.arange(p.lmin, p.lmax + 1, device=dev)
+            ).clamp(max=n)
+    margs = (segmean.contiguous(),
+             (csum[0, ends] - csum[0, offs][:, None]).contiguous(),
+             (csum2[0, ends] - csum2[0, offs][:, None]).contiguous(),
+             offs.to(torch.int32))
+    mkw = dict(n=n, lmin=p.lmin, seg_len=p.seg_len)
+    for k, c in zip(envelope_znorm_masters(*margs, **mkw),
+                    ref.envelope_scan_ref(*margs, **mkw)):
+        check_equal(torch, "envelope_znorm_masters", k, c)
+    # batch_ed and lb_keogh on one host chunk's worth of windows
+    for qlen, r in DTW_CASES:
+        windows = probe_windows(torch, probe, rng, qlen)
+        q = torch.from_numpy(rng.normal(size=(BATCH, qlen)).astype(
+            np.float32)).to(dev)
+        qn, dlo, dhi, _, _ = planner.prepare_query_batch(q, p.seg_len, True,
+                                                         "dtw", r)
+        for qb in (1, 8):
+            for znorm, qs in ((True, qn[:qb]), (False, q[:qb])):
+                errs["batch_ed"] = max(errs["batch_ed"], check_close(
+                    torch, "batch_ed", batch_ed(windows, qs, znorm),
+                    ref.batch_ed_ref(windows, qs, znorm)))
+        wn = znormalize(windows)
+        errs["lb_keogh"] = max(errs["lb_keogh"], check_close(
+            torch, "lb_keogh", lb_keogh(dlo[0], dhi[0], wn),
+            ref.lb_keogh_ref(dlo[0], dhi[0], wn)))
+    return errs
+
+
+def check_lower_bounds(torch, index, data, p, queries, n_sample: int, seed):
+    """On a sample of the index's valid envelopes, every lower bound
+    (iSAX and PAA) of every query is at most the true distance of the
+    envelope's nearest candidate window (float64 on the card; slack 1e-4
+    for the float32 bound).  Returns the largest lb - d seen."""
+    from repro_torch.core import planner
+    env = index.envelopes
+    dev = data.device
+    s, n = data.shape
+    g = p.gamma + 1
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    valid = torch.nonzero(env.valid).squeeze(1)
+    pick = valid[torch.randint(len(valid), (n_sample,), generator=gen,
+                               device=dev)]
+    sub = env.map(lambda t: t[pick].contiguous())
+    sid, anc = sub.series_id.long(), sub.anchor.long()
+    worst = -float("inf")
+    for q in queries:
+        qlen = len(q)
+        qt = torch.from_numpy(np.asarray(q, np.float32)).to(dev)[None]
+        qn, _, _, qb, qh = planner.prepare_query_batch(qt, p.seg_len,
+                                                       p.znorm)
+        offs = anc[:, None] + torch.arange(g, device=dev)
+        ok = ((torch.arange(g, device=dev) < sub.n_master[:, None])
+              & (offs + qlen <= n))
+        w = data.unfold(1, qlen, 1)[sid[:, None], offs.clamp(max=n - qlen)
+                                    ].double()
+        if p.znorm:
+            w = (w - w.mean(-1, keepdim=True)) / w.std(
+                -1, keepdim=True, correction=0).clamp_min(1e-8)
+        d = torch.sqrt(((w - qn[0].double()) ** 2).sum(-1))
+        d_min = torch.where(ok, d, float("inf")).amin(dim=1)
+        for use_paa in (False, True):
+            lb = planner.env_lower_bounds_batch(
+                qb, qh, sub, index.breakpoints, p.seg_len,
+                p.query_segments(qlen), use_paa)[0].double()
+            excess = float((lb - d_min).max())
+            worst = max(worst, excess)
+            if excess > 1e-4:
+                raise AssertionError(
+                    f"a lower bound exceeds the true distance by {excess} "
+                    f"(qlen {qlen}, use_paa {use_paa})")
+    return worst
+
+
+def same_answers(a, b, atol: float, what: str) -> float:
+    """Raise unless results a and b hold the same (series, offset) set and
+    their distances (each sorted) agree within atol; returns the max abs
+    difference."""
+    if set(zip(a.series.tolist(), a.offsets.tolist())) \
+            != set(zip(b.series.tolist(), b.offsets.tolist())):
+        raise AssertionError(f"{what}: answers differ: "
+                             f"{list(zip(a.series, a.offsets))} vs "
+                             f"{list(zip(b.series, b.offsets))}")
+    err = float(np.abs(np.sort(a.dists) - np.sort(b.dists)).max())
+    if err > atol:
+        raise AssertionError(f"{what}: distances {a.dists} vs {b.dists}")
+    return err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--series", type=int, default=FULL_SERIES,
@@ -356,10 +557,14 @@ def main() -> int:
                                   planner)
     from repro_torch.core.search import brute_force_knn
     from repro_torch.core.paa import znormalize
+    from repro_torch.core import envelope as core_envelope
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.batch_ed import batch_ed
     from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
+    from repro_torch.kernels.envelope import envelope_znorm
     from repro_torch.kernels.fused_verify import (fused_gather_ed,
                                                   fused_gather_lb_keogh)
+    from repro_torch.kernels.lb_keogh import lb_keogh
     from repro_torch.kernels.mindist import mindist_paa, mindist_sym
     from repro_torch.train.data import series_batches
 
@@ -375,6 +580,21 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     wrappers = {"fused_gather_ed": fused_gather_ed,
                 "mindist_sym": mindist_sym, "mindist_paa": mindist_paa}
+    # every kernel wrapper of the port, each count set to 0 before a path
+    all_wrappers = {**wrappers, "fused_gather_lb_keogh": fused_gather_lb_keogh,
+                    "dtw_survivors": dtw_survivors, "dtw_band": dtw_band,
+                    "envelope_znorm": envelope_znorm, "batch_ed": batch_ed,
+                    "lb_keogh": lb_keogh}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for w in all_wrappers.values():
+            w.launches = 0
+        executor.device_exact_scan.syncs = 0
+        executor.to_host.syncs = 0
+
+    def read_counts(names):
+        return {name: all_wrappers[name].launches for name in names}
     results = {"card": card, "series": args.series, "params": BENCH}
 
     # -- 1. build ---------------------------------------------------------
@@ -443,6 +663,7 @@ def main() -> int:
     dtw_errs, results["lb_keogh_mu_sd_bit_equal"] = check_dtw_kernels(
         torch, dev, p, probe, rng)
     errs.update(dtw_errs)
+    errs.update(check_slice3_kernels(torch, dev, p, probe, rng))
     del probe, lo, hi, valid, sym_lo, sym_hi
     torch.cuda.synchronize()
     log(f"[2] kernels agree with their plain versions: "
@@ -454,24 +675,30 @@ def main() -> int:
     t0 = time.perf_counter()
     data = series_batches(args.series, SERIES_LEN, seed=args.seed)
     coll = Collection.from_array(data, device=dev)
+    zero_counts()
     t1 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     engine = UlisseEngine.from_collection(coll, p, block_size=64,
                                           num_levels=2, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    build_launches = read_counts(("envelope_znorm",))
+    if build_launches["envelope_znorm"] <= 0:
+        raise AssertionError("the index build did not launch envelope_znorm")
     index = engine.index
     results["index"] = {
         "data_s": t1 - t0, "build_s": t2 - t1,
         "envelopes": index.num_envelopes,
         "valid_envelopes": int(index.envelopes.valid.sum()),
         "blocks": [lvl.size for lvl in index.levels],
+        "launches": build_launches,
         "peak_build_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         "resident_gib": torch.cuda.memory_allocated(dev) / 2 ** 30}
     log(f"[3] index: {args.series} series x {SERIES_LEN} -> "
         f"{results['index']['envelopes']} envelopes, blocks "
         f"{results['index']['blocks']}; data+stats {t1 - t0:.1f} s, build "
-        f"{t2 - t1:.1f} s, peak {results['index']['peak_build_gib']:.2f} GiB")
+        f"{t2 - t1:.3f} s, peak {results['index']['peak_build_gib']:.2f} "
+        f"GiB; launches {build_launches}")
 
     # -- 4. the main path --------------------------------------------------
     qrng = np.random.default_rng(args.seed + 2)
@@ -482,13 +709,24 @@ def main() -> int:
         return [data[s, o:o + qlen] + qrng.normal(size=qlen).astype(
             np.float32) * 0.1 for s, o in zip(sids, offs)]
 
+    # its own query stream, so the paths' batches stay those of earlier runs
+    lrng = np.random.default_rng(args.seed + 3)
+    lb_excess = check_lower_bounds(
+        torch, index, coll.data, p,
+        [data[s, o:o + qlen] + lrng.normal(size=qlen).astype(np.float32)
+         * 0.1 for qlen in QLENS
+         for s, o in zip(lrng.integers(0, args.series, 2),
+                         lrng.integers(0, SERIES_LEN - qlen + 1, 2))],
+        4096, args.seed)
+    results["index"]["lower_bound_max_excess"] = lb_excess
+    log(f"[3] lower bounds never exceed the true distance on 4096 sampled "
+        f"envelopes x 4 queries (iSAX and PAA; max lb - d {lb_excess:.3g},"
+        f" slack 1e-4)")
+
     spec = QuerySpec(k=K)
     engine.search(make_batch(QLENS[0]), spec)        # warm-up (host copy)
     batches = [make_batch(QLENS[i % len(QLENS)]) for i in range(BATCHES)]
-    torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-    executor.device_exact_scan.syncs = 0
+    zero_counts()
     answers, lat = [], []
     t0 = time.perf_counter()
     for qs in batches:
@@ -640,10 +878,7 @@ def main() -> int:
                     "mindist_sym": mindist_sym, "mindist_paa": mindist_paa}
     dtw_specs = [QuerySpec(k=K, measure="dtw", r=r) for _, r in DTW_CASES]
     dtw_batches = [make_batch(qlen) for qlen, _ in DTW_CASES]
-    torch.cuda.synchronize()
-    for w in (*wrappers.values(), *dtw_wrappers.values(), dtw_band):
-        w.launches = 0
-    executor.device_exact_scan.syncs = 0
+    zero_counts()
     dtw_answers, dtw_lat = [], []
     t0 = time.perf_counter()
     for qs, dspec in zip(dtw_batches, dtw_specs):
@@ -807,16 +1042,190 @@ def main() -> int:
                                               dtw_specs[1])
     log_trace(10, results["traced_dtw_batch"])
 
-    # launches: each kernel's count on the path it belongs to (the ED
-    # main path for the first three, the DTW path for the other two)
+    # -- 11. the host backend ------------------------------------------------
+    # two queries per measure whose device answers were checked against
+    # the brute force in [5] and [8]
+    host_cases = {
+        "ed": [(batches[i][0], answers[i][0], QuerySpec(
+            k=K, scan_backend="host")) for i in (0, 1)],
+        "dtw": [(dtw_batches[i][0], dtw_answers[i][0], QuerySpec(
+            k=K, measure="dtw", r=r, scan_backend="host"))
+            for i, (_, r) in enumerate(DTW_CASES)]}
+    host_kernels = {"ed": ("batch_ed", "mindist_sym", "mindist_paa"),
+                    "dtw": ("lb_keogh", "dtw_band", "mindist_sym",
+                            "mindist_paa")}
+    results["host_path"] = {}
+    host_answers = {}
+    for measure, cases in host_cases.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        got = [engine.search(q, hspec) for q, _, hspec in cases]
+        wall = time.perf_counter() - t0
+        hl = read_counts(host_kernels[measure])
+        syncs = executor.to_host.syncs
+        for name, n in hl.items():
+            if n <= 0:
+                raise AssertionError(
+                    f"{name} was not launched on the host {measure} path")
+        worst = max(same_answers(g_, want, 5e-3, f"host {measure}")
+                    for g_, (_, want, _) in zip(got, cases))
+        host_answers[measure] = got
+        results["host_path"][measure] = {
+            "queries": len(cases), "qlens": [len(q) for q, _, _ in cases],
+            "wall_s": wall, "queries_per_s": len(cases) / wall,
+            "launches": hl, "host_syncs": syncs,
+            "host_syncs_per_query": syncs / len(cases),
+            "chunks_visited": [r.stats.chunks_visited for r in got],
+            "max_abs_err_vs_device": worst}
+        h = results["host_path"][measure]
+        log(f"[11] host backend, {measure}: {len(cases)} queries (qlen "
+            f"{h['qlens']}) in {wall:.2f} s, {h['queries_per_s']:.3f} "
+            f"queries/s; launches {hl}; host syncs per query "
+            f"{h['host_syncs_per_query']:.1f}; chunks {h['chunks_visited']};"
+            f" answers = the device's (max |d - d_device| {worst:.2e}, "
+            f"tolerance 5e-3)")
+
+    # -- 12. approx-only -----------------------------------------------------
+    approx_cases = {
+        "ed": (batches[0], answers[0], QuerySpec(k=K, mode="approx"),
+               ("fused_gather_ed", "mindist_paa")),
+        "dtw": (dtw_batches[1], dtw_answers[1], QuerySpec(
+            k=K, measure="dtw", r=DTW_CASES[1][1], mode="approx"),
+            ("fused_gather_lb_keogh", "dtw_survivors", "mindist_paa"))}
+    results["approx_path"] = {}
+    for measure, (qs, exact, aspec, names) in approx_cases.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        got = engine.search(qs, aspec)
+        wall = time.perf_counter() - t0
+        al = read_counts(names)
+        for name, n in al.items():
+            if n <= 0:
+                raise AssertionError(
+                    f"{name} was not launched on the approx {measure} path")
+        if mindist_sym.launches:
+            raise AssertionError("approx-only launched mindist_sym")
+        check_answers(got, K)
+        certified = 0
+        for a, e in zip(got, exact):
+            # ED: both rescored in float64; DTW: the same device DP values
+            if a.dists[-1] < e.dists[-1] - 1e-6:
+                raise AssertionError(f"approx {measure} k-th distance "
+                                     f"{a.dists[-1]} < exact {e.dists[-1]}")
+            if a.stats.exact_from_approx:
+                certified += 1
+                same_answers(a, e, 1e-9, f"certified approx {measure}")
+        results["approx_path"][measure] = {
+            "queries": len(qs), "qlen": len(qs[0]), "wall_s": wall,
+            "launches": al, "certified": certified,
+            "stop_test_syncs": executor.device_exact_scan.syncs,
+            "mean_kth_ratio": float(np.mean(
+                [a.dists[-1] / e.dists[-1] for a, e in zip(got, exact)]))}
+        ap = results["approx_path"][measure]
+        log(f"[12] approx-only, {measure}: {len(qs)} queries (qlen "
+            f"{ap['qlen']}) in {wall:.3f} s; launches {al}; stop-test "
+            f"syncs {ap['stop_test_syncs']} + 1 readback; certified exact "
+            f"{certified}/{len(qs)} (equal to the exact answer); mean "
+            f"approx/exact k-th distance {ap['mean_kth_ratio']:.4f}")
+
+    # -- 13. the index build's and the host backend's kernel timings ---------
+    n_env1 = p.num_envelopes(SERIES_LEN)
+    blk = max(1, core_envelope._BUILD_BLOCK_ELEMS // (n_env1 * g * p.w))
+    x = coll.data[:blk]
+    xc = x - x.mean(dim=-1, keepdim=True)
+    sums = [(core_envelope._prefix(xc), core_envelope._prefix(xc * xc))]
+    sums += [tuple(t.clone() for t in sums[0]) for _ in range(
+        -(-2 * l2 // (2 * sums[0][0].numel() * 4)) - 1)]
+    ekw = dict(lmin=p.lmin, lmax=p.lmax, gamma=p.gamma, seg_len=p.seg_len)
+    call = [lambda c=c: envelope_znorm(*c, **ekw) for c in sums]
+    plain = [lambda c=c: ref.envelope_znorm_ref(*c, **ekw) for c in sums]
+    for k_, c_ in zip(call[0](), plain[0]()):
+        check_equal(torch, "envelope_znorm", k_, c_)
+    cells, len_pairs, seg_pairs = envelope_work(p, SERIES_LEN)
+    # per cell a subtract, a divide, a min and a max; per (master,
+    # length) two subtracts, two divides, a multiply, a subtract, two
+    # max and a square root; per (master, segment) a subtract and a divide
+    timings[("envelope_znorm",)] = timing(
+        torch, call, plain,
+        blk * (2 * (SERIES_LEN + 1) * 4 + 2 * n_env1 * p.w * 4),
+        blk * (4 * cells + 9 * len_pairs + 2 * seg_pairs), 0.0,
+        f"S={blk} n={SERIES_LEN} x{len(sums)}")
+    timings[("envelope_znorm",)]["cells_per_series"] = cells
+    del sums, call, plain, x, xc
+    host = executor.host_envelopes(index)
+    for qlen, r in DTW_CASES:
+        q = (batches[0] if qlen == QLENS[0] else batches[1])[0]
+        pq = planner.prepare_query(q, p, "dtw", r, device=dev)
+        order, _ = planner.plan_scan_order(index, pq)
+        # the windows of the host scan's first 8 chunks (512 envelopes
+        # each, ~26 MB at qlen 256): a round streams more than the L2
+        chunks = []
+        for i in range(8):
+            e = order[i * 512:(i + 1) * 512]
+            chunks.append(executor.gather_windows(
+                coll.data, host["series_id"][e], host["anchor"][e],
+                host["n_master"][e], qlen, g)[0])
+        nw = chunks[0].shape[0]
+        qt = torch.from_numpy(np.stack(
+            batches[0] if qlen == QLENS[0] else batches[1])).to(dev)
+        qn_all = planner.prepare_query_batch(qt, p.seg_len, True)[0]
+        for qb in (1, 8):
+            for znorm, qs_t in ((True, qn_all[:qb]), (False, qt[:qb])):
+                call = [lambda c=c: batch_ed(c, qs_t, znorm) for c in chunks]
+                plain = [lambda c=c: ref.batch_ed_ref(c, qs_t, znorm)
+                         for c in chunks]
+                err = check_close(torch, "batch_ed", call[0](), plain[0]())
+                lib = None if znorm else [
+                    lambda c=c: torch.cdist(c, qs_t) ** 2 for c in chunks]
+                timings[("batch_ed", qlen, qb,
+                         "znorm" if znorm else "raw")] = timing(
+                    torch, call, plain,
+                    (nw * qlen + qb * qlen + nw * qb) * 4,
+                    nw * qlen * (2 * qb + 3), err,
+                    f"N={nw} qlen={qlen} Qb={qb} "
+                    f"{'znorm' if znorm else 'raw'}", library=lib)
+        wns = [znormalize(c) for c in chunks]
+        del chunks
+        call = [lambda c=c: lb_keogh(pq.dtw_lo, pq.dtw_hi, c) for c in wns]
+        plain = [lambda c=c: ref.lb_keogh_ref(pq.dtw_lo, pq.dtw_hi, c)
+                 for c in wns]
+        err = check_close(torch, "lb_keogh", call[0](), plain[0]())
+        # per point two subtracts, two max, two multiplies, two adds
+        timings[("lb_keogh", qlen)] = timing(
+            torch, call, plain, (nw * qlen + 2 * qlen + nw) * 4,
+            8 * nw * qlen, err, f"N={nw} qlen={qlen} r={r}")
+        del wns
+    for key, t in timings.items():
+        if key[0] in ("envelope_znorm", "batch_ed", "lb_keogh"):
+            lib = (f"  library {t['library_ms']:.4f} ms"
+                   if t["library_ms"] is not None else "")
+            log(f"[13] {key[0]:14s} {t['shape']:30s} kernel {t['ms']:.4f} ms"
+                f"  plain {t['plain_ms']:.4f} ms{lib}  bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['timer']}/"
+                f"{t['plain_timer']}; events {t['event_ms']:.4f} / "
+                f"{t['plain_event_ms']:.4f} ms)")
+    results["timings"] = {" ".join(map(str, k)): v
+                          for k, v in timings.items()}
+
+    # launches: each kernel's count on the path it belongs to — the ED main
+    # path, the DTW path, the index build, the host backend (ED: batch_ed;
+    # DTW: lb_keogh and dtw_band)
     headline = {"fused_gather_ed": ("fused_gather_ed", 256, 512),
                 "mindist_sym": ("mindist_sym", 256),
                 "mindist_paa": ("mindist_paa", 256),
                 "fused_gather_lb_keogh": ("fused_gather_lb_keogh", 256, 512),
-                "dtw_survivors": ("dtw_survivors", 256)}
-    path_launches = dict(launches, **{
-        name: dtw_launches[name]
-        for name in ("fused_gather_lb_keogh", "dtw_survivors")})
+                "dtw_survivors": ("dtw_survivors", 256),
+                "dtw_band": ("dtw_band", 256),
+                "envelope_znorm": ("envelope_znorm",),
+                "batch_ed": ("batch_ed", 256, 1, "znorm"),
+                "lb_keogh": ("lb_keogh", 256)}
+    path_launches = dict(
+        launches, **{name: dtw_launches[name]
+                     for name in ("fused_gather_lb_keogh", "dtw_survivors")},
+        **build_launches,
+        batch_ed=results["host_path"]["ed"]["launches"]["batch_ed"],
+        **{name: results["host_path"]["dtw"]["launches"][name]
+           for name in ("lb_keogh", "dtw_band")})
     for name, key in headline.items():
         t = timings[key]
         src, replaces = REPLACES[name]
@@ -826,7 +1235,7 @@ def main() -> int:
             "max_abs_err": max(errs[name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": t["library_ms"]})
     results["kernels"] = kernels
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

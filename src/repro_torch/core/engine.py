@@ -4,19 +4,29 @@
     res = engine.search(q, QuerySpec(k=5))                   # one query
     ress = engine.search(q_batch, QuerySpec(k=5))            # many queries
 
-The port serves exact k-NN on a local index end to end, under ED (the
-default query) and DTW (`QuerySpec(measure="dtw", r=...)`), approx-first,
-`scan_backend="device"` (paper Alg. 5 including its line-1 approximate
-pass), batched per query length.  Per batch: query prep (DTW: the
-query's warping envelope) -> block lower bounds (`mindist_paa`) -> leaf
-pack -> approximate scan -> envelope lower bounds (`mindist_sym`) ->
-LB-sorted pack -> seeded exact scan (ED: `fused_gather_ed`; DTW:
-`fused_gather_lb_keogh` then `dtw_survivors` on its survivors) -> one
-result readback -> for ED, a float64 rescore of the reported rows on the
-host (DTW reports the device's DP values, as the JAX package does).
+The port serves k-NN on a local index end to end, under ED (the default
+query) and DTW (`QuerySpec(measure="dtw", r=...)`):
 
-Every other shape raises NotImplementedError naming the ROADMAP item
-that ports it.  Engines run on CUDA unless built with device="cpu".
+  * `scan_backend="device"`, exact (paper Alg. 5 including its line-1
+    approximate pass), batched per query length.  Per batch: query prep
+    (DTW: the query's warping envelope) -> block lower bounds
+    (`mindist_paa`) -> leaf pack -> approximate scan -> envelope lower
+    bounds (`mindist_sym`) -> LB-sorted pack -> seeded exact scan (ED:
+    `fused_gather_ed`; DTW: `fused_gather_lb_keogh` then `dtw_survivors`
+    on its survivors) -> one result readback -> for ED, a float64 rescore
+    of the reported rows on the host (DTW reports the device's DP values,
+    as the JAX package does);
+  * `mode="approx"` on the device backend: the approximate pass alone
+    (paper Alg. 4), one readback per batch;
+  * `scan_backend="host"`, exact or approx: the reference's host-driven
+    loop, one query at a time — block and envelope bounds on the device,
+    orders and the k-best pool on the host, each chunk verified by
+    `batch_ed` (ED) or `lb_keogh` then the `dtw_band` entry (DTW).  It
+    reports float32 dot-identity / DP distances unpolished, as the
+    reference's host backend does.
+
+eps-range search raises NotImplementedError naming the ROADMAP item that
+ports it.  Engines run on CUDA unless built with device="cpu".
 """
 from __future__ import annotations
 
@@ -28,7 +38,7 @@ import torch
 from torch.profiler import record_function as span
 
 from repro_torch.core import executor, planner
-from repro_torch.core.executor import SearchResult, SearchStats
+from repro_torch.core.executor import SearchResult, SearchStats, TopK
 from repro_torch.core.index import UlisseIndex, build_index
 from repro_torch.core.types import (Collection, DeviceLike, EnvelopeParams,
                                     resolve_device)
@@ -44,8 +54,7 @@ def _not_ported(what: str, item: str):
 class QuerySpec:
     """Everything about a query except its values (the JAX package's
     fields; see `repro.core.engine.QuerySpec` for each one's meaning).
-    The port serves measure="ed" or "dtw" with eps=None, mode="exact",
-    scan_backend="device" so far."""
+    The port serves every k-NN spec (eps=None) so far."""
 
     measure: str = "ed"
     r: int = 0
@@ -92,10 +101,6 @@ class QuerySpec:
 def _check_ported(spec: QuerySpec) -> None:
     if spec.is_range:
         raise _not_ported("eps-range search", "8")
-    if spec.mode == "approx":
-        raise _not_ported("mode='approx'", "9")
-    if spec.scan_backend == "host":
-        raise _not_ported("scan_backend='host'", "9")
 
 
 class UlisseEngine:
@@ -168,7 +173,12 @@ class UlisseEngine:
         array or sequence of 1-D arrays -> list of SearchResult)."""
         _check_ported(spec)
         single, qs = self._normalize_queries(queries)
-        results = self._local_exact_device(qs, spec)
+        if spec.scan_backend == "host":
+            results = [self._search_local(q, spec) for q in qs]
+        elif spec.mode == "exact":
+            results = self._local_exact_device(qs, spec)
+        else:
+            results = self._local_approx_device(qs, spec)
         return results[0] if single else results
 
     def _normalize_queries(self, queries):
@@ -180,6 +190,109 @@ class UlisseEngine:
                 return True, [arr]
             qs = [arr[i] for i in range(arr.shape[0])]
         return False, qs
+
+    # -- the host backend (scan_backend="host") ---------------------------
+
+    def _search_local(self, q, spec: QuerySpec) -> SearchResult:
+        """The host-driven reference paths, one query."""
+        with span("query.host"):
+            if spec.mode == "approx":
+                pool, stats = self._local_approx_impl(q, spec)
+                return pool.result(stats)
+            return self._local_exact(q, spec)
+
+    def _prepare(self, q, spec: QuerySpec) -> planner.PreparedQuery:
+        return planner.prepare_query(q, self.params, spec.measure, spec.r,
+                                     device=self.device)
+
+    def _local_approx_impl(self, q, spec: QuerySpec,
+                           pq: Optional[planner.PreparedQuery] = None):
+        """Best-first descent over the block hierarchy (paper Alg. 4).
+
+        Visits fine blocks ("leaves") in lower-bound order; stops when a
+        leaf's lower bound reaches the k-th bsf (the answer is then
+        exact), capped at max_leaves.  Unlike the paper (Alg. 4 line 22)
+        it keeps visiting after a leaf that does not improve, as the
+        reference does.
+
+        Returns (pool, stats): the squared-distance pool (the exact scan
+        seeds from it) and the counters so far.
+        """
+        index = self._index
+        if pq is None:
+            pq = self._prepare(q, spec)
+        stats = SearchStats(
+            envelopes_total=int(index.search_envelopes().size))
+        pool = TopK(spec.k)
+        order, blk_lb = planner.plan_leaf_order(index, pq)
+        stats.lb_computations += index.levels[-1].size
+        block_size = index.envelopes.size // index.levels[-1].size
+        valid_all = executor.host_envelopes(index)["valid"]
+
+        n_leaves = min(spec.max_leaves, len(order))
+        exhausted = False
+        for leaf_rank in range(n_leaves):
+            b = int(order[leaf_rank])
+            if not np.isfinite(blk_lb[b]):
+                # blocks are LB-sorted: everything left is invalid, so
+                # every finite-LB leaf has been verified
+                exhausted = True
+                break
+            if blk_lb[b] ** 2 >= pool.kth:
+                stats.exact_from_approx = True
+                break
+            env_idx = np.arange(b * block_size, (b + 1) * block_size)
+            env_idx = env_idx[valid_all[env_idx]]
+            executor.verify_envelopes(index, pq, env_idx, pool, stats)
+            stats.leaves_visited += 1
+        else:
+            exhausted = (n_leaves == len(order)
+                         or not np.isfinite(blk_lb[int(order[n_leaves])]))
+        if exhausted:
+            # no finite-LB leaf is left unverified: the answer is exact
+            stats.exact_from_approx = True
+        return pool, stats
+
+    def _local_exact(self, q, spec: QuerySpec) -> SearchResult:
+        """Exact k-NN: the approximate pass for a bsf, then the LB-sorted
+        chunked scan over the flat envelope list with bsf pruning (paper
+        Alg. 5), host-driven."""
+        index = self._index
+        pq = self._prepare(q, spec)
+        if spec.approx_first:
+            # the approx pass's squared pool goes straight on: a
+            # sqrt -> square round trip would perturb exact-tie pruning
+            pool, stats = self._local_approx_impl(q, spec, pq)
+            if stats.exact_from_approx:
+                return pool.result(stats)
+        else:
+            stats = SearchStats(
+                envelopes_total=int(index.search_envelopes().size))
+            pool = TopK(spec.k)
+
+        order, lbs_sorted = planner.plan_scan_order(index, pq,
+                                                    spec.use_paa_bounds)
+        n = index.search_envelopes().size
+        stats.lb_computations += n
+        stats.chunks_planned = -(-n // spec.chunk_size)
+
+        pos = 0
+        while pos < n:
+            if not np.isfinite(lbs_sorted[pos]):
+                break
+            if lbs_sorted[pos] ** 2 >= pool.kth:
+                break  # every remaining envelope is pruned
+            end = min(pos + spec.chunk_size, n)
+            sel = order[pos:end]
+            fin = np.isfinite(lbs_sorted[pos:end])
+            keep = fin & ((lbs_sorted[pos:end] ** 2) < pool.kth)
+            if keep.any():
+                executor.verify_envelopes(index, pq, sel[keep], pool, stats)
+            # envelopes cut by the bsf LB test inside a visited chunk
+            stats.envelopes_pruned += int((fin & ~keep).sum())
+            stats.chunks_visited += 1
+            pos = end
+        return pool.result(stats)
 
     # -- the device pipeline ---------------------------------------------
 
@@ -225,7 +338,8 @@ class UlisseEngine:
         on the device and derives the exactness certificate there too.
 
         Returns (pool (d2, sid, off), stats, cert, leaf_v, comb_idx,
-        visited_chunks, chunk, nblk).
+        visited_chunks, chunk, nblk, planned) — `planned` is the leaf
+        pack's chunk count, the approximate pass's `chunks_planned`.
         """
         index, p = self._index, self.params
         env = index.search_envelopes()
@@ -262,7 +376,7 @@ class UlisseEngine:
         cert = ((leaf_v >= nblk) | ~torch.isfinite(next_lb)
                 | (next_lb ** 2 >= kth2))
         return ((ad2, asid, aoff), ast, cert, leaf_v, comb_idx, visited,
-                chunk, nblk)
+                chunk, nblk, asids.shape[1] // chunk)
 
     def _local_host_data(self) -> np.ndarray:
         """Host copy of the collection's raw series (cached), for the f64
@@ -331,7 +445,7 @@ class UlisseEngine:
                     if spec.approx_first:
                         with span("approx_pass"):
                             (seed, ast, cert, leaf_v, comb_idx, visited,
-                             achunk, nblk) = self._device_approx_stage(
+                             achunk, nblk, _) = self._device_approx_stage(
                                 qstack, dlo, dhi, qb, qh, nseg, k, spec)
                     else:
                         neg = torch.full((b, k), -1, dtype=torch.int32,
@@ -394,4 +508,43 @@ class UlisseEngine:
                             results[i] = self._knn_result_rows(
                                 qs[i], spec, d2[row], sid[row], off[row],
                                 stats)
+        return results
+
+    def _local_approx_device(self, qs, spec: QuerySpec):
+        """Batched device approximate k-NN (paper Alg. 4): the approximate
+        stage alone, one result readback per same-length batch."""
+        k = spec.k
+        results: List[Optional[SearchResult]] = [None] * len(qs)
+        n_comb = self._index.search_envelopes().size
+        for qlen, idxs in self._group_by_len(qs):
+            for sub, queries, b in self._padded_batches(qs, idxs):
+                with span("query.approx_device"):
+                    with span("prepare"):
+                        (nseg, qstack, dlo, dhi, qb,
+                         qh) = self._stack_prepared(queries, spec)
+                    with span("device_scan"):
+                        ((ad2, asid, aoff), ast, cert, leaf_v, _, _, _,
+                         nblk, aplan) = self._device_approx_stage(
+                            qstack, dlo, dhi, qb, qh, nseg, k, spec)
+                        # the one result readback of the batch
+                        (ad2, asid, aoff, ast, cert, leaf_v) = (
+                            t.cpu().numpy() for t in
+                            (ad2, asid, aoff, ast, cert, leaf_v))
+                    with span("merge"):
+                        for row, i in enumerate(sub):
+                            stats = SearchStats(
+                                envelopes_total=n_comb,
+                                lb_computations=nblk,
+                                leaves_visited=int(leaf_v[row]),
+                                exact_from_approx=bool(cert[row]),
+                                envelopes_checked=int(ast[row, 1]),
+                                true_dist_computations=int(ast[row, 2]),
+                                dtw_lb_keogh=int(ast[row, 3]),
+                                dtw_full=int(ast[row, 4]),
+                                envelopes_pruned=int(ast[row, 5]),
+                                chunks_visited=int(ast[row, 0]),
+                                chunks_planned=aplan)
+                            results[i] = self._knn_result_rows(
+                                qs[i], spec, ad2[row], asid[row],
+                                aoff[row], stats)
         return results

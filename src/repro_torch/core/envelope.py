@@ -6,13 +6,17 @@ blocks of series so that the (series, anchor, master, segment) grid of
 one block stays within a fixed element budget on the device.
 
   non-normalized (Alg. 1):  a (S, n_env, gamma+1, w) grid of master-series
-    PAA coefficients, min/max-reduced over the master axis;
-  Z-normalized (Alg. 2):    a loop over subsequence lengths l' in
-    [lmin, lmax]; each step normalizes every master's segment sums by the
-    (offset, l') window statistics.
+    PAA coefficients, min/max-reduced over the master axis (plain torch:
+    the JAX package has no kernel for it);
+  Z-normalized (Alg. 2):    the length reduction over l' in [lmin, lmax]
+    of every master's normalized segment means, one `envelope_znorm`
+    kernel launch per block of series (its plain version is the JAX
+    build's loop over lengths).
 
 Segments not covered by any represented subsequence get (-inf, +inf)
-bounds so they contribute zero to every lower bound.
+bounds so they contribute zero to every lower bound.  Every division is
+an IEEE division on every device, as in the JAX build (torch divides a
+CUDA tensor by a Python number through its reciprocal).
 
 The prefix sums here are float32 cumsums, as in the reference; their
 rounding may differ from XLA's, so an iSAX symbol of the port's own build
@@ -24,6 +28,8 @@ import torch
 
 from repro_torch.core import isax
 from repro_torch.core.types import Collection, EnvelopeParams, EnvelopeSet
+from repro_torch.kernels.envelope import envelope_znorm
+from repro_torch.kernels.ref import true_div
 
 _INF = float("inf")
 
@@ -86,7 +92,7 @@ def build_envelopes_raw(series: torch.Tensor, p: EnvelopeParams):
     off, master_ok = _master_offsets(n, p, series.device)
     sums, seg_ok = _segment_sums(csum, off, p)
     mask = master_ok[..., None] & seg_ok
-    lo, hi = _masked_minmax(sums / p.seg_len, mask, dim=2)
+    lo, hi = _masked_minmax(true_div(sums, p.seg_len), mask, dim=2)
     lo, hi = _finalize(lo, hi)
     return lo, hi, master_ok.sum(dim=1, dtype=torch.int32)
 
@@ -94,47 +100,22 @@ def build_envelopes_raw(series: torch.Tensor, p: EnvelopeParams):
 def build_envelopes_znorm(series: torch.Tensor, p: EnvelopeParams):
     """Alg. 2 — Z-normalized Envelopes for a block of series.
 
-    Loops over subsequence lengths l' = lmin..lmax (the paper's second
-    loop); each step evaluates Eq. 2 for every (series, anchor, master,
-    segment):
+    Evaluates Eq. 2 for every (series, anchor, master, segment) and
+    length l' = lmin..lmax (the paper's second loop),
 
         paaNorm(o, l', z) = (segsum(o, z)/s - mu(o, l')) / sigma(o, l')
 
-    subject to (z+1)*s <= l' and o + l' <= n.
+    subject to (z+1)*s <= l' and o + l' <= n, and min/max-reduces it
+    (the `envelope_znorm` kernel, from the float32 prefix sums of the
+    centered series).  Returns (paa_lo, paa_hi) (S, n_env, w) and
+    n_master (n_env,).
     """
     n = series.shape[-1]
-    dev = series.device
     x = series.to(torch.float32)
     xc = x - x.mean(dim=-1, keepdim=True)
-    csum = _prefix(xc)
-    csum2 = _prefix(xc * xc)
-
-    off, master_ok = _master_offsets(n, p, dev)             # (n_env, g)
-    sums, seg_ok = _segment_sums(csum, off, p)              # (S, n_env, g, w)
-    base_mask = master_ok[..., None] & seg_ok
-    seg_mean = sums / p.seg_len
-    z_end = (torch.arange(p.w, device=dev) + 1) * p.seg_len  # (w,)
-    start = off.clamp(0, n).long()
-    c_start, c2_start = csum[:, start], csum2[:, start]     # (S, n_env, g)
-
-    shape = seg_mean.shape[:2] + (p.w,)
-    lo = torch.full(shape, _INF, device=dev)
-    hi = torch.full(shape, -_INF, device=dev)
-    for lprime in range(p.lmin, p.lmax + 1):
-        end = off + lprime
-        sub_ok = end <= n                                   # (n_env, g)
-        end_c = end.clamp(0, n).long()
-        s1 = csum[:, end_c] - c_start
-        s2 = csum2[:, end_c] - c2_start
-        mu = s1 / lprime
-        var = (s2 / lprime - mu * mu).clamp_min(0.0)
-        sigma = torch.sqrt(var).clamp_min(1e-8)
-        vals = (seg_mean - mu[..., None]) / sigma[..., None]
-        mask = base_mask & sub_ok[..., None] & (z_end <= lprime)
-        step_lo, step_hi = _masked_minmax(vals, mask, dim=2)
-        lo = torch.minimum(lo, step_lo)
-        hi = torch.maximum(hi, step_hi)
-    lo, hi = _finalize(lo, hi)
+    lo, hi = envelope_znorm(_prefix(xc), _prefix(xc * xc), lmin=p.lmin,
+                            lmax=p.lmax, gamma=p.gamma, seg_len=p.seg_len)
+    _, master_ok = _master_offsets(n, p, series.device)
     return lo, hi, master_ok.sum(dim=1, dtype=torch.int32)
 
 

@@ -1,4 +1,4 @@
-"""Verification for ULISSE search (the *executor* half), exact k-NN part.
+"""Verification for ULISSE search (the *executor* half), k-NN part.
 
 Everything that touches raw series data lives here: the chunked,
 LB-sorted, bsf-pruned exact scan over packed candidate rows, whose true
@@ -6,6 +6,14 @@ distances come from the `fused_gather_ed` kernel (ED) or from the
 LB_Keogh tier `fused_gather_lb_keogh` and the banded DP `dtw_survivors`
 on its survivors (DTW), the (B, k) device pool, and the result/stats
 containers.
+
+The host backend (`scan_backend="host"`, the reference's host-driven
+loop) verifies one query's envelopes at a time: `gather_windows` cuts
+the candidate windows on the device, `batch_ed` (ED) or `lb_keogh` then
+the `dtw_band` entry on the survivors (DTW) give their distances, and a
+numpy pool (`TopK`) keeps the best.  It reads back every chunk's bounds
+and distances by design; each readback goes through `to_host`, which
+counts it.
 
 The JAX package runs the scan as one `lax.while_loop` program.  Eager
 PyTorch pays a host sync for every stop test, so the scan here tests
@@ -23,10 +31,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.paa import znormalize
 from repro_torch.core.types import Collection
-from repro_torch.kernels.dtw_band import dtw_survivors
+from repro_torch.kernels.batch_ed import batch_ed
+from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
 from repro_torch.kernels.fused_verify import (fused_gather_ed,
                                               fused_gather_lb_keogh)
+from repro_torch.kernels.lb_keogh import lb_keogh
 
 _INF = float("inf")
 
@@ -90,6 +101,173 @@ class SearchResult:
     series: np.ndarray     # (k,) series ids
     offsets: np.ndarray    # (k,) window offsets
     stats: SearchStats
+
+
+class TopK:
+    """Host-side k-best pool over (dist, sid, off) triples (the
+    reference's, numpy)."""
+
+    def __init__(self, k: int):
+        self.k = k
+        self.d = np.full((0,), np.inf, np.float64)
+        self.s = np.zeros((0,), np.int64)
+        self.o = np.zeros((0,), np.int64)
+
+    def push(self, d, s, o):
+        d = np.concatenate([self.d, np.asarray(d, np.float64)])
+        s = np.concatenate([self.s, np.asarray(s, np.int64)])
+        o = np.concatenate([self.o, np.asarray(o, np.int64)])
+        # dedup (sid, off): the approx phase and the exact scan may verify
+        # the same envelope; a subsequence must appear in the pool once
+        order = np.lexsort((d, o, s))
+        d, s, o = d[order], s[order], o[order]
+        first = np.ones(len(d), bool)
+        first[1:] = (s[1:] != s[:-1]) | (o[1:] != o[:-1])
+        d, s, o = d[first], s[first], o[first]
+        order = np.argsort(d, kind="stable")[: self.k]
+        self.d, self.s, self.o = d[order], s[order], o[order]
+
+    @property
+    def kth(self) -> float:
+        return float(self.d[-1]) if len(self.d) == self.k else np.inf
+
+    def result(self, stats: SearchStats) -> SearchResult:
+        return SearchResult(dists=np.sqrt(np.maximum(self.d, 0.0)),
+                            series=self.s, offsets=self.o, stats=stats)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host: one device-to-host readback (a
+    sync) of the host backend, counted in `to_host.syncs`."""
+    to_host.syncs += 1
+    return t.cpu().numpy()
+
+
+to_host.syncs = 0
+
+
+def host_envelopes(index) -> dict:
+    """Host (numpy) copies of the candidate set's series_id, anchor,
+    n_master and valid columns, cached on the index: the host backend
+    plans its gathers from them without reading the device."""
+    env = index.search_envelopes()
+    cached = getattr(index, "_host_envelopes", None)
+    if cached is None or cached[0] is not env.series_id:
+        cached = (env.series_id, {
+            f: getattr(env, f).cpu().numpy()
+            for f in ("series_id", "anchor", "n_master", "valid")})
+        index._host_envelopes = cached
+    return cached[1]
+
+
+def gather_windows(data: torch.Tensor, sids: np.ndarray,
+                   anchors: np.ndarray, n_master: np.ndarray, qlen: int,
+                   g: int):
+    """Raw candidate windows for a batch of E envelopes.
+
+    Each envelope contributes g = gamma+1 candidate offsets anchor ..
+    anchor + g - 1, valid where the master exists (< n_master) and the
+    window fits the series; invalid ones read the window at the offset
+    clipped into the series.  sids / anchors / n_master are (E,) host
+    arrays.  Returns windows (E*g, qlen) on data's device, and the host
+    arrays ok (E*g,) and offs (E*g,).
+    """
+    n = data.shape[1]
+    offs = anchors.astype(np.int64)[:, None] + np.arange(g)     # (E, g)
+    ok = (np.arange(g)[None, :] < n_master[:, None]) & (offs + qlen <= n)
+    at = np.stack([np.repeat(sids.astype(np.int64), g),
+                   np.clip(offs, 0, n - qlen).reshape(-1)])
+    at = torch.from_numpy(at).to(data.device, non_blocking=True)
+    windows = data.unfold(1, qlen, 1)[at[0], at[1]].contiguous()
+    return windows, ok.reshape(-1), offs.reshape(-1)
+
+
+def ed_batch(windows: torch.Tensor, q: torch.Tensor,
+             znorm: bool) -> torch.Tensor:
+    """Squared ED (M,) of windows (M, l) to one prepared query (l,): the
+    `batch_ed` kernel at one query."""
+    return batch_ed(windows, q[None], znorm)[:, 0]
+
+
+def lb_keogh_batch(windows, dtw_lo, dtw_hi, znorm: bool):
+    """(squared LB_Keogh (M,), the windows it read): Z-normalized windows
+    in plain torch when znorm, then the `lb_keogh` kernel."""
+    if znorm:
+        windows = znormalize(windows)
+    return lb_keogh(dtw_lo, dtw_hi, windows), windows
+
+
+def dtw_batch(windows, q, r: int):
+    """Squared banded DTW (M,) of q against windows (M, l), already
+    normalized where the index is: the `dtw_band` kernel."""
+    return dtw_band(q, windows, r)
+
+
+def verify_envelopes(index, pq, env_idx: np.ndarray, pool: TopK,
+                     stats: SearchStats, eps2: Optional[float] = None,
+                     collector: Optional[list] = None):
+    """Compute true distances for all candidates of the given envelopes
+    (indices into the candidate set, host array).
+
+    Updates the pool (k-NN) or appends (sid, off, d2) rows below eps2 to
+    `collector` (range query).  Distances are squared throughout.
+    """
+    p = index.params
+    g = p.gamma + 1
+    host = host_envelopes(index)
+    sids = host["series_id"][env_idx]
+    windows, ok, offs = gather_windows(
+        index.collection.data, sids, host["anchor"][env_idx],
+        host["n_master"][env_idx], pq.qlen, g)
+    stats.envelopes_checked += len(env_idx)
+    verify_windows(windows, np.repeat(sids, g), offs, ok, pq, p.znorm,
+                   pool, stats, eps2=eps2, collector=collector)
+
+
+def verify_windows(windows, all_sids: np.ndarray, offs_np: np.ndarray,
+                   ok_np: np.ndarray, pq, znorm: bool, pool: TopK,
+                   stats: SearchStats, *, eps2: Optional[float] = None,
+                   collector: Optional[list] = None):
+    """Distance tiers + pool/collector update for gathered candidate
+    windows (B*g, qlen) — one copy of the cut rules for every host-side
+    caller.
+
+    ED: the dot-identity distance of every window, read back.  DTW:
+    LB_Keogh of every window, read back; the survivors (lb2 < kth for
+    k-NN, lb2 <= eps2 for range: lb <= d, so a strict range cut would
+    drop boundary hits) get the banded DP on the same normalized windows
+    the LB read, read back.  The reference pads the survivors to a power
+    of two to bound recompiles; eager torch needs no padding, and the
+    counters count the survivors either way.
+    """
+    if pq.measure == "ed":
+        d2 = to_host(ed_batch(windows, pq.q, znorm)).astype(np.float64)
+        d2[~ok_np] = np.inf
+        stats.true_dist_computations += int(ok_np.sum())
+    else:
+        lb2, wn = lb_keogh_batch(windows, pq.dtw_lo, pq.dtw_hi, znorm)
+        lb2 = to_host(lb2).astype(np.float64)
+        lb2[~ok_np] = np.inf
+        stats.dtw_lb_keogh += int(ok_np.sum())
+        if eps2 is None:
+            survivors = np.nonzero(lb2 < pool.kth)[0]
+        else:
+            survivors = np.nonzero(lb2 <= eps2)[0]
+        d2 = np.full(lb2.shape, np.inf)
+        if len(survivors) > 0:
+            pick = torch.from_numpy(survivors).to(wn.device,
+                                                  non_blocking=True)
+            d2[survivors] = to_host(dtw_batch(wn[pick], pq.q, pq.r))
+            stats.dtw_full += len(survivors)
+        stats.true_dist_computations += len(survivors)
+
+    if collector is not None:
+        hit = np.nonzero(d2 <= eps2)[0]
+        if len(hit):
+            collector.append(np.stack([all_sids[hit], offs_np[hit],
+                                       d2[hit]], axis=1))
+    else:
+        pool.push(d2, all_sids, offs_np)
 
 
 def pow2ceil(x: int) -> int:

@@ -3,27 +3,71 @@
 A plan is everything derivable from (query, index params) before any raw
 data is touched: the (possibly Z-normalized) query, its PAA interval,
 lower bounds of blocks and envelopes, and the LB-sorted candidate packs
-the executor scans.  Everything here stays on the device: the only host
-syncs of a search are the executor's stop tests and the engine's one
-result readback.
+or orders the executor scans.
 
-The exact k-NN part of `repro/core/planner.py` (ED and DTW): the lower
-bounds go through the `mindist` kernels; every argsort is stable, as
-`jnp.argsort` is.
+The k-NN part of `repro/core/planner.py` (ED and DTW): the lower
+bounds go through the `mindist` kernels.  Two flavours, as in the
+reference:
+
+  * the device pipeline (`prepare_query_batch`, `*_lower_bounds_batch`,
+    `device_leaf_pack`, `device_scan_pack`): batched, every argsort
+    stable as `jnp.argsort` is, nothing read back (the only host syncs of
+    a device search are the executor's stop tests and the engine's one
+    result readback);
+  * the host backend (`prepare_query`, `env_lower_bounds`,
+    `block_lower_bounds`, `plan_leaf_order`, `plan_scan_order`): one
+    query; the orders are computed on the host by the reference's own
+    numpy call (`np.argsort`, its default kind) over float64 copies of
+    the bounds, so ties at 0 break the same way and the scan visits the
+    same chunks.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import dtw
+from repro_torch.core.executor import to_host
 from repro_torch.core.paa import paa, znormalize
 from repro_torch.core.types import EnvelopeParams, EnvelopeSet
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym
 
 _INF = float("inf")
+
+
+@dataclasses.dataclass
+class PreparedQuery:
+    """Everything derived from Q once per query (paper Alg. 4 lines 1-2),
+    as tensors on the search's device."""
+
+    q: torch.Tensor           # (possibly Z-normalized) query values (l,)
+    qlen: int
+    nseg: int                 # floor(|Q| / s)
+    paa_lo: torch.Tensor      # (l // s,) query interval in PAA space
+    paa_hi: torch.Tensor
+    dtw_lo: Optional[torch.Tensor] = None   # (l,) dtwENV for LB_Keogh
+    dtw_hi: Optional[torch.Tensor] = None
+    measure: str = "ed"
+    r: int = 0
+
+
+def prepare_query(q, p: EnvelopeParams, measure: str = "ed", r: int = 0, *,
+                  device) -> PreparedQuery:
+    """One query's prep on `device` (`prepare_query_batch` at B = 1)."""
+    q = torch.as_tensor(np.asarray(q, np.float32), device=device)
+    qlen = int(q.shape[-1])
+    nseg = p.query_segments(qlen)
+    qn, dlo, dhi, qb, qh = prepare_query_batch(q[None], p.seg_len, p.znorm,
+                                               measure, r)
+    if measure == "ed":
+        return PreparedQuery(q=qn[0], qlen=qlen, nseg=nseg, paa_lo=qb[0],
+                             paa_hi=qh[0])
+    return PreparedQuery(q=qn[0], qlen=qlen, nseg=nseg, paa_lo=qb[0],
+                         paa_hi=qh[0], dtw_lo=dlo[0], dtw_hi=dhi[0],
+                         measure="dtw", r=r)
 
 
 def prepare_query_batch(q: torch.Tensor, seg_len: int, znorm: bool,
@@ -91,6 +135,44 @@ def block_lower_bounds_batch(paa_lo, paa_hi, blk_lo, blk_hi, blk_valid,
     PAA-valued: block unions are built from raw L/U PAA bounds)."""
     return mindist_paa(paa_lo, paa_hi, blk_lo, blk_hi, blk_valid, seg_len,
                        nseg)
+
+
+def env_lower_bounds(paa_lo, paa_hi, env: EnvelopeSet, breakpoints,
+                     seg_len: int, nseg: int, use_paa: bool):
+    """Lower bounds (N,) of one query interval to every envelope
+    (`env_lower_bounds_batch` at B = 1)."""
+    return env_lower_bounds_batch(paa_lo[None], paa_hi[None], env,
+                                  breakpoints, seg_len, nseg, use_paa)[0]
+
+
+def block_lower_bounds(paa_lo, paa_hi, blk_lo, blk_hi, blk_valid,
+                       seg_len: int, nseg: int):
+    """Lower bounds (Nb,) of one query interval to the block unions
+    (`block_lower_bounds_batch` at B = 1)."""
+    return block_lower_bounds_batch(paa_lo[None], paa_hi[None], blk_lo,
+                                    blk_hi, blk_valid, seg_len, nseg)[0]
+
+
+def plan_leaf_order(index, pq: PreparedQuery
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Best-first order over the finest block level: (order, block_lbs),
+    on the host."""
+    fine = index.levels[-1]
+    blk_lb = to_host(block_lower_bounds(
+        pq.paa_lo, pq.paa_hi, fine.paa_lo, fine.paa_hi, fine.valid,
+        index.params.seg_len, pq.nseg)).astype(np.float64)
+    return np.argsort(blk_lb), blk_lb
+
+
+def plan_scan_order(index, pq: PreparedQuery, use_paa_bounds: bool = False
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """LB-sorted envelope order for the host exact scan: (order,
+    sorted_lbs), on the host."""
+    lbs = to_host(env_lower_bounds(
+        pq.paa_lo, pq.paa_hi, index.search_envelopes(), index.breakpoints,
+        index.params.seg_len, pq.nseg, use_paa_bounds)).astype(np.float64)
+    order = np.argsort(lbs)
+    return order, lbs[order]
 
 
 def device_leaf_pack(env_sid, env_anchor, env_nm, env_valid, blk_lb,

@@ -64,6 +64,24 @@ SIGNATURES = {
         "ulisse_dtw_survivors": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
                                  _I, _I, _I, _I, _I, _V],
     },
+    "envelope": {
+        # csum, csum2, lo, hi, num_series, n, n_env, lmin, lmax, gamma,
+        # seg_len, stream
+        "ulisse_envelope_znorm": [_V, _V, _V, _V, _L, _I, _I, _I, _I, _I,
+                                  _I, _V],
+        # segmean, s1, s2, offsets, lo, hi, m, w, n_len, n, lmin, seg_len,
+        # stream
+        "ulisse_envelope_znorm_masters": [_V, _V, _V, _V, _V, _V, _L, _I,
+                                          _I, _I, _I, _I, _V],
+    },
+    "batch_ed": {
+        # windows, queries, out, num, l, qb, znorm, stream
+        "ulisse_batch_ed": [_V, _V, _V, _L, _I, _I, _I, _V],
+    },
+    "lb_keogh": {
+        # env_lo, env_hi, windows, out, num, l, stream
+        "ulisse_lb_keogh": [_V, _V, _V, _V, _L, _I, _V],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -7,11 +7,31 @@ and the tests and `chip_smoke.py` hold the kernels against them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import dtw
 from repro_torch.core.bounds import (envelope_breakpoint_bounds,
                                      interval_mindist)
+
+# the per-master envelope entry's sentinels for cells never valid (the
+# TPU kernel's +/-BIG; the build entry finalizes to -inf / +inf instead)
+ENVELOPE_BIG = 3.0e38
+
+
+def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """A correctly rounded float32 square root on every device, as CUDA's
+    `sqrtf`: torch's vectorized float32 sqrt on the CPU is not (an ulp
+    off for ~13% of uniform inputs with the AVX512 kernels), while the
+    float64 root rounded to float32 is (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(x.double()).float()
+
+
+def true_div(x: torch.Tensor, d) -> torch.Tensor:
+    """x / d as an IEEE division on every device: torch divides a CUDA
+    tensor by a Python number through its reciprocal, so the divisor is
+    made a tensor on x's device."""
+    return x / torch.tensor(float(d), dtype=x.dtype, device=x.device)
 
 
 def mindist_ref(q_lo: torch.Tensor, q_hi: torch.Tensor, e_lo: torch.Tensor,
@@ -109,11 +129,8 @@ def fused_gather_lb_keogh_ref(data, csum, csum2, csum_lo, csum2_lo, center,
     if znorm:
         s1, s2 = _window_sums(csum, csum2, csum_lo, csum2_lo, sids,
                               anchors, qlen, g)
-        # a true division, as the kernel's: on the card torch divides by
-        # a Python number through its reciprocal
-        length = torch.tensor(float(qlen), device=data.device)
-        mu_c = s1 / length
-        var = s2 / length - mu_c * mu_c
+        mu_c = true_div(s1, qlen)            # the kernel's IEEE division
+        var = true_div(s2, qlen) - mu_c * mu_c
         sd = torch.sqrt(var.clamp_min(0.0)).clamp_min(1e-8)
         mu = mu_c + center[sids.long()][:, None]
     else:
@@ -160,3 +177,114 @@ def dtw_survivors_ref(data, qs, sidx, nsurv, cand_sid, cand_off, mu, sd, *,
     out = torch.full((b_sz, m), float("inf"), device=data.device)
     out[live] = dtw.dtw_band(qs[rows], wb, r, squared=True)
     return out
+
+
+def batch_ed_ref(windows: torch.Tensor, queries: torch.Tensor,
+                 znorm: bool) -> torch.Tensor:
+    """Squared ED of windows (N, L) against queries (Qb, L): (N, Qb).
+
+    The dot identity of `batch_ed_pallas`: Z-normalized (queries already
+    normalized) 2L - 2 dot / sd_w with mu = sum(w) * (1/L) and
+    sd = max(sqrt(max(sum(w^2) * (1/L) - mu^2, 0)), 1e-8); raw
+    sum(w^2) - 2 dot + sum(q^2).  Clamped at 0.
+    """
+    l = windows.shape[-1]
+    dots = windows @ queries.t()                             # (N, Qb)
+    if znorm:
+        inv_l = float(np.float32(1.0) / np.float32(l))
+        mu = windows.sum(dim=-1) * inv_l
+        var = (windows * windows).sum(dim=-1) * inv_l - mu * mu
+        sd = torch.sqrt(var.clamp_min(0.0)).clamp_min(1e-8)
+        d2 = 2.0 * l - (2.0 * dots) / sd[:, None]
+    else:
+        wss = (windows * windows).sum(dim=-1)
+        qss = (queries * queries).sum(dim=-1)
+        d2 = wss[:, None] - 2.0 * dots + qss[None, :]
+    return d2.clamp_min(0.0)
+
+
+def lb_keogh_ref(env_lo: torch.Tensor, env_hi: torch.Tensor,
+                 windows: torch.Tensor) -> torch.Tensor:
+    """Squared LB_Keogh (paper Eq. 6) of windows (N, L) against one
+    envelope (L,): (N,)."""
+    return dtw.lb_keogh(env_lo, env_hi, windows, squared=True)
+
+
+def _znorm_stats(s1, s2, lprime: torch.Tensor):
+    """(mu, sigma) of windows of length lprime (a float32 tensor on their
+    device, so the divisions are IEEE) from their sum s1 and sum of
+    squares s2: the JAX build's float32 formulas."""
+    mu = s1 / lprime
+    var = (s2 / lprime - mu * mu).clamp_min(0.0)
+    return mu, ieee_sqrt(var).clamp_min(1e-8)
+
+
+def envelope_scan_ref(segmean, s1, s2, offsets, *, n: int, lmin: int,
+                      seg_len: int):
+    """Alg. 2 length reduction per master, materialized (the TPU
+    kernel's contract, `envelope_znorm_pallas`).
+
+    segmean (M, w) segment means per master offset, s1/s2 (M, L) window
+    sums and sums of squares for lengths lmin .. lmin + L - 1, offsets
+    (M,).  Returns (lo, hi) (M, w): the min / max over lengths of
+    (segmean - mu) / sigma, over cells with (z+1) * seg_len <= l' and
+    offset + l' <= n; where no cell is valid lo stays +ENVELOPE_BIG and
+    hi -ENVELOPE_BIG.
+    """
+    m, w = segmean.shape
+    n_len = s1.shape[1]
+    dev = segmean.device
+    lprime = lmin + torch.arange(n_len, device=dev)
+    mu, sigma = _znorm_stats(s1, s2, lprime.to(torch.float32)[None, :])
+    vals = (segmean[:, None, :] - mu[..., None]) / sigma[..., None]
+    seg_end = (torch.arange(w, device=dev) + 1) * seg_len
+    mask = ((seg_end[None, None, :] <= lprime[None, :, None])
+            & ((offsets.long()[:, None] + lprime) <= n)[..., None])
+    lo = torch.where(mask, vals, ENVELOPE_BIG).amin(dim=1)
+    hi = torch.where(mask, vals, -ENVELOPE_BIG).amax(dim=1)
+    return lo, hi
+
+
+def envelope_znorm_ref(csum: torch.Tensor, csum2: torch.Tensor, *,
+                       lmin: int, lmax: int, gamma: int, seg_len: int):
+    """Z-normalized envelopes (paper Alg. 2) of S series from their
+    float32 prefix sums csum / csum2 (S, n+1) of the centered values and
+    their squares: (lo, hi) (S, n_env, w).
+
+    The loop over lengths l' = lmin .. lmax of the JAX build: for every
+    (anchor, master offset o, segment z) the normalized PAA value
+    (segsum(o, z) / s - mu(o, l')) / sigma(o, l') under (z+1) * s <= l'
+    and o + l' <= n, min/max-reduced over masters and lengths; segments
+    no cell touched get (-inf, +inf).
+    """
+    s_cnt, np1 = csum.shape
+    n = np1 - 1
+    dev = csum.device
+    g = gamma + 1
+    w = lmax // seg_len
+    n_env = -(-(n - lmin + 1) // g)
+    off = (torch.arange(n_env, device=dev)[:, None] * g
+           + torch.arange(g, device=dev))                    # (n_env, g)
+    z_end = (torch.arange(w, device=dev) + 1) * seg_len      # (w,)
+    start = off[..., None] + z_end - seg_len                 # (n_env, g, w)
+    seg_mean = true_div(csum[:, (start + seg_len).clamp(max=n)]
+                        - csum[:, start.clamp(max=n)], seg_len)
+    o = off.clamp(max=n)
+    c_start, c2_start = csum[:, o], csum2[:, o]              # (S, n_env, g)
+    lo = torch.full((s_cnt, n_env, w), float("inf"), device=dev)
+    hi = torch.full((s_cnt, n_env, w), -float("inf"), device=dev)
+    for lprime in range(lmin, lmax + 1):
+        end = off + lprime
+        end_c = end.clamp(max=n)
+        mu, sigma = _znorm_stats(
+            csum[:, end_c] - c_start, csum2[:, end_c] - c2_start,
+            torch.tensor(float(lprime), device=dev))
+        vals = (seg_mean - mu[..., None]) / sigma[..., None]
+        mask = (end <= n)[..., None] & (z_end <= lprime)    # (n_env, g, w)
+        lo = torch.minimum(lo, torch.where(mask, vals, float("inf"))
+                           .amin(dim=2))
+        hi = torch.maximum(hi, torch.where(mask, vals, -float("inf"))
+                           .amax(dim=2))
+    untouched = lo > hi
+    return (torch.where(untouched, -float("inf"), lo),
+            torch.where(untouched, float("inf"), hi))

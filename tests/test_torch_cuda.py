@@ -10,7 +10,10 @@ fused_gather_lb_keogh lb2 rtol 2e-4 / atol 2e-3, mu 1e-4 / 1e-4 and
 sd 1e-3 / 1e-4 (the reference kernel test's: sd cancels when |mu| >>
 sd), the DTW kernels rtol 1e-4 / atol 1e-3
 (the kernel runs the recurrence; the plain closed form's cumsum over the
-band cancels in float32 by up to ~1e-3 at these lengths).
+band cancels in float32 by up to ~1e-3 at these lengths), batch_ed
+rtol 2e-4 / atol 2e-3 and lb_keogh rtol 1e-5 / atol 1e-5 (the reference
+kernel tests'); envelope_znorm bit for bit (kernel and plain version
+share their arithmetic: IEEE divisions, no contraction).
 """
 import dataclasses
 
@@ -22,9 +25,15 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import (Collection, EnvelopeParams,  # noqa: E402
                               QuerySpec, UlisseEngine)
 from repro_torch.core import dtw, executor  # noqa: E402
+from repro_torch.core import isax  # noqa: E402
+from repro_torch.core.envelope import _prefix, build_envelope_set  # noqa: E402
 from repro_torch.core.index import build_index  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.batch_ed import batch_ed  # noqa: E402
 from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors  # noqa: E402
+from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
+                                          envelope_znorm_masters)
+from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
 from repro_torch.kernels.fused_verify import (  # noqa: E402
     fused_gather_ed, fused_gather_lb_keogh)
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
@@ -235,3 +244,156 @@ def test_dtw_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
                                        atol=1e-4)
             assert dataclasses.asdict(a.stats) == \
                 dataclasses.asdict(b.stats)
+
+
+# -- slice 3: the index build's and the host backend's kernels -------------
+
+@pytest.mark.parametrize("qlen,qb", [(160, 1), (256, 1), (160, 8),
+                                     (256, 8), (97, 3), (64, 11)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_batch_ed_matches_plain(dev, qlen, qb, znorm):
+    """The host chunk's 25,088 windows at the path's lengths, a length
+    that is not a multiple of 4 (scalar loads) and 11 queries (two
+    register groups)."""
+    rng = np.random.default_rng(qlen + qb)
+    w = _t((rng.normal(size=(25_088, qlen)) * 3 + 1).astype(np.float32), dev)
+    q = _t(rng.normal(size=(qb, qlen)).astype(np.float32), dev)
+    if znorm:
+        q = ((q - q.mean(-1, keepdim=True))
+             / q.std(-1, keepdim=True, correction=0)).contiguous()
+    before = batch_ed.launches
+    got = batch_ed(w, q, znorm)
+    torch.cuda.synchronize()
+    assert batch_ed.launches == before + 1
+    _close(got, ref.batch_ed_ref(w, q, znorm), 2e-4, 2e-3)
+
+
+@pytest.mark.parametrize("qlen", [160, 256, 97])
+def test_lb_keogh_matches_plain(dev, qlen):
+    rng = np.random.default_rng(qlen)
+    w = _t(rng.normal(size=(25_088, qlen)).astype(np.float32), dev)
+    lo, hi = dtw.dtw_envelope(_t(rng.normal(size=qlen).astype(np.float32),
+                                 dev), max(1, qlen // 10))
+    before = lb_keogh.launches
+    got = lb_keogh(lo.contiguous(), hi.contiguous(), w)
+    torch.cuda.synchronize()
+    assert lb_keogh.launches == before + 1
+    _close(got, ref.lb_keogh_ref(lo, hi, w), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("n,lmin,lmax,gamma,seg", [
+    (256, 160, 256, 48, 16), (192, 64, 128, 8, 16), (100, 24, 40, 3, 8),
+    (300, 96, 160, 255, 16)])
+def test_envelope_znorm_bit_equal_to_plain(dev, n, lmin, lmax, gamma, seg):
+    """The build entry from one pair of prefix sums (made on the card):
+    the kernel, the plain version on the card and the plain version on
+    the CPU give the same values; so do the per-master entry and its
+    plain version."""
+    rng = np.random.default_rng(n + gamma)
+    x = _t(np.cumsum(rng.normal(size=(300, n)), -1).astype(np.float32), dev)
+    xc = x - x.mean(dim=-1, keepdim=True)
+    csum, csum2 = _prefix(xc), _prefix(xc * xc)
+    kw = dict(lmin=lmin, lmax=lmax, gamma=gamma, seg_len=seg)
+    before = envelope_znorm.launches
+    got = envelope_znorm(csum, csum2, **kw)
+    torch.cuda.synchronize()
+    assert envelope_znorm.launches == before + 1
+    card = ref.envelope_znorm_ref(csum, csum2, **kw)
+    cpu = ref.envelope_znorm_ref(csum.cpu(), csum2.cpu(), **kw)
+    for k, c, h in zip(got, card, cpu):
+        assert torch.equal(k, c) and torch.equal(k.cpu(), h)
+        assert torch.isfinite(k).any()
+    # per master: every master of the first series, all lengths
+    m = n - lmin + 1
+    offs = torch.arange(m, device=dev)
+    w = lmax // seg
+    start = offs[:, None] + torch.arange(w, device=dev) * seg
+    segmean = ref.true_div(csum[0, (start + seg).clamp(max=n)]
+                           - csum[0, start.clamp(max=n)], seg)
+    ends = (offs[:, None] + torch.arange(lmin, lmax + 1, device=dev)
+            ).clamp(max=n)
+    s1 = (csum[0, ends] - csum[0, offs][:, None]).contiguous()
+    s2 = (csum2[0, ends] - csum2[0, offs][:, None]).contiguous()
+    args = (segmean.contiguous(), s1, s2, offs.to(torch.int32))
+    got = envelope_znorm_masters(*args, n=n, lmin=lmin, seg_len=seg)
+    want = ref.envelope_scan_ref(*args, n=n, lmin=lmin, seg_len=seg)
+    torch.cuda.synchronize()
+    for k, c in zip(got, want):
+        assert torch.equal(k, c)
+
+
+def _host_engines(znorm, dev):
+    rng = np.random.default_rng(9)
+    data = np.cumsum(rng.normal(size=(64, 256)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, card=256, gamma=48,
+                       znorm=znorm)
+    idx = build_index(Collection.from_array(data, device="cpu"), p,
+                      block_size=16, num_levels=2)
+    windows = [(i, 3 * i, 200) for i in range(3)] + [(5, 0, 256)]
+    qs = [data[s, o:o + qlen] + rng.normal(size=qlen).astype(np.float32)
+          * 0.05 for s, o, qlen in windows]
+    return (UlisseEngine.from_index(idx, device="cpu"),
+            UlisseEngine.from_index(idx, device=dev), qs)
+
+
+@pytest.mark.parametrize("measure", ["ed", "dtw"])
+@pytest.mark.parametrize("znorm", [True, False], ids=["znorm", "raw"])
+def test_host_backend_on_cuda_equals_cpu(dev, znorm, measure):
+    """scan_backend="host" on one index, two devices: the same answers
+    and counters through batch_ed (ED) or lb_keogh + dtw_band (DTW);
+    distances are float32 on both (ED atol 5e-3, DTW rtol 1e-3)."""
+    cpu, gpu, qs = _host_engines(znorm, dev)
+    spec = QuerySpec(k=5, measure=measure, r=20 if measure == "dtw" else 0,
+                     scan_backend="host")
+    wrappers = (batch_ed,) if measure == "ed" else (lb_keogh, dtw_band)
+    before = [w.launches for w in wrappers]
+    got = gpu.search(qs, spec)
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    want = cpu.search(qs, spec)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.series, b.series)
+        np.testing.assert_array_equal(a.offsets, b.offsets)
+        if measure == "ed":
+            np.testing.assert_allclose(a.dists, b.dists, rtol=0, atol=5e-3)
+        else:
+            np.testing.assert_allclose(a.dists, b.dists, rtol=1e-3,
+                                       atol=1e-4)
+        assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats)
+
+
+@pytest.mark.parametrize("measure", ["ed", "dtw"])
+def test_approx_on_cuda_equals_cpu(dev, measure):
+    """mode="approx" (device backend) on one index, two devices."""
+    cpu, gpu, qs = _host_engines(True, dev)
+    spec = QuerySpec(k=5, measure=measure, r=20 if measure == "dtw" else 0,
+                     mode="approx")
+    got, want = gpu.search(qs, spec), cpu.search(qs, spec)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.series, b.series)
+        np.testing.assert_array_equal(a.offsets, b.offsets)
+        np.testing.assert_allclose(a.dists, b.dists, rtol=1e-3,
+                                   atol=1e-9 if measure == "ed" else 1e-4)
+        assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats)
+
+
+def test_index_build_on_cuda(dev):
+    """The Z-normalized build on the card goes through envelope_znorm and
+    gives the CPU build's envelopes (the float32 prefix sums are cumsums
+    of another order: bounds to 1e-5, symbols to 99.9%)."""
+    rng = np.random.default_rng(10)
+    data = np.cumsum(rng.normal(size=(200, 256)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, card=256, gamma=48)
+    bp = isax.gaussian_breakpoints(p.card, "cpu")
+    before = envelope_znorm.launches
+    gpu = build_envelope_set(Collection.from_array(data, device=dev), p,
+                             bp.to(dev))
+    assert envelope_znorm.launches > before
+    cpu = build_envelope_set(Collection.from_array(data, device="cpu"), p,
+                             bp)
+    for f in ("paa_lo", "paa_hi"):
+        np.testing.assert_allclose(getattr(gpu, f).cpu().numpy(),
+                                   getattr(cpu, f).numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    for f in ("sym_lo", "sym_hi"):
+        agree = (getattr(gpu, f).cpu() == getattr(cpu, f)).float().mean()
+        assert float(agree) >= 0.999

@@ -301,11 +301,15 @@ def test_port_dtw_brute_force_matches_reference(engines):
 
 
 def test_dtw_range_and_approx_still_raise(engines):
+    """DTW range still raises (ROADMAP item 8); DTW approx-only is ported
+    (item 9) and answers with k finite ascending distances."""
     _, data, _, port, _ = engines
     q = data[0, :96]
-    for kw, item in ((dict(eps=1.0), "8"), (dict(mode="approx"), "9")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            port.search(q, QuerySpec(measure="dtw", r=4, **kw))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        port.search(q, QuerySpec(measure="dtw", r=4, eps=1.0))
+    res = port.search(q, QuerySpec(measure="dtw", r=4, k=3, mode="approx"))
+    assert len(res.dists) == 3 and np.isfinite(res.dists).all()
+    assert (np.diff(res.dists) >= 0).all()
 
 
 def test_dtw_kernels_never_take_the_plain_path_off_cpu():

@@ -165,15 +165,20 @@ def test_admission_matches_reference(q):
 
 
 def test_unported_paths_raise(engines):
+    """Range search (device and host) still raises, naming its ROADMAP
+    item; approx-only and the host backend are ported and answer."""
     _, data, _, port, _ = engines
     q = data[0, :96]
     for kw, item in ((dict(eps=1.0), "8"), (dict(measure="dtw", r=4,
                                                  eps=1.0), "8"),
-                     (dict(mode="approx"), "9"),
-                     (dict(measure="dtw", r=4, mode="approx"), "9"),
-                     (dict(scan_backend="host"), "9")):
+                     (dict(eps=1.0, scan_backend="host"), "8")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             port.search(q, QuerySpec(**kw))
+    for kw in (dict(mode="approx"), dict(measure="dtw", r=4, mode="approx"),
+               dict(scan_backend="host")):
+        res = port.search(q, QuerySpec(k=3, **kw))
+        assert len(res.dists) == 3 and np.isfinite(res.dists).all()
+        assert (np.diff(res.dists) >= 0).all()
     with pytest.raises(NotImplementedError, match="item 10"):
         port.append(data[:1])
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -8,7 +8,16 @@ Tolerances:
     float32 dot-product identity whose dot is summed in another order
     (the reference multiplies by a banded Toeplitz matrix);
   * mindist: rtol 1e-6 / atol 1e-6 — the same float32 gaps, summed over
-    at most w segments.
+    at most w segments;
+  * batch_ed: rtol 2e-4 / atol 2e-3 and lb_keogh: rtol 1e-5 / atol 1e-5,
+    the reference kernel tests' (sums taken in another order);
+  * envelope_znorm_masters: rtol 1e-5 / atol 1e-5 against the Pallas
+    kernel (the reference test's: it multiplies by 1/l' where the port
+    divides) and 1e-6 against `repro.kernels.ref.envelope_scan_ref`;
+  * the build entry `envelope_znorm` against the JAX build
+    (`repro.kernels.ref.envelope_znorm_ref`): rtol 1e-5 / atol 1e-5 and
+    the same unconstrained (+-inf) segments — the float32 prefix sums are
+    cumsums taken in another order.
 
 The CUDA kernels themselves are held against the same plain versions on
 the card, in test_torch_cuda.py.
@@ -25,10 +34,21 @@ from repro.core import planner as jplanner  # noqa: E402
 from repro.core.types import EnvelopeSet as JEnvelopeSet  # noqa: E402
 from repro.kernels.fused_verify import \
     fused_gather_ed as j_fused_gather_ed  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.batch_ed import batch_ed_pallas  # noqa: E402
+from repro.kernels.envelope import envelope_znorm_pallas  # noqa: E402
+from repro.kernels.lb_keogh import lb_keogh_pallas  # noqa: E402
 from repro.kernels.mindist import mindist_pallas  # noqa: E402
 from repro_torch.core import Collection, planner  # noqa: E402
+from repro_torch.core.envelope import _prefix  # noqa: E402
 from repro_torch.core.types import EnvelopeSet  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.batch_ed import batch_ed  # noqa: E402
+from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
+                                          envelope_znorm_masters)
 from repro_torch.kernels.fused_verify import fused_gather_ed  # noqa: E402
+from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
 
 RNG = np.random.default_rng(0)
@@ -180,3 +200,158 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         mindist_paa(q, q, e, e, torch.empty(16, dtype=torch.bool, **meta),
                     16, 8)
     assert fused_gather_ed.launches == 0 and mindist_paa.launches == 0
+
+
+# -- the host backend's kernels and the index build's ----------------------
+
+@pytest.mark.parametrize("n,l,qb", [(33, 96, 1), (257, 160, 4),
+                                    (64, 256, 7)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_batch_ed_matches_pallas(n, l, qb, znorm):
+    rng = np.random.default_rng(n + l + qb)
+    w = (rng.normal(size=(n, l)) * 3 + 1).astype(np.float32)
+    q = rng.normal(size=(qb, l)).astype(np.float32)
+    if znorm:
+        q = (q - q.mean(-1, keepdims=True)) / q.std(-1, keepdims=True)
+    got = batch_ed(_t(w), _t(q), znorm)
+    assert got.shape == (n, qb) and got.dtype == torch.float32
+    for want in (batch_ed_pallas(jnp.asarray(w), jnp.asarray(q), znorm,
+                                 interpret=True),
+                 jref.batch_ed_ref(jnp.asarray(w), jnp.asarray(q), znorm)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("n,l", [(13, 64), (140, 200), (65, 256)])
+def test_lb_keogh_matches_pallas(n, l):
+    rng = np.random.default_rng(n + l)
+    lo = (rng.normal(size=l) - 1).astype(np.float32)
+    hi = lo + np.float32(2.0)
+    w = (rng.normal(size=(n, l)) * 2).astype(np.float32)
+    got = lb_keogh(_t(lo), _t(hi), _t(w))
+    assert got.shape == (n,)
+    for want in (lb_keogh_pallas(jnp.asarray(lo), jnp.asarray(hi),
+                                 jnp.asarray(w), interpret=True),
+                 jref.lb_keogh_ref(jnp.asarray(lo), jnp.asarray(hi),
+                                   jnp.asarray(w))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _master_inputs(n, lmin, lmax, seg, seed):
+    """The reference kernel test's inputs (segment means, window sums of
+    every length, offsets of every master of one random walk), as numpy."""
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.normal(size=n).astype(np.float32).cumsum())
+    csum = jnp.concatenate([jnp.zeros(1), jnp.cumsum(x)])
+    csum2 = jnp.concatenate([jnp.zeros(1), jnp.cumsum(x * x)])
+    w = lmax // seg
+    offs = jnp.arange(n - lmin + 1, dtype=jnp.int32)
+    starts = offs[:, None] + jnp.arange(w)[None, :] * seg
+    segmean = (jnp.take(csum, jnp.clip(starts + seg, 0, n))
+               - jnp.take(csum, jnp.clip(starts, 0, n))) / seg
+    lens = lmin + jnp.arange(lmax - lmin + 1)
+    e2 = jnp.clip(offs[:, None] + lens[None, :], 0, n)
+    s1 = jnp.take(csum, e2) - csum[offs][:, None]
+    s2 = jnp.take(csum2, e2) - csum2[offs][:, None]
+    return tuple(np.asarray(a) for a in (segmean, s1, s2, offs))
+
+
+@pytest.mark.parametrize("n,lmin,lmax,seg", [(80, 24, 40, 8),
+                                             (120, 32, 64, 16),
+                                             (64, 48, 64, 8)])
+def test_envelope_znorm_masters_matches_pallas(n, lmin, lmax, seg):
+    args = _master_inputs(n, lmin, lmax, seg, seed=n + lmin)
+    lo, hi = envelope_znorm_masters(*map(_t, args), n=n, lmin=lmin,
+                                    seg_len=seg)
+    jargs = tuple(map(jnp.asarray, args))
+    k_lo, k_hi = envelope_znorm_pallas(*jargs, n, lmin, lmax, seg,
+                                       interpret=True)
+    r_lo, r_hi = jref.envelope_scan_ref(*jargs, n, lmin, lmax, seg)
+    for got, kern, want in ((lo, k_lo, r_lo), (hi, k_hi, r_hi)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(kern),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+    # the last master takes only l' = lmin: its later segments keep the
+    # sentinels
+    assert (lo.numpy()[-1] == np.float32(3e38)).any()
+    assert (hi.numpy()[-1] == np.float32(-3e38)).any()
+
+
+@pytest.mark.parametrize("n,lmin,lmax,gamma,seg", [
+    (192, 64, 128, 8, 16),      # the engine tests' parameters
+    (256, 160, 256, 48, 16),    # the bench parameters
+    (100, 24, 40, 3, 8),        # w * seg < lmax, a short tail envelope
+    (70, 64, 64, 0, 16)])       # one length, one master per envelope
+def test_envelope_build_matches_reference(n, lmin, lmax, gamma, seg):
+    rng = np.random.default_rng(n + gamma)
+    data = np.cumsum(rng.normal(size=(5, n)), -1).astype(np.float32)
+    x = _t(data)
+    xc = x - x.mean(dim=-1, keepdim=True)
+    lo, hi = envelope_znorm(_prefix(xc), _prefix(xc * xc), lmin=lmin,
+                            lmax=lmax, gamma=gamma, seg_len=seg)
+    w_lo, w_hi = jref.envelope_znorm_ref(jnp.asarray(data), lmin, lmax,
+                                         gamma, seg)
+    for got, want in ((lo, w_lo), (hi, w_hi)):
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_ops_match_reference_ops():
+    """kernels/ops.py: each op (kernel wrapper, and use_kernel=False) on
+    the reference op's arguments against the reference op's plain
+    version (use_pallas=False)."""
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=(40, 64)).astype(np.float32)
+    q = rng.normal(size=(3, 64)).astype(np.float32)
+    lo = (rng.normal(size=64) - 1).astype(np.float32)
+    hi = lo + np.float32(2.0)
+    e_lo = rng.normal(size=(50, 8)).astype(np.float32)
+    e_hi = e_lo + np.abs(rng.normal(size=(50, 8))).astype(np.float32)
+    seg_args = _master_inputs(80, 24, 40, 8, seed=5)
+    cases = [
+        ("batch_ed", (w, q, True), {}),
+        ("lb_keogh", (lo, hi, w), {}),
+        ("dtw_band", (w[0], w, 5), {}),
+        ("mindist", (e_lo[0], e_hi[0], e_lo, e_hi, 16, 6), {}),
+        ("envelope_znorm", seg_args + (80, 24, 40, 8), {})]
+    for name, args, tol in cases:
+        targs = tuple(_t(a) if isinstance(a, np.ndarray) else a
+                      for a in args)
+        jargs = tuple(jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                      for a in args)
+        want = getattr(jops, name)(*jargs, use_pallas=False)
+        for use_kernel in (True, False):
+            got = getattr(ops, name)(*targs, use_kernel=use_kernel)
+            for g, wv in zip(got if isinstance(got, tuple) else (got,),
+                             want if isinstance(want, tuple) else (want,)):
+                np.testing.assert_allclose(g.numpy(), np.asarray(wv),
+                                           rtol=1e-4, atol=1e-4,
+                                           err_msg=name)
+
+
+def test_new_kernels_never_take_the_plain_path_off_cpu():
+    """batch_ed, lb_keogh and both envelope entries: a tensor off the CPU
+    goes to the CUDA kernel or raises (no card and no nvcc here: the
+    build raises; meta tensors stand in for device tensors)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the kernel would run")
+    meta = dict(device="meta")
+    w = torch.empty((10, 64), **meta)
+    e = torch.empty(64, **meta)
+    sums = torch.empty((3, 193), **meta)
+    seg, s12 = torch.empty((20, 4), **meta), torch.empty((20, 9), **meta)
+    offs = torch.zeros(20, dtype=torch.int32, **meta)
+    for call in (lambda: batch_ed(w, torch.empty((2, 64), **meta), True),
+                 lambda: lb_keogh(e, e, w),
+                 lambda: envelope_znorm(sums, sums, lmin=64, lmax=128,
+                                        gamma=8, seg_len=16),
+                 lambda: envelope_znorm_masters(seg, s12, s12, offs, n=80,
+                                                lmin=24, seg_len=8)):
+        with pytest.raises(RuntimeError):
+            call()
+    assert batch_ed.launches == lb_keogh.launches == \
+        envelope_znorm.launches == envelope_znorm_masters.launches == 0
