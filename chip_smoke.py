@@ -14,8 +14,12 @@ Phases (any failed check raises, and the script exits non-zero):
      (B = 8, rows 64 and 512, qlen 160 with r = 16 and qlen 256 with
      r = 25 — the paper's Fig. 25 window of 10% of |Q| — with true
      interval queries: fused_gather_lb_keogh lb2 rtol 2e-4 / atol 2e-3,
-     mu 1e-4 / 1e-4, sd 1e-3 / 1e-4; dtw_survivors and the dtw_band
-     entry rtol 1e-4 / atol 1e-3);
+     mu 1e-4 / 1e-4, sd 1e-3 / 1e-4; its chunk entry the same lb2, mu
+     and sd bit for bit, the same survivor set (up to lb2 within the
+     tolerance of kth) and counts; the LB and DP kernels' window
+     normalization bit for bit against the IEEE divide at every window
+     point (`gather_znorm`); dtw_survivors and the dtw_band entry rtol
+     1e-4 / atol 1e-3);
   3. build the index on the card: 1,000,000 random-walk series x 256
      points (`--series` may only shrink it) at lmin=160, lmax=256,
      seg_len=16, gamma=48, card=256, znorm — the repo's bench parameters;
@@ -33,8 +37,11 @@ Phases (any failed check raises, and the script exits non-zero):
      set to 0 just before and read just after; every qlen-256 answer and
      the first two qlen-160 answers (DTW_BRUTE) checked against the
      plain-DP brute force on the card;
-  9. time the DTW kernels on that path's inputs, as in 6;
- 10. trace one DTW batch;
+  9. time the DTW kernels on that path's inputs, as in 6 (the LB
+     kernel's contract entry and its chunk entry, the DP's two entries),
+     and check LB_Keogh <= DTW on every survivor of one chunk;
+ 10. trace one DTW batch: device activities and kernel launch calls a
+     chunk step, and no scan kernel (the survivor pack's cumsum is gone);
  11. the host backend (`scan_backend="host"`), ED and DTW: two queries
      each, counters set to 0 just before and read just after; answers
      equal the brute-force-checked device answers of the same queries as
@@ -143,15 +150,16 @@ def device_ms(prof) -> float:
     return sum(ev.time_range.elapsed_us() for ev in device_events(prof)) / 1e3
 
 
-def time_calls(torch, fns, reps=20, budget_s=0.25):
+def time_calls(torch, fns, reps=20, budget_s=0.25, events=1):
     """(device ms, event ms) per call over up to `reps` rounds through
     `fns` (several inputs, so a working set larger than L2 is read cold);
     a slow function (a plain version of thousands of launches) gets as
     few rounds as fit `budget_s`, at least 3.
 
     Device ms is the card's busy time from torch.profiler (None when
-    three traces in a row hold fewer device activities than calls: a
-    trace sometimes records none, or only some, of a loop's kernels);
+    three traces in a row hold fewer than `events` device activities a
+    call: a trace sometimes records none, or only some, of a loop's
+    kernels);
     event ms is CUDA events around the loop, which also counts the card
     waiting for the host to launch.
     """
@@ -177,18 +185,20 @@ def time_calls(torch, fns, reps=20, budget_s=0.25):
             for r in range(reps):
                 fns[r % len(fns)]()
             torch.cuda.synchronize()
-        # every call launches at least one kernel
-        if len(device_events(prof)) >= reps:
+        # every call makes at least `events` device activities
+        if len(device_events(prof)) >= reps * events:
             return device_ms(prof) / reps, event_ms
     return None, event_ms
 
 
-def timing(torch, call, plain, nbytes, ops, err, shape, library=None):
+def timing(torch, call, plain, nbytes, ops, err, shape, library=None,
+           events=1):
     """One timing record: kernel and plain version (and the one PyTorch
     call computing the same function, where there is one), each by its
     device time where the profiler saw the card (else by CUDA events,
-    and the record says which), beside the bound."""
-    k_dev, k_ev = time_calls(torch, call)
+    and the record says which), beside the bound.  `events`: the device
+    activities one call of the kernel's wrapper makes."""
+    k_dev, k_ev = time_calls(torch, call, events=events)
     p_dev, p_ev = time_calls(torch, plain)
     lib_ms = None
     if library is not None:
@@ -236,7 +246,7 @@ def trace_batch(torch, engine, queries, spec):
     busy = device_ms(prof) / 1e3
     by_kernel = {}
     for ev in device_events(prof):
-        row = by_kernel.setdefault(ev.name[:80], {"name": ev.name[:80],
+        row = by_kernel.setdefault(ev.name[:120], {"name": ev.name[:120],
                                                   "count": 0, "ms": 0.0})
         row["count"] += 1
         row["ms"] += ev.time_range.elapsed_us() / 1e3
@@ -244,10 +254,13 @@ def trace_batch(torch, engine, queries, spec):
              "ms": e.self_cpu_time_total / 1e3}
             for e in sorted(prof.key_averages(),
                             key=lambda e: -e.self_cpu_time_total)[:10]]
+    by_name = sorted(by_kernel.values(), key=lambda r: -r["ms"])
     return {"qlen": len(queries[0]), "wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1 - busy / wall,
-            "top_self_device": sorted(by_kernel.values(),
-                                      key=lambda r: -r["ms"])[:10],
+            "top_self_device": by_name[:10], "device_by_name": by_name,
+            "device_events": sum(r["count"] for r in by_name),
+            "launch_calls": sum(e.count for e in prof.key_averages()
+                                if e.key.startswith("cudaLaunchKernel")),
             "top_self_cpu": host}
 
 
@@ -297,33 +310,70 @@ def gather_bytes(torch, coll, sids, anchors, qlen: int, g: int) -> int:
     return region.numel() * 4 + 4 * sums.numel() * 4
 
 
-def survivor_args(torch, data, qn, lb_out, sids, anchors, n_master, kth,
-                  g: int):
-    """The `dtw_survivors` arguments of one chunk of (B, rows) envelope
-    rows, as the executor's chunk step builds them: the LB kernel's
-    output (lb2, mu, sd) masked to the real windows, and the survivors
-    lb2 < kth (B,) packed first."""
+def chunk_args(torch, a0, qn, dlo, dhi, sids, anchors, n_master, kth,
+               g: int):
+    """One scan chunk of (B, rows) envelope rows through the LB_Keogh
+    chunk entry, as the executor's chunk step runs it: returns the chunk
+    entry's inputs (`lb_in`, for the entry and its plain version), its
+    outputs, and the `dtw_survivors` arguments it leaves (its survivors'
+    list and count, the candidates, mu, sd, and the DP output, +inf at
+    every non-survivor)."""
     from repro_torch.core import executor
-    lb2, mu, sd = lb_out
-    b = sids.shape[0]
+    from repro_torch.kernels.fused_verify import fused_gather_lb_keogh_chunk
+    b, rows = sids.shape
     ok, cand_sid, cand_off = executor._chunk_candidates(
         sids, anchors, n_master, torch.ones_like(sids, dtype=torch.bool),
-        qn.shape[1], data.shape[1], g)
-    surv = torch.where(ok, lb2.reshape(b, -1), float("inf")) < kth[:, None]
-    return (data, qn, executor._survivors_first(surv),
-            surv.sum(dim=1, dtype=torch.int32), cand_sid, cand_off,
-            mu.reshape(b, -1), sd.reshape(b, -1))
+        qn.shape[1], a0[0].shape[1], g)
+    lb_in = (*a0, sids.reshape(-1).contiguous(),
+             anchors.reshape(-1).contiguous(), dlo, dhi, ok,
+             kth.contiguous())
+    out = fused_gather_lb_keogh_chunk(*lb_in, g=g, rows=rows, znorm=True)
+    _, mu, sd, slist, nsurv, d2 = out
+    return lb_in, out, (a0[0], qn, slist, nsurv, cand_sid, cand_off,
+                        mu.reshape(b, -1), sd.reshape(b, -1), d2)
+
+
+def check_chunk_entry(torch, got, want, kth):
+    """Hold the LB chunk entry's outputs against its plain version: lb2
+    within the LB tolerance (the same +inf), mu and sd bit-equal, the
+    same survivor set up to lb2 within the tolerance of kth, nsurv its
+    size, the list a permutation of it, and +inf in the DP's output at
+    every non-survivor.  Returns (max abs err of lb2, survivors)."""
+    err = check_close(torch, "fused_gather_lb_keogh", got[0], want[0])
+    for name, x, y in (("mu", got[1], want[1]), ("sd", got[2], want[2])):
+        check_equal(torch, f"fused_gather_lb_keogh_chunk.{name}", x, y)
+    b = kth.shape[0]
+    rtol, atol = TOL["fused_gather_lb_keogh"]
+    surv = got[0].reshape(b, -1) < kth[:, None]
+    plain = want[0].reshape(b, -1)
+    near = (plain - kth[:, None]).abs() <= atol + rtol * kth.abs()[:, None]
+    if not bool((near | (surv == (plain < kth[:, None]))).all()):
+        raise AssertionError("LB chunk entry: survivor set differs")
+    if not torch.equal(got[4], surv.sum(dim=1, dtype=torch.int32)):
+        raise AssertionError("LB chunk entry: nsurv is not the set's size")
+    for i in range(b):
+        listed = got[3][i, :int(got[4][i])].long().sort().values
+        if not torch.equal(listed, surv[i].nonzero()[:, 0]):
+            raise AssertionError("LB chunk entry: list is not the set")
+    if not bool(torch.isinf(got[5][~surv]).all()):
+        raise AssertionError("LB chunk entry: DP output not +inf off the "
+                             "survivors")
+    return err, int(got[4].sum())
 
 
 def check_dtw_kernels(torch, dev, p, probe, rng):
     """The DTW path's kernels against their plain versions at its shapes;
-    returns the max abs error of each, and the share of LB_Keogh's mu and
-    sd entries that are bit-equal to the plain version's."""
+    returns the max abs error of each, the share of LB_Keogh's mu and sd
+    entries that are bit-equal to the plain version's (both entries), and
+    the count of window points whose normalization (`gather_znorm`, the
+    LB and DP kernels' arithmetic) differs from the IEEE divide, of how
+    many."""
     from repro_torch.core import planner
     from repro_torch.core.paa import znormalize
     from repro_torch.kernels import ref
     from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
-    from repro_torch.kernels.fused_verify import fused_gather_lb_keogh
+    from repro_torch.kernels.fused_verify import (fused_gather_lb_keogh,
+                                                  gather_znorm)
     g = p.gamma + 1
     s_probe, n = probe.data.shape
     a0 = (probe.data, probe.csum, probe.csum2, probe.csum_lo,
@@ -331,7 +381,7 @@ def check_dtw_kernels(torch, dev, p, probe, rng):
     errs = dict.fromkeys(("fused_gather_lb_keogh", "fused_gather_lb_keogh.mu",
                           "fused_gather_lb_keogh.sd", "dtw_survivors",
                           "dtw_band"), 0.0)
-    same, total = 0, 0
+    same, total, w_differ, w_points = 0, 0, 0, 0
 
     def close(name, got, want):
         errs[name] = max(errs[name], check_close(torch, name, got, want))
@@ -356,22 +406,38 @@ def check_dtw_kernels(torch, dev, p, probe, rng):
                 for x, y in zip(got[1:], want[1:]):
                     same += int((x == y).sum())
                     total += x.numel()
-        # the DP over one chunk's survivors (the last one, rows 512,
-        # znorm): each query keeps about its 600 least lower bounds,
-        # query 0 none
-        kth = got[0].reshape(BATCH, -1).sort(dim=1).values[:, 600]
-        kth[0] = -float("inf")
-        csid = sids.reshape(BATCH, rows)
-        args = survivor_args(torch, probe.data, qn, got, csid,
-                             anc.reshape(BATCH, rows),
-                             torch.full_like(csid, g), kth, g)
-        close("dtw_survivors", dtw_survivors(*args, r=r, znorm=True),
-              ref.dtw_survivors_ref(*args, r=r, znorm=True))
+                # every window point: the kernels' w against the divide
+                w = gather_znorm(probe.data, sids, anc, got[1], got[2],
+                                 qlen=qlen, g=g)
+                w_ref = ref.gather_znorm_ref(probe.data, sids, anc, got[1],
+                                             got[2], qlen=qlen, g=g)
+                w_differ += int((w.view(torch.int32)
+                                 != w_ref.view(torch.int32)).sum())
+                w_points += w.numel()
+                del w, w_ref
+            # the scan's chunk entry and the DP over its survivors (znorm):
+            # each query keeps about its 600 least lower bounds, query 0
+            # none
+            kth = got[0].reshape(BATCH, -1).sort(dim=1).values[:, 600]
+            kth[0] = -float("inf")
+            csid = sids.reshape(BATCH, rows)
+            lb_in, out, dp = chunk_args(
+                torch, a0, qn, dlo, dhi, csid, anc.reshape(BATCH, rows),
+                torch.full_like(csid, g), kth, g)
+            err, _ = check_chunk_entry(
+                torch, out, ref.fused_gather_lb_keogh_chunk_ref(
+                    *lb_in, g=g, rows=rows, znorm=True), kth)
+            errs["fused_gather_lb_keogh"] = max(
+                errs["fused_gather_lb_keogh"], err)
+            close("dtw_survivors",
+                  dtw_survivors(*dp[:-1], dp[-1].clone(), r=r, znorm=True),
+                  ref.dtw_survivors_ref(*dp[:-1], dp[-1].clone(), r=r,
+                                        znorm=True))
         # the function entry: q_0 against 4096 z-normalized windows
         cands = znormalize(probe.data[:, :qlen]).contiguous()
         close("dtw_band", dtw_band(qn[0].contiguous(), cands, r),
               ref.dtw_band_ref(qn[0], cands, r))
-    return errs, same / total
+    return errs, same / total, (w_differ, w_points)
 
 
 def envelope_work(p, n: int):
@@ -562,8 +628,9 @@ def main() -> int:
     from repro_torch.kernels.batch_ed import batch_ed
     from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
     from repro_torch.kernels.envelope import envelope_znorm
-    from repro_torch.kernels.fused_verify import (fused_gather_ed,
-                                                  fused_gather_lb_keogh)
+    from repro_torch.kernels.fused_verify import (
+        fused_gather_ed, fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
+        gather_znorm)
     from repro_torch.kernels.lb_keogh import lb_keogh
     from repro_torch.kernels.mindist import mindist_paa, mindist_sym
     from repro_torch.train.data import series_batches
@@ -582,6 +649,8 @@ def main() -> int:
                 "mindist_sym": mindist_sym, "mindist_paa": mindist_paa}
     # every kernel wrapper of the port, each count set to 0 before a path
     all_wrappers = {**wrappers, "fused_gather_lb_keogh": fused_gather_lb_keogh,
+                    "fused_gather_lb_keogh_chunk": fused_gather_lb_keogh_chunk,
+                    "gather_znorm": gather_znorm,
                     "dtw_survivors": dtw_survivors, "dtw_band": dtw_band,
                     "envelope_znorm": envelope_znorm, "batch_ed": batch_ed,
                     "lb_keogh": lb_keogh}
@@ -660,8 +729,14 @@ def main() -> int:
                             p.seg_len, nseg),
                 ref.mindist_ref(qp, qh, lo[:nb], hi[:nb], valid[:nb],
                                 p.seg_len, nseg)))
-    dtw_errs, results["lb_keogh_mu_sd_bit_equal"] = check_dtw_kernels(
-        torch, dev, p, probe, rng)
+    dtw_errs, results["lb_keogh_mu_sd_bit_equal"], (w_differ, w_points) = \
+        check_dtw_kernels(torch, dev, p, probe, rng)
+    results["znorm_w_differ_from_divide"] = {"points": w_points,
+                                             "differ": w_differ}
+    if w_differ:
+        raise AssertionError(
+            f"the kernels' window normalization differs from the IEEE "
+            f"divide at {w_differ} of {w_points} points")
     errs.update(dtw_errs)
     errs.update(check_slice3_kernels(torch, dev, p, probe, rng))
     del probe, lo, hi, valid, sym_lo, sym_hi
@@ -669,7 +744,9 @@ def main() -> int:
     log(f"[2] kernels agree with their plain versions: "
         + ", ".join(f"{k} max abs err {v:.3g}" for k, v in errs.items())
         + f"; LB_Keogh mu/sd bit-equal to the plain version's: "
-        f"{results['lb_keogh_mu_sd_bit_equal']:.6f}")
+        f"{results['lb_keogh_mu_sd_bit_equal']:.6f}; the LB and DP "
+        f"kernels' normalized window points differing from the IEEE "
+        f"divide: {w_differ} of {w_points}")
 
     # -- 3. the index on the card ------------------------------------------
     t0 = time.perf_counter()
@@ -873,7 +950,7 @@ def main() -> int:
     log_trace(7, results["traced_batch"])
 
     # -- 8. the DTW path -----------------------------------------------------
-    dtw_wrappers = {"fused_gather_lb_keogh": fused_gather_lb_keogh,
+    dtw_wrappers = {"fused_gather_lb_keogh_chunk": fused_gather_lb_keogh_chunk,
                     "dtw_survivors": dtw_survivors,
                     "mindist_sym": mindist_sym, "mindist_paa": mindist_paa}
     dtw_specs = [QuerySpec(k=K, measure="dtw", r=r) for _, r in DTW_CASES]
@@ -953,6 +1030,7 @@ def main() -> int:
     a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
           coll.center)
     rows = 512
+    results["lb_le_dtw"] = {}
     for (qlen, r), qs_np, ans in zip(DTW_CASES, dtw_batches, dtw_answers):
         nseg = p.query_segments(qlen)
         q = torch.from_numpy(np.stack(qs_np)).to(dev)
@@ -965,22 +1043,22 @@ def main() -> int:
             chunk=1, n_pad=n_pad)
         # the first 24 chunks of the LB order: their regions (~6 MB each)
         # stream more than twice the L2 per round
-        chunks = [(ssids[:, i * rows:(i + 1) * rows].reshape(-1).contiguous(),
-                   sanc[:, i * rows:(i + 1) * rows].reshape(-1).contiguous(),
+        chunks = [(ssids[:, i * rows:(i + 1) * rows].contiguous(),
+                   sanc[:, i * rows:(i + 1) * rows].contiguous(),
                    snm[:, i * rows:(i + 1) * rows]) for i in range(24)]
         call = [lambda c=c: fused_gather_lb_keogh(
-            *a0, c[0], c[1], dlo, dhi, g=g, rows=rows, znorm=p.znorm)
-            for c in chunks]
+            *a0, c[0].reshape(-1), c[1].reshape(-1), dlo, dhi, g=g,
+            rows=rows, znorm=p.znorm) for c in chunks]
         plain = [lambda c=c: ref.fused_gather_lb_keogh_ref(
-            *a0, c[0], c[1], dlo, dhi, g=g, rows=rows, znorm=p.znorm)
-            for c in chunks]
+            *a0, c[0].reshape(-1), c[1].reshape(-1), dlo, dhi, g=g,
+            rows=rows, znorm=p.znorm) for c in chunks]
         got, want = call[0](), plain[0]()
         err = check_close(torch, "fused_gather_lb_keogh", got[0], want[0])
         for suffix, x, y in zip((".mu", ".sd"), got[1:], want[1:]):
             check_close(torch, "fused_gather_lb_keogh" + suffix, x, y)
-        nbytes = (gather_bytes(torch, coll, chunks[0][0], chunks[0][1],
-                               qlen, g)
-                  + 2 * BATCH * qlen * 4 + BATCH * rows * 8
+        region_bytes = gather_bytes(torch, coll, chunks[0][0].reshape(-1),
+                                    chunks[0][1].reshape(-1), qlen, g)
+        nbytes = (region_bytes + 2 * BATCH * qlen * 4 + BATCH * rows * 8
                   + 3 * BATCH * rows * g * 4)
         # per window point: subtract, divide, two subtracts, two max,
         # two multiplies, two adds
@@ -988,26 +1066,59 @@ def main() -> int:
         timings[("fused_gather_lb_keogh", qlen, rows)] = timing(
             torch, call, plain, nbytes, ops, err,
             f"B={BATCH} rows={rows} qlen={qlen} g={g}")
-        # the DP over the LB survivors of the first 8 chunks, under the
-        # batch's final k-th distance
+        # the scan's chunk entry and the DP over its survivors, under the
+        # batch's final k-th distance (what the scan's later chunks see)
         kth = torch.tensor([float(a.dists[-1]) ** 2 for a in ans],
                            dtype=torch.float32, device=dev)
-        surv_inputs = [survivor_args(
-            torch, coll.data, qn, fused_gather_lb_keogh(
-                *a0, sid_c, anc_c, dlo, dhi, g=g, rows=rows, znorm=p.znorm),
-            sid_c.reshape(BATCH, rows), anc_c.reshape(BATCH, rows), nm_c,
-            kth, g) for sid_c, anc_c, nm_c in chunks[:8]]
-        nsurv_total = sum(int(a[3].sum()) for a in surv_inputs)
+        steps = [chunk_args(torch, a0, qn, dlo, dhi, sid_c, anc_c, nm_c,
+                            kth, g) for sid_c, anc_c, nm_c in chunks]
+        call = [lambda c=c: fused_gather_lb_keogh_chunk(
+            *c[0], g=g, rows=rows, znorm=p.znorm) for c in steps]
+        plain = [lambda c=c: ref.fused_gather_lb_keogh_chunk_ref(
+            *c[0], g=g, rows=rows, znorm=p.znorm) for c in steps]
+        err, _ = check_chunk_entry(torch, steps[0][1], plain[0](), kth)
+        nsurv_total = sum(int(c[1][4].sum()) for c in steps[:8])
+        per_call = nsurv_total / 8
+        # + the mask, kth, the list and its counts, the DP's output
+        timings[("fused_gather_lb_keogh_chunk", qlen, rows)] = timing(
+            torch, call, plain, nbytes + BATCH * rows * g * 5 + BATCH * 8
+            + per_call * 4, ops, err,
+            f"B={BATCH} rows={rows} qlen={qlen} g={g} "
+            f"surv/call={per_call:.0f}", events=2)
+        # LB_Keogh <= DTW on every survivor of the first chunk that has
+        # any (the LB kernel's bound and the DP kernel's distance, one
+        # normalization)
+        first = next(c for c in steps if int(c[1][4].sum()) > 0)
+        lb2_0, dp0 = first[1][0], first[2]
+        d2_0 = dtw_survivors(*dp0[:-1], dp0[-1].clone(), r=r, znorm=p.znorm)
+        surv0 = torch.isfinite(d2_0)
+        excess = (lb2_0.reshape(BATCH, -1) - d2_0)[surv0]
+        worst = float(excess.max()) if excess.numel() else -float("inf")
+        bad = int((excess > 0).sum())
+        results["lb_le_dtw"][qlen] = {"survivors": int(surv0.sum()),
+                                      "lb_above_dtw": bad,
+                                      "max_lb_minus_dtw": worst}
+        if bad or not excess.numel():
+            raise AssertionError(
+                f"LB_Keogh <= DTW fails on {bad} of {excess.numel()} "
+                f"survivors (qlen {qlen}; max lb - d {worst})")
+        log(f"[9] LB_Keogh <= DTW on all {excess.numel()} survivors of a "
+            f"chunk (qlen {qlen}, r {r}; max lb - d {worst:.3g})")
+        surv_inputs = [c[2] for c in steps[:8]]
         call = [lambda a=a: dtw_survivors(*a, r=r, znorm=p.znorm)
                 for a in surv_inputs]
         plain = [lambda a=a: ref.dtw_survivors_ref(*a, r=r, znorm=p.znorm)
                  for a in surv_inputs]
-        err = check_close(torch, "dtw_survivors", call[0](), plain[0]())
-        per_call = nsurv_total / len(surv_inputs)
-        # survivor windows and their five plan entries, queries, counts,
-        # the (B, M) output
-        nbytes = (per_call * (qlen * 4 + 5 * 4) + BATCH * qlen * 4
-                  + BATCH * 4 + BATCH * rows * g * 4)
+        a_0 = surv_inputs[0]
+        err = check_close(
+            torch, "dtw_survivors",
+            dtw_survivors(*a_0[:-1], a_0[-1].clone(), r=r, znorm=p.znorm),
+            ref.dtw_survivors_ref(*a_0[:-1], a_0[-1].clone(), r=r,
+                                  znorm=p.znorm))
+        # survivor windows, their list entry and four plan entries and
+        # their output, queries, counts
+        nbytes = (per_call * (qlen * 4 + 6 * 4) + BATCH * qlen * 4
+                  + BATCH * 4)
         ops = 5 * per_call * dtw_cells(qlen, r)
         timings[("dtw_survivors", qlen)] = timing(
             torch, call, plain, nbytes, ops, err,
@@ -1026,21 +1137,37 @@ def main() -> int:
             torch, call, plain, ncand * qlen * 4 + qlen * 4 + ncand * 4,
             5 * ncand * dtw_cells(qlen, r), err,
             f"N={ncand} qlen={qlen} r={r}")
-        del cands, surv_inputs, chunks
+        del cands, surv_inputs, chunks, steps
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
     for key, t in timings.items():
-        if key[0] in ("fused_gather_lb_keogh", "dtw_survivors", "dtw_band"):
-            log(f"[9] {key[0]:21s} {t['shape']:34s} kernel {t['ms']:.4f} ms"
-                f"  plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} "
-                f"ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']}; "
+        if key[0] in ("fused_gather_lb_keogh", "fused_gather_lb_keogh_chunk",
+                      "dtw_survivors", "dtw_band"):
+            log(f"[9] {key[0]:27s} {t['shape']:45s} kernel {t['ms']:.4f} "
+                f"ms  plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f}"
+                f" ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']}; "
                 f"events {t['event_ms']:.4f} / {t['plain_event_ms']:.4f} "
                 f"ms)")
 
     # -- 10. where a DTW batch's time goes (one traced batch) ---------------
-    results["traced_dtw_batch"] = trace_batch(torch, engine, dtw_batches[1],
-                                              dtw_specs[1])
-    log_trace(10, results["traced_dtw_batch"])
+    zero_counts()
+    tr = trace_batch(torch, engine, dtw_batches[1], dtw_specs[1])
+    steps = fused_gather_lb_keogh_chunk.launches
+    # the survivor pack's cumsum (a scan kernel) is gone from the scan
+    tr["scan_kernel_events"] = sum(
+        row["count"] for row in tr["device_by_name"]
+        if "scan" in row["name"].lower())
+    tr["chunk_steps"] = steps
+    tr["device_events_per_step"] = tr["device_events"] / max(steps, 1)
+    tr["launch_calls_per_step"] = tr["launch_calls"] / max(steps, 1)
+    results["traced_dtw_batch"] = tr
+    log_trace(10, tr)
+    log(f"[10] {steps} chunk steps: {tr['device_events_per_step']:.1f} device"
+        f" activities and {tr['launch_calls_per_step']:.1f} kernel launch "
+        f"calls a step; scan kernels (the survivor pack's cumsum): "
+        f"{tr['scan_kernel_events']}")
+    if tr["scan_kernel_events"]:
+        raise AssertionError("the traced DTW batch still runs scan kernels")
 
     # -- 11. the host backend ------------------------------------------------
     # two queries per measure whose device answers were checked against
@@ -1091,7 +1218,8 @@ def main() -> int:
                ("fused_gather_ed", "mindist_paa")),
         "dtw": (dtw_batches[1], dtw_answers[1], QuerySpec(
             k=K, measure="dtw", r=DTW_CASES[1][1], mode="approx"),
-            ("fused_gather_lb_keogh", "dtw_survivors", "mindist_paa"))}
+            ("fused_gather_lb_keogh_chunk", "dtw_survivors",
+             "mindist_paa"))}
     results["approx_path"] = {}
     for measure, (qs, exact, aspec, names) in approx_cases.items():
         zero_counts()
@@ -1213,15 +1341,19 @@ def main() -> int:
     headline = {"fused_gather_ed": ("fused_gather_ed", 256, 512),
                 "mindist_sym": ("mindist_sym", 256),
                 "mindist_paa": ("mindist_paa", 256),
-                "fused_gather_lb_keogh": ("fused_gather_lb_keogh", 256, 512),
+                # the scan's entry to the kernel (the contract entry's
+                # time is in the timings as well)
+                "fused_gather_lb_keogh": ("fused_gather_lb_keogh_chunk", 256,
+                                          512),
                 "dtw_survivors": ("dtw_survivors", 256),
                 "dtw_band": ("dtw_band", 256),
                 "envelope_znorm": ("envelope_znorm",),
                 "batch_ed": ("batch_ed", 256, 1, "znorm"),
                 "lb_keogh": ("lb_keogh", 256)}
     path_launches = dict(
-        launches, **{name: dtw_launches[name]
-                     for name in ("fused_gather_lb_keogh", "dtw_survivors")},
+        launches, fused_gather_lb_keogh=dtw_launches[
+            "fused_gather_lb_keogh_chunk"],
+        dtw_survivors=dtw_launches["dtw_survivors"],
         **build_launches,
         batch_ed=results["host_path"]["ed"]["launches"]["batch_ed"],
         **{name: results["host_path"]["dtw"]["launches"][name]

@@ -12,8 +12,8 @@ query) and DTW (`QuerySpec(measure="dtw", r=...)`):
     (DTW: the query's warping envelope) -> block lower bounds
     (`mindist_paa`) -> leaf pack -> approximate scan -> envelope lower
     bounds (`mindist_sym`) -> LB-sorted pack -> seeded exact scan (ED:
-    `fused_gather_ed`; DTW: `fused_gather_lb_keogh` then `dtw_survivors`
-    on its survivors) -> one result readback -> for ED, a float64 rescore
+    `fused_gather_ed`; DTW: `fused_gather_lb_keogh_chunk` then
+    `dtw_survivors` on the survivors it lists) -> one result readback -> for ED, a float64 rescore
     of the reported rows on the host (DTW reports the device's DP values,
     as the JAX package does);
   * `mode="approx"` on the device backend: the approximate pass alone

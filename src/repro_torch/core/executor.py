@@ -3,9 +3,9 @@
 Everything that touches raw series data lives here: the chunked,
 LB-sorted, bsf-pruned exact scan over packed candidate rows, whose true
 distances come from the `fused_gather_ed` kernel (ED) or from the
-LB_Keogh tier `fused_gather_lb_keogh` and the banded DP `dtw_survivors`
-on its survivors (DTW), the (B, k) device pool, and the result/stats
-containers.
+LB_Keogh tier `fused_gather_lb_keogh_chunk` and the banded DP
+`dtw_survivors` on the survivors it lists (DTW), the (B, k) device
+pool, and the result/stats containers.
 
 The host backend (`scan_backend="host"`, the reference's host-driven
 loop) verifies one query's envelopes at a time: `gather_windows` cuts
@@ -36,7 +36,7 @@ from repro_torch.core.types import Collection
 from repro_torch.kernels.batch_ed import batch_ed
 from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
 from repro_torch.kernels.fused_verify import (fused_gather_ed,
-                                              fused_gather_lb_keogh)
+                                              fused_gather_lb_keogh_chunk)
 from repro_torch.kernels.lb_keogh import lb_keogh
 
 _INF = float("inf")
@@ -295,28 +295,8 @@ def _chunk_candidates(csid, canc, cnm, keep, qlen: int, n: int, g: int):
     offs = canc[:, :, None] + joff                       # (B, chunk, g)
     ok = ((joff < cnm[:, :, None]) & (offs + qlen <= n)
           & keep[:, :, None]).reshape(b_sz, chunk * g)
-    return (ok, csid.repeat_interleave(g, dim=1),
-            offs.reshape(b_sz, chunk * g))
-
-
-def _survivors_first(surv):
-    """Stable survivors-first position pack of a (B, M) mask.
-
-    Position j of the result is the j-th True column of its row;
-    positions >= nsurv hold M - 1, which every consumer masks by
-    `pos < nsurv` — the reference's `_survivors_first` (searchsorted over
-    the mask cumsum), here as one scatter: no nonzero, no boolean
-    indexing, no host sync.
-    """
-    b_sz, m = surv.shape
-    rank = torch.cumsum(surv, dim=1) - 1
-    # index m is the sink of the non-survivors
-    dest = torch.where(surv, rank, m)
-    packed = torch.full((b_sz, m + 1), m - 1, dtype=torch.int32,
-                        device=surv.device)
-    cols = torch.arange(m, dtype=torch.int32, device=surv.device)
-    packed.scatter_(1, dest, cols.expand(b_sz, m))
-    return packed[:, :m].contiguous()
+    return (ok, csid[:, :, None].expand(b_sz, chunk, g).reshape(
+        b_sz, chunk * g), offs.reshape(b_sz, chunk * g))
 
 
 def _pool_merge(pool, cd2, csid, coff, k: int):
@@ -345,16 +325,20 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
                      g: int, chunk: int, znorm: bool, measure: str, r: int):
     """Verify chunk `i` of the packed plan into the (B, k) pool.
 
-    ED: one `fused_gather_ed` launch and one merge.  DTW: the LB_Keogh
-    tier (`fused_gather_lb_keogh`), the survivors (lb2 < kth) packed
-    first on the device, ONE `dtw_survivors` launch over every survivor
-    of the chunk, and ONE merge of the (B, chunk * g) packed distances.
-    The reference merges bucket by bucket (`lax.while_loop` over
-    buckets of 128 survivors); one merge gives the same pool, because
-    the survivors are packed in candidate-position order, the merge keeps
-    incumbents ahead of newcomers on ties, and the sort is stable, so
+    ED: one `fused_gather_ed` launch and one merge.  DTW: ONE launch of
+    the LB_Keogh tier (`fused_gather_lb_keogh_chunk`), which masks the
+    bounds, lists each query's survivors (lb2 < kth) on the device and
+    writes +inf into the DP's (B, chunk * g) output at every other
+    candidate position; ONE `dtw_survivors` launch over every survivor of
+    the chunk, which writes each one's distance at its own position; and
+    ONE merge of that output, as the ED branch's.  The reference merges
+    bucket by bucket (`lax.while_loop` over buckets of 128 survivors
+    packed in candidate-position order); one merge of the
+    position-indexed output gives the same pool, because the merge keeps
+    incumbents ahead of newcomers on ties and the sort is stable, so
     every bucket merge and the single merge pick the k least of the same
-    (d2, position) order — and no host sync is needed to size the loop.
+    (d2, position) order — whatever order the kernel listed the
+    survivors in — and no host sync is needed to size the loop.
 
     Returns (pool, dstats) where dstats (B, STATS_WIDTH) holds the
     per-query increments of [chunks, envelopes_checked, true_dists,
@@ -384,21 +368,16 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
         tdist = ok.sum(dim=1, dtype=torch.int32)
         nlbk = ndtw = zeros
     else:
-        lb2, mu, sd = fused_gather_lb_keogh(
+        _, mu, sd, slist, ndtw, db = fused_gather_lb_keogh_chunk(
             coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
-            coll.center, flat_sid, flat_anc, dtw_lo, dtw_hi, g=g,
-            rows=chunk, znorm=znorm)
-        lb2 = torch.where(ok, lb2.reshape(b_sz, chunk * g), _INF)
+            coll.center, flat_sid, flat_anc, dtw_lo, dtw_hi, ok,
+            kth.contiguous(), g=g, rows=chunk, znorm=znorm)
         nlbk = ok.sum(dim=1, dtype=torch.int32)
-        surv = lb2 < kth[:, None]
-        tdist = ndtw = surv.sum(dim=1, dtype=torch.int32)
-        sidx = _survivors_first(surv)
-        db = dtw_survivors(coll.data, qs, sidx, ndtw, cand_sid, cand_off,
+        tdist = ndtw
+        db = dtw_survivors(coll.data, qs, slist, ndtw, cand_sid, cand_off,
                            mu.reshape(b_sz, chunk * g),
-                           sd.reshape(b_sz, chunk * g), r=r, znorm=znorm)
-        sl = sidx.long()
-        pool = _pool_merge(pool, db, torch.gather(cand_sid, 1, sl),
-                           torch.gather(cand_off, 1, sl), k)
+                           sd.reshape(b_sz, chunk * g), db, r=r, znorm=znorm)
+        pool = _pool_merge(pool, db, cand_sid, cand_off, k)
     return pool, torch.stack([active.to(torch.int32), checked, tdist,
                               nlbk, ndtw, pruned], dim=1)
 

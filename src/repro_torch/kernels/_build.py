@@ -3,10 +3,10 @@
 Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface, and loaded with `ctypes`; no
 PyTorch headers are involved, so a build takes seconds.  Libraries go to
-`kernels/build/` (listed in `.gitignore`), named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused.  `load_all()` starts one `nvcc` per stale source, all at once,
-and waits for them together.
+`kernels/build/` (listed in `.gitignore`), named by a hash of the source,
+the `csrc/*.cuh` headers and the flags, so an edited source is rebuilt
+and an unchanged one is reused.  `load_all()` starts one `nvcc` per
+stale source, all at once, and waits for them together.
 
 Every exported function takes device pointers and the CUDA stream as
 `void*` and returns `cudaGetLastError()` after its launch; `check` turns
@@ -55,11 +55,21 @@ SIGNATURES = {
         "ulisse_fused_gather_lb_keogh": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
                                          _V, _V, _V, _V, _L, _I, _I, _I, _I,
                                          _I, _I, _V],
+        # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        # dtw_lo, dtw_hi, ok, kth, lb, mu, sd, slist, nsurv, dp_out,
+        # num_series, n, batch, rows, qlen, g, znorm, stream
+        "ulisse_fused_gather_lb_keogh_chunk": [
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
+            _V, _V, _L, _I, _I, _I, _I, _I, _I, _V],
+        # data, sids, anchors, mu, sd, out, num_series, n, num_rows, qlen,
+        # g, stream
+        "ulisse_gather_znorm": [_V, _V, _V, _V, _V, _V, _L, _I, _L, _I, _I,
+                                _V],
     },
     "dtw_band": {
         # q, candidates, out, num, l, r, stream
         "ulisse_dtw_band": [_V, _V, _V, _L, _I, _I, _V],
-        # data, qs, sidx, nsurv, cand_sid, cand_off, mu, sd, out,
+        # data, qs, slist, nsurv, cand_sid, cand_off, mu, sd, out,
         # num_series, n, batch, m, l, r, znorm, stream
         "ulisse_dtw_survivors": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
                                  _I, _I, _I, _I, _I, _V],
@@ -98,7 +108,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # every source includes its headers from csrc/: they key the build too
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

@@ -8,7 +8,9 @@ _survivor_bucket`).  Two wrappers over `csrc/dtw_band.cu`:
   dtw_band       q (l,) against candidates (N, l) -> (N,), the function
                  of `dtw_band_pallas`;
   dtw_survivors  gather + normalize + DP of one chunk's survivors for all
-                 B queries in one launch (the executor's call).
+                 B queries in one launch, from the list the LB_Keogh chunk
+                 entry made, into the DP output it prepared (the
+                 executor's call).
 
 Inputs are checked on every device against what the kernel takes;
 then CPU tensors take the plain versions in `ref.py` and CUDA tensors
@@ -20,8 +22,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# csrc/dtw_band.cu: 32 lanes x kMaxCells band cells, and one warp's
-# window plus the query (2 * qlen floats) in 48 KB of shared memory
+# csrc/dtw_band.cu: 32 lanes x 2 kMaxPairs band slots, and each warp's
+# padded window and query in the opt-in shared memory (227 KB)
 _MAX_BAND = 1024
 _MAX_QLEN = 6144
 
@@ -64,51 +66,53 @@ def dtw_band(q: torch.Tensor, candidates: torch.Tensor,
 dtw_band.launches = 0
 
 
-def dtw_survivors(data: torch.Tensor, qs: torch.Tensor, sidx: torch.Tensor,
+def dtw_survivors(data: torch.Tensor, qs: torch.Tensor, slist: torch.Tensor,
                   nsurv: torch.Tensor, cand_sid: torch.Tensor,
                   cand_off: torch.Tensor, mu: torch.Tensor, sd: torch.Tensor,
-                  *, r: int, znorm: bool) -> torch.Tensor:
-    """Squared banded DTW of the LB_Keogh survivors of one scan chunk.
+                  d2: torch.Tensor, *, r: int, znorm: bool) -> torch.Tensor:
+    """Squared banded DTW of the LB_Keogh survivors of one scan chunk,
+    written in place into d2 (returned).
 
-    data (S, n) float32; qs (B, qlen) prepared queries; sidx (B, M)
-    int32 the survivors' candidate positions packed first and nsurv (B,)
-    int32 their counts (both stay on the device: no host sync);
-    cand_sid/cand_off (B, M) int32 and mu/sd (B, M) float32 (the LB
-    kernel's window normalization) describe the chunk's candidates.
-    Slot p < nsurv[b] is the DTW^2 of q_b against candidate sidx[b, p]'s
-    window data[sid, clip(off, 0, n - qlen) : + qlen], normalized with
-    its (mu, sd) when znorm; every other slot is +inf.  Returns (B, M)
-    float32.
+    data (S, n) float32; qs (B, qlen) prepared queries; slist (B, M)
+    int32 and nsurv (B,) int32: query b's survivors are the candidate
+    positions slist[b, :nsurv[b]], in any order (both from
+    `fused_gather_lb_keogh_chunk`, and both stay on the device: no host
+    sync); cand_sid/cand_off (B, M) int32 and mu/sd (B, M) float32 (the LB
+    kernel's window normalization) describe the chunk's candidates; d2
+    (B, M) float32 is the chunk entry's DP output, +inf at every
+    non-survivor.  Position p = slist[b, i] gets the DTW^2 of q_b against
+    candidate p's window data[sid, clip(off, 0, n - qlen) : + qlen],
+    normalized with its (mu, sd) when znorm; other positions are left.
     """
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
-    m = sidx.shape[1]
+    m = slist.shape[1]
     _check_band("dtw_survivors", qlen, r)
     if qlen > n:
         raise ValueError(f"dtw_survivors: qlen={qlen} > n={n}")
     _build.check_tensors("dtw_survivors", dev, (
         ("data", data, torch.float32, (s, n)),
         ("qs", qs, torch.float32, (b, qlen)),
-        ("sidx", sidx, torch.int32, (b, m)),
+        ("slist", slist, torch.int32, (b, m)),
         ("nsurv", nsurv, torch.int32, (b,)),
         ("cand_sid", cand_sid, torch.int32, (b, m)),
         ("cand_off", cand_off, torch.int32, (b, m)),
         ("mu", mu, torch.float32, (b, m)),
-        ("sd", sd, torch.float32, (b, m))))
+        ("sd", sd, torch.float32, (b, m)),
+        ("d2", d2, torch.float32, (b, m))))
     if dev.type == "cpu":
-        return ref.dtw_survivors_ref(data, qs, sidx, nsurv, cand_sid,
-                                     cand_off, mu, sd, r=r, znorm=znorm)
-    out = torch.empty((b, m), dtype=torch.float32, device=dev)
+        return ref.dtw_survivors_ref(data, qs, slist, nsurv, cand_sid,
+                                     cand_off, mu, sd, d2, r=r, znorm=znorm)
     lib = _build.library("dtw_band")
     code = lib.ulisse_dtw_survivors(
-        data.data_ptr(), qs.data_ptr(), sidx.data_ptr(), nsurv.data_ptr(),
+        data.data_ptr(), qs.data_ptr(), slist.data_ptr(), nsurv.data_ptr(),
         cand_sid.data_ptr(), cand_off.data_ptr(), mu.data_ptr(),
-        sd.data_ptr(), out.data_ptr(), s, n, b, m, qlen, r, int(znorm),
+        sd.data_ptr(), d2.data_ptr(), s, n, b, m, qlen, r, int(znorm),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "dtw_survivors")
     dtw_survivors.launches += 1
-    return out
+    return d2
 
 
 dtw_survivors.launches = 0

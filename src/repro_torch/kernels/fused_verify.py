@@ -9,8 +9,12 @@ statistics from the collection's hi/lo prefix sums.  `fused_gather_ed`
 gives the squared ED (all of the ED search's true-distance work);
 `fused_gather_lb_keogh` normalizes each window and gives its squared
 LB_Keogh against the query's DTW envelope, with the (mu, sd) the DTW
-tier reuses.  The kernels are `csrc/fused_verify.cu`; the plain
-versions are `ref.fused_gather_ed_ref` and `ref.fused_gather_lb_keogh_ref`.
+tier reuses; `fused_gather_lb_keogh_chunk` is the scan's entry to the
+same kernel, which also masks, lists the survivors and prepares the DP's
+output; `gather_znorm` writes the kernels' normalized windows (a check).
+The kernels are `csrc/fused_verify.cu`; the plain versions are
+`ref.fused_gather_ed_ref`, `ref.fused_gather_lb_keogh_ref`,
+`ref.fused_gather_lb_keogh_chunk_ref` and `ref.gather_znorm_ref`.
 
 Inputs are checked on every device against what the kernel takes; then
 CPU tensors take the plain version and CUDA tensors launch the kernel.
@@ -125,3 +129,97 @@ def fused_gather_lb_keogh(data: torch.Tensor, csum: torch.Tensor,
 
 
 fused_gather_lb_keogh.launches = 0
+
+
+def fused_gather_lb_keogh_chunk(data: torch.Tensor, csum: torch.Tensor,
+                                csum2: torch.Tensor, csum_lo: torch.Tensor,
+                                csum2_lo: torch.Tensor, center: torch.Tensor,
+                                sids: torch.Tensor, anchors: torch.Tensor,
+                                dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
+                                ok: torch.Tensor, kth: torch.Tensor, *,
+                                g: int, rows: int, znorm: bool):
+    """The scan's LB_Keogh tier of one chunk, in one launch of the
+    `fused_gather_lb_keogh` kernel.
+
+    Inputs as in `fused_gather_lb_keogh`, plus the chunk's candidate mask
+    ok (B, M = rows * g) bool and the pool's k-th distances kth (B,)
+    float32.  Returns (lb2, mu, sd, slist, nsurv, d2): lb2/mu/sd (B *
+    rows, g) as the contract entry's with lb2 = +inf where not ok; query
+    b's survivors (lb2 < kth[b]) are the positions slist[b, :nsurv[b]]
+    (int32; in any order on the card, ascending on the CPU) and nsurv
+    (B,) int32 counts them, on the device; d2 (B, M) float32 is +inf at
+    every non-survivor, for `dtw_survivors` to fill the rest.
+    """
+    dev = data.device
+    s, n = data.shape
+    b, qlen = dtw_lo.shape
+    m = rows * g
+    _check("fused_gather_lb_keogh_chunk", data, csum, csum2, csum_lo,
+           csum2_lo, center, sids, anchors, rows, (("dtw_lo", dtw_lo),
+                                                   ("dtw_hi", dtw_hi)))
+    _build.check_tensors("fused_gather_lb_keogh_chunk", dev, (
+        ("ok", ok, torch.bool, (b, m)),
+        ("kth", kth, torch.float32, (b,))))
+    if dev.type == "cpu":
+        return ref.fused_gather_lb_keogh_chunk_ref(
+            data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+            dtw_lo, dtw_hi, ok, kth, g=g, rows=rows, znorm=znorm)
+    lb, mu, sd = torch.empty((3, b * rows, g), dtype=torch.float32,
+                             device=dev)
+    slist = torch.empty((b, m), dtype=torch.int32, device=dev)
+    nsurv = torch.zeros(b, dtype=torch.int32, device=dev)
+    d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
+    lib = _build.library("fused_verify")
+    code = lib.ulisse_fused_gather_lb_keogh_chunk(
+        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
+        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
+        sids.data_ptr(), anchors.data_ptr(), dtw_lo.data_ptr(),
+        dtw_hi.data_ptr(), ok.data_ptr(), kth.data_ptr(), lb.data_ptr(),
+        mu.data_ptr(), sd.data_ptr(), slist.data_ptr(), nsurv.data_ptr(),
+        d2.data_ptr(), s, n, b, rows, qlen, g, int(znorm),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "fused_gather_lb_keogh_chunk")
+    fused_gather_lb_keogh_chunk.launches += 1
+    return lb, mu, sd, slist, nsurv, d2
+
+
+fused_gather_lb_keogh_chunk.launches = 0
+
+
+def gather_znorm(data: torch.Tensor, sids: torch.Tensor,
+                 anchors: torch.Tensor, mu: torch.Tensor, sd: torch.Tensor,
+                 *, qlen: int, g: int) -> torch.Tensor:
+    """The normalized windows the LB_Keogh and DP kernels compute, for
+    checking them against the IEEE divide: window j of row e is
+    (region_e[j : j + qlen] - mu[e, j]) / sd[e, j].  sids/anchors (E,)
+    int32, mu/sd (E, g) float32 (the LB tier's).  Returns (E * g, qlen)
+    float32.  Not on a search path: a check of the normalization.
+    """
+    dev = data.device
+    s, n = data.shape
+    e = sids.shape[0]
+    if not 1 <= qlen <= n:
+        raise ValueError(f"gather_znorm: qlen={qlen} outside [1, {n}]")
+    _build.check_tensors("gather_znorm", dev, (
+        ("data", data, torch.float32, (s, n)),
+        ("sids", sids, torch.int32, (e,)),
+        ("anchors", anchors, torch.int32, (e,)),
+        ("mu", mu, torch.float32, (e, g)),
+        ("sd", sd, torch.float32, (e, g))))
+    if dev.type == "cpu":
+        return ref.gather_znorm_ref(data, sids, anchors, mu, sd, qlen=qlen,
+                                    g=g)
+    out = torch.empty((e * g, qlen), dtype=torch.float32, device=dev)
+    if e == 0:
+        return out
+    lib = _build.library("fused_verify")
+    code = lib.ulisse_gather_znorm(
+        data.data_ptr(), sids.data_ptr(), anchors.data_ptr(), mu.data_ptr(),
+        sd.data_ptr(), out.data_ptr(), s, n, e, qlen, g,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "gather_znorm")
+    gather_znorm.launches += 1
+    return out
+
+
+gather_znorm.launches = 0

@@ -150,23 +150,58 @@ def dtw_band_ref(q: torch.Tensor, candidates: torch.Tensor,
     return dtw.dtw_band(q, candidates, r, squared=True)
 
 
-def dtw_survivors_ref(data, qs, sidx, nsurv, cand_sid, cand_off, mu, sd, *,
-                      r: int, znorm: bool) -> torch.Tensor:
-    """Squared banded DTW of the LB survivors of B queries' chunks.
+def fused_gather_lb_keogh_chunk_ref(data, csum, csum2, csum_lo, csum2_lo,
+                                    center, sids, anchors, dtw_lo, dtw_hi,
+                                    ok, kth, *, g: int, rows: int,
+                                    znorm: bool):
+    """The scan's LB_Keogh tier of one chunk: `fused_gather_lb_keogh_ref`
+    masked by the candidate mask ok (B, M = rows * g), its survivors
+    listed, and the DP's output prepared.
 
-    sidx (B, M) holds the survivors' candidate positions packed first,
-    nsurv (B,) their counts; cand_sid/cand_off/mu/sd (B, M) describe the
-    chunk's candidates.  Slot p < nsurv[b] is the DTW of q_b against the
-    window data[sid, clip(off, 0, n - qlen) : + qlen] (flat read clipped
-    to the array), normalized by that candidate's (mu, sd) when znorm;
-    every other slot is +inf.  Returns (B, M) float32.
+    Returns (lb2, mu, sd, slist, nsurv, d2): lb2 (B * rows, g) is +inf
+    where not ok; query b's survivors (lb2 < kth[b]) are the positions
+    slist[b, :nsurv[b]] (int32, ascending here; the kernel's order
+    varies), followed by the other positions; d2 (B, M) float32 is +inf
+    at every non-survivor and NaN at the survivors, which the DP fills.
+    """
+    lb2, mu, sd = fused_gather_lb_keogh_ref(
+        data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
+        dtw_hi, g=g, rows=rows, znorm=znorm)
+    b_sz = ok.shape[0]
+    lb2 = torch.where(ok.reshape(lb2.shape), lb2, float("inf"))
+    surv = lb2.reshape(b_sz, -1) < kth[:, None]
+    slist = torch.argsort((~surv).to(torch.uint8), dim=1, stable=True)
+    d2 = torch.where(surv, float("nan"), float("inf"))
+    return (lb2, mu, sd, slist.to(torch.int32),
+            surv.sum(dim=1, dtype=torch.int32), d2)
+
+
+def gather_znorm_ref(data, sids, anchors, mu, sd, *, qlen: int, g: int):
+    """The normalized windows of the LB_Keogh and DP tiers: window j of
+    row e is (region_e[j : j + qlen] - mu[e, j]) / sd[e, j], an IEEE
+    subtract and divide.  Returns (E * g, qlen) float32."""
+    windows = _regions(data, sids, anchors, qlen, g).unfold(1, qlen, 1)
+    return ((windows - mu[..., None]) / sd[..., None]).reshape(-1, qlen)
+
+
+def dtw_survivors_ref(data, qs, slist, nsurv, cand_sid, cand_off, mu, sd,
+                      d2, *, r: int, znorm: bool) -> torch.Tensor:
+    """Squared banded DTW of the LB survivors of B queries' chunks,
+    written into d2 (B, M) at their positions (in place; returns d2).
+
+    slist[b, :nsurv[b]] holds query b's survivors' candidate positions (in
+    any order); cand_sid/cand_off/mu/sd (B, M) describe the chunk's
+    candidates.  Position p gets the DTW of q_b against the window
+    data[sid, clip(off, 0, n - qlen) : + qlen] (flat read clipped to the
+    array), normalized by the candidate's (mu, sd) when znorm; every
+    other position of d2 is left as it is.
     """
     s, n = data.shape
-    b_sz, m = sidx.shape
+    b_sz, m = slist.shape
     qlen = qs.shape[1]
-    live = torch.arange(m, device=sidx.device)[None, :] < nsurv[:, None]
-    pick = sidx.long()[live]                                 # (L,)
-    rows = torch.arange(b_sz, device=sidx.device)[:, None].expand(
+    live = torch.arange(m, device=slist.device)[None, :] < nsurv[:, None]
+    pick = slist.long()[live]                                # (L,)
+    rows = torch.arange(b_sz, device=slist.device)[:, None].expand(
         b_sz, m)[live]
     flat = ((cand_sid.long()[rows, pick] * n
              + cand_off.long()[rows, pick].clamp(0, n - qlen))[:, None]
@@ -174,9 +209,8 @@ def dtw_survivors_ref(data, qs, sidx, nsurv, cand_sid, cand_off, mu, sd, *,
     wb = data.reshape(-1)[flat]                              # (L, qlen)
     if znorm:
         wb = ((wb - mu[rows, pick][:, None]) / sd[rows, pick][:, None])
-    out = torch.full((b_sz, m), float("inf"), device=data.device)
-    out[live] = dtw.dtw_band(qs[rows], wb, r, squared=True)
-    return out
+    d2[rows, pick] = dtw.dtw_band(qs[rows], wb, r, squared=True)
+    return d2
 
 
 def batch_ed_ref(windows: torch.Tensor, queries: torch.Tensor,

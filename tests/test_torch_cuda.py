@@ -13,7 +13,9 @@ sd), the DTW kernels rtol 1e-4 / atol 1e-3
 band cancels in float32 by up to ~1e-3 at these lengths), batch_ed
 rtol 2e-4 / atol 2e-3 and lb_keogh rtol 1e-5 / atol 1e-5 (the reference
 kernel tests'); envelope_znorm bit for bit (kernel and plain version
-share their arithmetic: IEEE divisions, no contraction).
+share their arithmetic: IEEE divisions, no contraction); the LB and DP
+kernels' window normalization bit for bit against the IEEE divide
+(`gather_znorm`), and the LB's mu and sd bit for bit.
 """
 import dataclasses
 
@@ -24,7 +26,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import (Collection, EnvelopeParams,  # noqa: E402
                               QuerySpec, UlisseEngine)
-from repro_torch.core import dtw, executor  # noqa: E402
+from repro_torch.core import dtw  # noqa: E402
 from repro_torch.core import isax  # noqa: E402
 from repro_torch.core.envelope import _prefix, build_envelope_set  # noqa: E402
 from repro_torch.core.index import build_index  # noqa: E402
@@ -35,7 +37,8 @@ from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
                                           envelope_znorm_masters)
 from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
 from repro_torch.kernels.fused_verify import (  # noqa: E402
-    fused_gather_ed, fused_gather_lb_keogh)
+    fused_gather_ed, fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
+    gather_znorm)
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -170,12 +173,18 @@ def test_fused_gather_lb_keogh_matches_plain(dev, rows, qlen, r, znorm):
 
 
 @pytest.mark.parametrize("l,r,n", [(256, 25, 700), (160, 16, 700),
+                                   (255, 16, 300), (97, 25, 200),
                                    (64, 64, 90), (100, 300, 40),
-                                   (600, 300, 12), (40, 1, 300), (1, 3, 5)])
+                                   (97, 96, 60), (64, 63, 60),
+                                   (300, 200, 20), (600, 300, 12),
+                                   (700, 511, 6),
+                                   (40, 1, 300), (41, 1, 300), (2, 1, 9),
+                                   (1, 3, 5)])
 def test_dtw_band_matches_plain(dev, l, r, n):
-    """Path shapes (r = 16, 25), a band covering the row (r >= l), the
-    widest band the kernel keeps in registers (32 cells a lane), r = 1
-    and a single point."""
+    """Path shapes (r = 16, 25) at even and odd qlen, r = qlen - 1 (odd
+    and even), a band covering the row (r >= qlen), bands of 2, 4, 8 and
+    16 slot pairs a lane up to the limit 2r + 1 = 1023 < 1024, r = 1 at
+    even and odd qlen, qlen = 2 and a single point."""
     rng = np.random.default_rng(l + r)
     q = _t(rng.normal(size=l).astype(np.float32), dev)
     c = _t(rng.normal(size=(n, l)).astype(np.float32), dev)
@@ -186,31 +195,117 @@ def test_dtw_band_matches_plain(dev, l, r, n):
     _close(got, ref.dtw_band_ref(q, c, r), 1e-4, 1e-3)
 
 
-@pytest.mark.parametrize("qlen,r", [(160, 16), (256, 25), (64, 100)])
+@pytest.mark.parametrize("qlen,r", [(160, 16), (256, 25), (64, 100),
+                                    (256, 255)])
 @pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
 def test_dtw_survivors_matches_plain(dev, qlen, r, znorm):
     """One launch over a chunk of B = 8 queries: survivors from none
-    (nsurv = 0) to all, offsets past both ends of the series (clipped)."""
+    (nsurv = 0) to all, listed in a shuffled order, offsets past both
+    ends of the series (clipped); the other positions stay +inf.  Bands
+    of 1, 2 and 8 slot pairs a lane; the last (2r + 1 = 511) needs more
+    than 48 KB of shared memory a block (the opt-in launch)."""
     rng = np.random.default_rng(qlen + r)
     s, n, b, m = 300, 256, 8, 512 * 49
     data = _t(np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32),
               dev)
-    surv = _t(rng.random((b, m)) < np.linspace(0, 1, b)[:, None], dev)
-    nsurv = surv.sum(1, dtype=torch.int32)
-    sidx = executor._survivors_first(surv)
+    surv = rng.random((b, m)) < np.linspace(0, 1, b)[:, None]
+    nsurv = _t(surv.sum(1).astype(np.int32), dev)
+    slist = np.zeros((b, m), np.int32)
+    for i in range(b):
+        pos = rng.permutation(np.nonzero(surv[i])[0])
+        slist[i, :len(pos)] = pos
+    slist = _t(slist, dev)
     cand_sid = _t(rng.integers(0, s, (b, m)).astype(np.int32), dev)
     cand_off = _t(rng.integers(-5, n - qlen + 6, (b, m)).astype(np.int32),
                   dev)
     mu = _t(rng.normal(size=(b, m)).astype(np.float32), dev)
     sd = _t((rng.random((b, m)) + 0.5).astype(np.float32), dev)
     qs = _t(rng.normal(size=(b, qlen)).astype(np.float32), dev)
-    args = (data, qs, sidx, nsurv, cand_sid, cand_off, mu, sd)
+    d2 = _t(np.where(surv, np.nan, np.inf).astype(np.float32), dev)
+    args = (data, qs, slist, nsurv, cand_sid, cand_off, mu, sd)
     before = dtw_survivors.launches
-    got = dtw_survivors(*args, r=r, znorm=znorm)
+    got = dtw_survivors(*args, d2.clone(), r=r, znorm=znorm)
     torch.cuda.synchronize()
     assert dtw_survivors.launches == before + 1
-    assert int(nsurv[0]) == 0 and torch.isinf(got[0]).all()
-    _close(got, ref.dtw_survivors_ref(*args, r=r, znorm=znorm), 1e-4, 1e-3)
+    assert torch.isinf(got[0]).all() and not got.isnan().any()
+    _close(got, ref.dtw_survivors_ref(*args, d2.clone(), r=r, znorm=znorm),
+           1e-4, 1e-3)
+
+
+def _chunk_args(dev, rng, rows, qlen, r, b=8, s=512, n=256, g=49):
+    data = rng.normal(size=(s, n)).astype(np.float32) * 2 + 1
+    sids = rng.integers(0, s, b * rows).astype(np.int32)
+    anchors = rng.integers(0, n - qlen + 1, b * rows).astype(np.int32)
+    anchors[0] = n - qlen
+    lo, hi = dtw.dtw_envelope(_t(rng.normal(size=(b, qlen)).astype(
+        np.float32), dev), r)
+    c = Collection.from_array(data, device=dev)
+    return (c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center,
+            _t(sids, dev), _t(anchors, dev), lo.contiguous(),
+            hi.contiguous())
+
+
+@pytest.mark.parametrize("rows", [64, 512])
+@pytest.mark.parametrize("qlen,r", [(160, 16), (256, 25), (97, 9)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_lb_keogh_chunk_matches_plain(dev, rows, qlen, r,
+                                                   znorm):
+    """The chunk entry in one launch: lb2 (+inf off the mask) within the
+    LB tolerance, mu and sd bit-equal, the same survivor set and count
+    as the plain entry (none for query 0, all ok for query 7), +inf in
+    the DP's output at every non-survivor."""
+    rng = np.random.default_rng(rows + qlen + znorm)
+    g, b = 49, 8
+    args = _chunk_args(dev, rng, rows, qlen, r)
+    ok = _t(rng.random((b, rows * g)) > 0.2, dev)
+    lb_all = ref.fused_gather_lb_keogh_ref(*args, g=g, rows=rows,
+                                           znorm=znorm)[0].reshape(b, -1)
+    kth = torch.where(ok, lb_all, float("inf")).sort(dim=1).values[
+        :, rows * g // 10].contiguous()
+    kth[0], kth[7] = -float("inf"), float("inf")
+    before = fused_gather_lb_keogh_chunk.launches
+    got = fused_gather_lb_keogh_chunk(*args, ok, kth, g=g, rows=rows,
+                                      znorm=znorm)
+    want = ref.fused_gather_lb_keogh_chunk_ref(*args, ok, kth, g=g,
+                                               rows=rows, znorm=znorm)
+    torch.cuda.synchronize()
+    assert fused_gather_lb_keogh_chunk.launches == before + 1
+    _close(got[0], want[0], 2e-4, 2e-3)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    # the survivor set: the plain version's, from the kernel's own lb2
+    # (an lb2 within rounding of kth may fall on either side)
+    surv = got[0].reshape(b, -1) < kth[:, None]
+    assert torch.equal(got[4], surv.sum(dim=1, dtype=torch.int32))
+    assert int(got[4][0]) == 0 and int(got[4][7]) == int(ok[7].sum())
+    for i in range(b):
+        listed = got[3][i, :int(got[4][i])].sort().values
+        assert torch.equal(listed.long(), surv[i].nonzero()[:, 0])
+    assert torch.isinf(got[5][~surv]).all()
+    # against the plain version's set: they differ only where the plain
+    # lb2 lies within the LB tolerance of kth
+    plain = want[0].reshape(b, -1)
+    differ = surv != (plain < kth[:, None])
+    near = (plain - kth[:, None]).abs() <= 2e-3 + 2e-4 * kth.abs()[:, None]
+    assert bool((near | ~differ).all())
+
+
+@pytest.mark.parametrize("qlen,r", [(160, 16), (256, 25), (97, 9)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_gather_znorm_bit_equal_to_divide(dev, qlen, r, znorm):
+    """The LB and DP kernels' normalization (one reciprocal a window and
+    a corrected product a point) equals the IEEE subtract and divide of
+    the plain version bit for bit, at every point of 512 x 8 rows."""
+    rng = np.random.default_rng(qlen + znorm)
+    g, rows = 49, 512
+    args = _chunk_args(dev, rng, rows, qlen, r)
+    _, mu, sd = fused_gather_lb_keogh(*args, g=g, rows=rows, znorm=znorm)
+    before = gather_znorm.launches
+    got = gather_znorm(args[0], args[6], args[7], mu, sd, qlen=qlen, g=g)
+    want = ref.gather_znorm_ref(args[0], args[6], args[7], mu, sd,
+                                qlen=qlen, g=g)
+    torch.cuda.synchronize()
+    assert gather_znorm.launches == before + 1
+    assert int((got.view(torch.int32) != want.view(torch.int32)).sum()) == 0
 
 
 @pytest.mark.parametrize("znorm", [True, False], ids=["znorm", "raw"])
@@ -232,9 +327,11 @@ def test_dtw_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
           * 0.05 for s, o, qlen in windows]
     for r in (16, 25):
         spec = QuerySpec(k=5, measure="dtw", r=r)
-        before = (fused_gather_lb_keogh.launches, dtw_survivors.launches)
+        before = (fused_gather_lb_keogh_chunk.launches,
+                  dtw_survivors.launches)
         got = gpu.search(qs, spec)
-        after = (fused_gather_lb_keogh.launches, dtw_survivors.launches)
+        after = (fused_gather_lb_keogh_chunk.launches,
+                 dtw_survivors.launches)
         assert all(a > b for a, b in zip(after, before))
         want = cpu.search(qs, spec)
         for a, b in zip(got, want):

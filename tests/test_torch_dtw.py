@@ -9,8 +9,10 @@ on the same numpy inputs.
   * `dtw_band` against `dtw_band_pallas` (interpret mode), the
     reference's `core/dtw.dtw_band` and a numpy triple loop, rtol/atol
     1e-4 — the DP is summed in another order;
-  * the survivor pack and `dtw_survivors` against the reference's
-    `_survivors_first` / `_survivor_bucket`;
+  * the LB chunk entry's survivor list and `dtw_survivors`' values at
+    the survivors' positions against the reference's `_survivors_first`
+    / `_survivor_bucket`, and against the composition they replaced
+    (plain LB, mask, pack, plain DP, unpack), value for value;
   * the engine on the reference's index carried over with
     `convert.index_from_arrays`: DTW exact k-NN gives identical (series,
     offset) and identical `SearchStats`, and distances within rtol 1e-4 /
@@ -42,11 +44,12 @@ from repro.kernels.fused_verify import \
     fused_gather_lb_keogh as j_fused_lb  # noqa: E402
 from repro_torch.convert import index_from_arrays  # noqa: E402
 from repro_torch.core import (Collection, EnvelopeParams,  # noqa: E402
-                              QuerySpec, UlisseEngine, dtw, executor)
+                              QuerySpec, UlisseEngine, dtw)
 from repro_torch.core.search import brute_force_knn  # noqa: E402
 from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors  # noqa: E402
-from repro_torch.kernels.fused_verify import \
-    fused_gather_lb_keogh  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.fused_verify import (  # noqa: E402
+    fused_gather_lb_keogh, fused_gather_lb_keogh_chunk, gather_znorm)
 
 PARAMS = dict(lmin=64, lmax=128, seg_len=16, card=64, gamma=8)
 
@@ -163,42 +166,153 @@ def test_dtw_band_single_point_and_bad_window():
         dtw_band(q, _t(np.float32([[0.5]])), 0)
 
 
+def _chunk_inputs(seed, *, s=6, n=120, qlen=48, b=3, rows=5, g=9):
+    """One scan chunk of B queries: a random-walk collection, rows
+    envelope rows per query (two rows of query 2 on the same (sid,
+    anchor), so its candidates repeat), DTW envelopes of random queries
+    (r = 6), and a candidate mask with about a tenth of the windows off
+    (overrunning windows included, so the DP's clip is exercised)."""
+    rng = np.random.default_rng(seed)
+    data = np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32)
+    sids = rng.integers(0, s, b * rows).astype(np.int32)
+    anchors = rng.integers(0, n - qlen - g + 2, b * rows).astype(np.int32)
+    anchors[0] = n - qlen                   # overruns past the series
+    sids[2 * rows + 1], anchors[2 * rows + 1] = sids[2 * rows], \
+        anchors[2 * rows]                   # duplicate candidates
+    qs = rng.normal(size=(b, qlen)).astype(np.float32)
+    lo, hi = (np.asarray(x) for x in jdtw.dtw_envelope(jnp.asarray(qs), 6))
+    ok = rng.random((b, rows * g)) > 0.1
+    ok[2, g:2 * g] = ok[2, :g]
+    return data, sids, anchors, qs, lo, hi, ok, rows, g
+
+
+def _chunk(data, sids, anchors, lo, hi, ok, kth, rows, g, znorm):
+    c = Collection.from_array(data, device="cpu")
+    return fused_gather_lb_keogh_chunk(
+        c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center, _t(sids),
+        _t(anchors), _t(lo), _t(hi), _t(ok), _t(kth), g=g, rows=rows,
+        znorm=znorm)
+
+
 @pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
 def test_survivor_pack_and_dp_match_reference(znorm):
-    """The scatter pack equals the reference's searchsorted pack (clamped
-    duplicates included), and one `dtw_survivors` call gives the
-    reference's bucket-by-bucket DP values in every live slot and +inf
-    in the rest."""
-    rng = np.random.default_rng(11)
-    s, n, qlen, b, m, r, sb = 6, 120, 48, 3, 70, 6, 16
-    data = np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32)
-    surv = rng.random((b, m)) < np.array([[0.0], [0.3], [1.0]])
-    nsurv = surv.sum(1).astype(np.int32)
-    cand_sid = rng.integers(0, s, (b, m)).astype(np.int32)
-    cand_off = rng.integers(-3, n - qlen + 4, (b, m)).astype(np.int32)
-    mu = rng.normal(size=(b, m)).astype(np.float32)
-    sd = (rng.random((b, m)) + 0.5).astype(np.float32)
-    qs = rng.normal(size=(b, qlen)).astype(np.float32)
-
-    sidx = executor._survivors_first(_t(surv))
+    """The chunk entry lists the reference's survivors (those its
+    `_survivors_first` packs: none, some, all ok), and `dtw_survivors`
+    writes at each survivor's position the reference's bucket-by-bucket
+    DP value (`_survivor_bucket` over the packed list), +inf elsewhere."""
+    data, sids, anchors, qs, lo, hi, ok, rows, g = _chunk_inputs(11)
+    b, m, r, sb = qs.shape[0], rows * g, 6, 16
+    c = Collection.from_array(data, device="cpu")
+    lb2_all = fused_gather_lb_keogh(
+        c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center, _t(sids),
+        _t(anchors), _t(lo), _t(hi), g=g, rows=rows, znorm=znorm)[0]
+    lbm = np.where(ok, lb2_all.numpy().reshape(b, m), np.inf)
+    kth = np.float32([-np.inf, np.median(lbm[1][ok[1]]), np.inf])
+    lb2, mu, sd, slist, nsurv, d2 = _chunk(data, sids, anchors, lo, hi, ok,
+                                           kth, rows, g, znorm)
+    surv = lbm < kth[:, None]
+    np.testing.assert_array_equal(lb2.numpy().reshape(b, m), lbm)
+    np.testing.assert_array_equal(nsurv.numpy(), surv.sum(1))
+    assert list(nsurv.numpy()[[0, 2]]) == [0, ok[2].sum()]
     want_sidx = np.asarray(jexecutor._survivors_first(jnp.asarray(surv)))
-    np.testing.assert_array_equal(sidx.numpy(), want_sidx)
+    for i in range(b):
+        np.testing.assert_array_equal(
+            np.sort(slist.numpy()[i, :nsurv[i]]), want_sidx[i, :nsurv[i]])
 
-    got = dtw_survivors(_t(data), _t(qs), sidx, _t(nsurv), _t(cand_sid),
-                        _t(cand_off), _t(mu), _t(sd), r=r,
+    cand_sid = np.repeat(sids.reshape(b, rows), g, axis=1)
+    cand_off = (anchors.reshape(b, rows)[:, :, None]
+                + np.arange(g)).reshape(b, m).astype(np.int32)
+    mu_b = mu.numpy().reshape(b, m)
+    sd_b = sd.numpy().reshape(b, m)
+    got = dtw_survivors(_t(data), _t(qs), slist, nsurv, _t(cand_sid),
+                        _t(cand_off), _t(mu_b), _t(sd_b), d2, r=r,
                         znorm=znorm).numpy()
     want = np.full((b, m), np.inf, np.float32)
     for j in range(-(-m // sb)):
         pos, _, _, _, db = jexecutor._survivor_bucket(
             jnp.asarray(data), jnp.asarray(qs), jnp.asarray(cand_sid),
-            jnp.asarray(cand_off), jnp.asarray(want_sidx), jnp.asarray(mu),
-            jnp.asarray(sd), j, sb=sb, r=r, znorm=znorm)
+            jnp.asarray(cand_off), jnp.asarray(want_sidx), jnp.asarray(mu_b),
+            jnp.asarray(sd_b), j, sb=sb, r=r, znorm=znorm)
         pos = np.asarray(pos)
-        keep = pos < m
-        want[:, pos[keep]] = np.asarray(db)[:, keep]
-    live = np.arange(m)[None, :] < nsurv[:, None]
-    assert np.isinf(got[~live]).all()
-    np.testing.assert_allclose(got[live], want[live], rtol=1e-4, atol=1e-4)
+        for i in range(b):
+            live = pos < nsurv[i].item()
+            want[i, want_sidx[i, pos[live]]] = np.asarray(db)[i, live]
+    assert np.isinf(got[~surv]).all()
+    np.testing.assert_allclose(got[surv], want[surv], rtol=1e-4, atol=1e-4)
+
+
+def _old_composition(data, sids, anchors, qs, lo, hi, ok, kth, rows, g, r,
+                     znorm):
+    """The scan step before the chunk entry: plain LB, mask, survivors
+    packed first (a stable argsort), the plain DP on the packed windows,
+    and the values unpacked to their candidate positions."""
+    b, m = ok.shape
+    c = Collection.from_array(data, device="cpu")
+    lb2, mu, sd = (x.numpy().reshape(b, m)
+                   for x in ref.fused_gather_lb_keogh_ref(
+                       c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo,
+                       c.center, _t(sids), _t(anchors), _t(lo), _t(hi),
+                       g=g, rows=rows, znorm=znorm))
+    surv = np.where(ok, lb2, np.inf) < kth[:, None]
+    n, qlen = data.shape[1], qs.shape[1]
+    d2 = np.full((b, m), np.inf, np.float32)
+    for i in range(b):
+        pos = np.argsort(~surv[i], kind="stable")[:surv[i].sum()]
+        if len(pos) == 0:
+            continue
+        e = i * rows + pos // g
+        off = np.clip(anchors[e] + pos % g, 0, n - qlen)
+        w = np.stack([data[sids[x], o:o + qlen] for x, o in zip(e, off)]
+                     ).reshape(-1, qlen)
+        if znorm:
+            w = (_t(w) - _t(mu[i, pos])[:, None]) / _t(sd[i, pos])[:, None]
+        d2[i, pos] = ref.dtw_band_ref(_t(qs[i]), _t(w), r).numpy()
+    return surv, d2
+
+
+@pytest.mark.parametrize("case", ["empty", "full", "one", "duplicates"])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_chunk_entry_equals_old_composition(case, znorm):
+    """The plain chunk entry + plain DP against the composition they
+    replace, value for value: no survivor, every candidate a survivor,
+    one survivor per query, and a query whose survivors repeat
+    (sid, off)."""
+    data, sids, anchors, qs, lo, hi, ok, rows, g = _chunk_inputs(
+        len(case) + znorm)
+    b, m, r = qs.shape[0], rows * g, 6
+    if case == "full":
+        ok[:] = True
+    c = Collection.from_array(data, device="cpu")
+    lbm = np.where(ok, ref.fused_gather_lb_keogh_ref(
+        c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center, _t(sids),
+        _t(anchors), _t(lo), _t(hi), g=g, rows=rows, znorm=znorm)[0].numpy()
+        .reshape(b, m), np.inf)
+    kth = {"empty": np.full(b, -np.inf),
+           "full": np.full(b, np.inf),
+           "one": np.nextafter(lbm.min(1), np.inf),
+           "duplicates": np.sort(lbm, 1)[:, m // 3]}[case].astype(np.float32)
+    _, mu, sd, slist, nsurv, d2 = _chunk(data, sids, anchors, lo, hi, ok,
+                                         kth, rows, g, znorm)
+    cand_sid = np.repeat(sids.reshape(b, rows), g, axis=1)
+    cand_off = (anchors.reshape(b, rows)[:, :, None]
+                + np.arange(g)).reshape(b, m).astype(np.int32)
+    got = dtw_survivors(_t(data), _t(qs), slist, nsurv, _t(cand_sid),
+                        _t(cand_off), mu.reshape(b, m), sd.reshape(b, m),
+                        d2, r=r, znorm=znorm).numpy()
+    surv, want = _old_composition(data, sids, anchors, qs, lo, hi, ok, kth,
+                                  rows, g, r, znorm)
+    np.testing.assert_array_equal(nsurv.numpy(), surv.sum(1))
+    # query 2's least bound may sit on its repeated candidates
+    expect = {"empty": [0] * b, "full": list(ok.sum(1)),
+              "one": [1, 1, int((lbm[2] == lbm[2].min()).sum())]}
+    if case in expect:
+        assert list(nsurv.numpy()) == expect[case]
+    else:   # rows 2 * rows and 2 * rows + 1 hold the same candidates
+        dup = np.arange(g)
+        assert surv[2, dup].any()
+        np.testing.assert_array_equal(got[2, dup + g][surv[2, dup]],
+                                      got[2, dup][surv[2, dup]])
+    np.testing.assert_array_equal(got, want)
 
 
 # -- the engine -------------------------------------------------------------
@@ -329,11 +443,21 @@ def test_dtw_kernels_never_take_the_plain_path_off_cpu():
                               g=3, rows=8, znorm=True)
     with pytest.raises(RuntimeError):
         dtw_band(torch.empty(32, **meta), torch.empty((5, 32), **meta), 3)
+    ok = torch.zeros((1, 24), dtype=torch.bool, **meta)
+    kth = torch.empty(1, **meta)
+    with pytest.raises(RuntimeError):
+        fused_gather_lb_keogh_chunk(data, sums, sums, sums, sums,
+                                    torch.empty(4, **meta), idx, idx, env,
+                                    env, ok, kth, g=3, rows=8, znorm=True)
+    vals = torch.empty((4, 3), **meta)
+    with pytest.raises(RuntimeError):
+        gather_znorm(data, idx[:4], idx[:4], vals, vals, qlen=32, g=3)
     pos = torch.zeros((2, 6), dtype=torch.int32, **meta)
     val = torch.empty((2, 6), **meta)
     with pytest.raises(RuntimeError):
         dtw_survivors(data, torch.empty((2, 32), **meta), pos,
                       torch.zeros(2, dtype=torch.int32, **meta), pos, pos,
-                      val, val, r=3, znorm=True)
+                      val, val, val, r=3, znorm=True)
     assert fused_gather_lb_keogh.launches == dtw_band.launches == \
-        dtw_survivors.launches == 0
+        dtw_survivors.launches == fused_gather_lb_keogh_chunk.launches == \
+        gather_znorm.launches == 0
