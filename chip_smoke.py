@@ -31,17 +31,24 @@ Phases (any failed check raises, and the script exits non-zero):
   6. time each kernel and its plain version on main-path inputs (CUDA
      events), beside the least time the card could take (its bound);
      the inputs rotate through copies larger than L2, so reads are cold;
-  7. trace one batch of the main path (device busy and idle share);
+     the scan's ED chunk entry and the partials merge at the exact
+     scan's chunks under the batch's final k-th distance, the merge
+     beside torch.topk over the same values (the library yardstick);
+  7. trace one batch of the main path (device busy and idle share,
+     kernel launch calls and device activities a chunk step: at most 4
+     calls, and no sort kernel);
   8. the DTW path: one exact DTW k-NN batch (k=5, B=8) per length through
      `UlisseEngine.search(..., QuerySpec(measure="dtw", r=r))`, counters
      set to 0 just before and read just after; every qlen-256 answer and
      the first two qlen-160 answers (DTW_BRUTE) checked against the
      plain-DP brute force on the card;
   9. time the DTW kernels on that path's inputs, as in 6 (the LB
-     kernel's contract entry and its chunk entry, the DP's two entries),
-     and check LB_Keogh <= DTW on every survivor of one chunk;
+     kernel's contract entry and its chunk entry, the DP's two entries,
+     the dense pool merge beside torch.topk), and check LB_Keogh <= DTW
+     on every survivor of one chunk;
  10. trace one DTW batch: device activities and kernel launch calls a
-     chunk step, and no scan kernel (the survivor pack's cumsum is gone);
+     chunk step, no scan kernel (the survivor pack's cumsum is gone) and
+     no sort kernel (the merge's radix sort is gone);
  11. the host backend (`scan_backend="host"`), ED and DTW: two queries
      each, counters set to 0 just before and read just after; answers
      equal the brute-force-checked device answers of the same queries as
@@ -52,6 +59,12 @@ Phases (any failed check raises, and the script exits non-zero):
  13. time the index build's and the host backend's kernels at their
      path's inputs, as in 6.
 
+Phase 2 also holds the scan's ED chunk entry and the partials merge
+against the plain step (the contract entry's distances masked, the
+counters, the stable-sort merge) over three chunks of a plan (B = 8,
+rows 64 and 512, qlen 160 and 256, znorm and raw, k 5 and 500), and the
+dense merge against the stable sort at M = 512 x 49: pools and counters
+bit for bit.
 Phase 2 also holds the slice-3 kernels against their plain versions:
 envelope_znorm bit for bit (both entries; the build entry also against
 the plain version on the CPU, from the same prefix sums), batch_ed at
@@ -129,6 +142,11 @@ REPLACES = {
                  "src/repro/kernels/batch_ed.py:47"),
     "lb_keogh": ("src/repro_torch/kernels/csrc/lb_keogh.cu",
                  "src/repro/kernels/lb_keogh.py:27"),
+    # not a Pallas kernel: the scan's lax.top_k merge
+    "pool_merge": ("src/repro_torch/kernels/csrc/pool_merge.cu",
+                   "src/repro/core/executor.py:463"),
+    "pool_merge_dense": ("src/repro_torch/kernels/csrc/pool_merge.cu",
+                         "src/repro/core/executor.py:463"),
 }
 
 
@@ -151,17 +169,19 @@ def device_ms(prof) -> float:
 
 
 def time_calls(torch, fns, reps=20, budget_s=0.25, events=1):
-    """(device ms, event ms) per call over up to `reps` rounds through
-    `fns` (several inputs, so a working set larger than L2 is read cold);
-    a slow function (a plain version of thousands of launches) gets as
-    few rounds as fit `budget_s`, at least 3.
+    """(device ms, event ms, timer) per call over up to `reps` rounds
+    through `fns` (several inputs, so a working set larger than L2 is
+    read cold); a slow function (a plain version of thousands of
+    launches) gets as few rounds as fit `budget_s`, at least 3.
 
-    Device ms is the card's busy time from torch.profiler (None when
-    three traces in a row hold fewer than `events` device activities a
-    call: a trace sometimes records none, or only some, of a loop's
-    kernels);
-    event ms is CUDA events around the loop, which also counts the card
-    waiting for the host to launch.
+    Device ms is the card's busy time from torch.profiler.  A trace
+    sometimes records none, or only some, of a loop's device activities.
+    A wrapper that makes `events` > 1 named activities a call (each
+    once) is timed by the sum of their means in a trace that holds every
+    name ("profiler by name"); anything else by a trace that holds at
+    least `events` activities a call; after three traces that do neither,
+    device ms is None.  Event ms is CUDA events around the loop, which
+    also counts the card waiting for the host to launch.
     """
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -185,10 +205,17 @@ def time_calls(torch, fns, reps=20, budget_s=0.25, events=1):
             for r in range(reps):
                 fns[r % len(fns)]()
             torch.cuda.synchronize()
+        evs = device_events(prof)
+        names = {}
+        for ev in evs:
+            names.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+        if events > 1 and len(names) == events:
+            return (sum(sum(v) / len(v) for v in names.values()) / 1e3,
+                    event_ms, "profiler by name")
         # every call makes at least `events` device activities
-        if len(device_events(prof)) >= reps * events:
-            return device_ms(prof) / reps, event_ms
-    return None, event_ms
+        if events == 1 and len(evs) >= reps:
+            return device_ms(prof) / reps, event_ms, "profiler"
+    return None, event_ms, "events"
 
 
 def timing(torch, call, plain, nbytes, ops, err, shape, library=None,
@@ -198,16 +225,15 @@ def timing(torch, call, plain, nbytes, ops, err, shape, library=None,
     device time where the profiler saw the card (else by CUDA events,
     and the record says which), beside the bound.  `events`: the device
     activities one call of the kernel's wrapper makes."""
-    k_dev, k_ev = time_calls(torch, call, events=events)
-    p_dev, p_ev = time_calls(torch, plain)
+    k_dev, k_ev, k_timer = time_calls(torch, call, events=events)
+    p_dev, p_ev, p_timer = time_calls(torch, plain)
     lib_ms = None
     if library is not None:
-        l_dev, l_ev = time_calls(torch, library)
+        l_dev, l_ev, _ = time_calls(torch, library)
         lib_ms = l_dev or l_ev
     by_bytes = nbytes / PEAK_BYTES >= ops / PEAK_F32
     return dict(
-        shape=shape, timer="profiler" if k_dev else "events",
-        plain_timer="profiler" if p_dev else "events",
+        shape=shape, timer=k_timer, plain_timer=p_timer,
         ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
         event_ms=k_ev, plain_event_ms=p_ev, library_ms=lib_ms,
         bound_ms=max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3,
@@ -264,6 +290,61 @@ def trace_batch(torch, engine, queries, spec):
             "top_self_cpu": host}
 
 
+def trace_scan(torch, coll, index, p, queries, spec):
+    """The exact scan of one batch alone under torch.profiler: the plan
+    (the queries' lower bounds over every envelope, LB-sorted) is made
+    first, the scan starts from an empty pool, and the trace holds only
+    the chunk loop and its result.  Returns its chunk steps, kernel
+    launch calls and device activities a step, busy time and sort
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import executor, planner
+    from repro_torch.kernels.fused_verify import (fused_gather_ed_chunk,
+                                                  fused_gather_lb_keogh_chunk)
+    dev = coll.data.device
+    env = index.envelopes
+    b, qlen = len(queries), len(queries[0])
+    q = torch.from_numpy(np.stack(queries)).to(dev)
+    qs, dlo, dhi, qb, qh = planner.prepare_query_batch(
+        q, p.seg_len, p.znorm, spec.measure, spec.r)
+    lbs = planner.env_lower_bounds_batch(qb, qh, env, index.breakpoints,
+                                         p.seg_len, p.query_segments(qlen),
+                                         False)
+    plan = planner.device_scan_pack(
+        env.series_id, env.anchor, env.n_master, lbs,
+        torch.full((b, 1), env.size, dtype=torch.int32, device=dev),
+        torch.zeros(b, dtype=torch.int32, device=dev), chunk=1,
+        n_pad=executor.pow2ceil(env.size))[:4]
+    neg = torch.full((b, spec.k), -1, dtype=torch.int32, device=dev)
+    seed = (torch.full((b, spec.k), float("inf"), device=dev), neg, neg)
+    entry = (fused_gather_ed_chunk if spec.measure == "ed"
+             else fused_gather_lb_keogh_chunk)
+    entry.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = executor.device_exact_scan(
+            coll, *plan, qs, dlo, dhi, *seed, k=spec.k, g=p.gamma + 1,
+            measure=spec.measure, r=spec.r, znorm=p.znorm,
+            chunk_size=spec.chunk_size)
+        out[0].cpu()
+        wall = time.perf_counter() - t0
+    steps = entry.launches
+    events = device_events(prof)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith(("cudaLaunchKernel",
+                                        "cuLaunchKernel")))
+    busy = device_ms(prof) / 1e3
+    return {"qlen": qlen, "chunk_steps": steps, "wall_s": wall,
+            "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+            "launch_calls": launches, "device_events": len(events),
+            "launch_calls_per_step": launches / max(steps, 1),
+            "device_events_per_step": len(events) / max(steps, 1),
+            "sort_kernel_events": sum("sort" in e.name.lower()
+                                      for e in events)}
+
+
 def log_trace(step, tr):
     log(f"[{step}] one traced batch (qlen {tr['qlen']}): wall "
         f"{tr['wall_s']:.3f} s under the profiler, device busy "
@@ -318,10 +399,10 @@ def chunk_args(torch, a0, qn, dlo, dhi, sids, anchors, n_master, kth,
     outputs, and the `dtw_survivors` arguments it leaves (its survivors'
     list and count, the candidates, mu, sd, and the DP output, +inf at
     every non-survivor)."""
-    from repro_torch.core import executor
+    from repro_torch.kernels import ref
     from repro_torch.kernels.fused_verify import fused_gather_lb_keogh_chunk
     b, rows = sids.shape
-    ok, cand_sid, cand_off = executor._chunk_candidates(
+    ok, cand_sid, cand_off = ref.chunk_candidates(
         sids, anchors, n_master, torch.ones_like(sids, dtype=torch.bool),
         qn.shape[1], a0[0].shape[1], g)
     lb_in = (*a0, sids.reshape(-1).contiguous(),
@@ -359,6 +440,172 @@ def check_chunk_entry(torch, got, want, kth):
         raise AssertionError("LB chunk entry: DP output not +inf off the "
                              "survivors")
     return err, int(got[4].sum())
+
+
+def ed_step_pair(torch, a0, plan, qs, pool, plain, stats, stats_plain, i,
+                 rows, g, znorm):
+    """Chunk i of an ED plan through the chunk entry and the partials
+    merge (pool, stats) and through the plain step fed the contract
+    entry's distances (plain, stats_plain), all in place; raise unless
+    the pools and counters are equal bit for bit.  Returns the chunk
+    entry's partials."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_verify import (fused_gather_ed,
+                                                  fused_gather_ed_chunk)
+    from repro_torch.kernels.pool_merge import pool_merge_partials
+    cols = slice(i * rows, (i + 1) * rows)
+    dist = fused_gather_ed(*a0, plan[0][:, cols].reshape(-1).contiguous(),
+                           plan[1][:, cols].reshape(-1).contiguous(), qs,
+                           g=g, rows=rows, znorm=znorm)
+    part = ref.fused_gather_ed_chunk_ref(*a0, *plan, qs, plain[0],
+                                         stats_plain, i=i, chunk=rows, g=g,
+                                         znorm=znorm, dist=dist)
+    for t, v in zip(plain, ref.pool_merge_partials_ref(plain, part)):
+        t.copy_(v)
+    part = fused_gather_ed_chunk(*a0, *plan, qs, pool[0], stats, i=i,
+                                 chunk=rows, g=g, znorm=znorm)
+    pool_merge_partials(pool, part)
+    for name, x, y in zip(("d2", "sid", "off"), pool, plain):
+        check_equal(torch, f"ED chunk step pool {name}", x, y)
+    check_equal(torch, "ED chunk step counters", stats, stats_plain)
+    return part
+
+
+def check_ed_step(torch, dev, probe, rng, g):
+    """The ED chunk entry + partials merge against the plain step over
+    three chunks of a plan on the probe collection (B = 8, rows 64 and
+    512, qlen 160 and 256, znorm and raw, k 5 and 500): anchors on the
+    envelope grid, random n_master, every fifth row a copy of its
+    neighbour (equal d2 at two positions), query 0 all padding, lbs2
+    rising to ~1.2x each query's median distance, a seed pool half made
+    of candidate distances (ties with newcomers); and the dense merge
+    against the stable sort at the DTW branch's (B, 512 x g) rows over
+    four rounds with ties, k 5 and 500.  Returns the steps held."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_verify import fused_gather_ed
+    from repro_torch.kernels.pool_merge import pool_merge
+    s_probe, n = probe.data.shape
+    a0 = (probe.data, probe.csum, probe.csum2, probe.csum_lo,
+          probe.csum2_lo, probe.center)
+    held = 0
+
+    def seed(d2_all, k):
+        d2 = torch.full((BATCH, k), float("inf"), device=dev)
+        sid = torch.full((BATCH, k), -1, dtype=torch.int32, device=dev)
+        for q in range(BATCH):
+            m = k // 2
+            pick = d2_all[q][torch.randperm(d2_all.shape[1], device=dev)[:m]]
+            d2[q, :m] = pick.sort().values
+            sid[q, :m] = 10 ** 7 + torch.arange(m, device=dev)
+        return [d2, sid, sid.clone()]
+
+    for rows in (64, 512):
+        n_pad = 3 * rows
+        for qlen in QLENS:
+            qs = torch.from_numpy(rng.normal(size=(BATCH, qlen)).astype(
+                np.float32)).to(dev)
+            sids = rng.integers(0, s_probe, (BATCH, n_pad)).astype(np.int32)
+            anc = (rng.integers(0, 2, (BATCH, n_pad)) * g).astype(np.int32)
+            nm = rng.integers(0, g + 1, (BATCH, n_pad)).astype(np.int32)
+            copy = np.arange(1, n_pad, 5)
+            sids[:, copy], anc[:, copy] = sids[:, copy - 1], anc[:, copy - 1]
+            sids, anc, nm = (torch.from_numpy(x).to(dev)
+                             for x in (sids, anc, nm))
+            for znorm in (True, False):
+                d2_all = fused_gather_ed(*a0, sids.reshape(-1),
+                                         anc.reshape(-1), qs, g=g,
+                                         rows=n_pad, znorm=znorm)
+                d2_all = d2_all.reshape(BATCH, -1)
+                med = d2_all.median(dim=1).values
+                lbs2 = (torch.from_numpy(np.sort(rng.random(
+                    (BATCH, n_pad)), axis=1).astype(np.float32)).to(dev)
+                    * 1.2 * med[:, None])
+                lbs2[0] = float("inf")
+                plan = (sids, anc, nm, lbs2)
+                for k in (K, 500):
+                    pool = seed(d2_all, k)
+                    plain = [t.clone() for t in pool]
+                    st = torch.zeros((BATCH, 6), dtype=torch.int32,
+                                     device=dev)
+                    st_plain = st.clone()
+                    for i in range(3):
+                        ed_step_pair(torch, a0, plan, qs, pool, plain, st,
+                                     st_plain, i, rows, g, znorm)
+                        held += 1
+    m = 512 * g
+    for k in (K, 500):
+        pool = [torch.full((BATCH, k), float("inf"), device=dev),
+                torch.full((BATCH, k), -1, dtype=torch.int32, device=dev),
+                torch.full((BATCH, k), -1, dtype=torch.int32, device=dev)]
+        plain = [t.clone() for t in pool]
+        for rnd in range(4):
+            d2 = torch.from_numpy(rng.integers(0, 400, (BATCH, m)).astype(
+                np.float32)).to(dev)
+            d2[torch.rand((BATCH, m), device=dev) > 0.02] = float("inf")
+            if rnd:
+                d2[:, :k] = torch.where(torch.isfinite(plain[0]), plain[0],
+                                        d2[:, :k])
+            sid, off = (torch.from_numpy(rng.integers(
+                0, 10 ** 6, (BATCH, m)).astype(np.int32)).to(dev)
+                for _ in range(2))
+            for t, v in zip(plain, ref.pool_merge_ref(plain, d2, sid, off)):
+                t.copy_(v)
+            pool_merge(pool, d2, sid, off)
+            for name, x, y in zip(("d2", "sid", "off"), pool, plain):
+                check_equal(torch, f"dense pool merge {name}", x, y)
+            held += 1
+    return held
+
+
+def merge_work(torch, pool_d2, d2):
+    """(bytes, live): what a merge must move — the pool read and written,
+    every candidate's d2 read, and the sid and off of the candidates
+    below the pool's k-th (the live ones, which alone can enter)."""
+    b, k = pool_d2.shape
+    live = int((d2 < pool_d2[:, -1:]).sum())
+    return 2 * 3 * b * k * 4 + d2.numel() * 4 + live * 8, live
+
+
+def ed_chunk_work(torch, coll, plan, pool_d2, qlen: int, rows: int, g: int,
+                  n_chunks: int):
+    """(bytes, flops, ok candidates) one call of the ED chunk entry needs,
+    averaged over the plan's first n_chunks chunks under pool_d2: the
+    chunk's plan entries, the pool, the counters read and written, the
+    queries, the ok candidates' distinct window elements and prefix-sum
+    positions (x4 arrays), the partials written; 2 qlen flops an ok
+    candidate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_verify import ed_chunk_tile
+    dev = pool_d2.device
+    n = coll.data.shape[1]
+    sids, anc, nm, lbs2 = plan
+    b, k = pool_d2.shape
+    span = torch.arange(qlen, device=dev)
+    read, n_ok = 0, 0
+    for i in range(n_chunks):
+        sl = slice(i * rows, (i + 1) * rows)
+        active = ref.scan_active(lbs2, pool_d2, i, rows)
+        keep = (lbs2[:, sl] < pool_d2[:, -1:]) & active[:, None]
+        ok, cs, co = ref.chunk_candidates(sids[:, sl], anc[:, sl],
+                                          nm[:, sl], keep, qlen, n, g)
+        s_ok, o_ok = cs[ok].long(), co[ok].long()
+        elems = torch.unique((s_ok[:, None] * n + o_ok[:, None] + span)
+                             .reshape(-1))
+        pos = s_ok * (n + 1) + o_ok
+        sums = torch.unique(torch.cat([pos, pos + qlen]))
+        read += elems.numel() * 4 + 4 * sums.numel() * 4
+        n_ok += int(ok.sum())
+    tile = ed_chunk_tile(qlen, g)
+    parts = 4 * b * -(-rows // tile) * min(k, tile * g) * 4
+    nbytes = (read / n_chunks + b * rows * 16 + b * k * 4 + 2 * b * 6 * 4
+              + b * qlen * 4 + parts)
+    return nbytes, 2 * qlen * n_ok / n_chunks, n_ok / n_chunks
+
+
+def sort_events(tr):
+    """Device activities of a traced batch whose kernel name says sort."""
+    return sum(row["count"] for row in tr["device_by_name"]
+               if "sort" in row["name"].lower())
 
 
 def check_dtw_kernels(torch, dev, p, probe, rng):
@@ -629,10 +876,11 @@ def main() -> int:
     from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
     from repro_torch.kernels.envelope import envelope_znorm
     from repro_torch.kernels.fused_verify import (
-        fused_gather_ed, fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
-        gather_znorm)
+        fused_gather_ed, fused_gather_ed_chunk, fused_gather_lb_keogh,
+        fused_gather_lb_keogh_chunk, gather_znorm)
     from repro_torch.kernels.lb_keogh import lb_keogh
     from repro_torch.kernels.mindist import mindist_paa, mindist_sym
+    from repro_torch.kernels.pool_merge import pool_merge, pool_merge_partials
     from repro_torch.train.data import series_batches
 
     # the plain versions' products stay full float32, like the kernels
@@ -645,10 +893,15 @@ def main() -> int:
         text=True, check=True).stdout.strip()
     log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
-    wrappers = {"fused_gather_ed": fused_gather_ed,
+    # the main path's kernels: the ED chunk entry and the partials merge
+    # every chunk step, the lower bounds once a batch
+    wrappers = {"fused_gather_ed_chunk": fused_gather_ed_chunk,
+                "pool_merge_partials": pool_merge_partials,
                 "mindist_sym": mindist_sym, "mindist_paa": mindist_paa}
     # every kernel wrapper of the port, each count set to 0 before a path
-    all_wrappers = {**wrappers, "fused_gather_lb_keogh": fused_gather_lb_keogh,
+    all_wrappers = {**wrappers, "fused_gather_ed": fused_gather_ed,
+                    "pool_merge": pool_merge,
+                    "fused_gather_lb_keogh": fused_gather_lb_keogh,
                     "fused_gather_lb_keogh_chunk": fused_gather_lb_keogh_chunk,
                     "gather_znorm": gather_znorm,
                     "dtw_survivors": dtw_survivors, "dtw_band": dtw_band,
@@ -681,7 +934,9 @@ def main() -> int:
     g = p.gamma + 1
     n_env = args.series * p.num_envelopes(SERIES_LEN)
     n_pad_env = -(-n_env // 64 ** 2) * 64 ** 2
-    errs = {name: 0.0 for name in wrappers}
+    errs = {name: 0.0 for name in ("fused_gather_ed", "mindist_sym",
+                                   "mindist_paa", "pool_merge",
+                                   "pool_merge_dense")}
     rng = np.random.default_rng(args.seed + 1)
     probe = Collection.from_array(
         rng.normal(size=(4096, SERIES_LEN)).astype(np.float32) * 2 + 1,
@@ -729,6 +984,7 @@ def main() -> int:
                             p.seg_len, nseg),
                 ref.mindist_ref(qp, qh, lo[:nb], hi[:nb], valid[:nb],
                                 p.seg_len, nseg)))
+    results["ed_steps_bit_equal"] = check_ed_step(torch, dev, probe, rng, g)
     dtw_errs, results["lb_keogh_mu_sd_bit_equal"], (w_differ, w_points) = \
         check_dtw_kernels(torch, dev, p, probe, rng)
     results["znorm_w_differ_from_divide"] = {"points": w_points,
@@ -746,7 +1002,10 @@ def main() -> int:
         + f"; LB_Keogh mu/sd bit-equal to the plain version's: "
         f"{results['lb_keogh_mu_sd_bit_equal']:.6f}; the LB and DP "
         f"kernels' normalized window points differing from the IEEE "
-        f"divide: {w_differ} of {w_points}")
+        f"divide: {w_differ} of {w_points}; the ED chunk entry + partials "
+        f"merge and the dense merge bit-equal to the plain step and the "
+        f"stable-sort merge over {results['ed_steps_bit_equal']} steps "
+        f"(pools and counters)")
 
     # -- 3. the index on the card ------------------------------------------
     t0 = time.perf_counter()
@@ -871,7 +1130,8 @@ def main() -> int:
     kernels, timings = [], {}
     for qlen in QLENS:
         nseg = p.query_segments(qlen)
-        q = torch.from_numpy(np.stack(make_batch(qlen))).to(dev)
+        qlist = make_batch(qlen)
+        q = torch.from_numpy(np.stack(qlist)).to(dev)
         qs, _, _, qb, qh = planner.prepare_query_batch(q, p.seg_len,
                                                        p.znorm)
         bpt = index.breakpoints
@@ -904,7 +1164,7 @@ def main() -> int:
         none = torch.full((BATCH, 1), env.size, dtype=torch.int32,
                           device=dev)
         zero = torch.zeros(BATCH, dtype=torch.int32, device=dev)
-        ssids, sanc, _, _, _ = planner.device_scan_pack(
+        ssids, sanc, snm, slbs2, _ = planner.device_scan_pack(
             env.series_id, env.anchor, env.n_master, lbs, none, zero,
             chunk=1, n_pad=n_pad)
         blk = planner.block_lower_bounds_batch(qb, qh, fine.paa_lo,
@@ -937,21 +1197,93 @@ def main() -> int:
             timings[("fused_gather_ed", qlen, rows)] = timing(
                 torch, call, plain, nbytes, ops, err,
                 f"B={BATCH} rows={rows} qlen={qlen} g={g}")
+        # the scan's chunk entry and the partials merge over the exact
+        # scan's first 8 chunks, under this batch's final pool (what the
+        # bulk of the scan sees: every query active, most rows kept)
+        ans = engine.search(qlist, spec)
+        pool0 = [torch.from_numpy(np.stack([a.dists ** 2 for a in ans])
+                                  .astype(np.float32)).to(dev),
+                 *(torch.from_numpy(np.stack([getattr(a, f) for a in ans])
+                                    .astype(np.int32)).to(dev)
+                   for f in ("series", "offsets"))]
+        plan = (ssids, sanc, snm, slbs2)
+        rows = 512
+        st_k = torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+        st_p = torch.zeros_like(st_k)
+        ed_step_pair(torch, a0, plan, qs, [t.clone() for t in pool0],
+                     [t.clone() for t in pool0], st_k, st_p, 0, rows, g,
+                     p.znorm)
+        call = [lambda i=i: fused_gather_ed_chunk(
+            *a0, *plan, qs, pool0[0], st_k, i=i, chunk=rows, g=g,
+            znorm=p.znorm) for i in range(8)]
+        plain = [lambda i=i: ref.fused_gather_ed_chunk_ref(
+            *a0, *plan, qs, pool0[0], st_p, i=i, chunk=rows, g=g,
+            znorm=p.znorm) for i in range(8)]
+        nbytes, ops, n_ok = ed_chunk_work(torch, coll, plan, pool0[0], qlen,
+                                          rows, g, 8)
+        timings[("fused_gather_ed_chunk", qlen, rows)] = timing(
+            torch, call, plain, nbytes, ops, 0.0,
+            f"B={BATCH} rows={rows} qlen={qlen} ok/call={n_ok:.0f}")
+        parts = [c() for c in call]
+        pools = [[t.clone() for t in pool0] for _ in parts]
+        call = [lambda a=a, q=q: pool_merge_partials(q, a)
+                for a, q in zip(parts, pools)]
+        plain = [lambda a=a: ref.pool_merge_partials_ref(pool0, a)
+                 for a in parts]
+        cat = [torch.cat([pool0[0], a[0].view(torch.float32)], dim=1)
+               for a in parts]
+        library = [lambda c=c: torch.topk(c, K, dim=1, largest=False)
+                   for c in cat]
+        nbytes, live = merge_work(torch, pool0[0],
+                                  parts[0][0].view(torch.float32))
+        timings[("pool_merge", qlen)] = timing(
+            torch, call, plain, nbytes, 0, 0.0,
+            f"B={BATCH} k={K} P={parts[0].shape[2]} live={live}",
+            library=library)
+        del parts, pools, cat
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
     for key, t in timings.items():
-        log(f"[6] {key[0]:16s} {t['shape']:30s} kernel {t['ms']:.4f} ms  "
-            f"plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}, {t['timer']}/{t['plain_timer']}; events "
+        lib = (f"  library {t['library_ms']:.4f} ms"
+               if t["library_ms"] is not None else "")
+        log(f"[6] {key[0]:21s} {t['shape']:38s} kernel {t['ms']:.4f} ms  "
+            f"plain {t['plain_ms']:.4f} ms{lib}  bound {t['bound_ms']:.5f} "
+            f"ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']}; events "
             f"{t['event_ms']:.4f} / {t['plain_event_ms']:.4f} ms)")
 
     # -- 7. where a batch's time goes (one traced batch) -------------------
-    results["traced_batch"] = trace_batch(torch, engine, batches[1], spec)
-    log_trace(7, results["traced_batch"])
+    zero_counts()
+    tr = trace_batch(torch, engine, batches[1], spec)
+    steps = fused_gather_ed_chunk.launches
+    tr["chunk_steps"] = steps
+    tr["device_events_per_step"] = tr["device_events"] / max(steps, 1)
+    tr["launch_calls_per_step"] = tr["launch_calls"] / max(steps, 1)
+    tr["sort_kernel_events"] = sort_events(tr)
+    results["traced_batch"] = tr
+    log_trace(7, tr)
+    log(f"[7] {steps} chunk steps: {tr['device_events_per_step']:.2f} device"
+        f" activities and {tr['launch_calls_per_step']:.2f} kernel launch "
+        f"calls a step; sort kernels: {tr['sort_kernel_events']}")
+    # the scan loop alone, traced: at most 4 kernel launch calls a chunk
+    # step and no sort kernel (the batch's sorts are the planner's LB
+    # order, once a batch)
+    sc = trace_scan(torch, coll, index, p, batches[1], spec)
+    results["traced_scan"] = sc
+    log(f"[7] the exact scan alone (qlen {sc['qlen']}, no approximate "
+        f"seed): {sc['chunk_steps']} chunk steps, "
+        f"{sc['launch_calls_per_step']:.2f} kernel launch calls and "
+        f"{sc['device_events_per_step']:.2f} device activities a step, "
+        f"device busy {sc['device_busy_s']:.4f} s of {sc['wall_s']:.4f} s; "
+        f"sort kernels: {sc['sort_kernel_events']}")
+    if sc["launch_calls_per_step"] > 4:
+        raise AssertionError("the ED scan makes more than 4 kernel launch "
+                             "calls a chunk step")
+    if sc["sort_kernel_events"]:
+        raise AssertionError("the ED scan runs a sort kernel")
 
     # -- 8. the DTW path -----------------------------------------------------
     dtw_wrappers = {"fused_gather_lb_keogh_chunk": fused_gather_lb_keogh_chunk,
-                    "dtw_survivors": dtw_survivors,
+                    "dtw_survivors": dtw_survivors, "pool_merge": pool_merge,
                     "mindist_sym": mindist_sym, "mindist_paa": mindist_paa}
     dtw_specs = [QuerySpec(k=K, measure="dtw", r=r) for _, r in DTW_CASES]
     dtw_batches = [make_batch(qlen) for qlen, _ in DTW_CASES]
@@ -968,8 +1300,8 @@ def main() -> int:
     for name, n in dtw_launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the DTW path")
-    if fused_gather_ed.launches:
-        raise AssertionError("the DTW path launched fused_gather_ed")
+    if fused_gather_ed_chunk.launches or pool_merge_partials.launches:
+        raise AssertionError("the DTW path launched the ED chunk step")
     flat = [r for ans in dtw_answers for r in ans]
     check_answers(flat, K)
     st = [r.stats for r in flat]
@@ -1137,15 +1469,44 @@ def main() -> int:
             torch, call, plain, ncand * qlen * 4 + qlen * 4 + ncand * 4,
             5 * ncand * dtw_cells(qlen, r), err,
             f"N={ncand} qlen={qlen} r={r}")
-        del cands, surv_inputs, chunks, steps
+        # the dense pool merge of the DP's output over the same 8 chunks,
+        # under the batch's final pool
+        pool0 = [torch.from_numpy(np.stack([a.dists ** 2 for a in ans])
+                                  .astype(np.float32)).to(dev),
+                 *(torch.from_numpy(np.stack([getattr(a, f) for a in ans])
+                                    .astype(np.int32)).to(dev)
+                   for f in ("series", "offsets"))]
+        dense = [(dtw_survivors(*a[:-1], a[-1].clone(), r=r, znorm=p.znorm),
+                  a[4], a[5]) for a in surv_inputs]
+        got = [t.clone() for t in pool0]
+        pool_merge(got, *dense[0])
+        for name, x, y in zip(("d2", "sid", "off"), got,
+                              ref.pool_merge_ref(pool0, *dense[0])):
+            check_equal(torch, f"dense pool merge {name}", x, y)
+        pools = [[t.clone() for t in pool0] for _ in dense]
+        call = [lambda a=a, q=q: pool_merge(q, *a)
+                for a, q in zip(dense, pools)]
+        plain = [lambda a=a: ref.pool_merge_ref(pool0, *a) for a in dense]
+        cat = [torch.cat([pool0[0], a[0]], dim=1) for a in dense]
+        library = [lambda c=c: torch.topk(c, K, dim=1, largest=False)
+                   for c in cat]
+        nbytes, live = merge_work(torch, pool0[0], dense[0][0])
+        timings[("pool_merge_dense", qlen)] = timing(
+            torch, call, plain, nbytes, 0, 0.0,
+            f"B={BATCH} k={K} M={rows * g} live={live}", library=library,
+            events=2)
+        del cands, surv_inputs, chunks, steps, dense, pools, cat
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
     for key, t in timings.items():
         if key[0] in ("fused_gather_lb_keogh", "fused_gather_lb_keogh_chunk",
-                      "dtw_survivors", "dtw_band"):
+                      "dtw_survivors", "dtw_band", "pool_merge_dense"):
+            lib = (f"  library {t['library_ms']:.4f} ms"
+                   if t["library_ms"] is not None else "")
             log(f"[9] {key[0]:27s} {t['shape']:45s} kernel {t['ms']:.4f} "
-                f"ms  plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f}"
-                f" ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']}; "
+                f"ms  plain {t['plain_ms']:.4f} ms{lib}  bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {t['timer']}/"
+                f"{t['plain_timer']}; "
                 f"events {t['event_ms']:.4f} / {t['plain_event_ms']:.4f} "
                 f"ms)")
 
@@ -1160,14 +1521,25 @@ def main() -> int:
     tr["chunk_steps"] = steps
     tr["device_events_per_step"] = tr["device_events"] / max(steps, 1)
     tr["launch_calls_per_step"] = tr["launch_calls"] / max(steps, 1)
+    tr["sort_kernel_events"] = sort_events(tr)
     results["traced_dtw_batch"] = tr
     log_trace(10, tr)
     log(f"[10] {steps} chunk steps: {tr['device_events_per_step']:.1f} device"
         f" activities and {tr['launch_calls_per_step']:.1f} kernel launch "
         f"calls a step; scan kernels (the survivor pack's cumsum): "
-        f"{tr['scan_kernel_events']}")
+        f"{tr['scan_kernel_events']}; sort kernels: "
+        f"{tr['sort_kernel_events']}")
     if tr["scan_kernel_events"]:
         raise AssertionError("the traced DTW batch still runs scan kernels")
+    sc = trace_scan(torch, coll, index, p, dtw_batches[1], dtw_specs[1])
+    results["traced_dtw_scan"] = sc
+    log(f"[10] the exact DTW scan alone (qlen {sc['qlen']}, no approximate "
+        f"seed): {sc['chunk_steps']} chunk steps, "
+        f"{sc['launch_calls_per_step']:.2f} kernel launch calls and "
+        f"{sc['device_events_per_step']:.2f} device activities a step; "
+        f"sort kernels: {sc['sort_kernel_events']}")
+    if sc["sort_kernel_events"]:
+        raise AssertionError("the DTW scan runs a sort kernel")
 
     # -- 11. the host backend ------------------------------------------------
     # two queries per measure whose device answers were checked against
@@ -1215,10 +1587,11 @@ def main() -> int:
     # -- 12. approx-only -----------------------------------------------------
     approx_cases = {
         "ed": (batches[0], answers[0], QuerySpec(k=K, mode="approx"),
-               ("fused_gather_ed", "mindist_paa")),
+               ("fused_gather_ed_chunk", "pool_merge_partials",
+                "mindist_paa")),
         "dtw": (dtw_batches[1], dtw_answers[1], QuerySpec(
             k=K, measure="dtw", r=DTW_CASES[1][1], mode="approx"),
-            ("fused_gather_lb_keogh_chunk", "dtw_survivors",
+            ("fused_gather_lb_keogh_chunk", "dtw_survivors", "pool_merge",
              "mindist_paa"))}
     results["approx_path"] = {}
     for measure, (qs, exact, aspec, names) in approx_cases.items():
@@ -1338,7 +1711,10 @@ def main() -> int:
     # launches: each kernel's count on the path it belongs to — the ED main
     # path, the DTW path, the index build, the host backend (ED: batch_ed;
     # DTW: lb_keogh and dtw_band)
-    headline = {"fused_gather_ed": ("fused_gather_ed", 256, 512),
+    headline = {
+                # the scan's entry to the kernel (the contract entry's
+                # time is in the timings as well)
+                "fused_gather_ed": ("fused_gather_ed_chunk", 256, 512),
                 "mindist_sym": ("mindist_sym", 256),
                 "mindist_paa": ("mindist_paa", 256),
                 # the scan's entry to the kernel (the contract entry's
@@ -1349,9 +1725,14 @@ def main() -> int:
                 "dtw_band": ("dtw_band", 256),
                 "envelope_znorm": ("envelope_znorm",),
                 "batch_ed": ("batch_ed", 256, 1, "znorm"),
-                "lb_keogh": ("lb_keogh", 256)}
+                "lb_keogh": ("lb_keogh", 256),
+                "pool_merge": ("pool_merge", 256),
+                "pool_merge_dense": ("pool_merge_dense", 256)}
     path_launches = dict(
-        launches, fused_gather_lb_keogh=dtw_launches[
+        launches, fused_gather_ed=launches["fused_gather_ed_chunk"],
+        pool_merge=launches["pool_merge_partials"],
+        pool_merge_dense=dtw_launches["pool_merge"],
+        fused_gather_lb_keogh=dtw_launches[
             "fused_gather_lb_keogh_chunk"],
         dtw_survivors=dtw_launches["dtw_survivors"],
         **build_launches,

@@ -2,10 +2,12 @@
 
 Everything that touches raw series data lives here: the chunked,
 LB-sorted, bsf-pruned exact scan over packed candidate rows, whose true
-distances come from the `fused_gather_ed` kernel (ED) or from the
-LB_Keogh tier `fused_gather_lb_keogh_chunk` and the banded DP
-`dtw_survivors` on the survivors it lists (DTW), the (B, k) device
-pool, and the result/stats containers.
+distances come from the `fused_gather_ed_chunk` kernel (ED, which also
+masks, counts and pre-selects each block's k best) or from the LB_Keogh
+tier `fused_gather_lb_keogh_chunk` and the banded DP `dtw_survivors` on
+the survivors it lists (DTW), the (B, k) device pool that the
+`pool_merge` kernels merge into in place, and the result/stats
+containers.
 
 The host backend (`scan_backend="host"`, the reference's host-driven
 loop) verifies one query's envelopes at a time: `gather_windows` cuts
@@ -33,13 +35,13 @@ import torch
 
 from repro_torch.core.paa import znormalize
 from repro_torch.core.types import Collection
+from repro_torch.kernels import ref
 from repro_torch.kernels.batch_ed import batch_ed
 from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
-from repro_torch.kernels.fused_verify import (fused_gather_ed,
+from repro_torch.kernels.fused_verify import (fused_gather_ed_chunk,
                                               fused_gather_lb_keogh_chunk)
 from repro_torch.kernels.lb_keogh import lb_keogh
-
-_INF = float("inf")
+from repro_torch.kernels.pool_merge import pool_merge, pool_merge_partials
 
 # Per-query device stats columns (the JAX package's order).
 STATS_COLUMNS = ("chunks_visited", "envelopes_checked",
@@ -283,103 +285,66 @@ def _chunk_slice(sids, anchors, n_master, lbs2, i: int, chunk: int):
     return sids[:, sl], anchors[:, sl], n_master[:, sl], lbs2[:, sl]
 
 
-def _chunk_candidates(csid, canc, cnm, keep, qlen: int, n: int, g: int):
-    """Expand a chunk's envelopes into per-offset candidates.
-
-    Returns (ok, cand_sid, cand_off) each (B, chunk*g): ok masks offsets
-    that are real masters, fit the series, and belong to a kept
-    (unpruned) envelope.
-    """
-    b_sz, chunk = csid.shape
-    joff = torch.arange(g, dtype=torch.int32, device=csid.device)
-    offs = canc[:, :, None] + joff                       # (B, chunk, g)
-    ok = ((joff < cnm[:, :, None]) & (offs + qlen <= n)
-          & keep[:, :, None]).reshape(b_sz, chunk * g)
-    return (ok, csid[:, :, None].expand(b_sz, chunk, g).reshape(
-        b_sz, chunk * g), offs.reshape(b_sz, chunk * g))
-
-
-def _pool_merge(pool, cd2, csid, coff, k: int):
-    """Merge (B, M) candidates into a (B, k) pool sorted by d2.
-
-    Incumbents win ties (they come first in the concatenation and the
-    sort is stable) — the tie order of the reference's `lax.top_k`.
-    """
-    pd2, psid, poff = pool
-    alld = torch.cat([pd2, cd2], dim=1)
-    sel = torch.sort(alld, dim=1, stable=True).indices[:, :k]
-    return (torch.gather(alld, 1, sel),
-            torch.gather(torch.cat([psid, csid], dim=1), 1, sel),
-            torch.gather(torch.cat([poff, coff], dim=1), 1, sel))
-
-
-def _first_lb2(lbs2, i: int, chunk: int):
-    """The (B,) squared lower bound heading chunk i of the packed plan —
-    the LB-sorted order makes it the chunk's (and every later chunk's)
-    best case, so it alone decides the scan's stop/skip tests."""
-    return lbs2[:, min(i * chunk, lbs2.shape[1] - 1)]
-
-
 def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
-                     dtw_lo, dtw_hi, i: int, pool, kth, active, *, k: int,
-                     g: int, chunk: int, znorm: bool, measure: str, r: int):
-    """Verify chunk `i` of the packed plan into the (B, k) pool.
+                     dtw_lo, dtw_hi, i: int, pool, stats, *, k: int, g: int,
+                     chunk: int, znorm: bool, measure: str, r: int):
+    """Verify chunk `i` of the packed plan into the (B, k) pool, in place.
 
-    ED: one `fused_gather_ed` launch and one merge.  DTW: ONE launch of
-    the LB_Keogh tier (`fused_gather_lb_keogh_chunk`), which masks the
-    bounds, lists each query's survivors (lb2 < kth) on the device and
-    writes +inf into the DP's (B, chunk * g) output at every other
-    candidate position; ONE `dtw_survivors` launch over every survivor of
-    the chunk, which writes each one's distance at its own position; and
-    ONE merge of that output, as the ED branch's.  The reference merges
+    ED: ONE launch of `fused_gather_ed_chunk`, which decides which
+    queries are active and which envelopes the bsf cut keeps, adds the
+    step's counters, computes the kept candidates' distances and keeps
+    each block's k best, and ONE `pool_merge_partials` launch.  DTW: ONE
+    launch of the LB_Keogh tier (`fused_gather_lb_keogh_chunk`), which
+    masks the bounds, lists each query's survivors (lb2 < kth) on the
+    device and writes +inf into the DP's (B, chunk * g) output at every
+    other candidate position; ONE `dtw_survivors` launch over every
+    survivor of the chunk, which writes each one's distance at its own
+    position; and ONE `pool_merge` of that output.  The reference merges
     bucket by bucket (`lax.while_loop` over buckets of 128 survivors
     packed in candidate-position order); one merge of the
     position-indexed output gives the same pool, because the merge keeps
-    incumbents ahead of newcomers on ties and the sort is stable, so
-    every bucket merge and the single merge pick the k least of the same
-    (d2, position) order — whatever order the kernel listed the
-    survivors in — and no host sync is needed to size the loop.
+    incumbents ahead of newcomers on ties and then orders candidates by
+    position, so every bucket merge and the single merge pick the k least
+    of the same (d2, position) order — whatever order the kernel listed
+    the survivors in — and no host sync is needed to size the loop.
 
-    Returns (pool, dstats) where dstats (B, STATS_WIDTH) holds the
-    per-query increments of [chunks, envelopes_checked, true_dists,
-    lb_keogh, dtw_full, envelopes_pruned].
+    Adds the per-query increments of [chunks, envelopes_checked,
+    true_dists, lb_keogh, dtw_full, envelopes_pruned] to the (B,
+    STATS_WIDTH) int32 `stats` in place.
     """
+    if measure == "ed":
+        part = fused_gather_ed_chunk(
+            coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+            coll.center, sids, anchors, n_master, lbs2, qs, pool[0], stats,
+            i=i, chunk=chunk, g=g, znorm=znorm)
+        pool_merge_partials(pool, part)
+        return
     n = coll.series_len
     b_sz, qlen = qs.shape
+    kth = pool[0][:, k - 1]
+    active = ref.scan_active(lbs2, pool[0], i, chunk)
     csid, canc, cnm, clb2 = _chunk_slice(sids, anchors, n_master, lbs2, i,
                                          chunk)
     keep = (clb2 < kth[:, None]) & active[:, None]  # bsf pruning
-    ok, cand_sid, cand_off = _chunk_candidates(csid, canc, cnm, keep, qlen,
-                                               n, g)
+    ok, cand_sid, cand_off = ref.chunk_candidates(csid, canc, cnm, keep,
+                                                  qlen, n, g)
     checked = keep.sum(dim=1, dtype=torch.int32)
     # envelopes cut by the bsf LB test in this visited chunk (padding rows
     # carry lbs2 = +inf and are excluded by the isfinite test)
     pruned = (torch.isfinite(clb2) & active[:, None] & ~keep).sum(
         dim=1, dtype=torch.int32)
-    flat_sid = csid.reshape(-1).contiguous()
-    flat_anc = canc.reshape(-1).contiguous()
-    zeros = torch.zeros_like(checked)
-    if measure == "ed":
-        d2 = fused_gather_ed(coll.data, coll.csum, coll.csum2, coll.csum_lo,
-                             coll.csum2_lo, coll.center, flat_sid, flat_anc,
-                             qs, g=g, rows=chunk, znorm=znorm)
-        d2 = torch.where(ok, d2.reshape(b_sz, chunk * g), _INF)
-        pool = _pool_merge(pool, d2, cand_sid, cand_off, k)
-        tdist = ok.sum(dim=1, dtype=torch.int32)
-        nlbk = ndtw = zeros
-    else:
-        _, mu, sd, slist, ndtw, db = fused_gather_lb_keogh_chunk(
-            coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
-            coll.center, flat_sid, flat_anc, dtw_lo, dtw_hi, ok,
-            kth.contiguous(), g=g, rows=chunk, znorm=znorm)
-        nlbk = ok.sum(dim=1, dtype=torch.int32)
-        tdist = ndtw
-        db = dtw_survivors(coll.data, qs, slist, ndtw, cand_sid, cand_off,
-                           mu.reshape(b_sz, chunk * g),
-                           sd.reshape(b_sz, chunk * g), db, r=r, znorm=znorm)
-        pool = _pool_merge(pool, db, cand_sid, cand_off, k)
-    return pool, torch.stack([active.to(torch.int32), checked, tdist,
-                              nlbk, ndtw, pruned], dim=1)
+    _, mu, sd, slist, ndtw, db = fused_gather_lb_keogh_chunk(
+        coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+        coll.center, csid.reshape(-1).contiguous(),
+        canc.reshape(-1).contiguous(), dtw_lo, dtw_hi, ok, kth.contiguous(),
+        g=g, rows=chunk, znorm=znorm)
+    nlbk = ok.sum(dim=1, dtype=torch.int32)
+    db = dtw_survivors(coll.data, qs, slist, ndtw, cand_sid, cand_off,
+                       mu.reshape(b_sz, chunk * g),
+                       sd.reshape(b_sz, chunk * g), db, r=r, znorm=znorm)
+    stats += torch.stack([active.to(torch.int32), checked, ndtw, nlbk, ndtw,
+                          pruned], dim=1)
+    pool_merge(pool, db, cand_sid, cand_off)
 
 
 def _device_scan_core(coll: Collection, sids, anchors, n_master, lbs2, qs,
@@ -387,34 +352,28 @@ def _device_scan_core(coll: Collection, sids, anchors, n_master, lbs2, qs,
                       znorm: bool, measure: str, r: int):
     """The natively batched LB-sorted bsf-pruned scan.
 
-    Every chunk step verifies the i-th chunk of all B queries through one
-    kernel launch; queries whose scan has converged keep stepping with
-    their candidates masked to +inf (merge no-ops) until the whole batch
-    is done.  The stop test `any(active)` runs on the host before every
-    group of STOP_TEST_EVERY chunks — one sync per group, counted in
-    `device_exact_scan.syncs`.
+    Every chunk step verifies the i-th chunk of all B queries; queries
+    whose scan has converged keep stepping with their candidates masked
+    to +inf (merge no-ops) until the whole batch is done.  The pool is
+    the scan's own copy of the seed (cloned once), merged in place, so
+    the caller's seed is never written.  The stop test `any(active)` runs
+    on the host before every group of STOP_TEST_EVERY chunks — one sync
+    per group, counted in `device_exact_scan.syncs`.
     """
     n_chunks = sids.shape[1] // chunk
-
-    def active_at(i, pool):
-        first = _first_lb2(lbs2, i, chunk)
-        return torch.isfinite(first) & (first < pool[0][:, k - 1])
-
-    pool = seed
+    pool = tuple(t.clone() for t in seed)
     stats = torch.zeros((qs.shape[0], STATS_WIDTH), dtype=torch.int32,
                         device=qs.device)
     i = 0
     while i < n_chunks:
         device_exact_scan.syncs += 1
-        if not bool(active_at(i, pool).any()):
+        if not bool(ref.scan_active(lbs2, pool[0], i, chunk).any()):
             break
         for _ in range(min(STOP_TEST_EVERY, n_chunks - i)):
-            active = active_at(i, pool)
-            pool, ds = _scan_chunk_step(
+            _scan_chunk_step(
                 coll, sids, anchors, n_master, lbs2, qs, dtw_lo, dtw_hi, i,
-                pool, pool[0][:, k - 1], active, k=k, g=g, chunk=chunk,
-                znorm=znorm, measure=measure, r=r)
-            stats = stats + ds
+                pool, stats, k=k, g=g, chunk=chunk, znorm=znorm,
+                measure=measure, r=r)
             i += 1
     return pool[0], pool[1], pool[2], stats
 

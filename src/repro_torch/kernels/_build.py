@@ -49,6 +49,14 @@ SIGNATURES = {
         # qs, out, num_series, n, batch, rows, qlen, g, znorm, stream
         "ulisse_fused_gather_ed": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
                                    _L, _I, _I, _I, _I, _I, _I, _V],
+        # qlen, g
+        "ulisse_fused_gather_ed_chunk_tile": [_I, _I],
+        # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        # n_master, lbs2, qs, pool_d2, stats, part, num_series, n, batch,
+        # rows, qlen, g, znorm, n_pad, col0, k, stream
+        "ulisse_fused_gather_ed_chunk": [
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
+            _I, _I, _I, _I, _I, _L, _L, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # dtw_lo, dtw_hi, lb, mu, sd, num_series, n, batch, rows, qlen, g,
         # znorm, stream
@@ -91,6 +99,14 @@ SIGNATURES = {
     "lb_keogh": {
         # env_lo, env_hi, windows, out, num, l, stream
         "ulisse_lb_keogh": [_V, _V, _V, _V, _L, _I, _V],
+    },
+    "pool_merge": {
+        # pool_d2, pool_sid, pool_off, part, tmp, batch, k, nparts, stream
+        "ulisse_pool_merge_partials": [_V, _V, _V, _V, _V, _I, _I, _L, _V],
+        # pool_d2, pool_sid, pool_off, d2, cand_sid, cand_off, part, tmp,
+        # batch, k, m, slice, stream
+        "ulisse_pool_merge_dense": [_V, _V, _V, _V, _V, _V, _V, _V, _I, _I,
+                                    _I, _I, _V],
     },
 }
 

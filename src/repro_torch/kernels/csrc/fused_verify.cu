@@ -1,6 +1,8 @@
 // Fused candidate-window gather + squared ED / LB_Keogh for ULISSE, for
-// Hopper.  Two entries over one region gather and one prefix-sum window
-// statistic: ulisse_fused_gather_ed and ulisse_fused_gather_lb_keogh.
+// Hopper.  Two kernels over one region gather and one prefix-sum window
+// statistic, each with the TPU kernel's contract entry and the scan's
+// chunk entry: ulisse_fused_gather_ed (_chunk) and
+// ulisse_fused_gather_lb_keogh (_chunk).
 //
 // ulisse_fused_gather_ed
 // Replaces repro/kernels/fused_verify.py::fused_gather_ed (Pallas body
@@ -17,18 +19,40 @@
 // window sums from the prefix sums at offsets clipped to [0, n - qlen];
 // d2 is clamped at 0.
 //
+// ulisse_fused_gather_ed_chunk, the scan's entry over the same device
+// function, takes the whole (B, n_pad) LB-sorted plan (sids, anchors,
+// n_master, lbs2) and the chunk's first column, the pool's (B, k) d2 and
+// the scan's (B, 6) int32 counters.  It decides `active` (the chunk's
+// first bound is finite and below the pool's k-th) and, per row,
+// keep = lbs2 < kth & active; candidate (r, j) is ok where
+// j < n_master, the window fits the series and the row is kept.  It adds
+// [active, kept rows, ok candidates, 0, 0, pruned rows] to the counters
+// (one atomic per block and column), computes d2 only for ok candidates,
+// and each block writes the kp = min(k, tile * g) least of its
+// candidates with d2 < kth, by (d2, position r * g + j), to its row of a
+// (B, n_blocks, kp) partials buffer (topk.cuh), for the pool merge
+// (pool_merge.cu).  A candidate with d2 >= kth cannot enter a sorted
+// pool whose incumbents win ties, so nothing else leaves the block.
+//
 // Bound on the card: bytes at the main path's shapes (regions + the 2g
-// prefix-sum positions of each of the four arrays per row, ~12 MB at
-// B=8, rows=512, qlen=256, g=49) against ~0.1 GFLOP of float32 dot work.
-// Design (simple and exact, not yet fast): one block per (query b, tile
-// of kTile envelope rows); q_b and the tile's regions are staged in
-// shared memory with coalesced loads; each thread owns kJ consecutive
-// offsets of one row and slides over the query kJ points at a time, so
-// 2kJ-1 region loads and kJ query loads feed kJ*kJ FMAs.  Neighbouring
-// threads own neighbouring rows, and the padded row stride is odd, so
-// their shared-memory reads fall in distinct banks.  No tensor cores and
-// no TF32: the identity cancels near d = 0, so the dots stay full float32,
-// summed in query order for every offset.
+// prefix-sum positions of each of the four arrays per row, ~11 MB at
+// B=8, rows=512, qlen=256, g=49) against ~0.1 GFLOP of float32 dot work;
+// the kernel is latency-bound.  Design: one block per (query b, tile of
+// kEdTile = 8 envelope rows) of 4 warps; one thread per (row, group of
+// kEdJ = 8 window offsets).  q_b, the tile's regions and the prefix-sum
+// runs the epilogue reads ([anchor, anchor + g) and [anchor + qlen,
+// anchor + qlen + g) of each of the four arrays, clipped as the plain
+// version clips) are staged with cp.async in two groups: the dot loop
+// waits only for the first, the epilogue for the second.  The runs, 8 a
+// row in four arrays, are what the kernel waits for most, and each
+// costs more in the issuing warp's setup than in bytes, so each is
+// copied in 16-byte pieces by threads that share it.  Each thread slides
+// over its row's region: 8 new region words and two float4 query loads
+// (a broadcast) feed 64 FMAs; neighbouring threads own neighbouring rows
+// and the odd row stride puts a warp's region reads in distinct banks.
+// The chunk entry stages and computes only what its ok candidates need.
+// No tensor cores and no TF32: the identity cancels near d = 0, so the
+// dots stay full float32, summed in query order for every offset.
 //
 // ulisse_fused_gather_lb_keogh
 // Replaces repro/kernels/fused_verify.py::fused_gather_lb_keogh (Pallas
@@ -73,12 +97,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "topk.cuh"
 #include "znorm.cuh"
 
 namespace {
 
-constexpr int kJ = 4;           // offsets per thread
-constexpr int kMaxThreads = 512;
+constexpr int kEdJ = 8;         // ED: window offsets per thread
+constexpr int kEdTile = 8;      // ED: envelope rows per block (at most)
+constexpr int kEdThreads = 512;           // ED: largest block
+constexpr int kEdMinThreads = 128;        // ED: smallest block (staging)
+constexpr int kEdSmemBudget = 96 * 1024;  // ED: preferred shared memory
+constexpr int kStatsWidth = 6;  // the scan's per-query counter columns
 constexpr int kSmemBudget = 48 * 1024;
 constexpr int kSmemMax = 227 * 1024;
 constexpr int kLbJ = 2;         // LB_Keogh: window offsets per thread
@@ -124,87 +153,304 @@ __device__ __forceinline__ void window_sums(
   *s2 = (csum2[i1] - csum2[i0]) + (csum2_lo[i1] - csum2_lo[i0]);
 }
 
-__global__ void fused_gather_ed_kernel(
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One block: query b, rows [r0, r0 + tile) of its chunk.  Row r's plan
+// entry is e = b * row_stride + col0 + r (the contract entry: row_stride
+// = rows, col0 = 0).  Entries of the chunk entry only (kChunk): n_master,
+// lbs2, pool_d2 (B, k), stats (B, 6), part_* (B, gridDim.x, kp).
+template <bool kChunk>
+__global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
     const float* __restrict__ data, const float* __restrict__ csum,
     const float* __restrict__ csum2, const float* __restrict__ csum_lo,
     const float* __restrict__ csum2_lo, const float* __restrict__ center,
     const int* __restrict__ sids, const int* __restrict__ anchors,
+    const int* __restrict__ n_master, const float* __restrict__ lbs2,
     const float* __restrict__ qs, float* __restrict__ out,
+    const float* __restrict__ pool_d2, int* __restrict__ stats,
+    float* __restrict__ part_d2, int* __restrict__ part_sid,
+    int* __restrict__ part_off, int* __restrict__ part_pos,
     long long num_series, int n, int rows, int qlen, int g, int znorm,
-    int tile, int qlen_pad, int ngrp, int stride) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                      // [qlen_pad], zero beyond qlen
-  float* reg_s = smem + qlen_pad;         // [tile * stride]
+    long long row_stride, long long col0, int k, int kp, int tile,
+    int qlen_pad, int ngrp, int stride, int run_stride) {
+  extern __shared__ __align__(16) float ed_smem[];
+  float* q_s = ed_smem;                       // [qlen_pad], 0 beyond qlen
+  float* run_s = q_s + qlen_pad;              // [tile][8][run_stride]
+  float* reg_s = run_s + tile * 8 * run_stride;   // [tile * stride]
+  float* cd_s = reg_s + tile * stride;        // chunk: [tile * g] d2
+  int* cp_s = reinterpret_cast<int*>(cd_s + tile * g);   // and positions
+  __shared__ int row_sid[kEdTile], row_anc[kEdTile], row_jl[kEdTile];
+  __shared__ int run_at[kEdTile * 8];         // a run's first offset's slot
   __shared__ float qss_s;
+  __shared__ int count_s;
 
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
+  const int tid = threadIdx.x;
   const int reg = qlen + g - 1;
 
-  for (int t = threadIdx.x; t < qlen_pad; t += blockDim.x)
-    q_s[t] = t < qlen ? qs[(long long)b * qlen + t] : 0.f;
-  stage_regions(data, sids, anchors, reg_s, num_series, n, rows, b, r0,
-                tile, stride, reg);
-  __syncthreads();
-  if (!znorm && threadIdx.x < 32) {
-    float part = 0.f;
-    for (int t = threadIdx.x; t < qlen; t += 32) part += q_s[t] * q_s[t];
-    for (int off = 16; off > 0; off >>= 1)
-      part += __shfl_down_sync(0xffffffffu, part, off);
-    if (threadIdx.x == 0) qss_s = part;
+  // the scan's cut: the pool's k-th distance, and whether query b is
+  // still scanning (the chunk's first bound is finite and below it)
+  float kth = INFINITY;
+  bool active = true;
+  if (kChunk) {
+    kth = pool_d2[(long long)b * k + k - 1];
+    const float first = lbs2[(long long)b * row_stride + col0];
+    active = isfinite(first) && first < kth;
   }
+  // the tile's rows (warp 0: tile <= 32): offsets j < jl are computed
+  int jl = 0;
+  if (tid < 32) {
+    int keep = 0, pruned = 0;
+    if (tid < tile) {
+      const int r = r0 + tid;
+      int sid = 0, anc = 0;
+      if (r < rows) {
+        const long long e = (long long)b * row_stride + col0 + r;
+        sid = sids[e];
+        anc = anchors[e];
+        if (kChunk) {
+          const float lb = lbs2[e];
+          keep = active && lb < kth;
+          pruned = active && !keep && isfinite(lb);
+          const int fit = n - qlen - anc + 1;     // offsets that fit
+          const int nm = n_master[e];
+          int lim = nm < fit ? nm : fit;
+          lim = lim < g ? lim : g;
+          jl = keep && lim > 0 ? lim : 0;
+        } else {
+          jl = g;
+        }
+      }
+      row_sid[tid] = sid;
+      row_anc[tid] = anc;
+      row_jl[tid] = jl;
+    }
+    if (kChunk) {
+      const int n_keep = __reduce_add_sync(kFull, keep);
+      const int n_ok = __reduce_add_sync(kFull, jl);
+      const int n_pruned = __reduce_add_sync(kFull, pruned);
+      if (tid == 0) {
+        int* st = stats + (long long)b * kStatsWidth;
+        if (blockIdx.x == 0 && active) atomicAdd(st + 0, 1);
+        if (n_keep) atomicAdd(st + 1, n_keep);
+        if (n_ok) atomicAdd(st + 2, n_ok);
+        if (n_pruned) atomicAdd(st + 5, n_pruned);
+        count_s = 0;
+      }
+    }
+  }
+  const long long at = ((long long)b * gridDim.x + blockIdx.x) * kp;
+  const int* rsid = row_sid;
+  const int* ranc = row_anc;
+  auto sid_off = [=](int p, int* sid, int* off) {
+    const int r = p / g;
+    *sid = rsid[r - r0];
+    *off = ranc[r - r0] + (p - r * g);
+  };
+  if (!__syncthreads_or(jl > 0)) {
+    if (kChunk)
+      write_block_topk(cd_s, cp_s, 0, kp, part_d2 + at, part_sid + at,
+                       part_off + at, part_pos + at, sid_off);
+    return;
+  }
+
+  // stage: group 0 the query and the regions, group 1 the prefix sums;
+  // warp w takes rows (and prefix-sum runs) w, w + warps, ...
+  const int lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  for (int t = tid; t < qlen_pad; t += blockDim.x) {
+    if (t < qlen)
+      cp_async4(q_s + t, qs + (long long)b * qlen + t);
+    else
+      q_s[t] = 0.f;
+  }
+  const long long total = num_series * (long long)n;
+  for (int le = warp; le < tile; le += warps) {
+    float* dst = reg_s + le * stride;
+    int t0 = 0;
+    if (row_jl[le] > 0) {
+      const long long base = (long long)row_sid[le] * n + row_anc[le];
+      const bool clip = base < 0 || base + reg > total;
+      for (int t = lane; t < reg; t += 32) {
+        long long flat = base + t;
+        if (clip) flat = flat < 0 ? 0 : (flat >= total ? total - 1 : flat);
+        cp_async4(dst + t, data + flat);
+      }
+      t0 = reg;
+    }
+    for (int t = t0 + lane; t < stride; t += 32) dst[t] = 0.f;
+  }
+  cp_async_commit();
+  // run `which` = 2 * array + end of row le: arrays csum, csum_lo, csum2,
+  // csum2_lo; ends the windows' first and one-past-last positions.  The
+  // offsets j < jl read window starts clip(anchor + j, 0, n - qlen), one
+  // contiguous span [lo, hi] of each array's row sid: it is copied in
+  // 16-byte pieces from the aligned position below lo into
+  // run_s[(8 le + which) run_stride ...], and run_at says where lo landed
+  // (single words where a piece would leave the array, or the array is
+  // not 16-byte aligned, or the span would leave it).  `per` threads
+  // share a run, each taking every per-th piece.
+  const long long np1 = n + 1;
+  const long long len_all = num_series * np1;
+  const int nruns = tile * 8;
+  const int per = blockDim.x > nruns ? blockDim.x / nruns : 1;
+  for (int it = tid; it < nruns * per; it += blockDim.x) {
+    const int pr = it % nruns, sub = it / nruns;
+    const int le = pr >> 3, which = pr & 7;
+    const int jl_r = row_jl[le];
+    if (jl_r == 0) continue;
+    const int arr = which >> 1;
+    const float* src = arr == 0   ? csum
+                       : arr == 1 ? csum_lo
+                       : arr == 2 ? csum2
+                                  : csum2_lo;
+    const int anc = row_anc[le];
+    const int lo = anc < 0 ? 0 : (anc > n - qlen ? n - qlen : anc);
+    int hi = anc + jl_r - 1;
+    hi = hi < 0 ? 0 : (hi > n - qlen ? n - qlen : hi);
+    const long long start =
+        (long long)row_sid[le] * np1 + lo + ((which & 1) ? qlen : 0);
+    const int len = hi - lo + 1;
+    float* dst = run_s + pr * run_stride;
+    if (start >= 0 && start + len <= len_all &&
+        (reinterpret_cast<unsigned long long>(src) & 15) == 0) {
+      const long long a0 = start & ~3LL;
+      const int shift = (int)(start - a0);
+      if (sub == 0) run_at[pr] = shift;
+      for (int c = 4 * sub; c < shift + len; c += 4 * per) {
+        if (a0 + c + 4 <= len_all) {
+          cp_async16(dst + c, src + a0 + c);
+        } else {
+          for (int e = 0; e < 4 && a0 + c + e < len_all; ++e)
+            cp_async4(dst + c + e, src + a0 + c + e);
+        }
+      }
+    } else {
+      if (sub == 0) run_at[pr] = 0;
+      for (int e = sub; e < len; e += per) {
+        long long pos = start + e;
+        pos = pos < 0 ? 0 : (pos >= len_all ? len_all - 1 : pos);
+        cp_async4(dst + e, src + pos);
+      }
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
-  const long long np1 = n + 1;
-  const long long last = num_series * np1 - 1;
-  for (int item = threadIdx.x; item < tile * ngrp; item += blockDim.x) {
-    // consecutive threads -> consecutive rows (distinct banks)
-    const int le = item % tile, grp = item / tile;
-    const int r = r0 + le;
-    if (r >= rows) continue;
-    const int j0 = grp * kJ;
+  if (!znorm && tid < 32) {
+    float part = 0.f;
+    for (int t = tid; t < qlen; t += 32) part = __fmaf_rn(q_s[t], q_s[t], part);
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_down_sync(kFull, part, o);
+    if (tid == 0) qss_s = part;
+  }
+
+  // the dots: thread = (row le, offsets j0 .. j0 + kEdJ - 1); consecutive
+  // threads -> consecutive rows (odd stride: distinct banks)
+  const int le = tid % tile, grp = tid / tile;
+  const int j0 = grp * kEdJ;
+  const int row_lim = row_jl[le];
+  const bool mine = grp < ngrp && j0 < row_lim;
+  float acc[kEdJ];
+#pragma unroll
+  for (int jj = 0; jj < kEdJ; ++jj) acc[jj] = 0.f;
+  if (mine) {
     const float* base = reg_s + le * stride + j0;
-    float acc[kJ];
+    float rv[2 * kEdJ - 1];    // region[j0 + t0 .. j0 + t0 + 2 kEdJ - 2]
 #pragma unroll
-    for (int jj = 0; jj < kJ; ++jj) acc[jj] = 0.f;
-    for (int t0 = 0; t0 < qlen_pad; t0 += kJ) {
-      float qv[kJ], rv[2 * kJ - 1];
+    for (int m = 0; m < kEdJ - 1; ++m) rv[kEdJ + m] = base[m];
+    for (int t0 = 0; t0 < qlen_pad; t0 += kEdJ) {
 #pragma unroll
-      for (int m = 0; m < kJ; ++m) qv[m] = q_s[t0 + m];
+      for (int m = 0; m < kEdJ - 1; ++m) rv[m] = rv[kEdJ + m];
 #pragma unroll
-      for (int m = 0; m < 2 * kJ - 1; ++m) rv[m] = base[t0 + m];
+      for (int m = kEdJ - 1; m < 2 * kEdJ - 1; ++m) rv[m] = base[t0 + m];
+      const float4 qa = *reinterpret_cast<const float4*>(q_s + t0);
+      const float4 qb = *reinterpret_cast<const float4*>(q_s + t0 + 4);
+      const float qv[kEdJ] = {qa.x, qa.y, qa.z, qa.w,
+                              qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-      for (int tt = 0; tt < kJ; ++tt) {
+      for (int tt = 0; tt < kEdJ; ++tt) {
 #pragma unroll
-        for (int jj = 0; jj < kJ; ++jj)
+        for (int jj = 0; jj < kEdJ; ++jj)
           acc[jj] = fmaf(rv[tt + jj], qv[tt], acc[jj]);
       }
     }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 
-    const long long e = (long long)b * rows + r;
-    const long long sid = sids[e];
-    const int anc = anchors[e];
+  if (mine) {
+    const int r = r0 + le;
+    const int anc = row_anc[le];
+    const int lo = anc < 0 ? 0 : (anc > n - qlen ? n - qlen : anc);
+    const float* rs = run_s + le * 8 * run_stride;
+    const int* at_r = run_at + le * 8;
+    // the value of run w at offset j's (clipped) window start
+    auto run = [&](int w, int off) {
+      return rs[w * run_stride + at_r[w] + off];
+    };
 #pragma unroll
-    for (int jj = 0; jj < kJ; ++jj) {
+    for (int jj = 0; jj < kEdJ; ++jj) {
       const int j = j0 + jj;
-      if (j >= g) break;
-      float s1, s2;
-      window_sums(csum, csum2, csum_lo, csum2_lo, sid, anc + j, n, qlen,
-                  last, &s1, &s2);
-      const float dot = acc[jj];
-      float d2;
-      if (znorm) {
-        const float mu_c = s1 / qlen;
-        const float var = s2 / qlen - mu_c * mu_c;
-        const float sd = fmaxf(sqrtf(fmaxf(var, 0.f)), 1e-8f);
-        d2 = 2.f * qlen - 2.f * dot / sd;
-      } else {
-        const float c = center[sid];
-        const float wss = s2 + 2.f * c * s1 + qlen * c * c;
-        d2 = wss - 2.f * dot + qss_s;
+      if (j < row_lim) {
+        int off = anc + j;
+        off = (off < 0 ? 0 : (off > n - qlen ? n - qlen : off)) - lo;
+        const float s1 = (run(1, off) - run(0, off)) +
+                         (run(3, off) - run(2, off));
+        const float s2 = (run(5, off) - run(4, off)) +
+                         (run(7, off) - run(6, off));
+        const float dot = acc[jj];
+        // every operation rounded on its own (no contraction), so both
+        // entries' instantiations give the same bits
+        const float lq = (float)qlen;
+        float d2;
+        if (znorm) {
+          const float mu_c = __fdiv_rn(s1, lq);
+          const float var = __fsub_rn(__fdiv_rn(s2, lq), __fmul_rn(mu_c, mu_c));
+          const float sd = fmaxf(__fsqrt_rn(fmaxf(var, 0.f)), 1e-8f);
+          d2 = __fsub_rn(2.f * lq, __fdiv_rn(__fmul_rn(2.f, dot), sd));
+        } else {
+          const float c = center[row_sid[le]];
+          const float wss = __fadd_rn(__fadd_rn(s2, __fmul_rn(__fmul_rn(2.f, c), s1)),
+                                      __fmul_rn(__fmul_rn(lq, c), c));
+          d2 = __fadd_rn(__fsub_rn(wss, __fmul_rn(2.f, dot)), qss_s);
+        }
+        d2 = fmaxf(d2, 0.f);
+        if (!kChunk) {
+          out[((long long)b * rows + r) * g + j] = d2;
+        } else if (d2 < kth) {
+          const int slot = atomicAdd(&count_s, 1);
+          cd_s[slot] = d2;
+          cp_s[slot] = r * g + j;
+        }
       }
-      out[e * g + j] = fmaxf(d2, 0.f);
     }
+  }
+  if (kChunk) {
+    __syncthreads();
+    write_block_topk(cd_s, cp_s, count_s, kp, part_d2 + at, part_sid + at,
+                     part_off + at, part_pos + at, sid_off);
   }
 }
 
@@ -366,38 +612,117 @@ __global__ void gather_znorm_kernel(
 
 }  // namespace
 
+namespace {
+
+// The ED kernel's block shape: up to kEdTile rows a block, fewer where
+// the threads (one per row and offset group) or the shared memory would
+// exceed their budgets.
+struct EdShape {
+  int tile, qlen_pad, ngrp, stride, run_stride, threads;
+  size_t smem;
+};
+
+EdShape ed_shape(int qlen, int g, bool chunk) {
+  EdShape s;
+  s.qlen_pad = (qlen + kEdJ - 1) / kEdJ * kEdJ;
+  s.ngrp = (g + kEdJ - 1) / kEdJ;
+  // the slide reads up to (ngrp - 1) * kEdJ + qlen_pad + kEdJ - 2 a row
+  s.stride = s.ngrp * kEdJ + s.qlen_pad - 1;
+  if (s.stride % 2 == 0) ++s.stride;     // odd: conflict-free row starts
+  // a run of up to g words from up to 3 words below: 16-byte aligned
+  s.run_stride = (g + 3 + 3) / 4 * 4;
+  auto smem_for = [&](int t) {
+    return sizeof(float) *
+           ((size_t)s.qlen_pad + 8 * (size_t)t * s.run_stride +
+            (size_t)t * s.stride + (chunk ? 2 * (size_t)t * g : 0));
+  };
+  s.tile = kEdTile;
+  while (s.tile > 1 && (s.tile * s.ngrp > kEdThreads ||
+                        smem_for(s.tile) > kEdSmemBudget))
+    s.tile /= 2;
+  s.smem = smem_for(s.tile);
+  s.threads = (s.tile * s.ngrp + 31) / 32 * 32;
+  if (s.threads < kEdMinThreads) s.threads = kEdMinThreads;
+  return s;
+}
+
+template <bool kChunk>
+int launch_ed(const void* data, const void* csum, const void* csum2,
+              const void* csum_lo, const void* csum2_lo, const void* center,
+              const void* sids, const void* anchors, const void* n_master,
+              const void* lbs2, const void* qs, void* out,
+              const void* pool_d2, void* stats, void* part,
+              long long num_series, int n, int batch, int rows, int qlen,
+              int g, int znorm, long long row_stride, long long col0, int k,
+              void* stream) {
+  if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
+      batch > 65535 || k < 1)
+    return (int)cudaErrorInvalidValue;
+  const EdShape s = ed_shape(qlen, g, kChunk);
+  if (s.threads > kEdThreads || s.smem > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  if (s.smem > kSmemBudget) {
+    const int err = (int)cudaFuncSetAttribute(
+        fused_gather_ed_kernel<kChunk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+    if (err) return err;
+  }
+  const int n_blocks = (rows + s.tile - 1) / s.tile;
+  const int kp = k < s.tile * g ? k : s.tile * g;
+  // partials (4, B, n_blocks, kp) int32: d2 (float bits), sid, off, pos
+  const long long plane = (long long)batch * n_blocks * kp;
+  int* p = static_cast<int*>(part);
+  const dim3 grid(n_blocks, batch);
+  fused_gather_ed_kernel<kChunk><<<grid, s.threads, s.smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(data), static_cast<const float*>(csum),
+      static_cast<const float*>(csum2), static_cast<const float*>(csum_lo),
+      static_cast<const float*>(csum2_lo), static_cast<const float*>(center),
+      static_cast<const int*>(sids), static_cast<const int*>(anchors),
+      static_cast<const int*>(n_master), static_cast<const float*>(lbs2),
+      static_cast<const float*>(qs), static_cast<float*>(out),
+      static_cast<const float*>(pool_d2), static_cast<int*>(stats),
+      reinterpret_cast<float*>(p), p ? p + plane : nullptr,
+      p ? p + 2 * plane : nullptr, p ? p + 3 * plane : nullptr, num_series,
+      n, rows, qlen, g, znorm, row_stride, col0, k, kp, s.tile, s.qlen_pad,
+      s.ngrp, s.stride, s.run_stride);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int ulisse_fused_gather_ed(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* qs, void* out,
     long long num_series, int n, int batch, int rows, int qlen, int g,
     int znorm, void* stream) {
-  if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
-      batch > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int qlen_pad = (qlen + kJ - 1) / kJ * kJ;
-  const int ngrp = (g + kJ - 1) / kJ;
-  // the slide reads up to (ngrp - 1) * kJ + qlen_pad + kJ - 2 per row
-  int stride = ngrp * kJ + qlen_pad - 1;
-  if (stride % 2 == 0) ++stride;         // odd: conflict-free row starts
-  int tile = 32;
-  while (tile > 1 &&
-         sizeof(float) * (qlen_pad + (size_t)tile * stride) > kSmemBudget)
-    tile /= 2;
-  const size_t smem = sizeof(float) * (qlen_pad + (size_t)tile * stride);
-  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
-  int threads = tile * ngrp;
-  threads = threads > kMaxThreads ? kMaxThreads : (threads + 31) / 32 * 32;
-  const dim3 grid((rows + tile - 1) / tile, batch);
-  fused_gather_ed_kernel<<<grid, threads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const float*>(csum),
-      static_cast<const float*>(csum2), static_cast<const float*>(csum_lo),
-      static_cast<const float*>(csum2_lo), static_cast<const float*>(center),
-      static_cast<const int*>(sids), static_cast<const int*>(anchors),
-      static_cast<const float*>(qs), static_cast<float*>(out), num_series, n,
-      rows, qlen, g, znorm, tile, qlen_pad, ngrp, stride);
-  return (int)cudaGetLastError();
+  return launch_ed<false>(data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                          anchors, nullptr, nullptr, qs, out, nullptr,
+                          nullptr, nullptr, num_series, n, batch, rows, qlen,
+                          g, znorm, rows, 0, 1, stream);
+}
+
+// Rows a block of the chunk entry takes at (qlen, g): its partials are
+// (B, ceil(rows / tile), min(k, tile * g)).  -1 where no block fits.
+extern "C" int ulisse_fused_gather_ed_chunk_tile(int qlen, int g) {
+  if (qlen < 1 || g < 1) return -1;
+  const EdShape s = ed_shape(qlen, g, true);
+  return s.threads > kEdThreads || s.smem > kSmemMax ? -1 : s.tile;
+}
+
+extern "C" int ulisse_fused_gather_ed_chunk(
+    const void* data, const void* csum, const void* csum2,
+    const void* csum_lo, const void* csum2_lo, const void* center,
+    const void* sids, const void* anchors, const void* n_master,
+    const void* lbs2, const void* qs, const void* pool_d2, void* stats,
+    void* part, long long num_series, int n, int batch, int rows, int qlen,
+    int g, int znorm, long long n_pad, long long col0, int k, void* stream) {
+  if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
+  return launch_ed<true>(data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                         anchors, n_master, lbs2, qs, nullptr, pool_d2, stats,
+                         part, num_series, n, batch, rows, qlen, g, znorm,
+                         n_pad, col0, k, stream);
 }
 
 namespace {

@@ -6,14 +6,17 @@ B queries, `rows` candidate envelopes, and each of their g = gamma + 1
 master offsets, a function of the window against the prepared query,
 from one gathered (qlen + g - 1) region per envelope and window
 statistics from the collection's hi/lo prefix sums.  `fused_gather_ed`
-gives the squared ED (all of the ED search's true-distance work);
+gives the squared ED (all of the ED search's true-distance work) and
+`fused_gather_ed_chunk` is the scan's entry to the same kernel, which
+also masks, counts and keeps each block's k best candidates;
 `fused_gather_lb_keogh` normalizes each window and gives its squared
 LB_Keogh against the query's DTW envelope, with the (mu, sd) the DTW
 tier reuses; `fused_gather_lb_keogh_chunk` is the scan's entry to the
 same kernel, which also masks, lists the survivors and prepares the DP's
 output; `gather_znorm` writes the kernels' normalized windows (a check).
 The kernels are `csrc/fused_verify.cu`; the plain versions are
-`ref.fused_gather_ed_ref`, `ref.fused_gather_lb_keogh_ref`,
+`ref.fused_gather_ed_ref`, `ref.fused_gather_ed_chunk_ref`,
+`ref.fused_gather_lb_keogh_ref`,
 `ref.fused_gather_lb_keogh_chunk_ref` and `ref.gather_znorm_ref`.
 
 Inputs are checked on every device against what the kernel takes; then
@@ -21,6 +24,8 @@ CPU tensors take the plain version and CUDA tensors launch the kernel.
 Each wrapper counts its launches in `.launches`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -86,6 +91,83 @@ def fused_gather_ed(data: torch.Tensor, csum: torch.Tensor,
 
 
 fused_gather_ed.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def ed_chunk_tile(qlen: int, g: int) -> int:
+    """Rows a block of the ED chunk entry takes at (qlen, g): its
+    partials are (4, B, ceil(rows / tile) * min(k, tile * g))."""
+    tile = _build.library("fused_verify").ulisse_fused_gather_ed_chunk_tile(
+        qlen, g)
+    if tile < 1:
+        raise ValueError(f"fused_gather_ed_chunk: no block fits qlen={qlen},"
+                         f" g={g}")
+    return tile
+
+
+def fused_gather_ed_chunk(data: torch.Tensor, csum: torch.Tensor,
+                          csum2: torch.Tensor, csum_lo: torch.Tensor,
+                          csum2_lo: torch.Tensor, center: torch.Tensor,
+                          sids: torch.Tensor, anchors: torch.Tensor,
+                          n_master: torch.Tensor, lbs2: torch.Tensor,
+                          qs: torch.Tensor, pool_d2: torch.Tensor,
+                          stats: torch.Tensor, *, i: int, chunk: int,
+                          g: int, znorm: bool) -> torch.Tensor:
+    """The scan's ED step over chunk i, in one launch of the
+    `fused_gather_ed` kernel.
+
+    sids/anchors/n_master (B, n_pad) int32 and lbs2 (B, n_pad) float32
+    are the LB-sorted plan (chunk i is columns [i * chunk, (i + 1) *
+    chunk)), qs (B, qlen) the prepared queries, pool_d2 (B, k) the pool's
+    ascending d2 and stats the scan's (B, 6) int32 counters, to which the
+    step's [active, kept rows, ok candidates, 0, 0, pruned rows] are
+    added in place (`ref.fused_gather_ed_chunk_ref` says which).  Returns
+    (4, B, P) int32 partials for `pool_merge_partials`: d2 (as float32
+    bits), sid, off and candidate position.  On the card each block of
+    `ed_chunk_tile` rows keeps its min(k, tile * g) least candidates with
+    d2 < the pool's k-th; on the CPU the partials are every candidate
+    (+inf where not ok).
+    """
+    dev = data.device
+    s, n = data.shape
+    b, qlen = qs.shape
+    n_pad = sids.shape[1]
+    k = pool_d2.shape[1]
+    _check("fused_gather_ed_chunk", data, csum, csum2, csum_lo, csum2_lo,
+           center, sids.reshape(-1), anchors.reshape(-1), n_pad,
+           (("qs", qs),))
+    _build.check_tensors("fused_gather_ed_chunk", dev, (
+        ("sids", sids, torch.int32, (b, n_pad)),
+        ("anchors", anchors, torch.int32, (b, n_pad)),
+        ("n_master", n_master, torch.int32, (b, n_pad)),
+        ("lbs2", lbs2, torch.float32, (b, n_pad)),
+        ("pool_d2", pool_d2, torch.float32, (b, k)),
+        ("stats", stats, torch.int32, (b, 6))))
+    if not (chunk >= 1 and 0 <= i * chunk and (i + 1) * chunk <= n_pad):
+        raise ValueError(f"fused_gather_ed_chunk: chunk {i} of {chunk} rows "
+                         f"outside the plan's {n_pad} columns")
+    if dev.type == "cpu":
+        return ref.fused_gather_ed_chunk_ref(
+            data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+            n_master, lbs2, qs, pool_d2, stats, i=i, chunk=chunk, g=g,
+            znorm=znorm)
+    lib = _build.library("fused_verify")
+    tile = ed_chunk_tile(qlen, g)
+    part = torch.empty((4, b, -(-chunk // tile) * min(k, tile * g)),
+                       dtype=torch.int32, device=dev)
+    code = lib.ulisse_fused_gather_ed_chunk(
+        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
+        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
+        sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
+        lbs2.data_ptr(), qs.data_ptr(), pool_d2.data_ptr(), stats.data_ptr(),
+        part.data_ptr(), s, n, b, chunk, qlen, g, int(znorm), n_pad,
+        i * chunk, k, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "fused_gather_ed_chunk")
+    fused_gather_ed_chunk.launches += 1
+    return part
+
+
+fused_gather_ed_chunk.launches = 0
 
 
 def fused_gather_lb_keogh(data: torch.Tensor, csum: torch.Tensor,

@@ -112,6 +112,98 @@ def fused_gather_ed_ref(data, csum, csum2, csum_lo, csum2_lo, center,
     return d2.clamp_min(0.0)
 
 
+def chunk_candidates(csid, canc, cnm, keep, qlen: int, n: int, g: int):
+    """Expand a chunk's envelopes into per-offset candidates.
+
+    csid/canc/cnm/keep (B, rows).  Returns (ok, cand_sid, cand_off) each
+    (B, rows * g): ok masks offsets that are real masters, fit the
+    series, and belong to a kept (unpruned) envelope; position r * g + j
+    is offset j of row r.
+    """
+    b_sz, rows = csid.shape
+    joff = torch.arange(g, dtype=torch.int32, device=csid.device)
+    offs = canc[:, :, None] + joff                       # (B, rows, g)
+    ok = ((joff < cnm[:, :, None]) & (offs + qlen <= n)
+          & keep[:, :, None]).reshape(b_sz, rows * g)
+    return (ok, csid[:, :, None].expand(b_sz, rows, g).reshape(
+        b_sz, rows * g), offs.reshape(b_sz, rows * g))
+
+
+def scan_active(lbs2, pool_d2, i: int, chunk: int):
+    """(B,) bool: query b still scans at chunk i of its LB-sorted plan —
+    the chunk's first bound (its best case) is finite and below the
+    pool's k-th distance."""
+    first = lbs2[:, min(i * chunk, lbs2.shape[1] - 1)]
+    return torch.isfinite(first) & (first < pool_d2[:, -1])
+
+
+def fused_gather_ed_chunk_ref(data, csum, csum2, csum_lo, csum2_lo, center,
+                              sids, anchors, n_master, lbs2, qs, pool_d2,
+                              stats, *, i: int, chunk: int, g: int,
+                              znorm: bool, dist=None) -> torch.Tensor:
+    """The scan's ED step over chunk i of the (B, n_pad) LB-sorted plan
+    (sids, anchors, n_master, lbs2), against the pool's (B, k) d2.
+
+    Query b is active when `scan_active`; row r is kept when active and
+    lbs2 < kth = pool_d2[b, k - 1]; candidate (r, j) is ok where
+    `chunk_candidates` says so.  Adds [active, kept rows, ok candidates,
+    0, 0, pruned rows] to the (B, 6) int32 `stats` in place (pruned: a
+    finite bound of an active query that was not kept).  `dist` is the
+    chunk's (B * chunk, g) squared ED (default `fused_gather_ed_ref`'s).
+    Returns the candidates as (4, B, chunk * g) int32 partials: d2 (+inf
+    where not ok, as float32 bits), sid, off and position r * g + j.
+    """
+    n = data.shape[1]
+    b_sz, qlen = qs.shape
+    sl = slice(i * chunk, (i + 1) * chunk)
+    csid, canc, cnm, clb2 = (t[:, sl] for t in (sids, anchors, n_master,
+                                                  lbs2))
+    kth = pool_d2[:, -1]
+    active = scan_active(lbs2, pool_d2, i, chunk)
+    keep = (clb2 < kth[:, None]) & active[:, None]
+    ok, cand_sid, cand_off = chunk_candidates(csid, canc, cnm, keep, qlen,
+                                              n, g)
+    if dist is None:
+        dist = fused_gather_ed_ref(
+            data, csum, csum2, csum_lo, csum2_lo, center,
+            csid.reshape(-1).contiguous(), canc.reshape(-1).contiguous(), qs,
+            g=g, rows=chunk, znorm=znorm)
+    d2 = torch.where(ok, dist.reshape(b_sz, chunk * g), float("inf"))
+    zeros = torch.zeros_like(active, dtype=torch.int32)
+    stats += torch.stack([
+        active.to(torch.int32), keep.sum(dim=1, dtype=torch.int32),
+        ok.sum(dim=1, dtype=torch.int32), zeros, zeros,
+        (torch.isfinite(clb2) & active[:, None] & ~keep).sum(
+            dim=1, dtype=torch.int32)], dim=1)
+    pos = torch.arange(chunk * g, dtype=torch.int32, device=qs.device)
+    return torch.stack([d2.view(torch.int32), cand_sid, cand_off,
+                        pos.expand(b_sz, chunk * g)])
+
+
+def pool_merge_ref(pool, cd2, csid, coff):
+    """Merge (B, M) candidates into a (B, k) pool sorted by d2: the new
+    pool is the stable sort of [pool | candidates] by d2, truncated to
+    k — incumbents win ties, then candidates in column order (the tie
+    order of the reference's `lax.top_k`).  Returns new (d2, sid, off)."""
+    pd2, psid, poff = pool
+    k = pd2.shape[1]
+    alld = torch.cat([pd2, cd2], dim=1)
+    sel = torch.sort(alld, dim=1, stable=True).indices[:, :k]
+    return (torch.gather(alld, 1, sel),
+            torch.gather(torch.cat([psid, csid], dim=1), 1, sel),
+            torch.gather(torch.cat([poff, coff], dim=1), 1, sel))
+
+
+def pool_merge_partials_ref(pool, part):
+    """`pool_merge_ref` of (4, B, P) int32 partials (d2 as float32 bits,
+    sid, off, position): the candidates in position order (a position is
+    unique within a query's chunk; empty entries are +inf and never enter
+    a pool)."""
+    order = torch.argsort(part[3], dim=1, stable=True)
+    d2, sid, off = (torch.gather(part[c], 1, order) for c in range(3))
+    return pool_merge_ref(pool, d2.view(torch.float32), sid, off)
+
+
 def fused_gather_lb_keogh_ref(data, csum, csum2, csum_lo, csum2_lo, center,
                               sids, anchors, dtw_lo, dtw_hi, *, g: int,
                               rows: int, znorm: bool):

@@ -15,7 +15,10 @@ rtol 2e-4 / atol 2e-3 and lb_keogh rtol 1e-5 / atol 1e-5 (the reference
 kernel tests'); envelope_znorm bit for bit (kernel and plain version
 share their arithmetic: IEEE divisions, no contraction); the LB and DP
 kernels' window normalization bit for bit against the IEEE divide
-(`gather_znorm`), and the LB's mu and sd bit for bit.
+(`gather_znorm`), and the LB's mu and sd bit for bit; the ED chunk entry
+and both pool merges bit for bit (pool and counters) against the plain
+step fed the contract entry's distances (the two entries share one
+device function).
 """
 import dataclasses
 
@@ -37,9 +40,11 @@ from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
                                           envelope_znorm_masters)
 from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
 from repro_torch.kernels.fused_verify import (  # noqa: E402
-    fused_gather_ed, fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
-    gather_znorm)
+    fused_gather_ed, fused_gather_ed_chunk, fused_gather_lb_keogh,
+    fused_gather_lb_keogh_chunk, gather_znorm)
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
+from repro_torch.kernels.pool_merge import (  # noqa: E402
+    pool_merge, pool_merge_partials)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +81,153 @@ def test_fused_gather_ed_matches_plain(dev, rows, qlen, znorm):
     assert fused_gather_ed.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-3)
+
+
+def _ed_plan(rng, dev, b, n_pad, qlen, s=512, n=256, g=49):
+    """A (B, n_pad) LB-sorted plan over a random collection: anchors on
+    the envelope grid (some windows overrun the series), random n_master,
+    every fifth row a copy of its neighbour (equal d2 at two positions),
+    query 0 all padding (never active), query 1 with almost no real
+    master (fewer finite candidates than a large k).  lbs2 rises from 0
+    to about the median distance, so the bsf cut prunes as the pool
+    fills."""
+    data = rng.normal(size=(s, n)).astype(np.float32) * 2 + 1
+    sids = rng.integers(0, s, (b, n_pad)).astype(np.int32)
+    anchors = (rng.integers(0, 4, (b, n_pad)) * g).astype(np.int32)
+    n_master = rng.integers(0, g + 1, (b, n_pad)).astype(np.int32)
+    copy = np.arange(1, n_pad, 5)
+    sids[:, copy], anchors[:, copy] = sids[:, copy - 1], anchors[:, copy - 1]
+    n_master[1] = 0
+    n_master[1, ::40] = 3
+    qs = rng.normal(size=(b, qlen)).astype(np.float32)
+    c = Collection.from_array(data, device=dev)
+    return c, _t(sids, dev), _t(anchors, dev), _t(n_master, dev), qs
+
+
+def _ed_bounds(rng, dev, d2_all, n_pad):
+    """Ascending lbs2 from 0 to ~1.2x each query's median finite d2
+    (query 0: +inf padding only)."""
+    b = d2_all.shape[0]
+    med = np.array([np.median(r[np.isfinite(r)]) for r in d2_all])
+    lbs2 = np.sort(rng.random((b, n_pad)), axis=1) * 1.2 * med[:, None]
+    lbs2[0] = np.inf
+    return _t(lbs2.astype(np.float32), dev)
+
+
+def _seed_pool(rng, dev, d2_all, k):
+    """A sorted (B, k) seed: about half of it exact copies of candidate
+    distances (ties with newcomers), the rest +inf filler (sid -1)."""
+    b = d2_all.shape[0]
+    d2 = np.full((b, k), np.inf, np.float32)
+    sid = np.full((b, k), -1, np.int32)
+    for q in range(b):
+        fin = d2_all[q][np.isfinite(d2_all[q])]
+        m = min(k // 2, len(fin))
+        d2[q, :m] = np.sort(rng.choice(fin, m, replace=False))
+        sid[q, :m] = 100_000 + np.arange(m)
+    return [_t(d2, dev), _t(sid, dev), _t(sid.copy(), dev)]
+
+
+def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0):
+    """Every chunk of a plan through (chunk entry + partials merge) and
+    through the plain step (the contract entry's distances masked, the
+    counters, the stable-sort merge) from one seed: the pools and
+    counters must be equal bit for bit after every step."""
+    rng = np.random.default_rng(seed + k + qlen + znorm + chunk)
+    g, b = 49, 8
+    n_pad = chunk * n_chunks
+    c, sids, anchors, n_master, qs_np = _ed_plan(rng, dev, b, n_pad, qlen)
+    qs = _t(qs_np, dev)
+    a0 = (c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center)
+    d2_all = fused_gather_ed(*a0, sids.reshape(-1), anchors.reshape(-1), qs,
+                             g=g, rows=n_pad, znorm=znorm)
+    d2_all = d2_all.reshape(b, -1).cpu().numpy()
+    lbs2 = _ed_bounds(rng, dev, d2_all, n_pad)
+    pool = _seed_pool(rng, dev, d2_all, k)
+    plain = [t.clone() for t in pool]
+    st = torch.zeros((b, 6), dtype=torch.int32, device=dev)
+    st_plain = st.clone()
+    for i in range(n_chunks):
+        cols = slice(i * chunk, (i + 1) * chunk)
+        dist = fused_gather_ed(*a0, sids[:, cols].reshape(-1).contiguous(),
+                               anchors[:, cols].reshape(-1).contiguous(), qs,
+                               g=g, rows=chunk, znorm=znorm)
+        part = ref.fused_gather_ed_chunk_ref(
+            *a0, sids, anchors, n_master, lbs2, qs, plain[0], st_plain, i=i,
+            chunk=chunk, g=g, znorm=znorm, dist=dist)
+        for t, v in zip(plain, ref.pool_merge_partials_ref(plain, part)):
+            t.copy_(v)
+        before = (fused_gather_ed_chunk.launches,
+                  pool_merge_partials.launches)
+        part = fused_gather_ed_chunk(*a0, sids, anchors, n_master, lbs2, qs,
+                                     pool[0], st, i=i, chunk=chunk, g=g,
+                                     znorm=znorm)
+        pool_merge_partials(pool, part)
+        torch.cuda.synchronize()
+        assert (fused_gather_ed_chunk.launches,
+                pool_merge_partials.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+        for x, y in zip(pool, plain):
+            assert torch.equal(x, y), f"step {i}: pools differ"
+        assert torch.equal(st, st_plain), f"step {i}: counters differ"
+    return pool, st
+
+
+@pytest.mark.parametrize("k", [1, 5, 64, 500])
+@pytest.mark.parametrize("qlen", [160, 256])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_ed_chunk_and_merge_equal_plain_step(dev, k, qlen,
+                                                          znorm):
+    """100-row chunks (not a multiple of the block's rows): query 0 is
+    never active (pool and counters unchanged), query 1 ends with +inf
+    rows when k exceeds its finite candidates, and ties (equal rows,
+    seeds copied from candidates) are broken as the stable sort breaks
+    them."""
+    pool, st = _ed_chunk_walk(dev, k, qlen, znorm, chunk=100)
+    assert int(st[0].abs().sum()) == 0
+    assert bool(torch.isinf(pool[0][0, k // 2:]).all())
+    assert int(st[2:, 0].min()) >= 1
+    if k == 500:
+        assert bool(torch.isinf(pool[0][1, -1]))
+
+
+@pytest.mark.parametrize("chunk", [64, 512])
+def test_fused_gather_ed_chunk_main_path_rows(dev, chunk):
+    """The main path's chunk rows (the approximate pass's 64, the exact
+    scan's 512) at k = 5."""
+    _ed_chunk_walk(dev, 5, 256, True, chunk=chunk, seed=1)
+
+
+@pytest.mark.parametrize("k", [1, 5, 64, 500])
+def test_pool_merge_dense_equals_stable_sort(dev, k):
+    """The dense entry over (B, 25,088) rows, mostly +inf, with ties
+    among candidates and with the incumbents, several rounds: equal to
+    the stable-sort merge in all three pool tensors."""
+    rng = np.random.default_rng(k)
+    b, m = 8, 512 * 49
+    pool = [torch.full((b, k), float("inf"), device=dev),
+            torch.full((b, k), -1, dtype=torch.int32, device=dev),
+            torch.full((b, k), -1, dtype=torch.int32, device=dev)]
+    plain = [t.clone() for t in pool]
+    for rnd in range(4):
+        d2 = np.full((b, m), np.inf, np.float32)
+        live = rng.random((b, m)) < (0.3 if rnd == 0 else 0.02)
+        d2[live] = rng.integers(0, 400, int(live.sum())).astype(np.float32)
+        if rnd:      # exact ties with the incumbents
+            cur = plain[0].cpu().numpy()
+            d2[:, :k] = np.where(np.isfinite(cur), cur, d2[:, :k])
+        d2[2] = np.inf                       # a query with no candidate
+        sid = _t(rng.integers(0, 10 ** 6, (b, m)).astype(np.int32), dev)
+        off = _t(rng.integers(0, 256, (b, m)).astype(np.int32), dev)
+        d2 = _t(d2, dev)
+        for t, v in zip(plain, ref.pool_merge_ref(plain, d2, sid, off)):
+            t.copy_(v)
+        before = pool_merge.launches
+        pool_merge(pool, d2, sid, off)
+        torch.cuda.synchronize()
+        assert pool_merge.launches == before + 1
+        for x, y in zip(pool, plain):
+            assert torch.equal(x, y), f"round {rnd}: pools differ"
 
 
 @pytest.mark.parametrize("b", [1, 8, 11])
@@ -125,11 +277,12 @@ def test_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
                                                       (6, 0, 256)]
     qs = [data[s, o:o + qlen] + rng.normal(size=qlen).astype(np.float32)
           * 0.05 for s, o, qlen in windows]
-    before = (fused_gather_ed.launches, mindist_sym.launches,
-              mindist_paa.launches)
+    # the scan's ED step: the chunk entry and the partials merge
+    counted = (fused_gather_ed_chunk, pool_merge_partials, mindist_sym,
+               mindist_paa)
+    before = [w.launches for w in counted]
     got = gpu.search(qs, QuerySpec(k=5))
-    after = (fused_gather_ed.launches, mindist_sym.launches,
-             mindist_paa.launches)
+    after = [w.launches for w in counted]
     assert all(a > b for a, b in zip(after, before))
     want = cpu.search(qs, QuerySpec(k=5))
     for a, b in zip(got, want):

@@ -47,9 +47,12 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.batch_ed import batch_ed  # noqa: E402
 from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
                                           envelope_znorm_masters)
-from repro_torch.kernels.fused_verify import fused_gather_ed  # noqa: E402
+from repro_torch.kernels.fused_verify import (  # noqa: E402
+    fused_gather_ed, fused_gather_ed_chunk)
 from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
+from repro_torch.kernels.pool_merge import (pool_merge,  # noqa: E402
+                                            pool_merge_partials)
 
 RNG = np.random.default_rng(0)
 
@@ -334,9 +337,10 @@ def test_ops_match_reference_ops():
 
 
 def test_new_kernels_never_take_the_plain_path_off_cpu():
-    """batch_ed, lb_keogh and both envelope entries: a tensor off the CPU
-    goes to the CUDA kernel or raises (no card and no nvcc here: the
-    build raises; meta tensors stand in for device tensors)."""
+    """batch_ed, lb_keogh, both envelope entries, the ED chunk entry and
+    both pool merges: a tensor off the CPU goes to the CUDA kernel or
+    raises (no card and no nvcc here: the build raises; meta tensors
+    stand in for device tensors)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the kernel would run")
     meta = dict(device="meta")
@@ -345,13 +349,32 @@ def test_new_kernels_never_take_the_plain_path_off_cpu():
     sums = torch.empty((3, 193), **meta)
     seg, s12 = torch.empty((20, 4), **meta), torch.empty((20, 9), **meta)
     offs = torch.zeros(20, dtype=torch.int32, **meta)
+    # a (3, 96) collection and a (2, 32) plan of 4 chunks of 8 rows
+    col = (torch.empty((3, 96), **meta),
+           *(torch.empty((3, 97), **meta) for _ in range(4)),
+           torch.empty(3, **meta))
+    plan = torch.zeros((2, 32), dtype=torch.int32, **meta)
+    lbs2 = torch.empty((2, 32), **meta)
+    pool = (torch.empty((2, 5), **meta),
+            *(torch.zeros((2, 5), dtype=torch.int32, **meta)
+              for _ in range(2)))
+    stats = torch.zeros((2, 6), dtype=torch.int32, **meta)
     for call in (lambda: batch_ed(w, torch.empty((2, 64), **meta), True),
                  lambda: lb_keogh(e, e, w),
                  lambda: envelope_znorm(sums, sums, lmin=64, lmax=128,
                                         gamma=8, seg_len=16),
                  lambda: envelope_znorm_masters(seg, s12, s12, offs, n=80,
-                                                lmin=24, seg_len=8)):
+                                                lmin=24, seg_len=8),
+                 lambda: fused_gather_ed_chunk(
+                     *col, plan, plan, plan, lbs2, torch.empty((2, 64),
+                                                               **meta),
+                     pool[0], stats, i=1, chunk=8, g=5, znorm=True),
+                 lambda: pool_merge(pool, lbs2, plan, plan),
+                 lambda: pool_merge_partials(pool, torch.zeros(
+                     (4, 2, 30), dtype=torch.int32, **meta))):
         with pytest.raises(RuntimeError):
             call()
     assert batch_ed.launches == lb_keogh.launches == \
-        envelope_znorm.launches == envelope_znorm_masters.launches == 0
+        envelope_znorm.launches == envelope_znorm_masters.launches == \
+        fused_gather_ed_chunk.launches == pool_merge.launches == \
+        pool_merge_partials.launches == 0
