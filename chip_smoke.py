@@ -57,7 +57,14 @@ Phases (any failed check raises, and the script exits non-zero):
      around each: the k-th distance is never below the exact one, and
      the answer equals the exact one wherever `exact_from_approx` is set;
  13. time the index build's and the host backend's kernels at their
-     path's inputs, as in 6.
+     path's inputs, as in 6, and the wide DP entries at qlen 600, r 600;
+ 14. the long-query DTW path: an index of LONG_SERIES series of 1,024
+     points (lmin 512, lmax 1024, seg_len 32), exact DTW k-NN at qlen
+     600 with r = 600 (a band of 1,199 slots, past the warp entries')
+     through `UlisseEngine.search` on the device backend (the wide
+     survivors entry) and the host backend (the wide band entry), counters
+     set to 0 just before and read just after each; answers checked
+     against a float64 brute force on the card.
 
 Phase 2 also holds the scan's ED chunk entry and the partials merge
 against the plain step (the contract entry's distances masked, the
@@ -70,9 +77,14 @@ envelope_znorm bit for bit (both entries; the build entry also against
 the plain version on the CPU, from the same prefix sums), batch_ed at
 25,088 windows, qlen 160 and 256, Qb 1 and 8, znorm and raw (rtol 2e-4 /
 atol 2e-3), lb_keogh at the same windows (rtol 1e-5 / atol 1e-5).
-Phase 3 builds the index through envelope_znorm (launches counted) and
-checks on a sample of envelopes that no lower bound exceeds the true
-distance.
+Phase 2 also holds the wide DP entries against their plain versions at
+qlen 600 / r 600 and qlen 1536 / r 1535 (rtol 1e-4 / atol 1e-3) and
+against the warp entries bit for bit at W = 1023, and batch_ed (L
+12,300, Qb 1; L 2,048, Qb 8) and lb_keogh (L 6,200) past their staging.
+Phase 3 builds the index through envelope_znorm (launches counted),
+holds every envelope of the build against the plain version computed on
+the card block by block (no element may differ), and checks on a sample
+of envelopes that no lower bound exceeds the true distance.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}.  Needs one
@@ -100,6 +112,10 @@ QLENS = (160, 256)
 K = 5
 # DTW path: (qlen, r) with r = 10% of |Q| (the paper's Fig. 25 window)
 DTW_CASES = ((160, 16), (256, 25))
+# the long-query DTW path: series x points, index parameters, (qlen, r)
+LONG_SERIES, LONG_LEN = 128, 1024
+LONG = dict(lmin=512, lmax=1024, seg_len=32, gamma=48, card=256, znorm=True)
+LONG_CASE = (600, 600)
 # queries of each length held against the plain-DP brute force (at
 # qlen 160 it takes ~100 windows per series, so only the first few)
 DTW_BRUTE = {160: 2, 256: BATCH}
@@ -107,11 +123,16 @@ DTW_BRUTE = {160: 2, 256: BATCH}
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 L2_BYTES = 50 * 2 ** 20     # H100 L2, where the device does not say
+# kernel timing: traces tried before falling back to CUDA events, and the
+# spin ahead of the events' loop (cycles at the H100's 1.98 GHz boost)
+TRACE_TRIES = 5
+SPIN_HZ, SPIN_MAX_S = 1.98e9, 0.1
 # (rtol, atol).  LB_Keogh's mu and sd: the reference kernel test's
 # tolerances (sd = sqrt(s2 / L - mu^2) cancels when |mu| >> sd, so an ulp
-# of s2 / L moves sd by many).  The DTW DP: the kernel runs the
-# recurrence, the plain version the cumsum/cummin closed form, whose
-# float32 cumsum over the band cancels by up to ~1e-3 at these lengths.
+# of s2 / L moves sd by many).  The DTW DP: kernel and plain version run
+# the same float32 recurrence; the tolerance is the one set when the plain
+# version was the cumsum/cummin closed form (its float32 cumsum over the
+# band cancels by up to ~1e-3 at these lengths).
 # batch_ed and lb_keogh: the reference kernel tests' (sums in another
 # order); envelope_znorm: bit for bit (shared IEEE arithmetic).
 TOL = {"fused_gather_ed": (1e-4, 1e-3), "mindist_sym": (1e-6, 1e-6),
@@ -119,6 +140,7 @@ TOL = {"fused_gather_ed": (1e-4, 1e-3), "mindist_sym": (1e-6, 1e-6),
        "fused_gather_lb_keogh.mu": (1e-4, 1e-4),
        "fused_gather_lb_keogh.sd": (1e-3, 1e-4),
        "dtw_survivors": (1e-4, 1e-3), "dtw_band": (1e-4, 1e-3),
+       "dtw_survivors_wide": (1e-4, 1e-3), "dtw_band_wide": (1e-4, 1e-3),
        "batch_ed": (2e-4, 2e-3), "lb_keogh": (1e-5, 1e-5),
        "envelope_znorm": (0.0, 0.0)}
 # windows of one host-backend chunk: 512 envelopes x (gamma + 1) offsets
@@ -136,6 +158,10 @@ REPLACES = {
                       "src/repro/kernels/dtw_band.py:73"),
     "dtw_band": ("src/repro_torch/kernels/csrc/dtw_band.cu",
                  "src/repro/kernels/dtw_band.py:73"),
+    "dtw_survivors_wide": ("src/repro_torch/kernels/csrc/dtw_band.cu",
+                           "src/repro/kernels/dtw_band.py:73"),
+    "dtw_band_wide": ("src/repro_torch/kernels/csrc/dtw_band.cu",
+                      "src/repro/kernels/dtw_band.py:73"),
     "envelope_znorm": ("src/repro_torch/kernels/csrc/envelope.cu",
                        "src/repro/kernels/envelope.py:65"),
     "batch_ed": ("src/repro_torch/kernels/csrc/batch_ed.cu",
@@ -179,9 +205,13 @@ def time_calls(torch, fns, reps=20, budget_s=0.25, events=1):
     A wrapper that makes `events` > 1 named activities a call (each
     once) is timed by the sum of their means in a trace that holds every
     name ("profiler by name"); anything else by a trace that holds at
-    least `events` activities a call; after three traces that do neither,
-    device ms is None.  Event ms is CUDA events around the loop, which
-    also counts the card waiting for the host to launch.
+    least `events` activities a call; after TRACE_TRIES traces that do
+    neither, device ms is None.  Event ms is CUDA events around the loop,
+    enqueued behind a spin of the card as long as the loop's host time
+    (at most SPIN_MAX_S), so that they time the queued launches back to
+    back rather than the card waiting for the host; where the launch
+    queue cannot hold a loop (a plain version of thousands of launches)
+    they still count those waits.
     """
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -193,13 +223,14 @@ def time_calls(torch, fns, reps=20, budget_s=0.25, events=1):
     reps = max(3, min(reps, int(budget_s / max(per_call, 1e-9))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(per_call * reps, SPIN_MAX_S) * SPIN_HZ))
     start.record()
     for r in range(reps):
         fns[r % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / reps
-    for _ in range(3):
+    for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for r in range(reps):
@@ -687,6 +718,141 @@ def check_dtw_kernels(torch, dev, p, probe, rng):
     return errs, same / total, (w_differ, w_points)
 
 
+def survivor_inputs(torch, dev, rng, data, qlen: int, b: int = BATCH,
+                    m: int = 512):
+    """One chunk's DP inputs on `data` (S, n): B queries, M candidates at
+    random (series, offset), every fourth one a survivor, listed in a
+    shuffled order; the DP output +inf elsewhere."""
+    s, n = data.shape
+    surv = rng.random((b, m)) < 0.25
+    slist = np.zeros((b, m), np.int32)
+    for i in range(b):
+        pos = rng.permutation(np.nonzero(surv[i])[0])
+        slist[i, :len(pos)] = pos
+    t = [torch.from_numpy(x).to(dev) for x in (
+        rng.normal(size=(b, qlen)).astype(np.float32), slist,
+        surv.sum(1).astype(np.int32),
+        rng.integers(0, s, (b, m)).astype(np.int32),
+        rng.integers(0, n - qlen + 1, (b, m)).astype(np.int32),
+        rng.normal(size=(b, m)).astype(np.float32),
+        (rng.random((b, m)) + 0.5).astype(np.float32),
+        np.where(surv, np.nan, np.inf).astype(np.float32))]
+    return (data, *t[:-1]), t[-1]
+
+
+def check_wide_kernels(torch, dev, rng):
+    """The shapes past the warp entries and the host kernels' staging:
+    the wide DP entries against their plain versions at qlen 600 / r 600
+    and qlen 1536 / r 1535, and against the warp entries bit for bit at
+    W = 1023; batch_ed (L 12,300, Qb 1; L 2,048, Qb 8) and lb_keogh
+    (L 6,200).  Returns the max abs error of each."""
+    from repro_torch.core import dtw
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.batch_ed import batch_ed
+    from repro_torch.kernels.dtw_band import (dtw_band, dtw_band_wide,
+                                              dtw_survivors,
+                                              dtw_survivors_wide)
+    from repro_torch.kernels.lb_keogh import lb_keogh
+    errs = dict.fromkeys(("dtw_band_wide", "dtw_survivors_wide",
+                          "batch_ed", "lb_keogh"), 0.0)
+    data = torch.from_numpy(np.cumsum(rng.normal(size=(256, 2048)), -1)
+                            .astype(np.float32)).to(dev)
+    for qlen, r, n_cand in ((600, 600, 512), (1536, 1535, 32)):
+        q = torch.from_numpy(rng.normal(size=qlen).astype(np.float32)).to(dev)
+        c = torch.from_numpy(rng.normal(size=(n_cand, qlen)).astype(
+            np.float32)).to(dev)
+        errs["dtw_band_wide"] = max(errs["dtw_band_wide"], check_close(
+            torch, "dtw_band_wide", dtw_band_wide(q, c, r),
+            ref.dtw_band_ref(q, c, r)))
+        args, d2 = survivor_inputs(torch, dev, rng, data, qlen,
+                                   m=256 if qlen < 1000 else 32)
+        errs["dtw_survivors_wide"] = max(errs["dtw_survivors_wide"],
+                                         check_close(
+            torch, "dtw_survivors_wide",
+            dtw_survivors_wide(*args, d2.clone(), r=r, znorm=True),
+            ref.dtw_survivors_ref(*args, d2.clone(), r=r, znorm=True)))
+    # W = 1023: both entries take it, with the same bits
+    q = torch.from_numpy(rng.normal(size=700).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.normal(size=(256, 700)).astype(np.float32)
+                         ).to(dev)
+    check_equal(torch, "dtw_band warp vs wide entry at W = 1023",
+                dtw_band(q, c, 511), dtw_band_wide(q, c, 511))
+    args, d2 = survivor_inputs(torch, dev, rng, data, 600, m=256)
+    check_equal(torch, "dtw_survivors warp vs wide entry at W = 1023",
+                dtw_survivors(*args, d2.clone(), r=511, znorm=True),
+                dtw_survivors_wide(*args, d2.clone(), r=511, znorm=True))
+    for l, qb in ((12_300, 1), (2_048, 8)):
+        w = torch.from_numpy((rng.normal(size=(2_000, l)) * 3 + 1).astype(
+            np.float32)).to(dev)
+        qs = torch.from_numpy(rng.normal(size=(qb, l)).astype(np.float32)
+                              ).to(dev)
+        for znorm in (False, True):
+            errs["batch_ed"] = max(errs["batch_ed"], check_close(
+                torch, "batch_ed", batch_ed(w, qs, znorm),
+                ref.batch_ed_ref(w, qs, znorm)))
+    w = torch.from_numpy(rng.normal(size=(2_000, 6_200)).astype(np.float32)
+                         ).to(dev)
+    lo, hi = dtw.dtw_envelope(torch.from_numpy(rng.normal(size=6_200).astype(
+        np.float32)).to(dev), 620)
+    errs["lb_keogh"] = check_close(torch, "lb_keogh",
+                                   lb_keogh(lo.contiguous(), hi.contiguous(),
+                                            w),
+                                   ref.lb_keogh_ref(lo, hi, w))
+    return errs
+
+
+def check_build_envelopes(torch, coll, index, p) -> dict:
+    """Every valid envelope of the built index against the plain version
+    of the build, computed on the card from the same prefix sums over the
+    build's own blocks: the number of (lo, hi) elements that differ (none
+    may)."""
+    from repro_torch.core import envelope as core_envelope
+    from repro_torch.kernels import ref
+    s, n = coll.data.shape
+    n_env, g = p.num_envelopes(n), p.gamma + 1
+    block = max(1, core_envelope.build_block_series(n, p, coll.device))
+    env = index.envelopes
+    ok = env.valid
+    rows = (env.series_id.long() * n_env + env.anchor.long() // g)[ok]
+    built_lo, built_hi = env.paa_lo[ok], env.paa_hi[ok]
+    differ, checked = 0, 0
+    kw = dict(lmin=p.lmin, lmax=p.lmax, gamma=p.gamma, seg_len=p.seg_len)
+    for start in range(0, s, block):
+        stop = min(start + block, s)
+        x = coll.data[start:stop]
+        xc = x - x.mean(dim=-1, keepdim=True)
+        plain = ref.envelope_znorm_ref(core_envelope._prefix(xc),
+                                       core_envelope._prefix(xc * xc), **kw)
+        mine = (rows >= start * n_env) & (rows < stop * n_env)
+        at = rows[mine] - start * n_env
+        for built, want in zip((built_lo[mine], built_hi[mine]), plain):
+            differ += int((built != want.reshape(-1, p.w)[at]).sum())
+            checked += built.numel()
+        del plain, xc
+    return {"checked": checked, "differ": differ, "blocks": -(-s // block)}
+
+
+def brute64_dtw(torch, data, q, k: int, r: int, znorm: bool):
+    """Exact DTW k-NN on the card in float64 (every window, the plain DP
+    in float64, whose closed form does not cancel at these sizes):
+    (series, offsets, dists)."""
+    from repro_torch.core import dtw
+    qlen = len(q)
+    n_off = data.shape[1] - qlen + 1
+    w = data.double().unfold(1, qlen, 1).reshape(-1, qlen)
+    q = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
+    if znorm:
+        w = (w - w.mean(-1, keepdim=True)) / w.std(
+            -1, keepdim=True, correction=0).clamp_min(1e-8)
+        q = (q - q.mean()) / q.std(correction=0).clamp_min(1e-8)
+    d2 = torch.cat([dtw.dtw_band(q, w[i:i + 16_384], r, squared=True)
+                    for i in range(0, w.shape[0], 16_384)])
+    top = torch.topk(d2, k, largest=False).indices.cpu().numpy()
+    d2 = d2.cpu().numpy()
+    order = top[np.lexsort((top, d2[top]))]
+    return order // n_off, order % n_off, np.sqrt(d2[order])
+
+
 def envelope_work(p, n: int):
     """Per series of length n: (valid (master, l', segment) cells,
     valid (master, l') pairs, (master, segment) pairs with a cell) of the
@@ -873,11 +1039,13 @@ def main() -> int:
     from repro_torch.core import envelope as core_envelope
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.batch_ed import batch_ed
-    from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
+    from repro_torch.kernels.dtw_band import (dtw_band, dtw_band_wide,
+                                              dtw_survivors,
+                                              dtw_survivors_wide)
     from repro_torch.kernels.envelope import envelope_znorm
     from repro_torch.kernels.fused_verify import (
-        fused_gather_ed, fused_gather_ed_chunk, fused_gather_lb_keogh,
-        fused_gather_lb_keogh_chunk, gather_znorm)
+        chunk_qlen_limit, fused_gather_ed, fused_gather_ed_chunk,
+        fused_gather_lb_keogh, fused_gather_lb_keogh_chunk, gather_znorm)
     from repro_torch.kernels.lb_keogh import lb_keogh
     from repro_torch.kernels.mindist import mindist_paa, mindist_sym
     from repro_torch.kernels.pool_merge import pool_merge, pool_merge_partials
@@ -905,6 +1073,8 @@ def main() -> int:
                     "fused_gather_lb_keogh_chunk": fused_gather_lb_keogh_chunk,
                     "gather_znorm": gather_znorm,
                     "dtw_survivors": dtw_survivors, "dtw_band": dtw_band,
+                    "dtw_survivors_wide": dtw_survivors_wide,
+                    "dtw_band_wide": dtw_band_wide,
                     "envelope_znorm": envelope_znorm, "batch_ed": batch_ed,
                     "lb_keogh": lb_keogh}
 
@@ -994,7 +1164,12 @@ def main() -> int:
             f"the kernels' window normalization differs from the IEEE "
             f"divide at {w_differ} of {w_points} points")
     errs.update(dtw_errs)
-    errs.update(check_slice3_kernels(torch, dev, p, probe, rng))
+    for part in (check_slice3_kernels(torch, dev, p, probe, rng),
+                 check_wide_kernels(torch, dev, rng)):
+        for name, err in part.items():
+            errs[name] = max(errs.get(name, 0.0), err)
+    results["chunk_qlen_limit"] = {m: chunk_qlen_limit(m, g)
+                                   for m in ("ed", "dtw")}
     del probe, lo, hi, valid, sym_lo, sym_hi
     torch.cuda.synchronize()
     log(f"[2] kernels agree with their plain versions: "
@@ -1005,11 +1180,14 @@ def main() -> int:
         f"divide: {w_differ} of {w_points}; the ED chunk entry + partials "
         f"merge and the dense merge bit-equal to the plain step and the "
         f"stable-sort merge over {results['ed_steps_bit_equal']} steps "
-        f"(pools and counters)")
+        f"(pools and counters); the wide DP entries bit-equal to the warp "
+        f"entries at W = 1023; the scan's chunk entries take qlen <= "
+        f"{results['chunk_qlen_limit']} at g = {g}")
 
     # -- 3. the index on the card ------------------------------------------
     t0 = time.perf_counter()
     data = series_batches(args.series, SERIES_LEN, seed=args.seed)
+    t_series = time.perf_counter()
     coll = Collection.from_array(data, device=dev)
     zero_counts()
     t1 = time.perf_counter()
@@ -1023,7 +1201,8 @@ def main() -> int:
         raise AssertionError("the index build did not launch envelope_znorm")
     index = engine.index
     results["index"] = {
-        "data_s": t1 - t0, "build_s": t2 - t1,
+        "data_s": t1 - t0, "series_batches_s": t_series - t0,
+        "from_array_s": t1 - t_series, "build_s": t2 - t1,
         "envelopes": index.num_envelopes,
         "valid_envelopes": int(index.envelopes.valid.sum()),
         "blocks": [lvl.size for lvl in index.levels],
@@ -1032,9 +1211,22 @@ def main() -> int:
         "resident_gib": torch.cuda.memory_allocated(dev) / 2 ** 30}
     log(f"[3] index: {args.series} series x {SERIES_LEN} -> "
         f"{results['index']['envelopes']} envelopes, blocks "
-        f"{results['index']['blocks']}; data+stats {t1 - t0:.1f} s, build "
-        f"{t2 - t1:.3f} s, peak {results['index']['peak_build_gib']:.2f} "
-        f"GiB; launches {build_launches}")
+        f"{results['index']['blocks']}; data+stats {t1 - t0:.1f} s "
+        f"(series_batches {t_series - t0:.1f} s, Collection.from_array "
+        f"{t1 - t_series:.1f} s), build {t2 - t1:.3f} s, peak "
+        f"{results['index']['peak_build_gib']:.2f} GiB; launches "
+        f"{build_launches}")
+    tb = time.perf_counter()
+    built = check_build_envelopes(torch, coll, index, p)
+    results["index"]["build_vs_plain"] = built
+    if built["differ"] or not built["checked"]:
+        raise AssertionError(
+            f"the build's envelopes differ from the plain version at "
+            f"{built['differ']} of {built['checked']} elements")
+    log(f"[3] every envelope of the build equals the plain version "
+        f"computed on the card block by block: {built['differ']} of "
+        f"{built['checked']} (lo, hi) elements differ, {built['blocks']} "
+        f"blocks, {time.perf_counter() - tb:.1f} s")
 
     # -- 4. the main path --------------------------------------------------
     qrng = np.random.default_rng(args.seed + 2)
@@ -1302,6 +1494,9 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the DTW path")
     if fused_gather_ed_chunk.launches or pool_merge_partials.launches:
         raise AssertionError("the DTW path launched the ED chunk step")
+    if dtw_survivors_wide.launches:
+        raise AssertionError("the DTW path at r = 16 / 25 launched the wide "
+                             "DP entry")
     flat = [r for ans in dtw_answers for r in ans]
     check_answers(flat, K)
     st = [r.stats for r in flat]
@@ -1653,6 +1848,46 @@ def main() -> int:
         f"S={blk} n={SERIES_LEN} x{len(sums)}")
     timings[("envelope_znorm",)]["cells_per_series"] = cells
     del sums, call, plain, x, xc
+    # the same at the card build's own block (one launch of six a build)
+    bblk = core_envelope.build_block_series(SERIES_LEN, p, dev)
+    x = coll.data[:bblk]
+    xc = x - x.mean(dim=-1, keepdim=True)
+    sums = (core_envelope._prefix(xc), core_envelope._prefix(xc * xc))
+    del x, xc
+    timings[("envelope_znorm", "build block")] = timing(
+        torch, [lambda: envelope_znorm(*sums, **ekw)],
+        [lambda: ref.envelope_znorm_ref(*sums, **ekw)],
+        bblk * (2 * (SERIES_LEN + 1) * 4 + 2 * n_env1 * p.w * 4),
+        bblk * (4 * cells + 9 * len_pairs + 2 * seg_pairs), 0.0,
+        f"S={bblk} n={SERIES_LEN} (a build block)")
+    del sums
+    # the wide DP entries at qlen 600, r 600 (a band of 1,199 slots)
+    wq, wr = LONG_CASE
+    wrng = np.random.default_rng(args.seed + 5)
+    q_w = torch.from_numpy(wrng.normal(size=wq).astype(np.float32)).to(dev)
+    c_w = znormalize(torch.from_numpy(np.cumsum(wrng.normal(
+        size=(4_096, wq)), -1).astype(np.float32)).to(dev)).contiguous()
+    call = [lambda: dtw_band_wide(q_w, c_w, wr)]
+    plain = [lambda: ref.dtw_band_ref(q_w, c_w, wr)]
+    err = check_close(torch, "dtw_band_wide", call[0](), plain[0]())
+    timings[("dtw_band_wide", wq)] = timing(
+        torch, call, plain, c_w.numel() * 4 + wq * 4 + c_w.shape[0] * 4,
+        5 * c_w.shape[0] * dtw_cells(wq, wr), err,
+        f"N={c_w.shape[0]} qlen={wq} r={wr}")
+    ldata_t = torch.from_numpy(np.cumsum(wrng.normal(
+        size=(LONG_SERIES, LONG_LEN)), -1).astype(np.float32)).to(dev)
+    s_args, s_d2 = survivor_inputs(torch, dev, wrng, ldata_t, wq)
+    n_surv = int(s_args[3].sum())
+    call = [lambda: dtw_survivors_wide(*s_args, s_d2.clone(), r=wr,
+                                       znorm=True)]
+    plain = [lambda: ref.dtw_survivors_ref(*s_args, s_d2.clone(), r=wr,
+                                           znorm=True)]
+    err = check_close(torch, "dtw_survivors_wide", call[0](), plain[0]())
+    timings[("dtw_survivors_wide", wq)] = timing(
+        torch, call, plain, n_surv * (wq * 4 + 6 * 4) + BATCH * wq * 4
+        + BATCH * 4, 5 * n_surv * dtw_cells(wq, wr), err,
+        f"B={BATCH} M=512 r={wr} surv={n_surv}")
+    del c_w, ldata_t, s_args, s_d2
     host = executor.host_envelopes(index)
     for qlen, r in DTW_CASES:
         q = (batches[0] if qlen == QLENS[0] else batches[1])[0]
@@ -1697,10 +1932,11 @@ def main() -> int:
             8 * nw * qlen, err, f"N={nw} qlen={qlen} r={r}")
         del wns
     for key, t in timings.items():
-        if key[0] in ("envelope_znorm", "batch_ed", "lb_keogh"):
+        if key[0] in ("envelope_znorm", "batch_ed", "lb_keogh",
+                      "dtw_band_wide", "dtw_survivors_wide"):
             lib = (f"  library {t['library_ms']:.4f} ms"
                    if t["library_ms"] is not None else "")
-            log(f"[13] {key[0]:14s} {t['shape']:30s} kernel {t['ms']:.4f} ms"
+            log(f"[13] {key[0]:18s} {t['shape']:34s} kernel {t['ms']:.4f} ms"
                 f"  plain {t['plain_ms']:.4f} ms{lib}  bound "
                 f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['timer']}/"
                 f"{t['plain_timer']}; events {t['event_ms']:.4f} / "
@@ -1708,9 +1944,70 @@ def main() -> int:
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
 
+    # -- 14. the long-query DTW path ----------------------------------------
+    lp = EnvelopeParams(**LONG)
+    lrng = np.random.default_rng(args.seed + 4)
+    ldata = np.cumsum(lrng.normal(size=(LONG_SERIES, LONG_LEN)), -1).astype(
+        np.float32)
+    lcoll = Collection.from_array(ldata, device=dev)
+    lengine = UlisseEngine.from_collection(lcoll, lp, block_size=16,
+                                           num_levels=2, device=dev)
+    lq, lr = LONG_CASE
+    long_qs = [ldata[s_, o:o + lq] + lrng.normal(size=lq).astype(np.float32)
+               * 0.1 for s_, o in zip(lrng.integers(0, LONG_SERIES, 2),
+                                      lrng.integers(0, LONG_LEN - lq + 1, 2))]
+    long_kernels = {
+        "device": ("fused_gather_lb_keogh_chunk", "dtw_survivors_wide",
+                   "pool_merge", "mindist_sym", "mindist_paa"),
+        "host": ("lb_keogh", "dtw_band_wide", "mindist_sym", "mindist_paa")}
+    results["long_path"] = {"series": LONG_SERIES, "series_len": LONG_LEN,
+                            "params": LONG, "qlen": lq, "r": lr}
+    for backend, names in long_kernels.items():
+        qs_b = long_qs if backend == "device" else long_qs[:1]
+        zero_counts()
+        t0 = time.perf_counter()
+        got = lengine.search(qs_b, QuerySpec(k=K, measure="dtw", r=lr,
+                                             scan_backend=backend))
+        wall = time.perf_counter() - t0
+        ll = read_counts(names + ("dtw_survivors", "dtw_band"))
+        for name in names:
+            if ll[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the long "
+                                     f"DTW path ({backend})")
+        if ll["dtw_survivors"] or ll["dtw_band"]:
+            raise AssertionError("the long DTW path launched a warp DP entry")
+        check_answers(got, K)
+        worst = 0.0
+        for res, q in zip(got, qs_b):
+            series, offs, dists = brute64_dtw(torch, lcoll.data, q, K, lr,
+                                              lp.znorm)
+            if set(zip(res.series.tolist(), res.offsets.tolist())) != set(
+                    zip(series.tolist(), offs.tolist())):
+                raise AssertionError(
+                    f"long DTW ({backend}) answers {res.series, res.offsets}"
+                    f" vs float64 brute force {series, offs}")
+            worst = max(worst, float(np.abs(res.dists - dists).max()))
+        if worst > 5e-3:
+            raise AssertionError(f"long DTW ({backend}) distances off the "
+                                 f"float64 brute force by {worst}")
+        st = [r_.stats for r_ in got]
+        results["long_path"][backend] = {
+            "queries": len(qs_b), "wall_s": wall, "launches": ll,
+            "max_abs_err_vs_float64": worst,
+            "mean_dtw_lb_keogh": float(np.mean([x.dtw_lb_keogh for x in st])),
+            "mean_dtw_full": float(np.mean([x.dtw_full for x in st]))}
+        log(f"[14] long DTW path, {backend} backend: {len(qs_b)} queries of "
+            f"qlen {lq} at r {lr} on {LONG_SERIES} x {LONG_LEN} in "
+            f"{wall:.2f} s; launches {ll}; LB_Keogh "
+            f"{results['long_path'][backend]['mean_dtw_lb_keogh']:.1f} -> DP "
+            f"{results['long_path'][backend]['mean_dtw_full']:.1f} per "
+            f"query; answers = the float64 brute force (max |d - d64| "
+            f"{worst:.2e})")
+    del lengine, lcoll
+
     # launches: each kernel's count on the path it belongs to — the ED main
     # path, the DTW path, the index build, the host backend (ED: batch_ed;
-    # DTW: lb_keogh and dtw_band)
+    # DTW: lb_keogh and dtw_band), the long DTW path (the wide entries)
     headline = {
                 # the scan's entry to the kernel (the contract entry's
                 # time is in the timings as well)
@@ -1723,6 +2020,8 @@ def main() -> int:
                                           512),
                 "dtw_survivors": ("dtw_survivors", 256),
                 "dtw_band": ("dtw_band", 256),
+                "dtw_survivors_wide": ("dtw_survivors_wide", LONG_CASE[0]),
+                "dtw_band_wide": ("dtw_band_wide", LONG_CASE[0]),
                 "envelope_znorm": ("envelope_znorm",),
                 "batch_ed": ("batch_ed", 256, 1, "znorm"),
                 "lb_keogh": ("lb_keogh", 256),
@@ -1738,7 +2037,11 @@ def main() -> int:
         **build_launches,
         batch_ed=results["host_path"]["ed"]["launches"]["batch_ed"],
         **{name: results["host_path"]["dtw"]["launches"][name]
-           for name in ("lb_keogh", "dtw_band")})
+           for name in ("lb_keogh", "dtw_band")},
+        dtw_survivors_wide=results["long_path"]["device"]["launches"][
+            "dtw_survivors_wide"],
+        dtw_band_wide=results["long_path"]["host"]["launches"][
+            "dtw_band_wide"])
     for name, key in headline.items():
         t = timings[key]
         src, replaces = REPLACES[name]

@@ -11,8 +11,10 @@ x_j = d_j + min(M_j, x_{j-1}), whose closed form is
     x_j = S_j + min_{k<=j} (M_k - S_{k-1}),   S = cumsum(d)
 
 — one cumsum and one cummin per row over a (2r+1)-wide band, batched
-over candidates.  This is the plain version of the `dtw_band` kernels
-and the DP of the brute-force oracle.
+over candidates.  This is the DP of the brute-force oracle; its float32
+cumsum over the band cancels once the band is wide (ROADMAP Queue 3 P6),
+so the kernels' plain version is `kernels/ref.py::wavefront_dtw`, the
+kernels' own recurrence.
 """
 from __future__ import annotations
 

@@ -3,7 +3,10 @@
 The JAX package vmaps a per-series function; here the series axis is a
 batch dimension of every tensor, and the build walks the collection in
 blocks of series so that the (series, anchor, master, segment) grid of
-one block stays within a fixed element budget on the device.
+one block stays within a fixed element budget on the device.  The
+Z-normalized build on the card never makes that grid (the kernel reduces
+it as it goes): its blocks are sized by what it does hold, the centred
+copy, its square and the two prefix sums, within a byte budget.
 
   non-normalized (Alg. 1):  a (S, n_env, gamma+1, w) grid of master-series
     PAA coefficients, min/max-reduced over the master axis (plain torch:
@@ -35,6 +38,9 @@ _INF = float("inf")
 
 # elements of one block's (S, n_env, g, w) grid
 _BUILD_BLOCK_ELEMS = 1 << 25
+# bytes of one block's temporaries in the Z-normalized build on the card
+# (at 1M series x 256 points: 6 launches, below the index's sort peak)
+_CARD_BUILD_BYTES = 1 << 30
 
 
 def _anchors(series_len: int, p: EnvelopeParams, device) -> torch.Tensor:
@@ -119,6 +125,17 @@ def build_envelopes_znorm(series: torch.Tensor, p: EnvelopeParams):
     return lo, hi, master_ok.sum(dim=1, dtype=torch.int32)
 
 
+def build_block_series(n: int, p: EnvelopeParams, device) -> int:
+    """Series per block of the build.  The Z-normalized build on the card
+    holds, per series, the centred copy, its square, two prefix sums and
+    a cumsum's temporary ((n + 1) floats each at most) and its (lo, hi)
+    output; every other build holds the (n_env, g, w) grid."""
+    n_env = p.num_envelopes(n)
+    if p.znorm and torch.device(device).type == "cuda":
+        return _CARD_BUILD_BYTES // (4 * (5 * (n + 1) + 2 * n_env * p.w))
+    return _BUILD_BLOCK_ELEMS // (n_env * (p.gamma + 1) * p.w)
+
+
 def build_envelope_set(collection: Collection, p: EnvelopeParams,
                        breakpoints: torch.Tensor) -> EnvelopeSet:
     """Build the full (unsorted) EnvelopeSet of a collection (paper Alg. 3):
@@ -131,7 +148,7 @@ def build_envelope_set(collection: Collection, p: EnvelopeParams,
     dev = collection.device
     s = collection.num_series
     build_fn = build_envelopes_znorm if p.znorm else build_envelopes_raw
-    block = max(1, _BUILD_BLOCK_ELEMS // (n_env * (p.gamma + 1) * p.w))
+    block = max(1, build_block_series(n, p, dev))
     lo = torch.empty((s, n_env, p.w), dtype=torch.float32, device=dev)
     hi = torch.empty_like(lo)
     n_master = None

@@ -32,7 +32,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-# exported C functions per source: name -> argtypes (restype is int)
+# exported C functions per source: name -> argtypes (restype is int
+# unless RESTYPES says otherwise)
 SIGNATURES = {
     "mindist": {
         # lo, hi, breakpoints, card, q_lo, q_hi, q_stride, valid, out,
@@ -51,6 +52,8 @@ SIGNATURES = {
                                    _L, _I, _I, _I, _I, _I, _I, _V],
         # qlen, g
         "ulisse_fused_gather_ed_chunk_tile": [_I, _I],
+        # qlen, g
+        "ulisse_fused_gather_lb_keogh_tile": [_I, _I],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, qs, pool_d2, stats, part, num_series, n, batch,
         # rows, qlen, g, znorm, n_pad, col0, k, stream
@@ -81,6 +84,14 @@ SIGNATURES = {
         # num_series, n, batch, m, l, r, znorm, stream
         "ulisse_dtw_survivors": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
                                  _I, _I, _I, _I, _I, _V],
+        # l, r (returns floats, a long long)
+        "ulisse_dtw_wide_scratch": [_I, _I],
+        # q, candidates, out, scratch, scratch_blocks, num, l, r, stream
+        "ulisse_dtw_band_wide": [_V, _V, _V, _V, _I, _L, _I, _I, _V],
+        # data, qs, slist, nsurv, cand_sid, cand_off, mu, sd, out, scratch,
+        # scratch_blocks, num_series, n, batch, m, l, r, znorm, stream
+        "ulisse_dtw_survivors_wide": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
+                                      _I, _L, _I, _I, _I, _I, _I, _I, _V],
     },
     "envelope": {
         # csum, csum2, lo, hi, num_series, n, n_env, lmin, lmax, gamma,
@@ -93,8 +104,8 @@ SIGNATURES = {
                                           _I, _I, _I, _I, _V],
     },
     "batch_ed": {
-        # windows, queries, out, num, l, qb, znorm, stream
-        "ulisse_batch_ed": [_V, _V, _V, _L, _I, _I, _I, _V],
+        # windows, queries, out, num, l, qb, ldo, znorm, stream
+        "ulisse_batch_ed": [_V, _V, _V, _L, _I, _I, _I, _I, _V],
     },
     "lb_keogh": {
         # env_lo, env_hi, windows, out, num, l, stream
@@ -109,6 +120,9 @@ SIGNATURES = {
                                     _I, _I, _V],
     },
 }
+
+# the exported functions that return something other than an error code
+RESTYPES = {"ulisse_dtw_wide_scratch": _L}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -167,7 +181,7 @@ def load_all() -> Dict[str, ctypes.CDLL]:
             lib = ctypes.CDLL(str(_target(name)))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             _LIBS[name] = lib
     return _LIBS
 

@@ -6,6 +6,10 @@ jnp: the verification of every chunk's candidate windows
 (`repro/core/executor.py::ed_batch`, one query).  The kernel is
 `csrc/batch_ed.cu`, the plain version `ref.batch_ed_ref`.
 
+Any L and Qb: the queries go in groups whose Qb (L + 1) floats fit the
+kernel's 48 KB of staging, one launch a group (each counted); a query
+longer than the staging is streamed through it in tiles of L.
+
 Inputs are checked on every device against what the kernel takes; then
 CPU tensors take the plain version and CUDA tensors launch the kernel.
 The wrapper counts its launches in `.launches`.
@@ -16,8 +20,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# csrc/batch_ed.cu stages the queries and their sums of squares in 48 KB
-# of shared memory
+# csrc/batch_ed.cu stages a group of queries and their sums of squares in
+# 48 KB of shared memory
 _SMEM_FLOATS = 48 * 1024 // 4
 
 
@@ -32,21 +36,24 @@ def batch_ed(windows: torch.Tensor, queries: torch.Tensor,
     _build.check_tensors("batch_ed", dev, (
         ("windows", windows, torch.float32, (n, l)),
         ("queries", queries, torch.float32, (qb, l))))
-    if qb < 1 or l < 1 or qb * (l + 1) > _SMEM_FLOATS:
-        raise ValueError(f"batch_ed: {qb} queries of length {l} do not fit "
-                         f"the kernel's shared memory (Qb * (L + 1) <= "
-                         f"{_SMEM_FLOATS})")
+    if qb < 1 or l < 1:
+        raise ValueError(f"batch_ed: {qb} queries of length {l}")
     if dev.type == "cpu":
         return ref.batch_ed_ref(windows, queries, znorm)
     out = torch.empty((n, qb), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     lib = _build.library("batch_ed")
-    code = lib.ulisse_batch_ed(windows.data_ptr(), queries.data_ptr(),
-                               out.data_ptr(), n, l, qb, int(znorm),
-                               torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "batch_ed")
-    batch_ed.launches += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    group = max(1, _SMEM_FLOATS // (l + 1))
+    for q0 in range(0, qb, group):
+        q1 = min(q0 + group, qb)
+        code = lib.ulisse_batch_ed(windows.data_ptr(),
+                                   queries[q0:q1].data_ptr(),
+                                   out[:, q0:].data_ptr(), n, l, q1 - q0, qb,
+                                   int(znorm), stream)
+        _build.check(code, "batch_ed")
+        batch_ed.launches += 1
     return out
 
 

@@ -21,6 +21,14 @@
 // they can (the TPU kernel's MXU product would need TF32 here).
 // Queries beyond 8 are taken in groups of 8, re-reading the window from
 // L1/L2.
+// Any L and Qb: the wrapper launches the queries in groups whose
+// Qb (L + 1) floats fit the 48 KB of staging (one launch a group, each
+// writing its columns of the (N, Qb) output); a single query longer than
+// the staging goes to batch_ed_tiled_kernel, which streams it through
+// the staging in tiles of L (a multiple of 128 floats: every lane meets
+// the row's points in the same order as a single tile would, so the
+// sums round the same).  Path shapes (L <= 256, Qb = 1) keep the
+// single-tile kernel.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -28,6 +36,9 @@ namespace {
 
 constexpr int kWarps = 8;               // windows in flight per block
 constexpr int kGroup = 8;               // queries per register group
+constexpr int kSmemFloats = 48 * 1024 / 4;
+// the tiled kernel's L tile: a multiple of 128 floats, + sum(q^2)
+constexpr int kTile = (kSmemFloats - 1) / 128 * 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -36,12 +47,29 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The squared ED of one (window, query) pair from the warp-reduced sums.
+__device__ __forceinline__ float ed_finish(float dot, float sw, float sw2,
+                                          float qss, float lf, float inv_l,
+                                          int znorm) {
+  float sd = 1.f;
+  if (znorm) {
+    const float mu = __fmul_rn(sw, inv_l);
+    const float var = fmaxf(
+        __fsub_rn(__fmul_rn(sw2, inv_l), __fmul_rn(mu, mu)), 0.f);
+    sd = fmaxf(__fsqrt_rn(var), 1e-8f);
+  }
+  const float two_dot = 2.f * dot;
+  const float d2 = znorm ? __fsub_rn(2.f * lf, __fdiv_rn(two_dot, sd))
+                         : __fadd_rn(__fsub_rn(sw2, two_dot), qss);
+  return fmaxf(d2, 0.f);
+}
+
 template <bool kVec>
 __global__ void __launch_bounds__(kWarps * 32)
     batch_ed_kernel(const float* __restrict__ windows,
                     const float* __restrict__ queries,
                     float* __restrict__ out, long long num, int l, int qb,
-                    int znorm) {
+                    int ldo, int znorm) {
   extern __shared__ float smem[];
   float* q_s = smem;                    // [qb * l]
   float* qss = smem + (long long)qb * l;  // [qb] sum(q^2)
@@ -98,24 +126,80 @@ __global__ void __launch_bounds__(kWarps * 32)
       sw2 = warp_sum(sw2);
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) dot[k] = warp_sum(dot[k]);
-      float sd = 1.f;
-      if (znorm) {
-        const float mu = __fmul_rn(sw, inv_l);
-        const float var = fmaxf(
-            __fsub_rn(__fmul_rn(sw2, inv_l), __fmul_rn(mu, mu)), 0.f);
-        sd = fmaxf(__fsqrt_rn(var), 1e-8f);
-      }
 #pragma unroll
       for (int k = 0; k < kGroup; ++k) {
-        if (k < nq && lane == k) {
-          const float two_dot = 2.f * dot[k];
-          const float d2 = znorm
-              ? __fsub_rn(2.f * lf, __fdiv_rn(two_dot, sd))
-              : __fadd_rn(__fsub_rn(sw2, two_dot), qss[q0 + k]);
-          out[row * qb + q0 + k] = fmaxf(d2, 0.f);
+        if (k < nq && lane == k)
+          out[row * ldo + q0 + k] =
+              ed_finish(dot[k], sw, sw2, qss[q0 + k], lf, inv_l, znorm);
+      }
+    }
+  }
+}
+
+// One query longer than the staging: the block walks its rows a warp
+// each, kWarps at a time, and streams the query through shared memory in
+// tiles of `tile` points (all warps in step); each warp keeps its row's
+// sums in registers across the tiles.  sum(q^2) is taken from device
+// memory in the single-tile kernel's order.
+template <bool kVec>
+__global__ void __launch_bounds__(kWarps * 32)
+    batch_ed_tiled_kernel(const float* __restrict__ windows,
+                          const float* __restrict__ query,
+                          float* __restrict__ out, long long num, int l,
+                          int ldo, int znorm, int tile) {
+  extern __shared__ float smem[];
+  float* q_s = smem;                    // [tile]
+  float* qss = smem + tile;             // [1] sum(q^2)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  if (warp == 0) {
+    float s = 0.f;
+    for (int t = lane; t < l; t += 32) s = fmaf(query[t], query[t], s);
+    s = warp_sum(s);
+    if (lane == 0) *qss = s;
+  }
+  const float lf = (float)l;
+  const float inv_l = __fdiv_rn(1.f, lf);
+  for (long long row0 = (long long)blockIdx.x * warps; row0 < num;
+       row0 += (long long)gridDim.x * warps) {
+    const long long row = row0 + warp;
+    const bool live = row < num;
+    float dot = 0.f, sw = 0.f, sw2 = 0.f;
+    for (int t0 = 0; t0 < l; t0 += tile) {
+      const int tn = min(tile, l - t0);
+      __syncthreads();                  // the last tile is consumed
+      for (int t = threadIdx.x; t < tn; t += blockDim.x)
+        q_s[t] = query[t0 + t];
+      __syncthreads();
+      if (!live) continue;
+      const float* w = windows + row * l + t0;
+      if (kVec) {
+        const float4* w4 = reinterpret_cast<const float4*>(w);
+        const float4* c4 = reinterpret_cast<const float4*>(q_s);
+        for (int t4 = lane; t4 < (tn >> 2); t4 += 32) {
+          const float4 v = w4[t4];
+          const float4 c = c4[t4];
+          sw += (v.x + v.y) + (v.z + v.w);
+          sw2 = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z,
+                                                   fmaf(v.w, v.w, sw2))));
+          dot = fmaf(v.x, c.x, fmaf(v.y, c.y, fmaf(v.z, c.z,
+                                                   fmaf(v.w, c.w, dot))));
+        }
+      } else {
+        for (int t = lane; t < tn; t += 32) {
+          const float v = w[t];
+          sw += v;
+          sw2 = fmaf(v, v, sw2);
+          dot = fmaf(v, q_s[t], dot);
         }
       }
     }
+    if (!live) continue;
+    sw = warp_sum(sw);
+    sw2 = warp_sum(sw2);
+    dot = warp_sum(dot);
+    if (lane == 0)
+      out[row * ldo] = ed_finish(dot, sw, sw2, *qss, lf, inv_l, znorm);
   }
 }
 
@@ -123,9 +207,11 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 extern "C" int ulisse_batch_ed(const void* windows, const void* queries,
                                void* out, long long num, int l, int qb,
-                               int znorm, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)qb * l + qb);
-  if (num < 1 || l < 1 || qb < 1 || smem > 48 * 1024)
+                               int ldo, int znorm, void* stream) {
+  const size_t floats = (size_t)qb * l + qb;
+  // several queries must fit the staging whole; one may be tiled
+  if (num < 1 || l < 1 || qb < 1 || ldo < qb ||
+      (qb > 1 && floats > (size_t)kSmemFloats))
     return (int)cudaErrorInvalidValue;
   long long blocks = (num + kWarps - 1) / kWarps;
   if (blocks > 132 * 64) blocks = 132 * 64;
@@ -135,11 +221,22 @@ extern "C" int ulisse_batch_ed(const void* windows, const void* queries,
   const float* w = static_cast<const float*>(windows);
   const float* q = static_cast<const float*>(queries);
   float* o = static_cast<float*>(out);
+  if (floats > (size_t)kSmemFloats) {
+    const size_t smem = sizeof(float) * (kTile + 1);
+    if (vec)
+      batch_ed_tiled_kernel<true><<<(unsigned)blocks, kWarps * 32, smem, s>>>(
+          w, q, o, num, l, ldo, znorm, kTile);
+    else
+      batch_ed_tiled_kernel<false><<<(unsigned)blocks, kWarps * 32, smem,
+                                     s>>>(w, q, o, num, l, ldo, znorm, kTile);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = sizeof(float) * floats;
   if (vec)
     batch_ed_kernel<true><<<(unsigned)blocks, kWarps * 32, smem, s>>>(
-        w, q, o, num, l, qb, znorm);
+        w, q, o, num, l, qb, ldo, znorm);
   else
     batch_ed_kernel<false><<<(unsigned)blocks, kWarps * 32, smem, s>>>(
-        w, q, o, num, l, qb, znorm);
+        w, q, o, num, l, qb, ldo, znorm);
   return (int)cudaGetLastError();
 }

@@ -47,10 +47,31 @@
 // walks the flat list of all B queries' survivors, so a chunk takes
 // about one candidate's critical path whatever the queries' split; the
 // function entry launches a warp per candidate, uncapped.
-// Rounding: the plain version (the cumsum/cummin closed form) rounds
-// differently, within the stated tolerance.  The survivors' normalization
-// is the LB kernel's (znorm.cuh), so the DP sees the very values the
-// lower bound saw.
+// Rounding: the plain version (kernels/ref.py::wavefront_dtw) runs the
+// same recurrence in the same float32 operations.  The survivors'
+// normalization is the LB kernel's (znorm.cuh), so the DP sees the very
+// values the lower bound saw.
+//
+// Wide entries (ulisse_dtw_band_wide, ulisse_dtw_survivors_wide) take
+// any band and any l: the wrappers send them every shape the warp
+// entries do not take (W > 1024, or l > 6144, where a warp's padded
+// staging no longer leaves room for a full block).  The same wavefront,
+// a block per candidate: the band's W slots sit in a buffer the block
+// shares (slot k at st[k + 1], st[0] = st[W + 1] = +inf); diagonal t
+// updates the slots of t + rr's parity whose cell lies inside the
+// series, each thread every blockDim-th of them, reading only slots of
+// the other parity and its own, so one __syncthreads() a diagonal orders
+// the steps.  A slot whose cell lies off the series is not written: it
+// still holds +inf (i < 0 or j < 0 from the start) or a value that only
+// cells off the series read (i >= l or j >= l), so every cell inside the
+// series reads what the warp entries' sentinels give it.  The query and
+// the (normalized) window sit beside the state; the buffer of 2rr + 3 +
+// 2l floats lives in shared memory where it fits (l up to ~14,500 at a
+// full band), else in a global scratch slice per block.  Each cell is
+// the same IEEE add of its cost to the min of its three neighbours, so
+// the wide and warp entries give the same bits wherever both apply.
+// Bound: operations, as above; a diagonal costs a block barrier, so the
+// wide entries trade the warp's shuffle for ~2l barriers a candidate.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -65,6 +86,7 @@ constexpr int kSmemMax = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kPadQ = 1e30f;            // query sentinel
 constexpr float kPadW = -1e30f;           // window sentinel: (q - w)^2 = inf
+constexpr int kWideThreads = 256;         // wide entries: largest block
 
 // The even-slot step of pair u: a[c] = d + min(a[c], b[c], b[c-1]), the
 // lane's b[-1] being its left neighbour's b[C-1] (one shuffle up).
@@ -235,6 +257,105 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// The wide entries' DP of q against w (both (l,), any memory) over the
+// state st[0 .. 2rr + 2], run by the whole block; every thread gets the
+// result.  The caller orders its staging of q and w before the call
+// (the barrier after the state's reset covers it) and the read of the
+// result before it restages.
+__device__ float wide_dtw(const float* q, const float* w, float* st, int l,
+                          int rr) {
+  const int band = 2 * rr + 1;
+  for (int k = threadIdx.x; k < band + 2; k += blockDim.x)
+    st[k] = k == rr + 1 ? 0.f : INFINITY;   // D[-1,-1] = 0 in slot rr
+  __syncthreads();
+  for (int t = 0; t <= 2 * l - 2; ++t) {
+    // slot k holds cell i = (t + k - rr) / 2, j = (t - k + rr) / 2: the
+    // live slots with 0 <= i, j < l
+    int lo = max(max(rr - t, t + rr - 2 * l + 2), 0);
+    const int hi = min(min(t + rr, 2 * l - 2 - t + rr), band - 1);
+    lo += (lo + t + rr) & 1;
+    for (int k = lo + 2 * (int)threadIdx.x; k <= hi;
+         k += 2 * (int)blockDim.x) {
+      const float diff = __fsub_rn(q[(t + k - rr) >> 1], w[(t - k + rr) >> 1]);
+      const float m = fminf(st[k + 1], st[k]);
+      st[k + 1] = __fadd_rn(__fmul_rn(diff, diff), fminf(m, st[k + 2]));
+    }
+    __syncthreads();
+  }
+  return st[rr + 1];
+}
+
+// The wide entries' buffer: the state (2rr + 3 floats), q and w (l each).
+long long wide_floats(int l, int rr) { return 2LL * rr + 3 + 2LL * l; }
+
+__global__ void __launch_bounds__(kWideThreads)
+    dtw_band_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ cands,
+                         float* __restrict__ out, long long num,
+                         float* scratch, int l, int rr, long long per_block) {
+  extern __shared__ float smem[];
+  float* st = scratch ? scratch + blockIdx.x * per_block : smem;
+  float* q_s = st + 2 * rr + 3;
+  float* w_s = q_s + l;
+  for (int t = threadIdx.x; t < l; t += blockDim.x) q_s[t] = q[t];
+  for (long long cand = blockIdx.x; cand < num; cand += gridDim.x) {
+    __syncthreads();                     // the last result has been read
+    for (int t = threadIdx.x; t < l; t += blockDim.x)
+      w_s[t] = cands[cand * l + t];
+    const float v = wide_dtw(q_s, w_s, st, l, rr);
+    if (threadIdx.x == 0) out[cand] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+    dtw_survivors_wide_kernel(const float* __restrict__ data,
+                              const float* __restrict__ qs,
+                              const int* __restrict__ slist,
+                              const int* __restrict__ nsurv,
+                              const int* __restrict__ cand_sid,
+                              const int* __restrict__ cand_off,
+                              const float* __restrict__ mu,
+                              const float* __restrict__ sd,
+                              float* __restrict__ out, long long num_series,
+                              int n, int batch, int m, int znorm,
+                              float* scratch, int l, int rr,
+                              long long per_block) {
+  extern __shared__ float smem[];
+  float* st = scratch ? scratch + blockIdx.x * per_block : smem;
+  float* q_s = st + 2 * rr + 3;
+  float* w_s = q_s + l;
+  // the flat list of every query's survivors, as in dtw_survivors_kernel
+  long long total = 0;
+  for (int b = 0; b < batch; ++b) total += min(nsurv[b], m);
+  const long long last = num_series * (long long)n - 1;
+  int b = 0, staged = -1;
+  long long base = 0;
+  for (long long f = blockIdx.x; f < total; f += gridDim.x) {
+    while (f >= base + min(nsurv[b], m)) base += min(nsurv[b++], m);
+    __syncthreads();                     // the last result has been read
+    if (b != staged) {                   // block-uniform
+      for (int t = threadIdx.x; t < l; t += blockDim.x)
+        q_s[t] = qs[(long long)b * l + t];
+      staged = b;
+    }
+    const long long row0 = (long long)b * m;
+    const long long e = row0 + slist[row0 + (f - base)];
+    int off = cand_off[e];
+    off = off < 0 ? 0 : (off > n - l ? n - l : off);
+    const long long start = (long long)cand_sid[e] * n + off;
+    const float mu_e = mu[e], sd_e = sd[e];
+    const float y = __frcp_rn(sd_e);
+    for (int t = threadIdx.x; t < l; t += blockDim.x) {
+      long long flat = start + t;
+      flat = flat < 0 ? 0 : (flat > last ? last : flat);
+      const float x = data[flat];
+      w_s[t] = znorm ? znorm_point(x, mu_e, sd_e, y) : x;
+    }
+    const float v = wide_dtw(q_s, w_s, st, l, rr);
+    if (threadIdx.x == 0) out[e] = v;
+  }
+}
+
 // The pairs a lane holds for a band of W cells (0 when W > 64 * kMaxPairs).
 int pairs_for(int band) {
   for (int c = 1; c <= kMaxPairs; c *= 2)
@@ -325,6 +446,30 @@ struct SurvivorsLaunch {
   }
 };
 
+// The wide entries' launch: a block of up to kWideThreads threads per
+// candidate in flight, one wave of the card (or `scratch_blocks` blocks
+// of the global scratch where the buffer does not fit shared memory),
+// each block walking candidates blockIdx.x, + gridDim.x, ...
+template <typename Kernel, typename... Args>
+int launch_wide(Kernel kernel, cudaStream_t stream, float* scratch,
+                int scratch_blocks, long long work, int l, int rr,
+                Args... args) {
+  const long long floats = wide_floats(l, rr);
+  const bool in_smem = floats * 4 <= kSmemMax;
+  if (!in_smem && (scratch == nullptr || scratch_blocks < 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = in_smem ? (size_t)floats * 4 : 0;
+  const int err = set_smem(kernel, smem);
+  if (err) return err;
+  int threads = (rr + 1 + 31) / 32 * 32;   // the live slots of a diagonal
+  if (threads > kWideThreads) threads = kWideThreads;
+  long long blocks = in_smem ? wave_blocks(threads, smem) : scratch_blocks;
+  if (blocks > work) blocks = work;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
+      args..., in_smem ? nullptr : scratch, l, rr, floats);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ulisse_dtw_band(const void* q, const void* cands, void* out,
@@ -352,4 +497,45 @@ extern "C" int ulisse_dtw_survivors(
       static_cast<const int*>(cand_sid), static_cast<const int*>(cand_off),
       static_cast<const float*>(mu), static_cast<const float*>(sd),
       static_cast<float*>(out), num_series, n, batch, m, l, rr, znorm);
+}
+
+// Floats of global scratch a block of the wide entries needs at (l, r):
+// 0 where its buffer fits shared memory (the wrapper then passes none).
+extern "C" long long ulisse_dtw_wide_scratch(int l, int r) {
+  if (l < 1 || r < 0) return -1;
+  const int rr = r < l - 1 ? r : l - 1;
+  const long long floats = wide_floats(l, rr);
+  return floats * 4 <= kSmemMax ? 0 : floats;
+}
+
+extern "C" int ulisse_dtw_band_wide(const void* q, const void* cands,
+                                    void* out, void* scratch,
+                                    int scratch_blocks, long long num, int l,
+                                    int r, void* stream) {
+  if (num < 1 || l < 1 || r < 0) return (int)cudaErrorInvalidValue;
+  const int rr = r < l - 1 ? r : l - 1;
+  return launch_wide(dtw_band_wide_kernel, static_cast<cudaStream_t>(stream),
+                     static_cast<float*>(scratch), scratch_blocks, num, l, rr,
+                     static_cast<const float*>(q),
+                     static_cast<const float*>(cands),
+                     static_cast<float*>(out), num);
+}
+
+extern "C" int ulisse_dtw_survivors_wide(
+    const void* data, const void* qs, const void* slist, const void* nsurv,
+    const void* cand_sid, const void* cand_off, const void* mu,
+    const void* sd, void* out, void* scratch, int scratch_blocks,
+    long long num_series, int n, int batch, int m, int l, int r, int znorm,
+    void* stream) {
+  if (batch < 1 || m < 1 || l < 1 || l > n || r < 0)
+    return (int)cudaErrorInvalidValue;
+  const int rr = r < l - 1 ? r : l - 1;
+  return launch_wide(
+      dtw_survivors_wide_kernel, static_cast<cudaStream_t>(stream),
+      static_cast<float*>(scratch), scratch_blocks, (long long)batch * m, l,
+      rr, static_cast<const float*>(data), static_cast<const float*>(qs),
+      static_cast<const int*>(slist), static_cast<const int*>(nsurv),
+      static_cast<const int*>(cand_sid), static_cast<const int*>(cand_off),
+      static_cast<const float*>(mu), static_cast<const float*>(sd),
+      static_cast<float*>(out), num_series, n, batch, m, znorm);
 }

@@ -21,32 +21,55 @@
 //       master (M, w) bounds from (segmean, s1, s2, offsets), +/-3e38
 //       where no cell is valid.
 // Arithmetic is the JAX build's, not the Pallas kernel's s1 * (1/l'):
-// IEEE divisions (__fdiv_rn) for segsum / s, s1 / l' and s2 / l';
+// correctly rounded quotients for segsum / s, s1 / l' and s2 / l';
 // s2 / l' - mu * mu with __fmul_rn / __fsub_rn so that nvcc cannot
 // contract it into an FMA; a correctly rounded square root clamped at
-// 1e-8; (segmean - mu) / sigma as __fsub_rn then __fdiv_rn.  The kernel
-// therefore gives the bits of the plain PyTorch version
-// (kernels/ref.py::envelope_znorm_ref) from the same prefix sums, on the
-// card and on the CPU.
+// 1e-8; (segmean - mu) / sigma as a subtract then a correctly rounded
+// quotient.  The kernel therefore gives the bits of the plain PyTorch
+// version (kernels/ref.py::envelope_znorm_ref) from the same prefix
+// sums, on the card and on the CPU.  The per-master entry divides with
+// __fdiv_rn; the build entry takes every quotient from one reciprocal of
+// its divisor by Markstein's correction (znorm.cuh: RN(q0 + rho y) with
+// y = RN(1 / d), q0 = RN(a y), rho = a - q0 d exact in one FMA), which is
+// the IEEE quotient bit for bit away from under- and overflow and from
+// a numerator of -0 (a prefix sum of -0, which centred data never gives).
 // Bound on the card: operations.  At the bench parameters (n = 256,
-// lmin 160, lmax 256, s = 16, gamma 48) an envelope reads ~2.4 KB of
-// prefix sums and does ~27k valid (master, l', segment) cells of a
-// subtract, an IEEE divide, a min and a max.
-// Design: a block stages its span of both prefix sums (gamma + lmax + 1
-// values each) in shared memory, then walks the lengths in tiles: first
-// (mu, sigma) for every (master, length) of the tile into shared memory,
-// then every (master, segment) pair runs over the lengths of the tile
-// for which its cell is valid — a contiguous range, so no per-cell
-// branch — keeping its (lo, hi) in shared memory.  A final pass reduces
-// the masters of each segment.
+// lmin 160, lmax 256, s = 16, gamma 48) a series holds 97 x 98 / 2 valid
+// (master, l') pairs — each a square root, a reciprocal and two
+// quotients — and ~54,600 valid (master, l', segment) cells — each a
+// subtract, a multiply, two FMAs, a min and a max — against ~2 KB of
+// prefix sums read.
+// Design of the build entry (it replaced a thread per (master, segment)
+// walking the lengths, with two IEEE divides a (master, l') and one a
+// cell, whose lanes idled where their valid lengths ended):
+//   * a block of kBuildThreads per envelope stages its span of both
+//     prefix sums, the segment means of its masters (for kZ segments at
+//     a time), and a table of 1 / l' and of the segments l' covers;
+//   * a warp takes a master at a time (masters warp, warp + 4, ...), its
+//     kZ segment means in registers, and its lanes take 32 consecutive
+//     lengths: each lane computes (mu, sigma, 1 / sigma) of its (master,
+//     l') once and then its cells, keeping a running (lo, hi) of every
+//     segment in registers.  The lanes past the master's last valid
+//     length repeat its last length (a duplicate of a valid cell leaves
+//     a min and a max unchanged), so no lane needs a mask; the segments
+//     no lane's length covers are skipped by a warp-uniform jump
+//     (switch on the warp's largest count), the others take one
+//     predicate;
+//   * the block reduces its 128 lanes' (lo, hi) through shared memory:
+//     lanes write their 2 kZ values to a padded table, 32 threads read a
+//     column each.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "znorm.cuh"
 
 namespace {
 
 constexpr float kBig = 3.0e38f;
-constexpr int kMaxTile = 64;             // lengths per tile
 constexpr int kSmemLimit = 227 * 1024;   // opt-in dynamic shared memory
+constexpr int kBuildThreads = 128;       // build entry: 4 warps an envelope
+constexpr int kZ = 16;                   // segments a pass keeps in registers
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void window_stats(float s1, float s2, float lp,
                                              float* mu, float* sigma) {
@@ -61,24 +84,33 @@ __device__ __forceinline__ float znorm_value(float segmean, float mu,
   return __fdiv_rn(__fsub_rn(segmean, mu), sigma);
 }
 
-// shared floats of one build block: two prefix-sum spans, segmean and the
-// (lo, hi) accumulators of every (master, segment), (mu, sigma) of a tile
-size_t build_smem_floats(int span, int g, int w, int tile) {
-  return 2 * (size_t)span + 3 * (size_t)g * w + 2 * (size_t)g * tile;
+// x / d from y = RN(1 / d): the correctly rounded quotient (znorm.cuh).
+__device__ __forceinline__ float div_by(float x, float d, float y) {
+  return znorm_point(x, 0.f, d, y);
 }
 
-__global__ void envelope_build_kernel(
-    const float* __restrict__ csum, const float* __restrict__ csum2,
-    float* __restrict__ lo_out, float* __restrict__ hi_out, int n, int n_env,
-    int lmin, int lmax, int g, int seg_len, int w, int span, int tile) {
+// shared floats of one build block: two prefix-sum spans, kZ segment
+// means per master, the 1 / l' and segment-count tables, the reduction
+size_t build_smem_floats(int span, int g, int n_len) {
+  return 2 * (size_t)span + (size_t)g * kZ + 2 * (size_t)n_len +
+         (size_t)kBuildThreads * (2 * kZ + 1);
+}
+
+__global__ void __launch_bounds__(kBuildThreads)
+    envelope_build_kernel(const float* __restrict__ csum,
+                          const float* __restrict__ csum2,
+                          float* __restrict__ lo_out,
+                          float* __restrict__ hi_out, int n, int n_env,
+                          int lmin, int lmax, int g, int seg_len, int w,
+                          int span) {
   extern __shared__ float smem[];
+  const int n_len = lmax - lmin + 1;
   float* cs = smem;                       // [span] csum[a .. a + span)
   float* cs2 = cs + span;                 // [span]
-  float* segmean = cs2 + span;            // [g * w]
-  float* acc_lo = segmean + g * w;        // [g * w]
-  float* acc_hi = acc_lo + g * w;         // [g * w]
-  float* mu_s = acc_hi + g * w;           // [g * tile]
-  float* sg_s = mu_s + g * tile;          // [g * tile]
+  float* seg = cs2 + span;                // [g * kZ] a pass's segment means
+  float* rcp = seg + g * kZ;              // [n_len] RN(1 / l')
+  int* nseg = reinterpret_cast<int*>(rcp + n_len);  // [n_len] l' / s
+  float* red = rcp + 2 * n_len;           // [threads * (2 kZ + 1)]
 
   const long long env = blockIdx.x;       // series-major: s * n_env + e
   const long long series = env / n_env;
@@ -90,63 +122,98 @@ __global__ void envelope_build_kernel(
     cs[t] = row[a + t];
     cs2[t] = row2[a + t];
   }
-  __syncthreads();
-  const int pairs = g * w;
-  for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-    const int j = p / w, z = p - (p / w) * w;
-    const int end = j + (z + 1) * seg_len;         // relative to a
-    // a segment past the series end is in no valid cell: never read
-    segmean[p] = a + end <= n
-        ? __fdiv_rn(__fsub_rn(cs[end], cs[end - seg_len]), (float)seg_len)
-        : 0.f;
-    acc_lo[p] = INFINITY;
-    acc_hi[p] = -INFINITY;
+  for (int t = threadIdx.x; t < n_len; t += blockDim.x) {
+    rcp[t] = __frcp_rn((float)(lmin + t));
+    nseg[t] = (lmin + t) / seg_len;
   }
-  const int n_len = lmax - lmin + 1;
-  for (int t0 = 0; t0 < n_len; t0 += tile) {
-    const int tn = min(tile, n_len - t0);
-    __syncthreads();                     // the previous tile is consumed
-    for (int p = threadIdx.x; p < g * tn; p += blockDim.x) {
-      const int j = p / tn, t = p - (p / tn) * tn;
-      const int lp = lmin + t0 + t;
-      if (a + j + lp <= n) {
-        window_stats(__fsub_rn(cs[j + lp], cs[j]),
-                     __fsub_rn(cs2[j + lp], cs2[j]), (float)lp,
-                     &mu_s[j * tile + t], &sg_s[j * tile + t]);
-      }
+  const float seg_f = (float)seg_len;
+  const float seg_y = __frcp_rn(seg_f);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+
+  for (int z0 = 0; z0 < w; z0 += kZ) {
+    __syncthreads();                     // staging done / last pass read
+    for (int p = threadIdx.x; p < g * kZ; p += blockDim.x) {
+      const int j = p / kZ, z = z0 + p % kZ;
+      const int end = j + (z + 1) * seg_len;       // relative to a
+      // a segment past the series end is in no valid cell: never read
+      seg[p] = z < w && a + end <= n
+          ? div_by(__fsub_rn(cs[end], cs[end - seg_len]), seg_f, seg_y)
+          : 0.f;
     }
     __syncthreads();
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int j = p / w, z = p - (p / w) * w;
-      // valid lengths: (z+1) * s <= l' and a + j + l' <= n
-      const int first = max(t0, (z + 1) * seg_len - lmin);
-      const int last = min(t0 + tn - 1, n - a - j - lmin);
-      if (first > last) continue;
-      const float sm = segmean[p];
-      float lo = acc_lo[p], hi = acc_hi[p];
-      for (int t = first - t0; t <= last - t0; ++t) {
-        const float v = znorm_value(sm, mu_s[j * tile + t],
-                                    sg_s[j * tile + t]);
-        lo = fminf(lo, v);
-        hi = fmaxf(hi, v);
-      }
-      acc_lo[p] = lo;
-      acc_hi[p] = hi;
+    float lo[kZ], hi[kZ];
+#pragma unroll
+    for (int z = 0; z < kZ; ++z) {
+      lo[z] = INFINITY;
+      hi[z] = -INFINITY;
     }
+    for (int j = warp; j < g; j += warps) {
+      // valid lengths l' = lmin + t, t < cj: a + j + l' <= n; cj falls
+      // with j, so this warp's later masters are empty too
+      const int cj = min(n_len, n - a - j - lmin + 1);
+      if (cj <= 0) break;
+      float sm[kZ];
+#pragma unroll
+      for (int z = 0; z < kZ; ++z) sm[z] = seg[j * kZ + z];
+      const float c0 = cs[j], c20 = cs2[j];
+      for (int t0 = 0; t0 < cj; t0 += 32) {
+        const int t = min(t0 + lane, cj - 1);
+        const int lp = lmin + t;
+        const float lpf = (float)lp, ylp = rcp[t];
+        const float mu = div_by(__fsub_rn(cs[j + lp], c0), lpf, ylp);
+        const float m2 = div_by(__fsub_rn(cs2[j + lp], c20), lpf, ylp);
+        const float var = fmaxf(__fsub_rn(m2, __fmul_rn(mu, mu)), 0.f);
+        const float sigma = fmaxf(__fsqrt_rn(var), 1e-8f);
+        const float y = __frcp_rn(sigma);
+        // segments z0 + z covered by l': z < zc
+        const int zc = min(max(nseg[t] - z0, 0), kZ);
+        const int zmax = __reduce_max_sync(kFull, zc);
+#define ENV_CELL(z)                                            \
+  case (z) + 1: {                                              \
+    const float v = znorm_point(sm[z], mu, sigma, y);          \
+    if ((z) < zc) {                                            \
+      lo[z] = fminf(lo[z], v);                                 \
+      hi[z] = fmaxf(hi[z], v);                                 \
+    }                                                          \
   }
-  __syncthreads();
-  for (int z = threadIdx.x; z < w; z += blockDim.x) {
-    float lo = INFINITY, hi = -INFINITY;
-    for (int j = 0; j < g; ++j) {
-      lo = fminf(lo, acc_lo[j * w + z]);
-      hi = fmaxf(hi, acc_hi[j * w + z]);
+        switch (zmax) {                  // warp-uniform; falls through
+          ENV_CELL(15) ENV_CELL(14) ENV_CELL(13) ENV_CELL(12)
+          ENV_CELL(11) ENV_CELL(10) ENV_CELL(9) ENV_CELL(8)
+          ENV_CELL(7) ENV_CELL(6) ENV_CELL(5) ENV_CELL(4)
+          ENV_CELL(3) ENV_CELL(2) ENV_CELL(1) ENV_CELL(0)
+          default: break;
+        }
+#undef ENV_CELL
+      }
     }
-    if (lo > hi) {                       // no cell touched the segment
-      lo = -INFINITY;
-      hi = INFINITY;
+    // the block's min / max of every segment: a padded table, a column
+    // a thread
+    float* mine = red + threadIdx.x * (2 * kZ + 1);
+#pragma unroll
+    for (int z = 0; z < kZ; ++z) {
+      mine[z] = lo[z];
+      mine[kZ + z] = hi[z];
     }
-    lo_out[env * w + z] = lo;
-    hi_out[env * w + z] = hi;
+    __syncthreads();
+    if (threadIdx.x < 2 * kZ) {
+      const int c = threadIdx.x;
+      float acc = c < kZ ? INFINITY : -INFINITY;
+      for (int r = 0; r < (int)blockDim.x; ++r) {
+        const float v = red[r * (2 * kZ + 1) + c];
+        acc = c < kZ ? fminf(acc, v) : fmaxf(acc, v);
+      }
+      float hz = __shfl_down_sync(kFull, acc, kZ);
+      if (c < kZ && z0 + c < w) {
+        float lz = acc;
+        if (lz > hz) {                   // no cell touched the segment
+          lz = -INFINITY;
+          hz = INFINITY;
+        }
+        lo_out[env * w + z0 + c] = lz;
+        hi_out[env * w + z0 + c] = hz;
+      }
+    }
   }
 }
 
@@ -194,10 +261,7 @@ extern "C" int ulisse_envelope_znorm(const void* csum, const void* csum2,
       (long long)(n_env - 1) * g + lmin > n)
     return (int)cudaErrorInvalidValue;
   const int span = g + lmax;             // prefix positions a .. a+g-1+lmax
-  int tile = min(kMaxTile, lmax - lmin + 1);
-  while (tile > 1 && build_smem_floats(span, g, w, tile) * 4 > kSmemLimit)
-    tile /= 2;
-  const size_t smem = build_smem_floats(span, g, w, tile) * 4;
+  const size_t smem = build_smem_floats(span, g, lmax - lmin + 1) * 4;
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -205,14 +269,11 @@ extern "C" int ulisse_envelope_znorm(const void* csum, const void* csum2,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  // one thread per (master, segment) pair, in whole warps
-  int threads = ((g * w + 31) / 32) * 32;
-  threads = threads < 128 ? 128 : (threads > 1024 ? 1024 : threads);
-  envelope_build_kernel<<<(unsigned)blocks, threads, smem,
+  envelope_build_kernel<<<(unsigned)blocks, kBuildThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(csum), static_cast<const float*>(csum2),
       static_cast<float*>(lo), static_cast<float*>(hi), n, n_env, lmin, lmax,
-      g, seg_len, w, span, tile);
+      g, seg_len, w, span);
   return (int)cudaGetLastError();
 }
 

@@ -727,6 +727,33 @@ extern "C" int ulisse_fused_gather_ed_chunk(
 
 namespace {
 
+// The LB_Keogh kernel's block shape: up to kLbTile rows a block, fewer
+// where the shared memory would exceed its budget.
+struct LbShape {
+  int tile, qlen_pad, ngrp, stride, threads;
+  size_t smem;
+};
+
+LbShape lb_shape(int qlen, int g) {
+  LbShape s;
+  s.qlen_pad = (qlen + kLbJ - 1) / kLbJ * kLbJ;
+  s.ngrp = (g + kLbJ - 1) / kLbJ;
+  // the slide reads up to (ngrp - 1) * kLbJ + qlen_pad + kLbJ - 2 a row
+  s.stride = s.ngrp * kLbJ + s.qlen_pad - 1;
+  if (s.stride % 2 == 0) ++s.stride;     // odd: conflict-free row starts
+  auto smem_for = [&](int t) {
+    return sizeof(float) *
+           (2 * (size_t)s.qlen_pad + (size_t)t * s.stride + 3 * (size_t)t * g);
+  };
+  s.tile = kLbTile;
+  while (s.tile > 1 && smem_for(s.tile) > kSmemBudget) s.tile /= 2;
+  s.smem = smem_for(s.tile);
+  s.threads = s.tile * s.ngrp;
+  s.threads = s.threads > kLbMaxThreads ? kLbMaxThreads
+                                        : (s.threads + 31) / 32 * 32;
+  return s;
+}
+
 template <bool kChunk>
 int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
                     const void* csum_lo, const void* csum2_lo,
@@ -739,18 +766,10 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const int qlen_pad = (qlen + kLbJ - 1) / kLbJ * kLbJ;
-  const int ngrp = (g + kLbJ - 1) / kLbJ;
-  // the slide reads up to (ngrp - 1) * kLbJ + qlen_pad + kLbJ - 2 a row
-  int stride = ngrp * kLbJ + qlen_pad - 1;
-  if (stride % 2 == 0) ++stride;         // odd: conflict-free row starts
-  auto smem_for = [&](int t) {
-    return sizeof(float) *
-           (2 * (size_t)qlen_pad + (size_t)t * stride + 3 * (size_t)t * g);
-  };
-  int tile = kLbTile;
-  while (tile > 1 && smem_for(tile) > kSmemBudget) tile /= 2;
-  const size_t smem = smem_for(tile);
+  const LbShape sh = lb_shape(qlen, g);
+  const int tile = sh.tile, qlen_pad = sh.qlen_pad, ngrp = sh.ngrp;
+  const int stride = sh.stride;
+  const size_t smem = sh.smem;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > kSmemBudget) {
     const int err = (int)cudaFuncSetAttribute(
@@ -758,11 +777,8 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
   }
-  int threads = tile * ngrp;
-  threads = threads > kLbMaxThreads ? kLbMaxThreads
-                                    : (threads + 31) / 32 * 32;
   const dim3 grid((rows + tile - 1) / tile, batch);
-  fused_gather_lb_keogh_kernel<kChunk><<<grid, threads, smem,
+  fused_gather_lb_keogh_kernel<kChunk><<<grid, sh.threads, smem,
                                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(data), static_cast<const float*>(csum),
       static_cast<const float*>(csum2), static_cast<const float*>(csum_lo),
@@ -789,6 +805,14 @@ extern "C" int ulisse_fused_gather_lb_keogh(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
       dtw_hi, lb, mu, sd, nullptr, nullptr, nullptr, nullptr, nullptr,
       num_series, n, batch, rows, qlen, g, znorm, stream);
+}
+
+// Rows a block of the LB_Keogh entries takes at (qlen, g); -1 where no
+// block fits.
+extern "C" int ulisse_fused_gather_lb_keogh_tile(int qlen, int g) {
+  if (qlen < 1 || g < 1) return -1;
+  const LbShape s = lb_shape(qlen, g);
+  return s.smem > kSmemMax ? -1 : s.tile;
 }
 
 extern "C" int ulisse_fused_gather_lb_keogh_chunk(

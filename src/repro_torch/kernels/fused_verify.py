@@ -105,6 +105,22 @@ def ed_chunk_tile(qlen: int, g: int) -> int:
     return tile
 
 
+@functools.lru_cache(maxsize=None)
+def chunk_qlen_limit(measure: str, g: int) -> int:
+    """The longest query the scan's chunk entry of `measure` ("ed" or
+    "dtw") takes on the card at g masters an envelope: one block stages
+    a row's region and the query (or its DTW envelope) in shared memory.
+    """
+    lib = _build.library("fused_verify")
+    tile = (lib.ulisse_fused_gather_ed_chunk_tile if measure == "ed"
+            else lib.ulisse_fused_gather_lb_keogh_tile)
+    lo, hi = 0, 1 << 24                  # fits(lo); not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if tile(mid, g) > 0 else (lo, mid)
+    return lo
+
+
 def fused_gather_ed_chunk(data: torch.Tensor, csum: torch.Tensor,
                           csum2: torch.Tensor, csum_lo: torch.Tensor,
                           csum2_lo: torch.Tensor, center: torch.Tensor,

@@ -8,17 +8,15 @@ jnp: the DTW filter of every chunk's candidate windows
 
 Inputs are checked on every device against what the kernel takes; then
 CPU tensors take the plain version and CUDA tensors launch the kernel.
-The wrapper counts its launches in `.launches`.
+The wrapper counts its launches in `.launches`.  Any L: the kernel
+stages the envelope in tiles of L where it is longer than its 48 KB of
+shared memory.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
-
-# csrc/lb_keogh.cu stages the envelope (2 L floats) in 48 KB of shared
-# memory
-_MAX_LEN = 48 * 1024 // 8
 
 
 def lb_keogh(env_lo: torch.Tensor, env_hi: torch.Tensor,
@@ -31,9 +29,8 @@ def lb_keogh(env_lo: torch.Tensor, env_hi: torch.Tensor,
         ("env_lo", env_lo, torch.float32, (l,)),
         ("env_hi", env_hi, torch.float32, (l,)),
         ("windows", windows, torch.float32, (n, l))))
-    if not 1 <= l <= _MAX_LEN:
-        raise ValueError(f"lb_keogh: window length {l} outside [1, "
-                         f"{_MAX_LEN}]")
+    if l < 1:
+        raise ValueError(f"lb_keogh: window length {l} < 1")
     if dev.type == "cpu":
         return ref.lb_keogh_ref(env_lo, env_hi, windows)
     out = torch.empty(n, dtype=torch.float32, device=dev)

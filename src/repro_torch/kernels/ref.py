@@ -236,10 +236,44 @@ def fused_gather_lb_keogh_ref(data, csum, csum2, csum_lo, csum2_lo, center,
     return (over * over + under * under).sum(dim=-1), mu, sd
 
 
+def wavefront_dtw(q: torch.Tensor, c: torch.Tensor, r: int) -> torch.Tensor:
+    """Squared banded DTW of q (l,), or one query per candidate (N, l),
+    against candidates c (N, l): (N,) float32, by the `dtw_band` kernels'
+    own arithmetic.
+
+    Each cell is one float32 add of its cost (q_i - c_j)^2 to the min of
+    its three neighbours, the row recurrence's rounding, computed along
+    anti-diagonals: slot k = i - j + rr (rr = min(r, l - 1)) of diagonal
+    t holds cell ((t + k - rr) / 2, (t - k + rr) / 2), and a diagonal
+    updates the slots of t + rr's parity from the others (up k - 1, left
+    k + 1) and from itself (diag), +inf off the series and past the
+    band.  So it gives the kernels' bits.  (`core/dtw.dtw_band`, the
+    brute-force oracle's DP, is the closed form, whose float32 cumsum over
+    the band cancels once the band is wide: ROADMAP Queue 3 P6.)
+    """
+    n_cand, l = c.shape
+    rr = min(r, l - 1)
+    band = 2 * rr + 1
+    qq = q.expand(n_cand, l) if q.dim() == 1 else q
+    inf = float("inf")
+    st = torch.full((band + 2, n_cand), inf, dtype=c.dtype, device=c.device)
+    st[rr + 1] = 0.0                      # D[-1, -1] in slot rr
+    slots = [torch.arange(p, band, 2, device=c.device) for p in (0, 1)]
+    for t in range(2 * l - 1):
+        k = slots[(t + rr) % 2]
+        i, j = (t + k - rr) // 2, (t - k + rr) // 2
+        inside = (i >= 0) & (i < l) & (j >= 0) & (j < l)
+        diff = qq[:, i.clamp(0, l - 1)] - c[:, j.clamp(0, l - 1)]
+        cost = torch.where(inside[:, None], (diff * diff).t(), inf)
+        st[k + 1] = cost + torch.minimum(torch.minimum(st[k + 1], st[k]),
+                                         st[k + 2])
+    return st[rr + 1].clone()
+
+
 def dtw_band_ref(q: torch.Tensor, candidates: torch.Tensor,
                  r: int) -> torch.Tensor:
     """Squared banded DTW of q (l,) against candidates (N, l): (N,)."""
-    return dtw.dtw_band(q, candidates, r, squared=True)
+    return wavefront_dtw(q, candidates, r)
 
 
 def fused_gather_lb_keogh_chunk_ref(data, csum, csum2, csum_lo, csum2_lo,
@@ -301,7 +335,7 @@ def dtw_survivors_ref(data, qs, slist, nsurv, cand_sid, cand_off, mu, sd,
     wb = data.reshape(-1)[flat]                              # (L, qlen)
     if znorm:
         wb = ((wb - mu[rows, pick][:, None]) / sd[rows, pick][:, None])
-    d2[rows, pick] = dtw.dtw_band(qs[rows], wb, r, squared=True)
+    d2[rows, pick] = wavefront_dtw(qs[rows], wb, r)
     return d2
 
 

@@ -9,8 +9,8 @@ dot is summed in another order), mindist rtol 1e-6 / atol 1e-6,
 fused_gather_lb_keogh lb2 rtol 2e-4 / atol 2e-3, mu 1e-4 / 1e-4 and
 sd 1e-3 / 1e-4 (the reference kernel test's: sd cancels when |mu| >>
 sd), the DTW kernels rtol 1e-4 / atol 1e-3
-(the kernel runs the recurrence; the plain closed form's cumsum over the
-band cancels in float32 by up to ~1e-3 at these lengths), batch_ed
+(kernel and plain version run the same float32 recurrence; the tolerance
+is the one set when the plain version was the closed form), batch_ed
 rtol 2e-4 / atol 2e-3 and lb_keogh rtol 1e-5 / atol 1e-5 (the reference
 kernel tests'); envelope_znorm bit for bit (kernel and plain version
 share their arithmetic: IEEE divisions, no contraction); the LB and DP
@@ -35,7 +35,9 @@ from repro_torch.core.envelope import _prefix, build_envelope_set  # noqa: E402
 from repro_torch.core.index import build_index  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.batch_ed import batch_ed  # noqa: E402
-from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors  # noqa: E402
+from repro_torch.kernels.dtw_band import (dtw_band,  # noqa: E402
+                                          dtw_band_wide, dtw_survivors,
+                                          dtw_survivors_wide)
 from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
                                           envelope_znorm_masters)
 from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
@@ -464,8 +466,8 @@ def test_gather_znorm_bit_equal_to_divide(dev, qlen, r, znorm):
 @pytest.mark.parametrize("znorm", [True, False], ids=["znorm", "raw"])
 def test_dtw_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
     """DTW exact k-NN on one index, two devices: the same answers and
-    counters; distances to rtol 1e-3 (the card's DP is the recurrence,
-    the CPU's the closed form)."""
+    counters; distances to rtol 1e-3 (the kernels' DP on the card, its
+    plain version on the CPU)."""
     rng = np.random.default_rng(8)
     data = np.cumsum(rng.normal(size=(64, 256)), -1).astype(np.float32)
     p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, card=256, gamma=48,
@@ -647,3 +649,235 @@ def test_index_build_on_cuda(dev):
     for f in ("sym_lo", "sym_hi"):
         agree = (getattr(gpu, f).cpu() == getattr(cpu, f)).float().mean()
         assert float(agree) >= 0.999
+
+
+# -- slice 6: any band and length, the redesigned build and bound --------
+
+def _survivor_args(dev, rng, qlen, b=4, m=64, s=24, n=None):
+    """A chunk's DP inputs: B queries, M candidates (offsets past both
+    ends of the series, clipped), survivors from none to all in a
+    shuffled order."""
+    n = n or qlen + 40
+    data = _t(np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32), dev)
+    surv = rng.random((b, m)) < np.linspace(0, 1, b)[:, None]
+    slist = np.zeros((b, m), np.int32)
+    for i in range(b):
+        pos = rng.permutation(np.nonzero(surv[i])[0])
+        slist[i, :len(pos)] = pos
+    d2 = np.where(surv, np.nan, np.inf).astype(np.float32)
+    return (data, _t(rng.normal(size=(b, qlen)).astype(np.float32), dev),
+            _t(slist, dev), _t(surv.sum(1).astype(np.int32), dev),
+            _t(rng.integers(0, s, (b, m)).astype(np.int32), dev),
+            _t(rng.integers(-5, n - qlen + 6, (b, m)).astype(np.int32), dev),
+            _t(rng.normal(size=(b, m)).astype(np.float32), dev),
+            _t((rng.random((b, m)) + 0.5).astype(np.float32), dev)), d2
+
+
+@pytest.mark.parametrize("l,r,n", [(600, 512, 6), (600, 600, 6),
+                                   (1536, 1535, 3), (8192, 819, 3),
+                                   (7000, 20, 3)])
+def test_dtw_wide_entries_match_plain(dev, l, r, n):
+    """Bands past the warp entries' 1024 slots (W = 1025, 1199, 3071 and
+    1639 at qlen 8192) and a qlen past their 6144 with a narrow band:
+    `dtw_band` hands each to the wide entry (its count, not its own, goes
+    up); both DP entries against their plain versions, rtol 1e-4 / atol
+    1e-3."""
+    rng = np.random.default_rng(l + r)
+    q = _t(rng.normal(size=l).astype(np.float32), dev)
+    c = _t(rng.normal(size=(n, l)).astype(np.float32), dev)
+    before = (dtw_band.launches, dtw_band_wide.launches)
+    got = dtw_band(q, c, r)
+    torch.cuda.synchronize()
+    assert (dtw_band.launches, dtw_band_wide.launches) == \
+        (before[0], before[1] + 1)
+    _close(got, ref.dtw_band_ref(q, c, r), 1e-4, 1e-3)
+    args, d2 = _survivor_args(dev, rng, l)
+    before = (dtw_survivors.launches, dtw_survivors_wide.launches)
+    got = dtw_survivors(*args, _t(d2, dev), r=r, znorm=True)
+    torch.cuda.synchronize()
+    assert (dtw_survivors.launches, dtw_survivors_wide.launches) == \
+        (before[0], before[1] + 1)
+    assert not got.isnan().any()
+    _close(got, ref.dtw_survivors_ref(*args, _t(d2, dev), r=r, znorm=True),
+           1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("r", [1, 3])
+def test_dtw_wide_entry_global_scratch_matches_plain(dev, r):
+    """qlen 29,100: the wide entry's buffer (2 rr + 3 + 2 qlen floats)
+    no longer fits shared memory and lives in global scratch; against
+    the plain version on the CPU (one call there is ~58k steps)."""
+    rng = np.random.default_rng(r)
+    l = 29_100
+    q = rng.normal(size=l).astype(np.float32)
+    c = rng.normal(size=(3, l)).astype(np.float32)
+    got = dtw_band_wide(_t(q, dev), _t(c, dev), r)
+    torch.cuda.synchronize()
+    _close(got, ref.dtw_band_ref(_t(q, "cpu"), _t(c, "cpu"), r), 1e-4, 1e-3)
+
+
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_dtw_narrow_and_wide_entries_bit_equal(dev, znorm):
+    """W = 1023 (qlen 700, r 511; qlen 600, r 511 for the survivors),
+    which both entries take: the same bits."""
+    rng = np.random.default_rng(1023)
+    q = _t(rng.normal(size=700).astype(np.float32), dev)
+    c = _t(rng.normal(size=(9, 700)).astype(np.float32), dev)
+    narrow, wide = dtw_band(q, c, 511), dtw_band_wide(q, c, 511)
+    torch.cuda.synchronize()
+    assert torch.equal(narrow, wide)
+    args, d2 = _survivor_args(dev, rng, 600)
+    narrow = dtw_survivors(*args, _t(d2, dev), r=511, znorm=znorm)
+    wide = dtw_survivors_wide(*args, _t(d2, dev), r=511, znorm=znorm)
+    torch.cuda.synchronize()
+    assert torch.equal(narrow, wide)
+
+
+@pytest.mark.parametrize("l,qb,launches", [(12_300, 1, 1), (12_301, 1, 1),
+                                           (2_048, 8, 2), (2_048, 11, 3)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_batch_ed_long_rows_match_plain(dev, l, qb, launches, znorm):
+    """Shapes past the 48 KB of staging: one query longer than it (tiles
+    of L; 12,301 takes scalar loads) and query groups of 5, one launch a
+    group; rtol 2e-4 / atol 2e-3."""
+    rng = np.random.default_rng(l + qb)
+    w = _t((rng.normal(size=(1_000, l)) * 3 + 1).astype(np.float32), dev)
+    q = _t(rng.normal(size=(qb, l)).astype(np.float32), dev)
+    if znorm:
+        q = ((q - q.mean(-1, keepdim=True))
+             / q.std(-1, keepdim=True, correction=0)).contiguous()
+    before = batch_ed.launches
+    got = batch_ed(w, q, znorm)
+    torch.cuda.synchronize()
+    assert batch_ed.launches == before + launches
+    _close(got, ref.batch_ed_ref(w, q, znorm), 2e-4, 2e-3)
+
+
+@pytest.mark.parametrize("l", [6_200, 6_201, 20_000])
+def test_lb_keogh_long_rows_match_plain(dev, l):
+    """Envelopes past the 48 KB of staging (tiles of L; 6,201 takes
+    scalar loads); rtol 1e-5 / atol 1e-5."""
+    rng = np.random.default_rng(l)
+    w = _t(rng.normal(size=(2_000, l)).astype(np.float32), dev)
+    lo, hi = dtw.dtw_envelope(_t(rng.normal(size=l).astype(np.float32),
+                                 dev), l // 10)
+    before = lb_keogh.launches
+    got = lb_keogh(lo.contiguous(), hi.contiguous(), w)
+    torch.cuda.synchronize()
+    assert lb_keogh.launches == before + 1
+    _close(got, ref.lb_keogh_ref(lo, hi, w), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("n,lmin,lmax,gamma,seg", [
+    (256, 160, 256, 48, 16), (192, 64, 128, 8, 16), (100, 24, 40, 3, 8),
+    (300, 96, 160, 255, 16), (256, 160, 256, 48, 160),
+    (256, 200, 200, 48, 16), (256, 160, 256, 0, 16), (258, 160, 256, 48, 16),
+    (600, 520, 544, 8, 16)])
+def test_envelope_build_bit_equal_to_plain(dev, n, lmin, lmax, gamma, seg):
+    """The redesigned build entry, bit for bit against its plain version
+    (on the card and on the CPU): today's four shapes, seg_len = lmin,
+    lmin = lmax, gamma = 0, n = 258 (the last envelope holds one master)
+    and w = 34 segments (three passes of 16)."""
+    rng = np.random.default_rng(n + lmin + gamma + seg)
+    x = _t(np.cumsum(rng.normal(size=(200, n)), -1).astype(np.float32), dev)
+    xc = x - x.mean(dim=-1, keepdim=True)
+    csum, csum2 = _prefix(xc), _prefix(xc * xc)
+    kw = dict(lmin=lmin, lmax=lmax, gamma=gamma, seg_len=seg)
+    before = envelope_znorm.launches
+    got = envelope_znorm(csum, csum2, **kw)
+    torch.cuda.synchronize()
+    assert envelope_znorm.launches == before + 1
+    card = ref.envelope_znorm_ref(csum, csum2, **kw)
+    cpu = ref.envelope_znorm_ref(csum.cpu(), csum2.cpu(), **kw)
+    for k, c, h in zip(got, card, cpu):
+        assert torch.equal(k, c) and torch.equal(k.cpu(), h)
+        assert torch.isfinite(k).any()
+
+
+@pytest.mark.parametrize("nseg", [10, 16])
+@pytest.mark.parametrize("b,launches", [(1, 1), (8, 1), (9, 2)])
+def test_mindist_sym_vector_loads_match_plain(dev, nseg, b, launches):
+    """The symbol entry's 16-byte row loads at the path's w = 16 (nseg 10
+    and 16), B = 1, 8 and 9 (two launches); rtol 1e-6 / atol 1e-6."""
+    rng = np.random.default_rng(nseg + b)
+    n, w = 200_003, 16
+    lo = rng.normal(size=(n, w)).astype(np.float32)
+    hi = lo + np.abs(rng.normal(size=(n, w))).astype(np.float32)
+    lo[0, 0], hi[0, 0] = -np.inf, np.inf
+    bp = np.sort(rng.normal(size=255)).astype(np.float32)
+    sym_lo = _t(np.searchsorted(bp, lo, side="right").astype(np.int32), dev)
+    sym_hi = _t(np.searchsorted(bp, hi, side="right").astype(np.int32), dev)
+    valid = rng.random(n) > 0.1
+    valid[1] = False
+    v, bpt = _t(valid, dev), _t(bp, dev)
+    q = rng.normal(size=(b, w)).astype(np.float32)
+    ql = _t(q, dev)
+    qh = _t(q + rng.random((b, w)).astype(np.float32), dev)
+    before = mindist_sym.launches
+    got = mindist_sym(ql, qh, sym_lo, sym_hi, bpt, v, 16, nseg)
+    torch.cuda.synchronize()
+    assert mindist_sym.launches == before + launches
+    want = ref.mindist_sym_ref(ql, qh, sym_lo, sym_hi, bpt, v, 16, nseg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("znorm", [True, False], ids=["znorm", "raw"])
+def test_dtw_engine_long_queries_on_cuda_equal_cpu(dev, znorm):
+    """DTW k-NN at qlen 530 / 540 with r = 520 and 600 on an index of
+    560-point series (lmin 520, lmax 544): the device scan goes through
+    the wide survivors entry and the host backend through the wide band
+    entry; both equal the CPU engine (answers, counters, distances)."""
+    rng = np.random.default_rng(11)
+    data = np.cumsum(rng.normal(size=(6, 560)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=520, lmax=544, seg_len=16, card=64, gamma=8,
+                       znorm=znorm)
+    idx = build_index(Collection.from_array(data, device="cpu"), p,
+                      block_size=4, num_levels=1)
+    cpu = UlisseEngine.from_index(idx, device="cpu")
+    gpu = UlisseEngine.from_index(idx, device=dev)
+    qs = [data[s, o:o + qlen] + rng.normal(size=qlen).astype(np.float32)
+          * 0.05 for s, o, qlen in [(0, 10, 530), (3, 2, 540)]]
+    for r, backend, wrapper in ((520, "device", dtw_survivors_wide),
+                                (600, "host", dtw_band_wide)):
+        spec = QuerySpec(k=3, measure="dtw", r=r, scan_backend=backend)
+        before = wrapper.launches
+        got = gpu.search(qs, spec)
+        assert wrapper.launches > before
+        want = cpu.search(qs, spec)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.series, b.series)
+            np.testing.assert_array_equal(a.offsets, b.offsets)
+            np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4,
+                                       atol=1e-5)
+            assert dataclasses.asdict(a.stats) == \
+                dataclasses.asdict(b.stats)
+
+
+def test_engine_refuses_queries_past_the_lb_chunk_entry(dev):
+    """A DTW query longer than the device scan's LB_Keogh chunk entry
+    takes (its shared-memory staging: qlen <= ~19,369 at gamma = 0) is
+    refused before any launch, naming the limit; the host backend
+    (`lb_keogh` in tiles of L, the wide DP entry) answers it.  (The ED
+    chunk entry takes every length the card's build takes.)"""
+    from repro_torch.kernels.fused_verify import chunk_qlen_limit
+    limit = chunk_qlen_limit("dtw", 1)
+    seg = 64
+    qlen = (limit // seg + 1) * seg
+    assert qlen <= chunk_qlen_limit("ed", 1)
+    rng = np.random.default_rng(qlen)
+    data = np.cumsum(rng.normal(size=(2, qlen + 8)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=qlen, lmax=qlen, seg_len=seg, card=64, gamma=0)
+    gpu = UlisseEngine.from_collection(
+        Collection.from_array(data, device=dev), p, block_size=4,
+        num_levels=1, device=dev)
+    q = data[1, 3:3 + qlen] + rng.normal(size=qlen).astype(np.float32) * 0.05
+    spec = dict(k=2, measure="dtw", r=8)
+    before = fused_gather_lb_keogh_chunk.launches
+    with pytest.raises(ValueError, match=f"qlen <= {limit}"):
+        gpu.search(q, QuerySpec(**spec))
+    assert fused_gather_lb_keogh_chunk.launches == before
+    before = dtw_band_wide.launches
+    res = gpu.search(q, QuerySpec(scan_backend="host", **spec))
+    assert dtw_band_wide.launches > before
+    assert (res.series[0], res.offsets[0]) == (1, 3)

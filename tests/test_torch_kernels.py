@@ -241,6 +241,40 @@ def test_lb_keogh_matches_pallas(n, l):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,l,qb", [(9, 12_300, 1), (17, 2_048, 8)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_batch_ed_long_rows_match_pallas(n, l, qb, znorm):
+    """Shapes past the kernel's 48 KB of staging: a query longer than it
+    (streamed in tiles of L on the card) and 8 queries of 2,048 points
+    (two launches of query groups)."""
+    rng = np.random.default_rng(n + l + qb)
+    w = (rng.normal(size=(n, l)) * 3 + 1).astype(np.float32)
+    q = rng.normal(size=(qb, l)).astype(np.float32)
+    if znorm:
+        q = (q - q.mean(-1, keepdims=True)) / q.std(-1, keepdims=True)
+    got = batch_ed(_t(w), _t(q), znorm)
+    assert got.shape == (n, qb)
+    want = batch_ed_pallas(jnp.asarray(w), jnp.asarray(q), znorm,
+                           interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-3)
+
+
+def test_lb_keogh_long_rows_match_pallas():
+    """An envelope of 6,200 points, past the kernel's 48 KB of staging
+    (tiles of L on the card)."""
+    n, l = 11, 6_200
+    rng = np.random.default_rng(l)
+    lo = (rng.normal(size=l) - 1).astype(np.float32)
+    hi = lo + np.float32(2.0)
+    w = (rng.normal(size=(n, l)) * 2).astype(np.float32)
+    got = lb_keogh(_t(lo), _t(hi), _t(w))
+    want = lb_keogh_pallas(jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(w),
+                           interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def _master_inputs(n, lmin, lmax, seg, seed):
     """The reference kernel test's inputs (segment means, window sums of
     every length, offsets of every master of one random walk), as numpy."""
