@@ -64,7 +64,18 @@ Phases (any failed check raises, and the script exits non-zero):
      through `UlisseEngine.search` on the device backend (the wide
      survivors entry) and the host backend (the wide band entry), counters
      set to 0 just before and read just after each; answers checked
-     against a float64 brute force on the card.
+     against a float64 brute force on the card;
+ 15. the long-query path: an index of LQ_SERIES series of 32,768 points
+     (lmin 20,000, lmax 30,000, seg_len 16) built on the card past the
+     build's old staging, a batch of 8 ED queries of 29,000 points and a
+     batch of 8 DTW queries of 20,000 points (r = 1% of |Q|, so that the
+     phase stays short) on the device backend, past the staged chunk
+     entries (their long-row variants) and past 736 segments (mindist's
+     old staging), counters set to 0 just before and read just after
+     each; the ED answers held to a float64 brute force on the card, the
+     DTW answers to the host backend's and to a float64 DP of every
+     reported window; then the long-row chunk entries, mindist and the
+     unstaged build timed at this phase's shapes.
 
 Phase 2 also holds the scan's ED chunk entry and the partials merge
 against the plain step (the contract entry's distances masked, the
@@ -80,7 +91,13 @@ atol 2e-3), lb_keogh at the same windows (rtol 1e-5 / atol 1e-5).
 Phase 2 also holds the wide DP entries against their plain versions at
 qlen 600 / r 600 and qlen 1536 / r 1535 (rtol 1e-4 / atol 1e-3) and
 against the warp entries bit for bit at W = 1023, and batch_ed (L
-12,300, Qb 1; L 2,048, Qb 8) and lb_keogh (L 6,200) past their staging.
+12,300, Qb 1; L 2,048, Qb 8) and lb_keogh (L 6,200) on long rows.
+Phase 2 also holds the shapes past the old staging limits against their
+plain versions (check_long_kernels): the ED and LB_Keogh entries at qlen
+28,769 and 19,305 (their long-row variants; the ED step and the LB mu
+and sd bit for bit), the long-row and staged kernels bit for bit at qlen
+4,000, mindist at nseg 1,812 and 6,000, and the build at (lmin, lmax) =
+(1,000, 14,000) and (29,000, 30,000) bit for bit.
 Phase 3 builds the index through envelope_znorm (launches counted),
 holds every envelope of the build against the plain version computed on
 the card block by block (no element may differ), and checks on a sample
@@ -116,6 +133,18 @@ DTW_CASES = ((160, 16), (256, 25))
 LONG_SERIES, LONG_LEN = 128, 1024
 LONG = dict(lmin=512, lmax=1024, seg_len=32, gamma=48, card=256, znorm=True)
 LONG_CASE = (600, 600)
+# the long-query phase: series x points, index parameters (a build past
+# the card build's old staging, queries past the staged chunk entries and
+# past 736 segments), the ED and DTW query lengths, and r = 1% of |Q| so
+# that the DTW half stays under about a minute
+LQ_SERIES, LQ_LEN = 32, 32_768
+LQ = dict(lmin=20_000, lmax=30_000, seg_len=16, gamma=48, card=256,
+          znorm=True)
+LQ_ED, LQ_DTW = 29_000, 20_000
+LQ_R = LQ_DTW // 100
+# [2]'s long-row checks per measure: a qlen just past the staged chunk
+# entry at g = 49, and a qlen both kernels take
+LONG_CHECK = {"ed": (28_769, 4_000), "dtw": (19_305, 4_000)}
 # queries of each length held against the plain-DP brute force (at
 # qlen 160 it takes ~100 windows per series, so only the first few)
 DTW_BRUTE = {160: 2, 256: BATCH}
@@ -135,7 +164,9 @@ SPIN_HZ, SPIN_MAX_S = 1.98e9, 0.1
 # band cancels by up to ~1e-3 at these lengths).
 # batch_ed and lb_keogh: the reference kernel tests' (sums in another
 # order); envelope_znorm: bit for bit (shared IEEE arithmetic).
-TOL = {"fused_gather_ed": (1e-4, 1e-3), "mindist_sym": (1e-6, 1e-6),
+TOL = {"fused_gather_ed": (1e-4, 1e-3), "fused_gather_ed_long": (1e-4, 1e-3),
+       "fused_gather_lb_keogh_long": (2e-4, 2e-3),
+       "mindist_sym": (1e-6, 1e-6),
        "mindist_paa": (1e-6, 1e-6), "fused_gather_lb_keogh": (2e-4, 2e-3),
        "fused_gather_lb_keogh.mu": (1e-4, 1e-4),
        "fused_gather_lb_keogh.sd": (1e-3, 1e-4),
@@ -154,6 +185,12 @@ REPLACES = {
                     "src/repro/kernels/mindist.py:40"),
     "fused_gather_lb_keogh": ("src/repro_torch/kernels/csrc/fused_verify.cu",
                               "src/repro/kernels/fused_verify.py:219"),
+    # the long-row variants of the two chunk entries (any qlen)
+    "fused_gather_ed_long": ("src/repro_torch/kernels/csrc/fused_verify.cu",
+                             "src/repro/kernels/fused_verify.py:181"),
+    "fused_gather_lb_keogh_long": (
+        "src/repro_torch/kernels/csrc/fused_verify.cu",
+        "src/repro/kernels/fused_verify.py:219"),
     "dtw_survivors": ("src/repro_torch/kernels/csrc/dtw_band.cu",
                       "src/repro/kernels/dtw_band.py:73"),
     "dtw_band": ("src/repro_torch/kernels/csrc/dtw_band.cu",
@@ -857,19 +894,13 @@ def envelope_work(p, n: int):
     """Per series of length n: (valid (master, l', segment) cells,
     valid (master, l') pairs, (master, segment) pairs with a cell) of the
     Z-normalized build — what `envelope_znorm` computes."""
-    g, w = p.gamma + 1, p.w
-    cells = pairs = segs = 0
-    for off in range(p.num_envelopes(n) * g):
-        if off + p.lmin > n:
-            continue
-        longest = min(p.lmax, n - off)
-        pairs += longest - p.lmin + 1
-        for z in range(w):
-            first = max(p.lmin, (z + 1) * p.seg_len)
-            if first <= longest:
-                cells += longest - first + 1
-                segs += 1
-    return cells, pairs, segs
+    off = np.arange(p.num_envelopes(n) * (p.gamma + 1))
+    off = off[off + p.lmin <= n]
+    longest = np.minimum(p.lmax, n - off)[:, None]
+    first = np.maximum(p.lmin, (np.arange(p.w) + 1) * p.seg_len)[None, :]
+    per = np.maximum(longest - first + 1, 0)
+    return (int(per.sum()), int((longest - p.lmin + 1).sum()),
+            int((per > 0).sum()))
 
 
 def check_equal(torch, name, got, want):
@@ -890,6 +921,162 @@ def probe_windows(torch, probe, rng, qlen: int):
     off = torch.from_numpy(rng.integers(0, n - qlen + 1,
                                         HOST_CHUNK_WINDOWS)).to(dev)
     return probe.data.unfold(1, qlen, 1)[sid, off].contiguous()
+
+
+def check_long_kernels(torch, dev, rng, g):
+    """The shapes past the old staging limits against their plain
+    versions: the ED and LB_Keogh contract entries at a qlen past the
+    staged kernels (LONG_CHECK: they hand the call to the long-row
+    variants), the chunk entries there (ED: the chunk entry and the
+    partials merge bit-equal to the plain step over three chunks; LB:
+    check_chunk_entry), the long-row and staged kernels bit for bit at a
+    qlen both take, mindist at B = 8 and nseg 1,812 (the long phase's ED
+    queries: opt-in shared memory) and 6,000 (past 227 KB: the query
+    intervals read in place), and the card build past its staging
+    ((lmin, lmax) = (1,000, 14,000) and (29,000, 30,000)) bit for bit.
+    Returns the max abs error of each."""
+    from repro_torch.core import Collection, dtw
+    from repro_torch.core.envelope import _prefix
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.envelope import envelope_znorm
+    from repro_torch.kernels.fused_verify import (
+        fused_gather_ed, fused_gather_ed_long, fused_gather_lb_keogh,
+        fused_gather_lb_keogh_long, staged)
+    from repro_torch.kernels.mindist import mindist_paa, mindist_sym
+    errs = dict.fromkeys(("fused_gather_ed_long", "fused_gather_lb_keogh_long",
+                          "mindist_sym", "mindist_paa"), 0.0)
+    b, rows = 4, 16
+    for measure, (qlen, both) in LONG_CHECK.items():
+        if staged(measure, qlen, g) or not staged(measure, both, g):
+            raise AssertionError(f"{measure}: the staged kernel takes qlen "
+                                 f"{qlen}, or not {both}")
+        n = qlen + 200
+        coll = Collection.from_array(np.cumsum(rng.normal(
+            size=(8, n)), -1).astype(np.float32), device=dev)
+        a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo,
+              coll.csum2_lo, coll.center)
+        q = torch.from_numpy(rng.normal(size=(b, qlen)).astype(
+            np.float32)).to(dev)
+        sids = torch.from_numpy(rng.integers(0, 8, (b, 3 * rows)).astype(
+            np.int32)).to(dev)
+        anc = torch.from_numpy((rng.integers(0, 5, (b, 3 * rows)) * g)
+                               .astype(np.int32)).to(dev)
+        rs, ra = (t[:, :rows].reshape(-1).contiguous() for t in (sids, anc))
+        if measure == "ed":
+            errs["fused_gather_ed_long"] = check_close(
+                torch, "fused_gather_ed_long",
+                fused_gather_ed(*a0, rs, ra, q, g=g, rows=rows, znorm=True),
+                ref.fused_gather_ed_ref(*a0, rs, ra, q, g=g, rows=rows,
+                                        znorm=True))
+            nm = torch.from_numpy(rng.integers(0, g + 1, (b, 3 * rows))
+                                  .astype(np.int32)).to(dev)
+            d2_all = fused_gather_ed(*a0, sids.reshape(-1), anc.reshape(-1),
+                                     q, g=g, rows=3 * rows, znorm=True)
+            med = d2_all.reshape(b, -1).median(dim=1).values
+            lbs2 = (torch.from_numpy(np.sort(rng.random((b, 3 * rows)),
+                                             axis=1).astype(np.float32))
+                    .to(dev) * 1.2 * med[:, None])
+            pool = [torch.full((b, K), float("inf"), device=dev),
+                    *(torch.full((b, K), -1, dtype=torch.int32, device=dev)
+                      for _ in range(2))]
+            plain = [t.clone() for t in pool]
+            st = torch.zeros((b, 6), dtype=torch.int32, device=dev)
+            st_plain = st.clone()
+            for i in range(3):
+                ed_step_pair(torch, a0, (sids, anc, nm, lbs2), q, pool,
+                             plain, st, st_plain, i, rows, g, True)
+            qb = q[:, :both].contiguous()
+            check_equal(torch, "fused_gather_ed long-row vs staged kernel",
+                        fused_gather_ed_long(*a0, rs, ra, qb, g=g, rows=rows,
+                                             znorm=True),
+                        fused_gather_ed(*a0, rs, ra, qb, g=g, rows=rows,
+                                        znorm=True))
+        else:
+            lo, hi = (t.contiguous()
+                      for t in dtw.dtw_envelope(q, qlen // 100))
+            got = fused_gather_lb_keogh(*a0, rs, ra, lo, hi, g=g, rows=rows,
+                                        znorm=True)
+            want = ref.fused_gather_lb_keogh_ref(*a0, rs, ra, lo, hi, g=g,
+                                                 rows=rows, znorm=True)
+            err = check_close(torch, "fused_gather_lb_keogh_long", got[0],
+                              want[0])
+            for name, x, y in zip(("mu", "sd"), got[1:], want[1:]):
+                check_equal(torch, f"fused_gather_lb_keogh_long.{name}", x, y)
+            kth = got[0].reshape(b, -1).sort(dim=1).values[:, rows * g // 10]
+            kth[0] = -float("inf")
+            lb_in, out, _ = chunk_args(
+                torch, a0, q, lo, hi, sids[:, :rows].contiguous(),
+                anc[:, :rows].contiguous(),
+                torch.full((b, rows), g, dtype=torch.int32, device=dev),
+                kth, g)
+            c_err, _ = check_chunk_entry(
+                torch, out, ref.fused_gather_lb_keogh_chunk_ref(
+                    *lb_in, g=g, rows=rows, znorm=True), kth)
+            errs["fused_gather_lb_keogh_long"] = max(err, c_err)
+            lo, hi = (t[:, :both].contiguous() for t in (lo, hi))
+            for x, y in zip(fused_gather_lb_keogh_long(
+                    *a0, rs, ra, lo, hi, g=g, rows=rows, znorm=True),
+                    fused_gather_lb_keogh(*a0, rs, ra, lo, hi, g=g,
+                                          rows=rows, znorm=True)):
+                check_equal(torch, "fused_gather_lb_keogh long-row vs "
+                            "staged kernel", x, y)
+        del coll, a0
+    n_env, w = 20_000, 6_000
+    lo = torch.randn((n_env, w), device=dev)
+    hi = lo + torch.rand((n_env, w), device=dev)
+    lo[:7, 0], hi[:7, 0] = -float("inf"), float("inf")
+    valid = torch.rand(n_env, device=dev) > 0.01
+    bp = torch.sort(torch.randn(255, device=dev)).values
+    sym_lo = torch.searchsorted(bp, lo, right=True).to(torch.int32)
+    sym_hi = torch.searchsorted(bp, hi, right=True).to(torch.int32)
+    qp = torch.randn((BATCH, w), device=dev)
+    qh = qp + torch.rand((BATCH, w), device=dev)
+    for nseg in (LQ_ED // LQ["seg_len"], w):
+        errs["mindist_sym"] = max(errs["mindist_sym"], check_close(
+            torch, "mindist_sym",
+            mindist_sym(qp, qh, sym_lo, sym_hi, bp, valid, 16, nseg),
+            ref.mindist_sym_ref(qp, qh, sym_lo, sym_hi, bp, valid, 16,
+                                nseg)))
+        errs["mindist_paa"] = max(errs["mindist_paa"], check_close(
+            torch, "mindist_paa",
+            mindist_paa(qp, qh, lo, hi, valid, 16, nseg),
+            ref.mindist_ref(qp, qh, lo, hi, valid, 16, nseg)))
+    del lo, hi, sym_lo, sym_hi
+    for s_, n, lmin, lmax, seg in ((2, 14_100, 1_000, 14_000, 64),
+                                   (3, 30_100, 29_000, 30_000, 16)):
+        x = torch.from_numpy(np.cumsum(rng.normal(size=(s_, n)), -1).astype(
+            np.float32)).to(dev)
+        xc = x - x.mean(dim=-1, keepdim=True)
+        sums = (_prefix(xc), _prefix(xc * xc))
+        kw = dict(lmin=lmin, lmax=lmax, gamma=g - 1, seg_len=seg)
+        for k_, c_ in zip(envelope_znorm(*sums, **kw),
+                          ref.envelope_znorm_ref(*sums, **kw)):
+            check_equal(torch, f"envelope_znorm past its staging ({lmin}, "
+                        f"{lmax})", k_, c_)
+    return errs
+
+
+def brute64_ed(torch, data, q, k: int, znorm: bool):
+    """Exact ED k-NN on the card in float64, series by series (every
+    window, direct differences): (series, offsets, dists)."""
+    qlen = len(q)
+    n_off = data.shape[1] - qlen + 1
+    qt = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
+    if znorm:
+        qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
+    d2 = []
+    for row in data:
+        w = row.double().unfold(0, qlen, 1)
+        if znorm:
+            w = (w - w.mean(-1, keepdim=True)) / w.std(
+                -1, keepdim=True, correction=0).clamp_min(1e-8)
+        d2.append(((w - qt) ** 2).sum(-1))
+        del w
+    d2 = torch.cat(d2)
+    top = torch.topk(d2, k, largest=False).indices.cpu().numpy()
+    d2 = d2.cpu().numpy()
+    order = top[np.lexsort((top, d2[top]))]
+    return order // n_off, order % n_off, np.sqrt(d2[order])
 
 
 def check_slice3_kernels(torch, dev, p, probe, rng):
@@ -1036,6 +1223,7 @@ def main() -> int:
                                   planner)
     from repro_torch.core.search import brute_force_knn
     from repro_torch.core.paa import znormalize
+    from repro_torch.core import dtw as core_dtw
     from repro_torch.core import envelope as core_envelope
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.batch_ed import batch_ed
@@ -1044,8 +1232,11 @@ def main() -> int:
                                               dtw_survivors_wide)
     from repro_torch.kernels.envelope import envelope_znorm
     from repro_torch.kernels.fused_verify import (
-        chunk_qlen_limit, fused_gather_ed, fused_gather_ed_chunk,
-        fused_gather_lb_keogh, fused_gather_lb_keogh_chunk, gather_znorm)
+        fused_gather_ed, fused_gather_ed_chunk, fused_gather_ed_chunk_long,
+        fused_gather_ed_long, fused_gather_lb_keogh,
+        fused_gather_lb_keogh_chunk, fused_gather_lb_keogh_chunk_long,
+        fused_gather_lb_keogh_long, gather_znorm)
+    from repro_torch.kernels import fused_verify as fused_verify_mod
     from repro_torch.kernels.lb_keogh import lb_keogh
     from repro_torch.kernels.mindist import mindist_paa, mindist_sym
     from repro_torch.kernels.pool_merge import pool_merge, pool_merge_partials
@@ -1076,7 +1267,12 @@ def main() -> int:
                     "dtw_survivors_wide": dtw_survivors_wide,
                     "dtw_band_wide": dtw_band_wide,
                     "envelope_znorm": envelope_znorm, "batch_ed": batch_ed,
-                    "lb_keogh": lb_keogh}
+                    "lb_keogh": lb_keogh,
+                    "fused_gather_ed_long": fused_gather_ed_long,
+                    "fused_gather_ed_chunk_long": fused_gather_ed_chunk_long,
+                    "fused_gather_lb_keogh_long": fused_gather_lb_keogh_long,
+                    "fused_gather_lb_keogh_chunk_long":
+                        fused_gather_lb_keogh_chunk_long}
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -1164,13 +1360,13 @@ def main() -> int:
             f"the kernels' window normalization differs from the IEEE "
             f"divide at {w_differ} of {w_points} points")
     errs.update(dtw_errs)
+    del lo, hi, valid, sym_lo, sym_hi
     for part in (check_slice3_kernels(torch, dev, p, probe, rng),
-                 check_wide_kernels(torch, dev, rng)):
+                 check_wide_kernels(torch, dev, rng),
+                 check_long_kernels(torch, dev, rng, g)):
         for name, err in part.items():
             errs[name] = max(errs.get(name, 0.0), err)
-    results["chunk_qlen_limit"] = {m: chunk_qlen_limit(m, g)
-                                   for m in ("ed", "dtw")}
-    del probe, lo, hi, valid, sym_lo, sym_hi
+    del probe
     torch.cuda.synchronize()
     log(f"[2] kernels agree with their plain versions: "
         + ", ".join(f"{k} max abs err {v:.3g}" for k, v in errs.items())
@@ -1181,8 +1377,13 @@ def main() -> int:
         f"merge and the dense merge bit-equal to the plain step and the "
         f"stable-sort merge over {results['ed_steps_bit_equal']} steps "
         f"(pools and counters); the wide DP entries bit-equal to the warp "
-        f"entries at W = 1023; the scan's chunk entries take qlen <= "
-        f"{results['chunk_qlen_limit']} at g = {g}")
+        f"entries at W = 1023; past the staged kernels (ED qlen "
+        f"{LONG_CHECK['ed'][0]}, LB qlen {LONG_CHECK['dtw'][0]}) the "
+        f"long-row variants hold their plain versions (the ED step and "
+        f"the LB mu/sd bit for bit) and equal the staged kernels bit for "
+        f"bit at qlen {LONG_CHECK['ed'][1]}; mindist at nseg "
+        f"{LQ_ED // LQ['seg_len']} and 6000, and the build past its "
+        f"staging, hold theirs")
 
     # -- 3. the index on the card ------------------------------------------
     t0 = time.perf_counter()
@@ -2005,6 +2206,235 @@ def main() -> int:
             f"{worst:.2e})")
     del lengine, lcoll
 
+    # -- 15. the long-query path ----------------------------------------------
+    # an index whose build passes the card build's old staging, queried
+    # past the staged chunk entries and past 736 segments
+    qp = EnvelopeParams(**LQ)
+    lq_rng = np.random.default_rng(args.seed + 6)
+    qdata = np.cumsum(lq_rng.normal(size=(LQ_SERIES, LQ_LEN)), -1).astype(
+        np.float32)
+    qcoll = Collection.from_array(qdata, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    qengine = UlisseEngine.from_collection(qcoll, qp, block_size=16,
+                                           num_levels=2, device=dev)
+    torch.cuda.synchronize()
+    lq_build_s = time.perf_counter() - t0
+    lq_build = read_counts(("envelope_znorm",))
+    if lq_build["envelope_znorm"] <= 0:
+        raise AssertionError("the long index build did not launch "
+                             "envelope_znorm")
+    lq = results["long_query_path"] = {
+        "series": LQ_SERIES, "series_len": LQ_LEN, "params": LQ,
+        "build_s": lq_build_s, "build_launches": lq_build,
+        "envelopes": qengine.index.num_envelopes}
+    log(f"[15] long index: {LQ_SERIES} x {LQ_LEN} (lmin {LQ['lmin']}, lmax "
+        f"{LQ['lmax']}, seg_len {LQ['seg_len']}) -> {lq['envelopes']} "
+        f"envelopes, built on the card in {lq_build_s:.2f} s; launches "
+        f"{lq_build}")
+    lq_cases = (
+        ("ed", LQ_ED, QuerySpec(k=K),
+         ("fused_gather_ed_chunk_long", "pool_merge_partials", "mindist_sym",
+          "mindist_paa"), ("fused_gather_ed_chunk",)),
+        ("dtw", LQ_DTW, QuerySpec(k=K, measure="dtw", r=LQ_R),
+         ("fused_gather_lb_keogh_chunk_long", "dtw_survivors_wide",
+          "pool_merge", "mindist_sym", "mindist_paa"),
+         ("fused_gather_lb_keogh_chunk", "dtw_survivors")))
+    lq_queries = {}
+    for measure, qlen, lspec, names, staged_names in lq_cases:
+        qs_l = [qdata[s_, o:o + qlen] + lq_rng.normal(size=qlen).astype(
+            np.float32) * 0.1 for s_, o in zip(
+            lq_rng.integers(0, LQ_SERIES, BATCH),
+            lq_rng.integers(0, LQ_LEN - qlen + 1, BATCH))]
+        lq_queries[measure] = qs_l
+        zero_counts()
+        t0 = time.perf_counter()
+        got = qengine.search(qs_l, lspec)
+        wall = time.perf_counter() - t0
+        ll = read_counts(names + staged_names)
+        for name in names:
+            if ll[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the long "
+                                     f"{measure} path")
+        for name in staged_names:
+            if ll[name]:
+                raise AssertionError(f"the long {measure} path launched the "
+                                     f"staged {name}")
+        check_answers(got, K)
+        worst, host_err, host_wall = 0.0, None, None
+        if measure == "ed":
+            # the port's brute force on the card, in float64
+            for res, q in zip(got, qs_l):
+                series, offs, dists = brute64_ed(torch, qcoll.data, q, K,
+                                                 qp.znorm)
+                if set(zip(res.series.tolist(), res.offsets.tolist())) != \
+                        set(zip(series.tolist(), offs.tolist())):
+                    raise AssertionError(
+                        f"long ED answers {res.series, res.offsets} vs the "
+                        f"float64 brute force {series, offs}")
+                worst = max(worst, float(np.abs(res.dists - dists).max()))
+        else:
+            # the host backend's answers, and a float64 DP of every
+            # reported window
+            t1 = time.perf_counter()
+            host = qengine.search(qs_l, QuerySpec(
+                k=K, measure="dtw", r=LQ_R, scan_backend="host"))
+            host_wall = time.perf_counter() - t1
+            host_err = max(same_answers(a, b, 5e-3, "long DTW device vs host")
+                           for a, b in zip(got, host))
+            for res, q in zip(got, qs_l):
+                w = torch.stack([qcoll.data[s_, o:o + qlen] for s_, o in
+                                 zip(res.series, res.offsets)]).double()
+                w = (w - w.mean(-1, keepdim=True)) / w.std(
+                    -1, keepdim=True, correction=0).clamp_min(1e-8)
+                qt = torch.from_numpy(np.asarray(q, np.float64)).to(dev)
+                qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
+                d64 = torch.sqrt(core_dtw.dtw_band(qt, w, LQ_R,
+                                                   squared=True))
+                worst = max(worst, float(np.abs(
+                    res.dists - d64.cpu().numpy()).max()))
+        if worst > 5e-3:
+            raise AssertionError(f"long {measure} distances off float64 by "
+                                 f"{worst}")
+        st = [r_.stats for r_ in got]
+        lq[measure] = {
+            "queries": len(qs_l), "qlen": qlen, "wall_s": wall,
+            "launches": ll, "max_abs_err_vs_float64": worst,
+            "host_wall_s": host_wall, "max_abs_err_vs_host": host_err,
+            "mean_chunks_visited": float(np.mean([x.chunks_visited
+                                                  for x in st])),
+            "mean_true_dists": float(np.mean([x.true_dist_computations
+                                              for x in st]))}
+        log(f"[15] long {measure} path: {len(qs_l)} queries of qlen {qlen}"
+            + (f" at r {LQ_R}" if measure == "dtw" else "")
+            + f" in {wall:.2f} s; launches {ll}; mean chunks "
+            f"{lq[measure]['mean_chunks_visited']:.1f}; answers = the "
+            + ("float64 brute force" if measure == "ed" else
+               f"host backend's ({host_wall:.2f} s, max |d - d_host| "
+               f"{host_err:.2e}) and a float64 DP of each reported window")
+            + f" (max |d - d64| {worst:.2e})")
+    # the long-row chunk entries, mindist and the unstaged build at this
+    # phase's shapes (B = 8; the chunk entries over 128 kept rows, every
+    # window in its series)
+    index_l = qengine.index
+    lenv = index_l.envelopes
+    for measure, qlen in (("ed", LQ_ED), ("dtw", LQ_DTW)):
+        rows = 128
+        n_pad = 4 * rows
+        pick = torch.from_numpy(lq_rng.integers(
+            0, lenv.size, (BATCH, n_pad))).to(dev)
+        sids = lenv.series_id[pick].contiguous()
+        fits = LQ_LEN - qlen - (qp.gamma + 1)
+        anc = torch.from_numpy(lq_rng.integers(0, fits + 1, (
+            BATCH, n_pad)).astype(np.int32)).to(dev)
+        a0 = (qcoll.data, qcoll.csum, qcoll.csum2, qcoll.csum_lo,
+              qcoll.csum2_lo, qcoll.center)
+        qt = torch.from_numpy(np.stack(lq_queries[measure])).to(dev)
+        # the distinct region elements and prefix-sum positions of a call
+        covered = gather_bytes(torch, qcoll, sids[:, :rows].reshape(-1),
+                               anc[:, :rows].reshape(-1), qlen, g)
+        if measure == "ed":
+            qn = planner.prepare_query_batch(qt, qp.seg_len, True)[0]
+            plan = (sids, anc, torch.full_like(sids, g),
+                    torch.zeros((BATCH, n_pad), device=dev))
+            pool_inf = torch.full((BATCH, K), float("inf"), device=dev)
+            st_k = torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+            call = [lambda i=i: fused_gather_ed_chunk_long(
+                *a0, *plan, qn, pool_inf, st_k, i=i, chunk=rows, g=g,
+                znorm=True) for i in range(4)]
+            plain = [lambda i=i: ref.fused_gather_ed_chunk_ref(
+                *a0, *plan, qn, pool_inf, st_k.clone(), i=i, chunk=rows,
+                g=g, znorm=True) for i in range(4)]
+            ok_c = BATCH * rows * g
+            tile = fused_verify_mod.ed_chunk_tile(qlen, g, True)
+            nbytes = (covered + BATCH * rows * 16 + BATCH * qlen * 4
+                      + 4 * BATCH * -(-rows // tile) * min(K, tile * g) * 4)
+            timings[("fused_gather_ed_long", qlen, rows)] = timing(
+                torch, call, plain, nbytes, 2 * qlen * ok_c, 0.0,
+                f"B={BATCH} rows={rows} qlen={qlen} ok/call={ok_c}")
+        else:
+            _, dlo, dhi, _, _ = planner.prepare_query_batch(
+                qt, qp.seg_len, True, "dtw", LQ_R)
+            ok = torch.ones((BATCH, rows * g), dtype=torch.bool, device=dev)
+            kth = torch.full((BATCH,), -float("inf"), device=dev)
+            chunks = [(sids[:, i * rows:(i + 1) * rows].reshape(-1)
+                       .contiguous(),
+                       anc[:, i * rows:(i + 1) * rows].reshape(-1)
+                       .contiguous()) for i in range(4)]
+            call = [lambda c=c: fused_gather_lb_keogh_chunk_long(
+                *a0, *c, dlo, dhi, ok, kth, g=g, rows=rows, znorm=True)
+                for c in chunks]
+            plain = [lambda c=c: ref.fused_gather_lb_keogh_chunk_ref(
+                *a0, *c, dlo, dhi, ok, kth, g=g, rows=rows, znorm=True)
+                for c in chunks]
+            m = BATCH * rows * g
+            nbytes = (covered + BATCH * rows * 8 + 2 * BATCH * qlen * 4
+                      + m + 3 * m * 4 + m * 4)
+            timings[("fused_gather_lb_keogh_long", qlen, rows)] = timing(
+                torch, call, plain, nbytes, 10 * m * qlen, 0.0,
+                f"B={BATCH} rows={rows} qlen={qlen} r={LQ_R}")
+        del call, plain
+        # mindist over the long index's envelopes and blocks at this nseg
+        nseg = qp.query_segments(qlen)
+        _, _, _, qb, qh = planner.prepare_query_batch(qt, qp.seg_len, True)
+        fine_l = index_l.levels[-1]
+        for name, n_rows, call, plain in (
+                ("mindist_sym", lenv.size,
+                 [lambda: mindist_sym(qb, qh, lenv.sym_lo, lenv.sym_hi,
+                                      index_l.breakpoints, lenv.valid,
+                                      qp.seg_len, nseg)],
+                 [lambda: ref.mindist_sym_ref(qb, qh, lenv.sym_lo,
+                                              lenv.sym_hi,
+                                              index_l.breakpoints,
+                                              lenv.valid, qp.seg_len,
+                                              nseg)]),
+                ("mindist_paa", fine_l.size,
+                 [lambda: mindist_paa(qb, qh, fine_l.paa_lo, fine_l.paa_hi,
+                                      fine_l.valid, qp.seg_len, nseg)],
+                 [lambda: ref.mindist_ref(qb, qh, fine_l.paa_lo,
+                                          fine_l.paa_hi, fine_l.valid,
+                                          qp.seg_len, nseg)])):
+            err = check_close(torch, name, call[0](), plain[0]())
+            errs[name] = max(errs[name], err)
+            timings[(name, qlen)] = timing(
+                torch, call, plain,
+                2 * n_rows * nseg * 4 + n_rows + BATCH * n_rows * 4
+                + 2 * BATCH * nseg * 4, 7 * BATCH * n_rows * nseg, err,
+                f"B={BATCH} N={n_rows} nseg={nseg}")
+    # the unstaged build: one launch over the phase's collection (CUDA
+    # events; its plain version at this size would take minutes)
+    xc = qcoll.data - qcoll.data.mean(dim=-1, keepdim=True)
+    sums = (core_envelope._prefix(xc), core_envelope._prefix(xc * xc))
+    ekw_l = dict(lmin=qp.lmin, lmax=qp.lmax, gamma=qp.gamma,
+                 seg_len=qp.seg_len)
+    envelope_znorm(*sums, **ekw_l)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    envelope_znorm(*sums, **ekw_l)
+    ev1.record()
+    torch.cuda.synchronize()
+    cells, len_pairs, seg_pairs = envelope_work(qp, LQ_LEN)
+    lq["envelope_znorm_ms"] = ev0.elapsed_time(ev1)
+    lq["envelope_znorm_bound_ms"] = LQ_SERIES * (
+        4 * cells + 9 * len_pairs + 2 * seg_pairs) / PEAK_F32 * 1e3
+    lq["envelope_znorm_cells"] = LQ_SERIES * cells
+    del xc, sums
+    for key, t in timings.items():
+        if key[0] in ("fused_gather_ed_long", "fused_gather_lb_keogh_long") \
+                or (key[0].startswith("mindist") and key[1] in (LQ_ED,
+                                                                 LQ_DTW)):
+            log(f"[15] {key[0]:26s} {t['shape']:40s} kernel {t['ms']:.4f} ms"
+                f"  plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} "
+                f"ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']})")
+    log(f"[15] envelope_znorm past its staging: "
+        f"{lq['envelope_znorm_ms']:.1f} ms a launch over {LQ_SERIES} x "
+        f"{LQ_LEN} ({lq['envelope_znorm_cells']} cells; bound "
+        f"{lq['envelope_znorm_bound_ms']:.1f} ms, operations; CUDA events)")
+    results["timings"] = {" ".join(map(str, k)): v
+                          for k, v in timings.items()}
+    del qengine, qcoll
+
     # launches: each kernel's count on the path it belongs to — the ED main
     # path, the DTW path, the index build, the host backend (ED: batch_ed;
     # DTW: lb_keogh and dtw_band), the long DTW path (the wide entries)
@@ -2026,7 +2456,11 @@ def main() -> int:
                 "batch_ed": ("batch_ed", 256, 1, "znorm"),
                 "lb_keogh": ("lb_keogh", 256),
                 "pool_merge": ("pool_merge", 256),
-                "pool_merge_dense": ("pool_merge_dense", 256)}
+                "pool_merge_dense": ("pool_merge_dense", 256),
+                # the long-row chunk entries at the long phase's shapes
+                "fused_gather_ed_long": ("fused_gather_ed_long", LQ_ED, 128),
+                "fused_gather_lb_keogh_long": ("fused_gather_lb_keogh_long",
+                                               LQ_DTW, 128)}
     path_launches = dict(
         launches, fused_gather_ed=launches["fused_gather_ed_chunk"],
         pool_merge=launches["pool_merge_partials"],
@@ -2041,7 +2475,11 @@ def main() -> int:
         dtw_survivors_wide=results["long_path"]["device"]["launches"][
             "dtw_survivors_wide"],
         dtw_band_wide=results["long_path"]["host"]["launches"][
-            "dtw_band_wide"])
+            "dtw_band_wide"],
+        fused_gather_ed_long=lq["ed"]["launches"][
+            "fused_gather_ed_chunk_long"],
+        fused_gather_lb_keogh_long=lq["dtw"]["launches"][
+            "fused_gather_lb_keogh_chunk_long"])
     for name, key in headline.items():
         t = timings[key]
         src, replaces = REPLACES[name]

@@ -37,7 +37,13 @@ def interval_mindist(q_lo: torch.Tensor, q_hi: torch.Tensor,
                         torch.zeros((), dtype=e_lo.dtype, device=e_lo.device))
     # unconstrained segments carry +-inf bounds: zero every non-finite gap
     gap = torch.where(torch.isfinite(gap), gap, 0.0)
-    d2 = seg_len * (gap * gap).sum(dim=-1)
+    # summed in segment order, as the kernel sums: a float32 sum over
+    # thousands of segments rounds differently in any other order
+    g2 = gap * gap
+    acc = torch.zeros(g2.shape[:-1], dtype=g2.dtype, device=g2.device)
+    for i in range(g2.shape[-1]):
+        acc = acc + g2[..., i]
+    d2 = seg_len * acc
     return d2 if squared else torch.sqrt(d2)
 
 

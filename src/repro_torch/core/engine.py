@@ -42,7 +42,7 @@ from repro_torch.core.executor import SearchResult, SearchStats, TopK
 from repro_torch.core.index import UlisseIndex, build_index
 from repro_torch.core.types import (Collection, DeviceLike, EnvelopeParams,
                                     resolve_device)
-from repro_torch.kernels.fused_verify import chunk_qlen_limit
+from repro_torch.kernels.fused_verify import card_takes
 
 
 def _not_ported(what: str, item: str):
@@ -174,7 +174,7 @@ class UlisseEngine:
         array or sequence of 1-D arrays -> list of SearchResult)."""
         _check_ported(spec)
         single, qs = self._normalize_queries(queries)
-        self._check_device_lengths(qs, spec)
+        self._check_card_gamma(qs, spec)
         if spec.scan_backend == "host":
             results = [self._search_local(q, spec) for q in qs]
         elif spec.mode == "exact":
@@ -183,22 +183,22 @@ class UlisseEngine:
             results = self._local_approx_device(qs, spec)
         return results[0] if single else results
 
-    def _check_device_lengths(self, qs, spec: QuerySpec) -> None:
-        """Refuse, before any launch, a query longer than the device
-        scan's chunk entry takes on the card (its shared-memory staging;
-        ROADMAP Queue 3 P5).  The host backend and the CPU have no such
-        limit."""
+    def _check_card_gamma(self, qs, spec: QuerySpec) -> None:
+        """Refuse, before any launch, envelopes of more masters than the
+        device scan's chunk entries take on the card (g = gamma + 1 past
+        18,688 for ED, 13,760 for DTW: their shared memory grows with g;
+        ROADMAP Queue 3 P5).  Every query length runs; the host backend
+        and the CPU have no such limit."""
         if self.device.type != "cuda" or spec.scan_backend != "device":
             return
         g = self.params.gamma + 1
-        limit = chunk_qlen_limit(spec.measure, g)
-        longest = max((len(q) for q in qs), default=0)
-        if longest > limit:
-            raise ValueError(
-                f"qlen={longest} is longer than the device scan's "
-                f"{spec.measure} chunk entry takes at g={g} (qlen <= "
-                f"{limit}: its shared-memory staging); use "
-                f"scan_backend='host'")
+        for qlen in sorted({len(q) for q in qs}):
+            if not card_takes(spec.measure, qlen, g):
+                raise ValueError(
+                    f"gamma={self.params.gamma}: the device scan's "
+                    f"{spec.measure} chunk entry takes no {g} masters an "
+                    f"envelope on the card (its shared memory grows with "
+                    f"g); use scan_backend='host'")
 
     def _normalize_queries(self, queries):
         if isinstance(queries, (list, tuple)):

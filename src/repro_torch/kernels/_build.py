@@ -50,14 +50,21 @@ SIGNATURES = {
         # qs, out, num_series, n, batch, rows, qlen, g, znorm, stream
         "ulisse_fused_gather_ed": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
                                    _L, _I, _I, _I, _I, _I, _I, _V],
+        # the same arguments: the long-row kernel
+        "ulisse_fused_gather_ed_long": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
+                                        _V, _L, _I, _I, _I, _I, _I, _I, _V],
         # qlen, g
         "ulisse_fused_gather_ed_chunk_tile": [_I, _I],
-        # qlen, g
+        "ulisse_fused_gather_ed_chunk_long_tile": [_I, _I],
         "ulisse_fused_gather_lb_keogh_tile": [_I, _I],
+        "ulisse_fused_gather_lb_keogh_long_tile": [_I, _I],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, qs, pool_d2, stats, part, num_series, n, batch,
         # rows, qlen, g, znorm, n_pad, col0, k, stream
         "ulisse_fused_gather_ed_chunk": [
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
+            _I, _I, _I, _I, _I, _L, _L, _I, _V],
+        "ulisse_fused_gather_ed_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
             _I, _I, _I, _I, _I, _L, _L, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
@@ -66,10 +73,16 @@ SIGNATURES = {
         "ulisse_fused_gather_lb_keogh": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
                                          _V, _V, _V, _V, _L, _I, _I, _I, _I,
                                          _I, _I, _V],
+        "ulisse_fused_gather_lb_keogh_long": [
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I,
+            _I, _I, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # dtw_lo, dtw_hi, ok, kth, lb, mu, sd, slist, nsurv, dp_out,
         # num_series, n, batch, rows, qlen, g, znorm, stream
         "ulisse_fused_gather_lb_keogh_chunk": [
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
+            _V, _V, _L, _I, _I, _I, _I, _I, _I, _V],
+        "ulisse_fused_gather_lb_keogh_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
             _V, _V, _L, _I, _I, _I, _I, _I, _I, _V],
         # data, sids, anchors, mu, sd, out, num_series, n, num_rows, qlen,

@@ -6,9 +6,9 @@ jnp: the verification of every chunk's candidate windows
 (`repro/core/executor.py::ed_batch`, one query).  The kernel is
 `csrc/batch_ed.cu`, the plain version `ref.batch_ed_ref`.
 
-Any L and Qb: the queries go in groups whose Qb (L + 1) floats fit the
-kernel's 48 KB of staging, one launch a group (each counted); a query
-longer than the staging is streamed through it in tiles of L.
+Any L and Qb, in one launch: the kernel streams each row in steps of
+128 points and reads the queries in place, in register groups of up to
+8 queries (a larger batch takes the rows again, group by group).
 
 Inputs are checked on every device against what the kernel takes; then
 CPU tensors take the plain version and CUDA tensors launch the kernel.
@@ -19,10 +19,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
-
-# csrc/batch_ed.cu stages a group of queries and their sums of squares in
-# 48 KB of shared memory
-_SMEM_FLOATS = 48 * 1024 // 4
 
 
 def batch_ed(windows: torch.Tensor, queries: torch.Tensor,
@@ -43,17 +39,11 @@ def batch_ed(windows: torch.Tensor, queries: torch.Tensor,
     out = torch.empty((n, qb), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    lib = _build.library("batch_ed")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    group = max(1, _SMEM_FLOATS // (l + 1))
-    for q0 in range(0, qb, group):
-        q1 = min(q0 + group, qb)
-        code = lib.ulisse_batch_ed(windows.data_ptr(),
-                                   queries[q0:q1].data_ptr(),
-                                   out[:, q0:].data_ptr(), n, l, q1 - q0, qb,
-                                   int(znorm), stream)
-        _build.check(code, "batch_ed")
-        batch_ed.launches += 1
+    code = _build.library("batch_ed").ulisse_batch_ed(
+        windows.data_ptr(), queries.data_ptr(), out.data_ptr(), n, l, qb, qb,
+        int(znorm), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "batch_ed")
+    batch_ed.launches += 1
     return out
 
 

@@ -58,6 +58,16 @@
 //   * the block reduces its 128 lanes' (lo, hi) through shared memory:
 //     lanes write their 2 kZ values to a padded table, 32 threads read a
 //     column each.
+// The staging grows with lmax and the length range (2 (g + lmax) + 2
+// (lmax - lmin + 1) floats beside the g kZ means and the reduction): past
+// the card's 227 KB (lmax ~26,500 at lmin ~ lmax, ~13,000 over a range of
+// 13,000 lengths at g = 49) the same kernel runs unstaged (kStaged =
+// false): it reads the prefix sums in place from device memory (a warp's
+// lanes read consecutive words; the span is L2-resident), computes 1 / l'
+// and the segment count of each length where it needs them, and each
+// warp its master's kZ segment means, with the same IEEE operations in
+// the same order, so both give the same bits; only the reduction table
+// stays in shared memory.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -96,6 +106,14 @@ size_t build_smem_floats(int span, int g, int n_len) {
          (size_t)kBuildThreads * (2 * kZ + 1);
 }
 
+// shared floats of one unstaged build block: the reduction
+size_t unstaged_smem_floats() {
+  return (size_t)kBuildThreads * (2 * kZ + 1);
+}
+
+// kStaged: the prefix-sum span, the segment means and the length tables
+// in shared memory (else read or computed in place; the same bits).
+template <bool kStaged>
 __global__ void __launch_bounds__(kBuildThreads)
     envelope_build_kernel(const float* __restrict__ csum,
                           const float* __restrict__ csum2,
@@ -105,43 +123,57 @@ __global__ void __launch_bounds__(kBuildThreads)
                           int span) {
   extern __shared__ float smem[];
   const int n_len = lmax - lmin + 1;
-  float* cs = smem;                       // [span] csum[a .. a + span)
-  float* cs2 = cs + span;                 // [span]
-  float* seg = cs2 + span;                // [g * kZ] a pass's segment means
-  float* rcp = seg + g * kZ;              // [n_len] RN(1 / l')
-  int* nseg = reinterpret_cast<int*>(rcp + n_len);  // [n_len] l' / s
-  float* red = rcp + 2 * n_len;           // [threads * (2 kZ + 1)]
-
   const long long env = blockIdx.x;       // series-major: s * n_env + e
   const long long series = env / n_env;
   const int a = (int)(env - series * n_env) * g;
   const float* row = csum + series * (n + 1);
   const float* row2 = csum2 + series * (n + 1);
-  const int have = min(span, n + 1 - a);  // prefix positions a .. n
-  for (int t = threadIdx.x; t < have; t += blockDim.x) {
-    cs[t] = row[a + t];
-    cs2[t] = row2[a + t];
-  }
-  for (int t = threadIdx.x; t < n_len; t += blockDim.x) {
-    rcp[t] = __frcp_rn((float)(lmin + t));
-    nseg[t] = (lmin + t) / seg_len;
+  // prefix sums relative to a: staged copies, or the rows in place
+  const float* cs = row + a;
+  const float* cs2 = row2 + a;
+  float* seg = nullptr;                   // [g * kZ] a pass's segment means
+  float* rcp = nullptr;                   // [n_len] RN(1 / l')
+  int* nseg = nullptr;                    // [n_len] l' / s
+  float* red = smem;                      // [threads * (2 kZ + 1)]
+  if (kStaged) {
+    float* cs_s = smem;                   // [span] csum[a .. a + span)
+    float* cs2_s = cs_s + span;           // [span]
+    seg = cs2_s + span;
+    rcp = seg + g * kZ;
+    nseg = reinterpret_cast<int*>(rcp + n_len);
+    red = rcp + 2 * n_len;
+    const int have = min(span, n + 1 - a);  // prefix positions a .. n
+    for (int t = threadIdx.x; t < have; t += blockDim.x) {
+      cs_s[t] = row[a + t];
+      cs2_s[t] = row2[a + t];
+    }
+    for (int t = threadIdx.x; t < n_len; t += blockDim.x) {
+      rcp[t] = __frcp_rn((float)(lmin + t));
+      nseg[t] = (lmin + t) / seg_len;
+    }
+    cs = cs_s;
+    cs2 = cs2_s;
   }
   const float seg_f = (float)seg_len;
   const float seg_y = __frcp_rn(seg_f);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
+  // segment z's mean of master j (relative to a); a segment past the
+  // series end is in no valid cell: never read
+  auto seg_mean = [&](int j, int z) {
+    const int end = j + (z + 1) * seg_len;
+    return z < w && a + end <= n
+        ? div_by(__fsub_rn(cs[end], cs[end - seg_len]), seg_f, seg_y)
+        : 0.f;
+  };
 
   for (int z0 = 0; z0 < w; z0 += kZ) {
     __syncthreads();                     // staging done / last pass read
-    for (int p = threadIdx.x; p < g * kZ; p += blockDim.x) {
-      const int j = p / kZ, z = z0 + p % kZ;
-      const int end = j + (z + 1) * seg_len;       // relative to a
-      // a segment past the series end is in no valid cell: never read
-      seg[p] = z < w && a + end <= n
-          ? div_by(__fsub_rn(cs[end], cs[end - seg_len]), seg_f, seg_y)
-          : 0.f;
+    if (kStaged) {
+      for (int p = threadIdx.x; p < g * kZ; p += blockDim.x)
+        seg[p] = seg_mean(p / kZ, z0 + p % kZ);
+      __syncthreads();
     }
-    __syncthreads();
     float lo[kZ], hi[kZ];
 #pragma unroll
     for (int z = 0; z < kZ; ++z) {
@@ -155,19 +187,22 @@ __global__ void __launch_bounds__(kBuildThreads)
       if (cj <= 0) break;
       float sm[kZ];
 #pragma unroll
-      for (int z = 0; z < kZ; ++z) sm[z] = seg[j * kZ + z];
+      for (int z = 0; z < kZ; ++z)
+        sm[z] = kStaged ? seg[j * kZ + z] : seg_mean(j, z0 + z);
       const float c0 = cs[j], c20 = cs2[j];
       for (int t0 = 0; t0 < cj; t0 += 32) {
         const int t = min(t0 + lane, cj - 1);
         const int lp = lmin + t;
-        const float lpf = (float)lp, ylp = rcp[t];
+        const float lpf = (float)lp;
+        const float ylp = kStaged ? rcp[t] : __frcp_rn(lpf);
         const float mu = div_by(__fsub_rn(cs[j + lp], c0), lpf, ylp);
         const float m2 = div_by(__fsub_rn(cs2[j + lp], c20), lpf, ylp);
         const float var = fmaxf(__fsub_rn(m2, __fmul_rn(mu, mu)), 0.f);
         const float sigma = fmaxf(__fsqrt_rn(var), 1e-8f);
         const float y = __frcp_rn(sigma);
         // segments z0 + z covered by l': z < zc
-        const int zc = min(max(nseg[t] - z0, 0), kZ);
+        const int zc = min(max((kStaged ? nseg[t] : lp / seg_len) - z0, 0),
+                           kZ);
         const int zmax = __reduce_max_sync(kFull, zc);
 #define ENV_CELL(z)                                            \
   case (z) + 1: {                                              \
@@ -261,16 +296,18 @@ extern "C" int ulisse_envelope_znorm(const void* csum, const void* csum2,
       (long long)(n_env - 1) * g + lmin > n)
     return (int)cudaErrorInvalidValue;
   const int span = g + lmax;             // prefix positions a .. a+g-1+lmax
-  const size_t smem = build_smem_floats(span, g, lmax - lmin + 1) * 4;
-  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  const size_t staged = build_smem_floats(span, g, lmax - lmin + 1) * 4;
+  const bool stage = staged <= (size_t)kSmemLimit;
+  const size_t smem = stage ? staged : unstaged_smem_floats() * 4;
+  auto kernel = stage ? envelope_build_kernel<true>
+                      : envelope_build_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        envelope_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  envelope_build_kernel<<<(unsigned)blocks, kBuildThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(unsigned)blocks, kBuildThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(csum), static_cast<const float*>(csum2),
       static_cast<float*>(lo), static_cast<float*>(hi), n, n_env, lmin, lmax,
       g, seg_len, w, span);

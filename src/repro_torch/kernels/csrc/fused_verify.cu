@@ -113,23 +113,25 @@ constexpr int kSmemMax = 227 * 1024;
 constexpr int kLbJ = 2;         // LB_Keogh: window offsets per thread
 constexpr int kLbTile = 16;     // LB_Keogh: envelope rows per block
 constexpr int kLbMaxThreads = 512;
+constexpr int kLongPoints = 1024;   // long kernels: query points a tile
 constexpr unsigned kFull = 0xffffffffu;
 
-// Stage the regions of rows [r0, r0 + tile) of query b into reg_s (row
-// stride `stride`, zero beyond `reg`): one flat read per element, clipped
-// to the array.
+// Stage points [t0, t0 + stride) of the regions of rows [r0, r0 + tile)
+// of query b into reg_s (row stride `stride`, zero beyond `reg`): one
+// flat read per element, clipped to the array.
 __device__ __forceinline__ void stage_regions(
     const float* __restrict__ data, const int* __restrict__ sids,
     const int* __restrict__ anchors, float* reg_s, long long num_series,
-    int n, int rows, int b, int r0, int tile, int stride, int reg) {
+    int n, int rows, int b, int r0, int tile, int stride, int reg,
+    int t0 = 0) {
   const long long total = num_series * (long long)n;
   for (int idx = threadIdx.x; idx < tile * stride; idx += blockDim.x) {
     const int le = idx / stride, t = idx - le * stride;
     const int r = r0 + le;
     float v = 0.f;
-    if (r < rows && t < reg) {
+    if (r < rows && t0 + t < reg) {
       const long long e = (long long)b * rows + r;
-      long long flat = (long long)sids[e] * n + anchors[e] + t;
+      long long flat = (long long)sids[e] * n + anchors[e] + t0 + t;
       flat = flat < 0 ? 0 : (flat >= total ? total - 1 : flat);
       v = data[flat];
     }
@@ -176,40 +178,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// One block: query b, rows [r0, r0 + tile) of its chunk.  Row r's plan
-// entry is e = b * row_stride + col0 + r (the contract entry: row_stride
-// = rows, col0 = 0).  Entries of the chunk entry only (kChunk): n_master,
-// lbs2, pool_d2 (B, k), stats (B, 6), part_* (B, gridDim.x, kp).
+// The ED block's rows: query b, rows [r0, r0 + tile) of its chunk.  Row
+// r's plan entry is e = b * row_stride + col0 + r (the contract entry:
+// row_stride = rows, col0 = 0).  Warp 0 (tile <= 32) fills row_sid /
+// row_anc / row_jl (offsets j < jl are computed) and, in the chunk entry,
+// adds the block's counters and zeroes count_s.  Every thread gets the
+// pool's k-th distance (+inf outside the chunk entry) and whether any
+// row of the block has work.
 template <bool kChunk>
-__global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
-    const float* __restrict__ data, const float* __restrict__ csum,
-    const float* __restrict__ csum2, const float* __restrict__ csum_lo,
-    const float* __restrict__ csum2_lo, const float* __restrict__ center,
+__device__ __forceinline__ bool ed_block_rows(
     const int* __restrict__ sids, const int* __restrict__ anchors,
     const int* __restrict__ n_master, const float* __restrict__ lbs2,
-    const float* __restrict__ qs, float* __restrict__ out,
-    const float* __restrict__ pool_d2, int* __restrict__ stats,
-    float* __restrict__ part_d2, int* __restrict__ part_sid,
-    int* __restrict__ part_off, int* __restrict__ part_pos,
-    long long num_series, int n, int rows, int qlen, int g, int znorm,
-    long long row_stride, long long col0, int k, int kp, int tile,
-    int qlen_pad, int ngrp, int stride, int run_stride) {
-  extern __shared__ __align__(16) float ed_smem[];
-  float* q_s = ed_smem;                       // [qlen_pad], 0 beyond qlen
-  float* run_s = q_s + qlen_pad;              // [tile][8][run_stride]
-  float* reg_s = run_s + tile * 8 * run_stride;   // [tile * stride]
-  float* cd_s = reg_s + tile * stride;        // chunk: [tile * g] d2
-  int* cp_s = reinterpret_cast<int*>(cd_s + tile * g);   // and positions
-  __shared__ int row_sid[kEdTile], row_anc[kEdTile], row_jl[kEdTile];
-  __shared__ int run_at[kEdTile * 8];         // a run's first offset's slot
-  __shared__ float qss_s;
-  __shared__ int count_s;
-
+    const float* __restrict__ pool_d2, int* __restrict__ stats, int n,
+    int rows, int qlen, int g, long long row_stride, long long col0, int k,
+    int tile, int* row_sid, int* row_anc, int* row_jl, int* count_s,
+    float* kth_out) {
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
   const int tid = threadIdx.x;
-  const int reg = qlen + g - 1;
-
   // the scan's cut: the pool's k-th distance, and whether query b is
   // still scanning (the chunk's first bound is finite and below it)
   float kth = INFINITY;
@@ -219,7 +205,7 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
     const float first = lbs2[(long long)b * row_stride + col0];
     active = isfinite(first) && first < kth;
   }
-  // the tile's rows (warp 0: tile <= 32): offsets j < jl are computed
+  *kth_out = kth;
   int jl = 0;
   if (tid < 32) {
     int keep = 0, pruned = 0;
@@ -257,10 +243,134 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
         if (n_keep) atomicAdd(st + 1, n_keep);
         if (n_ok) atomicAdd(st + 2, n_ok);
         if (n_pruned) atomicAdd(st + 5, n_pruned);
-        count_s = 0;
+        *count_s = 0;
       }
     }
   }
+  return __syncthreads_or(jl > 0);
+}
+
+// kEdJ sliding dots of one thread: acc[jj] += region[j0 + t + jj] * q[t]
+// over t < len (a multiple of kEdJ), in query order.  base points at the
+// thread's region word j0 (shared memory, zero-padded past the region),
+// q_s at the query (zero-padded past qlen).
+__device__ __forceinline__ void ed_slide(const float* base,
+                                         const float* q_s, int len,
+                                         float (&acc)[kEdJ]) {
+  float rv[2 * kEdJ - 1];    // region[j0 + t0 .. j0 + t0 + 2 kEdJ - 2]
+#pragma unroll
+  for (int m = 0; m < kEdJ - 1; ++m) rv[kEdJ + m] = base[m];
+  for (int t0 = 0; t0 < len; t0 += kEdJ) {
+#pragma unroll
+    for (int m = 0; m < kEdJ - 1; ++m) rv[m] = rv[kEdJ + m];
+#pragma unroll
+    for (int m = kEdJ - 1; m < 2 * kEdJ - 1; ++m) rv[m] = base[t0 + m];
+    const float4 qa = *reinterpret_cast<const float4*>(q_s + t0);
+    const float4 qb = *reinterpret_cast<const float4*>(q_s + t0 + 4);
+    const float qv[kEdJ] = {qa.x, qa.y, qa.z, qa.w,
+                            qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+    for (int tt = 0; tt < kEdJ; ++tt) {
+#pragma unroll
+      for (int jj = 0; jj < kEdJ; ++jj)
+        acc[jj] = fmaf(rv[tt + jj], qv[tt], acc[jj]);
+    }
+  }
+}
+
+// The squared ED of a window from its sums s1, s2 and its dot with the
+// query: every operation rounded on its own (no contraction), so every
+// entry's instantiation gives the same bits.
+__device__ __forceinline__ float ed_d2(float s1, float s2, float dot,
+                                       int qlen, int znorm, float c,
+                                       float qss) {
+  const float lq = (float)qlen;
+  float d2;
+  if (znorm) {
+    const float mu_c = __fdiv_rn(s1, lq);
+    const float var = __fsub_rn(__fdiv_rn(s2, lq), __fmul_rn(mu_c, mu_c));
+    const float sd = fmaxf(__fsqrt_rn(fmaxf(var, 0.f)), 1e-8f);
+    d2 = __fsub_rn(2.f * lq, __fdiv_rn(__fmul_rn(2.f, dot), sd));
+  } else {
+    const float wss = __fadd_rn(__fadd_rn(s2, __fmul_rn(__fmul_rn(2.f, c), s1)),
+                                __fmul_rn(__fmul_rn(lq, c), c));
+    d2 = __fadd_rn(__fsub_rn(wss, __fmul_rn(2.f, dot)), qss);
+  }
+  return fmaxf(d2, 0.f);
+}
+
+// Stage query points [t0, t0 + len) (zero past qlen) and, for every row
+// of the block with work, region points [t0, t0 + stride) (zero past the
+// region) with cp.async: warp w takes rows w, w + warps, ...
+__device__ __forceinline__ void ed_stage(
+    const float* __restrict__ data, const float* __restrict__ qs,
+    float* q_s, float* reg_s, const int* row_sid, const int* row_anc,
+    const int* row_jl, long long num_series, int n, int qlen, int reg,
+    int tile, int stride, int t0, int len) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const float* q = qs + (long long)blockIdx.y * qlen;
+  for (int t = tid; t < len; t += blockDim.x) {
+    if (t0 + t < qlen)
+      cp_async4(q_s + t, q + t0 + t);
+    else
+      q_s[t] = 0.f;
+  }
+  const long long total = num_series * (long long)n;
+  for (int le = warp; le < tile; le += warps) {
+    float* dst = reg_s + le * stride;
+    int t1 = 0;
+    if (row_jl[le] > 0 && t0 < reg) {
+      const int cnt = reg - t0 < stride ? reg - t0 : stride;
+      const long long base = (long long)row_sid[le] * n + row_anc[le] + t0;
+      const bool clip = base < 0 || base + cnt > total;
+      for (int t = lane; t < cnt; t += 32) {
+        long long flat = base + t;
+        if (clip) flat = flat < 0 ? 0 : (flat >= total ? total - 1 : flat);
+        cp_async4(dst + t, data + flat);
+      }
+      t1 = cnt;
+    }
+    for (int t = t1 + lane; t < stride; t += 32) dst[t] = 0.f;
+  }
+}
+
+// One block: query b = blockIdx.y, rows [r0, r0 + tile) of its chunk
+// (ed_block_rows).  Entries of the chunk entry only (kChunk): n_master,
+// lbs2, pool_d2 (B, k), stats (B, 6), part_* (B, gridDim.x, kp).
+template <bool kChunk>
+__global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
+    const float* __restrict__ data, const float* __restrict__ csum,
+    const float* __restrict__ csum2, const float* __restrict__ csum_lo,
+    const float* __restrict__ csum2_lo, const float* __restrict__ center,
+    const int* __restrict__ sids, const int* __restrict__ anchors,
+    const int* __restrict__ n_master, const float* __restrict__ lbs2,
+    const float* __restrict__ qs, float* __restrict__ out,
+    const float* __restrict__ pool_d2, int* __restrict__ stats,
+    float* __restrict__ part_d2, int* __restrict__ part_sid,
+    int* __restrict__ part_off, int* __restrict__ part_pos,
+    long long num_series, int n, int rows, int qlen, int g, int znorm,
+    long long row_stride, long long col0, int k, int kp, int tile,
+    int qlen_pad, int ngrp, int stride, int run_stride) {
+  extern __shared__ __align__(16) float ed_smem[];
+  float* q_s = ed_smem;                       // [qlen_pad], 0 beyond qlen
+  float* run_s = q_s + qlen_pad;              // [tile][8][run_stride]
+  float* reg_s = run_s + tile * 8 * run_stride;   // [tile * stride]
+  float* cd_s = reg_s + tile * stride;        // chunk: [tile * g] d2
+  int* cp_s = reinterpret_cast<int*>(cd_s + tile * g);   // and positions
+  __shared__ int row_sid[kEdTile], row_anc[kEdTile], row_jl[kEdTile];
+  __shared__ int run_at[kEdTile * 8];         // a run's first offset's slot
+  __shared__ float qss_s;
+  __shared__ int count_s;
+
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * tile;
+  const int tid = threadIdx.x;
+  const int reg = qlen + g - 1;
+  float kth;
+  const bool work = ed_block_rows<kChunk>(
+      sids, anchors, n_master, lbs2, pool_d2, stats, n, rows, qlen, g,
+      row_stride, col0, k, tile, row_sid, row_anc, row_jl, &count_s, &kth);
   const long long at = ((long long)b * gridDim.x + blockIdx.x) * kp;
   const int* rsid = row_sid;
   const int* ranc = row_anc;
@@ -269,38 +379,16 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
     *sid = rsid[r - r0];
     *off = ranc[r - r0] + (p - r * g);
   };
-  if (!__syncthreads_or(jl > 0)) {
+  if (!work) {
     if (kChunk)
       write_block_topk(cd_s, cp_s, 0, kp, part_d2 + at, part_sid + at,
                        part_off + at, part_pos + at, sid_off);
     return;
   }
 
-  // stage: group 0 the query and the regions, group 1 the prefix sums;
-  // warp w takes rows (and prefix-sum runs) w, w + warps, ...
-  const int lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
-  for (int t = tid; t < qlen_pad; t += blockDim.x) {
-    if (t < qlen)
-      cp_async4(q_s + t, qs + (long long)b * qlen + t);
-    else
-      q_s[t] = 0.f;
-  }
-  const long long total = num_series * (long long)n;
-  for (int le = warp; le < tile; le += warps) {
-    float* dst = reg_s + le * stride;
-    int t0 = 0;
-    if (row_jl[le] > 0) {
-      const long long base = (long long)row_sid[le] * n + row_anc[le];
-      const bool clip = base < 0 || base + reg > total;
-      for (int t = lane; t < reg; t += 32) {
-        long long flat = base + t;
-        if (clip) flat = flat < 0 ? 0 : (flat >= total ? total - 1 : flat);
-        cp_async4(dst + t, data + flat);
-      }
-      t0 = reg;
-    }
-    for (int t = t0 + lane; t < stride; t += 32) dst[t] = 0.f;
-  }
+  // stage: group 0 the query and the regions, group 1 the prefix sums
+  ed_stage(data, qs, q_s, reg_s, row_sid, row_anc, row_jl, num_series, n,
+           qlen, reg, tile, stride, 0, qlen_pad);
   cp_async_commit();
   // run `which` = 2 * array + end of row le: arrays csum, csum_lo, csum2,
   // csum2_lo; ends the windows' first and one-past-last positions.  The
@@ -375,28 +463,7 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
   float acc[kEdJ];
 #pragma unroll
   for (int jj = 0; jj < kEdJ; ++jj) acc[jj] = 0.f;
-  if (mine) {
-    const float* base = reg_s + le * stride + j0;
-    float rv[2 * kEdJ - 1];    // region[j0 + t0 .. j0 + t0 + 2 kEdJ - 2]
-#pragma unroll
-    for (int m = 0; m < kEdJ - 1; ++m) rv[kEdJ + m] = base[m];
-    for (int t0 = 0; t0 < qlen_pad; t0 += kEdJ) {
-#pragma unroll
-      for (int m = 0; m < kEdJ - 1; ++m) rv[m] = rv[kEdJ + m];
-#pragma unroll
-      for (int m = kEdJ - 1; m < 2 * kEdJ - 1; ++m) rv[m] = base[t0 + m];
-      const float4 qa = *reinterpret_cast<const float4*>(q_s + t0);
-      const float4 qb = *reinterpret_cast<const float4*>(q_s + t0 + 4);
-      const float qv[kEdJ] = {qa.x, qa.y, qa.z, qa.w,
-                              qb.x, qb.y, qb.z, qb.w};
-#pragma unroll
-      for (int tt = 0; tt < kEdJ; ++tt) {
-#pragma unroll
-        for (int jj = 0; jj < kEdJ; ++jj)
-          acc[jj] = fmaf(rv[tt + jj], qv[tt], acc[jj]);
-      }
-    }
-  }
+  if (mine) ed_slide(reg_s + le * stride + j0, q_s, qlen_pad, acc);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -420,29 +487,130 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
                          (run(3, off) - run(2, off));
         const float s2 = (run(5, off) - run(4, off)) +
                          (run(7, off) - run(6, off));
-        const float dot = acc[jj];
-        // every operation rounded on its own (no contraction), so both
-        // entries' instantiations give the same bits
-        const float lq = (float)qlen;
-        float d2;
-        if (znorm) {
-          const float mu_c = __fdiv_rn(s1, lq);
-          const float var = __fsub_rn(__fdiv_rn(s2, lq), __fmul_rn(mu_c, mu_c));
-          const float sd = fmaxf(__fsqrt_rn(fmaxf(var, 0.f)), 1e-8f);
-          d2 = __fsub_rn(2.f * lq, __fdiv_rn(__fmul_rn(2.f, dot), sd));
-        } else {
-          const float c = center[row_sid[le]];
-          const float wss = __fadd_rn(__fadd_rn(s2, __fmul_rn(__fmul_rn(2.f, c), s1)),
-                                      __fmul_rn(__fmul_rn(lq, c), c));
-          d2 = __fadd_rn(__fsub_rn(wss, __fmul_rn(2.f, dot)), qss_s);
-        }
-        d2 = fmaxf(d2, 0.f);
+        const float d2 = ed_d2(s1, s2, acc[jj], qlen, znorm,
+                               znorm ? 0.f : center[row_sid[le]], qss_s);
         if (!kChunk) {
           out[((long long)b * rows + r) * g + j] = d2;
         } else if (d2 < kth) {
           const int slot = atomicAdd(&count_s, 1);
           cd_s[slot] = d2;
           cp_s[slot] = r * g + j;
+        }
+      }
+    }
+  }
+  if (kChunk) {
+    __syncthreads();
+    write_block_topk(cd_s, cp_s, count_s, kp, part_d2 + at, part_sid + at,
+                     part_off + at, part_pos + at, sid_off);
+  }
+}
+
+// The long-row ED kernel: the staged kernel's contract, for queries whose
+// region and query do not fit shared memory whole.  Rows as in the staged
+// kernel (ed_block_rows); the query and the rows' regions stream through
+// shared memory in tiles of `ptile` points (a multiple of kEdJ and of
+// 32), and each thread keeps its kEdJ dots in registers across the tiles
+// and slides over each tile as the staged kernel slides over the whole
+// row, so its dots, summed in the same order, have the same bits.  A
+// thread takes the items (row le, offset group) tid, tid + threads, ...
+// in rounds (more than one only past kEdThreads items: g > 4,096 at one
+// row a block), each round streaming the query again.  The epilogue reads
+// the window sums from the prefix sums in place (window_sums), the values
+// the staged kernel's runs hold, and sum(q^2) is taken from device memory
+// in the staged kernel's order; so d2 has the staged kernel's bits too.
+template <bool kChunk>
+__global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
+    const float* __restrict__ data, const float* __restrict__ csum,
+    const float* __restrict__ csum2, const float* __restrict__ csum_lo,
+    const float* __restrict__ csum2_lo, const float* __restrict__ center,
+    const int* __restrict__ sids, const int* __restrict__ anchors,
+    const int* __restrict__ n_master, const float* __restrict__ lbs2,
+    const float* __restrict__ qs, float* __restrict__ out,
+    const float* __restrict__ pool_d2, int* __restrict__ stats,
+    float* __restrict__ part_d2, int* __restrict__ part_sid,
+    int* __restrict__ part_off, int* __restrict__ part_pos,
+    long long num_series, int n, int rows, int qlen, int g, int znorm,
+    long long row_stride, long long col0, int k, int kp, int tile,
+    int qlen_pad, int ngrp, int stride, int ptile) {
+  extern __shared__ __align__(16) float ed_smem[];
+  float* q_s = ed_smem;                       // [ptile]
+  float* reg_s = q_s + ptile;                 // [tile * stride]
+  float* cd_s = reg_s + tile * stride;        // chunk: [tile * g] d2
+  int* cp_s = reinterpret_cast<int*>(cd_s + tile * g);   // and positions
+  __shared__ int row_sid[kEdTile], row_anc[kEdTile], row_jl[kEdTile];
+  __shared__ float qss_s;
+  __shared__ int count_s;
+
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * tile;
+  const int tid = threadIdx.x;
+  const int reg = qlen + g - 1;
+  float kth;
+  const bool work = ed_block_rows<kChunk>(
+      sids, anchors, n_master, lbs2, pool_d2, stats, n, rows, qlen, g,
+      row_stride, col0, k, tile, row_sid, row_anc, row_jl, &count_s, &kth);
+  const long long at = ((long long)b * gridDim.x + blockIdx.x) * kp;
+  const int* rsid = row_sid;
+  const int* ranc = row_anc;
+  auto sid_off = [=](int p, int* sid, int* off) {
+    const int r = p / g;
+    *sid = rsid[r - r0];
+    *off = ranc[r - r0] + (p - r * g);
+  };
+  if (!work) {
+    if (kChunk)
+      write_block_topk(cd_s, cp_s, 0, kp, part_d2 + at, part_sid + at,
+                       part_off + at, part_pos + at, sid_off);
+    return;
+  }
+  if (!znorm && tid < 32) {
+    const float* q = qs + (long long)b * qlen;
+    float part = 0.f;
+    for (int t = tid; t < qlen; t += 32) part = __fmaf_rn(q[t], q[t], part);
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_down_sync(kFull, part, o);
+    if (tid == 0) qss_s = part;
+  }
+
+  const long long last = num_series * (long long)(n + 1) - 1;
+  for (int base = 0; base < tile * ngrp; base += blockDim.x) {
+    const int item = base + tid;
+    const int le = item % tile, grp = item / tile;
+    const int j0 = grp * kEdJ;
+    const int row_lim = row_jl[le];
+    const bool mine = item < tile * ngrp && j0 < row_lim;
+    float acc[kEdJ];
+#pragma unroll
+    for (int jj = 0; jj < kEdJ; ++jj) acc[jj] = 0.f;
+    for (int t0 = 0; t0 < qlen_pad; t0 += ptile) {
+      const int len = qlen_pad - t0 < ptile ? qlen_pad - t0 : ptile;
+      __syncthreads();                  // the last tile is consumed
+      ed_stage(data, qs, q_s, reg_s, row_sid, row_anc, row_jl, num_series,
+               n, qlen, reg, tile, stride, t0, len);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (mine) ed_slide(reg_s + le * stride + j0, q_s, len, acc);
+    }
+    if (mine) {
+      const int r = r0 + le;
+      const long long sid = row_sid[le];
+#pragma unroll
+      for (int jj = 0; jj < kEdJ; ++jj) {
+        const int j = j0 + jj;
+        if (j < row_lim) {
+          float s1, s2;
+          window_sums(csum, csum2, csum_lo, csum2_lo, sid, row_anc[le] + j,
+                      n, qlen, last, &s1, &s2);
+          const float d2 = ed_d2(s1, s2, acc[jj], qlen, znorm,
+                                 znorm ? 0.f : center[sid], qss_s);
+          if (!kChunk) {
+            out[((long long)b * rows + r) * g + j] = d2;
+          } else if (d2 < kth) {
+            const int slot = atomicAdd(&count_s, 1);
+            cd_s[slot] = d2;
+            cp_s[slot] = r * g + j;
+          }
         }
       }
     }
@@ -482,6 +650,101 @@ __device__ __forceinline__ void lb_windows(const float* base,
         const float under = fmaxf(lh.x - w, 0.f);
         acc[jj] += over * over + under * under;
       }
+    }
+  }
+}
+
+// The long-row LB_Keogh kernel's pieces (lb_window_stats, lb_results,
+// lb_write_out).  The staged kernel below writes the same arithmetic out
+// in place: built from these helpers it ran ~2% slower at qlen 256 on an
+// H100.
+// (mu, sd, 1 / sd) of kLbJ consecutive windows of series sid starting at
+// off0, from the prefix sums (raw: 0, 1), and their sums zeroed: the
+// plain version's divides and square root, s2 / L - mu_c^2 without
+// contraction.
+__device__ __forceinline__ void lb_window_stats(
+    const float* __restrict__ csum, const float* __restrict__ csum2,
+    const float* __restrict__ csum_lo, const float* __restrict__ csum2_lo,
+    const float* __restrict__ center, long long sid, int off0, int n,
+    int qlen, long long last, int znorm, float (&mu)[kLbJ],
+    float (&sd)[kLbJ], float (&y)[kLbJ], float (&acc)[kLbJ]) {
+#pragma unroll
+  for (int jj = 0; jj < kLbJ; ++jj) {
+    mu[jj] = 0.f;
+    sd[jj] = 1.f;
+    if (znorm) {
+      float s1, s2;
+      window_sums(csum, csum2, csum_lo, csum2_lo, sid, off0 + jj, n, qlen,
+                  last, &s1, &s2);
+      const float mu_c = s1 / qlen;
+      const float var = __fsub_rn(s2 / qlen, __fmul_rn(mu_c, mu_c));
+      sd[jj] = fmaxf(sqrtf(fmaxf(var, 0.f)), 1e-8f);
+      mu[jj] = mu_c + center[sid];
+    }
+    y[jj] = __frcp_rn(sd[jj]);
+    acc[jj] = 0.f;
+  }
+}
+
+// Windows j0 .. j0 + kLbJ - 1 of tile row le into res_s (lb2, mu, sd,
+// each [tg]).
+__device__ __forceinline__ void lb_results(float* res_s, int tg, int le,
+                                           int j0, int g,
+                                           const float (&mu)[kLbJ],
+                                           const float (&sd)[kLbJ],
+                                           const float (&acc)[kLbJ]) {
+#pragma unroll
+  for (int jj = 0; jj < kLbJ; ++jj) {
+    const int j = j0 + jj;
+    if (j < g) {
+      res_s[le * g + j] = acc[jj];
+      res_s[tg + le * g + j] = mu[jj];
+      res_s[2 * tg + le * g + j] = sd[jj];
+    }
+  }
+}
+
+// The tile's results (res_s: lb2, mu, sd, each [tile * g]) out.  The
+// tile's rows are consecutive: (lb2, mu, sd) out in
+// coalesced stores; entry at = (b * rows + r0) * g + idx is position
+// r0 * g + idx of query b's chunk.  The chunk entry (kChunk) also masks
+// by ok, lists the survivors and fills the DP's output.
+template <bool kChunk>
+__device__ __forceinline__ void lb_write_out(
+    const float* res_s, int tg, float* __restrict__ lb_out,
+    float* __restrict__ mu_out, float* __restrict__ sd_out,
+    const bool* __restrict__ ok, const float* __restrict__ kth,
+    int* __restrict__ slist, int* __restrict__ nsurv,
+    float* __restrict__ dp_out, int rows, int g, int tile) {
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * tile;
+  const long long at0 = ((long long)b * rows + r0) * g;
+  const int count = (rows - r0 < tile ? rows - r0 : tile) * g;
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < count; base += blockDim.x) {   // warp-uniform
+    const int idx = base + threadIdx.x;
+    const bool in = idx < count;
+    const long long at = at0 + idx;
+    float lb = in ? res_s[idx] : 0.f;
+    if (kChunk) {
+      if (in && !ok[at]) lb = INFINITY;
+      const bool surv = in && lb < kth[b];
+      const unsigned mask = __ballot_sync(kFull, surv);
+      if (mask) {
+        const int leader = __ffs(mask) - 1;
+        int slot = 0;
+        if (lane == leader) slot = atomicAdd(nsurv + b, __popc(mask));
+        slot = __shfl_sync(kFull, slot, leader) +
+               __popc(mask & ((1u << lane) - 1u));
+        if (surv)
+          slist[(long long)b * rows * g + slot] = r0 * g + idx;
+      }
+      if (in && !surv) dp_out[at] = INFINITY;
+    }
+    if (in) {
+      lb_out[at] = lb;
+      mu_out[at] = res_s[tg + idx];
+      sd_out[at] = res_s[2 * tg + idx];
     }
   }
 }
@@ -589,6 +852,73 @@ __global__ void __launch_bounds__(kLbMaxThreads)
   }
 }
 
+// The long-row LB_Keogh kernel: the staged kernel's contract, for queries
+// whose DTW envelope and regions do not fit shared memory whole.  Each
+// thread takes the items (row le, window pair grp) tid, tid + threads,
+// ... in rounds (more than one only past kLbMaxThreads items); the
+// envelope and the tile's regions stream through shared memory in tiles
+// of `ptile` points (a multiple of kLbJ), and the thread keeps its
+// windows' (mu, sd) and sums in registers across the tiles, sliding over
+// each tile as the staged kernel slides over the whole row: the same
+// normalized values summed in the same order, so (lb2, mu, sd) have the
+// staged kernel's bits.
+template <bool kChunk>
+__global__ void __launch_bounds__(kLbMaxThreads)
+    fused_gather_lb_keogh_long_kernel(
+        const float* __restrict__ data, const float* __restrict__ csum,
+        const float* __restrict__ csum2, const float* __restrict__ csum_lo,
+        const float* __restrict__ csum2_lo, const float* __restrict__ center,
+        const int* __restrict__ sids, const int* __restrict__ anchors,
+        const float* __restrict__ dtw_lo, const float* __restrict__ dtw_hi,
+        float* __restrict__ lb_out, float* __restrict__ mu_out,
+        float* __restrict__ sd_out, const bool* __restrict__ ok,
+        const float* __restrict__ kth, int* __restrict__ slist,
+        int* __restrict__ nsurv, float* __restrict__ dp_out,
+        long long num_series, int n, int rows, int qlen, int g, int znorm,
+        int tile, int qlen_pad, int ngrp, int stride, int ptile) {
+  extern __shared__ float smem[];
+  float2* env_s = reinterpret_cast<float2*>(smem);   // [ptile]
+  float* reg_s = smem + 2 * ptile;                   // [tile * stride]
+  float* res_s = reg_s + tile * stride;              // [3][tile * g]
+  const int tg = tile * g;
+
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * tile;
+  const long long last = num_series * (long long)(n + 1) - 1;
+  for (int base = 0; base < tile * ngrp; base += blockDim.x) {
+    const int item = base + threadIdx.x;
+    const int le = item % tile, grp = item / tile;
+    const int r = r0 + le;
+    const bool mine = item < tile * ngrp && r < rows;
+    const int j0 = grp * kLbJ;
+    float mu[kLbJ], sd[kLbJ], y[kLbJ], acc[kLbJ];
+    if (mine) {
+      const long long e = (long long)b * rows + r;
+      lb_window_stats(csum, csum2, csum_lo, csum2_lo, center, sids[e],
+                      anchors[e] + j0, n, qlen, last, znorm, mu, sd, y,
+                      acc);
+    }
+    for (int t0 = 0; t0 < qlen_pad; t0 += ptile) {
+      const int len = qlen_pad - t0 < ptile ? qlen_pad - t0 : ptile;
+      __syncthreads();                  // the last tile is consumed
+      for (int t = threadIdx.x; t < len; t += blockDim.x) {
+        const long long at = (long long)b * qlen + t0 + t;
+        env_s[t] = t0 + t < qlen ? make_float2(dtw_lo[at], dtw_hi[at])
+                                 : make_float2(-INFINITY, INFINITY);
+      }
+      stage_regions(data, sids, anchors, reg_s, num_series, n, rows, b, r0,
+                    tile, stride, qlen + g - 1, t0);
+      __syncthreads();
+      if (mine)
+        lb_windows(reg_s + le * stride + j0, env_s, len, mu, sd, y, acc);
+    }
+    if (mine) lb_results(res_s, tg, le, j0, g, mu, sd, acc);
+  }
+  __syncthreads();
+  lb_write_out<kChunk>(res_s, tg, lb_out, mu_out, sd_out, ok, kth, slist,
+                       nsurv, dp_out, rows, g, tile);
+}
+
 // The normalized windows w (E * g, qlen) of the LB and DP tiers, from
 // (mu, sd) (E, g): a check that znorm.cuh equals the IEEE divide.
 __global__ void gather_znorm_kernel(
@@ -646,7 +976,32 @@ EdShape ed_shape(int qlen, int g, bool chunk) {
   return s;
 }
 
-template <bool kChunk>
+// The long ED kernel's block shape: a tile of kLongPoints query points
+// and the rows' region points it reads; up to kEdTile rows a block, fewer
+// where the items or the shared memory would exceed their budgets.  It
+// does not grow with qlen (items past kEdThreads take rounds).
+EdShape ed_long_shape(int qlen, int g, bool chunk) {
+  EdShape s;
+  s.qlen_pad = (qlen + kEdJ - 1) / kEdJ * kEdJ;
+  s.ngrp = (g + kEdJ - 1) / kEdJ;
+  s.stride = s.ngrp * kEdJ + kLongPoints - 1;   // odd
+  s.run_stride = 0;
+  auto smem_for = [&](int t) {
+    return sizeof(float) * ((size_t)kLongPoints + (size_t)t * s.stride +
+                            (chunk ? 2 * (size_t)t * g : 0));
+  };
+  s.tile = kEdTile;
+  while (s.tile > 1 && (s.tile * s.ngrp > kEdThreads ||
+                        smem_for(s.tile) > kEdSmemBudget))
+    s.tile /= 2;
+  s.smem = smem_for(s.tile);
+  s.threads = (s.tile * s.ngrp + 31) / 32 * 32;
+  if (s.threads < kEdMinThreads) s.threads = kEdMinThreads;
+  if (s.threads > kEdThreads) s.threads = kEdThreads;
+  return s;
+}
+
+template <bool kChunk, bool kLong>
 int launch_ed(const void* data, const void* csum, const void* csum2,
               const void* csum_lo, const void* csum2_lo, const void* center,
               const void* sids, const void* anchors, const void* n_master,
@@ -658,13 +1013,17 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
       batch > 65535 || k < 1)
     return (int)cudaErrorInvalidValue;
-  const EdShape s = ed_shape(qlen, g, kChunk);
+  const EdShape s = kLong ? ed_long_shape(qlen, g, kChunk)
+                          : ed_shape(qlen, g, kChunk);
   if (s.threads > kEdThreads || s.smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
+  // the two kernels take the same arguments; the last is the staged
+  // kernel's run stride or the long kernel's points a tile
+  auto kernel = kLong ? fused_gather_ed_long_kernel<kChunk>
+                      : fused_gather_ed_kernel<kChunk>;
   if (s.smem > kSmemBudget) {
     const int err = (int)cudaFuncSetAttribute(
-        fused_gather_ed_kernel<kChunk>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
     if (err) return err;
   }
   const int n_blocks = (rows + s.tile - 1) / s.tile;
@@ -673,8 +1032,7 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
   const long long plane = (long long)batch * n_blocks * kp;
   int* p = static_cast<int*>(part);
   const dim3 grid(n_blocks, batch);
-  fused_gather_ed_kernel<kChunk><<<grid, s.threads, s.smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, s.threads, s.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(data), static_cast<const float*>(csum),
       static_cast<const float*>(csum2), static_cast<const float*>(csum_lo),
       static_cast<const float*>(csum2_lo), static_cast<const float*>(center),
@@ -685,7 +1043,7 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
       reinterpret_cast<float*>(p), p ? p + plane : nullptr,
       p ? p + 2 * plane : nullptr, p ? p + 3 * plane : nullptr, num_series,
       n, rows, qlen, g, znorm, row_stride, col0, k, kp, s.tile, s.qlen_pad,
-      s.ngrp, s.stride, s.run_stride);
+      s.ngrp, s.stride, kLong ? kLongPoints : s.run_stride);
   return (int)cudaGetLastError();
 }
 
@@ -697,18 +1055,40 @@ extern "C" int ulisse_fused_gather_ed(
     const void* sids, const void* anchors, const void* qs, void* out,
     long long num_series, int n, int batch, int rows, int qlen, int g,
     int znorm, void* stream) {
-  return launch_ed<false>(data, csum, csum2, csum_lo, csum2_lo, center, sids,
-                          anchors, nullptr, nullptr, qs, out, nullptr,
-                          nullptr, nullptr, num_series, n, batch, rows, qlen,
-                          g, znorm, rows, 0, 1, stream);
+  return launch_ed<false, false>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, nullptr,
+      nullptr, qs, out, nullptr, nullptr, nullptr, num_series, n, batch, rows,
+      qlen, g, znorm, rows, 0, 1, stream);
+}
+
+// The long-row kernel behind the same contract (any qlen).
+extern "C" int ulisse_fused_gather_ed_long(
+    const void* data, const void* csum, const void* csum2,
+    const void* csum_lo, const void* csum2_lo, const void* center,
+    const void* sids, const void* anchors, const void* qs, void* out,
+    long long num_series, int n, int batch, int rows, int qlen, int g,
+    int znorm, void* stream) {
+  return launch_ed<false, true>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, nullptr,
+      nullptr, qs, out, nullptr, nullptr, nullptr, num_series, n, batch, rows,
+      qlen, g, znorm, rows, 0, 1, stream);
 }
 
 // Rows a block of the chunk entry takes at (qlen, g): its partials are
-// (B, ceil(rows / tile), min(k, tile * g)).  -1 where no block fits.
+// (B, ceil(rows / tile), min(k, tile * g)).  -1 where no block fits (the
+// query and its regions do not fit shared memory whole).
 extern "C" int ulisse_fused_gather_ed_chunk_tile(int qlen, int g) {
   if (qlen < 1 || g < 1) return -1;
   const EdShape s = ed_shape(qlen, g, true);
   return s.threads > kEdThreads || s.smem > kSmemMax ? -1 : s.tile;
+}
+
+// The same for the long-row chunk entry, at any qlen; -1 where no block
+// fits (g past 18,688: its candidate buffer and region tile grow with g).
+extern "C" int ulisse_fused_gather_ed_chunk_long_tile(int qlen, int g) {
+  if (qlen < 1 || g < 1) return -1;
+  const EdShape s = ed_long_shape(qlen, g, true);
+  return s.smem > kSmemMax ? -1 : s.tile;
 }
 
 extern "C" int ulisse_fused_gather_ed_chunk(
@@ -719,10 +1099,25 @@ extern "C" int ulisse_fused_gather_ed_chunk(
     void* part, long long num_series, int n, int batch, int rows, int qlen,
     int g, int znorm, long long n_pad, long long col0, int k, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
-  return launch_ed<true>(data, csum, csum2, csum_lo, csum2_lo, center, sids,
-                         anchors, n_master, lbs2, qs, nullptr, pool_d2, stats,
-                         part, num_series, n, batch, rows, qlen, g, znorm,
-                         n_pad, col0, k, stream);
+  return launch_ed<true, false>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
+      lbs2, qs, nullptr, pool_d2, stats, part, num_series, n, batch, rows,
+      qlen, g, znorm, n_pad, col0, k, stream);
+}
+
+// The long-row kernel behind the chunk entry's contract (any qlen).
+extern "C" int ulisse_fused_gather_ed_chunk_long(
+    const void* data, const void* csum, const void* csum2,
+    const void* csum_lo, const void* csum2_lo, const void* center,
+    const void* sids, const void* anchors, const void* n_master,
+    const void* lbs2, const void* qs, const void* pool_d2, void* stats,
+    void* part, long long num_series, int n, int batch, int rows, int qlen,
+    int g, int znorm, long long n_pad, long long col0, int k, void* stream) {
+  if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
+  return launch_ed<true, true>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
+      lbs2, qs, nullptr, pool_d2, stats, part, num_series, n, batch, rows,
+      qlen, g, znorm, n_pad, col0, k, stream);
 }
 
 namespace {
@@ -754,7 +1149,29 @@ LbShape lb_shape(int qlen, int g) {
   return s;
 }
 
-template <bool kChunk>
+// The long LB_Keogh kernel's block shape: a tile of kLongPoints envelope
+// points and the rows' region points it reads; up to kLbTile rows a
+// block, fewer where the shared memory would exceed its budget.  It does
+// not grow with qlen.
+LbShape lb_long_shape(int qlen, int g) {
+  LbShape s;
+  s.qlen_pad = (qlen + kLbJ - 1) / kLbJ * kLbJ;
+  s.ngrp = (g + kLbJ - 1) / kLbJ;
+  s.stride = s.ngrp * kLbJ + kLongPoints - 1;   // odd
+  auto smem_for = [&](int t) {
+    return sizeof(float) * (2 * (size_t)kLongPoints + (size_t)t * s.stride +
+                            3 * (size_t)t * g);
+  };
+  s.tile = kLbTile;
+  while (s.tile > 1 && smem_for(s.tile) > kSmemBudget) s.tile /= 2;
+  s.smem = smem_for(s.tile);
+  s.threads = s.tile * s.ngrp;
+  s.threads = s.threads > kLbMaxThreads ? kLbMaxThreads
+                                        : (s.threads + 31) / 32 * 32;
+  return s;
+}
+
+template <bool kChunk, bool kLong>
 int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
                     const void* csum_lo, const void* csum2_lo,
                     const void* center, const void* sids, const void* anchors,
@@ -766,30 +1183,49 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
       batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const LbShape sh = lb_shape(qlen, g);
+  const LbShape sh = kLong ? lb_long_shape(qlen, g) : lb_shape(qlen, g);
   const int tile = sh.tile, qlen_pad = sh.qlen_pad, ngrp = sh.ngrp;
   const int stride = sh.stride;
   const size_t smem = sh.smem;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      kLong ? (const void*)fused_gather_lb_keogh_long_kernel<kChunk>
+            : (const void*)fused_gather_lb_keogh_kernel<kChunk>;
   if (smem > kSmemBudget) {
     const int err = (int)cudaFuncSetAttribute(
-        fused_gather_lb_keogh_kernel<kChunk>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
   }
   const dim3 grid((rows + tile - 1) / tile, batch);
-  fused_gather_lb_keogh_kernel<kChunk><<<grid, sh.threads, smem,
-                                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const float*>(csum),
-      static_cast<const float*>(csum2), static_cast<const float*>(csum_lo),
-      static_cast<const float*>(csum2_lo), static_cast<const float*>(center),
-      static_cast<const int*>(sids), static_cast<const int*>(anchors),
-      static_cast<const float*>(dtw_lo), static_cast<const float*>(dtw_hi),
-      static_cast<float*>(lb), static_cast<float*>(mu),
-      static_cast<float*>(sd), static_cast<const bool*>(ok),
-      static_cast<const float*>(kth), static_cast<int*>(slist),
-      static_cast<int*>(nsurv), static_cast<float*>(dp_out), num_series, n,
-      rows, qlen, g, znorm, tile, qlen_pad, ngrp, stride);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* a_data = static_cast<const float*>(data);
+  const float* a_cs = static_cast<const float*>(csum);
+  const float* a_cs2 = static_cast<const float*>(csum2);
+  const float* a_cl = static_cast<const float*>(csum_lo);
+  const float* a_cl2 = static_cast<const float*>(csum2_lo);
+  const float* a_c = static_cast<const float*>(center);
+  const int* a_sids = static_cast<const int*>(sids);
+  const int* a_anc = static_cast<const int*>(anchors);
+  const float* a_lo = static_cast<const float*>(dtw_lo);
+  const float* a_hi = static_cast<const float*>(dtw_hi);
+  float* a_lb = static_cast<float*>(lb);
+  float* a_mu = static_cast<float*>(mu);
+  float* a_sd = static_cast<float*>(sd);
+  const bool* a_ok = static_cast<const bool*>(ok);
+  const float* a_kth = static_cast<const float*>(kth);
+  int* a_sl = static_cast<int*>(slist);
+  int* a_ns = static_cast<int*>(nsurv);
+  float* a_dp = static_cast<float*>(dp_out);
+  if (kLong)
+    fused_gather_lb_keogh_long_kernel<kChunk><<<grid, sh.threads, smem, st>>>(
+        a_data, a_cs, a_cs2, a_cl, a_cl2, a_c, a_sids, a_anc, a_lo, a_hi,
+        a_lb, a_mu, a_sd, a_ok, a_kth, a_sl, a_ns, a_dp, num_series, n, rows,
+        qlen, g, znorm, tile, qlen_pad, ngrp, stride, kLongPoints);
+  else
+    fused_gather_lb_keogh_kernel<kChunk><<<grid, sh.threads, smem, st>>>(
+        a_data, a_cs, a_cs2, a_cl, a_cl2, a_c, a_sids, a_anc, a_lo, a_hi,
+        a_lb, a_mu, a_sd, a_ok, a_kth, a_sl, a_ns, a_dp, num_series, n, rows,
+        qlen, g, znorm, tile, qlen_pad, ngrp, stride);
   return (int)cudaGetLastError();
 }
 
@@ -801,17 +1237,39 @@ extern "C" int ulisse_fused_gather_lb_keogh(
     const void* sids, const void* anchors, const void* dtw_lo,
     const void* dtw_hi, void* lb, void* mu, void* sd, long long num_series,
     int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
-  return launch_lb_keogh<false>(
+  return launch_lb_keogh<false, false>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
+      dtw_hi, lb, mu, sd, nullptr, nullptr, nullptr, nullptr, nullptr,
+      num_series, n, batch, rows, qlen, g, znorm, stream);
+}
+
+// The long-row kernel behind the same contract (any qlen).
+extern "C" int ulisse_fused_gather_lb_keogh_long(
+    const void* data, const void* csum, const void* csum2,
+    const void* csum_lo, const void* csum2_lo, const void* center,
+    const void* sids, const void* anchors, const void* dtw_lo,
+    const void* dtw_hi, void* lb, void* mu, void* sd, long long num_series,
+    int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
+  return launch_lb_keogh<false, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
       dtw_hi, lb, mu, sd, nullptr, nullptr, nullptr, nullptr, nullptr,
       num_series, n, batch, rows, qlen, g, znorm, stream);
 }
 
 // Rows a block of the LB_Keogh entries takes at (qlen, g); -1 where no
-// block fits.
+// block fits (the envelope and the regions do not fit shared memory
+// whole).
 extern "C" int ulisse_fused_gather_lb_keogh_tile(int qlen, int g) {
   if (qlen < 1 || g < 1) return -1;
   const LbShape s = lb_shape(qlen, g);
+  return s.smem > kSmemMax ? -1 : s.tile;
+}
+
+// The same for the long-row entries, at any qlen; -1 where no block fits
+// (g past 13,760: the block's results and region tile grow with g).
+extern "C" int ulisse_fused_gather_lb_keogh_long_tile(int qlen, int g) {
+  if (qlen < 1 || g < 1) return -1;
+  const LbShape s = lb_long_shape(qlen, g);
   return s.smem > kSmemMax ? -1 : s.tile;
 }
 
@@ -822,7 +1280,21 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk(
     const void* dtw_hi, const void* ok, const void* kth, void* lb, void* mu,
     void* sd, void* slist, void* nsurv, void* dp_out, long long num_series,
     int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
-  return launch_lb_keogh<true>(
+  return launch_lb_keogh<true, false>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
+      dtw_hi, lb, mu, sd, ok, kth, slist, nsurv, dp_out, num_series, n,
+      batch, rows, qlen, g, znorm, stream);
+}
+
+// The long-row kernel behind the chunk entry's contract (any qlen).
+extern "C" int ulisse_fused_gather_lb_keogh_chunk_long(
+    const void* data, const void* csum, const void* csum2,
+    const void* csum_lo, const void* csum2_lo, const void* center,
+    const void* sids, const void* anchors, const void* dtw_lo,
+    const void* dtw_hi, const void* ok, const void* kth, void* lb, void* mu,
+    void* sd, void* slist, void* nsurv, void* dp_out, long long num_series,
+    int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
+  return launch_lb_keogh<true, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
       dtw_hi, lb, mu, sd, ok, kth, slist, nsurv, dp_out, num_series, n,
       batch, rows, qlen, g, znorm, stream);

@@ -28,7 +28,11 @@
 // so a segment's B bounds come in 16-byte reads; the batch is rounded up
 // to a power of two at compile time.  It replaced a loop of one 4-byte
 // load a segment, whose warp loads touched 32 sectors 64 bytes apart.
-// Other shapes take the scalar kernel, as the PAA entry does.
+// Other shapes take the scalar kernel, as the PAA entry does.  It stages
+// the batch's query intervals (2 B nseg floats) in shared memory, opting
+// in past 48 KB; where even the card's 227 KB cannot hold them (nseg past
+// ~3,500 at B = 8) it reads them from device memory instead (B nseg 8
+// bytes, L1/L2-resident: every thread of a warp reads the same word).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -36,8 +40,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBatch = 8;
+constexpr size_t kSmemDefault = 48 * 1024;
+constexpr size_t kSmemMax = 227 * 1024;
 
-template <bool kSym>
+// kSmemQ: the query intervals staged in shared memory (else read from
+// device memory in place).
+template <bool kSym, bool kSmemQ>
 __global__ void mindist_kernel(const void* __restrict__ lo_,
                                const void* __restrict__ hi_,
                                const float* __restrict__ breakpoints,
@@ -48,11 +56,12 @@ __global__ void mindist_kernel(const void* __restrict__ lo_,
                                float* __restrict__ out, long long n, int w,
                                int nseg, int batch, float seg_len) {
   extern __shared__ float smem[];
-  float* sq_lo = smem;                       // [batch * nseg]
-  float* sq_hi = sq_lo + batch * nseg;       // [batch * nseg]
-  float* beta_lo = sq_hi + batch * nseg;     // [card] (symbol entry only)
+  const int staged = kSmemQ ? batch * nseg : 0;
+  float* sq_lo = smem;                       // [batch * nseg] (kSmemQ)
+  float* sq_hi = sq_lo + staged;             // [batch * nseg] (kSmemQ)
+  float* beta_lo = sq_hi + staged;           // [card] (symbol entry only)
   float* beta_hi = beta_lo + card;           // [card]
-  for (int i = threadIdx.x; i < batch * nseg; i += blockDim.x) {
+  for (int i = threadIdx.x; i < staged; i += blockDim.x) {
     const int b = i / nseg, s = i % nseg;
     sq_lo[i] = q_lo[b * q_stride + s];
     sq_hi[i] = q_hi[b * q_stride + s];
@@ -91,8 +100,11 @@ __global__ void mindist_kernel(const void* __restrict__ lo_,
 #pragma unroll
     for (int b = 0; b < kMaxBatch; ++b) {
       if (b < batch) {
-        float gap = fmaxf(fmaxf(__fsub_rn(elo, sq_hi[b * nseg + s]),
-                                __fsub_rn(sq_lo[b * nseg + s], ehi)),
+        const float ql = kSmemQ ? sq_lo[b * nseg + s]
+                                : __ldg(q_lo + (long long)b * q_stride + s);
+        const float qh = kSmemQ ? sq_hi[b * nseg + s]
+                                : __ldg(q_hi + (long long)b * q_stride + s);
+        float gap = fmaxf(fmaxf(__fsub_rn(elo, qh), __fsub_rn(ql, ehi)),
                           0.f);
         if (!isfinite(gap)) gap = 0.f;
         acc[b] = __fadd_rn(acc[b], __fmul_rn(gap, gap));
@@ -237,21 +249,44 @@ int dispatch_batch(int batch, const int* lo, const int* hi,
                                       batch, seg_len, stream);
 }
 
+template <bool kSym, bool kSmemQ>
+int launch_scalar(const void* lo, const void* hi, const float* breakpoints,
+                  int card, const float* q_lo, const float* q_hi,
+                  int q_stride, const bool* valid, float* out, long long n,
+                  int w, int nseg, int batch, float seg_len,
+                  cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((kSmemQ ? 2 * (size_t)batch * nseg
+                                               : 0) +
+                                       (kSym ? 2 * (size_t)card : 0));
+  if (smem > kSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mindist_kernel<kSym, kSmemQ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  mindist_kernel<kSym, kSmemQ><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      lo, hi, breakpoints, card, q_lo, q_hi, q_stride, valid, out, n, w,
+      nseg, batch, seg_len);
+  return (int)cudaGetLastError();
+}
+
 template <bool kSym>
 int launch(const void* lo, const void* hi, const float* breakpoints,
            int card, const float* q_lo, const float* q_hi, int q_stride,
            const bool* valid, float* out, long long n, int w, int nseg,
            int batch, float seg_len, cudaStream_t stream) {
   if (batch < 1 || batch > kMaxBatch || nseg < 0 || nseg > w ||
-      nseg > q_stride)
+      nseg > q_stride || (kSym && 2 * (size_t)card * sizeof(float) >
+                                      kSmemMax))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(float) * (2 * batch * nseg + (kSym ? 2 * card : 0));
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  mindist_kernel<kSym><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  const size_t staged = sizeof(float) * (2 * (size_t)batch * nseg +
+                                         (kSym ? 2 * (size_t)card : 0));
+  return (staged <= kSmemMax ? launch_scalar<kSym, true>
+                             : launch_scalar<kSym, false>)(
       lo, hi, breakpoints, card, q_lo, q_hi, q_stride, valid, out, n, w,
-      nseg, batch, seg_len);
-  return (int)cudaGetLastError();
+      nseg, batch, seg_len, stream);
 }
 
 }  // namespace

@@ -14,6 +14,14 @@ LB_Keogh against the query's DTW envelope, with the (mu, sd) the DTW
 tier reuses; `fused_gather_lb_keogh_chunk` is the scan's entry to the
 same kernel, which also masks, lists the survivors and prepares the DP's
 output; `gather_znorm` writes the kernels' normalized windows (a check).
+Each of the four entries stages the query (or its DTW envelope) and the
+rows' regions in shared memory whole where they fit; where they do not
+(qlen past 28,768 for ED, 19,304 for LB_Keogh at g = 49) it hands the
+call to its long-row variant (`fused_gather_ed_long`,
+`fused_gather_ed_chunk_long`, `fused_gather_lb_keogh_long`,
+`fused_gather_lb_keogh_chunk_long`: the same contract and the same bits,
+the query streamed through shared memory in tiles of points), each a
+wrapper of its own with its own count, so any qlen runs on the card.
 The kernels are `csrc/fused_verify.cu`; the plain versions are
 `ref.fused_gather_ed_ref`, `ref.fused_gather_ed_chunk_ref`,
 `ref.fused_gather_lb_keogh_ref`,
@@ -53,6 +61,53 @@ def _check(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
         raise ValueError(f"{what}: qlen={qlen} outside [1, {n}]")
 
 
+@functools.lru_cache(maxsize=None)
+def staged(measure: str, qlen: int, g: int) -> bool:
+    """Whether the staged kernel of `measure` ("ed" or "dtw") takes
+    (qlen, g) on the card: one block stages a row's region and the query
+    (or its DTW envelope) in shared memory.  Else the entries hand the
+    call to their long-row variants."""
+    lib = _build.library("fused_verify")
+    tile = (lib.ulisse_fused_gather_ed_chunk_tile if measure == "ed"
+            else lib.ulisse_fused_gather_lb_keogh_tile)
+    return tile(qlen, g) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def card_takes(measure: str, qlen: int, g: int) -> bool:
+    """Whether the card's chunk entry of `measure` takes (qlen, g) at
+    all, staged or through its long-row variant: the variant's shared
+    memory does not grow with qlen but does with g (it takes g <= 18,688
+    for ED and g <= 13,760 for LB_Keogh)."""
+    lib = _build.library("fused_verify")
+    tile = (lib.ulisse_fused_gather_ed_chunk_long_tile if measure == "ed"
+            else lib.ulisse_fused_gather_lb_keogh_long_tile)
+    return staged(measure, qlen, g) or tile(qlen, g) > 0
+
+
+def _ed(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center,
+        sids, anchors, qs, g, rows, znorm):
+    dev = data.device
+    s, n = data.shape
+    b, qlen = qs.shape
+    _check(wrapper.__name__, data, csum, csum2, csum_lo, csum2_lo, center,
+           sids, anchors, rows, (("qs", qs),))
+    if dev.type == "cpu":
+        return ref.fused_gather_ed_ref(data, csum, csum2, csum_lo, csum2_lo,
+                                       center, sids, anchors, qs, g=g,
+                                       rows=rows, znorm=znorm)
+    out = torch.empty((b * rows, g), dtype=torch.float32, device=dev)
+    code = getattr(_build.library("fused_verify"), entry)(
+        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
+        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
+        sids.data_ptr(), anchors.data_ptr(), qs.data_ptr(), out.data_ptr(),
+        s, n, b, rows, qlen, g, int(znorm),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
 def fused_gather_ed(data: torch.Tensor, csum: torch.Tensor,
                     csum2: torch.Tensor, csum_lo: torch.Tensor,
                     csum2_lo: torch.Tensor, center: torch.Tensor,
@@ -66,59 +121,92 @@ def fused_gather_ed(data: torch.Tensor, csum: torch.Tensor,
     sids/anchors (B * rows,) int32 — query b's chunk is rows
     [b*rows, (b+1)*rows); qs (B, qlen) prepared queries.  Returns
     (B * rows, g) float32; windows overrunning their series are garbage
-    (the caller masks them).
+    (the caller masks them).  On the card a qlen past the staged
+    kernel's goes to `fused_gather_ed_long`.
     """
-    dev = data.device
-    s, n = data.shape
-    b, qlen = qs.shape
-    _check("fused_gather_ed", data, csum, csum2, csum_lo, csum2_lo, center,
-           sids, anchors, rows, (("qs", qs),))
-    if dev.type == "cpu":
-        return ref.fused_gather_ed_ref(data, csum, csum2, csum_lo, csum2_lo,
-                                       center, sids, anchors, qs, g=g,
-                                       rows=rows, znorm=znorm)
-    out = torch.empty((b * rows, g), dtype=torch.float32, device=dev)
-    lib = _build.library("fused_verify")
-    code = lib.ulisse_fused_gather_ed(
-        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
-        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
-        sids.data_ptr(), anchors.data_ptr(), qs.data_ptr(), out.data_ptr(),
-        s, n, b, rows, qlen, g, int(znorm),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "fused_gather_ed")
-    fused_gather_ed.launches += 1
-    return out
+    if qs.device.type == "cuda" and not staged("ed", qs.shape[1], g):
+        return fused_gather_ed_long(data, csum, csum2, csum_lo, csum2_lo,
+                                    center, sids, anchors, qs, g=g,
+                                    rows=rows, znorm=znorm)
+    return _ed(fused_gather_ed, "ulisse_fused_gather_ed", data, csum, csum2,
+               csum_lo, csum2_lo, center, sids, anchors, qs, g, rows, znorm)
 
 
 fused_gather_ed.launches = 0
 
 
+def fused_gather_ed_long(data: torch.Tensor, csum: torch.Tensor,
+                         csum2: torch.Tensor, csum_lo: torch.Tensor,
+                         csum2_lo: torch.Tensor, center: torch.Tensor,
+                         sids: torch.Tensor, anchors: torch.Tensor,
+                         qs: torch.Tensor, *, g: int, rows: int,
+                         znorm: bool) -> torch.Tensor:
+    """`fused_gather_ed` through the long-row kernel, at any qlen: the
+    same result, bit for bit where both take the shape."""
+    return _ed(fused_gather_ed_long, "ulisse_fused_gather_ed_long", data,
+               csum, csum2, csum_lo, csum2_lo, center, sids, anchors, qs, g,
+               rows, znorm)
+
+
+fused_gather_ed_long.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
-def ed_chunk_tile(qlen: int, g: int) -> int:
-    """Rows a block of the ED chunk entry takes at (qlen, g): its
-    partials are (4, B, ceil(rows / tile) * min(k, tile * g))."""
-    tile = _build.library("fused_verify").ulisse_fused_gather_ed_chunk_tile(
-        qlen, g)
+def ed_chunk_tile(qlen: int, g: int, long: bool = False) -> int:
+    """Rows a block of the ED chunk entry (of its long-row variant where
+    `long`) takes at (qlen, g): its partials are (4, B, ceil(rows / tile)
+    * min(k, tile * g))."""
+    lib = _build.library("fused_verify")
+    tile = (lib.ulisse_fused_gather_ed_chunk_long_tile if long
+            else lib.ulisse_fused_gather_ed_chunk_tile)(qlen, g)
     if tile < 1:
         raise ValueError(f"fused_gather_ed_chunk: no block fits qlen={qlen},"
                          f" g={g}")
     return tile
 
 
-@functools.lru_cache(maxsize=None)
-def chunk_qlen_limit(measure: str, g: int) -> int:
-    """The longest query the scan's chunk entry of `measure` ("ed" or
-    "dtw") takes on the card at g masters an envelope: one block stages
-    a row's region and the query (or its DTW envelope) in shared memory.
-    """
+def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
+              sids, anchors, n_master, lbs2, qs, pool_d2, stats, i, chunk, g,
+              znorm):
+    dev = data.device
+    s, n = data.shape
+    b, qlen = qs.shape
+    n_pad = sids.shape[1]
+    k = pool_d2.shape[1]
+    what = wrapper.__name__
+    _check(what, data, csum, csum2, csum_lo, csum2_lo, center,
+           sids.reshape(-1), anchors.reshape(-1), n_pad, (("qs", qs),))
+    _build.check_tensors(what, dev, (
+        ("sids", sids, torch.int32, (b, n_pad)),
+        ("anchors", anchors, torch.int32, (b, n_pad)),
+        ("n_master", n_master, torch.int32, (b, n_pad)),
+        ("lbs2", lbs2, torch.float32, (b, n_pad)),
+        ("pool_d2", pool_d2, torch.float32, (b, k)),
+        ("stats", stats, torch.int32, (b, 6))))
+    if not (chunk >= 1 and 0 <= i * chunk and (i + 1) * chunk <= n_pad):
+        raise ValueError(f"{what}: chunk {i} of {chunk} rows outside the "
+                         f"plan's {n_pad} columns")
+    if dev.type == "cpu":
+        return ref.fused_gather_ed_chunk_ref(
+            data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+            n_master, lbs2, qs, pool_d2, stats, i=i, chunk=chunk, g=g,
+            znorm=znorm)
     lib = _build.library("fused_verify")
-    tile = (lib.ulisse_fused_gather_ed_chunk_tile if measure == "ed"
-            else lib.ulisse_fused_gather_lb_keogh_tile)
-    lo, hi = 0, 1 << 24                  # fits(lo); not fits(hi)
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if tile(mid, g) > 0 else (lo, mid)
-    return lo
+    tile = ed_chunk_tile(qlen, g, long)
+    part = torch.empty((4, b, -(-chunk // tile) * min(k, tile * g)),
+                       dtype=torch.int32, device=dev)
+    entry = (lib.ulisse_fused_gather_ed_chunk_long if long
+             else lib.ulisse_fused_gather_ed_chunk)
+    code = entry(
+        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
+        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
+        sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
+        lbs2.data_ptr(), qs.data_ptr(), pool_d2.data_ptr(), stats.data_ptr(),
+        part.data_ptr(), s, n, b, chunk, qlen, g, int(znorm), n_pad,
+        i * chunk, k, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, what)
+    wrapper.launches += 1
+    return part
 
 
 def fused_gather_ed_chunk(data: torch.Tensor, csum: torch.Tensor,
@@ -142,48 +230,61 @@ def fused_gather_ed_chunk(data: torch.Tensor, csum: torch.Tensor,
     bits), sid, off and candidate position.  On the card each block of
     `ed_chunk_tile` rows keeps its min(k, tile * g) least candidates with
     d2 < the pool's k-th; on the CPU the partials are every candidate
-    (+inf where not ok).
+    (+inf where not ok).  On the card a qlen past the staged kernel's
+    goes to `fused_gather_ed_chunk_long`.
     """
-    dev = data.device
-    s, n = data.shape
-    b, qlen = qs.shape
-    n_pad = sids.shape[1]
-    k = pool_d2.shape[1]
-    _check("fused_gather_ed_chunk", data, csum, csum2, csum_lo, csum2_lo,
-           center, sids.reshape(-1), anchors.reshape(-1), n_pad,
-           (("qs", qs),))
-    _build.check_tensors("fused_gather_ed_chunk", dev, (
-        ("sids", sids, torch.int32, (b, n_pad)),
-        ("anchors", anchors, torch.int32, (b, n_pad)),
-        ("n_master", n_master, torch.int32, (b, n_pad)),
-        ("lbs2", lbs2, torch.float32, (b, n_pad)),
-        ("pool_d2", pool_d2, torch.float32, (b, k)),
-        ("stats", stats, torch.int32, (b, 6))))
-    if not (chunk >= 1 and 0 <= i * chunk and (i + 1) * chunk <= n_pad):
-        raise ValueError(f"fused_gather_ed_chunk: chunk {i} of {chunk} rows "
-                         f"outside the plan's {n_pad} columns")
-    if dev.type == "cpu":
-        return ref.fused_gather_ed_chunk_ref(
-            data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-            n_master, lbs2, qs, pool_d2, stats, i=i, chunk=chunk, g=g,
-            znorm=znorm)
-    lib = _build.library("fused_verify")
-    tile = ed_chunk_tile(qlen, g)
-    part = torch.empty((4, b, -(-chunk // tile) * min(k, tile * g)),
-                       dtype=torch.int32, device=dev)
-    code = lib.ulisse_fused_gather_ed_chunk(
-        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
-        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
-        sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
-        lbs2.data_ptr(), qs.data_ptr(), pool_d2.data_ptr(), stats.data_ptr(),
-        part.data_ptr(), s, n, b, chunk, qlen, g, int(znorm), n_pad,
-        i * chunk, k, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "fused_gather_ed_chunk")
-    fused_gather_ed_chunk.launches += 1
-    return part
+    long = qs.device.type == "cuda" and not staged("ed", qs.shape[1], g)
+    return _ed_chunk(
+        fused_gather_ed_chunk_long if long else fused_gather_ed_chunk, long,
+        data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        n_master, lbs2, qs, pool_d2, stats, i, chunk, g, znorm)
 
 
 fused_gather_ed_chunk.launches = 0
+
+
+def fused_gather_ed_chunk_long(data: torch.Tensor, csum: torch.Tensor,
+                               csum2: torch.Tensor, csum_lo: torch.Tensor,
+                               csum2_lo: torch.Tensor, center: torch.Tensor,
+                               sids: torch.Tensor, anchors: torch.Tensor,
+                               n_master: torch.Tensor, lbs2: torch.Tensor,
+                               qs: torch.Tensor, pool_d2: torch.Tensor,
+                               stats: torch.Tensor, *, i: int, chunk: int,
+                               g: int, znorm: bool) -> torch.Tensor:
+    """`fused_gather_ed_chunk` through the long-row kernel, at any qlen:
+    the same counters and, at a qlen both take, the same partials bit
+    for bit (blocks of `ed_chunk_tile(qlen, g, long=True)` rows)."""
+    return _ed_chunk(fused_gather_ed_chunk_long, True, data, csum, csum2,
+                     csum_lo, csum2_lo, center, sids, anchors, n_master,
+                     lbs2, qs, pool_d2, stats, i, chunk, g, znorm)
+
+
+fused_gather_ed_chunk_long.launches = 0
+
+
+def _lb(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center, sids,
+        anchors, dtw_lo, dtw_hi, g, rows, znorm):
+    dev = data.device
+    s, n = data.shape
+    b, qlen = dtw_lo.shape
+    _check(wrapper.__name__, data, csum, csum2, csum_lo, csum2_lo, center,
+           sids, anchors, rows, (("dtw_lo", dtw_lo), ("dtw_hi", dtw_hi)))
+    if dev.type == "cpu":
+        return ref.fused_gather_lb_keogh_ref(
+            data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+            dtw_lo, dtw_hi, g=g, rows=rows, znorm=znorm)
+    lb, mu, sd = torch.empty((3, b * rows, g), dtype=torch.float32,
+                             device=dev)
+    code = getattr(_build.library("fused_verify"), entry)(
+        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
+        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
+        sids.data_ptr(), anchors.data_ptr(), dtw_lo.data_ptr(),
+        dtw_hi.data_ptr(), lb.data_ptr(), mu.data_ptr(), sd.data_ptr(),
+        s, n, b, rows, qlen, g, int(znorm),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    return lb, mu, sd
 
 
 def fused_gather_lb_keogh(data: torch.Tensor, csum: torch.Tensor,
@@ -199,34 +300,69 @@ def fused_gather_lb_keogh(data: torch.Tensor, csum: torch.Tensor,
     dtw_lo/dtw_hi (B, qlen) in place of the queries.  Returns (lb2, mu,
     sd), each (B * rows, g) float32; raw mode gives mu = 0 and sd = 1.
     Windows overrunning their series are garbage (the caller masks
-    them).
+    them).  On the card a qlen past the staged kernel's goes to
+    `fused_gather_lb_keogh_long`.
     """
-    dev = data.device
-    s, n = data.shape
-    b, qlen = dtw_lo.shape
-    _check("fused_gather_lb_keogh", data, csum, csum2, csum_lo, csum2_lo,
-           center, sids, anchors, rows, (("dtw_lo", dtw_lo),
-                                         ("dtw_hi", dtw_hi)))
-    if dev.type == "cpu":
-        return ref.fused_gather_lb_keogh_ref(
+    if dtw_lo.device.type == "cuda" and not staged("dtw", dtw_lo.shape[1], g):
+        return fused_gather_lb_keogh_long(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             dtw_lo, dtw_hi, g=g, rows=rows, znorm=znorm)
-    lb, mu, sd = torch.empty((3, b * rows, g), dtype=torch.float32,
-                             device=dev)
-    lib = _build.library("fused_verify")
-    code = lib.ulisse_fused_gather_lb_keogh(
-        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
-        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
-        sids.data_ptr(), anchors.data_ptr(), dtw_lo.data_ptr(),
-        dtw_hi.data_ptr(), lb.data_ptr(), mu.data_ptr(), sd.data_ptr(),
-        s, n, b, rows, qlen, g, int(znorm),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "fused_gather_lb_keogh")
-    fused_gather_lb_keogh.launches += 1
-    return lb, mu, sd
+    return _lb(fused_gather_lb_keogh, "ulisse_fused_gather_lb_keogh", data,
+               csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
+               dtw_hi, g, rows, znorm)
 
 
 fused_gather_lb_keogh.launches = 0
+
+
+def fused_gather_lb_keogh_long(data: torch.Tensor, csum: torch.Tensor,
+                               csum2: torch.Tensor, csum_lo: torch.Tensor,
+                               csum2_lo: torch.Tensor, center: torch.Tensor,
+                               sids: torch.Tensor, anchors: torch.Tensor,
+                               dtw_lo: torch.Tensor, dtw_hi: torch.Tensor, *,
+                               g: int, rows: int, znorm: bool):
+    """`fused_gather_lb_keogh` through the long-row kernel, at any qlen:
+    the same (lb2, mu, sd), bit for bit where both take the shape."""
+    return _lb(fused_gather_lb_keogh_long, "ulisse_fused_gather_lb_keogh_long",
+               data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+               dtw_lo, dtw_hi, g, rows, znorm)
+
+
+fused_gather_lb_keogh_long.launches = 0
+
+
+def _lb_chunk(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center,
+              sids, anchors, dtw_lo, dtw_hi, ok, kth, g, rows, znorm):
+    dev = data.device
+    s, n = data.shape
+    b, qlen = dtw_lo.shape
+    m = rows * g
+    what = wrapper.__name__
+    _check(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
+           anchors, rows, (("dtw_lo", dtw_lo), ("dtw_hi", dtw_hi)))
+    _build.check_tensors(what, dev, (
+        ("ok", ok, torch.bool, (b, m)),
+        ("kth", kth, torch.float32, (b,))))
+    if dev.type == "cpu":
+        return ref.fused_gather_lb_keogh_chunk_ref(
+            data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+            dtw_lo, dtw_hi, ok, kth, g=g, rows=rows, znorm=znorm)
+    lb, mu, sd = torch.empty((3, b * rows, g), dtype=torch.float32,
+                             device=dev)
+    slist = torch.empty((b, m), dtype=torch.int32, device=dev)
+    nsurv = torch.zeros(b, dtype=torch.int32, device=dev)
+    d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
+    code = getattr(_build.library("fused_verify"), entry)(
+        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
+        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
+        sids.data_ptr(), anchors.data_ptr(), dtw_lo.data_ptr(),
+        dtw_hi.data_ptr(), ok.data_ptr(), kth.data_ptr(), lb.data_ptr(),
+        mu.data_ptr(), sd.data_ptr(), slist.data_ptr(), nsurv.data_ptr(),
+        d2.data_ptr(), s, n, b, rows, qlen, g, int(znorm),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, what)
+    wrapper.launches += 1
+    return lb, mu, sd, slist, nsurv, d2
 
 
 def fused_gather_lb_keogh_chunk(data: torch.Tensor, csum: torch.Tensor,
@@ -246,42 +382,39 @@ def fused_gather_lb_keogh_chunk(data: torch.Tensor, csum: torch.Tensor,
     b's survivors (lb2 < kth[b]) are the positions slist[b, :nsurv[b]]
     (int32; in any order on the card, ascending on the CPU) and nsurv
     (B,) int32 counts them, on the device; d2 (B, M) float32 is +inf at
-    every non-survivor, for `dtw_survivors` to fill the rest.
+    every non-survivor, for `dtw_survivors` to fill the rest.  On the
+    card a qlen past the staged kernel's goes to
+    `fused_gather_lb_keogh_chunk_long`.
     """
-    dev = data.device
-    s, n = data.shape
-    b, qlen = dtw_lo.shape
-    m = rows * g
-    _check("fused_gather_lb_keogh_chunk", data, csum, csum2, csum_lo,
-           csum2_lo, center, sids, anchors, rows, (("dtw_lo", dtw_lo),
-                                                   ("dtw_hi", dtw_hi)))
-    _build.check_tensors("fused_gather_lb_keogh_chunk", dev, (
-        ("ok", ok, torch.bool, (b, m)),
-        ("kth", kth, torch.float32, (b,))))
-    if dev.type == "cpu":
-        return ref.fused_gather_lb_keogh_chunk_ref(
+    if dtw_lo.device.type == "cuda" and not staged("dtw", dtw_lo.shape[1], g):
+        return fused_gather_lb_keogh_chunk_long(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             dtw_lo, dtw_hi, ok, kth, g=g, rows=rows, znorm=znorm)
-    lb, mu, sd = torch.empty((3, b * rows, g), dtype=torch.float32,
-                             device=dev)
-    slist = torch.empty((b, m), dtype=torch.int32, device=dev)
-    nsurv = torch.zeros(b, dtype=torch.int32, device=dev)
-    d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
-    lib = _build.library("fused_verify")
-    code = lib.ulisse_fused_gather_lb_keogh_chunk(
-        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
-        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
-        sids.data_ptr(), anchors.data_ptr(), dtw_lo.data_ptr(),
-        dtw_hi.data_ptr(), ok.data_ptr(), kth.data_ptr(), lb.data_ptr(),
-        mu.data_ptr(), sd.data_ptr(), slist.data_ptr(), nsurv.data_ptr(),
-        d2.data_ptr(), s, n, b, rows, qlen, g, int(znorm),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "fused_gather_lb_keogh_chunk")
-    fused_gather_lb_keogh_chunk.launches += 1
-    return lb, mu, sd, slist, nsurv, d2
+    return _lb_chunk(fused_gather_lb_keogh_chunk,
+                     "ulisse_fused_gather_lb_keogh_chunk", data, csum, csum2,
+                     csum_lo, csum2_lo, center, sids, anchors, dtw_lo, dtw_hi,
+                     ok, kth, g, rows, znorm)
 
 
 fused_gather_lb_keogh_chunk.launches = 0
+
+
+def fused_gather_lb_keogh_chunk_long(
+        data: torch.Tensor, csum: torch.Tensor, csum2: torch.Tensor,
+        csum_lo: torch.Tensor, csum2_lo: torch.Tensor, center: torch.Tensor,
+        sids: torch.Tensor, anchors: torch.Tensor, dtw_lo: torch.Tensor,
+        dtw_hi: torch.Tensor, ok: torch.Tensor, kth: torch.Tensor, *,
+        g: int, rows: int, znorm: bool):
+    """`fused_gather_lb_keogh_chunk` through the long-row kernel, at any
+    qlen: the same outputs, bit for bit where both take the shape (the
+    survivor list in any order)."""
+    return _lb_chunk(fused_gather_lb_keogh_chunk_long,
+                     "ulisse_fused_gather_lb_keogh_chunk_long", data, csum,
+                     csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
+                     dtw_hi, ok, kth, g, rows, znorm)
+
+
+fused_gather_lb_keogh_chunk_long.launches = 0
 
 
 def gather_znorm(data: torch.Tensor, sids: torch.Tensor,

@@ -42,8 +42,10 @@ from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
                                           envelope_znorm_masters)
 from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
 from repro_torch.kernels.fused_verify import (  # noqa: E402
-    fused_gather_ed, fused_gather_ed_chunk, fused_gather_lb_keogh,
-    fused_gather_lb_keogh_chunk, gather_znorm)
+    fused_gather_ed, fused_gather_ed_chunk, fused_gather_ed_chunk_long,
+    fused_gather_ed_long, fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
+    fused_gather_lb_keogh_chunk_long, fused_gather_lb_keogh_long,
+    gather_znorm)
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
 from repro_torch.kernels.pool_merge import (  # noqa: E402
     pool_merge, pool_merge_partials)
@@ -130,15 +132,20 @@ def _seed_pool(rng, dev, d2_all, k):
     return [_t(d2, dev), _t(sid, dev), _t(sid.copy(), dev)]
 
 
-def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0):
+def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0,
+                   entry=fused_gather_ed_chunk, counted=fused_gather_ed_chunk,
+                   n=256):
     """Every chunk of a plan through (chunk entry + partials merge) and
     through the plain step (the contract entry's distances masked, the
     counters, the stable-sort merge) from one seed: the pools and
-    counters must be equal bit for bit after every step."""
+    counters must be equal bit for bit after every step.  `entry` is
+    the chunk wrapper called, `counted` the one whose launch it counts;
+    n the series length."""
     rng = np.random.default_rng(seed + k + qlen + znorm + chunk)
     g, b = 49, 8
     n_pad = chunk * n_chunks
-    c, sids, anchors, n_master, qs_np = _ed_plan(rng, dev, b, n_pad, qlen)
+    c, sids, anchors, n_master, qs_np = _ed_plan(rng, dev, b, n_pad, qlen,
+                                                 n=n)
     qs = _t(qs_np, dev)
     a0 = (c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center)
     d2_all = fused_gather_ed(*a0, sids.reshape(-1), anchors.reshape(-1), qs,
@@ -159,16 +166,13 @@ def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0):
             chunk=chunk, g=g, znorm=znorm, dist=dist)
         for t, v in zip(plain, ref.pool_merge_partials_ref(plain, part)):
             t.copy_(v)
-        before = (fused_gather_ed_chunk.launches,
-                  pool_merge_partials.launches)
-        part = fused_gather_ed_chunk(*a0, sids, anchors, n_master, lbs2, qs,
-                                     pool[0], st, i=i, chunk=chunk, g=g,
-                                     znorm=znorm)
+        before = (counted.launches, pool_merge_partials.launches)
+        part = entry(*a0, sids, anchors, n_master, lbs2, qs, pool[0], st,
+                     i=i, chunk=chunk, g=g, znorm=znorm)
         pool_merge_partials(pool, part)
         torch.cuda.synchronize()
-        assert (fused_gather_ed_chunk.launches,
-                pool_merge_partials.launches) == (before[0] + 1,
-                                                  before[1] + 1)
+        assert (counted.launches, pool_merge_partials.launches) == \
+            (before[0] + 1, before[1] + 1)
         for x, y in zip(pool, plain):
             assert torch.equal(x, y), f"step {i}: pools differ"
         assert torch.equal(st, st_plain), f"step {i}: counters differ"
@@ -410,28 +414,35 @@ def test_fused_gather_lb_keogh_chunk_matches_plain(dev, rows, qlen, r,
     as the plain entry (none for query 0, all ok for query 7), +inf in
     the DP's output at every non-survivor."""
     rng = np.random.default_rng(rows + qlen + znorm)
-    g, b = 49, 8
-    args = _chunk_args(dev, rng, rows, qlen, r)
+    _lb_chunk_check(dev, rng, _chunk_args(dev, rng, rows, qlen, r), rows,
+                    znorm)
+
+
+def _lb_chunk_check(dev, rng, args, rows, znorm,
+                    counted=fused_gather_lb_keogh_chunk, b=8, g=49):
+    """The LB chunk entry (through `fused_gather_lb_keogh_chunk`, one
+    launch counted by `counted`) against its plain version: see
+    test_fused_gather_lb_keogh_chunk_matches_plain."""
     ok = _t(rng.random((b, rows * g)) > 0.2, dev)
     lb_all = ref.fused_gather_lb_keogh_ref(*args, g=g, rows=rows,
                                            znorm=znorm)[0].reshape(b, -1)
     kth = torch.where(ok, lb_all, float("inf")).sort(dim=1).values[
         :, rows * g // 10].contiguous()
-    kth[0], kth[7] = -float("inf"), float("inf")
-    before = fused_gather_lb_keogh_chunk.launches
+    kth[0], kth[b - 1] = -float("inf"), float("inf")
+    before = counted.launches
     got = fused_gather_lb_keogh_chunk(*args, ok, kth, g=g, rows=rows,
                                       znorm=znorm)
     want = ref.fused_gather_lb_keogh_chunk_ref(*args, ok, kth, g=g,
                                                rows=rows, znorm=znorm)
     torch.cuda.synchronize()
-    assert fused_gather_lb_keogh_chunk.launches == before + 1
+    assert counted.launches == before + 1
     _close(got[0], want[0], 2e-4, 2e-3)
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     # the survivor set: the plain version's, from the kernel's own lb2
     # (an lb2 within rounding of kth may fall on either side)
     surv = got[0].reshape(b, -1) < kth[:, None]
     assert torch.equal(got[4], surv.sum(dim=1, dtype=torch.int32))
-    assert int(got[4][0]) == 0 and int(got[4][7]) == int(ok[7].sum())
+    assert int(got[4][0]) == 0 and int(got[4][-1]) == int(ok[-1].sum())
     for i in range(b):
         listed = got[3][i, :int(got[4][i])].sort().values
         assert torch.equal(listed.long(), surv[i].nonzero()[:, 0])
@@ -500,15 +511,25 @@ def test_dtw_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
 
 # -- slice 3: the index build's and the host backend's kernels -------------
 
-@pytest.mark.parametrize("qlen,qb", [(160, 1), (256, 1), (160, 8),
-                                     (256, 8), (97, 3), (64, 11)])
+@pytest.mark.parametrize("n,qlen,qb,at", [
+    (25_088, 160, 1, 0), (25_088, 256, 1, 0), (25_088, 160, 8, 0),
+    (25_088, 256, 8, 0), (25_088, 97, 3, 0), (25_088, 64, 11, 0),
+    (25_088, 256, 2, 0), (25_088, 256, 5, 0), (25_088, 160, 9, 0),
+    (25_088, 97, 2, 1), (1, 256, 1, 0), (1, 160, 9, 0), (7, 97, 5, 1),
+    (7, 256, 3, 0)])
 @pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
-def test_batch_ed_matches_plain(dev, qlen, qb, znorm):
-    """The host chunk's 25,088 windows at the path's lengths, a length
-    that is not a multiple of 4 (scalar loads) and 11 queries (two
-    register groups)."""
-    rng = np.random.default_rng(qlen + qb)
-    w = _t((rng.normal(size=(25_088, qlen)) * 3 + 1).astype(np.float32), dev)
+def test_batch_ed_matches_plain(dev, n, qlen, qb, at, znorm):
+    """The host chunk's 25,088 windows (and 1 and 7) at the path's
+    lengths, every query group (Qb 1, 2, 3, 5, 8, and 9 and 11: two
+    register groups), a length that is not a multiple of 4 (scalar
+    loads), and windows that start 4 bytes into their buffer (`at`: a
+    slice at row offset 1 of an odd L, not 16-byte aligned); one launch
+    each."""
+    rng = np.random.default_rng(n + qlen + qb + at)
+    buf = _t((rng.normal(size=(n + at, qlen)) * 3 + 1).astype(np.float32),
+             dev)
+    w = buf[at:]
+    assert w.is_contiguous() and (w.data_ptr() % 16 != 0) == (at > 0)
     q = _t(rng.normal(size=(qb, qlen)).astype(np.float32), dev)
     if znorm:
         q = ((q - q.mean(-1, keepdim=True))
@@ -734,12 +755,13 @@ def test_dtw_narrow_and_wide_entries_bit_equal(dev, znorm):
 
 
 @pytest.mark.parametrize("l,qb,launches", [(12_300, 1, 1), (12_301, 1, 1),
-                                           (2_048, 8, 2), (2_048, 11, 3)])
+                                           (2_048, 8, 1), (2_048, 11, 1),
+                                           (12_301, 3, 1), (2_049, 9, 1)])
 @pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
 def test_batch_ed_long_rows_match_plain(dev, l, qb, launches, znorm):
-    """Shapes past the 48 KB of staging: one query longer than it (tiles
-    of L; 12,301 takes scalar loads) and query groups of 5, one launch a
-    group; rtol 2e-4 / atol 2e-3."""
+    """Long rows, streamed in steps of 128 points (12,301 and 2,049 take
+    scalar loads), and batches past one register group of 8 queries: one
+    launch each; rtol 2e-4 / atol 2e-3."""
     rng = np.random.default_rng(l + qb)
     w = _t((rng.normal(size=(1_000, l)) * 3 + 1).astype(np.float32), dev)
     q = _t(rng.normal(size=(qb, l)).astype(np.float32), dev)
@@ -854,17 +876,14 @@ def test_dtw_engine_long_queries_on_cuda_equal_cpu(dev, znorm):
                 dataclasses.asdict(b.stats)
 
 
-def test_engine_refuses_queries_past_the_lb_chunk_entry(dev):
-    """A DTW query longer than the device scan's LB_Keogh chunk entry
-    takes (its shared-memory staging: qlen <= ~19,369 at gamma = 0) is
-    refused before any launch, naming the limit; the host backend
-    (`lb_keogh` in tiles of L, the wide DP entry) answers it.  (The ED
-    chunk entry takes every length the card's build takes.)"""
-    from repro_torch.kernels.fused_verify import chunk_qlen_limit
-    limit = chunk_qlen_limit("dtw", 1)
-    seg = 64
-    qlen = (limit // seg + 1) * seg
-    assert qlen <= chunk_qlen_limit("ed", 1)
+def test_device_backend_answers_queries_past_the_staged_lb_entry(dev):
+    """A DTW query longer than the LB_Keogh chunk entry stages (qlen
+    20,032 at gamma = 0, past ~19,370) runs on the device backend through
+    the entry's long-row variant and gives the host backend's answer
+    (`lb_keogh` in steps of L, the wide DP entry)."""
+    from repro_torch.kernels.fused_verify import staged
+    seg, qlen = 64, 20_032
+    assert not staged("dtw", qlen, 1) and staged("ed", qlen, 1)
     rng = np.random.default_rng(qlen)
     data = np.cumsum(rng.normal(size=(2, qlen + 8)), -1).astype(np.float32)
     p = EnvelopeParams(lmin=qlen, lmax=qlen, seg_len=seg, card=64, gamma=0)
@@ -873,11 +892,223 @@ def test_engine_refuses_queries_past_the_lb_chunk_entry(dev):
         num_levels=1, device=dev)
     q = data[1, 3:3 + qlen] + rng.normal(size=qlen).astype(np.float32) * 0.05
     spec = dict(k=2, measure="dtw", r=8)
-    before = fused_gather_lb_keogh_chunk.launches
-    with pytest.raises(ValueError, match=f"qlen <= {limit}"):
-        gpu.search(q, QuerySpec(**spec))
-    assert fused_gather_lb_keogh_chunk.launches == before
+    before = (fused_gather_lb_keogh_chunk.launches,
+              fused_gather_lb_keogh_chunk_long.launches)
+    got = gpu.search(q, QuerySpec(**spec))
+    assert fused_gather_lb_keogh_chunk.launches == before[0]
+    assert fused_gather_lb_keogh_chunk_long.launches > before[1]
     before = dtw_band_wide.launches
-    res = gpu.search(q, QuerySpec(scan_backend="host", **spec))
+    want = gpu.search(q, QuerySpec(scan_backend="host", **spec))
     assert dtw_band_wide.launches > before
-    assert (res.series[0], res.offsets[0]) == (1, 3)
+    assert (got.series[0], got.offsets[0]) == (1, 3)
+    np.testing.assert_array_equal(got.series, want.series)
+    np.testing.assert_array_equal(got.offsets, want.offsets)
+    np.testing.assert_allclose(got.dists, want.dists, rtol=1e-4, atol=1e-5)
+
+
+# -- slice 7: every query length on the card ---------------------------------
+
+@pytest.mark.parametrize("nseg", [737, 1_500, 6_000])
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_mindist_long_queries_match_plain(dev, b, nseg):
+    """Queries of 737-6,000 segments: past the 736 whose intervals the
+    scalar entry staged in 48 KB at B = 8 (opt-in shared memory), and at
+    6,000 past the 227 KB (the intervals read in place); both entries,
+    one launch each; rtol 1e-6 / atol 1e-6."""
+    rng = np.random.default_rng(b + nseg)
+    n, w = 3_001, nseg
+    lo = rng.normal(size=(n, w)).astype(np.float32)
+    hi = lo + np.abs(rng.normal(size=(n, w))).astype(np.float32)
+    lo[0, :5], hi[0, :5] = -np.inf, np.inf
+    bp = np.sort(rng.normal(size=255)).astype(np.float32)
+    sym_lo = _t(np.searchsorted(bp, lo, side="right").astype(np.int32), dev)
+    sym_hi = _t(np.searchsorted(bp, hi, side="right").astype(np.int32), dev)
+    valid = rng.random(n) > 0.1
+    valid[1] = False
+    v, bpt, e_lo, e_hi = _t(valid, dev), _t(bp, dev), _t(lo, dev), _t(hi, dev)
+    q = rng.normal(size=(b, w)).astype(np.float32)
+    ql = _t(q, dev)
+    qh = _t(q + rng.random((b, w)).astype(np.float32), dev)
+    for fn, args, plain in (
+            (mindist_sym, (ql, qh, sym_lo, sym_hi, bpt, v, 16, nseg),
+             ref.mindist_sym_ref),
+            (mindist_paa, (ql, qh, e_lo, e_hi, v, 16, nseg),
+             ref.mindist_ref)):
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   plain(*args).cpu().numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _long_args(dev, rng, qlen, b, rows, s=4, g=49, dtw_r=None):
+    """Regions of B * rows rows over s series of qlen + 200 points (row 0
+    overruns its series) and B queries (or, with dtw_r, their DTW
+    envelopes)."""
+    n = qlen + 200
+    data = np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32)
+    sids = rng.integers(0, s, b * rows).astype(np.int32)
+    anchors = rng.integers(0, n - qlen + 1, b * rows).astype(np.int32)
+    anchors[0] = n - qlen
+    q = _t(rng.normal(size=(b, qlen)).astype(np.float32), dev)
+    c = Collection.from_array(data, device=dev)
+    head = (c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center,
+            _t(sids, dev), _t(anchors, dev))
+    if dtw_r is None:
+        return head + (q,)
+    lo, hi = dtw.dtw_envelope(q, dtw_r)
+    return head + (lo.contiguous(), hi.contiguous())
+
+
+@pytest.mark.parametrize("qlen", [28_769, 40_000])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_ed_long_queries_match_plain(dev, qlen, znorm):
+    """Past the staged ED entries (qlen <= 28,768 at g = 49): the contract
+    entry hands the call to its long-row variant (rtol 1e-4 / atol 1e-3
+    against the plain version), and the chunk entry and the partials
+    merge equal the plain step bit for bit over three chunks."""
+    from repro_torch.kernels.fused_verify import staged
+    assert not staged("ed", qlen, 49)
+    rng = np.random.default_rng(qlen + znorm)
+    g, rows = 49, 16
+    args = _long_args(dev, rng, qlen, 3, rows)
+    before = (fused_gather_ed.launches, fused_gather_ed_long.launches)
+    got = fused_gather_ed(*args, g=g, rows=rows, znorm=znorm)
+    want = ref.fused_gather_ed_ref(*args, g=g, rows=rows, znorm=znorm)
+    torch.cuda.synchronize()
+    assert (fused_gather_ed.launches, fused_gather_ed_long.launches) == \
+        (before[0], before[1] + 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    _ed_chunk_walk(dev, 5, qlen, znorm, chunk=16,
+                   counted=fused_gather_ed_chunk_long, n=qlen + 200)
+
+
+@pytest.mark.parametrize("qlen", [256, 4_000])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_ed_long_variant_equals_staged(dev, qlen, znorm):
+    """At a qlen both take, the long-row kernels give the staged ones'
+    bits: the contract entries' d2, and the chunk entry's pools and
+    counters equal the plain step fed the staged contract entry's d2."""
+    from repro_torch.kernels.fused_verify import staged
+    assert staged("ed", qlen, 49)
+    rng = np.random.default_rng(qlen + znorm)
+    args = _long_args(dev, rng, qlen, 3, 24)
+    staged_d2 = fused_gather_ed(*args, g=49, rows=24, znorm=znorm)
+    long_d2 = fused_gather_ed_long(*args, g=49, rows=24, znorm=znorm)
+    torch.cuda.synchronize()
+    assert torch.equal(staged_d2, long_d2)
+    _ed_chunk_walk(dev, 5, qlen, znorm, chunk=40,
+                   entry=fused_gather_ed_chunk_long,
+                   counted=fused_gather_ed_chunk_long, n=qlen + 200)
+
+
+@pytest.mark.parametrize("qlen", [19_305, 40_000])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_lb_keogh_long_queries_match_plain(dev, qlen, znorm):
+    """Past the staged LB_Keogh entries (qlen <= 19,304 at g = 49), r = 1%
+    of qlen: the contract entry's long-row variant (lb2 rtol 2e-4 / atol
+    2e-3, mu and sd bit-equal to the plain version) and the chunk
+    entry's (the chunk test's checks: survivors, counts, the DP's
+    output)."""
+    from repro_torch.kernels.fused_verify import staged
+    assert not staged("dtw", qlen, 49)
+    rng = np.random.default_rng(qlen + znorm)
+    g, rows, b = 49, 8, 3
+    args = _long_args(dev, rng, qlen, b, rows, dtw_r=qlen // 100)
+    before = (fused_gather_lb_keogh.launches,
+              fused_gather_lb_keogh_long.launches)
+    got = fused_gather_lb_keogh(*args, g=g, rows=rows, znorm=znorm)
+    want = ref.fused_gather_lb_keogh_ref(*args, g=g, rows=rows, znorm=znorm)
+    torch.cuda.synchronize()
+    assert (fused_gather_lb_keogh.launches,
+            fused_gather_lb_keogh_long.launches) == (before[0], before[1] + 1)
+    _close(got[0], want[0], 2e-4, 2e-3)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    _lb_chunk_check(dev, rng, args, rows, znorm,
+                    counted=fused_gather_lb_keogh_chunk_long, b=b)
+
+
+@pytest.mark.parametrize("qlen", [256, 4_000])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_lb_keogh_long_variant_equals_staged(dev, qlen, znorm):
+    """At a qlen both take, the long-row kernels give the staged ones'
+    bits: (lb2, mu, sd) of the contract entries, and the chunk entries'
+    outputs (the survivor lists as sets)."""
+    from repro_torch.kernels.fused_verify import staged
+    assert staged("dtw", qlen, 49)
+    rng = np.random.default_rng(qlen + znorm)
+    g, rows, b = 49, 24, 3
+    args = _long_args(dev, rng, qlen, b, rows, dtw_r=max(1, qlen // 10))
+    for x, y in zip(fused_gather_lb_keogh(*args, g=g, rows=rows,
+                                          znorm=znorm),
+                    fused_gather_lb_keogh_long(*args, g=g, rows=rows,
+                                               znorm=znorm)):
+        assert torch.equal(x, y)
+    ok = _t(rng.random((b, rows * g)) > 0.2, dev)
+    kth = _t(np.full(b, np.inf, np.float32), dev)
+    kth[0] = 0.0
+    kth[1] = float(ref.fused_gather_lb_keogh_ref(
+        *args, g=g, rows=rows, znorm=znorm)[0][rows:2 * rows].median())
+    a = fused_gather_lb_keogh_chunk(*args, ok, kth, g=g, rows=rows,
+                                    znorm=znorm)
+    z = fused_gather_lb_keogh_chunk_long(*args, ok, kth, g=g, rows=rows,
+                                         znorm=znorm)
+    torch.cuda.synchronize()
+    for i in (0, 1, 2, 4):
+        assert torch.equal(a[i], z[i])
+    # the DP's output: +inf at every non-survivor (the DP fills the rest)
+    surv = a[0].reshape(b, -1) < kth[:, None]
+    assert torch.isinf(a[5][~surv]).all() and torch.isinf(z[5][~surv]).all()
+    for q in range(b):
+        n_q = int(a[4][q])
+        assert torch.equal(a[3][q, :n_q].sort().values,
+                           z[3][q, :n_q].sort().values)
+
+
+@pytest.mark.parametrize("s,n,lmin,lmax,seg", [
+    (2, 14_100, 1_000, 14_000, 64), (3, 30_100, 29_000, 30_000, 16)])
+def test_envelope_build_long_spans_bit_equal_to_plain(dev, s, n, lmin, lmax,
+                                                      seg):
+    """Builds whose staging passes the card's 227 KB: 13,001 lengths up to
+    14,000 (59,108 floats at g = 49), and lmax 30,000; the build entry
+    reads the prefix sums in place and gives the plain version's bits."""
+    rng = np.random.default_rng(n + lmin)
+    x = _t(np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32), dev)
+    xc = x - x.mean(dim=-1, keepdim=True)
+    csum, csum2 = _prefix(xc), _prefix(xc * xc)
+    kw = dict(lmin=lmin, lmax=lmax, gamma=48, seg_len=seg)
+    before = envelope_znorm.launches
+    got = envelope_znorm(csum, csum2, **kw)
+    torch.cuda.synchronize()
+    assert envelope_znorm.launches == before + 1
+    for k, c in zip(got, ref.envelope_znorm_ref(csum, csum2, **kw)):
+        assert torch.equal(k, c)
+        assert torch.isfinite(k).any()
+
+
+def test_engine_refuses_gamma_past_the_card_chunk_entries(dev):
+    """Envelopes of more masters than the device scan's LB_Keogh chunk
+    entry takes (g = 14,500: past its long-row variant's 13,760 and, at
+    qlen 100, the staged kernel's ~14,450; their shared memory grows with
+    g) are refused before any launch, naming gamma; the host backend
+    answers."""
+    rng = np.random.default_rng(14_500)
+    data = np.cumsum(rng.normal(size=(2, 14_700)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=64, lmax=128, seg_len=16, card=64,
+                       gamma=14_499)
+    gpu = UlisseEngine.from_collection(
+        Collection.from_array(data, device=dev), p, block_size=2,
+        num_levels=1, device=dev)
+    q = data[1, 30:130] + rng.normal(size=100).astype(np.float32) * 0.05
+    spec = dict(k=2, measure="dtw", r=5)
+    before = (mindist_paa.launches, fused_gather_lb_keogh_chunk.launches,
+              fused_gather_lb_keogh_chunk_long.launches)
+    with pytest.raises(ValueError, match="gamma=14499"):
+        gpu.search(q, QuerySpec(**spec))
+    assert (mindist_paa.launches, fused_gather_lb_keogh_chunk.launches,
+            fused_gather_lb_keogh_chunk_long.launches) == before
+    res = gpu.search(q, QuerySpec(scan_backend="host", **spec))
+    assert (res.series[0], res.offsets[0]) == (1, 30)
