@@ -40,15 +40,19 @@ Phases (any failed check raises, and the script exits non-zero):
   8. the DTW path: one exact DTW k-NN batch (k=5, B=8) per length through
      `UlisseEngine.search(..., QuerySpec(measure="dtw", r=r))`, counters
      set to 0 just before and read just after; every qlen-256 answer and
-     the first two qlen-160 answers (DTW_BRUTE) checked against the
-     plain-DP brute force on the card;
+     the first two qlen-160 answers (DTW_BRUTE) checked against a float64
+     DP brute force on the card (which keeps each query's DTW_KEEP
+     nearest windows for [16]);
   9. time the DTW kernels on that path's inputs, as in 6 (the LB
      kernel's contract entry and its chunk entry, the DP's two entries,
      the dense pool merge beside torch.topk), and check LB_Keogh <= DTW
      on every survivor of one chunk;
  10. trace one DTW batch: device activities and kernel launch calls a
      chunk step, no scan kernel (the survivor pack's cumsum is gone) and
-     no sort kernel (the merge's radix sort is gone);
+     no sort kernel (the merge's radix sort is gone); the DTW scan alone
+     makes at most 4.5 kernel launch calls a step (the LB chunk entry,
+     the DP, the dense merge's two kernels, the stop test's two every 8
+     steps);
  11. the host backend (`scan_backend="host"`), ED and DTW: two queries
      each, counters set to 0 just before and read just after; answers
      equal the brute-force-checked device answers of the same queries as
@@ -74,8 +78,28 @@ Phases (any failed check raises, and the script exits non-zero):
      old staging), counters set to 0 just before and read just after
      each; the ED answers held to a float64 brute force on the card, the
      DTW answers to the host backend's and to a float64 DP of every
-     reported window; then the long-row chunk entries, mindist and the
-     unstaged build timed at this phase's shapes.
+     reported window; then eps-range batches at the same lengths through
+     the range entries' long-row variants (eps 1.02x the batch's median
+     5th-neighbour distance; ED held to a float64 brute force, DTW to the
+     host backend), counters around each; then the long-row chunk entries
+     (k-NN and range modes), mindist and the unstaged build timed at this
+     phase's shapes;
+ 16. eps-range at full size on [3]'s index: ED and DTW (r 16 / 25), B = 8
+     at qlen 160 and 256 ([4]'s and [8]'s batches), each batch's eps the
+     median of its queries' 64th-nearest distances (one exact k = 64
+     device k-NN call); the device backend at range_capacity 2,048 and 16
+     (every query with more than 16 hits overflows and finishes on the
+     host, at chunk_size 4,096; DTW: [8]'s DTW_BRUTE queries), counters
+     set to 0 just before and read just after each; every ED query and
+     [8]'s DTW queries held to the float64 brute force (the same hits but
+     windows whose float64 distance lies within 5e-3 of eps, distances
+     within 5e-3), the two capacities to each other, range_overflows to
+     the queries holding more hits than the buffer, one query a length
+     on the host backend to the same brute force; the range entries and
+     range_append held to their plain versions on the batch's pack (the
+     ED entry and range_append bit for bit) and timed; the range scan
+     alone traced (at most 3 kernel launch calls an ED step, 4 a DTW
+     step).
 
 Phase 2 also holds the scan's ED chunk entry and the partials merge
 against the plain step (the contract entry's distances masked, the
@@ -145,9 +169,25 @@ LQ_R = LQ_DTW // 100
 # [2]'s long-row checks per measure: a qlen just past the staged chunk
 # entry at g = 49, and a qlen both kernels take
 LONG_CHECK = {"ed": (28_769, 4_000), "dtw": (19_305, 4_000)}
-# queries of each length held against the plain-DP brute force (at
+# queries of each length held against the float64 DP brute force (at
 # qlen 160 it takes ~100 windows per series, so only the first few)
 DTW_BRUTE = {160: 2, 256: BATCH}
+# the float64 brute forces' elements a block (1 GB of temporaries), and
+# the DTW one's nearest windows kept a query (for [8]'s k-NN and [16]'s
+# range checks)
+BRUTE_ELEMS = 1 << 27
+DTW_KEEP = 50_000
+# [16], eps-range: each batch's eps is the median of its queries'
+# RANGE_K-th nearest distances; capacities (the small one overflows and
+# runs the host continuation, at RANGE_SMALL_CHUNK plan rows a chunk, on
+# every ED query and the DTW queries of DTW_BRUTE); the band around eps
+# in which a window's float64 distance may fall on either side (the
+# card's brute-force tolerance); host-backend queries a measure
+RANGE_K = 64
+RANGE_CAPS = (2048, 16)
+RANGE_SMALL_CHUNK = 4096
+RANGE_BAND = 5e-3
+RANGE_HOST = 2
 # H100 SXM, NVIDIA data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -210,6 +250,21 @@ REPLACES = {
                    "src/repro/core/executor.py:463"),
     "pool_merge_dense": ("src/repro_torch/kernels/csrc/pool_merge.cu",
                          "src/repro/core/executor.py:463"),
+    # the range modes of the two chunk entries and their long-row variants
+    "fused_gather_ed_range": ("src/repro_torch/kernels/csrc/fused_verify.cu",
+                              "src/repro/kernels/fused_verify.py:181"),
+    "fused_gather_ed_range_long": (
+        "src/repro_torch/kernels/csrc/fused_verify.cu",
+        "src/repro/kernels/fused_verify.py:181"),
+    "fused_gather_lb_keogh_range": (
+        "src/repro_torch/kernels/csrc/fused_verify.cu",
+        "src/repro/kernels/fused_verify.py:219"),
+    "fused_gather_lb_keogh_range_long": (
+        "src/repro_torch/kernels/csrc/fused_verify.cu",
+        "src/repro/kernels/fused_verify.py:219"),
+    # not a Pallas kernel: the range scan's cumsum/searchsorted hit append
+    "range_append": ("src/repro_torch/kernels/csrc/range_append.cu",
+                     "src/repro/core/executor.py:767"),
 }
 
 
@@ -309,9 +364,13 @@ def timing(torch, call, plain, nbytes, ops, err, shape, library=None,
         bytes=nbytes, ops=ops)
 
 
-def check_close(torch, name, got, want):
+def check_close(torch, name, got, want, scale: float = 0.0):
     """Raise unless `got` matches `want` (same non-finite entries, finite
-    ones within the kernel's tolerance); returns the max abs error."""
+    ones within the kernel's tolerance); returns the max abs error.  The
+    relative part applies to max(|want|, scale): an ED by the dot identity
+    on z-normalized windows subtracts terms of size 2 qlen, and its
+    float32 rounding is relative to them (pass scale = 2 qlen), not to a
+    near match's small d2."""
     rtol, atol = TOL[name]
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
@@ -319,7 +378,7 @@ def check_close(torch, name, got, want):
             or not torch.equal(got[~fin], want[~fin]):
         raise AssertionError(f"{name}: non-finite entries differ")
     err = (got[fin] - want[fin]).abs()
-    bad = err > atol + rtol * want[fin].abs()
+    bad = err > atol + rtol * want[fin].abs().clamp_min(scale)
     if bool(bad.any()):
         raise AssertionError(
             f"{name}: {int(bad.sum())} of {bad.numel()} entries outside "
@@ -459,44 +518,67 @@ def gather_bytes(torch, coll, sids, anchors, qlen: int, g: int) -> int:
     return region.numel() * 4 + 4 * sums.numel() * 4
 
 
-def chunk_args(torch, a0, qn, dlo, dhi, sids, anchors, n_master, kth,
-               g: int):
-    """One scan chunk of (B, rows) envelope rows through the LB_Keogh
-    chunk entry, as the executor's chunk step runs it: returns the chunk
-    entry's inputs (`lb_in`, for the entry and its plain version), its
-    outputs, and the `dtw_survivors` arguments it leaves (its survivors'
+def chunk_args(torch, a0, qn, dlo, dhi, plan, i: int, rows: int, cut, g: int,
+               ovf=None, znorm=True):
+    """Chunk i of a (B, n_pad) plan through the LB_Keogh chunk entry (its
+    k-NN mode under the pool's d2 `cut` (B, k), or its range mode under
+    eps2 `cut` (B,) and `ovf`), as the executor's steps run it: returns
+    the entry's inputs and keywords (`lb_in`, `kw`: the counters go
+    last, so the plain version gets a copy), its outputs, the counters it
+    added, and the `dtw_survivors` arguments it leaves (its survivors'
     list and count, the candidates, mu, sd, and the DP output, +inf at
     every non-survivor)."""
+    from repro_torch.kernels.fused_verify import (fused_gather_lb_keogh_chunk,
+                                                  fused_gather_lb_keogh_range)
+    b = dlo.shape[0]
+    lb_in = (*a0, *plan, dlo, dhi, cut) + (() if ovf is None else (ovf,))
+    kw = dict(i=i, chunk=rows, g=g, znorm=znorm)
+    stats = torch.zeros((b, 6), dtype=torch.int32, device=dlo.device)
+    entry = (fused_gather_lb_keogh_chunk if ovf is None
+             else fused_gather_lb_keogh_range)
+    out = entry(*lb_in, stats, **kw)
+    _, mu, sd, slist, nsurv, d2, cand_sid, cand_off = out
+    return lb_in, kw, out, stats, (a0[0], qn, slist, nsurv, cand_sid,
+                                   cand_off, mu.reshape(b, -1),
+                                   sd.reshape(b, -1), d2)
+
+
+def row_plan(torch, sids, anchors, n_master):
+    """A one-chunk plan of (B, rows) envelope rows, every bound 0: the
+    chunk entries then keep every row of a query whose cut is above 0."""
+    return (sids.contiguous(), anchors.contiguous(), n_master.contiguous(),
+            torch.zeros(sids.shape, device=sids.device))
+
+
+def check_chunk_entry(torch, lb_in, kw, got, stats, range_mode=False):
+    """Hold the LB chunk entry's outputs (`chunk_args`) against its plain
+    version on the same inputs: lb2 within the LB tolerance (the same
+    +inf), mu, sd and every candidate's (sid, off) bit-equal, the
+    counters equal (the survivor columns the kernel's own count), the
+    same survivor set up to lb2 within the tolerance of the cut, nsurv
+    its size, the list a permutation of it, and +inf in the DP's output
+    at every non-survivor.  Returns (max abs err of lb2, survivors)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_verify import fused_gather_lb_keogh_chunk
-    b, rows = sids.shape
-    ok, cand_sid, cand_off = ref.chunk_candidates(
-        sids, anchors, n_master, torch.ones_like(sids, dtype=torch.bool),
-        qn.shape[1], a0[0].shape[1], g)
-    lb_in = (*a0, sids.reshape(-1).contiguous(),
-             anchors.reshape(-1).contiguous(), dlo, dhi, ok,
-             kth.contiguous())
-    out = fused_gather_lb_keogh_chunk(*lb_in, g=g, rows=rows, znorm=True)
-    _, mu, sd, slist, nsurv, d2 = out
-    return lb_in, out, (a0[0], qn, slist, nsurv, cand_sid, cand_off,
-                        mu.reshape(b, -1), sd.reshape(b, -1), d2)
-
-
-def check_chunk_entry(torch, got, want, kth):
-    """Hold the LB chunk entry's outputs against its plain version: lb2
-    within the LB tolerance (the same +inf), mu and sd bit-equal, the
-    same survivor set up to lb2 within the tolerance of kth, nsurv its
-    size, the list a permutation of it, and +inf in the DP's output at
-    every non-survivor.  Returns (max abs err of lb2, survivors)."""
+    plain = (ref.fused_gather_lb_keogh_range_ref if range_mode
+             else ref.fused_gather_lb_keogh_chunk_ref)
+    st_plain = torch.zeros_like(stats)
+    want = plain(*lb_in, st_plain, **kw)
     err = check_close(torch, "fused_gather_lb_keogh", got[0], want[0])
-    for name, x, y in (("mu", got[1], want[1]), ("sd", got[2], want[2])):
+    for name, x, y in (("mu", got[1], want[1]), ("sd", got[2], want[2]),
+                       ("cand_sid", got[6], want[6]),
+                       ("cand_off", got[7], want[7])):
         check_equal(torch, f"fused_gather_lb_keogh_chunk.{name}", x, y)
-    b = kth.shape[0]
+    b = stats.shape[0]
+    cut = lb_in[-2] if range_mode else lb_in[-1][:, -1]
     rtol, atol = TOL["fused_gather_lb_keogh"]
-    surv = got[0].reshape(b, -1) < kth[:, None]
-    plain = want[0].reshape(b, -1)
-    near = (plain - kth[:, None]).abs() <= atol + rtol * kth.abs()[:, None]
-    if not bool((near | (surv == (plain < kth[:, None]))).all()):
+    ok = torch.isfinite(want[0].reshape(b, -1))
+
+    def below(lb):
+        return ok & (lb <= cut[:, None] if range_mode else lb < cut[:, None])
+    surv = below(got[0].reshape(b, -1))
+    plain_lb = want[0].reshape(b, -1)
+    near = (plain_lb - cut[:, None]).abs() <= atol + rtol * cut.abs()[:, None]
+    if not bool((near | (surv == below(plain_lb))).all()):
         raise AssertionError("LB chunk entry: survivor set differs")
     if not torch.equal(got[4], surv.sum(dim=1, dtype=torch.int32)):
         raise AssertionError("LB chunk entry: nsurv is not the set's size")
@@ -507,6 +589,12 @@ def check_chunk_entry(torch, got, want, kth):
     if not bool(torch.isinf(got[5][~surv]).all()):
         raise AssertionError("LB chunk entry: DP output not +inf off the "
                              "survivors")
+    cols = [0, 1, 3, 5]
+    check_equal(torch, "LB chunk entry counters", stats[:, cols],
+                st_plain[:, cols])
+    for c in (2, 4):
+        check_equal(torch, "LB chunk entry survivor counters", stats[:, c],
+                    got[4])
     return err, int(got[4].sum())
 
 
@@ -634,40 +722,112 @@ def merge_work(torch, pool_d2, d2):
     return 2 * 3 * b * k * 4 + d2.numel() * 4 + live * 8, live
 
 
-def ed_chunk_work(torch, coll, plan, pool_d2, qlen: int, rows: int, g: int,
-                  n_chunks: int):
-    """(bytes, flops, ok candidates) one call of the ED chunk entry needs,
-    averaged over the plan's first n_chunks chunks under pool_d2: the
-    chunk's plan entries, the pool, the counters read and written, the
-    queries, the ok candidates' distinct window elements and prefix-sum
-    positions (x4 arrays), the partials written; 2 qlen flops an ok
-    candidate."""
+def ok_reads(torch, coll, plan, active_of, cut, inclusive: bool, qlen: int,
+             rows: int, g: int, n_chunks: int, every_sum: bool = False):
+    """(bytes read from the collection, ok candidates) of one chunk-entry
+    call, averaged over the plan's first n_chunks chunks: query b active
+    at chunk i where active_of(i)[b], a row kept at lbs2 < cut[b] (<= when
+    inclusive), the ok candidates by `ref.chunk_candidates`.  Reads: the
+    ok candidates' distinct window elements and the distinct prefix-sum
+    positions (x4 arrays) of the ok candidates, or of every candidate with
+    every_sum (the LB_Keogh entries write every candidate's mu and sd)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_verify import ed_chunk_tile
-    dev = pool_d2.device
+    dev = cut.device
     n = coll.data.shape[1]
     sids, anc, nm, lbs2 = plan
-    b, k = pool_d2.shape
     span = torch.arange(qlen, device=dev)
     read, n_ok = 0, 0
     for i in range(n_chunks):
         sl = slice(i * rows, (i + 1) * rows)
-        active = ref.scan_active(lbs2, pool_d2, i, rows)
-        keep = (lbs2[:, sl] < pool_d2[:, -1:]) & active[:, None]
+        clb2 = lbs2[:, sl]
+        below = clb2 <= cut[:, None] if inclusive else clb2 < cut[:, None]
+        keep = below & active_of(i)[:, None]
         ok, cs, co = ref.chunk_candidates(sids[:, sl], anc[:, sl],
                                           nm[:, sl], keep, qlen, n, g)
         s_ok, o_ok = cs[ok].long(), co[ok].long()
         elems = torch.unique((s_ok[:, None] * n + o_ok[:, None] + span)
                              .reshape(-1))
-        pos = s_ok * (n + 1) + o_ok
-        sums = torch.unique(torch.cat([pos, pos + qlen]))
+        if every_sum:
+            pos = cs.long() * (n + 1) + co.long().clamp(0, n - qlen)
+        else:
+            pos = s_ok * (n + 1) + o_ok
+        sums = torch.unique(torch.cat([pos, pos + qlen]).reshape(-1))
         read += elems.numel() * 4 + 4 * sums.numel() * 4
         n_ok += int(ok.sum())
+    return read / n_chunks, n_ok / n_chunks
+
+
+def ed_chunk_work(torch, coll, plan, pool_d2, qlen: int, rows: int, g: int,
+                  n_chunks: int):
+    """(bytes, flops, ok candidates) one call of the ED chunk entry needs,
+    averaged over the plan's first n_chunks chunks under pool_d2: the
+    chunk's plan entries, the pool, the counters read and written, the
+    queries, the ok candidates' reads (`ok_reads`), the partials written;
+    2 qlen flops an ok candidate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_verify import ed_chunk_tile
+    lbs2 = plan[3]
+    b, k = pool_d2.shape
+    read, n_ok = ok_reads(
+        torch, coll, plan, lambda i: ref.scan_active(lbs2, pool_d2, i, rows),
+        pool_d2[:, -1], False, qlen, rows, g, n_chunks)
     tile = ed_chunk_tile(qlen, g)
     parts = 4 * b * -(-rows // tile) * min(k, tile * g) * 4
-    nbytes = (read / n_chunks + b * rows * 16 + b * k * 4 + 2 * b * 6 * 4
+    nbytes = (read + b * rows * 16 + b * k * 4 + 2 * b * 6 * 4
               + b * qlen * 4 + parts)
-    return nbytes, 2 * qlen * n_ok / n_chunks, n_ok / n_chunks
+    return nbytes, 2 * qlen * n_ok, n_ok
+
+
+def range_chunk_work(torch, coll, plan, eps2, qlen: int, rows: int, g: int,
+                     n_chunks: int):
+    """(bytes, flops, ok candidates) one call of the ED range entry needs,
+    averaged over the pack's first n_chunks chunks: the chunk's plan
+    entries, eps2, ovf and the counters, the queries, the ok candidates'
+    reads (`ok_reads`), the dense d2 written; 2 qlen flops an ok
+    candidate."""
+    from repro_torch.kernels import ref
+    lbs2 = plan[3]
+    b = eps2.shape[0]
+    ovf = torch.full((b,), lbs2.shape[1] // rows, dtype=torch.int32,
+                     device=eps2.device)
+    read, n_ok = ok_reads(
+        torch, coll, plan,
+        lambda i: ref.range_active(lbs2, eps2, ovf, i, rows), eps2, True,
+        qlen, rows, g, n_chunks)
+    nbytes = (read + b * rows * 16 + 2 * b * 4 + 2 * b * 6 * 4
+              + b * qlen * 4 + b * rows * g * 4)
+    return nbytes, 2 * qlen * n_ok, n_ok
+
+
+def lb_chunk_work(torch, coll, plan, cut, qlen: int, rows: int, g: int,
+                  n_chunks: int, surv: float, ovf=None):
+    """(bytes, flops, ok candidates) one call of the LB_Keogh chunk entry
+    needs, averaged over the plan's first n_chunks chunks: k-NN under the
+    pool's d2 `cut` (B, k), or range under eps2 `cut` (B,) and `ovf`.
+    Bytes: the chunk's plan entries, the cut, ovf and the counters, the
+    DTW envelopes, the ok candidates' window elements and every
+    candidate's prefix-sum positions (`ok_reads`), the dense lb2, mu, sd,
+    DP output and (sid, off) written, and the `surv` survivors listed a
+    call.  Flops: 10 a point of an ok candidate (subtract, divide, two
+    subtracts, two max, two multiplies, two adds); the entry computes
+    every candidate, but only the ok ones' LB is its result."""
+    from repro_torch.kernels import ref
+    lbs2 = plan[3]
+    b = lbs2.shape[0]
+    if ovf is None:
+        kth = cut[:, -1]
+        read, n_ok = ok_reads(
+            torch, coll, plan, lambda i: ref.scan_active(lbs2, cut, i, rows),
+            kth, False, qlen, rows, g, n_chunks, every_sum=True)
+    else:
+        read, n_ok = ok_reads(
+            torch, coll, plan,
+            lambda i: ref.range_active(lbs2, cut, ovf, i, rows), cut, True,
+            qlen, rows, g, n_chunks, every_sum=True)
+    m = b * rows * g
+    nbytes = (read + b * rows * 16 + 2 * b * 4 + 2 * b * 6 * 4
+              + 2 * b * qlen * 4 + 6 * m * 4 + b * 4 + surv * 4)
+    return nbytes, 10 * qlen * n_ok, n_ok
 
 
 def sort_events(tr):
@@ -733,21 +893,29 @@ def check_dtw_kernels(torch, dev, p, probe, rng):
             # the scan's chunk entry and the DP over its survivors (znorm):
             # each query keeps about its 600 least lower bounds, query 0
             # none
+            # (k-NN: query 0 inactive; range: query 0 at eps2 = 0, query 1
+            # overflowed)
             kth = got[0].reshape(BATCH, -1).sort(dim=1).values[:, 600]
             kth[0] = -float("inf")
             csid = sids.reshape(BATCH, rows)
-            lb_in, out, dp = chunk_args(
-                torch, a0, qn, dlo, dhi, csid, anc.reshape(BATCH, rows),
-                torch.full_like(csid, g), kth, g)
-            err, _ = check_chunk_entry(
-                torch, out, ref.fused_gather_lb_keogh_chunk_ref(
-                    *lb_in, g=g, rows=rows, znorm=True), kth)
-            errs["fused_gather_lb_keogh"] = max(
-                errs["fused_gather_lb_keogh"], err)
-            close("dtw_survivors",
-                  dtw_survivors(*dp[:-1], dp[-1].clone(), r=r, znorm=True),
-                  ref.dtw_survivors_ref(*dp[:-1], dp[-1].clone(), r=r,
-                                        znorm=True))
+            plan = row_plan(torch, csid, anc.reshape(BATCH, rows),
+                            torch.full_like(csid, g))
+            eps2 = kth.contiguous().clone()
+            eps2[0] = 0.0
+            ovf = torch.ones(BATCH, dtype=torch.int32, device=dev)
+            ovf[1] = 0
+            for cut, o in ((kth[:, None].contiguous(), None), (eps2, ovf)):
+                lb_in, kw, out, st, dp = chunk_args(
+                    torch, a0, qn, dlo, dhi, plan, 0, rows, cut, g, ovf=o)
+                err, _ = check_chunk_entry(torch, lb_in, kw, out, st,
+                                           range_mode=o is not None)
+                errs["fused_gather_lb_keogh"] = max(
+                    errs["fused_gather_lb_keogh"], err)
+                close("dtw_survivors",
+                      dtw_survivors(*dp[:-1], dp[-1].clone(), r=r,
+                                    znorm=True),
+                      ref.dtw_survivors_ref(*dp[:-1], dp[-1].clone(), r=r,
+                                            znorm=True))
         # the function entry: q_0 against 4096 z-normalized windows
         cands = znormalize(probe.data[:, :qlen]).contiguous()
         close("dtw_band", dtw_band(qn[0].contiguous(), cands, r),
@@ -870,24 +1038,11 @@ def check_build_envelopes(torch, coll, index, p) -> dict:
 
 
 def brute64_dtw(torch, data, q, k: int, r: int, znorm: bool):
-    """Exact DTW k-NN on the card in float64 (every window, the plain DP
-    in float64, whose closed form does not cancel at these sizes):
+    """Exact DTW k-NN on the card in float64 (`brute64_dtw_top`):
     (series, offsets, dists)."""
-    from repro_torch.core import dtw
-    qlen = len(q)
-    n_off = data.shape[1] - qlen + 1
-    w = data.double().unfold(1, qlen, 1).reshape(-1, qlen)
-    q = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
-    if znorm:
-        w = (w - w.mean(-1, keepdim=True)) / w.std(
-            -1, keepdim=True, correction=0).clamp_min(1e-8)
-        q = (q - q.mean()) / q.std(correction=0).clamp_min(1e-8)
-    d2 = torch.cat([dtw.dtw_band(q, w[i:i + 16_384], r, squared=True)
-                    for i in range(0, w.shape[0], 16_384)])
-    top = torch.topk(d2, k, largest=False).indices.cpu().numpy()
-    d2 = d2.cpu().numpy()
-    order = top[np.lexsort((top, d2[top]))]
-    return order // n_off, order % n_off, np.sqrt(d2[order])
+    n_off = data.shape[1] - len(q) + 1
+    idx, d = brute64_dtw_top(torch, data, q, r, znorm, k)
+    return idx // n_off, idx % n_off, d
 
 
 def envelope_work(p, n: int):
@@ -1004,15 +1159,19 @@ def check_long_kernels(torch, dev, rng, g):
                 check_equal(torch, f"fused_gather_lb_keogh_long.{name}", x, y)
             kth = got[0].reshape(b, -1).sort(dim=1).values[:, rows * g // 10]
             kth[0] = -float("inf")
-            lb_in, out, _ = chunk_args(
-                torch, a0, q, lo, hi, sids[:, :rows].contiguous(),
-                anc[:, :rows].contiguous(),
-                torch.full((b, rows), g, dtype=torch.int32, device=dev),
-                kth, g)
-            c_err, _ = check_chunk_entry(
-                torch, out, ref.fused_gather_lb_keogh_chunk_ref(
-                    *lb_in, g=g, rows=rows, znorm=True), kth)
-            errs["fused_gather_lb_keogh_long"] = max(err, c_err)
+            plan = row_plan(torch, sids[:, :rows], anc[:, :rows],
+                            torch.full((b, rows), g, dtype=torch.int32,
+                                       device=dev))
+            errs["fused_gather_lb_keogh_long"] = err
+            ovf = torch.ones(b, dtype=torch.int32, device=dev)
+            for cut, o in ((kth[:, None].contiguous(), None),
+                           (kth.contiguous(), ovf)):
+                lb_in, kw, out, st, _ = chunk_args(
+                    torch, a0, q, lo, hi, plan, 0, rows, cut, g, ovf=o)
+                c_err, _ = check_chunk_entry(torch, lb_in, kw, out, st,
+                                             range_mode=o is not None)
+                errs["fused_gather_lb_keogh_long"] = max(
+                    errs["fused_gather_lb_keogh_long"], c_err)
             lo, hi = (t[:, :both].contiguous() for t in (lo, hi))
             for x, y in zip(fused_gather_lb_keogh_long(
                     *a0, rs, ra, lo, hi, g=g, rows=rows, znorm=True),
@@ -1057,26 +1216,12 @@ def check_long_kernels(torch, dev, rng, g):
 
 
 def brute64_ed(torch, data, q, k: int, znorm: bool):
-    """Exact ED k-NN on the card in float64, series by series (every
-    window, direct differences): (series, offsets, dists)."""
-    qlen = len(q)
-    n_off = data.shape[1] - qlen + 1
-    qt = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
-    if znorm:
-        qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
-    d2 = []
-    for row in data:
-        w = row.double().unfold(0, qlen, 1)
-        if znorm:
-            w = (w - w.mean(-1, keepdim=True)) / w.std(
-                -1, keepdim=True, correction=0).clamp_min(1e-8)
-        d2.append(((w - qt) ** 2).sum(-1))
-        del w
-    d2 = torch.cat(d2)
-    top = torch.topk(d2, k, largest=False).indices.cpu().numpy()
-    d2 = d2.cpu().numpy()
-    order = top[np.lexsort((top, d2[top]))]
-    return order // n_off, order % n_off, np.sqrt(d2[order])
+    """Exact ED k-NN on the card in float64 (`brute64_ed_within` of every
+    window): (series, offsets, dists)."""
+    n_off = data.shape[1] - len(q) + 1
+    idx, d = brute64_ed_within(torch, data, q, znorm, float("inf"))
+    order = np.lexsort((idx, d))[:k]
+    return idx[order] // n_off, idx[order] % n_off, d[order]
 
 
 def check_slice3_kernels(torch, dev, p, probe, rng):
@@ -1184,6 +1329,179 @@ def check_lower_bounds(torch, index, data, p, queries, n_sample: int, seed):
     return worst
 
 
+def brute64_dtw_top(torch, data, q, r: int, znorm: bool, keep: int):
+    """The `keep` nearest windows of q under banded DTW, in float64 on the
+    card: every window of every series, the plain DP (core/dtw.dtw_band,
+    whose closed form does not cancel in float64) in blocks of series.
+    Returns (flat index series * n_off + offset, distance), numpy, sorted
+    by (distance, index)."""
+    from repro_torch.core import dtw
+    qlen = len(q)
+    s, n = data.shape
+    n_off = n - qlen + 1
+    qt = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
+    if znorm:
+        qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
+    block = max(1, BRUTE_ELEMS // (n_off * (qlen + 8 * (2 * r + 1))))
+    best_d = torch.empty(0, dtype=torch.float64, device=data.device)
+    best_i = torch.empty(0, dtype=torch.int64, device=data.device)
+    for start in range(0, s, block):
+        w = data[start:start + block].double().unfold(1, qlen, 1).reshape(
+            -1, qlen)
+        if znorm:
+            w = (w - w.mean(-1, keepdim=True)) / w.std(
+                -1, keepdim=True, correction=0).clamp_min(1e-8)
+        d2 = torch.cat([best_d, dtw.dtw_band(qt, w, r, squared=True)])
+        idx = torch.cat([best_i, torch.arange(
+            start * n_off, start * n_off + w.shape[0],
+            device=data.device)])
+        top = torch.topk(d2, min(keep, d2.numel()), largest=False).indices
+        best_d, best_i = d2[top], idx[top]
+        del w
+    d = np.sqrt(np.maximum(best_d.cpu().numpy(), 0.0))
+    i = best_i.cpu().numpy()
+    order = np.lexsort((i, d))
+    return i[order], d[order]
+
+
+def brute64_ed_within(torch, data, q, znorm: bool, radius: float):
+    """Every window of q's length within `radius` of q under ED, in
+    float64 on the card, by the dot identity over float64 window sums
+    (its cancellation is ~1e-12 at these sizes), in blocks of series.
+    Returns (flat index series * n_off + offset, distance), numpy."""
+    qlen = len(q)
+    s, n = data.shape
+    n_off = n - qlen + 1
+    qt = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
+    if znorm:
+        qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
+    qss, qsum = float((qt * qt).sum()), float(qt.sum())
+    block = max(1, BRUTE_ELEMS // (n_off * qlen))
+    out_i, out_d = [], []
+    for start in range(0, s, block):
+        x = data[start:start + block].double()
+        dot = torch.matmul(x.unfold(1, qlen, 1), qt)     # (S_b, n_off)
+        c1 = torch.nn.functional.pad(x.cumsum(1), (1, 0))
+        c2 = torch.nn.functional.pad((x * x).cumsum(1), (1, 0))
+        s1 = c1[:, qlen:] - c1[:, :-qlen]
+        s2 = c2[:, qlen:] - c2[:, :-qlen]
+        if znorm:
+            mu = s1 / qlen
+            var = (s2 / qlen - mu * mu).clamp_min(0.0)
+            sd = var.sqrt().clamp_min(1e-8)
+            d2 = qlen * var / (sd * sd) - 2 * (dot - mu * qsum) / sd + qss
+        else:
+            d2 = s2 - 2 * dot + qss
+        hit = torch.nonzero(d2 <= radius ** 2)
+        out_i.append(hit[:, 0] * n_off + hit[:, 1] + start * n_off)
+        out_d.append(d2[hit[:, 0], hit[:, 1]].clamp_min(0.0).sqrt())
+        del x, dot, c1, c2
+    return torch.cat(out_i).cpu().numpy(), torch.cat(out_d).cpu().numpy()
+
+
+def ed_band(qlen: int, eps: float) -> float:
+    """The band around eps in which an ED window's membership may differ
+    from the float64 brute force: RANGE_BAND, or where larger the
+    float32 dot identity's error at this length (the kernels sum the dot
+    in float32 over qlen terms: ~2 qlen sqrt(qlen) ulps of d2, measured
+    up to ~0.2 of d2 at qlen 29,000)."""
+    return max(RANGE_BAND, 2.0 * qlen ** 1.5 * 2.0 ** -24 / max(eps, 1e-6))
+
+
+def range_set_check(res, idx, d, eps: float, n_off: int, what: str,
+                    band: float = RANGE_BAND):
+    """Raise unless a range answer's (series, offset) hits, without
+    duplicates, equal the float64 brute force's {d <= eps}, except
+    windows whose float64 d lies within `band` of eps (either way), and
+    its distances are the float64 ones within RANGE_BAND; idx/d: the
+    brute force's windows with d <= eps + band at least.  Returns (hits,
+    boundary windows)."""
+    got = (res.series.astype(np.int64) * n_off + res.offsets).tolist()
+    if len(set(got)) != len(got):
+        raise AssertionError(f"{what}: duplicate hits")
+    got = set(got)
+    sure = set(idx[d <= eps - band].tolist())
+    maybe = set(idx[d <= eps + band].tolist())
+    if not sure <= got <= maybe:
+        raise AssertionError(
+            f"{what}: {len(sure - got)} hits missing, {len(got - maybe)} "
+            f"extra against the float64 brute force (eps {eps})")
+    d64 = dict(zip(idx.tolist(), d.tolist()))
+    flat = res.series.astype(np.int64) * n_off + res.offsets
+    err = max((abs(float(x) - d64[int(i)]) for i, x in zip(flat, res.dists)),
+              default=0.0)
+    if err > RANGE_BAND:
+        raise AssertionError(f"{what}: distances off the float64 brute "
+                             f"force by {err}")
+    return len(got), len(maybe) - len(sure)
+
+
+def trace_range_scan(torch, coll, index, p, queries, spec):
+    """The range scan of one batch alone under torch.profiler: the range
+    pack is made first, and the trace holds only the chunk loop and its
+    readback.  Returns its chunk steps, kernel launch calls and device
+    activities a step, busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import executor, planner
+    from repro_torch.kernels.fused_verify import (fused_gather_ed_range,
+                                                  fused_gather_lb_keogh_range)
+    dev = coll.data.device
+    env = index.envelopes
+    b, qlen = len(queries), len(queries[0])
+    q = torch.from_numpy(np.stack(queries)).to(dev)
+    qs, dlo, dhi, qb, qh = planner.prepare_query_batch(
+        q, p.seg_len, p.znorm, spec.measure, spec.r)
+    lbs = planner.env_lower_bounds_batch(qb, qh, env, index.breakpoints,
+                                         p.seg_len, p.query_segments(qlen),
+                                         False)
+    eps2 = torch.full((b,), float(spec.eps) ** 2, device=dev)
+    plan = planner.device_range_pack(env.series_id, env.anchor, env.n_master,
+                                     lbs, eps2,
+                                     n_pad=executor.pow2ceil(env.size))[:4]
+    entry = (fused_gather_ed_range if spec.measure == "ed"
+             else fused_gather_lb_keogh_range)
+    entry.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = executor.device_range_scan(
+            coll, *plan, qs, dlo, dhi, eps2, capacity=spec.range_capacity,
+            g=p.gamma + 1, measure=spec.measure, r=spec.r, znorm=p.znorm,
+            chunk_size=spec.chunk_size)
+        out[3].cpu()
+        wall = time.perf_counter() - t0
+    steps = entry.launches
+    events = device_events(prof)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith(("cudaLaunchKernel",
+                                        "cuLaunchKernel")))
+    busy = device_ms(prof) / 1e3
+    return {"qlen": qlen, "measure": spec.measure, "chunk_steps": steps,
+            "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1 - busy / wall, "launch_calls": launches,
+            "device_events": len(events),
+            "launch_calls_per_step": launches / max(steps, 1),
+            "device_events_per_step": len(events) / max(steps, 1)}
+
+
+def dtw64_windows(torch, data, q, series, offsets, r: int, znorm: bool):
+    """The float64 DTW distance of q to each (series, offset) window (the
+    plain DP, Z-normalized where the index is), numpy."""
+    from repro_torch.core import dtw
+    qlen = len(q)
+    if len(series) == 0:
+        return np.zeros(0)
+    w = torch.stack([data[s_, o:o + qlen] for s_, o in zip(series, offsets)]
+                    ).double()
+    qt = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
+    if znorm:
+        w = (w - w.mean(-1, keepdim=True)) / w.std(
+            -1, keepdim=True, correction=0).clamp_min(1e-8)
+        qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
+    return torch.sqrt(dtw.dtw_band(qt, w, r, squared=True)).cpu().numpy()
+
+
 def same_answers(a, b, atol: float, what: str) -> float:
     """Raise unless results a and b hold the same (series, offset) set and
     their distances (each sorted) agree within atol; returns the max abs
@@ -1197,6 +1515,315 @@ def same_answers(a, b, atol: float, what: str) -> float:
     if err > atol:
         raise AssertionError(f"{what}: distances {a.dists} vs {b.dists}")
     return err
+
+
+def range_phase(torch, engine, p, range_cases, dtw_oracle, timings,
+                zero_counts, read_counts):
+    """[16], eps-range on `engine`'s index: for each (measure, qlen, r,
+    queries) of `range_cases` (a batch), eps is the median of the
+    queries' RANGE_K-th nearest distances from one exact device k-NN
+    call; the device backend runs at both RANGE_CAPS (the small one
+    overflows and finishes on the host, at RANGE_SMALL_CHUNK; DTW: only
+    the queries `dtw_oracle` holds), counters set to 0 just before and
+    read just after each; RANGE_HOST queries a measure on the host
+    backend; every hit set held to the float64 brute force (ED: every
+    query; DTW: the nearest windows `dtw_oracle` kept by (qlen, query));
+    then the range entries and range_append are held to their plain
+    versions on the batch's pack and timed into `timings`, and the range
+    scan alone traced per measure at the last length.  Returns (the
+    cases' records, each range kernel's launches over the large
+    capacity's runs, the traces)."""
+    from repro_torch.core import QuerySpec, executor, planner
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dtw_band import dtw_survivors
+    from repro_torch.kernels.fused_verify import (fused_gather_ed,
+                                                  fused_gather_ed_range,
+                                                  fused_gather_lb_keogh_range)
+    from repro_torch.kernels.range_append import range_append
+    index = engine.index
+    coll, env = index.collection, index.envelopes
+    dev = coll.data.device
+    g = p.gamma + 1
+    range_kernels = {"ed": ("fused_gather_ed_range", "range_append",
+                            "mindist_sym"),
+                     "dtw": ("fused_gather_lb_keogh_range", "dtw_survivors",
+                             "range_append", "mindist_sym")}
+    knn_kernels = ("fused_gather_ed_chunk", "fused_gather_lb_keogh_chunk",
+                   "pool_merge", "pool_merge_partials", "mindist_paa")
+    big_cap = max(RANGE_CAPS)
+    range_launches = {}
+    cases = []
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    n_pad = executor.pow2ceil(env.size)
+    for measure, qlen, r, qs in range_cases:
+        n_off = coll.data.shape[1] - qlen + 1
+        bq = len(qs)
+        t0 = time.perf_counter()
+        knn64 = engine.search(qs, QuerySpec(k=RANGE_K, measure=measure, r=r))
+        eps = float(np.median([a.dists[-1] for a in knn64]))
+        knn_s = time.perf_counter() - t0
+        if measure == "ed":
+            checked_q = list(range(len(qs)))
+            oracle = {j: brute64_ed_within(torch, coll.data, qs[j], p.znorm,
+                                           eps + RANGE_BAND)
+                      for j in checked_q}
+        else:
+            checked_q = list(range(DTW_BRUTE[qlen]))
+            oracle = {j: dtw_oracle[(qlen, j)] for j in checked_q}
+            if any(d[-1] <= eps + RANGE_BAND for _, d in oracle.values()):
+                raise AssertionError(f"[8]'s {DTW_KEEP} nearest windows do "
+                                     f"not reach eps {eps} (qlen {qlen})")
+        brute_s = time.perf_counter() - t0 - knn_s
+        case = {"measure": measure, "qlen": qlen, "r": r, "eps": eps,
+                "knn_s": knn_s, "brute_s": brute_s, "runs": {}}
+        cases.append(case)
+        answers_r = {}
+        for cap in RANGE_CAPS:
+            small = cap < big_cap
+            sub = (checked_q if small and measure == "dtw"
+                   else list(range(len(qs))))
+            spec = QuerySpec(eps=eps, measure=measure, r=r,
+                             range_capacity=cap,
+                             chunk_size=RANGE_SMALL_CHUNK if small else 512)
+            zero_counts()
+            executor.device_range_scan.syncs = 0
+            tb = time.perf_counter()
+            res = engine.search([qs[j] for j in sub], spec)
+            wall = time.perf_counter() - tb
+            counts = read_counts(range_kernels[measure] + knn_kernels)
+            for name in range_kernels[measure]:
+                if counts[name] <= 0:
+                    raise AssertionError(f"{name} was not launched on the "
+                                         f"{measure} range path")
+            for name in knn_kernels:
+                if counts[name]:
+                    raise AssertionError(f"the {measure} range path "
+                                         f"launched {name}")
+            if not small:
+                for name, n_ in counts.items():
+                    range_launches[name] = range_launches.get(name, 0) + n_
+            answers_r[cap] = dict(zip(sub, res))
+            case["runs"][cap] = {
+                "queries": len(sub), "chunk_size": spec.chunk_size,
+                "wall_s": wall, "queries_per_s": len(sub) / wall,
+                "launches": counts,
+                "scan_syncs": executor.device_range_scan.syncs,
+                "host_syncs": executor.to_host.syncs,
+                "mean_chunks_visited": float(np.mean(
+                    [x.stats.chunks_visited for x in res])),
+                "mean_envelopes_checked": float(np.mean(
+                    [x.stats.envelopes_checked for x in res])),
+                "mean_true_dists": float(np.mean(
+                    [x.stats.true_dist_computations for x in res])),
+                "overflows": sum(x.stats.range_overflows for x in res)}
+        # every checked query equals the float64 brute force at both
+        # capacities; the two capacities give the same hits (identical
+        # sets: the overflow tail's host kernels round otherwise, so a
+        # window may differ only where its float64 distance lies within
+        # RANGE_BAND of eps); each capacity overflows exactly the queries
+        # with more hits than it holds
+        full = answers_r[big_cap]
+        hits = [len(full[j].dists) for j in sorted(full)]
+        edge, cap_differ = 0, 0
+        for cap, ans in answers_r.items():
+            run = case["runs"][cap]
+            want_over = sum(len(x.dists) > cap for x in ans.values())
+            if run["overflows"] != want_over:
+                raise AssertionError(
+                    f"{measure} range at capacity {cap}: {run['overflows']} "
+                    f"overflows, {want_over} queries hold more hits")
+            for j, res in ans.items():
+                if j in oracle:
+                    edge += range_set_check(
+                        res, *oracle[j], eps, n_off,
+                        f"{measure} range qlen {qlen} capacity {cap}")[1]
+                a_ = set(zip(res.series.tolist(), res.offsets.tolist()))
+                b_ = set(zip(full[j].series.tolist(),
+                             full[j].offsets.tolist()))
+                if a_ != b_:
+                    cap_differ += len(a_ ^ b_)
+                    if j not in oracle:
+                        raise AssertionError(f"{measure} range: capacities "
+                                             f"{cap} and {big_cap} differ")
+        hspec = QuerySpec(eps=eps, measure=measure, r=r, scan_backend="host",
+                          chunk_size=RANGE_SMALL_CHUNK)
+        zero_counts()
+        tb = time.perf_counter()
+        host_res = [engine.search(qs[j], hspec)
+                    for j in range(RANGE_HOST // 2)]
+        host_wall = time.perf_counter() - tb
+        host_syncs = executor.to_host.syncs
+        host_exact = 0
+        for j, hres in enumerate(host_res):
+            range_set_check(hres, *oracle[j], eps, n_off,
+                            f"host {measure} range qlen {qlen}")
+            host_exact += set(zip(hres.series.tolist(),
+                                  hres.offsets.tolist())) == set(
+                zip(full[j].series.tolist(), full[j].offsets.tolist()))
+        case.update(hits_min=min(hits), hits_median=float(np.median(hits)),
+                    hits_max=max(hits), boundary_windows=edge,
+                    capacities_differ_at=cap_differ,
+                    host={"queries": len(host_res), "wall_s": host_wall,
+                          "host_syncs": host_syncs,
+                          "same_set_as_device": host_exact})
+        rb = case["runs"][big_cap]
+        rs = case["runs"][min(RANGE_CAPS)]
+        log(f"[16] {measure} range qlen {qlen}: eps {eps:.4f} (median "
+            f"{RANGE_K}th neighbour, {knn_s:.2f} s), hits a query "
+            f"{min(hits)}-{max(hits)} (median {np.median(hits):.0f}); "
+            f"capacity {big_cap}: {rb['queries_per_s']:.2f} queries/s, "
+            f"batch {rb['wall_s']:.3f} s, {rb['scan_syncs']} stop-test "
+            f"syncs + 1 readback, mean chunks "
+            f"{rb['mean_chunks_visited']:.1f}, overflows {rb['overflows']};"
+            f" capacity {min(RANGE_CAPS)} ({rs['queries']} queries, chunk "
+            f"{RANGE_SMALL_CHUNK}): {rs['wall_s']:.2f} s, overflows "
+            f"{rs['overflows']}, host syncs {rs['host_syncs']}; launches "
+            f"{rb['launches']}; = the float64 brute force on "
+            f"{len(checked_q)} queries ({edge} windows within {RANGE_BAND} "
+            f"of eps; {brute_s:.1f} s); capacities differ at {cap_differ} "
+            f"windows; host backend {len(host_res)} "
+            f"queries in {host_wall:.2f} s, {host_syncs} syncs, same set "
+            f"{host_exact}/{len(host_res)}")
+
+        # the range entries and range_append on this batch's pack: held to
+        # their plain versions, then timed (its first 8 chunks)
+        q = torch.from_numpy(np.stack(qs)).to(dev)
+        qn_, dlo_, dhi_, qb_, qh_ = planner.prepare_query_batch(
+            q, p.seg_len, p.znorm, measure, r)
+        lbs_ = planner.env_lower_bounds_batch(
+            qb_, qh_, env, index.breakpoints, p.seg_len,
+            p.query_segments(qlen), False)
+        eps2_t = torch.full((bq,), eps * eps, device=dev)
+        rplan = planner.device_range_pack(env.series_id, env.anchor,
+                                          env.n_master, lbs_, eps2_t,
+                                          n_pad=n_pad)[:4]
+        rows = 512
+        n_t = min(8, n_pad // rows)         # the chunks timed
+        ovf_t = torch.full((bq,), n_pad // rows, dtype=torch.int32,
+                           device=dev)
+        if measure == "ed":
+            # the mask and counters bit for bit, d2 bit for bit against
+            # the mask over the contract entry's d2 and within the ED
+            # tolerance against the plain version's
+            st_k = torch.zeros((bq, 6), dtype=torch.int32, device=dev)
+            st_p = torch.zeros_like(st_k)
+            range_err = 0.0
+            for i in range(min(3, n_t)):
+                cols = slice(i * rows, (i + 1) * rows)
+                dist = fused_gather_ed(
+                    *a0, rplan[0][:, cols].reshape(-1).contiguous(),
+                    rplan[1][:, cols].reshape(-1).contiguous(), qn_, g=g,
+                    rows=rows, znorm=p.znorm)
+                got = fused_gather_ed_range(
+                    *a0, *rplan, qn_, eps2_t, ovf_t, st_k, i=i, chunk=rows,
+                    g=g, znorm=p.znorm)
+                check_equal(torch, "fused_gather_ed_range vs contract", got,
+                            ref.fused_gather_ed_range_ref(
+                                *a0, *rplan, qn_, eps2_t, ovf_t,
+                                st_p.clone(), i=i, chunk=rows, g=g,
+                                znorm=p.znorm, dist=dist))
+                range_err = max(range_err, check_close(
+                    torch, "fused_gather_ed", got,
+                    ref.fused_gather_ed_range_ref(
+                        *a0, *rplan, qn_, eps2_t, ovf_t, st_p, i=i,
+                        chunk=rows, g=g, znorm=p.znorm)))
+                check_equal(torch, "fused_gather_ed_range counters", st_k,
+                            st_p)
+            call = [lambda i=i: fused_gather_ed_range(
+                *a0, *rplan, qn_, eps2_t, ovf_t, st_k, i=i, chunk=rows, g=g,
+                znorm=p.znorm) for i in range(n_t)]
+            plain = [lambda i=i: ref.fused_gather_ed_range_ref(
+                *a0, *rplan, qn_, eps2_t, ovf_t, st_p, i=i, chunk=rows, g=g,
+                znorm=p.znorm) for i in range(n_t)]
+            nbytes, ops, n_ok = range_chunk_work(torch, coll, rplan, eps2_t,
+                                                 qlen, rows, g, n_t)
+            timings[("fused_gather_ed_range", qlen, rows)] = timing(
+                torch, call, plain, nbytes, ops, range_err,
+                f"B={bq} rows={rows} qlen={qlen} ok/call={n_ok:.0f}")
+            d2_rows = [c() for c in call]
+        else:
+            steps = [chunk_args(torch, a0, qn_, dlo_, dhi_, rplan, i, rows,
+                                eps2_t, g, ovf=ovf_t, znorm=p.znorm)
+                     for i in range(n_t)]
+            err, _ = check_chunk_entry(torch, *steps[0][:4], range_mode=True)
+            call = [lambda c=c: fused_gather_lb_keogh_range(
+                *c[0], c[3], **c[1]) for c in steps]
+            plain = [lambda c=c: ref.fused_gather_lb_keogh_range_ref(
+                *c[0], c[3].clone(), **c[1]) for c in steps]
+            per_call = sum(int(c[2][4].sum()) for c in steps) / len(steps)
+            nbytes, ops, n_ok = lb_chunk_work(torch, coll, rplan, eps2_t,
+                                              qlen, rows, g, n_t, per_call,
+                                              ovf=ovf_t)
+            timings[("fused_gather_lb_keogh_range", qlen, rows)] = timing(
+                torch, call, plain, nbytes, ops, err,
+                f"B={bq} rows={rows} qlen={qlen} g={g} ok/call={n_ok:.0f} "
+                f"surv/call={per_call:.0f}", events=2)
+            d2_rows = [dtw_survivors(*c[4][:-1], c[4][-1].clone(), r=r,
+                                     znorm=p.znorm) for c in steps]
+        # range_append over the 8 steps' distance rows into a buffer that
+        # cannot overflow while timed: bit for bit, then timed
+        cap_t = 1 << 16
+
+        def fresh_buffer():
+            return ([torch.full((bq, cap_t), float("inf"), device=dev),
+                     torch.full((bq, cap_t), -1, dtype=torch.int32,
+                                device=dev),
+                     torch.full((bq, cap_t), -1, dtype=torch.int32,
+                                device=dev)],
+                    torch.zeros(bq, dtype=torch.int32, device=dev),
+                    torch.full((bq,), n_pad // rows, dtype=torch.int32,
+                               device=dev))
+        bk, bp = fresh_buffer(), fresh_buffer()
+        for i, d2r in enumerate(d2_rows):
+            range_append(d2r, rplan[0], rplan[1], eps2_t, *bk, i=i,
+                         chunk=rows, g=g)
+            ref.range_append_ref(d2r, rplan[0], rplan[1], eps2_t, *bp, i=i,
+                                 chunk=rows, g=g)
+        for name, x, y in zip(("d2", "sid", "off", "cnt", "ovf"),
+                              [*bk[0], bk[1], bk[2]], [*bp[0], bp[1], bp[2]]):
+            check_equal(torch, f"range_append {name}", x, y)
+        step_hits = sum(int((torch.isfinite(d) & (d <= eps2_t[:, None]))
+                            .sum()) for d in d2_rows) / len(d2_rows)
+        call = [lambda i=i, d=d: range_append(
+            d, rplan[0], rplan[1], eps2_t, *bk, i=i, chunk=rows, g=g)
+            for i, d in enumerate(d2_rows)]
+        plain = [lambda i=i, d=d: ref.range_append_ref(
+            d, rplan[0], rplan[1], eps2_t, *bp, i=i, chunk=rows, g=g)
+            for i, d in enumerate(d2_rows)]
+        timings[("range_append", measure, qlen)] = timing(
+            torch, call, plain, bq * rows * g * 4 + step_hits * 20
+            + 4 * bq * 4, 0, 0.0,
+            f"B={bq} M={rows * g} cap={cap_t} hits/call={step_hits:.1f}")
+        del d2_rows, call, plain, bk, bp
+    # the range scan alone, traced, per measure at qlen 256: at most 3
+    # kernel launch calls an ED step and 4 a DTW step
+    traced = {}
+    for case, (measure, qlen, r, qs) in zip(cases, range_cases):
+        if qlen != QLENS[-1]:
+            continue
+        tr = trace_range_scan(torch, coll, index, p, qs, QuerySpec(
+            eps=case["eps"], measure=measure, r=r))
+        traced[measure] = tr
+        log(f"[16] the {measure} range scan alone (qlen {qlen}): "
+            f"{tr['chunk_steps']} chunk steps, "
+            f"{tr['launch_calls_per_step']:.2f} kernel launch calls and "
+            f"{tr['device_events_per_step']:.2f} device activities a step, "
+            f"device busy {tr['device_busy_s']:.4f} s of {tr['wall_s']:.4f} s"
+            f" (idle share {tr['device_idle_share']:.3f})")
+        limit = 3 if measure == "ed" else 4
+        if tr["launch_calls_per_step"] > limit:
+            raise AssertionError(f"the {measure} range scan makes more than "
+                                 f"{limit} kernel launch calls a chunk step")
+    for key, t in timings.items():
+        if key[0] in ("fused_gather_ed_range", "fused_gather_lb_keogh_range",
+                      "range_append"):
+            log(f"[16] {key[0]:27s} {t['shape']:45s} kernel {t['ms']:.4f} "
+                f"ms  plain {t['plain_ms']:.4f} ms  bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {t['timer']}/"
+                f"{t['plain_timer']}; events {t['event_ms']:.4f} / "
+                f"{t['plain_event_ms']:.4f} ms)")
+    return cases, range_launches, traced
 
 
 def main() -> int:
@@ -1223,7 +1850,6 @@ def main() -> int:
                                   planner)
     from repro_torch.core.search import brute_force_knn
     from repro_torch.core.paa import znormalize
-    from repro_torch.core import dtw as core_dtw
     from repro_torch.core import envelope as core_envelope
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.batch_ed import batch_ed
@@ -1233,13 +1859,16 @@ def main() -> int:
     from repro_torch.kernels.envelope import envelope_znorm
     from repro_torch.kernels.fused_verify import (
         fused_gather_ed, fused_gather_ed_chunk, fused_gather_ed_chunk_long,
-        fused_gather_ed_long, fused_gather_lb_keogh,
+        fused_gather_ed_long, fused_gather_ed_range,
+        fused_gather_ed_range_long, fused_gather_lb_keogh,
         fused_gather_lb_keogh_chunk, fused_gather_lb_keogh_chunk_long,
-        fused_gather_lb_keogh_long, gather_znorm)
+        fused_gather_lb_keogh_long, fused_gather_lb_keogh_range,
+        fused_gather_lb_keogh_range_long, gather_znorm)
     from repro_torch.kernels import fused_verify as fused_verify_mod
     from repro_torch.kernels.lb_keogh import lb_keogh
     from repro_torch.kernels.mindist import mindist_paa, mindist_sym
     from repro_torch.kernels.pool_merge import pool_merge, pool_merge_partials
+    from repro_torch.kernels.range_append import range_append
     from repro_torch.train.data import series_batches
 
     # the plain versions' products stay full float32, like the kernels
@@ -1272,7 +1901,13 @@ def main() -> int:
                     "fused_gather_ed_chunk_long": fused_gather_ed_chunk_long,
                     "fused_gather_lb_keogh_long": fused_gather_lb_keogh_long,
                     "fused_gather_lb_keogh_chunk_long":
-                        fused_gather_lb_keogh_chunk_long}
+                        fused_gather_lb_keogh_chunk_long,
+                    "fused_gather_ed_range": fused_gather_ed_range,
+                    "fused_gather_ed_range_long": fused_gather_ed_range_long,
+                    "fused_gather_lb_keogh_range": fused_gather_lb_keogh_range,
+                    "fused_gather_lb_keogh_range_long":
+                        fused_gather_lb_keogh_range_long,
+                    "range_append": range_append}
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -1729,23 +2364,25 @@ def main() -> int:
         f"{d['mean_pruning_power']:.5f}; LB_Keogh {d['mean_dtw_lb_keogh']:.1f}"
         f" -> DP {d['mean_dtw_full']:.1f} per query, abandoning power "
         f"{d['mean_abandoning_power']:.5f}")
-    worst, checked, brute_s = 0.0, 0, {}
+    # the float64 brute force keeps each query's DTW_KEEP nearest windows:
+    # [16] holds the range answers of the same queries to them
+    worst, checked, brute_s, dtw_oracle = 0.0, 0, {}, {}
     tb = time.perf_counter()
     for (qlen, r), ans, qs in zip(DTW_CASES, dtw_answers, dtw_batches):
         tq = time.perf_counter()
-        for res, q in list(zip(ans, qs))[:DTW_BRUTE[qlen]]:
-            oracle = brute_force_knn(coll, q, k=K, znorm=p.znorm,
-                                     measure="dtw", r=r)
-            err = float(np.abs(res.dists - oracle.dists).max())
+        for j, (res, q) in enumerate(list(zip(ans, qs))[:DTW_BRUTE[qlen]]):
+            _, d = dtw_oracle[(qlen, j)] = brute64_dtw_top(
+                torch, coll.data, q, r, p.znorm, DTW_KEEP)
+            err = float(np.abs(res.dists - d[:K]).max())
             worst, checked = max(worst, err), checked + 1
             if err > 5e-3:
                 raise AssertionError(
-                    f"DTW engine {res.dists} vs brute force {oracle.dists}")
+                    f"DTW engine {res.dists} vs brute force {d[:K]}")
         brute_s[qlen] = (time.perf_counter() - tq) / DTW_BRUTE[qlen]
     results["dtw_brute_force"] = {"queries": checked, "max_abs_err": worst,
                                   "seconds": time.perf_counter() - tb,
                                   "seconds_per_query": brute_s}
-    log(f"[8] DTW answers match the plain-DP brute force on the card "
+    log(f"[8] DTW answers match the float64 DP brute force on the card "
         f"({checked} queries: {DTW_BRUTE}; max |d - d_brute| {worst:.2e}, "
         f"tolerance 5e-3; {time.perf_counter() - tb:.1f} s, per query "
         + ", ".join(f"qlen {q}: {t:.1f} s" for q, t in brute_s.items())
@@ -1766,7 +2403,7 @@ def main() -> int:
             q, p.seg_len, p.znorm, "dtw", r)
         lbs = planner.env_lower_bounds_batch(qb, qh, env, index.breakpoints,
                                              p.seg_len, nseg, False)
-        ssids, sanc, snm, _, _ = planner.device_scan_pack(
+        ssids, sanc, snm, slbs2, _ = planner.device_scan_pack(
             env.series_id, env.anchor, env.n_master, lbs, none, zero,
             chunk=1, n_pad=n_pad)
         # the first 24 chunks of the LB order: their regions (~6 MB each)
@@ -1796,28 +2433,31 @@ def main() -> int:
             f"B={BATCH} rows={rows} qlen={qlen} g={g}")
         # the scan's chunk entry and the DP over its survivors, under the
         # batch's final k-th distance (what the scan's later chunks see)
-        kth = torch.tensor([float(a.dists[-1]) ** 2 for a in ans],
+        # (the plan's chunks 0-23 under a pool whose k-th is the batch's
+        # final one: every query active, the rows below it kept)
+        kth = torch.tensor([[float(a.dists[-1]) ** 2] for a in ans],
                            dtype=torch.float32, device=dev)
-        steps = [chunk_args(torch, a0, qn, dlo, dhi, sid_c, anc_c, nm_c,
-                            kth, g) for sid_c, anc_c, nm_c in chunks]
-        call = [lambda c=c: fused_gather_lb_keogh_chunk(
-            *c[0], g=g, rows=rows, znorm=p.znorm) for c in steps]
+        plan = (ssids, sanc, snm, slbs2)
+        steps = [chunk_args(torch, a0, qn, dlo, dhi, plan, i, rows, kth, g,
+                            znorm=p.znorm) for i in range(len(chunks))]
+        err, _ = check_chunk_entry(torch, *steps[0][:4])
+        call = [lambda c=c: fused_gather_lb_keogh_chunk(*c[0], c[3], **c[1])
+                for c in steps]
         plain = [lambda c=c: ref.fused_gather_lb_keogh_chunk_ref(
-            *c[0], g=g, rows=rows, znorm=p.znorm) for c in steps]
-        err, _ = check_chunk_entry(torch, steps[0][1], plain[0](), kth)
-        nsurv_total = sum(int(c[1][4].sum()) for c in steps[:8])
-        per_call = nsurv_total / 8
-        # + the mask, kth, the list and its counts, the DP's output
+            *c[0], c[3].clone(), **c[1]) for c in steps]
+        per_call = sum(int(c[2][4].sum()) for c in steps) / len(steps)
+        # its bound: the LB of the ok candidates alone
+        c_bytes, c_ops, ok_c = lb_chunk_work(torch, coll, plan, kth, qlen,
+                                             rows, g, len(steps), per_call)
         timings[("fused_gather_lb_keogh_chunk", qlen, rows)] = timing(
-            torch, call, plain, nbytes + BATCH * rows * g * 5 + BATCH * 8
-            + per_call * 4, ops, err,
-            f"B={BATCH} rows={rows} qlen={qlen} g={g} "
+            torch, call, plain, c_bytes, c_ops, err,
+            f"B={BATCH} rows={rows} qlen={qlen} g={g} ok/call={ok_c:.0f} "
             f"surv/call={per_call:.0f}", events=2)
         # LB_Keogh <= DTW on every survivor of the first chunk that has
         # any (the LB kernel's bound and the DP kernel's distance, one
         # normalization)
-        first = next(c for c in steps if int(c[1][4].sum()) > 0)
-        lb2_0, dp0 = first[1][0], first[2]
+        first = next(c for c in steps if int(c[2][4].sum()) > 0)
+        lb2_0, dp0 = first[2][0], first[4]
         d2_0 = dtw_survivors(*dp0[:-1], dp0[-1].clone(), r=r, znorm=p.znorm)
         surv0 = torch.isfinite(d2_0)
         excess = (lb2_0.reshape(BATCH, -1) - d2_0)[surv0]
@@ -1832,7 +2472,7 @@ def main() -> int:
                 f"survivors (qlen {qlen}; max lb - d {worst})")
         log(f"[9] LB_Keogh <= DTW on all {excess.numel()} survivors of a "
             f"chunk (qlen {qlen}, r {r}; max lb - d {worst:.3g})")
-        surv_inputs = [c[2] for c in steps[:8]]
+        surv_inputs = [c[4] for c in steps[:8]]
         call = [lambda a=a: dtw_survivors(*a, r=r, znorm=p.znorm)
                 for a in surv_inputs]
         plain = [lambda a=a: ref.dtw_survivors_ref(*a, r=r, znorm=p.znorm)
@@ -1936,6 +2576,12 @@ def main() -> int:
         f"sort kernels: {sc['sort_kernel_events']}")
     if sc["sort_kernel_events"]:
         raise AssertionError("the DTW scan runs a sort kernel")
+    # the LB chunk entry decides, masks and counts itself: a DTW step is
+    # the entry, the DP and the dense merge's two kernels (plus the stop
+    # test's two launches every STOP_TEST_EVERY steps)
+    if sc["launch_calls_per_step"] > 4.5:
+        raise AssertionError("the DTW scan makes more than 4.5 kernel launch "
+                             "calls a chunk step")
 
     # -- 11. the host backend ------------------------------------------------
     # two queries per measure whose device answers were checked against
@@ -2283,20 +2929,73 @@ def main() -> int:
             host_err = max(same_answers(a, b, 5e-3, "long DTW device vs host")
                            for a, b in zip(got, host))
             for res, q in zip(got, qs_l):
-                w = torch.stack([qcoll.data[s_, o:o + qlen] for s_, o in
-                                 zip(res.series, res.offsets)]).double()
-                w = (w - w.mean(-1, keepdim=True)) / w.std(
-                    -1, keepdim=True, correction=0).clamp_min(1e-8)
-                qt = torch.from_numpy(np.asarray(q, np.float64)).to(dev)
-                qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
-                d64 = torch.sqrt(core_dtw.dtw_band(qt, w, LQ_R,
-                                                   squared=True))
-                worst = max(worst, float(np.abs(
-                    res.dists - d64.cpu().numpy()).max()))
+                d64 = dtw64_windows(torch, qcoll.data, q, res.series,
+                                    res.offsets, LQ_R, qp.znorm)
+                worst = max(worst, float(np.abs(res.dists - d64).max()))
         if worst > 5e-3:
             raise AssertionError(f"long {measure} distances off float64 by "
                                  f"{worst}")
+        # eps-range at this length, through the range entries' long-row
+        # variants: eps just past the batch's median K-th neighbour; ED
+        # held to a float64 brute force, DTW to the host backend (the two
+        # sets may differ only at windows whose float64 DP distance lies
+        # within RANGE_BAND of eps)
+        eps_l = 1.02 * float(np.median([a.dists[-1] for a in got]))
+        rname = ("fused_gather_ed_range_long" if measure == "ed"
+                 else "fused_gather_lb_keogh_range_long")
+        zero_counts()
+        t1 = time.perf_counter()
+        rgot = qengine.search(qs_l, QuerySpec(eps=eps_l, measure=measure,
+                                              r=lspec.r))
+        range_wall = time.perf_counter() - t1
+        rl = read_counts((rname, rname[:-5], "range_append"))
+        if rl[rname] <= 0 or rl["range_append"] <= 0:
+            raise AssertionError(f"the long {measure} range path did not "
+                                 f"launch {rname} and range_append")
+        if rl[rname[:-5]]:
+            raise AssertionError(f"the long {measure} range path launched "
+                                 f"the staged {rname[:-5]}")
+        n_off_l = LQ_LEN - qlen + 1
+        r_hits, r_edge = 0, 0
+        band_l = ed_band(qlen, eps_l) if measure == "ed" else RANGE_BAND
+        if measure == "ed":
+            for res, q in zip(rgot, qs_l):
+                i64, d64 = brute64_ed_within(torch, qcoll.data, q, qp.znorm,
+                                             eps_l + band_l)
+                h, e = range_set_check(res, i64, d64, eps_l, n_off_l,
+                                       "long ED range", band_l)
+                r_hits, r_edge = r_hits + h, r_edge + e
+        else:
+            hgot = qengine.search(qs_l, QuerySpec(
+                eps=eps_l, measure="dtw", r=LQ_R, scan_backend="host"))
+            for res, hres, q in zip(rgot, hgot, qs_l):
+                a_ = set(zip(res.series.tolist(), res.offsets.tolist()))
+                b_ = set(zip(hres.series.tolist(), hres.offsets.tolist()))
+                odd = sorted(a_ ^ b_)
+                d_odd = dtw64_windows(torch, qcoll.data, q,
+                                      [x[0] for x in odd],
+                                      [x[1] for x in odd], LQ_R, qp.znorm)
+                if (np.abs(d_odd - eps_l) > RANGE_BAND).any():
+                    raise AssertionError("long DTW range: device and host "
+                                         "hit sets differ off the boundary")
+                d_dev = dtw64_windows(torch, qcoll.data, q, res.series,
+                                      res.offsets, LQ_R, qp.znorm)
+                if len(d_dev) and np.abs(d_dev - res.dists).max() > 5e-3:
+                    raise AssertionError("long DTW range distances off the "
+                                         "float64 DP")
+                r_hits, r_edge = r_hits + len(a_), r_edge + len(odd)
         st = [r_.stats for r_ in got]
+        lq[measure + "_range"] = {
+            "eps": eps_l, "band": band_l, "wall_s": range_wall,
+            "launches": rl,
+            "hits": r_hits, "boundary_windows": r_edge,
+            "overflows": sum(x.stats.range_overflows for x in rgot)}
+        log(f"[15] long {measure} range: {len(qs_l)} queries at eps "
+            f"{eps_l:.4f} in {range_wall:.2f} s; launches {rl}; {r_hits} "
+            f"hits = the "
+            + ("float64 brute force's" if measure == "ed"
+               else "host backend's")
+            + f" ({r_edge} windows within {band_l:.3g} of eps)")
         lq[measure] = {
             "queries": len(qs_l), "qlen": qlen, "wall_s": wall,
             "launches": ll, "max_abs_err_vs_float64": worst,
@@ -2352,27 +3051,86 @@ def main() -> int:
             timings[("fused_gather_ed_long", qlen, rows)] = timing(
                 torch, call, plain, nbytes, 2 * qlen * ok_c, 0.0,
                 f"B={BATCH} rows={rows} qlen={qlen} ok/call={ok_c}")
+            # the range mode's long-row variant: every row kept, the dense
+            # d2 out
+            eps2_big = torch.full((BATCH,), 1e30, device=dev)
+            no_ovf = torch.full((BATCH,), 4, dtype=torch.int32, device=dev)
+            got = fused_gather_ed_range_long(
+                *a0, *plan, qn, eps2_big, no_ovf, st_k.clone(), i=0,
+                chunk=rows, g=g, znorm=True)
+            check_equal(torch, "fused_gather_ed_range_long vs contract", got,
+                        ref.fused_gather_ed_range_ref(
+                            *a0, *plan, qn, eps2_big, no_ovf, st_k.clone(),
+                            i=0, chunk=rows, g=g, znorm=True,
+                            dist=fused_gather_ed_long(
+                                *a0, sids[:, :rows].reshape(-1).contiguous(),
+                                anc[:, :rows].reshape(-1).contiguous(), qn,
+                                g=g, rows=rows, znorm=True)))
+            # (the queries are noisy windows of the 32 series, so the
+            # candidates near their sources are near matches: the
+            # identity's rounding is relative to 2 qlen, not to their d2)
+            range_err = check_close(
+                torch, "fused_gather_ed_long", got,
+                ref.fused_gather_ed_range_ref(
+                    *a0, *plan, qn, eps2_big, no_ovf, st_k.clone(), i=0,
+                    chunk=rows, g=g, znorm=True), scale=2.0 * qlen)
+            call = [lambda i=i: fused_gather_ed_range_long(
+                *a0, *plan, qn, eps2_big, no_ovf, st_k, i=i, chunk=rows,
+                g=g, znorm=True) for i in range(4)]
+            plain = [lambda i=i: ref.fused_gather_ed_range_ref(
+                *a0, *plan, qn, eps2_big, no_ovf, st_k.clone(), i=i,
+                chunk=rows, g=g, znorm=True) for i in range(4)]
+            timings[("fused_gather_ed_range_long", qlen, rows)] = timing(
+                torch, call, plain, covered + BATCH * rows * 16
+                + BATCH * qlen * 4 + 2 * BATCH * 4 + ok_c * 4,
+                2 * qlen * ok_c, range_err,
+                f"B={BATCH} rows={rows} qlen={qlen} ok/call={ok_c}")
         else:
             _, dlo, dhi, _, _ = planner.prepare_query_batch(
                 qt, qp.seg_len, True, "dtw", LQ_R)
-            ok = torch.ones((BATCH, rows * g), dtype=torch.bool, device=dev)
-            kth = torch.full((BATCH,), -float("inf"), device=dev)
-            chunks = [(sids[:, i * rows:(i + 1) * rows].reshape(-1)
-                       .contiguous(),
-                       anc[:, i * rows:(i + 1) * rows].reshape(-1)
-                       .contiguous()) for i in range(4)]
-            call = [lambda c=c: fused_gather_lb_keogh_chunk_long(
-                *a0, *c, dlo, dhi, ok, kth, g=g, rows=rows, znorm=True)
-                for c in chunks]
-            plain = [lambda c=c: ref.fused_gather_lb_keogh_chunk_ref(
-                *a0, *c, dlo, dhi, ok, kth, g=g, rows=rows, znorm=True)
-                for c in chunks]
+            # every bound 0 under a cut of 1e-30 (the pool's k-th, or
+            # eps2): every query active, every row kept, every candidate
+            # ok, so the LB of every candidate is computed and checked;
+            # only a window inside the query's envelope (lb2 0) survives
+            plan = (sids, anc, torch.full_like(sids, g),
+                    torch.zeros((BATCH, n_pad), device=dev))
             m = BATCH * rows * g
-            nbytes = (covered + BATCH * rows * 8 + 2 * BATCH * qlen * 4
-                      + m + 3 * m * 4 + m * 4)
-            timings[("fused_gather_lb_keogh_long", qlen, rows)] = timing(
-                torch, call, plain, nbytes, 10 * m * qlen, 0.0,
-                f"B={BATCH} rows={rows} qlen={qlen} r={LQ_R}")
+            # `covered` counts every candidate's window elements and
+            # prefix sums: here every candidate is ok
+            nbytes = (covered + BATCH * rows * 16 + 2 * BATCH * qlen * 4
+                      + 3 * m * 4 + m * 4 + 2 * m * 4)
+            for name, cut, ovf_l, entry, plain_fn in (
+                    ("fused_gather_lb_keogh_long",
+                     torch.full((BATCH, 1), 1e-30, device=dev), None,
+                     fused_gather_lb_keogh_chunk_long,
+                     ref.fused_gather_lb_keogh_chunk_ref),
+                    ("fused_gather_lb_keogh_range_long",
+                     torch.full((BATCH,), 1e-30, device=dev),
+                     torch.full((BATCH,), 4, dtype=torch.int32, device=dev),
+                     fused_gather_lb_keogh_range_long,
+                     ref.fused_gather_lb_keogh_range_ref)):
+                tail = (cut,) if ovf_l is None else (cut, ovf_l)
+                st_l = torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+                call = [lambda i=i: entry(*a0, *plan, dlo, dhi, *tail, st_l,
+                                          i=i, chunk=rows, g=g, znorm=True)
+                        for i in range(4)]
+                plain = [lambda i=i: plain_fn(
+                    *a0, *plan, dlo, dhi, *tail, st_l.clone(), i=i,
+                    chunk=rows, g=g, znorm=True) for i in range(4)]
+                got, want = call[0](), plain[0]()
+                err = check_close(torch, "fused_gather_lb_keogh_long",
+                                  got[0], want[0])
+                for x, y in zip(got[1:3], want[1:3]):
+                    check_equal(torch, f"{name} mu/sd", x, y)
+                ok_c = int(st_l[:, 3].sum())      # the entry's own count
+                if ok_c != m:
+                    raise AssertionError(f"{name}: {ok_c} of {m} candidates "
+                                         "ok")
+                timings[(name, qlen, rows)] = timing(
+                    torch, call, plain, nbytes, 10 * ok_c * qlen, err,
+                    f"B={BATCH} rows={rows} qlen={qlen} r={LQ_R} "
+                    f"ok/call={ok_c} surv/call={int(got[4].sum())}",
+                    events=2)
         del call, plain
         # mindist over the long index's envelopes and blocks at this nseg
         nseg = qp.query_segments(qlen)
@@ -2435,6 +3193,19 @@ def main() -> int:
                           for k, v in timings.items()}
     del qengine, qcoll
 
+    # -- 16. eps-range at full size ------------------------------------------
+    range_cases = ([("ed", qlen, 0, batches[i]) for i, qlen in
+                    enumerate(QLENS)]
+                   + [("dtw", qlen, r, qs) for (qlen, r), qs in
+                      zip(DTW_CASES, dtw_batches)])
+    (results["range_path"], range_launches,
+     results["traced_range_scan"]) = range_phase(
+        torch, engine, p, range_cases, dtw_oracle, timings, zero_counts,
+        read_counts)
+    results["range_launches"] = range_launches
+    results["timings"] = {" ".join(map(str, k)): v
+                          for k, v in timings.items()}
+
     # launches: each kernel's count on the path it belongs to — the ED main
     # path, the DTW path, the index build, the host backend (ED: batch_ed;
     # DTW: lb_keogh and dtw_band), the long DTW path (the wide entries)
@@ -2460,7 +3231,17 @@ def main() -> int:
                 # the long-row chunk entries at the long phase's shapes
                 "fused_gather_ed_long": ("fused_gather_ed_long", LQ_ED, 128),
                 "fused_gather_lb_keogh_long": ("fused_gather_lb_keogh_long",
-                                               LQ_DTW, 128)}
+                                               LQ_DTW, 128),
+                # the range modes at [16]'s packs (qlen 256) and at the long
+                # phase's shapes, and the hit append of [16]'s ED steps
+                "fused_gather_ed_range": ("fused_gather_ed_range", 256, 512),
+                "fused_gather_lb_keogh_range": ("fused_gather_lb_keogh_range",
+                                                256, 512),
+                "fused_gather_ed_range_long": ("fused_gather_ed_range_long",
+                                               LQ_ED, 128),
+                "fused_gather_lb_keogh_range_long": (
+                    "fused_gather_lb_keogh_range_long", LQ_DTW, 128),
+                "range_append": ("range_append", "ed", 256)}
     path_launches = dict(
         launches, fused_gather_ed=launches["fused_gather_ed_chunk"],
         pool_merge=launches["pool_merge_partials"],
@@ -2479,14 +3260,22 @@ def main() -> int:
         fused_gather_ed_long=lq["ed"]["launches"][
             "fused_gather_ed_chunk_long"],
         fused_gather_lb_keogh_long=lq["dtw"]["launches"][
-            "fused_gather_lb_keogh_chunk_long"])
+            "fused_gather_lb_keogh_chunk_long"],
+        fused_gather_ed_range=range_launches["fused_gather_ed_range"],
+        fused_gather_lb_keogh_range=range_launches[
+            "fused_gather_lb_keogh_range"],
+        range_append=range_launches["range_append"],
+        fused_gather_ed_range_long=lq["ed_range"]["launches"][
+            "fused_gather_ed_range_long"],
+        fused_gather_lb_keogh_range_long=lq["dtw_range"]["launches"][
+            "fused_gather_lb_keogh_range_long"])
     for name, key in headline.items():
         t = timings[key]
         src, replaces = REPLACES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": path_launches[name],
-            "max_abs_err": max(errs[name], t["max_abs_err"]),
+            "max_abs_err": max(errs.get(name, 0.0), t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -4,8 +4,9 @@
     res = engine.search(q, QuerySpec(k=5))                   # one query
     ress = engine.search(q_batch, QuerySpec(k=5))            # many queries
 
-The port serves k-NN on a local index end to end, under ED (the default
-query) and DTW (`QuerySpec(measure="dtw", r=...)`):
+The port serves k-NN and eps-range (`QuerySpec(eps=...)`) on a local
+index end to end, under ED (the default query) and DTW
+(`QuerySpec(measure="dtw", r=...)`):
 
   * `scan_backend="device"`, exact (paper Alg. 5 including its line-1
     approximate pass), batched per query length.  Per batch: query prep
@@ -18,15 +19,27 @@ query) and DTW (`QuerySpec(measure="dtw", r=...)`):
     as the JAX package does);
   * `mode="approx"` on the device backend: the approximate pass alone
     (paper Alg. 4), one readback per batch;
-  * `scan_backend="host"`, exact or approx: the reference's host-driven
-    loop, one query at a time — block and envelope bounds on the device,
-    orders and the k-best pool on the host, each chunk verified by
-    `batch_ed` (ED) or `lb_keogh` then the `dtw_band` entry (DTW).  It
-    reports float32 dot-identity / DP distances unpolished, as the
-    reference's host backend does.
+  * eps-range (`eps` set; tested before `mode`, so an approx spec with
+    eps is a range query, as in the reference) on the device backend
+    (paper Alg. 5 with bsf := eps), batched per query length: envelope
+    lower bounds (`mindist_sym`) -> the sortless range pack -> the range
+    scan into a (B, pow2ceil(range_capacity)) hit buffer (ED:
+    `fused_gather_ed_range`; DTW: `fused_gather_lb_keogh_range` then
+    `dtw_survivors`; both then `range_append`) -> one readback -> a
+    query whose hits overflowed its buffer finishes the chunks from the
+    overflow on the host (`verify_envelopes`, a sync a chunk) -> ED hits
+    rescored in float64 and sorted by distance;
+  * `scan_backend="host"`, exact, approx or range: the reference's
+    host-driven loop, one query at a time — block and envelope bounds on
+    the device, orders and the k-best pool (or the hit list) on the host,
+    each chunk verified by `batch_ed` (ED) or `lb_keogh` then the
+    `dtw_band` entry (DTW).  It reports float32 dot-identity / DP
+    distances unpolished for k-NN, as the reference's host backend does
+    (range rescores ED hits in float64, as every range path does).
 
-eps-range search raises NotImplementedError naming the ROADMAP item that
-ports it.  Engines run on CUDA unless built with device="cpu".
+Paging, ingestion, the distributed backend raise NotImplementedError
+naming the ROADMAP item that ports them.  Engines run on CUDA unless
+built with device="cpu".
 """
 from __future__ import annotations
 
@@ -55,7 +68,7 @@ def _not_ported(what: str, item: str):
 class QuerySpec:
     """Everything about a query except its values (the JAX package's
     fields; see `repro.core.engine.QuerySpec` for each one's meaning).
-    The port serves every k-NN spec (eps=None) so far."""
+    The port serves every spec on a local index."""
 
     measure: str = "ed"
     r: int = 0
@@ -99,11 +112,6 @@ class QuerySpec:
         return self.eps is not None
 
 
-def _check_ported(spec: QuerySpec) -> None:
-    if spec.is_range:
-        raise _not_ported("eps-range search", "8")
-
-
 class UlisseEngine:
     """Query facade over one local ULISSE index on one device."""
 
@@ -123,7 +131,7 @@ class UlisseEngine:
         """Wrap an already-built local index, moved to `device` (default
         CUDA; raises when CUDA is unavailable and device is not "cpu")."""
         if memory_budget_bytes is not None:
-            raise _not_ported("memory_budget_bytes (the paged tier)", "10")
+            raise _not_ported("memory_budget_bytes (the paged tier)", "2")
         dev = resolve_device(device)
         if index.device != dev:
             index = index.to(dev)
@@ -137,7 +145,7 @@ class UlisseEngine:
                         device: DeviceLike = None) -> "UlisseEngine":
         """Build the index on `device` (default CUDA) and the engine."""
         if memory_budget_bytes is not None:
-            raise _not_ported("memory_budget_bytes (the paged tier)", "10")
+            raise _not_ported("memory_budget_bytes (the paged tier)", "2")
         dev = resolve_device(device)
         if collection.device != dev:
             collection = collection.to(dev)
@@ -148,13 +156,13 @@ class UlisseEngine:
 
     @classmethod
     def distributed(cls, *args, **kwargs):
-        raise _not_ported("the distributed backend", "12")
+        raise _not_ported("the distributed backend", "4")
 
     def append(self, series) -> None:
-        raise _not_ported("append", "10")
+        raise _not_ported("append", "2")
 
     def compact(self) -> None:
-        raise _not_ported("compact", "10")
+        raise _not_ported("compact", "2")
 
     @property
     def index(self) -> UlisseIndex:
@@ -172,11 +180,12 @@ class UlisseEngine:
                ) -> Union[SearchResult, List[SearchResult]]:
         """Answer one query (1-D input -> SearchResult) or a batch (2-D
         array or sequence of 1-D arrays -> list of SearchResult)."""
-        _check_ported(spec)
         single, qs = self._normalize_queries(queries)
         self._check_card_gamma(qs, spec)
         if spec.scan_backend == "host":
             results = [self._search_local(q, spec) for q in qs]
+        elif spec.is_range:
+            results = self._local_range_device(qs, spec)
         elif spec.mode == "exact":
             results = self._local_exact_device(qs, spec)
         else:
@@ -185,10 +194,10 @@ class UlisseEngine:
 
     def _check_card_gamma(self, qs, spec: QuerySpec) -> None:
         """Refuse, before any launch, envelopes of more masters than the
-        device scan's chunk entries take on the card (g = gamma + 1 past
-        18,688 for ED, 13,760 for DTW: their shared memory grows with g;
-        ROADMAP Queue 3 P5).  Every query length runs; the host backend
-        and the CPU have no such limit."""
+        device scan's chunk entries (k-NN and range) take on the card (g =
+        gamma + 1 past 18,688 for ED, 13,760 for DTW: their shared memory
+        grows with g; ROADMAP Queue 3 P5).  Every query length runs; the
+        host backend and the CPU have no such limit."""
         if self.device.type != "cuda" or spec.scan_backend != "device":
             return
         g = self.params.gamma + 1
@@ -215,6 +224,8 @@ class UlisseEngine:
     def _search_local(self, q, spec: QuerySpec) -> SearchResult:
         """The host-driven reference paths, one query."""
         with span("query.host"):
+            if spec.is_range:
+                return self._local_range(q, spec)
             if spec.mode == "approx":
                 pool, stats = self._local_approx_impl(q, spec)
                 return pool.result(stats)
@@ -312,6 +323,27 @@ class UlisseEngine:
             stats.chunks_visited += 1
             pos = end
         return pool.result(stats)
+
+    def _local_range(self, q, spec: QuerySpec) -> SearchResult:
+        """All subsequences within eps of Q (paper Alg. 5 with bsf :=
+        eps), host-driven: every envelope with lb2 <= eps2 (inclusive) is
+        verified, in candidate-set order, spec.chunk_size at a time."""
+        index = self._index
+        pq = self._prepare(q, spec)
+        env = index.search_envelopes()
+        stats = SearchStats(envelopes_total=int(env.size))
+        eps2 = float(spec.eps) ** 2
+        lbs = executor.to_host(planner.env_lower_bounds(
+            pq.paa_lo, pq.paa_hi, env, index.breakpoints,
+            self.params.seg_len, pq.nseg, spec.use_paa_bounds)
+        ).astype(np.float64)
+        stats.lb_computations += env.size
+        cand = np.nonzero((lbs ** 2) <= eps2)[0]
+        stats.chunks_planned = -(-len(cand) // spec.chunk_size)
+        rows: list = []
+        self._range_host_tail(pq, cand, lbs[cand] ** 2, 0, spec.chunk_size,
+                              eps2, rows, stats)
+        return self._range_result_rows(rows, stats, q, spec)
 
     # -- the device pipeline ---------------------------------------------
 
@@ -439,6 +471,126 @@ class UlisseEngine:
             d2, sid, off = d2[order], sid[order], off[order]
         return SearchResult(dists=np.sqrt(np.maximum(d2, 0.0)),
                             series=sid, offsets=off, stats=stats)
+
+    def _range_result_rows(self, rows, stats, q,
+                           spec: QuerySpec) -> SearchResult:
+        """A range answer from its collected (sid, off, d2) rows: ED
+        distances rescored in float64 (membership was decided on each
+        path's own values; the reported distances are the shared polish),
+        DTW the device's DP values; sorted stably by distance."""
+        if not rows:
+            return SearchResult(dists=np.zeros((0,)),
+                                series=np.zeros((0,), np.int64),
+                                offsets=np.zeros((0,), np.int64),
+                                stats=stats)
+        out = np.concatenate(rows, axis=0)
+        sid = out[:, 0].astype(np.int64)
+        off = out[:, 1].astype(np.int64)
+        d2 = out[:, 2]
+        if spec.measure == "ed":
+            d2 = self._ed_rescore(q, sid, off)
+        order = np.argsort(d2, kind="stable")
+        return SearchResult(dists=np.sqrt(np.maximum(d2[order], 0.0)),
+                            series=sid[order], offsets=off[order],
+                            stats=stats)
+
+    def _local_range_device(self, qs, spec: QuerySpec):
+        """Batched device eps-range (paper Alg. 5 with bsf := eps): one
+        result readback per same-length batch where no hit buffer
+        overflows.  A query that overflows its buffer (B, pow2ceil(
+        range_capacity)) reads its packed order back and finishes chunks
+        [ovf, n_chunks) through the host path: the buffer holds exactly
+        the hits of the chunks before ovf, so the union is exact with no
+        dedup."""
+        results: List[Optional[SearchResult]] = [None] * len(qs)
+        for qlen, idxs in self._group_by_len(qs):
+            for sub, queries, b in self._padded_batches(qs, idxs):
+                self._range_device_sub(qs, sub, queries, b, spec, results)
+        return results
+
+    def _range_device_sub(self, qs, sub, queries, b: int, spec: QuerySpec,
+                          results) -> None:
+        """One padded same-length sub-batch of the device range scan."""
+        index, p = self._index, self.params
+        env = index.search_envelopes()
+        n_comb = env.size
+        eps2 = float(spec.eps) ** 2
+        with span("query.range_device"):
+            with span("prepare"):
+                nseg, qstack, dlo, dhi, qb, qh = self._stack_prepared(
+                    queries, spec)
+            eps2_t = torch.full((b,), eps2, dtype=torch.float32,
+                                device=self.device)
+            with span("pack"):
+                lbs = planner.env_lower_bounds_batch(
+                    qb, qh, env, index.breakpoints, p.seg_len, nseg,
+                    spec.use_paa_bounds)
+                n_pad = executor.pow2ceil(n_comb)
+                ssids, sanc, snm, slbs2, order = planner.device_range_pack(
+                    env.series_id, env.anchor, env.n_master, lbs, eps2_t,
+                    n_pad=n_pad)
+            with span("device_scan"):
+                (bd2, bsid, boff, cnt, ovf, st,
+                 chunk) = executor.device_range_scan(
+                    index.collection, ssids, sanc, snm, slbs2, qstack, dlo,
+                    dhi, eps2_t, capacity=spec.range_capacity,
+                    g=p.gamma + 1, measure=spec.measure, r=spec.r,
+                    znorm=p.znorm, chunk_size=spec.chunk_size)
+                # THE one result readback of the batch (overflow excepted)
+                bd2, bsid, boff, cnt, ovf, st = (
+                    t.cpu().numpy() for t in (bd2, bsid, boff, cnt, ovf, st))
+            n_chunks = n_pad // chunk
+            order_h = slbs2_h = None
+            for row, i in enumerate(sub):
+                stats = SearchStats(
+                    envelopes_total=n_comb, lb_computations=n_comb,
+                    chunks_visited=int(st[row, 0]), chunks_planned=n_chunks,
+                    envelopes_checked=int(st[row, 1]),
+                    true_dist_computations=int(st[row, 2]),
+                    dtw_lb_keogh=int(st[row, 3]), dtw_full=int(st[row, 4]),
+                    envelopes_pruned=int(st[row, 5]))
+                c = int(cnt[row])
+                rows: list = []
+                if c:
+                    rows.append(np.stack(
+                        [bsid[row, :c].astype(np.float64),
+                         boff[row, :c].astype(np.float64),
+                         bd2[row, :c].astype(np.float64)], axis=1))
+                o = int(ovf[row])
+                if o < n_chunks:     # the buffer overflowed: the host tail
+                    stats.range_overflows += 1
+                    with span("host_continuation"):
+                        if order_h is None:     # read back on overflow only
+                            order_h = executor.to_host(order)
+                            slbs2_h = executor.to_host(slbs2).astype(
+                                np.float64)
+                        self._range_host_tail(
+                            self._prepare(qs[i], spec), order_h[row],
+                            slbs2_h[row], o * chunk, chunk, eps2, rows,
+                            stats)
+                with span("merge"):
+                    results[i] = self._range_result_rows(rows, stats, qs[i],
+                                                         spec)
+
+    def _range_host_tail(self, pq: planner.PreparedQuery, order, lbs2,
+                         pos: int, chunk: int, eps2: float, rows: list,
+                         stats: SearchStats) -> None:
+        """Verify one query's candidates `order` (with their `lbs2`) from
+        row `pos` on through the host path, a chunk at a time, into the
+        collected rows: every row is a candidate (lb2 <= eps2) and +inf
+        marks a padding tail.  The host backend runs all of its
+        candidates; the device scan replays a packed plan from the chunk
+        where its hit buffer overflowed."""
+        sink = TopK(1)   # unused: the collector takes the hits
+        while pos < len(order):
+            keep = np.isfinite(lbs2[pos:pos + chunk])
+            if not keep[0]:
+                break
+            executor.verify_envelopes(
+                self._index, pq, order[pos:pos + chunk][keep], sink, stats,
+                eps2=eps2, collector=rows)
+            stats.chunks_visited += 1
+            pos += chunk
 
     def _local_exact_device(self, qs, spec: QuerySpec):
         """Exact k-NN on the device (paper Alg. 5 incl. its line-1

@@ -1,13 +1,20 @@
-"""Verification for ULISSE search (the *executor* half), k-NN part.
+"""Verification for ULISSE search (the *executor* half): k-NN and
+eps-range.
 
 Everything that touches raw series data lives here: the chunked,
 LB-sorted, bsf-pruned exact scan over packed candidate rows, whose true
 distances come from the `fused_gather_ed_chunk` kernel (ED, which also
-masks, counts and pre-selects each block's k best) or from the LB_Keogh
-tier `fused_gather_lb_keogh_chunk` and the banded DP `dtw_survivors` on
-the survivors it lists (DTW), the (B, k) device pool that the
-`pool_merge` kernels merge into in place, and the result/stats
-containers.
+decides the active queries and kept rows, counts and pre-selects each
+block's k best) or from the LB_Keogh tier `fused_gather_lb_keogh_chunk`
+(which does the same deciding and counting and lists the survivors) and
+the banded DP `dtw_survivors` on them (DTW), the (B, k) device pool that
+the `pool_merge` kernels merge into in place; the eps-range scan over
+the sortless range pack, whose steps are the same entries' range modes
+(`fused_gather_ed_range`; `fused_gather_lb_keogh_range` then
+`dtw_survivors`) and the ordered hit append `range_append` into a (B,
+cap) hit buffer; and the result/stats containers.  No step has a torch
+prologue: the kernels read the plan, the pool or eps2 and the buffer's
+overflow flags themselves.
 
 The host backend (`scan_backend="host"`, the reference's host-driven
 loop) verifies one query's envelopes at a time: `gather_windows` cuts
@@ -23,7 +30,9 @@ its stop flag only every `STOP_TEST_EVERY` chunks: a chunk in which no
 query is active leaves every pool and counter unchanged (no envelope is
 kept, every candidate is +inf and loses its tie to the incumbents, and
 the `active` column adds 0), so the results and stats are identical to
-testing after every chunk.
+testing after every chunk.  The range scan's activity is monotone
+too (its packed candidates come first, +inf padding after, and an
+overflow is final), so the same holds there.
 """
 from __future__ import annotations
 
@@ -35,13 +44,15 @@ import torch
 
 from repro_torch.core.paa import znormalize
 from repro_torch.core.types import Collection
-from repro_torch.kernels import ref
 from repro_torch.kernels.batch_ed import batch_ed
 from repro_torch.kernels.dtw_band import dtw_band, dtw_survivors
 from repro_torch.kernels.fused_verify import (fused_gather_ed_chunk,
-                                              fused_gather_lb_keogh_chunk)
+                                              fused_gather_ed_range,
+                                              fused_gather_lb_keogh_chunk,
+                                              fused_gather_lb_keogh_range)
 from repro_torch.kernels.lb_keogh import lb_keogh
 from repro_torch.kernels.pool_merge import pool_merge, pool_merge_partials
+from repro_torch.kernels.range_append import range_append
 
 # Per-query device stats columns (the JAX package's order).
 STATS_COLUMNS = ("chunks_visited", "envelopes_checked",
@@ -279,12 +290,6 @@ def pow2ceil(x: int) -> int:
     return b
 
 
-def _chunk_slice(sids, anchors, n_master, lbs2, i: int, chunk: int):
-    """Chunk i of the packed (B, n_pad) plan arrays."""
-    sl = slice(i * chunk, (i + 1) * chunk)
-    return sids[:, sl], anchors[:, sl], n_master[:, sl], lbs2[:, sl]
-
-
 def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
                      dtw_lo, dtw_hi, i: int, pool, stats, *, k: int, g: int,
                      chunk: int, znorm: bool, measure: str, r: int):
@@ -295,56 +300,80 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
     step's counters, computes the kept candidates' distances and keeps
     each block's k best, and ONE `pool_merge_partials` launch.  DTW: ONE
     launch of the LB_Keogh tier (`fused_gather_lb_keogh_chunk`), which
-    masks the bounds, lists each query's survivors (lb2 < kth) on the
-    device and writes +inf into the DP's (B, chunk * g) output at every
-    other candidate position; ONE `dtw_survivors` launch over every
-    survivor of the chunk, which writes each one's distance at its own
-    position; and ONE `pool_merge` of that output.  The reference merges
-    bucket by bucket (`lax.while_loop` over buckets of 128 survivors
-    packed in candidate-position order); one merge of the
-    position-indexed output gives the same pool, because the merge keeps
-    incumbents ahead of newcomers on ties and then orders candidates by
-    position, so every bucket merge and the single merge pick the k least
-    of the same (d2, position) order — whatever order the kernel listed
-    the survivors in — and no host sync is needed to size the loop.
+    decides the same, adds the counters, lists each query's survivors
+    (lb2 < kth) on the device, writes +inf into the DP's (B, chunk * g)
+    output at every other candidate position and gives every candidate's
+    (sid, off); ONE `dtw_survivors` launch over every survivor of the
+    chunk, which writes each one's distance at its own position; and ONE
+    `pool_merge` of that output.  The reference merges bucket by bucket
+    (`lax.while_loop` over buckets of 128 survivors packed in
+    candidate-position order); one merge of the position-indexed output
+    gives the same pool, because the merge keeps incumbents ahead of
+    newcomers on ties and then orders candidates by position, so every
+    bucket merge and the single merge pick the k least of the same (d2,
+    position) order — whatever order the kernel listed the survivors in —
+    and no host sync is needed to size the loop.
 
     Adds the per-query increments of [chunks, envelopes_checked,
     true_dists, lb_keogh, dtw_full, envelopes_pruned] to the (B,
     STATS_WIDTH) int32 `stats` in place.
     """
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
     if measure == "ed":
         part = fused_gather_ed_chunk(
-            coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
-            coll.center, sids, anchors, n_master, lbs2, qs, pool[0], stats,
-            i=i, chunk=chunk, g=g, znorm=znorm)
+            *a0, sids, anchors, n_master, lbs2, qs, pool[0], stats, i=i,
+            chunk=chunk, g=g, znorm=znorm)
         pool_merge_partials(pool, part)
         return
-    n = coll.series_len
-    b_sz, qlen = qs.shape
-    kth = pool[0][:, k - 1]
-    active = ref.scan_active(lbs2, pool[0], i, chunk)
-    csid, canc, cnm, clb2 = _chunk_slice(sids, anchors, n_master, lbs2, i,
-                                         chunk)
-    keep = (clb2 < kth[:, None]) & active[:, None]  # bsf pruning
-    ok, cand_sid, cand_off = ref.chunk_candidates(csid, canc, cnm, keep,
-                                                  qlen, n, g)
-    checked = keep.sum(dim=1, dtype=torch.int32)
-    # envelopes cut by the bsf LB test in this visited chunk (padding rows
-    # carry lbs2 = +inf and are excluded by the isfinite test)
-    pruned = (torch.isfinite(clb2) & active[:, None] & ~keep).sum(
-        dim=1, dtype=torch.int32)
-    _, mu, sd, slist, ndtw, db = fused_gather_lb_keogh_chunk(
-        coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
-        coll.center, csid.reshape(-1).contiguous(),
-        canc.reshape(-1).contiguous(), dtw_lo, dtw_hi, ok, kth.contiguous(),
-        g=g, rows=chunk, znorm=znorm)
-    nlbk = ok.sum(dim=1, dtype=torch.int32)
-    db = dtw_survivors(coll.data, qs, slist, ndtw, cand_sid, cand_off,
-                       mu.reshape(b_sz, chunk * g),
-                       sd.reshape(b_sz, chunk * g), db, r=r, znorm=znorm)
-    stats += torch.stack([active.to(torch.int32), checked, ndtw, nlbk, ndtw,
-                          pruned], dim=1)
+    cand_sid, cand_off, db = _dtw_step(
+        fused_gather_lb_keogh_chunk(
+            *a0, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, pool[0],
+            stats, i=i, chunk=chunk, g=g, znorm=znorm),
+        coll, qs, r, znorm)
     pool_merge(pool, db, cand_sid, cand_off)
+
+
+def _dtw_step(lb_out, coll: Collection, qs, r: int, znorm: bool):
+    """The DP behind an LB_Keogh chunk entry's outputs: `dtw_survivors`
+    over the survivors it listed, into the DP output it prepared.
+    Returns (cand_sid, cand_off, d2)."""
+    _, mu, sd, slist, nsurv, db, cand_sid, cand_off = lb_out
+    b_sz, m = db.shape
+    db = dtw_survivors(coll.data, qs, slist, nsurv, cand_sid, cand_off,
+                       mu.view(b_sz, m), sd.view(b_sz, m), db, r=r,
+                       znorm=znorm)
+    return cand_sid, cand_off, db
+
+
+def _range_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
+                      dtw_lo, dtw_hi, i: int, eps2, buf, cnt, ovf, stats, *,
+                      g: int, chunk: int, znorm: bool, measure: str, r: int):
+    """Verify chunk `i` of the range pack into the hit buffer, in place.
+
+    ED: ONE launch of `fused_gather_ed_range` (the chunk entry's range
+    mode: active queries from the chunk's first bound, eps2 and the
+    buffer's ovf, inclusive cuts, the counters, the dense d2) and ONE of
+    `range_append`.  DTW: ONE launch of `fused_gather_lb_keogh_range`
+    (the same deciding and counting; the survivors lb2 <= eps2 listed),
+    ONE of `dtw_survivors` and ONE of `range_append`.  `range_append`
+    writes the chunk's hits (d2 <= eps2) in position order, or none and
+    ovf = i when they would overflow; the next step's entry reads that
+    ovf in stream order.
+    """
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    if measure == "ed":
+        d2 = fused_gather_ed_range(
+            *a0, sids, anchors, n_master, lbs2, qs, eps2, ovf, stats, i=i,
+            chunk=chunk, g=g, znorm=znorm)
+    else:
+        d2 = _dtw_step(fused_gather_lb_keogh_range(
+            *a0, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, eps2, ovf,
+            stats, i=i, chunk=chunk, g=g, znorm=znorm), coll, qs, r,
+            znorm)[-1]
+    range_append(d2, sids, anchors, eps2, buf, cnt, ovf, i=i, chunk=chunk,
+                 g=g)
 
 
 def _device_scan_core(coll: Collection, sids, anchors, n_master, lbs2, qs,
@@ -367,7 +396,10 @@ def _device_scan_core(coll: Collection, sids, anchors, n_master, lbs2, qs,
     i = 0
     while i < n_chunks:
         device_exact_scan.syncs += 1
-        if not bool(ref.scan_active(lbs2, pool[0], i, chunk).any()):
+        # `ref.scan_active` in two launches: first < kth is false for the
+        # +inf padding (and for a +inf kth), so it implies a finite first
+        first = lbs2[:, min(i * chunk, lbs2.shape[1] - 1)]
+        if not bool((first < pool[0][:, -1]).any()):
             break
         for _ in range(min(STOP_TEST_EVERY, n_chunks - i)):
             _scan_chunk_step(
@@ -403,3 +435,81 @@ def device_exact_scan(collection: Collection, sids, anchors, n_master, lbs2,
 
 
 device_exact_scan.syncs = 0
+
+
+_FLT_MAX = float(np.finfo(np.float32).max)
+
+
+def _device_range_core(coll: Collection, sids, anchors, n_master, lbs2, qs,
+                       dtw_lo, dtw_hi, eps2, *, cap: int, g: int, chunk: int,
+                       znorm: bool, measure: str, r: int):
+    """The natively batched eps-range scan over the sortless range pack.
+
+    Every chunk step verifies the i-th chunk of all B queries into the
+    (B, cap) hit buffer (`_range_chunk_step`).  A query is active while
+    its chunk's first bound is finite and <= eps2 and its buffer has not
+    overflowed; an overflowing chunk writes none of its hits and records
+    itself in ovf, after which the query stays inactive — the buffer then
+    holds exactly the hits of chunks [0, ovf), and the engine finishes
+    chunks [ovf, n_chunks) on the host.  The stop test runs on the host
+    before every group of STOP_TEST_EVERY chunks — one sync per group,
+    counted in `device_range_scan.syncs`.
+
+    Returns (buf_d2 (B, cap) float32, buf_sid, buf_off (B, cap) int32,
+    cnt (B,), ovf (B,) — the first unwritten chunk, n_chunks when the
+    buffer never overflowed — and stats (B, STATS_WIDTH) int32).
+    """
+    b_sz = qs.shape[0]
+    dev = qs.device
+    n_pad = sids.shape[1]
+    n_chunks = n_pad // chunk
+    buf = (torch.full((b_sz, cap), float("inf"), device=dev),
+           torch.full((b_sz, cap), -1, dtype=torch.int32, device=dev),
+           torch.full((b_sz, cap), -1, dtype=torch.int32, device=dev))
+    cnt = torch.zeros(b_sz, dtype=torch.int32, device=dev)
+    ovf = torch.full((b_sz,), n_chunks, dtype=torch.int32, device=dev)
+    stats = torch.zeros((b_sz, STATS_WIDTH), dtype=torch.int32, device=dev)
+    # `ref.range_active` in three launches: first <= min(eps2, FLT_MAX) is
+    # false for the +inf padding, so it implies a finite first
+    eps2_cut = eps2.clamp(max=_FLT_MAX)
+    i = 0
+    while i < n_chunks:
+        device_range_scan.syncs += 1
+        first = lbs2[:, min(i * chunk, n_pad - 1)]
+        if not bool(((first <= eps2_cut) & (ovf == n_chunks)).any()):
+            break
+        for _ in range(min(STOP_TEST_EVERY, n_chunks - i)):
+            _range_chunk_step(
+                coll, sids, anchors, n_master, lbs2, qs, dtw_lo, dtw_hi, i,
+                eps2, buf, cnt, ovf, stats, g=g, chunk=chunk, znorm=znorm,
+                measure=measure, r=r)
+            i += 1
+    return buf[0], buf[1], buf[2], cnt, ovf, stats
+
+
+def device_range_scan(collection: Collection, sids, anchors, n_master, lbs2,
+                      qs, dtw_lo, dtw_hi, eps2, *, capacity: int, g: int,
+                      measure: str, r: int, znorm: bool, chunk_size: int):
+    """Batched device-resident eps-range scan (ED or DTW).
+
+    sids/anchors/n_master/lbs2 (B, n_pad) are the range pack
+    (`planner.device_range_pack`), qs/dtw_lo/dtw_hi (B, qlen) the
+    prepared queries and their DTW envelopes (ED: pass qs in the dtw
+    slots), eps2 (B,) float32 the squared radii; the hit buffer holds
+    pow2ceil(capacity) rows a query.
+
+    Returns device tensors (buf_d2, buf_sid, buf_off (B, cap), cnt (B,),
+    ovf (B,), stats (B, STATS_WIDTH)) and the chunk size the scan used:
+    ovf counts in chunks of that many plan rows, so the host continuation
+    of an overflowed query resumes at row ovf * chunk (ovf == n_pad //
+    chunk: the buffer held everything).  The caller does the readback.
+    """
+    n_pad = sids.shape[1]
+    chunk = min(pow2ceil(chunk_size), n_pad)
+    return _device_range_core(
+        collection, sids, anchors, n_master, lbs2, qs, dtw_lo, dtw_hi, eps2,
+        cap=pow2ceil(capacity), g=g, chunk=chunk, znorm=znorm,
+        measure=measure, r=r) + (chunk,)
+
+
+device_range_scan.syncs = 0

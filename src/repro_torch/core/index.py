@@ -46,7 +46,7 @@ class UlisseIndex:
     """Sorted envelope array + block hierarchy + the raw collection.
 
     The JAX package's ingestion `delta` buffer is not ported yet
-    (ROADMAP Queue 1 item 10): the candidate set is the main set.
+    (ROADMAP Queue 1 item 2): the candidate set is the main set.
     """
 
     envelopes: EnvelopeSet            # sorted by iSAX(L), padded

@@ -5,15 +5,15 @@ data is touched: the (possibly Z-normalized) query, its PAA interval,
 lower bounds of blocks and envelopes, and the LB-sorted candidate packs
 or orders the executor scans.
 
-The k-NN part of `repro/core/planner.py` (ED and DTW): the lower
-bounds go through the `mindist` kernels.  Two flavours, as in the
-reference:
+The k-NN and eps-range parts of `repro/core/planner.py` (ED and DTW):
+the lower bounds go through the `mindist` kernels.  Two flavours, as in
+the reference:
 
   * the device pipeline (`prepare_query_batch`, `*_lower_bounds_batch`,
-    `device_leaf_pack`, `device_scan_pack`): batched, every argsort
-    stable as `jnp.argsort` is, nothing read back (the only host syncs of
-    a device search are the executor's stop tests and the engine's one
-    result readback);
+    `device_leaf_pack`, `device_scan_pack`, and for range the sortless
+    `device_range_pack`): batched, every argsort stable as `jnp.argsort`
+    is, nothing read back (the only host syncs of a device search are the
+    executor's stop tests and the engine's one result readback);
   * the host backend (`prepare_query`, `env_lower_bounds`,
     `block_lower_bounds`, `plan_leaf_order`, `plan_scan_order`): one
     query; the orders are computed on the host by the reference's own
@@ -195,7 +195,7 @@ def device_leaf_pack(env_sid, env_anchor, env_nm, env_valid, blk_lb,
     n_comb = env_sid.shape[0]
     if n_comb != n_main:
         raise NotImplementedError(
-            "an ingestion delta is ROADMAP Queue 1 item 10 (not ported yet)")
+            "an ingestion delta is ROADMAP Queue 1 item 2 (not ported yet)")
     dev = blk_lb.device
 
     order = torch.argsort(blk_lb, dim=1, stable=True)       # (B, Nb)
@@ -258,3 +258,38 @@ def device_scan_pack(env_sid, env_anchor, env_nm, lbs, comb_idx,
     lbs2 = torch.nn.functional.pad(lbs_sorted ** 2, (0, pad), value=_INF)
     return (pack(env_sid, 0), pack(env_anchor, 0), pack(env_nm, 0),
             lbs2, order)
+
+
+def device_range_pack(env_sid, env_anchor, env_nm, lbs, eps2, n_pad: int):
+    """Pack the eps-range scan's candidates on the device, with no sort.
+
+    A range query's cut never moves (bsf == eps), so the scan order does
+    not matter: every envelope with lb2 <= eps2 must be verified and no
+    other ever can be.  The candidates (finite lb2 <= eps2[b], inclusive,
+    so a boundary hit with lb == d == eps stays) are packed to the front
+    in candidate-set order by a binary-search gather over the candidate
+    mask's cumsum, as the reference packs them; nothing is read back.
+
+    lbs (B, N) are the candidate set's lower bounds, eps2 (B,) float32.
+    Returns (sids, anchors, n_master, lbs2, src): plan arrays (B, n_pad)
+    with lbs2 = +inf past each query's candidate count (and zeros in the
+    int columns), and `src` (B, n_pad) int32, the candidate-set index of
+    every packed row (what the host continuation of an overflowed query
+    replays).
+    """
+    b_sz, n = lbs.shape
+    lbs2 = lbs ** 2
+    cand = (lbs2 <= eps2[:, None]) & torch.isfinite(lbs2)
+    nc = cand.sum(dim=1)
+    cc = torch.cumsum(cand, dim=1)
+    ranks = torch.arange(1, n_pad + 1, device=lbs.device)
+    src = torch.searchsorted(cc, ranks.expand(b_sz, n_pad).contiguous())
+    src = src.clamp(max=n - 1)
+    real = ranks[None, :] <= nc[:, None]
+
+    def pack(col):
+        return torch.where(real, col[src], 0).to(torch.int32)
+
+    lbs2p = torch.where(real, torch.gather(lbs2, 1, src), _INF)
+    return (pack(env_sid), pack(env_anchor), pack(env_nm),
+            lbs2p.contiguous(), src.to(torch.int32))

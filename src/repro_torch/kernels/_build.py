@@ -68,6 +68,15 @@ SIGNATURES = {
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
             _I, _I, _I, _I, _I, _L, _L, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        # n_master, lbs2, qs, eps2, ovf, stats, out, num_series, n, batch,
+        # rows, qlen, g, znorm, n_pad, col0, n_chunks, stream
+        "ulisse_fused_gather_ed_range": [
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
+            _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
+        "ulisse_fused_gather_ed_range_long": [
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
+            _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
+        # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # dtw_lo, dtw_hi, lb, mu, sd, num_series, n, batch, rows, qlen, g,
         # znorm, stream
         "ulisse_fused_gather_lb_keogh": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
@@ -77,14 +86,17 @@ SIGNATURES = {
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I,
             _I, _I, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-        # dtw_lo, dtw_hi, ok, kth, lb, mu, sd, slist, nsurv, dp_out,
-        # num_series, n, batch, rows, qlen, g, znorm, stream
+        # n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd,
+        # slist, nsurv, dp_out, cand_sid, cand_off, num_series, n, batch,
+        # rows, qlen, g, znorm, n_pad, col0, k, range, stream
         "ulisse_fused_gather_lb_keogh_chunk": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
-            _V, _V, _L, _I, _I, _I, _I, _I, _I, _V],
+            _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L, _L,
+            _I, _I, _V],
         "ulisse_fused_gather_lb_keogh_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
-            _V, _V, _L, _I, _I, _I, _I, _I, _I, _V],
+            _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L, _L,
+            _I, _I, _V],
         # data, sids, anchors, mu, sd, out, num_series, n, num_rows, qlen,
         # g, stream
         "ulisse_gather_znorm": [_V, _V, _V, _V, _V, _V, _L, _I, _L, _I, _I,
@@ -123,6 +135,12 @@ SIGNATURES = {
     "lb_keogh": {
         # env_lo, env_hi, windows, out, num, l, stream
         "ulisse_lb_keogh": [_V, _V, _V, _V, _L, _I, _V],
+    },
+    "range_append": {
+        # d2, sids, anchors, eps2, buf_d2, buf_sid, buf_off, cnt, ovf,
+        # batch, m, n_pad, col0, g, cap, chunk_i, n_chunks, stream
+        "ulisse_range_append": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I,
+                                _L, _L, _I, _I, _I, _I, _V],
     },
     "pool_merge": {
         # pool_d2, pool_sid, pool_off, part, tmp, batch, k, nparts, stream

@@ -33,6 +33,13 @@
 // (B, n_blocks, kp) partials buffer (topk.cuh), for the pool merge
 // (pool_merge.cu).  A candidate with d2 >= kth cannot enter a sorted
 // pool whose incumbents win ties, so nothing else leaves the block.
+// ulisse_fused_gather_ed_range is the same entry in its range mode (the
+// eps-range scan's step, paper Alg. 5 with bsf := eps): eps2 (B,) in
+// place of the pool's k-th, inclusive cuts (keep = lbs2 <= eps2), a query
+// active only while its hit buffer never overflowed (ovf[b] == n_chunks),
+// and the dense (B, rows * g) d2 of the ok candidates (+inf elsewhere)
+// out through the candidate buffer in coalesced stores, for the ordered
+// hit append (range_append.cu).
 //
 // Bound on the card: bytes at the main path's shapes (regions + the 2g
 // prefix-sum positions of each of the four arrays per row, ~11 MB at
@@ -65,13 +72,18 @@
 // against the query's DTW envelope (lo, hi), and writes (lb2, mu, sd),
 // each (B * rows, g).
 // ulisse_fused_gather_lb_keogh_chunk, the scan's entry over the same
-// device function, also takes the chunk's candidate mask ok (B, M = rows
-// * g) and the pool's k-th distances kth (B,); it writes lb2 = +inf where
-// not ok, lists each survivor (lb2 < kth) of query b in slist[b, :] by a
-// warp-aggregated atomicAdd on nsurv[b] (zeroed by the caller; the list's
-// order varies from run to run), and writes +inf into the DP's (B, M)
-// output at every other position; the DP (dtw_band.cu) fills the
-// survivors' positions.  So the scan needs no survivor pack.
+// device function, takes the whole (B, n_pad) LB-sorted plan as the ED
+// chunk entry does and the cut: the pool's k-th (k-NN, lb2 < kth) or
+// eps2 (range, lb2 <= eps2, `active` also reading ovf).  It decides
+// active, keep and the ok candidates (chunk_block_rows), adds [active,
+// kept rows, survivors, ok candidates, survivors, pruned rows] to the
+// counters, writes lb2 = +inf where not ok, lists each survivor of query
+// b in slist[b, :] by a warp-aggregated atomicAdd on nsurv[b] (zeroed by
+// a memset before the launch; the list's order varies from run to run),
+// writes +inf into the DP's (B, M = rows * g) output at every other
+// position and each candidate's (sid, off); the DP (dtw_band.cu) fills
+// the survivors' positions.  So the scan's DTW step has no torch
+// prologue and no survivor pack.
 // The banded-DP tier normalizes the survivors with these mu and sd, and
 // LB_Keogh <= DTW holds on the card only if both kernels see the same
 // normalized values: both take w from znorm.cuh, bit-equal to the IEEE
@@ -117,21 +129,19 @@ constexpr int kLongPoints = 1024;   // long kernels: query points a tile
 constexpr unsigned kFull = 0xffffffffu;
 
 // Stage points [t0, t0 + stride) of the regions of rows [r0, r0 + tile)
-// of query b into reg_s (row stride `stride`, zero beyond `reg`): one
-// flat read per element, clipped to the array.
+// into reg_s (row stride `stride`, zero beyond `reg`): one flat read per
+// element, clipped to the array.  Tile row le's (sid, anchor) is
+// (row_sid[le], row_anc[le]) in shared memory (chunk_block_rows).
 __device__ __forceinline__ void stage_regions(
-    const float* __restrict__ data, const int* __restrict__ sids,
-    const int* __restrict__ anchors, float* reg_s, long long num_series,
-    int n, int rows, int b, int r0, int tile, int stride, int reg,
-    int t0 = 0) {
+    const float* __restrict__ data, const int* row_sid, const int* row_anc,
+    float* reg_s, long long num_series, int n, int rows, int r0, int tile,
+    int stride, int reg, int t0 = 0) {
   const long long total = num_series * (long long)n;
   for (int idx = threadIdx.x; idx < tile * stride; idx += blockDim.x) {
     const int le = idx / stride, t = idx - le * stride;
-    const int r = r0 + le;
     float v = 0.f;
-    if (r < rows && t0 + t < reg) {
-      const long long e = (long long)b * rows + r;
-      long long flat = (long long)sids[e] * n + anchors[e] + t0 + t;
+    if (r0 + le < rows && t0 + t < reg) {
+      long long flat = (long long)row_sid[le] * n + row_anc[le] + t0 + t;
       flat = flat < 0 ? 0 : (flat >= total ? total - 1 : flat);
       v = data[flat];
     }
@@ -178,32 +188,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// The ED block's rows: query b, rows [r0, r0 + tile) of its chunk.  Row
-// r's plan entry is e = b * row_stride + col0 + r (the contract entry:
-// row_stride = rows, col0 = 0).  Warp 0 (tile <= 32) fills row_sid /
-// row_anc / row_jl (offsets j < jl are computed) and, in the chunk entry,
-// adds the block's counters and zeroes count_s.  Every thread gets the
-// pool's k-th distance (+inf outside the chunk entry) and whether any
-// row of the block has work.
-template <bool kChunk>
-__device__ __forceinline__ bool ed_block_rows(
+// A chunk entry's rows: query b, rows [r0, r0 + tile) of its chunk
+// (tile <= 32).  Row r's plan entry is e = b * row_stride + col0 + r (the
+// contract entries: row_stride = rows, col0 = 0).  kMode: 0 the contract
+// entries, 1 the k-NN chunk entries, 2 the range chunk entries.  Warp 0
+// fills row_sid / row_anc / row_jl (offsets j < jl are ok candidates;
+// all g in the contract entries) and, in a chunk entry, adds the block's
+// counters to stats (active, kept rows, ok candidates in column ok_col,
+// pruned rows) and zeroes count_s.  Every thread gets the cut (+inf in
+// the contract entries) and whether any row of the block has work.
+//   k-NN:  cut = pool_d2[b, k - 1] (the pool's k-th), active = the
+//          chunk's first bound is finite and < cut, keep = lb < cut;
+//   range: cut = pool_d2[b] (eps2, k = 1), active = the first bound is
+//          finite and <= cut and ovf[b] == n_chunks (the hit buffer never
+//          overflowed), keep = lb <= cut: inclusive, since lb <= d, so a
+//          boundary hit with lb == d == eps survives.
+template <int kMode>
+__device__ __forceinline__ bool chunk_block_rows(
     const int* __restrict__ sids, const int* __restrict__ anchors,
     const int* __restrict__ n_master, const float* __restrict__ lbs2,
-    const float* __restrict__ pool_d2, int* __restrict__ stats, int n,
-    int rows, int qlen, int g, long long row_stride, long long col0, int k,
-    int tile, int* row_sid, int* row_anc, int* row_jl, int* count_s,
+    const float* __restrict__ pool_d2, const int* __restrict__ ovf,
+    int* __restrict__ stats, int n, int rows, int qlen, int g,
+    long long row_stride, long long col0, int k, int n_chunks, int tile,
+    int ok_col, int* row_sid, int* row_anc, int* row_jl, int* count_s,
     float* kth_out) {
+  constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
   const int tid = threadIdx.x;
-  // the scan's cut: the pool's k-th distance, and whether query b is
-  // still scanning (the chunk's first bound is finite and below it)
   float kth = INFINITY;
   bool active = true;
   if (kChunk) {
     kth = pool_d2[(long long)b * k + k - 1];
     const float first = lbs2[(long long)b * row_stride + col0];
-    active = isfinite(first) && first < kth;
+    active = isfinite(first) &&
+             (kRange ? first <= kth && ovf[b] == n_chunks : first < kth);
   }
   *kth_out = kth;
   int jl = 0;
@@ -218,7 +237,7 @@ __device__ __forceinline__ bool ed_block_rows(
         anc = anchors[e];
         if (kChunk) {
           const float lb = lbs2[e];
-          keep = active && lb < kth;
+          keep = active && (kRange ? lb <= kth : lb < kth);
           pruned = active && !keep && isfinite(lb);
           const int fit = n - qlen - anc + 1;     // offsets that fit
           const int nm = n_master[e];
@@ -241,7 +260,7 @@ __device__ __forceinline__ bool ed_block_rows(
         int* st = stats + (long long)b * kStatsWidth;
         if (blockIdx.x == 0 && active) atomicAdd(st + 0, 1);
         if (n_keep) atomicAdd(st + 1, n_keep);
-        if (n_ok) atomicAdd(st + 2, n_ok);
+        if (n_ok) atomicAdd(st + ok_col, n_ok);
         if (n_pruned) atomicAdd(st + 5, n_pruned);
         *count_s = 0;
       }
@@ -335,10 +354,28 @@ __device__ __forceinline__ void ed_stage(
   }
 }
 
+// The range entries' output of one block: its rows' dense d2, cd_s[le *
+// g + j] (+inf wherever not an ok candidate; all +inf where the block has
+// no work), out in coalesced stores at positions r0 * g ... of query b's
+// (B, rows * g) row.
+__device__ __forceinline__ void ed_range_out(const float* cd_s, bool work,
+                                             float* __restrict__ out,
+                                             int rows, int g, int tile) {
+  const int r0 = blockIdx.x * tile;
+  const long long at0 = ((long long)blockIdx.y * rows + r0) * g;
+  const int count = (rows - r0 < tile ? rows - r0 : tile) * g;
+  for (int idx = threadIdx.x; idx < count; idx += blockDim.x)
+    out[at0 + idx] = work ? cd_s[idx] : INFINITY;
+}
+
 // One block: query b = blockIdx.y, rows [r0, r0 + tile) of its chunk
-// (ed_block_rows).  Entries of the chunk entry only (kChunk): n_master,
-// lbs2, pool_d2 (B, k), stats (B, 6), part_* (B, gridDim.x, kp).
-template <bool kChunk>
+// (chunk_block_rows; kMode 0 the contract entry, 1 the k-NN chunk entry,
+// 2 the range chunk entry).  Entries of the chunk entries only: n_master,
+// lbs2, pool_d2 (k-NN: (B, k); range: eps2 (B,), k = 1), ovf and
+// n_chunks (range), stats (B, 6); part_* (k-NN: (B, gridDim.x, kp)); out
+// (contract: (B * rows, g); range: the dense (B, rows * g) d2, +inf where
+// not ok).
+template <int kMode>
 __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
     const float* __restrict__ data, const float* __restrict__ csum,
     const float* __restrict__ csum2, const float* __restrict__ csum_lo,
@@ -351,7 +388,9 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
     int* __restrict__ part_off, int* __restrict__ part_pos,
     long long num_series, int n, int rows, int qlen, int g, int znorm,
     long long row_stride, long long col0, int k, int kp, int tile,
-    int qlen_pad, int ngrp, int stride, int run_stride) {
+    int qlen_pad, int ngrp, int stride, int run_stride,
+    const int* __restrict__ ovf, int n_chunks) {
+  constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   extern __shared__ __align__(16) float ed_smem[];
   float* q_s = ed_smem;                       // [qlen_pad], 0 beyond qlen
   float* run_s = q_s + qlen_pad;              // [tile][8][run_stride]
@@ -368,9 +407,10 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
   const int tid = threadIdx.x;
   const int reg = qlen + g - 1;
   float kth;
-  const bool work = ed_block_rows<kChunk>(
-      sids, anchors, n_master, lbs2, pool_d2, stats, n, rows, qlen, g,
-      row_stride, col0, k, tile, row_sid, row_anc, row_jl, &count_s, &kth);
+  const bool work = chunk_block_rows<kMode>(
+      sids, anchors, n_master, lbs2, pool_d2, ovf, stats, n, rows, qlen, g,
+      row_stride, col0, k, n_chunks, tile, 2, row_sid, row_anc, row_jl,
+      &count_s, &kth);
   const long long at = ((long long)b * gridDim.x + blockIdx.x) * kp;
   const int* rsid = row_sid;
   const int* ranc = row_anc;
@@ -380,11 +420,15 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
     *off = ranc[r - r0] + (p - r * g);
   };
   if (!work) {
-    if (kChunk)
+    if (kMode == 1)
       write_block_topk(cd_s, cp_s, 0, kp, part_d2 + at, part_sid + at,
                        part_off + at, part_pos + at, sid_off);
+    if (kRange) ed_range_out(cd_s, false, out, rows, g, tile);
     return;
   }
+  if (kRange)   // the dense d2: +inf but at the ok candidates
+    for (int idx = tid; idx < tile * g; idx += blockDim.x)
+      cd_s[idx] = INFINITY;
 
   // stage: group 0 the query and the regions, group 1 the prefix sums
   ed_stage(data, qs, q_s, reg_s, row_sid, row_anc, row_jl, num_series, n,
@@ -491,6 +535,8 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
                                znorm ? 0.f : center[row_sid[le]], qss_s);
         if (!kChunk) {
           out[((long long)b * rows + r) * g + j] = d2;
+        } else if (kRange) {
+          cd_s[le * g + j] = d2;
         } else if (d2 < kth) {
           const int slot = atomicAdd(&count_s, 1);
           cd_s[slot] = d2;
@@ -499,16 +545,16 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
       }
     }
   }
-  if (kChunk) {
-    __syncthreads();
+  if (kChunk) __syncthreads();
+  if (kMode == 1)
     write_block_topk(cd_s, cp_s, count_s, kp, part_d2 + at, part_sid + at,
                      part_off + at, part_pos + at, sid_off);
-  }
+  if (kRange) ed_range_out(cd_s, true, out, rows, g, tile);
 }
 
 // The long-row ED kernel: the staged kernel's contract, for queries whose
 // region and query do not fit shared memory whole.  Rows as in the staged
-// kernel (ed_block_rows); the query and the rows' regions stream through
+// kernel (chunk_block_rows, the same modes); the query and the rows' regions stream through
 // shared memory in tiles of `ptile` points (a multiple of kEdJ and of
 // 32), and each thread keeps its kEdJ dots in registers across the tiles
 // and slides over each tile as the staged kernel slides over the whole
@@ -519,7 +565,7 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
 // the window sums from the prefix sums in place (window_sums), the values
 // the staged kernel's runs hold, and sum(q^2) is taken from device memory
 // in the staged kernel's order; so d2 has the staged kernel's bits too.
-template <bool kChunk>
+template <int kMode>
 __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
     const float* __restrict__ data, const float* __restrict__ csum,
     const float* __restrict__ csum2, const float* __restrict__ csum_lo,
@@ -532,7 +578,9 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
     int* __restrict__ part_off, int* __restrict__ part_pos,
     long long num_series, int n, int rows, int qlen, int g, int znorm,
     long long row_stride, long long col0, int k, int kp, int tile,
-    int qlen_pad, int ngrp, int stride, int ptile) {
+    int qlen_pad, int ngrp, int stride, int ptile,
+    const int* __restrict__ ovf, int n_chunks) {
+  constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   extern __shared__ __align__(16) float ed_smem[];
   float* q_s = ed_smem;                       // [ptile]
   float* reg_s = q_s + ptile;                 // [tile * stride]
@@ -547,9 +595,10 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
   const int tid = threadIdx.x;
   const int reg = qlen + g - 1;
   float kth;
-  const bool work = ed_block_rows<kChunk>(
-      sids, anchors, n_master, lbs2, pool_d2, stats, n, rows, qlen, g,
-      row_stride, col0, k, tile, row_sid, row_anc, row_jl, &count_s, &kth);
+  const bool work = chunk_block_rows<kMode>(
+      sids, anchors, n_master, lbs2, pool_d2, ovf, stats, n, rows, qlen, g,
+      row_stride, col0, k, n_chunks, tile, 2, row_sid, row_anc, row_jl,
+      &count_s, &kth);
   const long long at = ((long long)b * gridDim.x + blockIdx.x) * kp;
   const int* rsid = row_sid;
   const int* ranc = row_anc;
@@ -559,11 +608,15 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
     *off = ranc[r - r0] + (p - r * g);
   };
   if (!work) {
-    if (kChunk)
+    if (kMode == 1)
       write_block_topk(cd_s, cp_s, 0, kp, part_d2 + at, part_sid + at,
                        part_off + at, part_pos + at, sid_off);
+    if (kRange) ed_range_out(cd_s, false, out, rows, g, tile);
     return;
   }
+  if (kRange)   // the dense d2: +inf but at the ok candidates
+    for (int idx = tid; idx < tile * g; idx += blockDim.x)
+      cd_s[idx] = INFINITY;
   if (!znorm && tid < 32) {
     const float* q = qs + (long long)b * qlen;
     float part = 0.f;
@@ -606,6 +659,8 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
                                  znorm ? 0.f : center[sid], qss_s);
           if (!kChunk) {
             out[((long long)b * rows + r) * g + j] = d2;
+          } else if (kRange) {
+            cd_s[le * g + j] = d2;
           } else if (d2 < kth) {
             const int slot = atomicAdd(&count_s, 1);
             cd_s[slot] = d2;
@@ -615,11 +670,11 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
       }
     }
   }
-  if (kChunk) {
-    __syncthreads();
+  if (kChunk) __syncthreads();
+  if (kMode == 1)
     write_block_topk(cd_s, cp_s, count_s, kp, part_d2 + at, part_sid + at,
                      part_off + at, part_pos + at, sid_off);
-  }
+  if (kRange) ed_range_out(cd_s, true, out, rows, g, tile);
 }
 
 // Squared LB_Keogh of kLbJ consecutive windows j0 .. j0 + kLbJ - 1 of
@@ -654,10 +709,9 @@ __device__ __forceinline__ void lb_windows(const float* base,
   }
 }
 
-// The long-row LB_Keogh kernel's pieces (lb_window_stats, lb_results,
-// lb_write_out).  The staged kernel below writes the same arithmetic out
-// in place: built from these helpers it ran ~2% slower at qlen 256 on an
-// H100.
+// The long-row LB_Keogh kernel's pieces (lb_window_stats, lb_results).
+// The staged kernel below writes the same arithmetic out in place: built
+// from these helpers it ran ~2% slower at qlen 256 on an H100.
 // (mu, sd, 1 / sd) of kLbJ consecutive windows of series sid starting at
 // off0, from the prefix sums (raw: 0, 1), and their sums zeroed: the
 // plain version's divides and square root, s2 / L - mu_c^2 without
@@ -704,18 +758,62 @@ __device__ __forceinline__ void lb_results(float* res_s, int tg, int le,
   }
 }
 
+// The LB_Keogh chunk entries' own arguments (the contract entries pass
+// row_stride = rows, col0 = 0 and nothing else): the (B, n_pad) plan's
+// n_master and lbs2 (sids and anchors are the kernel's), the cut (the
+// pool's (B, k) d2 with cut_stride = k, or eps2 (B,) with cut_stride =
+// 1), ovf (range), the counters, and the outputs: each query's survivor
+// list and count, the DP's (B, rows * g) output, and each candidate's
+// (sid, off).
+struct LbChunk {
+  const int* n_master;
+  const float* lbs2;
+  const float* cut;
+  const int* ovf;
+  int* stats;
+  int* slist;
+  int* nsurv;
+  float* dp_out;
+  int* cand_sid;
+  int* cand_off;
+  long long row_stride, col0;
+  int cut_stride, n_chunks;
+};
+
+// The LB kernels' prologue (chunk_block_rows): every mode reads the
+// tile's (sid, anchor) once into row_sid / row_anc, which the staging
+// and the window statistics read; the chunk entries also decide active,
+// keep and the ok offsets of each row and add the counters [active,
+// kept, -, ok, -, pruned].  Every thread calls it.
+template <int kMode>
+__device__ __forceinline__ void lb_block_rows(
+    const int* __restrict__ sids, const int* __restrict__ anchors,
+    const LbChunk& c, int n, int rows, int qlen, int g, int tile,
+    int* row_sid, int* row_anc, int* row_jl, int* count_s, float* cut) {
+  chunk_block_rows<kMode>(sids, anchors, c.n_master, c.lbs2, c.cut, c.ovf,
+                          c.stats, n, rows, qlen, g, c.row_stride, c.col0,
+                          c.cut_stride, c.n_chunks, tile, 3, row_sid,
+                          row_anc, row_jl, count_s, cut);
+}
+
 // The tile's results (res_s: lb2, mu, sd, each [tile * g]) out.  The
-// tile's rows are consecutive: (lb2, mu, sd) out in
-// coalesced stores; entry at = (b * rows + r0) * g + idx is position
-// r0 * g + idx of query b's chunk.  The chunk entry (kChunk) also masks
-// by ok, lists the survivors and fills the DP's output.
-template <bool kChunk>
+// tile's rows are consecutive: (lb2, mu, sd) out in coalesced stores;
+// entry at = (b * rows + r0) * g + idx is position r0 * g + idx of query
+// b's chunk.  The chunk entries (kMode 1: k-NN, 2: range) also mask: lb2
+// = +inf where not an ok candidate (offset j < row_jl of a kept row);
+// list each survivor (ok and lb2 < cut, or <= cut for range) in slist[b,
+// :] by a warp-aggregated atomicAdd on nsurv[b] (zeroed before the
+// launch; the list's order varies from run to run); write +inf into the
+// DP's output at every other position; write every candidate's (sid,
+// off); and add the block's survivors (the DPs to run) to the counters'
+// true-distance and full-DP columns.
+template <int kMode>
 __device__ __forceinline__ void lb_write_out(
     const float* res_s, int tg, float* __restrict__ lb_out,
     float* __restrict__ mu_out, float* __restrict__ sd_out,
-    const bool* __restrict__ ok, const float* __restrict__ kth,
-    int* __restrict__ slist, int* __restrict__ nsurv,
-    float* __restrict__ dp_out, int rows, int g, int tile) {
+    const LbChunk& c, const int* row_sid, const int* row_anc,
+    const int* row_jl, int* count_s, float cut, int rows, int g,
+    int tile) {
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
   const long long at0 = ((long long)b * rows + r0) * g;
@@ -726,20 +824,29 @@ __device__ __forceinline__ void lb_write_out(
     const bool in = idx < count;
     const long long at = at0 + idx;
     float lb = in ? res_s[idx] : 0.f;
-    if (kChunk) {
-      if (in && !ok[at]) lb = INFINITY;
-      const bool surv = in && lb < kth[b];
+    if (kMode != 0) {
+      bool surv = false;
+      if (in) {
+        const int le = idx / g, j = idx - le * g;
+        if (j >= row_jl[le]) lb = INFINITY;
+        else surv = kMode == 2 ? lb <= cut : lb < cut;
+        c.cand_sid[at] = row_sid[le];
+        c.cand_off[at] = row_anc[le] + j;
+      }
       const unsigned mask = __ballot_sync(kFull, surv);
       if (mask) {
         const int leader = __ffs(mask) - 1;
         int slot = 0;
-        if (lane == leader) slot = atomicAdd(nsurv + b, __popc(mask));
+        if (lane == leader) {
+          slot = atomicAdd(c.nsurv + b, __popc(mask));
+          atomicAdd(count_s, __popc(mask));
+        }
         slot = __shfl_sync(kFull, slot, leader) +
                __popc(mask & ((1u << lane) - 1u));
         if (surv)
-          slist[(long long)b * rows * g + slot] = r0 * g + idx;
+          c.slist[(long long)b * rows * g + slot] = r0 * g + idx;
       }
-      if (in && !surv) dp_out[at] = INFINITY;
+      if (in && !surv) c.dp_out[at] = INFINITY;
     }
     if (in) {
       lb_out[at] = lb;
@@ -747,9 +854,21 @@ __device__ __forceinline__ void lb_write_out(
       sd_out[at] = res_s[2 * tg + idx];
     }
   }
+  if (kMode != 0) {
+    __syncthreads();
+    if (threadIdx.x == 0 && *count_s) {
+      int* st = c.stats + (long long)b * kStatsWidth;
+      atomicAdd(st + 2, *count_s);
+      atomicAdd(st + 4, *count_s);
+    }
+  }
 }
 
-template <bool kChunk>
+// kMode 0: the contract entry; 1 and 2: the k-NN and range chunk entries
+// (lb_block_rows, lb_write_out).  The chunk entries run the contract's
+// arithmetic on every row of the chunk, kept or not, so lb2 (before the
+// mask), mu and sd are the contract entry's bits.
+template <int kMode>
 __global__ void __launch_bounds__(kLbMaxThreads)
     fused_gather_lb_keogh_kernel(
         const float* __restrict__ data, const float* __restrict__ csum,
@@ -758,15 +877,15 @@ __global__ void __launch_bounds__(kLbMaxThreads)
         const int* __restrict__ sids, const int* __restrict__ anchors,
         const float* __restrict__ dtw_lo, const float* __restrict__ dtw_hi,
         float* __restrict__ lb_out, float* __restrict__ mu_out,
-        float* __restrict__ sd_out, const bool* __restrict__ ok,
-        const float* __restrict__ kth, int* __restrict__ slist,
-        int* __restrict__ nsurv, float* __restrict__ dp_out,
-        long long num_series, int n, int rows, int qlen, int g, int znorm,
-        int tile, int qlen_pad, int ngrp, int stride) {
+        float* __restrict__ sd_out, const LbChunk c, long long num_series,
+        int n, int rows, int qlen, int g, int znorm, int tile, int qlen_pad,
+        int ngrp, int stride) {
   extern __shared__ float smem[];
   float2* env_s = reinterpret_cast<float2*>(smem);   // [qlen_pad]
   float* reg_s = smem + 2 * qlen_pad;                // [tile * stride]
   float* res_s = reg_s + tile * stride;              // [3][tile * g]
+  __shared__ int row_sid[kLbTile], row_anc[kLbTile], row_jl[kLbTile];
+  __shared__ int count_s;
   const int tg = tile * g;
 
   const int b = blockIdx.y;
@@ -775,7 +894,10 @@ __global__ void __launch_bounds__(kLbMaxThreads)
     env_s[t] = t < qlen ? make_float2(dtw_lo[(long long)b * qlen + t],
                                       dtw_hi[(long long)b * qlen + t])
                         : make_float2(-INFINITY, INFINITY);
-  stage_regions(data, sids, anchors, reg_s, num_series, n, rows, b, r0,
+  float cut = INFINITY;
+  lb_block_rows<kMode>(sids, anchors, c, n, rows, qlen, g, tile, row_sid,
+                       row_anc, row_jl, &count_s, &cut);
+  stage_regions(data, row_sid, row_anc, reg_s, num_series, n, rows, r0,
                 tile, stride, qlen + g - 1);
   __syncthreads();
 
@@ -785,8 +907,7 @@ __global__ void __launch_bounds__(kLbMaxThreads)
     const int le = item % tile, grp = item / tile;
     const int r = r0 + le;
     if (r >= rows) continue;
-    const long long e = (long long)b * rows + r;
-    const long long sid = sids[e];
+    const long long sid = row_sid[le];
     const int j0 = grp * kLbJ;
     float mu[kLbJ], sd[kLbJ], y[kLbJ], acc[kLbJ];
 #pragma unroll
@@ -796,7 +917,7 @@ __global__ void __launch_bounds__(kLbMaxThreads)
       if (znorm) {
         float s1, s2;
         window_sums(csum, csum2, csum_lo, csum2_lo, sid,
-                    anchors[e] + j0 + jj, n, qlen, last, &s1, &s2);
+                    row_anc[le] + j0 + jj, n, qlen, last, &s1, &s2);
         const float mu_c = s1 / qlen;
         const float var = __fsub_rn(s2 / qlen, __fmul_rn(mu_c, mu_c));
         sd[jj] = fmaxf(sqrtf(fmaxf(var, 0.f)), 1e-8f);
@@ -817,39 +938,8 @@ __global__ void __launch_bounds__(kLbMaxThreads)
     }
   }
   __syncthreads();
-
-  // the tile's rows are consecutive: (lb2, mu, sd) out in coalesced
-  // stores; entry at = (b * rows + r0) * g + idx is position r0 * g + idx
-  // of query b's chunk
-  const long long at0 = ((long long)b * rows + r0) * g;
-  const int count = (rows - r0 < tile ? rows - r0 : tile) * g;
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < count; base += blockDim.x) {   // warp-uniform
-    const int idx = base + threadIdx.x;
-    const bool in = idx < count;
-    const long long at = at0 + idx;
-    float lb = in ? res_s[idx] : 0.f;
-    if (kChunk) {
-      if (in && !ok[at]) lb = INFINITY;
-      const bool surv = in && lb < kth[b];
-      const unsigned mask = __ballot_sync(kFull, surv);
-      if (mask) {
-        const int leader = __ffs(mask) - 1;
-        int slot = 0;
-        if (lane == leader) slot = atomicAdd(nsurv + b, __popc(mask));
-        slot = __shfl_sync(kFull, slot, leader) +
-               __popc(mask & ((1u << lane) - 1u));
-        if (surv)
-          slist[(long long)b * rows * g + slot] = r0 * g + idx;
-      }
-      if (in && !surv) dp_out[at] = INFINITY;
-    }
-    if (in) {
-      lb_out[at] = lb;
-      mu_out[at] = res_s[tg + idx];
-      sd_out[at] = res_s[2 * tg + idx];
-    }
-  }
+  lb_write_out<kMode>(res_s, tg, lb_out, mu_out, sd_out, c, row_sid,
+                      row_anc, row_jl, &count_s, cut, rows, g, tile);
 }
 
 // The long-row LB_Keogh kernel: the staged kernel's contract, for queries
@@ -861,8 +951,8 @@ __global__ void __launch_bounds__(kLbMaxThreads)
 // windows' (mu, sd) and sums in registers across the tiles, sliding over
 // each tile as the staged kernel slides over the whole row: the same
 // normalized values summed in the same order, so (lb2, mu, sd) have the
-// staged kernel's bits.
-template <bool kChunk>
+// staged kernel's bits.  kMode as the staged kernel's.
+template <int kMode>
 __global__ void __launch_bounds__(kLbMaxThreads)
     fused_gather_lb_keogh_long_kernel(
         const float* __restrict__ data, const float* __restrict__ csum,
@@ -871,19 +961,22 @@ __global__ void __launch_bounds__(kLbMaxThreads)
         const int* __restrict__ sids, const int* __restrict__ anchors,
         const float* __restrict__ dtw_lo, const float* __restrict__ dtw_hi,
         float* __restrict__ lb_out, float* __restrict__ mu_out,
-        float* __restrict__ sd_out, const bool* __restrict__ ok,
-        const float* __restrict__ kth, int* __restrict__ slist,
-        int* __restrict__ nsurv, float* __restrict__ dp_out,
-        long long num_series, int n, int rows, int qlen, int g, int znorm,
-        int tile, int qlen_pad, int ngrp, int stride, int ptile) {
+        float* __restrict__ sd_out, const LbChunk c, long long num_series,
+        int n, int rows, int qlen, int g, int znorm, int tile, int qlen_pad,
+        int ngrp, int stride, int ptile) {
   extern __shared__ float smem[];
   float2* env_s = reinterpret_cast<float2*>(smem);   // [ptile]
   float* reg_s = smem + 2 * ptile;                   // [tile * stride]
   float* res_s = reg_s + tile * stride;              // [3][tile * g]
+  __shared__ int row_sid[kLbTile], row_anc[kLbTile], row_jl[kLbTile];
+  __shared__ int count_s;
   const int tg = tile * g;
 
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
+  float cut = INFINITY;
+  lb_block_rows<kMode>(sids, anchors, c, n, rows, qlen, g, tile, row_sid,
+                       row_anc, row_jl, &count_s, &cut);
   const long long last = num_series * (long long)(n + 1) - 1;
   for (int base = 0; base < tile * ngrp; base += blockDim.x) {
     const int item = base + threadIdx.x;
@@ -892,12 +985,10 @@ __global__ void __launch_bounds__(kLbMaxThreads)
     const bool mine = item < tile * ngrp && r < rows;
     const int j0 = grp * kLbJ;
     float mu[kLbJ], sd[kLbJ], y[kLbJ], acc[kLbJ];
-    if (mine) {
-      const long long e = (long long)b * rows + r;
-      lb_window_stats(csum, csum2, csum_lo, csum2_lo, center, sids[e],
-                      anchors[e] + j0, n, qlen, last, znorm, mu, sd, y,
+    if (mine)
+      lb_window_stats(csum, csum2, csum_lo, csum2_lo, center, row_sid[le],
+                      row_anc[le] + j0, n, qlen, last, znorm, mu, sd, y,
                       acc);
-    }
     for (int t0 = 0; t0 < qlen_pad; t0 += ptile) {
       const int len = qlen_pad - t0 < ptile ? qlen_pad - t0 : ptile;
       __syncthreads();                  // the last tile is consumed
@@ -906,7 +997,7 @@ __global__ void __launch_bounds__(kLbMaxThreads)
         env_s[t] = t0 + t < qlen ? make_float2(dtw_lo[at], dtw_hi[at])
                                  : make_float2(-INFINITY, INFINITY);
       }
-      stage_regions(data, sids, anchors, reg_s, num_series, n, rows, b, r0,
+      stage_regions(data, row_sid, row_anc, reg_s, num_series, n, rows, r0,
                     tile, stride, qlen + g - 1, t0);
       __syncthreads();
       if (mine)
@@ -915,8 +1006,8 @@ __global__ void __launch_bounds__(kLbMaxThreads)
     if (mine) lb_results(res_s, tg, le, j0, g, mu, sd, acc);
   }
   __syncthreads();
-  lb_write_out<kChunk>(res_s, tg, lb_out, mu_out, sd_out, ok, kth, slist,
-                       nsurv, dp_out, rows, g, tile);
+  lb_write_out<kMode>(res_s, tg, lb_out, mu_out, sd_out, c, row_sid,
+                      row_anc, row_jl, &count_s, cut, rows, g, tile);
 }
 
 // The normalized windows w (E * g, qlen) of the LB and DP tiers, from
@@ -1001,7 +1092,10 @@ EdShape ed_long_shape(int qlen, int g, bool chunk) {
   return s;
 }
 
-template <bool kChunk, bool kLong>
+// kMode: 0 the contract entry, 1 the k-NN chunk entry, 2 the range chunk
+// entry (which shares the k-NN entry's block shape: its dense d2 goes out
+// through the candidate buffer).
+template <int kMode, bool kLong>
 int launch_ed(const void* data, const void* csum, const void* csum2,
               const void* csum_lo, const void* csum2_lo, const void* center,
               const void* sids, const void* anchors, const void* n_master,
@@ -1009,18 +1103,18 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
               const void* pool_d2, void* stats, void* part,
               long long num_series, int n, int batch, int rows, int qlen,
               int g, int znorm, long long row_stride, long long col0, int k,
-              void* stream) {
+              void* stream, const void* ovf = nullptr, int n_chunks = 0) {
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
       batch > 65535 || k < 1)
     return (int)cudaErrorInvalidValue;
-  const EdShape s = kLong ? ed_long_shape(qlen, g, kChunk)
-                          : ed_shape(qlen, g, kChunk);
+  const EdShape s = kLong ? ed_long_shape(qlen, g, kMode != 0)
+                          : ed_shape(qlen, g, kMode != 0);
   if (s.threads > kEdThreads || s.smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   // the two kernels take the same arguments; the last is the staged
   // kernel's run stride or the long kernel's points a tile
-  auto kernel = kLong ? fused_gather_ed_long_kernel<kChunk>
-                      : fused_gather_ed_kernel<kChunk>;
+  auto kernel = kLong ? fused_gather_ed_long_kernel<kMode>
+                      : fused_gather_ed_kernel<kMode>;
   if (s.smem > kSmemBudget) {
     const int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
@@ -1043,7 +1137,8 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
       reinterpret_cast<float*>(p), p ? p + plane : nullptr,
       p ? p + 2 * plane : nullptr, p ? p + 3 * plane : nullptr, num_series,
       n, rows, qlen, g, znorm, row_stride, col0, k, kp, s.tile, s.qlen_pad,
-      s.ngrp, s.stride, kLong ? kLongPoints : s.run_stride);
+      s.ngrp, s.stride, kLong ? kLongPoints : s.run_stride,
+      static_cast<const int*>(ovf), n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -1055,7 +1150,7 @@ extern "C" int ulisse_fused_gather_ed(
     const void* sids, const void* anchors, const void* qs, void* out,
     long long num_series, int n, int batch, int rows, int qlen, int g,
     int znorm, void* stream) {
-  return launch_ed<false, false>(
+  return launch_ed<0, false>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, nullptr,
       nullptr, qs, out, nullptr, nullptr, nullptr, num_series, n, batch, rows,
       qlen, g, znorm, rows, 0, 1, stream);
@@ -1068,7 +1163,7 @@ extern "C" int ulisse_fused_gather_ed_long(
     const void* sids, const void* anchors, const void* qs, void* out,
     long long num_series, int n, int batch, int rows, int qlen, int g,
     int znorm, void* stream) {
-  return launch_ed<false, true>(
+  return launch_ed<0, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, nullptr,
       nullptr, qs, out, nullptr, nullptr, nullptr, num_series, n, batch, rows,
       qlen, g, znorm, rows, 0, 1, stream);
@@ -1099,7 +1194,7 @@ extern "C" int ulisse_fused_gather_ed_chunk(
     void* part, long long num_series, int n, int batch, int rows, int qlen,
     int g, int znorm, long long n_pad, long long col0, int k, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
-  return launch_ed<true, false>(
+  return launch_ed<1, false>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, qs, nullptr, pool_d2, stats, part, num_series, n, batch, rows,
       qlen, g, znorm, n_pad, col0, k, stream);
@@ -1114,10 +1209,46 @@ extern "C" int ulisse_fused_gather_ed_chunk_long(
     void* part, long long num_series, int n, int batch, int rows, int qlen,
     int g, int znorm, long long n_pad, long long col0, int k, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
-  return launch_ed<true, true>(
+  return launch_ed<1, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, qs, nullptr, pool_d2, stats, part, num_series, n, batch, rows,
       qlen, g, znorm, n_pad, col0, k, stream);
+}
+
+// The range mode of the chunk entry: eps2 (B,) in place of the pool,
+// inclusive cuts, `active` also reading ovf (B,) (the hit buffer's first
+// unwritten chunk, n_chunks while it never overflowed), and the dense
+// (B, rows * g) d2 in `out` (+inf wherever not an ok candidate) in place
+// of the partials.  The counters as the k-NN mode's.
+extern "C" int ulisse_fused_gather_ed_range(
+    const void* data, const void* csum, const void* csum2,
+    const void* csum_lo, const void* csum2_lo, const void* center,
+    const void* sids, const void* anchors, const void* n_master,
+    const void* lbs2, const void* qs, const void* eps2, const void* ovf,
+    void* stats, void* out, long long num_series, int n, int batch,
+    int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
+    int n_chunks, void* stream) {
+  if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
+  return launch_ed<2, false>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
+      lbs2, qs, out, eps2, stats, nullptr, num_series, n, batch, rows, qlen,
+      g, znorm, n_pad, col0, 1, stream, ovf, n_chunks);
+}
+
+// The long-row kernel behind the range entry's contract (any qlen).
+extern "C" int ulisse_fused_gather_ed_range_long(
+    const void* data, const void* csum, const void* csum2,
+    const void* csum_lo, const void* csum2_lo, const void* center,
+    const void* sids, const void* anchors, const void* n_master,
+    const void* lbs2, const void* qs, const void* eps2, const void* ovf,
+    void* stats, void* out, long long num_series, int n, int batch,
+    int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
+    int n_chunks, void* stream) {
+  if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
+  return launch_ed<2, true>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
+      lbs2, qs, out, eps2, stats, nullptr, num_series, n, batch, rows, qlen,
+      g, znorm, n_pad, col0, 1, stream, ovf, n_chunks);
 }
 
 namespace {
@@ -1171,13 +1302,15 @@ LbShape lb_long_shape(int qlen, int g) {
   return s;
 }
 
-template <bool kChunk, bool kLong>
+// kMode: 0 the contract entry, 1 the k-NN chunk entry, 2 the range chunk
+// entry.  The chunk entries zero nsurv before their launch (a memset on
+// the stream, not a kernel).
+template <int kMode, bool kLong>
 int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
                     const void* csum_lo, const void* csum2_lo,
                     const void* center, const void* sids, const void* anchors,
                     const void* dtw_lo, const void* dtw_hi, void* lb,
-                    void* mu, void* sd, const void* ok, const void* kth,
-                    void* slist, void* nsurv, void* dp_out,
+                    void* mu, void* sd, const LbChunk& c,
                     long long num_series, int n, int batch, int rows,
                     int qlen, int g, int znorm, void* stream) {
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
@@ -1189,8 +1322,8 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
   const size_t smem = sh.smem;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const void* kernel =
-      kLong ? (const void*)fused_gather_lb_keogh_long_kernel<kChunk>
-            : (const void*)fused_gather_lb_keogh_kernel<kChunk>;
+      kLong ? (const void*)fused_gather_lb_keogh_long_kernel<kMode>
+            : (const void*)fused_gather_lb_keogh_kernel<kMode>;
   if (smem > kSmemBudget) {
     const int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1198,6 +1331,11 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
   }
   const dim3 grid((rows + tile - 1) / tile, batch);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kMode != 0) {
+    const int err =
+        (int)cudaMemsetAsync(c.nsurv, 0, sizeof(int) * (size_t)batch, st);
+    if (err) return err;
+  }
   const float* a_data = static_cast<const float*>(data);
   const float* a_cs = static_cast<const float*>(csum);
   const float* a_cs2 = static_cast<const float*>(csum2);
@@ -1211,22 +1349,77 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
   float* a_lb = static_cast<float*>(lb);
   float* a_mu = static_cast<float*>(mu);
   float* a_sd = static_cast<float*>(sd);
-  const bool* a_ok = static_cast<const bool*>(ok);
-  const float* a_kth = static_cast<const float*>(kth);
-  int* a_sl = static_cast<int*>(slist);
-  int* a_ns = static_cast<int*>(nsurv);
-  float* a_dp = static_cast<float*>(dp_out);
   if (kLong)
-    fused_gather_lb_keogh_long_kernel<kChunk><<<grid, sh.threads, smem, st>>>(
+    fused_gather_lb_keogh_long_kernel<kMode><<<grid, sh.threads, smem, st>>>(
         a_data, a_cs, a_cs2, a_cl, a_cl2, a_c, a_sids, a_anc, a_lo, a_hi,
-        a_lb, a_mu, a_sd, a_ok, a_kth, a_sl, a_ns, a_dp, num_series, n, rows,
-        qlen, g, znorm, tile, qlen_pad, ngrp, stride, kLongPoints);
+        a_lb, a_mu, a_sd, c, num_series, n, rows, qlen, g, znorm, tile,
+        qlen_pad, ngrp, stride, kLongPoints);
   else
-    fused_gather_lb_keogh_kernel<kChunk><<<grid, sh.threads, smem, st>>>(
+    fused_gather_lb_keogh_kernel<kMode><<<grid, sh.threads, smem, st>>>(
         a_data, a_cs, a_cs2, a_cl, a_cl2, a_c, a_sids, a_anc, a_lo, a_hi,
-        a_lb, a_mu, a_sd, a_ok, a_kth, a_sl, a_ns, a_dp, num_series, n, rows,
-        qlen, g, znorm, tile, qlen_pad, ngrp, stride);
+        a_lb, a_mu, a_sd, c, num_series, n, rows, qlen, g, znorm, tile,
+        qlen_pad, ngrp, stride);
   return (int)cudaGetLastError();
+}
+
+// The contract entries' chunk arguments: rows straight from sids/anchors.
+LbChunk lb_contract(int rows) {
+  LbChunk c = {};
+  c.row_stride = rows;
+  return c;
+}
+
+// The chunk entries' arguments: the plan (B, n_pad), its chunk at col0
+// (rows columns), the cut (cut_stride = k: the pool's (B, k) d2; 1:
+// eps2), ovf (range), the counters and the outputs.
+int lb_chunk(LbChunk* c, const void* n_master, const void* lbs2,
+             const void* cut, const void* ovf, void* stats, void* slist,
+             void* nsurv, void* dp_out, void* cand_sid, void* cand_off,
+             int rows, long long n_pad, long long col0, int cut_stride) {
+  if (col0 < 0 || col0 + rows > n_pad || cut_stride < 1 || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  c->n_master = static_cast<const int*>(n_master);
+  c->lbs2 = static_cast<const float*>(lbs2);
+  c->cut = static_cast<const float*>(cut);
+  c->ovf = static_cast<const int*>(ovf);
+  c->stats = static_cast<int*>(stats);
+  c->slist = static_cast<int*>(slist);
+  c->nsurv = static_cast<int*>(nsurv);
+  c->dp_out = static_cast<float*>(dp_out);
+  c->cand_sid = static_cast<int*>(cand_sid);
+  c->cand_off = static_cast<int*>(cand_off);
+  c->row_stride = n_pad;
+  c->col0 = col0;
+  c->cut_stride = cut_stride;
+  c->n_chunks = (int)(n_pad / rows);
+  return 0;
+}
+
+template <bool kLong>
+int launch_lb_chunk(const void* data, const void* csum, const void* csum2,
+                    const void* csum_lo, const void* csum2_lo,
+                    const void* center, const void* sids, const void* anchors,
+                    const void* n_master, const void* lbs2,
+                    const void* dtw_lo, const void* dtw_hi, const void* cut,
+                    const void* ovf, void* stats, void* lb, void* mu,
+                    void* sd, void* slist, void* nsurv, void* dp_out,
+                    void* cand_sid, void* cand_off, long long num_series,
+                    int n, int batch, int rows, int qlen, int g, int znorm,
+                    long long n_pad, long long col0, int k, int range,
+                    void* stream) {
+  LbChunk c;
+  const int err = lb_chunk(&c, n_master, lbs2, cut, ovf, stats, slist, nsurv,
+                           dp_out, cand_sid, cand_off, rows, n_pad, col0,
+                           range ? 1 : k);
+  if (err) return err;
+  return range ? launch_lb_keogh<2, kLong>(
+                     data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                     anchors, dtw_lo, dtw_hi, lb, mu, sd, c, num_series, n,
+                     batch, rows, qlen, g, znorm, stream)
+               : launch_lb_keogh<1, kLong>(
+                     data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                     anchors, dtw_lo, dtw_hi, lb, mu, sd, c, num_series, n,
+                     batch, rows, qlen, g, znorm, stream);
 }
 
 }  // namespace
@@ -1237,10 +1430,10 @@ extern "C" int ulisse_fused_gather_lb_keogh(
     const void* sids, const void* anchors, const void* dtw_lo,
     const void* dtw_hi, void* lb, void* mu, void* sd, long long num_series,
     int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
-  return launch_lb_keogh<false, false>(
+  return launch_lb_keogh<0, false>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
-      dtw_hi, lb, mu, sd, nullptr, nullptr, nullptr, nullptr, nullptr,
-      num_series, n, batch, rows, qlen, g, znorm, stream);
+      dtw_hi, lb, mu, sd, lb_contract(rows), num_series, n, batch, rows,
+      qlen, g, znorm, stream);
 }
 
 // The long-row kernel behind the same contract (any qlen).
@@ -1250,10 +1443,10 @@ extern "C" int ulisse_fused_gather_lb_keogh_long(
     const void* sids, const void* anchors, const void* dtw_lo,
     const void* dtw_hi, void* lb, void* mu, void* sd, long long num_series,
     int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
-  return launch_lb_keogh<false, true>(
+  return launch_lb_keogh<0, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
-      dtw_hi, lb, mu, sd, nullptr, nullptr, nullptr, nullptr, nullptr,
-      num_series, n, batch, rows, qlen, g, znorm, stream);
+      dtw_hi, lb, mu, sd, lb_contract(rows), num_series, n, batch, rows,
+      qlen, g, znorm, stream);
 }
 
 // Rows a block of the LB_Keogh entries takes at (qlen, g); -1 where no
@@ -1273,31 +1466,48 @@ extern "C" int ulisse_fused_gather_lb_keogh_long_tile(int qlen, int g) {
   return s.smem > kSmemMax ? -1 : s.tile;
 }
 
+// The scan's LB_Keogh step over chunk col0 / rows of the (B, n_pad) plan
+// (sids, anchors, n_master, lbs2), in either cut: k-NN (range = 0; cut
+// the pool's (B, k) d2, strict) or range (range = 1; cut eps2 (B,),
+// inclusive, `active` also reading ovf).  It decides active, keep and
+// the ok candidates itself, adds [active, kept, survivors, ok,
+// survivors, pruned] to stats (B, 6) in place, writes lb2 (+inf where
+// not ok), mu, sd (each (B, rows * g)), the survivor list and count,
+// the DP's output (+inf at every non-survivor) and each candidate's
+// (sid, off) (each (B, rows * g)).
 extern "C" int ulisse_fused_gather_lb_keogh_chunk(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
-    const void* sids, const void* anchors, const void* dtw_lo,
-    const void* dtw_hi, const void* ok, const void* kth, void* lb, void* mu,
-    void* sd, void* slist, void* nsurv, void* dp_out, long long num_series,
-    int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
-  return launch_lb_keogh<true, false>(
-      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
-      dtw_hi, lb, mu, sd, ok, kth, slist, nsurv, dp_out, num_series, n,
-      batch, rows, qlen, g, znorm, stream);
+    const void* sids, const void* anchors, const void* n_master,
+    const void* lbs2, const void* dtw_lo, const void* dtw_hi,
+    const void* cut, const void* ovf, void* stats, void* lb, void* mu,
+    void* sd, void* slist, void* nsurv, void* dp_out, void* cand_sid,
+    void* cand_off, long long num_series, int n, int batch, int rows,
+    int qlen, int g, int znorm, long long n_pad, long long col0, int k,
+    int range, void* stream) {
+  return launch_lb_chunk<false>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
+      lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd, slist, nsurv,
+      dp_out, cand_sid, cand_off, num_series, n, batch, rows, qlen, g, znorm,
+      n_pad, col0, k, range, stream);
 }
 
 // The long-row kernel behind the chunk entry's contract (any qlen).
 extern "C" int ulisse_fused_gather_lb_keogh_chunk_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
-    const void* sids, const void* anchors, const void* dtw_lo,
-    const void* dtw_hi, const void* ok, const void* kth, void* lb, void* mu,
-    void* sd, void* slist, void* nsurv, void* dp_out, long long num_series,
-    int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
-  return launch_lb_keogh<true, true>(
-      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
-      dtw_hi, lb, mu, sd, ok, kth, slist, nsurv, dp_out, num_series, n,
-      batch, rows, qlen, g, znorm, stream);
+    const void* sids, const void* anchors, const void* n_master,
+    const void* lbs2, const void* dtw_lo, const void* dtw_hi,
+    const void* cut, const void* ovf, void* stats, void* lb, void* mu,
+    void* sd, void* slist, void* nsurv, void* dp_out, void* cand_sid,
+    void* cand_off, long long num_series, int n, int batch, int rows,
+    int qlen, int g, int znorm, long long n_pad, long long col0, int k,
+    int range, void* stream) {
+  return launch_lb_chunk<true>(
+      data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
+      lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd, slist, nsurv,
+      dp_out, cand_sid, cand_off, num_series, n, batch, rows, qlen, g, znorm,
+      n_pad, col0, k, range, stream);
 }
 
 extern "C" int ulisse_gather_znorm(const void* data, const void* sids,

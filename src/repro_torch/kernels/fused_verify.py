@@ -7,25 +7,32 @@ master offsets, a function of the window against the prepared query,
 from one gathered (qlen + g - 1) region per envelope and window
 statistics from the collection's hi/lo prefix sums.  `fused_gather_ed`
 gives the squared ED (all of the ED search's true-distance work) and
-`fused_gather_ed_chunk` is the scan's entry to the same kernel, which
-also masks, counts and keeps each block's k best candidates;
-`fused_gather_lb_keogh` normalizes each window and gives its squared
-LB_Keogh against the query's DTW envelope, with the (mu, sd) the DTW
-tier reuses; `fused_gather_lb_keogh_chunk` is the scan's entry to the
-same kernel, which also masks, lists the survivors and prepares the DP's
-output; `gather_znorm` writes the kernels' normalized windows (a check).
-Each of the four entries stages the query (or its DTW envelope) and the
-rows' regions in shared memory whole where they fit; where they do not
-(qlen past 28,768 for ED, 19,304 for LB_Keogh at g = 49) it hands the
-call to its long-row variant (`fused_gather_ed_long`,
-`fused_gather_ed_chunk_long`, `fused_gather_lb_keogh_long`,
-`fused_gather_lb_keogh_chunk_long`: the same contract and the same bits,
-the query streamed through shared memory in tiles of points), each a
-wrapper of its own with its own count, so any qlen runs on the card.
-The kernels are `csrc/fused_verify.cu`; the plain versions are
-`ref.fused_gather_ed_ref`, `ref.fused_gather_ed_chunk_ref`,
-`ref.fused_gather_lb_keogh_ref`,
-`ref.fused_gather_lb_keogh_chunk_ref` and `ref.gather_znorm_ref`.
+`fused_gather_ed_chunk` is the k-NN scan's entry to the same kernel,
+which also decides the active queries and kept rows from the plan, adds
+the counters and keeps each block's k best candidates;
+`fused_gather_ed_range` is the same entry's range mode (eps2 for the
+pool's k-th, inclusive cuts, the hit buffer's ovf read, the dense d2
+out for `range_append`); `fused_gather_lb_keogh` normalizes each window
+and gives its squared LB_Keogh against the query's DTW envelope, with
+the (mu, sd) the DTW tier reuses; `fused_gather_lb_keogh_chunk` (k-NN)
+and `fused_gather_lb_keogh_range` (range) are the scans' entries to the
+same kernel, which decide active queries, kept rows and ok candidates,
+add the counters, list the survivors, prepare the DP's output and give
+each candidate's (sid, off); `gather_znorm` writes the kernels'
+normalized windows (a check).  Each of the six entries stages the query
+(or its DTW envelope) and the rows' regions in shared memory whole where
+they fit; where they do not (qlen past 28,768 for ED, 19,304 for
+LB_Keogh at g = 49) it hands the call to its long-row variant
+(`fused_gather_ed_long`, `fused_gather_ed_chunk_long`,
+`fused_gather_ed_range_long`, `fused_gather_lb_keogh_long`,
+`fused_gather_lb_keogh_chunk_long`, `fused_gather_lb_keogh_range_long`:
+the same contract and the same bits, the query streamed through shared
+memory in tiles of points), each a wrapper of its own with its own
+count, so any qlen runs on the card.  The kernels are
+`csrc/fused_verify.cu`; the plain versions are `ref.fused_gather_ed_ref`,
+`ref.fused_gather_ed_chunk_ref`, `ref.fused_gather_ed_range_ref`,
+`ref.fused_gather_lb_keogh_ref`, `ref.fused_gather_lb_keogh_chunk_ref`,
+`ref.fused_gather_lb_keogh_range_ref` and `ref.gather_znorm_ref`.
 
 Inputs are checked on every device against what the kernel takes; then
 CPU tensors take the plain version and CUDA tensors launch the kernel.
@@ -75,9 +82,10 @@ def staged(measure: str, qlen: int, g: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def card_takes(measure: str, qlen: int, g: int) -> bool:
-    """Whether the card's chunk entry of `measure` takes (qlen, g) at
-    all, staged or through its long-row variant: the variant's shared
-    memory does not grow with qlen but does with g (it takes g <= 18,688
+    """Whether the card's chunk entries of `measure` (k-NN and range: a
+    range entry's block is its k-NN entry's) take (qlen, g) at all,
+    staged or through their long-row variants: the variants' shared
+    memory does not grow with qlen but does with g (they take g <= 18,688
     for ED and g <= 13,760 for LB_Keogh)."""
     lib = _build.library("fused_verify")
     tile = (lib.ulisse_fused_gather_ed_chunk_long_tile if measure == "ed"
@@ -165,6 +173,31 @@ def ed_chunk_tile(qlen: int, g: int, long: bool = False) -> int:
     return tile
 
 
+def _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                anchors, n_master, lbs2, queries, cut, stats, i, chunk,
+                ovf=None):
+    """Raise unless the chunk entries' inputs are what the kernels take:
+    the (B, n_pad) plan with chunk i inside it, the queries (name, tensor)
+    (B, qlen), the cut (the pool's (B, k) d2, or eps2 (B,)), the (B, 6)
+    counters and, for range, ovf (B,)."""
+    b = queries[0][1].shape[0]
+    n_pad = sids.shape[1]
+    _check(what, data, csum, csum2, csum_lo, csum2_lo, center,
+           sids.reshape(-1), anchors.reshape(-1), n_pad, queries)
+    _build.check_tensors(what, data.device, (
+        ("sids", sids, torch.int32, (b, n_pad)),
+        ("anchors", anchors, torch.int32, (b, n_pad)),
+        ("n_master", n_master, torch.int32, (b, n_pad)),
+        ("lbs2", lbs2, torch.float32, (b, n_pad)),
+        ("pool_d2" if ovf is None else "eps2", cut, torch.float32,
+         (b, cut.shape[-1]) if ovf is None else (b,)),
+        ("stats", stats, torch.int32, (b, 6)),
+        *(() if ovf is None else (("ovf", ovf, torch.int32, (b,)),))))
+    if not (chunk >= 1 and 0 <= i * chunk and (i + 1) * chunk <= n_pad):
+        raise ValueError(f"{what}: chunk {i} of {chunk} rows outside the "
+                         f"plan's {n_pad} columns")
+
+
 def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, qs, pool_d2, stats, i, chunk, g,
               znorm):
@@ -174,18 +207,9 @@ def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
     n_pad = sids.shape[1]
     k = pool_d2.shape[1]
     what = wrapper.__name__
-    _check(what, data, csum, csum2, csum_lo, csum2_lo, center,
-           sids.reshape(-1), anchors.reshape(-1), n_pad, (("qs", qs),))
-    _build.check_tensors(what, dev, (
-        ("sids", sids, torch.int32, (b, n_pad)),
-        ("anchors", anchors, torch.int32, (b, n_pad)),
-        ("n_master", n_master, torch.int32, (b, n_pad)),
-        ("lbs2", lbs2, torch.float32, (b, n_pad)),
-        ("pool_d2", pool_d2, torch.float32, (b, k)),
-        ("stats", stats, torch.int32, (b, 6))))
-    if not (chunk >= 1 and 0 <= i * chunk and (i + 1) * chunk <= n_pad):
-        raise ValueError(f"{what}: chunk {i} of {chunk} rows outside the "
-                         f"plan's {n_pad} columns")
+    _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                anchors, n_master, lbs2, (("qs", qs),), pool_d2, stats, i,
+                chunk)
     if dev.type == "cpu":
         return ref.fused_gather_ed_chunk_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
@@ -262,6 +286,92 @@ def fused_gather_ed_chunk_long(data: torch.Tensor, csum: torch.Tensor,
 fused_gather_ed_chunk_long.launches = 0
 
 
+def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
+              sids, anchors, n_master, lbs2, qs, eps2, ovf, stats, i, chunk,
+              g, znorm):
+    dev = data.device
+    s, n = data.shape
+    b, qlen = qs.shape
+    n_pad = sids.shape[1]
+    what = wrapper.__name__
+    _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                anchors, n_master, lbs2, (("qs", qs),), eps2, stats, i,
+                chunk, ovf)
+    if dev.type == "cpu":
+        return ref.fused_gather_ed_range_ref(
+            data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+            n_master, lbs2, qs, eps2, ovf, stats, i=i, chunk=chunk, g=g,
+            znorm=znorm)
+    ed_chunk_tile(qlen, g, long)            # raises where no block fits
+    out = torch.empty((b, chunk * g), dtype=torch.float32, device=dev)
+    lib = _build.library("fused_verify")
+    entry = (lib.ulisse_fused_gather_ed_range_long if long
+             else lib.ulisse_fused_gather_ed_range)
+    code = entry(
+        data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
+        csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
+        sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
+        lbs2.data_ptr(), qs.data_ptr(), eps2.data_ptr(), ovf.data_ptr(),
+        stats.data_ptr(), out.data_ptr(), s, n, b, chunk, qlen, g,
+        int(znorm), n_pad, i * chunk, n_pad // chunk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, what)
+    wrapper.launches += 1
+    return out
+
+
+def fused_gather_ed_range(data: torch.Tensor, csum: torch.Tensor,
+                          csum2: torch.Tensor, csum_lo: torch.Tensor,
+                          csum2_lo: torch.Tensor, center: torch.Tensor,
+                          sids: torch.Tensor, anchors: torch.Tensor,
+                          n_master: torch.Tensor, lbs2: torch.Tensor,
+                          qs: torch.Tensor, eps2: torch.Tensor,
+                          ovf: torch.Tensor, stats: torch.Tensor, *, i: int,
+                          chunk: int, g: int, znorm: bool) -> torch.Tensor:
+    """The eps-range scan's ED step over chunk i: the range mode of the
+    chunk entry, in one launch of the `fused_gather_ed` kernel.
+
+    The plan, qs and stats as in `fused_gather_ed_chunk`; eps2 (B,)
+    float32 the squared radii and ovf (B,) int32 the hit buffer's first
+    unwritten chunk (n_pad // chunk while it never overflowed), both read
+    on the device.  Query b is active while the chunk's first bound is
+    finite and <= eps2[b] and ovf[b] is unset; rows with lbs2 <= eps2[b]
+    are kept (inclusive); the counters are added as the k-NN mode adds
+    them (`ref.fused_gather_ed_range_ref`).  Returns the dense (B, chunk
+    * g) float32 d2 of the ok candidates, +inf wherever not ok.  On the
+    card a qlen past the staged kernel's goes to
+    `fused_gather_ed_range_long`.
+    """
+    long = qs.device.type == "cuda" and not staged("ed", qs.shape[1], g)
+    return _ed_range(
+        fused_gather_ed_range_long if long else fused_gather_ed_range, long,
+        data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        n_master, lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm)
+
+
+fused_gather_ed_range.launches = 0
+
+
+def fused_gather_ed_range_long(data: torch.Tensor, csum: torch.Tensor,
+                               csum2: torch.Tensor, csum_lo: torch.Tensor,
+                               csum2_lo: torch.Tensor, center: torch.Tensor,
+                               sids: torch.Tensor, anchors: torch.Tensor,
+                               n_master: torch.Tensor, lbs2: torch.Tensor,
+                               qs: torch.Tensor, eps2: torch.Tensor,
+                               ovf: torch.Tensor, stats: torch.Tensor, *,
+                               i: int, chunk: int, g: int,
+                               znorm: bool) -> torch.Tensor:
+    """`fused_gather_ed_range` through the long-row kernel, at any qlen:
+    the same counters and, at a qlen both take, the same d2 bit for
+    bit."""
+    return _ed_range(fused_gather_ed_range_long, True, data, csum, csum2,
+                     csum_lo, csum2_lo, center, sids, anchors, n_master,
+                     lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm)
+
+
+fused_gather_ed_range_long.launches = 0
+
+
 def _lb(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center, sids,
         anchors, dtw_lo, dtw_hi, g, rows, znorm):
     dev = data.device
@@ -331,69 +441,95 @@ def fused_gather_lb_keogh_long(data: torch.Tensor, csum: torch.Tensor,
 fused_gather_lb_keogh_long.launches = 0
 
 
-def _lb_chunk(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center,
-              sids, anchors, dtw_lo, dtw_hi, ok, kth, g, rows, znorm):
+def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
+              sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats,
+              i, chunk, g, znorm):
+    """The LB chunk entries: k-NN (ovf None, cut the pool's (B, k) d2) or
+    range (cut eps2 (B,), ovf (B,))."""
     dev = data.device
     s, n = data.shape
     b, qlen = dtw_lo.shape
-    m = rows * g
+    n_pad = sids.shape[1]
+    m = chunk * g
     what = wrapper.__name__
-    _check(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
-           anchors, rows, (("dtw_lo", dtw_lo), ("dtw_hi", dtw_hi)))
-    _build.check_tensors(what, dev, (
-        ("ok", ok, torch.bool, (b, m)),
-        ("kth", kth, torch.float32, (b,))))
+    _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                anchors, n_master, lbs2, (("dtw_lo", dtw_lo),
+                                          ("dtw_hi", dtw_hi)),
+                cut, stats, i, chunk, ovf)
     if dev.type == "cpu":
-        return ref.fused_gather_lb_keogh_chunk_ref(
+        if ovf is None:
+            return ref.fused_gather_lb_keogh_chunk_ref(
+                data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+                n_master, lbs2, dtw_lo, dtw_hi, cut, stats, i=i, chunk=chunk,
+                g=g, znorm=znorm)
+        return ref.fused_gather_lb_keogh_range_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-            dtw_lo, dtw_hi, ok, kth, g=g, rows=rows, znorm=znorm)
-    lb, mu, sd = torch.empty((3, b * rows, g), dtype=torch.float32,
+            n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats, i=i,
+            chunk=chunk, g=g, znorm=znorm)
+    lb, mu, sd = torch.empty((3, b * chunk, g), dtype=torch.float32,
                              device=dev)
-    slist = torch.empty((b, m), dtype=torch.int32, device=dev)
-    nsurv = torch.zeros(b, dtype=torch.int32, device=dev)
+    slist, cand_sid, cand_off = torch.empty((3, b, m), dtype=torch.int32,
+                                            device=dev)
+    nsurv = torch.empty(b, dtype=torch.int32, device=dev)   # zeroed there
     d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
-    code = getattr(_build.library("fused_verify"), entry)(
+    lib = _build.library("fused_verify")
+    entry = (lib.ulisse_fused_gather_lb_keogh_chunk_long if long
+             else lib.ulisse_fused_gather_lb_keogh_chunk)
+    code = entry(
         data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
         csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
-        sids.data_ptr(), anchors.data_ptr(), dtw_lo.data_ptr(),
-        dtw_hi.data_ptr(), ok.data_ptr(), kth.data_ptr(), lb.data_ptr(),
-        mu.data_ptr(), sd.data_ptr(), slist.data_ptr(), nsurv.data_ptr(),
-        d2.data_ptr(), s, n, b, rows, qlen, g, int(znorm),
-        torch.cuda.current_stream(dev).cuda_stream)
+        sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
+        lbs2.data_ptr(), dtw_lo.data_ptr(), dtw_hi.data_ptr(),
+        cut.data_ptr(), None if ovf is None else ovf.data_ptr(),
+        stats.data_ptr(), lb.data_ptr(), mu.data_ptr(), sd.data_ptr(),
+        slist.data_ptr(), nsurv.data_ptr(), d2.data_ptr(),
+        cand_sid.data_ptr(), cand_off.data_ptr(), s, n, b, chunk, qlen, g,
+        int(znorm), n_pad, i * chunk, cut.shape[-1] if ovf is None else 1,
+        int(ovf is not None), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
-    return lb, mu, sd, slist, nsurv, d2
+    return lb, mu, sd, slist, nsurv, d2, cand_sid, cand_off
 
 
 def fused_gather_lb_keogh_chunk(data: torch.Tensor, csum: torch.Tensor,
                                 csum2: torch.Tensor, csum_lo: torch.Tensor,
                                 csum2_lo: torch.Tensor, center: torch.Tensor,
                                 sids: torch.Tensor, anchors: torch.Tensor,
+                                n_master: torch.Tensor, lbs2: torch.Tensor,
                                 dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
-                                ok: torch.Tensor, kth: torch.Tensor, *,
-                                g: int, rows: int, znorm: bool):
-    """The scan's LB_Keogh tier of one chunk, in one launch of the
+                                pool_d2: torch.Tensor, stats: torch.Tensor,
+                                *, i: int, chunk: int, g: int, znorm: bool):
+    """The scan's LB_Keogh step over chunk i, in one launch of the
     `fused_gather_lb_keogh` kernel.
 
-    Inputs as in `fused_gather_lb_keogh`, plus the chunk's candidate mask
-    ok (B, M = rows * g) bool and the pool's k-th distances kth (B,)
-    float32.  Returns (lb2, mu, sd, slist, nsurv, d2): lb2/mu/sd (B *
-    rows, g) as the contract entry's with lb2 = +inf where not ok; query
-    b's survivors (lb2 < kth[b]) are the positions slist[b, :nsurv[b]]
+    sids/anchors/n_master (B, n_pad) int32 and lbs2 (B, n_pad) float32
+    are the LB-sorted plan (chunk i is columns [i * chunk, (i + 1) *
+    chunk)), dtw_lo/dtw_hi (B, qlen) the queries' DTW envelopes, pool_d2
+    (B, k) the pool's ascending d2 and stats the scan's (B, 6) int32
+    counters.  The kernel decides which queries are active (the chunk's
+    first bound is finite and below the pool's k-th), keeps the rows
+    with lbs2 < kth, takes the ok candidates of kept rows (masters that
+    fit the series), and adds [active, kept rows, survivors, ok
+    candidates, survivors, pruned rows] in place
+    (`ref.fused_gather_lb_keogh_chunk_ref` says which).  Returns (lb2,
+    mu, sd, slist, nsurv, d2, cand_sid, cand_off): lb2/mu/sd (B * chunk,
+    g) as the contract entry's with lb2 = +inf where not ok; query b's
+    survivors (ok, lb2 < kth) are the positions slist[b, :nsurv[b]]
     (int32; in any order on the card, ascending on the CPU) and nsurv
-    (B,) int32 counts them, on the device; d2 (B, M) float32 is +inf at
-    every non-survivor, for `dtw_survivors` to fill the rest.  On the
-    card a qlen past the staged kernel's goes to
+    (B,) int32 counts them; d2 (B, M = chunk * g) float32 is +inf at
+    every non-survivor, for `dtw_survivors` to fill the rest;
+    cand_sid/cand_off (B, M) int32 each candidate's (sid, off).  All on
+    the device: no torch op and no host sync around it.  On the card a
+    qlen past the staged kernel's goes to
     `fused_gather_lb_keogh_chunk_long`.
     """
-    if dtw_lo.device.type == "cuda" and not staged("dtw", dtw_lo.shape[1], g):
-        return fused_gather_lb_keogh_chunk_long(
-            data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-            dtw_lo, dtw_hi, ok, kth, g=g, rows=rows, znorm=znorm)
-    return _lb_chunk(fused_gather_lb_keogh_chunk,
-                     "ulisse_fused_gather_lb_keogh_chunk", data, csum, csum2,
-                     csum_lo, csum2_lo, center, sids, anchors, dtw_lo, dtw_hi,
-                     ok, kth, g, rows, znorm)
+    long = (dtw_lo.device.type == "cuda"
+            and not staged("dtw", dtw_lo.shape[1], g))
+    return _lb_chunk(
+        fused_gather_lb_keogh_chunk_long if long
+        else fused_gather_lb_keogh_chunk, long, data, csum, csum2, csum_lo,
+        csum2_lo, center, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi,
+        pool_d2, None, stats, i, chunk, g, znorm)
 
 
 fused_gather_lb_keogh_chunk.launches = 0
@@ -402,19 +538,68 @@ fused_gather_lb_keogh_chunk.launches = 0
 def fused_gather_lb_keogh_chunk_long(
         data: torch.Tensor, csum: torch.Tensor, csum2: torch.Tensor,
         csum_lo: torch.Tensor, csum2_lo: torch.Tensor, center: torch.Tensor,
-        sids: torch.Tensor, anchors: torch.Tensor, dtw_lo: torch.Tensor,
-        dtw_hi: torch.Tensor, ok: torch.Tensor, kth: torch.Tensor, *,
-        g: int, rows: int, znorm: bool):
+        sids: torch.Tensor, anchors: torch.Tensor, n_master: torch.Tensor,
+        lbs2: torch.Tensor, dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
+        pool_d2: torch.Tensor, stats: torch.Tensor, *, i: int, chunk: int,
+        g: int, znorm: bool):
     """`fused_gather_lb_keogh_chunk` through the long-row kernel, at any
-    qlen: the same outputs, bit for bit where both take the shape (the
-    survivor list in any order)."""
-    return _lb_chunk(fused_gather_lb_keogh_chunk_long,
-                     "ulisse_fused_gather_lb_keogh_chunk_long", data, csum,
-                     csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
-                     dtw_hi, ok, kth, g, rows, znorm)
+    qlen: the same outputs and counters, bit for bit where both take the
+    shape (the survivor list in any order)."""
+    return _lb_chunk(fused_gather_lb_keogh_chunk_long, True, data, csum,
+                     csum2, csum_lo, csum2_lo, center, sids, anchors,
+                     n_master, lbs2, dtw_lo, dtw_hi, pool_d2, None, stats, i,
+                     chunk, g, znorm)
 
 
 fused_gather_lb_keogh_chunk_long.launches = 0
+
+
+def fused_gather_lb_keogh_range(data: torch.Tensor, csum: torch.Tensor,
+                                csum2: torch.Tensor, csum_lo: torch.Tensor,
+                                csum2_lo: torch.Tensor, center: torch.Tensor,
+                                sids: torch.Tensor, anchors: torch.Tensor,
+                                n_master: torch.Tensor, lbs2: torch.Tensor,
+                                dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
+                                eps2: torch.Tensor, ovf: torch.Tensor,
+                                stats: torch.Tensor, *, i: int, chunk: int,
+                                g: int, znorm: bool):
+    """The eps-range scan's LB_Keogh step over chunk i: the range mode of
+    `fused_gather_lb_keogh_chunk`, in one launch.  eps2 (B,) float32 and
+    ovf (B,) int32 (the hit buffer's first unwritten chunk) replace the
+    pool: a query is active while the chunk's first bound is finite and
+    <= eps2[b] and ovf[b] is unset, and rows and candidates are cut at
+    <= eps2 (inclusive).  The same outputs and counters
+    (`ref.fused_gather_lb_keogh_range_ref`).  On the card a qlen past the
+    staged kernel's goes to `fused_gather_lb_keogh_range_long`."""
+    long = (dtw_lo.device.type == "cuda"
+            and not staged("dtw", dtw_lo.shape[1], g))
+    return _lb_chunk(
+        fused_gather_lb_keogh_range_long if long
+        else fused_gather_lb_keogh_range, long, data, csum, csum2, csum_lo,
+        csum2_lo, center, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi,
+        eps2, ovf, stats, i, chunk, g, znorm)
+
+
+fused_gather_lb_keogh_range.launches = 0
+
+
+def fused_gather_lb_keogh_range_long(
+        data: torch.Tensor, csum: torch.Tensor, csum2: torch.Tensor,
+        csum_lo: torch.Tensor, csum2_lo: torch.Tensor, center: torch.Tensor,
+        sids: torch.Tensor, anchors: torch.Tensor, n_master: torch.Tensor,
+        lbs2: torch.Tensor, dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
+        eps2: torch.Tensor, ovf: torch.Tensor, stats: torch.Tensor, *,
+        i: int, chunk: int, g: int, znorm: bool):
+    """`fused_gather_lb_keogh_range` through the long-row kernel, at any
+    qlen: the same outputs and counters, bit for bit where both take the
+    shape (the survivor list in any order)."""
+    return _lb_chunk(fused_gather_lb_keogh_range_long, True, data, csum,
+                     csum2, csum_lo, csum2_lo, center, sids, anchors,
+                     n_master, lbs2, dtw_lo, dtw_hi, eps2, ovf, stats, i,
+                     chunk, g, znorm)
+
+
+fused_gather_lb_keogh_range_long.launches = 0
 
 
 def gather_znorm(data: torch.Tensor, sids: torch.Tensor,

@@ -137,6 +137,71 @@ def scan_active(lbs2, pool_d2, i: int, chunk: int):
     return torch.isfinite(first) & (first < pool_d2[:, -1])
 
 
+def range_active(lbs2, eps2, ovf, i: int, chunk: int):
+    """(B,) bool: query b's range scan still runs at chunk i of its packed
+    plan — the chunk's first bound is finite and <= eps2, and the hit
+    buffer has not overflowed (ovf == the plan's chunk count)."""
+    first = lbs2[:, min(i * chunk, lbs2.shape[1] - 1)]
+    return (torch.isfinite(first) & (first <= eps2)
+            & (ovf == lbs2.shape[1] // chunk))
+
+
+def _chunk_cut(sids, anchors, n_master, lbs2, active, cut, inclusive: bool,
+               i: int, chunk: int, qlen: int, n: int, g: int):
+    """Chunk i of the (B, n_pad) plan under a cut: its columns (csid,
+    canc, clb2), the kept rows (keep: active and lbs2 < cut, or <= cut
+    when inclusive) and `chunk_candidates` of them (ok, cand_sid,
+    cand_off)."""
+    sl = slice(i * chunk, (i + 1) * chunk)
+    csid, canc, cnm, clb2 = (t[:, sl] for t in (sids, anchors, n_master,
+                                                  lbs2))
+    below = clb2 <= cut[:, None] if inclusive else clb2 < cut[:, None]
+    keep = below & active[:, None]
+    ok, cand_sid, cand_off = chunk_candidates(csid, canc, cnm, keep, qlen,
+                                              n, g)
+    return csid, canc, clb2, keep, ok, cand_sid, cand_off
+
+
+def _add_counts(stats, active, keep, clb2, ok_col: int, n_ok, n_true):
+    """Add [active, kept rows, true distances, LB_Keogh, full DPs, pruned
+    rows] to the (B, 6) int32 `stats` in place: n_ok in column ok_col
+    (ED: true distances; DTW: LB_Keogh), n_true in columns 2 and 4 (DTW's
+    survivors) or none; pruned is a finite bound of an active query that
+    was not kept."""
+    zeros = torch.zeros_like(active, dtype=torch.int32)
+    cols = [active.to(torch.int32), keep.sum(dim=1, dtype=torch.int32),
+            zeros, zeros, zeros,
+            (torch.isfinite(clb2) & active[:, None] & ~keep).sum(
+                dim=1, dtype=torch.int32)]
+    cols[ok_col] = n_ok
+    if n_true is not None:
+        cols[2] = cols[4] = n_true
+    stats += torch.stack(cols, dim=1)
+
+
+def _ed_chunk_d2(data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                 anchors, n_master, lbs2, qs, stats, active, cut,
+                 inclusive: bool, i: int, chunk: int, g: int, znorm: bool,
+                 dist):
+    """The ED chunk step's shared part: chunk i under the cut, the
+    counters added, and the (B, chunk * g) d2 of the ok candidates (+inf
+    elsewhere), with their (sid, off)."""
+    n = data.shape[1]
+    b_sz, qlen = qs.shape
+    csid, canc, clb2, keep, ok, cand_sid, cand_off = _chunk_cut(
+        sids, anchors, n_master, lbs2, active, cut, inclusive, i, chunk,
+        qlen, n, g)
+    if dist is None:
+        dist = fused_gather_ed_ref(
+            data, csum, csum2, csum_lo, csum2_lo, center,
+            csid.reshape(-1).contiguous(), canc.reshape(-1).contiguous(), qs,
+            g=g, rows=chunk, znorm=znorm)
+    d2 = torch.where(ok, dist.reshape(b_sz, chunk * g), float("inf"))
+    _add_counts(stats, active, keep, clb2, 2,
+                ok.sum(dim=1, dtype=torch.int32), None)
+    return d2, cand_sid, cand_off
+
+
 def fused_gather_ed_chunk_ref(data, csum, csum2, csum_lo, csum2_lo, center,
                               sids, anchors, n_master, lbs2, qs, pool_d2,
                               stats, *, i: int, chunk: int, g: int,
@@ -153,31 +218,60 @@ def fused_gather_ed_chunk_ref(data, csum, csum2, csum_lo, csum2_lo, center,
     Returns the candidates as (4, B, chunk * g) int32 partials: d2 (+inf
     where not ok, as float32 bits), sid, off and position r * g + j.
     """
-    n = data.shape[1]
-    b_sz, qlen = qs.shape
-    sl = slice(i * chunk, (i + 1) * chunk)
-    csid, canc, cnm, clb2 = (t[:, sl] for t in (sids, anchors, n_master,
-                                                  lbs2))
-    kth = pool_d2[:, -1]
-    active = scan_active(lbs2, pool_d2, i, chunk)
-    keep = (clb2 < kth[:, None]) & active[:, None]
-    ok, cand_sid, cand_off = chunk_candidates(csid, canc, cnm, keep, qlen,
-                                              n, g)
-    if dist is None:
-        dist = fused_gather_ed_ref(
-            data, csum, csum2, csum_lo, csum2_lo, center,
-            csid.reshape(-1).contiguous(), canc.reshape(-1).contiguous(), qs,
-            g=g, rows=chunk, znorm=znorm)
-    d2 = torch.where(ok, dist.reshape(b_sz, chunk * g), float("inf"))
-    zeros = torch.zeros_like(active, dtype=torch.int32)
-    stats += torch.stack([
-        active.to(torch.int32), keep.sum(dim=1, dtype=torch.int32),
-        ok.sum(dim=1, dtype=torch.int32), zeros, zeros,
-        (torch.isfinite(clb2) & active[:, None] & ~keep).sum(
-            dim=1, dtype=torch.int32)], dim=1)
+    b_sz = qs.shape[0]
+    d2, cand_sid, cand_off = _ed_chunk_d2(
+        data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        n_master, lbs2, qs, stats, scan_active(lbs2, pool_d2, i, chunk),
+        pool_d2[:, -1], False, i, chunk, g, znorm, dist)
     pos = torch.arange(chunk * g, dtype=torch.int32, device=qs.device)
     return torch.stack([d2.view(torch.int32), cand_sid, cand_off,
                         pos.expand(b_sz, chunk * g)])
+
+
+def fused_gather_ed_range_ref(data, csum, csum2, csum_lo, csum2_lo, center,
+                              sids, anchors, n_master, lbs2, qs, eps2, ovf,
+                              stats, *, i: int, chunk: int, g: int,
+                              znorm: bool, dist=None) -> torch.Tensor:
+    """The range mode of `fused_gather_ed_chunk_ref` (the eps-range
+    scan's ED step): query b is active when `range_active` (which reads
+    the hit buffer's ovf (B,)), row r is kept when active and lbs2 <=
+    eps2[b] (inclusive), and the counters are added as in the k-NN mode.
+    Returns the dense (B, chunk * g) d2 of the ok candidates, +inf
+    wherever not ok."""
+    return _ed_chunk_d2(
+        data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        n_master, lbs2, qs, stats, range_active(lbs2, eps2, ovf, i, chunk),
+        eps2, True, i, chunk, g, znorm, dist)[0]
+
+
+def range_append_ref(d2, sids, anchors, eps2, buf, cnt, ovf, *, i: int,
+                     chunk: int, g: int) -> None:
+    """Append chunk i's hits to the range scan's hit buffer, in place.
+
+    d2 (B, chunk * g) is the step's dense distance row (+inf where no
+    distance was verified), sids/anchors (B, n_pad) the packed plan
+    (position p is plan row i * chunk + p // g, offset p % g), eps2 (B,);
+    buf = (d2, sid, off) (B, cap), cnt (B,) int32 its fill counts and ovf
+    (B,) int32 the first chunk whose hits were not written (n_pad //
+    chunk while none).  A hit is a finite d2 <= eps2.  Where cnt + hits >
+    cap none is written and ovf becomes i (if not set); else the hits go
+    to slots cnt, cnt + 1, ... in position order and cnt grows by them —
+    the reference's buffer, bit for bit."""
+    bd2, bsid, boff = buf
+    cap = bd2.shape[1]
+    n_chunks = sids.shape[1] // chunk
+    hit = torch.isfinite(d2) & (d2 <= eps2[:, None])
+    nh = hit.sum(dim=1, dtype=torch.int32)
+    over = cnt + nh > cap
+    ovf.copy_(torch.where(over & (ovf == n_chunks), i, ovf))
+    rows, pos = (hit & ~over[:, None]).nonzero(as_tuple=True)
+    rank = torch.cumsum(hit, dim=1) - 1
+    slot = cnt.long()[rows] + rank[rows, pos]
+    col = i * chunk + pos // g
+    bd2[rows, slot] = d2[rows, pos]
+    bsid[rows, slot] = sids[rows, col]
+    boff[rows, slot] = anchors[rows, col] + (pos % g).to(anchors.dtype)
+    cnt += torch.where(over, 0, nh)
 
 
 def pool_merge_ref(pool, cd2, csid, coff):
@@ -276,30 +370,76 @@ def dtw_band_ref(q: torch.Tensor, candidates: torch.Tensor,
     return wavefront_dtw(q, candidates, r)
 
 
-def fused_gather_lb_keogh_chunk_ref(data, csum, csum2, csum_lo, csum2_lo,
-                                    center, sids, anchors, dtw_lo, dtw_hi,
-                                    ok, kth, *, g: int, rows: int,
-                                    znorm: bool):
-    """The scan's LB_Keogh tier of one chunk: `fused_gather_lb_keogh_ref`
-    masked by the candidate mask ok (B, M = rows * g), its survivors
-    listed, and the DP's output prepared.
-
-    Returns (lb2, mu, sd, slist, nsurv, d2): lb2 (B * rows, g) is +inf
-    where not ok; query b's survivors (lb2 < kth[b]) are the positions
-    slist[b, :nsurv[b]] (int32, ascending here; the kernel's order
-    varies), followed by the other positions; d2 (B, M) float32 is +inf
-    at every non-survivor and NaN at the survivors, which the DP fills.
-    """
+def _lb_chunk_ref(data, csum, csum2, csum_lo, csum2_lo, center, sids,
+                  anchors, n_master, lbs2, dtw_lo, dtw_hi, stats, active,
+                  cut, inclusive: bool, i: int, chunk: int, g: int,
+                  znorm: bool):
+    n = data.shape[1]
+    b_sz, qlen = dtw_lo.shape
+    csid, canc, clb2, keep, ok, cand_sid, cand_off = _chunk_cut(
+        sids, anchors, n_master, lbs2, active, cut, inclusive, i, chunk,
+        qlen, n, g)
     lb2, mu, sd = fused_gather_lb_keogh_ref(
-        data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
-        dtw_hi, g=g, rows=rows, znorm=znorm)
-    b_sz = ok.shape[0]
+        data, csum, csum2, csum_lo, csum2_lo, center,
+        csid.reshape(-1).contiguous(), canc.reshape(-1).contiguous(), dtw_lo,
+        dtw_hi, g=g, rows=chunk, znorm=znorm)
     lb2 = torch.where(ok.reshape(lb2.shape), lb2, float("inf"))
-    surv = lb2.reshape(b_sz, -1) < kth[:, None]
+    flat = lb2.reshape(b_sz, -1)
+    surv = ok & (flat <= cut[:, None] if inclusive else flat < cut[:, None])
     slist = torch.argsort((~surv).to(torch.uint8), dim=1, stable=True)
+    nsurv = surv.sum(dim=1, dtype=torch.int32)
+    _add_counts(stats, active, keep, clb2, 3,
+                ok.sum(dim=1, dtype=torch.int32), nsurv)
     d2 = torch.where(surv, float("nan"), float("inf"))
-    return (lb2, mu, sd, slist.to(torch.int32),
-            surv.sum(dim=1, dtype=torch.int32), d2)
+    return (lb2, mu, sd, slist.to(torch.int32), nsurv, d2, cand_sid,
+            cand_off)
+
+
+def fused_gather_lb_keogh_chunk_ref(data, csum, csum2, csum_lo, csum2_lo,
+                                    center, sids, anchors, n_master, lbs2,
+                                    dtw_lo, dtw_hi, pool_d2, stats, *,
+                                    i: int, chunk: int, g: int,
+                                    znorm: bool):
+    """The scan's LB_Keogh step over chunk i of the (B, n_pad) LB-sorted
+    plan (sids, anchors, n_master, lbs2), against the pool's (B, k) d2:
+    `fused_gather_lb_keogh_ref` of the chunk's rows, masked, its
+    survivors listed, the DP's output prepared and the counters added.
+
+    Query b is active when `scan_active`, a row kept when active and
+    lbs2 < kth = pool_d2[b, k - 1], candidate (r, j) ok where
+    `chunk_candidates` says so, and a survivor an ok candidate with lb2 <
+    kth.  Adds [active, kept rows, survivors, ok candidates, survivors,
+    pruned rows] to the (B, 6) int32 `stats` in place.  Returns (lb2,
+    mu, sd, slist, nsurv, d2, cand_sid, cand_off): lb2/mu/sd (B * chunk,
+    g) with lb2 = +inf where not ok; query b's survivors are the
+    positions slist[b, :nsurv[b]] (int32, ascending here; the kernel's
+    order varies), followed by the other positions; d2 (B, M = chunk * g)
+    float32 is +inf at every non-survivor and NaN at the survivors, which
+    the DP fills; cand_sid/cand_off (B, M) int32 every candidate's
+    (sid, off).
+    """
+    return _lb_chunk_ref(
+        data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        n_master, lbs2, dtw_lo, dtw_hi, stats,
+        scan_active(lbs2, pool_d2, i, chunk), pool_d2[:, -1], False, i,
+        chunk, g, znorm)
+
+
+def fused_gather_lb_keogh_range_ref(data, csum, csum2, csum_lo, csum2_lo,
+                                    center, sids, anchors, n_master, lbs2,
+                                    dtw_lo, dtw_hi, eps2, ovf, stats, *,
+                                    i: int, chunk: int, g: int,
+                                    znorm: bool):
+    """The range mode of `fused_gather_lb_keogh_chunk_ref` (the eps-range
+    scan's DTW step): query b is active when `range_active` (which reads
+    the hit buffer's ovf (B,)); rows are kept and candidates survive at
+    lbs2 <= eps2[b] and lb2 <= eps2[b] (inclusive: lb <= d, so a boundary
+    hit survives).  The same outputs and counters."""
+    return _lb_chunk_ref(
+        data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
+        n_master, lbs2, dtw_lo, dtw_hi, stats,
+        range_active(lbs2, eps2, ovf, i, chunk), eps2, True, i, chunk, g,
+        znorm)
 
 
 def gather_znorm_ref(data, sids, anchors, mu, sd, *, qlen: int, g: int):

@@ -18,7 +18,11 @@ kernels' window normalization bit for bit against the IEEE divide
 (`gather_znorm`), and the LB's mu and sd bit for bit; the ED chunk entry
 and both pool merges bit for bit (pool and counters) against the plain
 step fed the contract entry's distances (the two entries share one
-device function).
+device function); the LB chunk entries' (k-NN and range) masks,
+counters, survivor sets and candidate ids exactly, their lb2 within the
+LB tolerance; the ED range entry's dense d2 bit for bit against the
+plain step fed the contract entry's distances; `range_append` bit for
+bit (buffer, counts, overflow chunks).
 """
 import dataclasses
 
@@ -43,12 +47,15 @@ from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
 from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
 from repro_torch.kernels.fused_verify import (  # noqa: E402
     fused_gather_ed, fused_gather_ed_chunk, fused_gather_ed_chunk_long,
-    fused_gather_ed_long, fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
+    fused_gather_ed_long, fused_gather_ed_range, fused_gather_ed_range_long,
+    fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
     fused_gather_lb_keogh_chunk_long, fused_gather_lb_keogh_long,
+    fused_gather_lb_keogh_range, fused_gather_lb_keogh_range_long,
     gather_znorm)
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
 from repro_torch.kernels.pool_merge import (  # noqa: E402
     pool_merge, pool_merge_partials)
+from repro_torch.kernels.range_append import range_append  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -409,50 +416,189 @@ def _chunk_args(dev, rng, rows, qlen, r, b=8, s=512, n=256, g=49):
 @pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
 def test_fused_gather_lb_keogh_chunk_matches_plain(dev, rows, qlen, r,
                                                    znorm):
-    """The chunk entry in one launch: lb2 (+inf off the mask) within the
-    LB tolerance, mu and sd bit-equal, the same survivor set and count
-    as the plain entry (none for query 0, all ok for query 7), +inf in
-    the DP's output at every non-survivor."""
+    """The chunk entry in one launch, k-NN and range cuts: lb2 (+inf off
+    the candidates it takes) within the LB tolerance, mu, sd and every
+    candidate's (sid, off) bit-equal, the counters the plain version's
+    (the survivor columns the kernel's own count), the same survivor set
+    and count as the plain entry (k-NN: none for query 0, all ok for
+    query 7; range: query 0 at eps2 = 0, query 1 overflowed), +inf in the
+    DP's output at every non-survivor."""
     rng = np.random.default_rng(rows + qlen + znorm)
-    _lb_chunk_check(dev, rng, _chunk_args(dev, rng, rows, qlen, r), rows,
-                    znorm)
+    args = _chunk_args(dev, rng, rows, qlen, r)
+    for range_mode in (False, True):
+        _lb_chunk_check(dev, rng, args, rows, znorm, range_mode=range_mode)
 
 
-def _lb_chunk_check(dev, rng, args, rows, znorm,
-                    counted=fused_gather_lb_keogh_chunk, b=8, g=49):
-    """The LB chunk entry (through `fused_gather_lb_keogh_chunk`, one
-    launch counted by `counted`) against its plain version: see
-    test_fused_gather_lb_keogh_chunk_matches_plain."""
-    ok = _t(rng.random((b, rows * g)) > 0.2, dev)
+def _lb_plan(dev, rng, args, rows, b, g):
+    """The chunk entries' inputs from contract-entry args (flat B * rows
+    sids/anchors): a (B, 2 rows) plan whose chunk 1 holds those rows
+    (chunk 0 a shuffled copy), random master counts (a fifth of the rows
+    short of g), bounds 0 but every seventh row 1e30 (cut by a finite
+    cut).  Returns (a0, plan, (dtw_lo, dtw_hi))."""
+    sids, anchors = (x.reshape(b, rows) for x in args[6:8])
+    perm = torch.randperm(rows, device=dev)
+    sids = torch.cat([sids[:, perm], sids], 1).contiguous()
+    anchors = torch.cat([anchors[:, perm], anchors], 1).contiguous()
+    nm = np.where(rng.random((b, 2 * rows)) < 0.2,
+                  rng.integers(0, g, (b, 2 * rows)), g).astype(np.int32)
+    lbs2 = np.zeros((b, 2 * rows), np.float32)
+    lbs2[:, 1::7] = 1e30
+    lbs2[:, rows] = 0.0                 # chunk 1's first bound
+    return (args[:6], (sids, anchors, _t(nm, dev), _t(lbs2, dev)),
+            args[8:10])
+
+
+def _lb_chunk_check(dev, rng, args, rows, znorm, counted=None, b=8, g=49,
+                    range_mode=False):
+    """The LB chunk entry over chunk 1 of `_lb_plan`'s plan (one launch
+    counted by `counted`: default the staged entry of the mode) against
+    its plain version: see test_fused_gather_lb_keogh_chunk_matches_plain.
+    The cut is each query's 10% quantile of its lb2."""
+    a0, plan, env = _lb_plan(dev, rng, args, rows, b, g)
     lb_all = ref.fused_gather_lb_keogh_ref(*args, g=g, rows=rows,
                                            znorm=znorm)[0].reshape(b, -1)
-    kth = torch.where(ok, lb_all, float("inf")).sort(dim=1).values[
-        :, rows * g // 10].contiguous()
-    kth[0], kth[b - 1] = -float("inf"), float("inf")
+    cut = lb_all.sort(dim=1).values[:, rows * g // 10].contiguous()
+    cut[0] = 0.0 if range_mode else -float("inf")
+    cut[b - 1] = float("inf")
+    st = torch.zeros((b, 6), dtype=torch.int32, device=dev)
+    st_plain = st.clone()
+    kw = dict(i=1, chunk=rows, g=g, znorm=znorm)
+    if range_mode:
+        ovf = torch.full((b,), 2, dtype=torch.int32, device=dev)
+        ovf[1] = 0                      # overflowed at chunk 0: inactive
+        entry, tail = fused_gather_lb_keogh_range, (cut, ovf)
+        plain = ref.fused_gather_lb_keogh_range_ref
+    else:
+        entry, tail = fused_gather_lb_keogh_chunk, (cut[:, None].contiguous(),)
+        plain = ref.fused_gather_lb_keogh_chunk_ref
+    counted = counted or entry
     before = counted.launches
-    got = fused_gather_lb_keogh_chunk(*args, ok, kth, g=g, rows=rows,
-                                      znorm=znorm)
-    want = ref.fused_gather_lb_keogh_chunk_ref(*args, ok, kth, g=g,
-                                               rows=rows, znorm=znorm)
+    got = entry(*a0, *plan, *env, *tail, st, **kw)
+    want = plain(*a0, *plan, *env, *tail, st_plain, **kw)
     torch.cuda.synchronize()
     assert counted.launches == before + 1
     _close(got[0], want[0], 2e-4, 2e-3)
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for x, y in zip(got[1:3] + got[6:8], want[1:3] + want[6:8]):
+        assert torch.equal(x, y)
     # the survivor set: the plain version's, from the kernel's own lb2
-    # (an lb2 within rounding of kth may fall on either side)
-    surv = got[0].reshape(b, -1) < kth[:, None]
+    # (an lb2 within rounding of the cut may fall on either side)
+    ok = torch.isfinite(want[0].reshape(b, -1))
+    lb = got[0].reshape(b, -1)
+    below = lb <= cut[:, None] if range_mode else lb < cut[:, None]
+    surv = ok & below
     assert torch.equal(got[4], surv.sum(dim=1, dtype=torch.int32))
-    assert int(got[4][0]) == 0 and int(got[4][-1]) == int(ok[-1].sum())
+    assert int(got[4][1 if range_mode else 0]) == 0
+    assert int(got[4][-1]) == int(ok[-1].sum()) > 0
     for i in range(b):
         listed = got[3][i, :int(got[4][i])].sort().values
         assert torch.equal(listed.long(), surv[i].nonzero()[:, 0])
     assert torch.isinf(got[5][~surv]).all()
+    cols = [0, 1, 3, 5]
+    assert torch.equal(st[:, cols], st_plain[:, cols])
+    assert torch.equal(st[:, 2], got[4]) and torch.equal(st[:, 4], got[4])
     # against the plain version's set: they differ only where the plain
-    # lb2 lies within the LB tolerance of kth
-    plain = want[0].reshape(b, -1)
-    differ = surv != (plain < kth[:, None])
-    near = (plain - kth[:, None]).abs() <= 2e-3 + 2e-4 * kth.abs()[:, None]
+    # lb2 lies within the LB tolerance of the cut
+    plain_lb = want[0].reshape(b, -1)
+    plain_below = (plain_lb <= cut[:, None] if range_mode
+                   else plain_lb < cut[:, None])
+    differ = surv != (ok & plain_below)
+    near = (plain_lb - cut[:, None]).abs() <= 2e-3 + 2e-4 * cut.abs()[:, None]
     assert bool((near | ~differ).all())
+
+
+@pytest.mark.parametrize("rows", [64, 512])
+@pytest.mark.parametrize("qlen", [160, 256])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_ed_range_matches_plain(dev, rows, qlen, znorm):
+    """The ED chunk entry's range mode over three chunks of a plan: the
+    dense d2 bit-equal to the plain step fed the contract entry's
+    distances (the same device function), and the counters equal; query
+    0 all padding (never active), query 2 overflowed at chunk 1, eps2 the
+    median finite distance (query 3: 0, so only the cut's inclusive
+    edge)."""
+    rng = np.random.default_rng(rows + qlen + znorm + 5)
+    b, g, n_pad = 8, 49, 3 * rows
+    coll, sids, anchors, nm, qs = _ed_plan(rng, dev, b, n_pad, qlen)
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    q = _t(qs, dev)
+    d2_all = fused_gather_ed(*a0, sids.reshape(-1), anchors.reshape(-1), q,
+                             g=g, rows=n_pad, znorm=znorm).reshape(b, -1)
+    lbs2 = _ed_bounds(rng, dev, d2_all.cpu().numpy(), n_pad)
+    eps2 = d2_all.median(dim=1).values.contiguous()
+    eps2[3] = 0.0
+    ovf = torch.full((b,), 3, dtype=torch.int32, device=dev)
+    st = torch.zeros((b, 6), dtype=torch.int32, device=dev)
+    st_plain = st.clone()
+    for i in range(3):
+        ovf[2] = 1 if i >= 2 else 3
+        cols = slice(i * rows, (i + 1) * rows)
+        dist = fused_gather_ed(*a0, sids[:, cols].reshape(-1).contiguous(),
+                               anchors[:, cols].reshape(-1).contiguous(), q,
+                               g=g, rows=rows, znorm=znorm)
+        want = ref.fused_gather_ed_range_ref(
+            *a0, sids, anchors, nm, lbs2, q, eps2, ovf, st_plain, i=i,
+            chunk=rows, g=g, znorm=znorm, dist=dist)
+        before = fused_gather_ed_range.launches
+        got = fused_gather_ed_range(*a0, sids, anchors, nm, lbs2, q, eps2,
+                                    ovf, st, i=i, chunk=rows, g=g,
+                                    znorm=znorm)
+        torch.cuda.synchronize()
+        assert fused_gather_ed_range.launches == before + 1
+        assert torch.equal(got, want)
+        assert torch.equal(st, st_plain)
+        assert torch.isinf(got[0]).all()
+        if i >= 2:
+            assert torch.isinf(got[2]).all()
+
+
+@pytest.mark.parametrize("m", [25_088, 3_000, 1])
+def test_range_append_matches_plain(dev, m):
+    """The ordered append, bit for bit against the plain version over
+    four chunks: hits (finite d2 <= eps2, inclusive) in position order,
+    the all-or-nothing rule at the edge — query 1's chunk that fills its
+    buffer exactly (cnt + hits == cap) is written, query 2's one more is
+    refused and ovf records the chunk once — and queries with no hits."""
+    rng = np.random.default_rng(m)
+    b, g = 8, 49 if m > 1 else 1
+    chunk = max(1, m // g)
+    m = chunk * g
+    n_pad, cap = 4 * chunk, 64
+    sids = _t(rng.integers(0, 1000, (b, n_pad)).astype(np.int32), dev)
+    anchors = _t(rng.integers(0, 200, (b, n_pad)).astype(np.int32), dev)
+    eps2 = _t(rng.random(b).astype(np.float32) * 0.01, dev)
+    eps2[1:3] = 0.01
+    eps2[5] = 0.0
+    buf = [torch.full((b, cap), float("inf"), device=dev),
+           torch.full((b, cap), -1, dtype=torch.int32, device=dev),
+           torch.full((b, cap), -1, dtype=torch.int32, device=dev)]
+    cnt = _t(np.array([0, cap - 5, cap - 5, 0, 0, 0, 0, 0], np.int32), dev)
+    ovf = torch.full((b,), 4, dtype=torch.int32, device=dev)
+    plain = [t.clone() for t in buf] + [cnt.clone(), ovf.clone()]
+    for i in range(4):
+        d2 = _t(rng.random((b, m)).astype(np.float32), dev)
+        d2[rng.random((b, m)) < 0.3] = float("inf")
+        d2[4] = float("inf")                   # no hit at all
+        d2[5, : min(m, 3)] = 0.0               # exactly at eps2 = 0
+        if i == 0:                             # 5 hits: fills query 1's
+            d2[1:3] = float("inf")
+            d2[1, :min(m, 5)] = 0.001
+            d2[2, :min(m, 6)] = 0.0            # 6 hits: one too many
+        else:                                  # inactive once overflowed
+            d2[2] = float("inf")
+        before = range_append.launches
+        range_append(d2, sids, anchors, eps2, buf, cnt, ovf, i=i,
+                     chunk=chunk, g=g)
+        ref.range_append_ref(d2, sids, anchors, eps2, plain[:3], plain[3],
+                             plain[4], i=i, chunk=chunk, g=g)
+        torch.cuda.synchronize()
+        assert range_append.launches == before + 1
+        for x, y in zip(buf + [cnt, ovf], plain):
+            assert torch.equal(x, y)
+    if m >= 6:
+        assert int(cnt[1]) == cap and int(ovf[1]) == 1
+        assert int(ovf[2]) == 0 and int(cnt[2]) == cap - 5
+    assert int(cnt[4]) == 0 and int(ovf[4]) == 4
 
 
 @pytest.mark.parametrize("qlen,r", [(160, 16), (256, 25), (97, 9)])
@@ -507,6 +653,60 @@ def test_dtw_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
                                        atol=1e-4)
             assert dataclasses.asdict(a.stats) == \
                 dataclasses.asdict(b.stats)
+
+
+@pytest.mark.parametrize("znorm", [True, False], ids=["znorm", "raw"])
+def test_range_engine_on_cuda_equals_engine_on_cpu(dev, znorm):
+    """eps-range, ED and DTW, on one index on two devices, at capacity
+    2,048 and 16 (the latter overflows: the host continuation): the same
+    hits in the same order and the same counters (`range_overflows`
+    too); ED distances within 1e-9 (both rescored in float64), DTW rtol
+    1e-3 / atol 1e-4 (the kernels' DP on the card, its plain version on
+    the CPU).  The card path launches the range entries and
+    `range_append`, never the k-NN entries."""
+    rng = np.random.default_rng(9)
+    data = np.cumsum(rng.normal(size=(64, 256)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, card=256, gamma=48,
+                       znorm=znorm)
+    idx = build_index(Collection.from_array(data, device="cpu"), p,
+                      block_size=16, num_levels=2)
+    cpu = UlisseEngine.from_index(idx, device="cpu")
+    gpu = UlisseEngine.from_index(idx, device=dev)
+    qs = [data[s, o:o + 200] + rng.normal(size=200).astype(np.float32)
+          * 0.05 for s, o in [(1, 3), (5, 40), (9, 20)]]
+    overflowed = 0
+    for measure, r, entry in (("ed", 0, fused_gather_ed_range),
+                              ("dtw", 16, fused_gather_lb_keogh_range)):
+        # past the middle query's 40th neighbour, so that no window sits
+        # at the radius within rounding
+        eps = 1.02 * float(np.median([cpu.search(q, QuerySpec(
+            k=40, measure=measure, r=r)).dists[-1] for q in qs]))
+        for cap in (2048, 16):
+            spec = QuerySpec(eps=eps, measure=measure, r=r,
+                             range_capacity=cap)
+            before = (entry.launches, range_append.launches,
+                      fused_gather_ed_chunk.launches,
+                      fused_gather_lb_keogh_chunk.launches)
+            got = gpu.search(qs, spec)
+            after = (entry.launches, range_append.launches,
+                     fused_gather_ed_chunk.launches,
+                     fused_gather_lb_keogh_chunk.launches)
+            assert after[0] > before[0] and after[1] > before[1]
+            assert after[2:] == before[2:]
+            want = cpu.search(qs, spec)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a.series, b.series)
+                np.testing.assert_array_equal(a.offsets, b.offsets)
+                if measure == "ed":
+                    np.testing.assert_allclose(a.dists, b.dists, rtol=0,
+                                               atol=1e-9)
+                else:
+                    np.testing.assert_allclose(a.dists, b.dists, rtol=1e-3,
+                                               atol=1e-4)
+                assert dataclasses.asdict(a.stats) == \
+                    dataclasses.asdict(b.stats)
+                overflowed += a.stats.range_overflows
+    assert overflowed > 0
 
 
 # -- slice 3: the index build's and the host backend's kernels -------------
@@ -1011,8 +1211,8 @@ def test_fused_gather_lb_keogh_long_queries_match_plain(dev, qlen, znorm):
     """Past the staged LB_Keogh entries (qlen <= 19,304 at g = 49), r = 1%
     of qlen: the contract entry's long-row variant (lb2 rtol 2e-4 / atol
     2e-3, mu and sd bit-equal to the plain version) and the chunk
-    entry's (the chunk test's checks: survivors, counts, the DP's
-    output)."""
+    entries' in both cuts (the chunk test's checks: survivors, counts,
+    the DP's output)."""
     from repro_torch.kernels.fused_verify import staged
     assert not staged("dtw", qlen, 49)
     rng = np.random.default_rng(qlen + znorm)
@@ -1029,6 +1229,9 @@ def test_fused_gather_lb_keogh_long_queries_match_plain(dev, qlen, znorm):
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     _lb_chunk_check(dev, rng, args, rows, znorm,
                     counted=fused_gather_lb_keogh_chunk_long, b=b)
+    _lb_chunk_check(dev, rng, args, rows, znorm,
+                    counted=fused_gather_lb_keogh_range_long, b=b,
+                    range_mode=True)
 
 
 @pytest.mark.parametrize("qlen", [256, 4_000])
@@ -1036,7 +1239,8 @@ def test_fused_gather_lb_keogh_long_queries_match_plain(dev, qlen, znorm):
 def test_fused_gather_lb_keogh_long_variant_equals_staged(dev, qlen, znorm):
     """At a qlen both take, the long-row kernels give the staged ones'
     bits: (lb2, mu, sd) of the contract entries, and the chunk entries'
-    outputs (the survivor lists as sets)."""
+    outputs and counters, k-NN and range (the survivor lists as
+    sets)."""
     from repro_torch.kernels.fused_verify import staged
     assert staged("dtw", qlen, 49)
     rng = np.random.default_rng(qlen + znorm)
@@ -1047,25 +1251,35 @@ def test_fused_gather_lb_keogh_long_variant_equals_staged(dev, qlen, znorm):
                     fused_gather_lb_keogh_long(*args, g=g, rows=rows,
                                                znorm=znorm)):
         assert torch.equal(x, y)
-    ok = _t(rng.random((b, rows * g)) > 0.2, dev)
-    kth = _t(np.full(b, np.inf, np.float32), dev)
-    kth[0] = 0.0
-    kth[1] = float(ref.fused_gather_lb_keogh_ref(
+    a0, plan, env = _lb_plan(dev, rng, args, rows, b, g)
+    cut = _t(np.full(b, np.inf, np.float32), dev)
+    cut[0] = 0.0
+    cut[1] = float(ref.fused_gather_lb_keogh_ref(
         *args, g=g, rows=rows, znorm=znorm)[0][rows:2 * rows].median())
-    a = fused_gather_lb_keogh_chunk(*args, ok, kth, g=g, rows=rows,
-                                    znorm=znorm)
-    z = fused_gather_lb_keogh_chunk_long(*args, ok, kth, g=g, rows=rows,
-                                         znorm=znorm)
-    torch.cuda.synchronize()
-    for i in (0, 1, 2, 4):
-        assert torch.equal(a[i], z[i])
-    # the DP's output: +inf at every non-survivor (the DP fills the rest)
-    surv = a[0].reshape(b, -1) < kth[:, None]
-    assert torch.isinf(a[5][~surv]).all() and torch.isinf(z[5][~surv]).all()
-    for q in range(b):
-        n_q = int(a[4][q])
-        assert torch.equal(a[3][q, :n_q].sort().values,
-                           z[3][q, :n_q].sort().values)
+    ovf = torch.full((b,), 2, dtype=torch.int32, device=dev)
+    for entries, tail in (
+            ((fused_gather_lb_keogh_chunk, fused_gather_lb_keogh_chunk_long),
+             (cut[:, None].contiguous(),)),
+            ((fused_gather_lb_keogh_range, fused_gather_lb_keogh_range_long),
+             (cut, ovf))):
+        st = [torch.zeros((b, 6), dtype=torch.int32, device=dev)
+              for _ in entries]
+        a, z = (fn(*a0, *plan, *env, *tail, s_, i=1, chunk=rows, g=g,
+                   znorm=znorm) for fn, s_ in zip(entries, st))
+        torch.cuda.synchronize()
+        for i in (0, 1, 2, 4, 6, 7):
+            assert torch.equal(a[i], z[i])
+        assert torch.equal(st[0], st[1])
+        surv = torch.zeros_like(a[5], dtype=torch.bool)
+        for q in range(b):
+            n_q = int(a[4][q])
+            assert torch.equal(a[3][q, :n_q].sort().values,
+                               z[3][q, :n_q].sort().values)
+            surv[q, a[3][q, :n_q].long()] = True
+        # the DP's output: +inf at every non-survivor (the DP fills the
+        # rest)
+        assert torch.isinf(a[5][~surv]).all()
+        assert torch.isinf(z[5][~surv]).all()
 
 
 @pytest.mark.parametrize("s,n,lmin,lmax,seg", [

@@ -9,10 +9,12 @@ on the same numpy inputs.
   * `dtw_band` against `dtw_band_pallas` (interpret mode), the
     reference's `core/dtw.dtw_band` and a numpy triple loop, rtol/atol
     1e-4 — the DP is summed in another order;
-  * the LB chunk entry's survivor list and `dtw_survivors`' values at
-    the survivors' positions against the reference's `_survivors_first`
-    / `_survivor_bucket`, and against the composition they replaced
-    (plain LB, mask, pack, plain DP, unpack), value for value;
+  * the LB chunk entry (which decides the active queries, kept rows and
+    ok candidates from the plan and the pool itself, and adds the
+    counters) — its survivor list and `dtw_survivors`' values at the
+    survivors' positions against the reference's `_survivors_first` /
+    `_survivor_bucket`, and against the composition they replaced (plain
+    LB, mask, pack, plain DP, unpack), value for value;
   * the engine on the reference's index carried over with
     `convert.index_from_arrays`: DTW exact k-NN gives identical (series,
     offset) and identical `SearchStats`, and distances within rtol 1e-4 /
@@ -56,7 +58,8 @@ from repro.kernels.fused_verify import \
 from repro_torch.convert import index_from_arrays  # noqa: E402
 from repro_torch.core import (Collection, EnvelopeParams,  # noqa: E402
                               QuerySpec, UlisseEngine, dtw)
-from repro_torch.core.search import brute_force_knn  # noqa: E402
+from repro_torch.core.search import (brute_force_knn,  # noqa: E402
+                                     brute_force_range)
 from repro_torch.kernels.dtw_band import (dtw_band,  # noqa: E402
                                           dtw_band_wide, dtw_survivors,
                                           dtw_survivors_wide)
@@ -200,30 +203,50 @@ def test_dtw_band_single_point_and_bad_window():
 
 def _chunk_inputs(seed, *, s=6, n=120, qlen=48, b=3, rows=5, g=9):
     """One scan chunk of B queries: a random-walk collection, rows
-    envelope rows per query (two rows of query 2 on the same (sid,
-    anchor), so its candidates repeat), DTW envelopes of random queries
-    (r = 6), and a candidate mask with about a tenth of the windows off
-    (overrunning windows included, so the DP's clip is exercised)."""
+    envelope rows per query (row 0's windows past its first overrun the
+    series; two rows of query 2 on the same (sid, anchor, n_master), so
+    its candidates repeat), DTW envelopes of random queries (r = 6), and
+    each row's master count (a third of the rows with fewer than g)."""
     rng = np.random.default_rng(seed)
     data = np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32)
     sids = rng.integers(0, s, b * rows).astype(np.int32)
     anchors = rng.integers(0, n - qlen - g + 2, b * rows).astype(np.int32)
     anchors[0] = n - qlen                   # overruns past the series
-    sids[2 * rows + 1], anchors[2 * rows + 1] = sids[2 * rows], \
-        anchors[2 * rows]                   # duplicate candidates
+    nm = np.where(rng.random(b * rows) < 0.3,
+                  rng.integers(0, g, b * rows), g).astype(np.int32)
+    sids[2 * rows + 1], anchors[2 * rows + 1], nm[2 * rows + 1] = \
+        sids[2 * rows], anchors[2 * rows], nm[2 * rows]   # duplicates
     qs = rng.normal(size=(b, qlen)).astype(np.float32)
     lo, hi = (np.asarray(x) for x in jdtw.dtw_envelope(jnp.asarray(qs), 6))
-    ok = rng.random((b, rows * g)) > 0.1
-    ok[2, g:2 * g] = ok[2, :g]
-    return data, sids, anchors, qs, lo, hi, ok, rows, g
+    return data, sids, anchors, nm, qs, lo, hi, rows, g
 
 
-def _chunk(data, sids, anchors, lo, hi, ok, kth, rows, g, znorm):
+def _plan(sids, anchors, nm, b, rows):
+    return [_t(x.reshape(b, rows)) for x in (sids, anchors, nm)]
+
+
+def _ok(data, sids, anchors, nm, active, rows, g, qlen):
+    """(B, rows * g) bool: the candidates the chunk entry takes where
+    `active` (B,) — masters that exist and fit the series."""
+    b = len(active)
+    keep = torch.from_numpy(np.asarray(active))[:, None].expand(b, rows)
+    return ref.chunk_candidates(*_plan(sids, anchors, nm, b, rows), keep,
+                                qlen, data.shape[1], g)[0].numpy()
+
+
+def _chunk(data, sids, anchors, nm, lo, hi, kth, rows, g, znorm):
+    """The LB chunk entry over a one-chunk plan of these rows, every bound
+    0 (so query b is active, and keeps every row, exactly where kth[b] >
+    0), against a pool of k = 1 whose d2 is kth.  Returns its outputs and
+    the counters it added."""
     c = Collection.from_array(data, device="cpu")
-    return fused_gather_lb_keogh_chunk(
-        c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center, _t(sids),
-        _t(anchors), _t(lo), _t(hi), _t(ok), _t(kth), g=g, rows=rows,
-        znorm=znorm)
+    b = len(kth)
+    stats = torch.zeros((b, 6), dtype=torch.int32)
+    out = fused_gather_lb_keogh_chunk(
+        c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center,
+        *_plan(sids, anchors, nm, b, rows), torch.zeros((b, rows)), _t(lo),
+        _t(hi), _t(kth[:, None]), stats, i=0, chunk=rows, g=g, znorm=znorm)
+    return out, stats
 
 
 @pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
@@ -231,21 +254,29 @@ def test_survivor_pack_and_dp_match_reference(znorm):
     """The chunk entry lists the reference's survivors (those its
     `_survivors_first` packs: none, some, all ok), and `dtw_survivors`
     writes at each survivor's position the reference's bucket-by-bucket
-    DP value (`_survivor_bucket` over the packed list), +inf elsewhere."""
-    data, sids, anchors, qs, lo, hi, ok, rows, g = _chunk_inputs(11)
+    DP value (`_survivor_bucket` over the packed list), +inf elsewhere;
+    the entry's counters are [active, kept, survivors, ok, survivors,
+    pruned]."""
+    data, sids, anchors, nm, qs, lo, hi, rows, g = _chunk_inputs(11)
     b, m, r, sb = qs.shape[0], rows * g, 6, 16
     c = Collection.from_array(data, device="cpu")
     lb2_all = fused_gather_lb_keogh(
         c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center, _t(sids),
         _t(anchors), _t(lo), _t(hi), g=g, rows=rows, znorm=znorm)[0]
+    ok = _ok(data, sids, anchors, nm, [True] * b, rows, g, qs.shape[1])
     lbm = np.where(ok, lb2_all.numpy().reshape(b, m), np.inf)
     kth = np.float32([-np.inf, np.median(lbm[1][ok[1]]), np.inf])
-    lb2, mu, sd, slist, nsurv, d2 = _chunk(data, sids, anchors, lo, hi, ok,
-                                           kth, rows, g, znorm)
+    ok[0] = False                           # query 0 is not active
+    lbm[0] = np.inf
+    (lb2, mu, sd, slist, nsurv, d2, csid, coff), stats = _chunk(
+        data, sids, anchors, nm, lo, hi, kth, rows, g, znorm)
     surv = lbm < kth[:, None]
     np.testing.assert_array_equal(lb2.numpy().reshape(b, m), lbm)
     np.testing.assert_array_equal(nsurv.numpy(), surv.sum(1))
     assert list(nsurv.numpy()[[0, 2]]) == [0, ok[2].sum()]
+    np.testing.assert_array_equal(stats.numpy(), np.stack(
+        [[0, 1, 1], [0, rows, rows], surv.sum(1), ok.sum(1), surv.sum(1),
+         [0, 0, 0]], axis=1))
     want_sidx = np.asarray(jexecutor._survivors_first(jnp.asarray(surv)))
     for i in range(b):
         np.testing.assert_array_equal(
@@ -254,6 +285,8 @@ def test_survivor_pack_and_dp_match_reference(znorm):
     cand_sid = np.repeat(sids.reshape(b, rows), g, axis=1)
     cand_off = (anchors.reshape(b, rows)[:, :, None]
                 + np.arange(g)).reshape(b, m).astype(np.int32)
+    np.testing.assert_array_equal(csid.numpy(), cand_sid)
+    np.testing.assert_array_equal(coff.numpy(), cand_off)
     mu_b = mu.numpy().reshape(b, m)
     sd_b = sd.numpy().reshape(b, m)
     got = dtw_survivors(_t(data), _t(qs), slist, nsurv, _t(cand_sid),
@@ -306,14 +339,16 @@ def _old_composition(data, sids, anchors, qs, lo, hi, ok, kth, rows, g, r,
 @pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
 def test_chunk_entry_equals_old_composition(case, znorm):
     """The plain chunk entry + plain DP against the composition they
-    replace, value for value: no survivor, every candidate a survivor,
-    one survivor per query, and a query whose survivors repeat
-    (sid, off)."""
-    data, sids, anchors, qs, lo, hi, ok, rows, g = _chunk_inputs(
+    replace, value for value: no survivor (no query active), every
+    candidate a survivor (every master of every row present), one
+    survivor per query, and a query whose survivors repeat (sid, off)."""
+    data, sids, anchors, nm, qs, lo, hi, rows, g = _chunk_inputs(
         len(case) + znorm)
     b, m, r = qs.shape[0], rows * g, 6
     if case == "full":
-        ok[:] = True
+        nm[:] = g
+    ok = _ok(data, sids, anchors, nm, [case != "empty"] * b, rows, g,
+             qs.shape[1])
     c = Collection.from_array(data, device="cpu")
     lbm = np.where(ok, ref.fused_gather_lb_keogh_ref(
         c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center, _t(sids),
@@ -323,8 +358,8 @@ def test_chunk_entry_equals_old_composition(case, znorm):
            "full": np.full(b, np.inf),
            "one": np.nextafter(lbm.min(1), np.inf),
            "duplicates": np.sort(lbm, 1)[:, m // 3]}[case].astype(np.float32)
-    _, mu, sd, slist, nsurv, d2 = _chunk(data, sids, anchors, lo, hi, ok,
-                                         kth, rows, g, znorm)
+    (_, mu, sd, slist, nsurv, d2, _, _), _ = _chunk(
+        data, sids, anchors, nm, lo, hi, kth, rows, g, znorm)
     cand_sid = np.repeat(sids.reshape(b, rows), g, axis=1)
     cand_off = (anchors.reshape(b, rows)[:, :, None]
                 + np.arange(g)).reshape(b, m).astype(np.int32)
@@ -530,12 +565,21 @@ def test_port_dtw_engine_long_near_matches_are_exact(long_engines):
 
 
 def test_dtw_range_and_approx_still_raise(engines):
-    """DTW range still raises (ROADMAP item 8); DTW approx-only is ported
-    (item 9) and answers with k finite ascending distances."""
-    _, data, _, port, _ = engines
-    q = data[0, :96]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.search(q, QuerySpec(measure="dtw", r=4, eps=1.0))
+    """DTW range is ported (ROADMAP Queue 1 item 1, both backends) and
+    answers the port's DTW brute force; DTW approx-only answers with k
+    finite ascending distances."""
+    znorm, data, _, port, coll = engines
+    q = _queries(data, [(0, 0, 96)], seed=4)[0]
+    eps = float(brute_force_knn(coll, q, k=4, znorm=znorm, measure="dtw",
+                                r=4).dists[-1]) * 1.01
+    want = brute_force_range(coll, q, eps, znorm=znorm, measure="dtw", r=4)
+    for backend in ("device", "host"):
+        res = port.search(q, QuerySpec(measure="dtw", r=4, eps=eps,
+                                       scan_backend=backend))
+        assert len(res.dists) >= 4
+        assert set(zip(res.series, res.offsets)) == set(
+            zip(want.series, want.offsets))
+        np.testing.assert_allclose(res.dists, want.dists, rtol=0, atol=1e-3)
     res = port.search(q, QuerySpec(measure="dtw", r=4, k=3, mode="approx"))
     assert len(res.dists) == 3 and np.isfinite(res.dists).all()
     assert (np.diff(res.dists) >= 0).all()
@@ -558,12 +602,14 @@ def test_dtw_kernels_never_take_the_plain_path_off_cpu():
                               g=3, rows=8, znorm=True)
     with pytest.raises(RuntimeError):
         dtw_band(torch.empty(32, **meta), torch.empty((5, 32), **meta), 3)
-    ok = torch.zeros((1, 24), dtype=torch.bool, **meta)
-    kth = torch.empty(1, **meta)
+    plan = torch.zeros((1, 8), dtype=torch.int32, **meta)
     with pytest.raises(RuntimeError):
-        fused_gather_lb_keogh_chunk(data, sums, sums, sums, sums,
-                                    torch.empty(4, **meta), idx, idx, env,
-                                    env, ok, kth, g=3, rows=8, znorm=True)
+        fused_gather_lb_keogh_chunk(
+            data, sums, sums, sums, sums, torch.empty(4, **meta), plan, plan,
+            plan, torch.empty((1, 8), **meta), env, env,
+            torch.empty((1, 2), **meta),
+            torch.zeros((1, 6), dtype=torch.int32, **meta), i=0, chunk=8,
+            g=3, znorm=True)
     vals = torch.empty((4, 3), **meta)
     with pytest.raises(RuntimeError):
         gather_znorm(data, idx[:4], idx[:4], vals, vals, qlen=32, g=3)

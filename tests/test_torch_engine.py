@@ -35,7 +35,8 @@ from repro.core.types import EnvelopeSet as JEnvelopeSet  # noqa: E402
 from repro_torch.convert import index_from_arrays  # noqa: E402
 from repro_torch.core import (Collection, EnvelopeParams,  # noqa: E402
                               QuerySpec, UlisseEngine)
-from repro_torch.core.search import brute_force_knn  # noqa: E402
+from repro_torch.core.search import (brute_force_knn,  # noqa: E402
+                                     brute_force_range)
 
 PARAMS = dict(lmin=64, lmax=128, seg_len=16, card=64, gamma=8)
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -165,26 +166,39 @@ def test_admission_matches_reference(q):
 
 
 def test_unported_paths_raise(engines):
-    """Range search (device and host) still raises, naming its ROADMAP
-    item; approx-only and the host backend are ported and answer."""
-    _, data, _, port, _ = engines
-    q = data[0, :96]
-    for kw, item in ((dict(eps=1.0), "8"), (dict(measure="dtw", r=4,
-                                                 eps=1.0), "8"),
-                     (dict(eps=1.0, scan_backend="host"), "8")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            port.search(q, QuerySpec(**kw))
+    """Range search is ported (device and host, ED and DTW) and answers
+    the port's brute force; approx-only and the host backend answer; the
+    paged tier, ingestion and the distributed backend still raise, naming
+    their ROADMAP Queue 1 item."""
+    znorm, data, _, port, coll = engines
+    q = data[0, :96] + np.float32(0.05) * np.sin(np.arange(96),
+                                                  dtype=np.float32)
+    for kw in (dict(), dict(measure="dtw", r=4),
+               dict(scan_backend="host")):
+        eps = float(brute_force_knn(coll, q, k=5, znorm=znorm,
+                                    **{k: v for k, v in kw.items()
+                                       if k != "scan_backend"}).dists[-1])
+        res = port.search(q, QuerySpec(eps=eps * 1.01, **kw))
+        want = brute_force_range(coll, q, eps * 1.01, znorm=znorm,
+                                 **{k: v for k, v in kw.items()
+                                    if k != "scan_backend"})
+        assert len(res.dists) >= 5 and (np.diff(res.dists) >= 0).all()
+        assert set(zip(res.series, res.offsets)) == set(
+            zip(want.series, want.offsets))
+        np.testing.assert_allclose(res.dists, want.dists, rtol=0, atol=5e-3)
     for kw in (dict(mode="approx"), dict(measure="dtw", r=4, mode="approx"),
                dict(scan_backend="host")):
         res = port.search(q, QuerySpec(k=3, **kw))
         assert len(res.dists) == 3 and np.isfinite(res.dists).all()
         assert (np.diff(res.dists) >= 0).all()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         port.append(data[:1])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 2"):
+        port.compact()
+    with pytest.raises(NotImplementedError, match="item 2"):
         UlisseEngine.from_index(port.index, memory_budget_bytes=1 << 20,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         UlisseEngine.distributed(None, EnvelopeParams(**PARAMS), data)
 
 

@@ -45,8 +45,10 @@ from repro_torch.core import (Collection, EnvelopeParams,  # noqa: E402
                               QuerySpec, UlisseEngine)
 from repro_torch.kernels.fused_verify import (  # noqa: E402
     fused_gather_ed, fused_gather_ed_chunk, fused_gather_ed_chunk_long,
-    fused_gather_ed_long, fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
-    fused_gather_lb_keogh_chunk_long, fused_gather_lb_keogh_long)
+    fused_gather_ed_long, fused_gather_ed_range, fused_gather_ed_range_long,
+    fused_gather_lb_keogh, fused_gather_lb_keogh_chunk,
+    fused_gather_lb_keogh_chunk_long, fused_gather_lb_keogh_long,
+    fused_gather_lb_keogh_range, fused_gather_lb_keogh_range_long)
 from repro_torch.kernels.mindist import mindist_paa, mindist_sym  # noqa: E402
 
 
@@ -146,9 +148,9 @@ def test_fused_gather_lb_keogh_long_query_matches_pallas(znorm):
 
 
 def test_long_chunk_wrappers_run_the_plain_step_on_cpu():
-    """On the CPU the long-row chunk entries run the same plain step as
-    the staged ones: the same partials, counters, survivors and DP
-    output, and no launch is counted."""
+    """On the CPU the long-row chunk entries (k-NN and range) run the same
+    plain step as the staged ones: the same partials or dense d2,
+    counters, survivors and DP output, and no launch is counted."""
     qlen = 3_000
     rng, data, sids, anchors, valid, g, rows, b = _long_inputs(qlen, 9)
     c = Collection.from_array(data, device="cpu")
@@ -167,19 +169,38 @@ def test_long_chunk_wrappers_run_the_plain_step_on_cpu():
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
     assert int(outs[0][1][:, 2].sum()) == int(valid.sum())
+    eps2 = _t(np.full(b, 1e9, np.float32))
+    ovf = torch.ones(b, dtype=torch.int32)     # n_pad // rows: no overflow
+    outs = []
+    for fn in (fused_gather_ed_range, fused_gather_ed_range_long):
+        stats = torch.zeros((b, 6), dtype=torch.int32)
+        outs.append((fn(*coll, *plan, qs, eps2, ovf, stats, i=0, chunk=rows,
+                        g=g, znorm=True), stats))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert int(torch.isfinite(outs[0][0]).sum()) == int(valid.sum())
     env = _t(rng.normal(size=(b, qlen)).astype(np.float32))
-    ok = _t(valid.reshape(b, rows * g))
-    kth = _t(np.full(b, 1e9, np.float32))
-    got = [fn(*coll, _t(sids), _t(anchors), env - 1, env + 1, ok, kth, g=g,
-              rows=rows, znorm=True)
-           for fn in (fused_gather_lb_keogh_chunk,
-                      fused_gather_lb_keogh_chunk_long)]
-    for x, y in zip(*got):
-        assert torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
+    cuts = ((fused_gather_lb_keogh_chunk, fused_gather_lb_keogh_chunk_long,
+             (eps2[:, None].contiguous(),)),
+            (fused_gather_lb_keogh_range, fused_gather_lb_keogh_range_long,
+             (eps2, ovf)))
+    for staged_fn, long_fn, cut in cuts:
+        got = []
+        for fn in (staged_fn, long_fn):
+            stats = torch.zeros((b, 6), dtype=torch.int32)
+            got.append(fn(*coll, *plan, env - 1, env + 1, *cut, stats, i=0,
+                          chunk=rows, g=g, znorm=True) + (stats,))
+        for x, y in zip(*got):
+            assert torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
+        assert int(got[0][-1][:, 3].sum()) == int(valid.sum())
     assert fused_gather_ed_chunk.launches == \
         fused_gather_ed_chunk_long.launches == \
+        fused_gather_ed_range.launches == \
+        fused_gather_ed_range_long.launches == \
         fused_gather_lb_keogh_chunk.launches == \
-        fused_gather_lb_keogh_chunk_long.launches == 0
+        fused_gather_lb_keogh_chunk_long.launches == \
+        fused_gather_lb_keogh_range.launches == \
+        fused_gather_lb_keogh_range_long.launches == 0
 
 
 def test_long_wrappers_never_take_the_plain_path_off_cpu():
@@ -195,8 +216,10 @@ def test_long_wrappers_never_take_the_plain_path_off_cpu():
     idx = torch.zeros(8, dtype=torch.int32, **meta)
     q = torch.empty((1, 32), **meta)
     plan = torch.zeros((1, 8), dtype=torch.int32, **meta)
-    ok = torch.zeros((1, 24), dtype=torch.bool, **meta)
+    lbs2 = torch.empty((1, 8), **meta)
+    stats = torch.zeros((1, 6), dtype=torch.int32, **meta)
     one = torch.empty(1, **meta)
+    ovf = torch.zeros(1, dtype=torch.int32, **meta)
     calls = (
         lambda: fused_gather_ed_long(data, sums, sums, sums, sums, center,
                                      idx, idx, q, g=3, rows=8, znorm=True),
@@ -209,15 +232,24 @@ def test_long_wrappers_never_take_the_plain_path_off_cpu():
                                            center, idx, idx, q, q, g=3,
                                            rows=8, znorm=True),
         lambda: fused_gather_lb_keogh_chunk_long(
-            data, sums, sums, sums, sums, center, idx, idx, q, q, ok, one,
-            g=3, rows=8, znorm=True))
+            data, sums, sums, sums, sums, center, plan, plan, plan, lbs2, q,
+            q, torch.empty((1, 2), **meta), stats, i=0, chunk=8, g=3,
+            znorm=True),
+        lambda: fused_gather_ed_range_long(
+            data, sums, sums, sums, sums, center, plan, plan, plan, lbs2, q,
+            one, ovf, stats, i=0, chunk=8, g=3, znorm=True),
+        lambda: fused_gather_lb_keogh_range_long(
+            data, sums, sums, sums, sums, center, plan, plan, plan, lbs2, q,
+            q, one, ovf, stats, i=0, chunk=8, g=3, znorm=True))
     for call in calls:
         with pytest.raises(RuntimeError):
             call()
     assert fused_gather_ed_long.launches == \
         fused_gather_ed_chunk_long.launches == \
         fused_gather_lb_keogh_long.launches == \
-        fused_gather_lb_keogh_chunk_long.launches == 0
+        fused_gather_lb_keogh_chunk_long.launches == \
+        fused_gather_ed_range_long.launches == \
+        fused_gather_lb_keogh_range_long.launches == 0
 
 
 # -- the engine past 736 query segments --------------------------------------
