@@ -99,7 +99,25 @@ Phases (any failed check raises, and the script exits non-zero):
      range_append held to their plain versions on the batch's pack (the
      ED entry and range_append bit for bit) and timed; the range scan
      alone traced (at most 3 kernel launch calls an ED step, 4 a DTW
-     step).
+     step);
+ 17. storage and ingestion on [3]'s index: save it to a temporary
+     directory and open it cold (every stored array, in the JAX
+     package's dtypes, equal to the index in memory; the payload unread
+     until the first search); [4]'s first ED batch and [8]'s first DTW
+     batch from the opened engine equal their answers and SearchStats;
+     append APPEND_SERIES new random-walk series (the delta's envelopes
+     through envelope_znorm: delta_size 2 an appended series), k-NN (ED,
+     DTW) and ED range ([16]'s qlen-160 eps) batches of windows of the
+     appended series find them, compact() equals build_index over every
+     series on the card in every field and level, and the compacted
+     engine's answers equal the uncompacted engine's; then the paged
+     scans over the first PAGED_SERIES series of [3] (saved, opened
+     resident and under a budget of half the payload): ED and DTW k-NN,
+     ED range, and ED range at capacity 16 (an overflow finished through
+     the page cache) bit-equal to the resident engine (answers and
+     SearchStats), with queries/s, page hits, misses and evicted bytes,
+     the seconds the scan waited on prefetch, kernel launches, and one
+     traced paged ED batch's launch calls a step.
 
 Phase 2 also holds the scan's ED chunk entry and the partials merge
 against the plain step (the contract entry's distances masked, the
@@ -188,6 +206,11 @@ RANGE_CAPS = (2048, 16)
 RANGE_SMALL_CHUNK = 4096
 RANGE_BAND = 5e-3
 RANGE_HOST = 2
+# [17], storage and ingestion: series appended to the opened 1M index
+# (1%), and the paged scans' series (the first of [3]'s; a budget of half
+# their payload thrashes the page cache, so the count is cut for time)
+APPEND_SERIES = 10_000
+PAGED_SERIES = 20_000
 # H100 SXM, NVIDIA data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -1024,16 +1047,14 @@ def check_build_envelopes(torch, coll, index, p) -> dict:
     kw = dict(lmin=p.lmin, lmax=p.lmax, gamma=p.gamma, seg_len=p.seg_len)
     for start in range(0, s, block):
         stop = min(start + block, s)
-        x = coll.data[start:stop]
-        xc = x - x.mean(dim=-1, keepdim=True)
-        plain = ref.envelope_znorm_ref(core_envelope._prefix(xc),
-                                       core_envelope._prefix(xc * xc), **kw)
+        plain = ref.envelope_znorm_ref(
+            *core_envelope.centered_prefixes(coll.data[start:stop]), **kw)
         mine = (rows >= start * n_env) & (rows < stop * n_env)
         at = rows[mine] - start * n_env
         for built, want in zip((built_lo[mine], built_hi[mine]), plain):
             differ += int((built != want.reshape(-1, p.w)[at]).sum())
             checked += built.numel()
-        del plain, xc
+        del plain
     return {"checked": checked, "differ": differ, "blocks": -(-s // block)}
 
 
@@ -1824,6 +1845,286 @@ def range_phase(torch, engine, p, range_cases, dtw_oracle, timings,
                 f"{t['plain_timer']}; events {t['event_ms']:.4f} / "
                 f"{t['plain_event_ms']:.4f} ms)")
     return cases, range_launches, traced
+
+
+
+def same_results(got, want, what: str, stats: bool = True) -> None:
+    """Raise unless two lists of results hold the same distances (bit for
+    bit), (series, offset) rows and, when `stats`, SearchStats."""
+    for a, b in zip(got, want, strict=True):
+        if not (np.array_equal(a.dists, b.dists)
+                and np.array_equal(a.series, b.series)
+                and np.array_equal(a.offsets, b.offsets)):
+            raise AssertionError(f"{what}: answers differ")
+        if stats and a.stats != b.stats:
+            raise AssertionError(f"{what}: SearchStats differ: {a.stats} vs "
+                                 f"{b.stats}")
+
+
+def window_batch(rng, data, sids, qlen: int, noise: float = 0.1):
+    """Windows of the given series plus N(0, noise) noise: (queries, their
+    (series, offset))."""
+    offs = rng.integers(0, data.shape[1] - qlen + 1, len(sids))
+    return ([data[s, o:o + qlen] + rng.normal(size=qlen).astype(np.float32)
+             * noise for s, o in zip(sids, offs)], list(zip(sids, offs)))
+
+
+def storage_phase(torch, engine, data, p, batches, answers, dtw_batches,
+                  dtw_specs, dtw_answers, range_eps, zero_counts, read_counts,
+                  seed: int):
+    """[17], storage and ingestion: (a) save [3]'s index and open it cold
+    (every stored array equal to the index in memory, the payload still
+    unread; one [4] ED and one [8] DTW batch equal their answers and
+    SearchStats); (b) append APPEND_SERIES new series to the opened
+    engine (the delta's envelopes from envelope_znorm), search batches
+    taken from them (ED and DTW k-NN, ED range at [16]'s eps), compact
+    (equal to build_index over every series on the card in every field
+    and level) and search again (the same answers); (c) the paged scans
+    over the first PAGED_SERIES series of [3]'s data opened under a
+    budget of half the payload, held bit for bit (answers and SearchStats) to the
+    same index opened resident: ED and DTW k-NN, ED range, and ED range
+    at capacity 16 (overflow, host continuation through the page cache),
+    with the page cache's counters, the prefetch waits and launch calls
+    a step.  Returns the records."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.core import (Collection, QuerySpec, UlisseEngine,
+                                  build_index)
+    from repro_torch.core import executor
+    from repro_torch.storage import open_index
+    from repro_torch.storage import format as fmt
+    from repro_torch.train.data import series_batches
+    dev = engine.device
+    out = {}
+    root = tempfile.mkdtemp(prefix="ulisse_smoke_")
+    try:
+        # -- (a) save and open ------------------------------------------
+        path = os.path.join(root, "idx")
+        t0 = time.perf_counter()
+        engine.save(path)
+        save_s = time.perf_counter() - t0
+        manifest = fmt.read_manifest(path)
+        disk = {rel: int(np.prod(e["shape"])) * np.dtype(e["dtype"]).itemsize
+                for rel, e in manifest["arrays"].items()}
+        payload = sum(int(np.prod(e["shape"])) * 4
+                      for e in manifest["collection_shards"])
+        t0 = time.perf_counter()
+        opened = UlisseEngine.open(path, device=dev)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        store = opened.index.collection
+        if store.is_materialized:
+            raise AssertionError("the cold open read the raw payload")
+        want_dtypes = {"paa_lo": "float32", "paa_hi": "float32",
+                       "sym_lo": "int32", "sym_hi": "int32",
+                       "series_id": "int32", "anchor": "int32",
+                       "n_master": "int32", "valid": "bool"}
+        for rel, e in manifest["arrays"].items():
+            field = rel.split("/")[-1].split("_", 1)[-1] \
+                if rel.startswith("levels/") else rel.split("/")[-1]
+            if e["dtype"] != want_dtypes.get(field, "float32"):
+                raise AssertionError(f"{rel} stored as {e['dtype']}")
+        a, b = opened.index, engine.index
+        pairs = [(getattr(a.envelopes, f), getattr(b.envelopes, f))
+                 for f in want_dtypes]
+        pairs += [(getattr(la, f), getattr(lb, f))
+                  for la, lb in zip(a.levels, b.levels, strict=True)
+                  for f in ("paa_lo", "paa_hi", "valid")]
+        pairs.append((a.breakpoints, b.breakpoints))
+        for x, y in pairs:
+            if not torch.equal(x, y):
+                raise AssertionError("an opened index array differs from "
+                                     "the index in memory")
+        for lo in range(0, data.shape[0], 1 << 16):
+            hi = min(lo + (1 << 16), data.shape[0])
+            if not np.array_equal(store.read_rows(lo, hi), data[lo:hi]):
+                raise AssertionError(f"stored rows [{lo}, {hi}) differ")
+        if store.is_materialized:
+            raise AssertionError("reading the shards materialized the store")
+        zero_counts()
+        t0 = time.perf_counter()
+        got_ed = opened.search(batches[0], QuerySpec(k=K))
+        first_s = time.perf_counter() - t0
+        got_dtw = opened.search(dtw_batches[0], dtw_specs[0])
+        same_results(got_ed, answers[0], "[17] opened engine, ED batch")
+        same_results(got_dtw, dtw_answers[0], "[17] opened engine, DTW batch")
+        out["save_open"] = {
+            "save_s": save_s, "open_s": open_s,
+            "index_bytes_read": sum(disk.values()),
+            "payload_bytes_on_disk": payload,
+            "first_search_s": first_s,
+            "launches": read_counts(("fused_gather_ed_chunk",
+                                     "fused_gather_lb_keogh_chunk"))}
+        log(f"[17] saved [3]'s index in {save_s:.2f} s; opened cold in "
+            f"{open_s:.3f} s reading {sum(disk.values()) / 2 ** 20:.1f} MiB "
+            f"of index (payload {payload / 2 ** 20:.1f} MiB left on disk); "
+            f"every stored array equals the index in memory (the reference's "
+            f"dtypes); the first ED batch (materializing the payload on the "
+            f"card) {first_s:.2f} s; the opened engine's [4] ED and [8] DTW "
+            f"batches equal their answers and SearchStats")
+
+        # -- (b) ingestion -----------------------------------------------
+        n0 = data.shape[0]
+        new = series_batches(APPEND_SERIES, SERIES_LEN, seed=seed + 17)
+        zero_counts()
+        t0 = time.perf_counter()
+        opened.append(new)
+        torch.cuda.synchronize()
+        append_s = time.perf_counter() - t0
+        env_launches = read_counts(("envelope_znorm",))["envelope_znorm"]
+        if env_launches <= 0:
+            raise AssertionError("append did not launch envelope_znorm")
+        want_delta = APPEND_SERIES * p.num_envelopes(SERIES_LEN)
+        if opened.delta_size != want_delta:
+            raise AssertionError(f"delta_size {opened.delta_size}, expected "
+                                 f"{want_delta}")
+        arng = np.random.default_rng(seed + 18)
+        src = arng.choice(APPEND_SERIES, BATCH, replace=False)
+        qs, truth = window_batch(arng, new, src, QLENS[0])
+        specs = {"ed": QuerySpec(k=K), "dtw": dtw_specs[0],
+                 "range": QuerySpec(eps=range_eps)}
+        before = {name: opened.search(qs, spec)
+                  for name, spec in specs.items()}
+        for j, (s, o) in enumerate(truth):
+            e, d, r = (before[x][j] for x in ("ed", "dtw", "range"))
+            if (int(e.series[0]), int(e.offsets[0])) != (n0 + s, o):
+                raise AssertionError(f"[17] appended window {s, o} not the "
+                                     f"ED nearest: {e.series[0], e.offsets[0]}")
+            if int(d.series[0]) != n0 + s:
+                raise AssertionError(f"[17] appended series {s} not the DTW "
+                                     f"nearest: {d.series[0]}")
+            if (n0 + s, o) not in set(zip(r.series.tolist(),
+                                          r.offsets.tolist())):
+                raise AssertionError(f"[17] appended window {s, o} not in "
+                                     f"its range answer")
+        t0 = time.perf_counter()
+        opened.compact()
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        rebuilt = build_index(opened.index.collection, p,
+                              opened.index.breakpoints, block_size=64,
+                              num_levels=2)
+        a, b = opened.index, rebuilt
+        for f in want_dtypes:
+            if not torch.equal(getattr(a.envelopes, f),
+                               getattr(b.envelopes, f)):
+                raise AssertionError(f"compact() differs from build_index "
+                                     f"in {f}")
+        for la, lb in zip(a.levels, b.levels, strict=True):
+            for f in ("paa_lo", "paa_hi", "valid"):
+                if not torch.equal(getattr(la, f), getattr(lb, f)):
+                    raise AssertionError(f"compact()'s levels differ from "
+                                         f"build_index's in {f}")
+        del rebuilt, a, b
+        for name, spec in specs.items():
+            same_results(opened.search(qs, spec), before[name],
+                         f"[17] compacted engine, {name}", stats=False)
+        out["ingest"] = {"series": APPEND_SERIES, "append_s": append_s,
+                         "envelope_znorm_launches": env_launches,
+                         "delta_size": want_delta, "compact_s": compact_s,
+                         "envelopes": opened.index.num_envelopes,
+                         "range_eps": range_eps}
+        log(f"[17] appended {APPEND_SERIES} series in {append_s:.3f} s "
+            f"(envelope_znorm x{env_launches}); delta_size {want_delta}; "
+            f"ED and DTW k-NN and ED range (eps {range_eps:.4f}) find the "
+            f"appended windows; compact() in {compact_s:.3f} s equals "
+            f"build_index over {n0 + APPEND_SERIES} series on the card in "
+            f"every field and level; the compacted engine's answers equal "
+            f"the uncompacted engine's")
+        del opened, store
+        torch.cuda.empty_cache()
+
+        # -- (c) the paged scans -----------------------------------------
+        paged_series = min(PAGED_SERIES, len(data))
+        pdata = data[:paged_series]
+        ppath = os.path.join(root, "paged")
+        UlisseEngine.from_collection(
+            Collection.from_array(pdata, device=dev), p, block_size=64,
+            num_levels=2, device=dev).save(ppath)
+        budget = open_index(ppath, device=dev).collection.payload_bytes // 2
+        res = UlisseEngine.open(ppath, device=dev)
+        pag = UlisseEngine.open(ppath, device=dev, memory_budget_bytes=budget)
+        prng = np.random.default_rng(seed + 19)
+        pq = window_batch(prng, pdata, prng.choice(paged_series, BATCH,
+                                                   replace=False),
+                          QLENS[0])[0]
+        runs = {"ed_knn": (pq, QuerySpec(k=K)),
+                "dtw_knn": (pq, dtw_specs[0]),
+                "ed_range": (pq, QuerySpec(eps=range_eps)),
+                "ed_range_overflow": (pq[:2], QuerySpec(
+                    eps=range_eps, range_capacity=16,
+                    chunk_size=RANGE_SMALL_CHUNK))}
+        names = ("fused_gather_ed_chunk", "pool_merge_partials",
+                 "fused_gather_lb_keogh_chunk", "dtw_survivors", "pool_merge",
+                 "fused_gather_ed_range", "range_append", "mindist_sym",
+                 "mindist_paa")
+        paged = {"series": paged_series, "budget_bytes": budget,
+                 "payload_bytes": pag.index.collection.payload_bytes,
+                 "runs": {}}
+        for name, (qs, spec) in runs.items():
+            want = res.search(qs, spec)
+            st0 = pag.page_cache_stats()
+            zero_counts()
+            for key in executor.PAGED:
+                executor.PAGED[key] = 0
+            t0 = time.perf_counter()
+            got = pag.search(qs, spec)
+            wall = time.perf_counter() - t0
+            counts = read_counts(names)
+            st1 = pag.page_cache_stats()
+            same_results(got, want, f"[17] paged {name}")
+            rec = {"queries": len(qs), "wall_s": wall,
+                   "queries_per_s": len(qs) / wall,
+                   "chunk_steps": executor.PAGED["chunks"],
+                   "stop_test_syncs": executor.PAGED["syncs"],
+                   "prefetch_wait_s": executor.PAGED["prefetch_wait_s"],
+                   "page_hits": st1["hits"] - st0["hits"],
+                   "page_misses": st1["misses"] - st0["misses"],
+                   "evicted_bytes": st1["evicted_bytes"]
+                   - st0["evicted_bytes"],
+                   "cache_bytes": st1["cache_bytes"],
+                   "launches": {k: v for k, v in counts.items() if v},
+                   "range_overflows": sum(r.stats.range_overflows
+                                          for r in got)}
+            paged["runs"][name] = rec
+            log(f"[17] paged {name}: {len(qs)} queries in {wall:.2f} s "
+                f"({rec['queries_per_s']:.2f} queries/s), "
+                f"{rec['chunk_steps']} chunk steps, page hits "
+                f"{rec['page_hits']} misses {rec['page_misses']} evicted "
+                f"{rec['evicted_bytes'] / 2 ** 20:.1f} MiB, waited "
+                f"{rec['prefetch_wait_s']:.2f} s on prefetch; overflows "
+                f"{rec['range_overflows']}; launches {rec['launches']}; "
+                f"answers and SearchStats equal the resident engine's")
+        if not paged["runs"]["ed_range_overflow"]["range_overflows"]:
+            raise AssertionError("[17] the capacity-16 range run did not "
+                                 "overflow")
+        if pag.index.collection.is_materialized:
+            raise AssertionError("[17] the paged engine read the whole "
+                                 "payload")
+        for key in executor.PAGED:
+            executor.PAGED[key] = 0
+        tr = trace_batch(torch, pag, pq, QuerySpec(k=K))
+        tr["chunk_steps"] = executor.PAGED["chunks"]
+        tr["launch_calls_per_step"] = tr["launch_calls"] / max(
+            tr["chunk_steps"], 1)
+        tr.pop("device_by_name")
+        paged["traced_ed_batch"] = tr
+        log(f"[17] one traced paged ED batch: {tr['chunk_steps']} chunk "
+            f"steps, {tr['launch_calls']} kernel launch calls "
+            f"({tr['launch_calls_per_step']:.2f} a step, the batch's "
+            f"planning included), wall {tr['wall_s']:.2f} s, device busy "
+            f"{tr['device_busy_s']:.4f} s (idle share "
+            f"{tr['device_idle_share']:.3f})")
+        out["paged"] = paged
+        log(f"[17] paged scans over {paged_series} series (payload "
+            f"{paged['payload_bytes'] / 2 ** 20:.1f} MiB, budget "
+            f"{budget / 2 ** 20:.1f} MiB): every answer and SearchStats "
+            f"equal the resident engine's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
 
 
 def main() -> int:
@@ -3205,6 +3506,17 @@ def main() -> int:
     results["range_launches"] = range_launches
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
+
+    # -- 17. storage and ingestion -----------------------------------------
+    range_eps = next(c["eps"] for c in results["range_path"]
+                     if c["measure"] == "ed" and c["qlen"] == QLENS[0])
+    t0 = time.perf_counter()
+    results["storage"] = storage_phase(
+        torch, engine, data, p, batches, answers, dtw_batches, dtw_specs,
+        dtw_answers, range_eps, zero_counts, read_counts, args.seed)
+    results["storage"]["phase_s"] = time.perf_counter() - t0
+    log(f"[17] storage and ingestion phase: "
+        f"{results['storage']['phase_s']:.1f} s")
 
     # launches: each kernel's count on the path it belongs to — the ED main
     # path, the DTW path, the index build, the host backend (ED: batch_ed;

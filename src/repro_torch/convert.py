@@ -10,7 +10,9 @@ Keys:
   "levels.<i>.<field>"  for i = 0 (coarsest) .. L-1 and field in
                         paa_lo / paa_hi / valid;
   "collection.<field>"  data, csum, csum2, center, csum_lo, csum2_lo;
-  "breakpoints".
+  "breakpoints";
+  "delta.<field>"       optional: the unsorted ingestion delta's
+                        EnvelopeSet fields (an index after `append`).
 """
 from __future__ import annotations
 
@@ -51,6 +53,9 @@ def index_from_arrays(arrays: Dict[str, np.ndarray], params: EnvelopeParams,
               for i in range(n_levels)]
     coll = Collection(**{f: tensor(f"collection.{f}", torch.float32)
                          for f in _COLLECTION})
+    delta = (EnvelopeSet(**{f: tensor(f"delta.{f}", _DTYPES[f])
+                            for f in ENVELOPE_FIELDS})
+             if "delta.series_id" in arrays else None)
     return UlisseIndex(envelopes=env, levels=levels, collection=coll,
                        breakpoints=tensor("breakpoints", torch.float32),
-                       params=params)
+                       params=params, delta=delta)

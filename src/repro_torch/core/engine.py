@@ -37,13 +37,24 @@ index end to end, under ED (the default query) and DTW
     distances unpolished for k-NN, as the reference's host backend does
     (range rescores ED hits in float64, as every range path does).
 
-Paging, ingestion, the distributed backend raise NotImplementedError
-naming the ROADMAP item that ports them.  Engines run on CUDA unless
-built with device="cpu".
+Storage and ingestion (`open`, `save`, `from_writer`, `append`,
+`compact`; `repro_torch.storage`) keep the JAX package's on-disk format.
+Appended series are searched at once through an unsorted delta envelope
+set: every path searches main ++ delta (`UlisseIndex.search_envelopes`;
+the approximate pass sweeps the delta before the leaves).  An engine
+whose lazily opened payload is larger than `memory_budget_bytes` (or the
+`ULISSE_MEMORY_BUDGET_BYTES` environment variable) runs the device
+backend's scans out of core (`executor.paged_exact_scan`,
+`paged_range_scan`): the plan is read back once as the page schedule and
+each chunk's rows are gathered from the store's page cache into a slab
+on the device, bit-equal to the resident scan.  The distributed backend
+raises NotImplementedError naming the ROADMAP item that ports it.
+Engines run on CUDA unless built with device="cpu".
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Union
 
 import numpy as np
@@ -56,6 +67,8 @@ from repro_torch.core.index import UlisseIndex, build_index
 from repro_torch.core.types import (Collection, DeviceLike, EnvelopeParams,
                                     resolve_device)
 from repro_torch.kernels.fused_verify import card_takes
+from repro_torch.storage import delta as _delta
+from repro_torch.storage import store as _store
 
 
 def _not_ported(what: str, item: str):
@@ -115,10 +128,20 @@ class QuerySpec:
 class UlisseEngine:
     """Query facade over one local ULISSE index on one device."""
 
-    def __init__(self, index: UlisseIndex, max_batch: int = 8):
+    def __init__(self, index: UlisseIndex, max_batch: int = 8,
+                 memory_budget_bytes: Optional[int] = None):
         self._index = index
         self.params = index.params
         self.max_batch = max_batch
+        if memory_budget_bytes is None:
+            env = os.environ.get("ULISSE_MEMORY_BUDGET_BYTES", "")
+            memory_budget_bytes = int(env) if env else None
+        # host-memory budget for the raw payload: when a lazily opened
+        # collection's payload exceeds it, the device backend's scans run
+        # out of core with the store's page cache capped to this many
+        # bytes; None (or a budget the payload fits) keeps the payload
+        # whole on the device.  Answers are bit-equal either way.
+        self.memory_budget_bytes = memory_budget_bytes
 
     # ------------------------------------------------------------------
     # constructors
@@ -129,13 +152,13 @@ class UlisseEngine:
                    memory_budget_bytes: Optional[int] = None,
                    device: DeviceLike = None) -> "UlisseEngine":
         """Wrap an already-built local index, moved to `device` (default
-        CUDA; raises when CUDA is unavailable and device is not "cpu")."""
-        if memory_budget_bytes is not None:
-            raise _not_ported("memory_budget_bytes (the paged tier)", "2")
+        CUDA; raises when CUDA is unavailable and device is not "cpu").  A
+        lazily opened collection stays lazy."""
         dev = resolve_device(device)
         if index.device != dev:
             index = index.to(dev)
-        return cls(index=index, max_batch=max_batch)
+        return cls(index=index, max_batch=max_batch,
+                   memory_budget_bytes=memory_budget_bytes)
 
     @classmethod
     def from_collection(cls, collection: Collection, params: EnvelopeParams,
@@ -144,25 +167,114 @@ class UlisseEngine:
                         memory_budget_bytes: Optional[int] = None,
                         device: DeviceLike = None) -> "UlisseEngine":
         """Build the index on `device` (default CUDA) and the engine."""
-        if memory_budget_bytes is not None:
-            raise _not_ported("memory_budget_bytes (the paged tier)", "2")
         dev = resolve_device(device)
         if collection.device != dev:
             collection = collection.to(dev)
         return cls(index=build_index(collection, params, breakpoints,
                                      block_size=block_size,
                                      num_levels=num_levels),
-                   max_batch=max_batch)
+                   max_batch=max_batch,
+                   memory_budget_bytes=memory_budget_bytes)
 
     @classmethod
     def distributed(cls, *args, **kwargs):
         raise _not_ported("the distributed backend", "4")
 
+    # -- persistence (repro_torch.storage) ---------------------------------
+
+    @classmethod
+    def open(cls, path: str, *, params: Optional[EnvelopeParams] = None,
+             mesh=None, max_batch: Optional[int] = None,
+             mmap: bool = True, memory_budget_bytes: Optional[int] = None,
+             device: DeviceLike = None) -> "UlisseEngine":
+        """Open a saved local index (either package's) on `device`
+        (default CUDA): the sorted envelopes and block levels are read,
+        the raw series mmap'd lazily, so a cold open reads O(index), not
+        O(raw data).  `params`: the expected EnvelopeParams; a mismatch
+        raises IndexCompatibilityError.  A `mesh` (the distributed
+        backend) raises NotImplementedError."""
+        if mesh is not None:
+            raise _not_ported("open with a mesh (the distributed backend)",
+                              "4")
+        return cls.from_index(
+            _store.open_index(path, params=params, mmap=mmap, device=device),
+            max_batch=8 if max_batch is None else max_batch,
+            memory_budget_bytes=memory_budget_bytes, device=device)
+
+    def save(self, path: str) -> str:
+        """Persist the index to `path` (atomic commit): sorted envelopes,
+        levels, breakpoints, raw shards and the delta, if series were
+        appended and not compacted."""
+        return _store.save_index(path, self._index)
+
+    @classmethod
+    def from_writer(cls, writer, *, mmap: bool = True, mesh=None,
+                    memory_budget_bytes: Optional[int] = None,
+                    device: DeviceLike = None) -> "UlisseEngine":
+        """Finalize a `storage.Writer` bulk build and open it (on the
+        writer's device unless `device` is given)."""
+        return cls.open(writer.finalize(), mmap=mmap, mesh=mesh,
+                        memory_budget_bytes=memory_budget_bytes,
+                        device=writer.device if device is None else device)
+
+    # -- incremental ingestion (storage.delta) ------------------------------
+
+    def validate_append(self, series) -> int:
+        """Check, without changing anything, that `series` — one (n,)
+        series or an (S, n) batch — can be appended; raises the
+        ValueError `append` would and returns the row count."""
+        return _delta.as_series_rows(
+            series, self._index.collection.series_len).shape[0]
+
     def append(self, series) -> None:
-        raise _not_ported("append", "2")
+        """Ingest new series, searchable at once through the delta set:
+        O(new series) work, no re-sort, no block rebuild.  Call `compact()`
+        once appends have accumulated."""
+        self._index = _delta.extend_index(self._index, series)
 
     def compact(self) -> None:
-        raise _not_ported("compact", "2")
+        """Merge the delta into the main sorted set and rebuild the block
+        levels: equal to a from-scratch build in every field and level."""
+        self._index = _delta.compact_index(self._index)
+
+    @property
+    def delta_size(self) -> int:
+        """Envelopes waiting in the ingestion delta (0 when compacted)."""
+        return 0 if self._index.delta is None else self._index.delta.size
+
+    def _paged_store(self):
+        """The PayloadStore behind the paged scans, or None.
+
+        Paging engages when a `memory_budget_bytes` is set, the collection
+        is a still-lazy PayloadStore, and its payload does not fit the
+        budget; a payload that fits is materialized whole on the device as
+        before.  Keeps the store's cache limit at the budget.  The budget
+        caps the page cache only: a paged scan's two slab slots (pinned
+        host and card) hold the rows of a chunk each on top of it, at most
+        B x chunk series (`executor._SlabRing`).
+        """
+        coll = self._index.collection
+        if (self.memory_budget_bytes is None
+                or not isinstance(coll, _store.PayloadStore)
+                or coll.is_materialized
+                or coll.payload_bytes <= self.memory_budget_bytes):
+            return None
+        if coll.cache_limit_bytes != self.memory_budget_bytes:
+            coll.cache_limit_bytes = self.memory_budget_bytes
+        return coll
+
+    def page_cache_stats(self) -> Optional[dict]:
+        """The paged store's page-cache counters (hits, misses,
+        evicted_bytes, cache_bytes, cached_pages), or None when the engine
+        is not paging."""
+        store = self._paged_store()
+        return None if store is None else store.stats()
+
+    @property
+    def raw_data(self) -> np.ndarray:
+        """The (S, n) raw series the engine serves, on the host (appended
+        but uncompacted series included, in global id order)."""
+        return self._index.collection.data.cpu().numpy()
 
     @property
     def index(self) -> UlisseIndex:
@@ -254,6 +366,17 @@ class UlisseEngine:
         stats = SearchStats(
             envelopes_total=int(index.search_envelopes().size))
         pool = TopK(spec.k)
+        if index.delta is not None:
+            # the delta has no block cover: sweep it first, chunk by chunk
+            # (it primes the bsf, and keeps the exactness certificate
+            # honest: every envelope outside the blocks has been verified)
+            dvalid = index.envelopes.size + np.nonzero(
+                executor.host_envelopes(index)["valid"][
+                    index.envelopes.size:])[0]
+            for start in range(0, len(dvalid), spec.chunk_size):
+                executor.verify_envelopes(
+                    index, pq, dvalid[start:start + spec.chunk_size], pool,
+                    stats)
         order, blk_lb = planner.plan_leaf_order(index, pq)
         stats.lb_computations += index.levels[-1].size
         block_size = index.envelopes.size // index.levels[-1].size
@@ -411,14 +534,14 @@ class UlisseEngine:
             n_main=n_main, block_size=block_size, chunk=chunk,
             n_leaves=n_leaves)
         neg = torch.full((b, k), -1, dtype=torch.int32, device=dev)
-        ad2, asid, aoff, ast = executor.device_exact_scan(
-            index.collection, asids, aanc, anm, albs2, qstack, dlo, dhi,
-            torch.full((b, k), float("inf"), device=dev), neg, neg,
-            k=k, g=p.gamma + 1, measure=spec.measure, r=spec.r,
-            znorm=p.znorm, chunk_size=chunk)
+        ad2, asid, aoff, ast = self._exact_scan(
+            (asids, aanc, anm, albs2), qstack, dlo, dhi,
+            (torch.full((b, k), float("inf"), device=dev), neg, neg), k,
+            spec, chunk)
 
+        nd_chunks = -(-(env.size - n_main) // chunk)   # the delta's chunks
         visited = ast[:, 0]
-        leaf_v = visited.clamp(0, n_leaves)
+        leaf_v = (visited - nd_chunks).clamp(0, n_leaves)
         # certificate: the first unvisited leaf cannot improve the pool,
         # or no finite-LB leaf is left
         kth2 = ad2[:, k - 1]
@@ -428,6 +551,20 @@ class UlisseEngine:
                 | (next_lb ** 2 >= kth2))
         return ((ad2, asid, aoff), ast, cert, leaf_v, comb_idx, visited,
                 chunk, nblk, asids.shape[1] // chunk)
+
+    def _exact_scan(self, plan, qstack, dlo, dhi, seed, k: int,
+                    spec: QuerySpec, chunk_size: int):
+        """The seeded k-NN scan over a packed plan: resident
+        (`device_exact_scan`) or, on a paged engine, out of core
+        (`paged_exact_scan`, the same results)."""
+        kw = dict(k=k, g=self.params.gamma + 1, measure=spec.measure,
+                  r=spec.r, znorm=self.params.znorm, chunk_size=chunk_size)
+        store = self._paged_store()
+        if store is None:
+            return executor.device_exact_scan(
+                self._index.collection, *plan, qstack, dlo, dhi, *seed, **kw)
+        return executor.paged_exact_scan(store, *plan, qstack, dlo, dhi,
+                                         *seed, **kw)
 
     def _local_host_data(self) -> np.ndarray:
         """Host copy of the collection's raw series (cached), for the f64
@@ -442,9 +579,14 @@ class UlisseEngine:
     def _ed_rescore(self, q, sid, off) -> np.ndarray:
         """Direct float64 ED of the reported (sid, off) windows — the
         polish every ED result path shares (the kernel's dot identity
-        cancels near d = 0)."""
-        data = self._local_host_data()
-        w = data[sid[:, None], off[:, None] + np.arange(len(q))] \
+        cancels near d = 0).  A paged engine reads only the reported rows,
+        through the page cache."""
+        store = self._paged_store()
+        if store is None:
+            data, rows = self._local_host_data(), sid
+        else:
+            data, rows = store.take_rows(sid), np.arange(len(sid))
+        w = data[rows[:, None], off[:, None] + np.arange(len(q))] \
             .astype(np.float64)
         qn = np.asarray(q, np.float64)
         if self.params.znorm:
@@ -530,12 +672,19 @@ class UlisseEngine:
                     env.series_id, env.anchor, env.n_master, lbs, eps2_t,
                     n_pad=n_pad)
             with span("device_scan"):
-                (bd2, bsid, boff, cnt, ovf, st,
-                 chunk) = executor.device_range_scan(
-                    index.collection, ssids, sanc, snm, slbs2, qstack, dlo,
-                    dhi, eps2_t, capacity=spec.range_capacity,
-                    g=p.gamma + 1, measure=spec.measure, r=spec.r,
-                    znorm=p.znorm, chunk_size=spec.chunk_size)
+                store = self._paged_store()
+                kw = dict(capacity=spec.range_capacity, g=p.gamma + 1,
+                          measure=spec.measure, r=spec.r, znorm=p.znorm,
+                          chunk_size=spec.chunk_size)
+                if store is None:
+                    scan = executor.device_range_scan(
+                        index.collection, ssids, sanc, snm, slbs2, qstack,
+                        dlo, dhi, eps2_t, **kw)
+                else:
+                    scan = executor.paged_range_scan(
+                        store, ssids, sanc, snm, slbs2, qstack, dlo, dhi,
+                        eps2_t, **kw)
+                bd2, bsid, boff, cnt, ovf, st, chunk = scan
                 # THE one result readback of the batch (overflow excepted)
                 bd2, bsid, boff, cnt, ovf, st = (
                     t.cpu().numpy() for t in (bd2, bsid, boff, cnt, ovf, st))
@@ -567,20 +716,21 @@ class UlisseEngine:
                         self._range_host_tail(
                             self._prepare(qs[i], spec), order_h[row],
                             slbs2_h[row], o * chunk, chunk, eps2, rows,
-                            stats)
+                            stats, store=store)
                 with span("merge"):
                     results[i] = self._range_result_rows(rows, stats, qs[i],
                                                          spec)
 
     def _range_host_tail(self, pq: planner.PreparedQuery, order, lbs2,
                          pos: int, chunk: int, eps2: float, rows: list,
-                         stats: SearchStats) -> None:
+                         stats: SearchStats, store=None) -> None:
         """Verify one query's candidates `order` (with their `lbs2`) from
         row `pos` on through the host path, a chunk at a time, into the
         collected rows: every row is a candidate (lb2 <= eps2) and +inf
         marks a padding tail.  The host backend runs all of its
         candidates; the device scan replays a packed plan from the chunk
-        where its hit buffer overflowed."""
+        where its hit buffer overflowed (a paged engine through its
+        store's page cache, `store`)."""
         sink = TopK(1)   # unused: the collector takes the hits
         while pos < len(order):
             keep = np.isfinite(lbs2[pos:pos + chunk])
@@ -588,7 +738,7 @@ class UlisseEngine:
                 break
             executor.verify_envelopes(
                 self._index, pq, order[pos:pos + chunk][keep], sink, stats,
-                eps2=eps2, collector=rows)
+                eps2=eps2, collector=rows, store=store)
             stats.chunks_visited += 1
             pos += chunk
 
@@ -602,7 +752,7 @@ class UlisseEngine:
         exactness self-skips the scan: its first chunk is born inactive.
         """
         index = self._index
-        k, g = spec.k, self.params.gamma + 1
+        k = spec.k
         dev = self.device
         results: List[Optional[SearchResult]] = [None] * len(qs)
         env = index.search_envelopes()
@@ -644,12 +794,9 @@ class UlisseEngine:
                             env.series_id, env.anchor, env.n_master, lbs,
                             comb_idx, visited, chunk=achunk, n_pad=n_pad)
                     with span("device_scan"):
-                        d2, sid, off, st = executor.device_exact_scan(
-                            index.collection, ssids, sanc, snm, slbs2,
-                            qstack, dlo, dhi, *seed, k=k, g=g,
-                            measure=spec.measure, r=spec.r,
-                            znorm=self.params.znorm,
-                            chunk_size=spec.chunk_size)
+                        d2, sid, off, st = self._exact_scan(
+                            (ssids, sanc, snm, slbs2), qstack, dlo, dhi,
+                            seed, k, spec, spec.chunk_size)
                         # THE one result readback of the batch
                         (d2, sid, off, st, ast, cert, leaf_v) = (
                             t.cpu().numpy() for t in

@@ -23,7 +23,10 @@ CUDA tensor by a Python number through its reciprocal).
 
 The prefix sums here are float32 cumsums, as in the reference; their
 rounding may differ from XLA's, so an iSAX symbol of the port's own build
-can flip at a breakpoint (the tests bound the agreement rate).
+can flip at a breakpoint (the tests bound the agreement rate).  On the
+card every mean and scan of the build sums one series in order
+(`_columns`), so a series' envelopes do not depend on the block it is
+built in: envelopes built at `append` equal a rebuild's.
 """
 from __future__ import annotations
 
@@ -62,6 +65,52 @@ def _prefix(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([zero, torch.cumsum(x, dim=-1)], dim=-1)
 
 
+def _columns(x: torch.Tensor) -> torch.Tensor:
+    """x (S, n) on the card as a new (n, max(S, 2)) block, one series a
+    column (a lone series beside a zero column).
+
+    torch's CUDA scan along a dimension that is not the innermost runs one
+    thread a column, in order (ATen `scan_outer_dim`), so a column's sums
+    round the same whatever the columns beside it; a single column would
+    go to a parallel scan instead, hence the second column."""
+    s, n = x.shape
+    xt = x.new_zeros((n, max(s, 2)))
+    xt[:, :s] = x.t()
+    return xt
+
+
+def _column_prefix(xt: torch.Tensor, s: int) -> torch.Tensor:
+    """The in-order scan down the first s columns of xt (n, S') as (s,
+    n + 1) prefix sums with a leading zero."""
+    c = torch.cumsum(xt, dim=0)
+    zero = c.new_zeros((1, c.shape[1]))
+    return torch.cat([zero, c])[:, :s].t().contiguous()
+
+
+def series_prefix(x: torch.Tensor) -> torch.Tensor:
+    """(S, n) -> (S, n + 1) prefix sums with a leading zero, each row's
+    independent of the rows beside it (on the card: `_columns`)."""
+    if x.device.type != "cuda":
+        return _prefix(x)
+    return _column_prefix(_columns(x), x.shape[0])
+
+
+def centered_prefixes(x: torch.Tensor):
+    """The Z-normalized build's inputs: the prefix sums (S, n + 1) of the
+    centred series and of their squares.  On the card every mean and scan
+    sums one series in order (`_columns`), so a series' envelopes do not
+    depend on the block it is built in: an append equals a rebuild."""
+    if x.device.type != "cuda":
+        xc = x - x.mean(dim=-1, keepdim=True)
+        return _prefix(xc), _prefix(xc * xc)
+    s, n = x.shape
+    xc = _columns(x)
+    xc -= torch.cumsum(xc, dim=0)[-1] / n
+    csum = _column_prefix(xc, s)
+    xc *= xc
+    return csum, _column_prefix(xc, s)
+
+
 def _segment_sums(csum: torch.Tensor, off: torch.Tensor, p: EnvelopeParams):
     """Segment sums for each master offset: (S, n_env, g, w) + mask."""
     n = csum.shape[-1] - 1
@@ -94,7 +143,7 @@ def build_envelopes_raw(series: torch.Tensor, p: EnvelopeParams):
     n_master (n_env,).
     """
     n = series.shape[-1]
-    csum = _prefix(series.to(torch.float32))
+    csum = series_prefix(series.to(torch.float32))
     off, master_ok = _master_offsets(n, p, series.device)
     sums, seg_ok = _segment_sums(csum, off, p)
     mask = master_ok[..., None] & seg_ok
@@ -117,19 +166,19 @@ def build_envelopes_znorm(series: torch.Tensor, p: EnvelopeParams):
     n_master (n_env,).
     """
     n = series.shape[-1]
-    x = series.to(torch.float32)
-    xc = x - x.mean(dim=-1, keepdim=True)
-    lo, hi = envelope_znorm(_prefix(xc), _prefix(xc * xc), lmin=p.lmin,
-                            lmax=p.lmax, gamma=p.gamma, seg_len=p.seg_len)
+    lo, hi = envelope_znorm(*centered_prefixes(series.to(torch.float32)),
+                            lmin=p.lmin, lmax=p.lmax, gamma=p.gamma,
+                            seg_len=p.seg_len)
     _, master_ok = _master_offsets(n, p, series.device)
     return lo, hi, master_ok.sum(dim=1, dtype=torch.int32)
 
 
 def build_block_series(n: int, p: EnvelopeParams, device) -> int:
     """Series per block of the build.  The Z-normalized build on the card
-    holds, per series, the centred copy, its square, two prefix sums and
-    a cumsum's temporary ((n + 1) floats each at most) and its (lo, hi)
-    output; every other build holds the (n_env, g, w) grid."""
+    holds, per series, the centred copy (squared in place), a column
+    scan, its copy with the leading zero and two prefix sums ((n + 1)
+    floats each at most) and its (lo, hi) output; every other build holds
+    the (n_env, g, w) grid."""
     n_env = p.num_envelopes(n)
     if p.znorm and torch.device(device).type == "cuda":
         return _CARD_BUILD_BYTES // (4 * (5 * (n + 1) + 2 * n_env * p.w))

@@ -12,9 +12,11 @@ the `pool_merge` kernels merge into in place; the eps-range scan over
 the sortless range pack, whose steps are the same entries' range modes
 (`fused_gather_ed_range`; `fused_gather_lb_keogh_range` then
 `dtw_survivors`) and the ordered hit append `range_append` into a (B,
-cap) hit buffer; and the result/stats containers.  No step has a torch
-prologue: the kernels read the plan, the pool or eps2 and the buffer's
-overflow flags themselves.
+cap) hit buffer; the paged out-of-core twins of both scans
+(`paged_exact_scan`, `paged_range_scan`: the same steps on slabs
+gathered from a `PayloadStore`); and the result/stats containers.  No
+step has a torch prologue: the kernels read the plan, the pool or eps2
+and the buffer's overflow flags themselves.
 
 The host backend (`scan_backend="host"`, the reference's host-driven
 loop) verifies one query's envelopes at a time: `gather_windows` cuts
@@ -37,10 +39,13 @@ overflow is final), so the same holds there.
 from __future__ import annotations
 
 import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function as span
 
 from repro_torch.core.paa import znormalize
 from repro_torch.core.types import Collection
@@ -218,20 +223,29 @@ def dtw_batch(windows, q, r: int):
 
 def verify_envelopes(index, pq, env_idx: np.ndarray, pool: TopK,
                      stats: SearchStats, eps2: Optional[float] = None,
-                     collector: Optional[list] = None):
+                     collector: Optional[list] = None, store=None):
     """Compute true distances for all candidates of the given envelopes
-    (indices into the candidate set, host array).
+    (indices into the candidate set main ++ delta, host array; the
+    collection already holds the appended series' rows).
 
     Updates the pool (k-NN) or appends (sid, off, d2) rows below eps2 to
     `collector` (range query).  Distances are squared throughout.
+    `store`: a paged engine's `PayloadStore` — the envelopes' series rows
+    are read through its page cache (`take_rows`) instead of the whole
+    collection.
     """
     p = index.params
     g = p.gamma + 1
     host = host_envelopes(index)
     sids = host["series_id"][env_idx]
+    if store is None:
+        data, rows = index.collection.data, sids
+    else:
+        uniq, rows = np.unique(sids, return_inverse=True)
+        data = torch.from_numpy(store.take_rows(uniq)).to(pq.q.device)
     windows, ok, offs = gather_windows(
-        index.collection.data, sids, host["anchor"][env_idx],
-        host["n_master"][env_idx], pq.qlen, g)
+        data, rows, host["anchor"][env_idx], host["n_master"][env_idx],
+        pq.qlen, g)
     stats.envelopes_checked += len(env_idx)
     verify_windows(windows, np.repeat(sids, g), offs, ok, pq, p.znorm,
                    pool, stats, eps2=eps2, collector=collector)
@@ -292,7 +306,8 @@ def pow2ceil(x: int) -> int:
 
 def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
                      dtw_lo, dtw_hi, i: int, pool, stats, *, k: int, g: int,
-                     chunk: int, znorm: bool, measure: str, r: int):
+                     chunk: int, znorm: bool, measure: str, r: int,
+                     gmap=None):
     """Verify chunk `i` of the packed plan into the (B, k) pool, in place.
 
     ED: ONE launch of `fused_gather_ed_chunk`, which decides which
@@ -317,6 +332,12 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
     Adds the per-query increments of [chunks, envelopes_checked,
     true_dists, lb_keogh, dtw_full, envelopes_pruned] to the (B,
     STATS_WIDTH) int32 `stats` in place.
+
+    `gmap`: a paged slab's (R + 1,) int32 table from slab-local series
+    ids to global ones, -1 last: the entries report the slab plan's own
+    ids, which the pool must hold as global ones, so they are mapped
+    through it on the device before the merge (an empty partial's -1
+    maps to -1).
     """
     a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
           coll.center)
@@ -324,6 +345,8 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
         part = fused_gather_ed_chunk(
             *a0, sids, anchors, n_master, lbs2, qs, pool[0], stats, i=i,
             chunk=chunk, g=g, znorm=znorm)
+        if gmap is not None:
+            part[1] = gmap[part[1].long()]
         pool_merge_partials(pool, part)
         return
     cand_sid, cand_off, db = _dtw_step(
@@ -331,6 +354,8 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
             *a0, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, pool[0],
             stats, i=i, chunk=chunk, g=g, znorm=znorm),
         coll, qs, r, znorm)
+    if gmap is not None:
+        cand_sid = gmap[cand_sid.long()]
     pool_merge(pool, db, cand_sid, cand_off)
 
 
@@ -348,7 +373,9 @@ def _dtw_step(lb_out, coll: Collection, qs, r: int, znorm: bool):
 
 def _range_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
                       dtw_lo, dtw_hi, i: int, eps2, buf, cnt, ovf, stats, *,
-                      g: int, chunk: int, znorm: bool, measure: str, r: int):
+                      g: int, chunk: int, znorm: bool, measure: str, r: int,
+                      gsids=None, i_code: Optional[int] = None,
+                      no_ovf: Optional[int] = None):
     """Verify chunk `i` of the range pack into the hit buffer, in place.
 
     ED: ONE launch of `fused_gather_ed_range` (the chunk entry's range
@@ -360,20 +387,27 @@ def _range_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
     writes the chunk's hits (d2 <= eps2) in position order, or none and
     ovf = i when they would overflow; the next step's entry reads that
     ovf in stream order.
+
+    A paged scan's one-chunk slab passes `gsids`, the (B, chunk) global
+    ids of the plan columns (the buffer holds global ids, the slab plan
+    local ones), and the whole plan's chunk index and chunk count as
+    `i_code` and `no_ovf`, so `ovf` records plan chunks and the host
+    continuation resumes at the right plan row.
     """
     a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
           coll.center)
     if measure == "ed":
         d2 = fused_gather_ed_range(
             *a0, sids, anchors, n_master, lbs2, qs, eps2, ovf, stats, i=i,
-            chunk=chunk, g=g, znorm=znorm)
+            chunk=chunk, g=g, znorm=znorm, no_ovf=no_ovf)
     else:
         d2 = _dtw_step(fused_gather_lb_keogh_range(
             *a0, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, eps2, ovf,
-            stats, i=i, chunk=chunk, g=g, znorm=znorm), coll, qs, r,
-            znorm)[-1]
-    range_append(d2, sids, anchors, eps2, buf, cnt, ovf, i=i, chunk=chunk,
-                 g=g)
+            stats, i=i, chunk=chunk, g=g, znorm=znorm, no_ovf=no_ovf), coll,
+            qs, r, znorm)[-1]
+    range_append(d2, sids if gsids is None else gsids, anchors, eps2, buf,
+                 cnt, ovf, i=i, chunk=chunk, g=g, i_code=i_code,
+                 no_ovf=no_ovf)
 
 
 def _device_scan_core(coll: Collection, sids, anchors, n_master, lbs2, qs,
@@ -513,3 +547,262 @@ def device_range_scan(collection: Collection, sids, anchors, n_master, lbs2,
 
 
 device_range_scan.syncs = 0
+
+
+# -- the paged out-of-core scans -------------------------------------------
+#
+# A paged engine's payload lives in a `PayloadStore` on the host.  The
+# scans run host-driven, one plan chunk a step: the chunk's series rows
+# (`planner.chunk_pages`) are gathered out of the store's page cache into
+# a slab (the six collection planes of just those rows), the chunk's plan
+# columns are remapped slab-local, and the resident path's own step
+# (`_scan_chunk_step` / `_range_chunk_step`) runs on the slab as a
+# one-chunk plan; global ids go back in through `gmap` (k-NN) or `gsids`
+# (range).  Answers and counters are bit-equal to the resident scan: a
+# page's prefix sums are the collection's rows bit for bit
+# (`types.host_prefix_stats`), the step is the same code, and a chunk the
+# resident scan's stop test would have skipped is born inactive and adds
+# nothing.
+#
+# A one-worker thread prefetches: while chunk i's step runs, the worker
+# reads chunk i + 1's pages and fills the other of two slab slots.  On
+# the card each slot is a pinned host slab and a device slab: the copy
+# goes `non_blocking` on a side stream and records an event, the compute
+# stream waits on that event before the step reads the slab, and the
+# worker refills a slot only after the event the compute stream recorded
+# after the slot's last step has completed.  On the CPU the same loop
+# runs with no streams (the slab is used where it was filled).  The stop
+# test runs every PAGED_SYNC_EVERY chunks from the plan's chunk heads
+# (host copies) and one readback of the pool's k-th (or of the buffers'
+# overflow chunks).  `PAGED` counts the chunk steps, those readbacks and
+# the seconds the scan waited on the worker.
+
+PAGED_SYNC_EVERY = 8
+
+PAGED = {"chunks": 0, "syncs": 0, "prefetch_wait_s": 0.0}
+
+_SLAB_PLANES = ("data", "csum", "csum2", "csum_lo", "csum2_lo", "center")
+
+
+class _SlabRing:
+    """Two slab slots for a paged scan over (B, n_pad) host plan arrays:
+    each a host side (pinned on the card) and a device side (the host
+    side itself on the CPU).  A slot's row planes hold the rows of the
+    largest chunk it has been filled with (`_room`), so the slabs cost
+    what the scan's chunks touch; they are not part of the page cache's
+    budget."""
+
+    def __init__(self, store, plan, chunk: int, device: torch.device):
+        self.store = store
+        self.plan = plan                  # host (sids, anchors, nm, lbs2)
+        self.chunk = chunk
+        self.device = device
+        b = plan[0].shape[0]
+        self.max_rows = min(b * chunk, store.num_series)
+        self.pin = device.type == "cuda"
+        self.slots = [self._alloc({"cols": ((4, b, chunk), torch.int32),
+                                   "lbs2": ((b, chunk), torch.float32)})
+                      for _ in range(2)]
+        self.rows = [0, 0]
+        self.side = torch.cuda.Stream(device) if self.pin else None
+        self.copied = [None, None]
+        self.done = [None, None]
+
+    def _alloc(self, shapes):
+        host = {f: torch.empty(sh, dtype=dt, pin_memory=self.pin)
+                for f, (sh, dt) in shapes.items()}
+        dev = ({f: torch.empty(sh, dtype=dt, device=self.device)
+                for f, (sh, dt) in shapes.items()} if self.pin else host)
+        return host, dev
+
+    def _room(self, j: int, r: int) -> None:
+        """Give slot j row planes for r rows (pow2ceil(r), at most the
+        most a chunk can touch) when it has fewer; the caller has waited
+        for the slot's last step."""
+        if r <= self.rows[j]:
+            return
+        rows = min(pow2ceil(r), self.max_rows)
+        n = self.store.series_len
+        shapes = {f: ((rows, n + 1), torch.float32)
+                  for f in ("csum", "csum2", "csum_lo", "csum2_lo")}
+        shapes.update(data=((rows, n), torch.float32),
+                      center=((rows,), torch.float32),
+                      gmap=((rows + 1,), torch.int32))
+        host, dev = self._alloc(shapes)
+        self.slots[j][0].update(host)
+        self.slots[j][1].update(dev)
+        self.rows[j] = rows
+
+    def fill(self, j: int, i: int) -> int:
+        """Fill slot j with plan chunk i (on the prefetch worker); returns
+        the slab's row count."""
+        from repro_torch.core.planner import chunk_pages
+        sids, anchors, n_master, lbs2 = self.plan
+        sl = slice(i * self.chunk, (i + 1) * self.chunk)
+        uniq, local, pages = chunk_pages(sids, i, self.chunk,
+                                         self.store.page_rows)
+        blocks = [self.store.load_page(int(p)) for p in pages]
+        if self.done[j] is not None:
+            self.done[j].synchronize()    # the slot's last step finished
+        r = len(uniq)
+        self._room(j, r)
+        host, dev = self.slots[j]
+        view = {f: host[f][:r].numpy() for f in _SLAB_PLANES}
+        page_of = uniq // self.store.page_rows
+        for p, blk in zip(pages, blocks):
+            pos = np.flatnonzero(page_of == p)
+            idx = uniq[pos] - blk.start
+            for f in _SLAB_PLANES:
+                view[f][pos] = getattr(blk, f)[idx]
+        cols = host["cols"].numpy()
+        cols[0] = local
+        cols[1] = anchors[:, sl]
+        cols[2] = n_master[:, sl]
+        cols[3] = sids[:, sl]
+        host["lbs2"].numpy()[:] = lbs2[:, sl]
+        gmap = host["gmap"].numpy()
+        gmap[:r] = uniq
+        gmap[r] = -1
+        if self.side is not None:
+            with torch.cuda.stream(self.side):
+                for f in _SLAB_PLANES:
+                    dev[f][:r].copy_(host[f][:r], non_blocking=True)
+                for f in ("cols", "lbs2"):
+                    dev[f].copy_(host[f], non_blocking=True)
+                dev["gmap"][:r + 1].copy_(host["gmap"][:r + 1],
+                                          non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.side)
+            self.copied[j] = ev
+        return r
+
+    def slab(self, j: int, r: int):
+        """Slot j's device slab of r rows, ready for the compute stream:
+        (collection, (sids, anchors, n_master, lbs2, global sids), gmap)."""
+        if self.copied[j] is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.copied[j])
+        dev = self.slots[j][1]
+        coll = Collection(**{f: dev[f][:r] for f in _SLAB_PLANES})
+        cols = dev["cols"]
+        return (coll, (cols[0], cols[1], cols[2], dev["lbs2"], cols[3]),
+                dev["gmap"][:r + 1])
+
+    def release(self, j: int) -> None:
+        """Mark the end of slot j's step on the compute stream."""
+        if self.side is not None:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self.done[j] = ev
+
+    def close(self) -> None:
+        if self.side is not None:
+            self.side.synchronize()
+
+
+def _paged_loop(store, plan, chunk: int, device, step, converged) -> None:
+    """Run `step(slab, i)` over the plan's chunks with the prefetch worker
+    one chunk ahead, testing `converged(i)` before every
+    PAGED_SYNC_EVERY-th chunk."""
+    n_chunks = plan[0].shape[1] // chunk
+    ring = _SlabRing(store, plan, chunk, device)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(ring.fill, 0, 0)
+        for i in range(n_chunks):
+            j = i % 2
+            with span("page.prefetch"):
+                t0 = time.perf_counter()
+                r = fut.result()
+                PAGED["prefetch_wait_s"] += time.perf_counter() - t0
+            if i + 1 < n_chunks:
+                fut = ex.submit(ring.fill, 1 - j, i + 1)
+            step(ring.slab(j, r), i)
+            ring.release(j)
+            PAGED["chunks"] += 1
+            if (i + 1 < n_chunks and (i + 1) % PAGED_SYNC_EVERY == 0
+                    and converged(i + 1)):
+                fut.cancel()
+                break
+    ring.close()
+
+
+def _host_plan(sids, anchors, n_master, lbs2):
+    """The plan's host copies (the paged scans' page schedule): one
+    planned readback."""
+    return tuple(np.ascontiguousarray(t.cpu().numpy())
+                 for t in (sids, anchors, n_master, lbs2))
+
+
+def paged_exact_scan(store, sids, anchors, n_master, lbs2, qs, dtw_lo,
+                     dtw_hi, seed_d2, seed_sid, seed_off, *, k: int, g: int,
+                     measure: str, r: int, znorm: bool, chunk_size: int):
+    """The out-of-core twin of `device_exact_scan` over a PayloadStore:
+    the same arguments (the plan read back once as the page schedule) and
+    the same returned device tensors (d2, sid, off, stats)."""
+    plan = _host_plan(sids, anchors, n_master, lbs2)
+    n_pad = plan[0].shape[1]
+    chunk = min(pow2ceil(chunk_size), n_pad)
+    first = plan[3][:, ::chunk]                    # (B, n_chunks) heads
+    pool = tuple(t.clone() for t in (seed_d2, seed_sid, seed_off))
+    stats = torch.zeros((qs.shape[0], STATS_WIDTH), dtype=torch.int32,
+                        device=qs.device)
+
+    def step(slab, i):
+        coll, (csid, canc, cnm, clb2, _), gmap = slab
+        _scan_chunk_step(coll, csid, canc, cnm, clb2, qs, dtw_lo, dtw_hi, 0,
+                         pool, stats, k=k, g=g, chunk=chunk, znorm=znorm,
+                         measure=measure, r=r, gmap=gmap)
+
+    def converged(i):
+        # LB-sorted heads never decrease and kth only shrinks, so a
+        # converged batch stays converged
+        PAGED["syncs"] += 1
+        kth = pool[0][:, k - 1].cpu().numpy()
+        nf = first[:, i]
+        return not np.any(np.isfinite(nf) & (nf < kth))
+
+    _paged_loop(store, plan, chunk, qs.device, step, converged)
+    return pool[0], pool[1], pool[2], stats
+
+
+def paged_range_scan(store, sids, anchors, n_master, lbs2, qs, dtw_lo,
+                     dtw_hi, eps2, *, capacity: int, g: int, measure: str,
+                     r: int, znorm: bool, chunk_size: int):
+    """The out-of-core twin of `device_range_scan` over a PayloadStore:
+    the same arguments and the same return (buffers, cnt, ovf, stats and
+    the chunk size); `ovf` records plan chunks, so the engine's host
+    continuation of an overflowed query is unchanged."""
+    plan = _host_plan(sids, anchors, n_master, lbs2)
+    b_sz = qs.shape[0]
+    dev = qs.device
+    n_pad = plan[0].shape[1]
+    chunk = min(pow2ceil(chunk_size), n_pad)
+    n_chunks = n_pad // chunk
+    cap = pow2ceil(capacity)
+    first = plan[3][:, ::chunk]
+    eps2_np = eps2.cpu().numpy()
+    buf = (torch.full((b_sz, cap), float("inf"), device=dev),
+           torch.full((b_sz, cap), -1, dtype=torch.int32, device=dev),
+           torch.full((b_sz, cap), -1, dtype=torch.int32, device=dev))
+    cnt = torch.zeros(b_sz, dtype=torch.int32, device=dev)
+    ovf = torch.full((b_sz,), n_chunks, dtype=torch.int32, device=dev)
+    stats = torch.zeros((b_sz, STATS_WIDTH), dtype=torch.int32, device=dev)
+
+    def step(slab, i):
+        coll, (csid, canc, cnm, clb2, cgsid), _ = slab
+        _range_chunk_step(coll, csid, canc, cnm, clb2, qs, dtw_lo, dtw_hi, 0,
+                          eps2, buf, cnt, ovf, stats, g=g, chunk=chunk,
+                          znorm=znorm, measure=measure, r=r, gsids=cgsid,
+                          i_code=i, no_ovf=n_chunks)
+
+    def converged(i):
+        # the bound half of the resident stop test is known on the host;
+        # the overflow half needs one readback
+        nf = first[:, i]
+        live = np.isfinite(nf) & (nf <= eps2_np)
+        if not live.any():
+            return True
+        PAGED["syncs"] += 1
+        return not np.any(live & (ovf.cpu().numpy() == n_chunks))
+
+    _paged_loop(store, plan, chunk, dev, step, converged)
+    return buf[0], buf[1], buf[2], cnt, ovf, stats, chunk

@@ -21,7 +21,8 @@ from repro_torch.core import isax
 from repro_torch.core.envelope import build_envelope_set
 from repro_torch.core.paa import paa
 from repro_torch.core.types import (DeviceLike, Collection, EnvelopeParams,
-                                    EnvelopeSet, resolve_device)
+                                    EnvelopeSet, concat_envelope_sets,
+                                    resolve_device)
 
 
 @dataclasses.dataclass
@@ -45,8 +46,12 @@ class BlockLevel:
 class UlisseIndex:
     """Sorted envelope array + block hierarchy + the raw collection.
 
-    The JAX package's ingestion `delta` buffer is not ported yet
-    (ROADMAP Queue 1 item 2): the candidate set is the main set.
+    `delta` is the unsorted ingestion buffer (`repro_torch.storage`):
+    envelopes of series appended since the last build or `compact`.  The
+    search treats main ++ delta as one candidate set
+    (`search_envelopes`); the block hierarchy covers main only, so the
+    approximate pass sweeps the delta whole.  `collection` is a
+    `Collection` or a lazy `storage.PayloadStore` standing in for one.
     """
 
     envelopes: EnvelopeSet            # sorted by iSAX(L), padded
@@ -54,30 +59,59 @@ class UlisseIndex:
     collection: Collection
     breakpoints: torch.Tensor         # (card-1,)
     params: EnvelopeParams = None
+    delta: Optional[EnvelopeSet] = None   # unsorted ingestion buffer
 
     @property
     def num_envelopes(self) -> int:
         return self.envelopes.size
 
     @property
+    def block_size(self) -> int:
+        """Children per block (uniform across levels)."""
+        if not self.levels:
+            return self.envelopes.size
+        return self.envelopes.size // self.levels[-1].size
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.levels)
+
+    @property
     def device(self) -> torch.device:
         return self.collection.device
 
     def search_envelopes(self) -> EnvelopeSet:
-        """The full candidate set (the main sorted envelopes)."""
-        return self.envelopes
+        """The full candidate set: the main sorted envelopes ++ the delta.
+
+        Rows [0, envelopes.size) are the sorted (padded) main set — block
+        b covers rows [b * block_size, (b + 1) * block_size) of this set
+        too — and rows [envelopes.size, ...) the unsorted delta.  The
+        concatenation is cached until the delta is replaced.
+        """
+        if self.delta is None:
+            return self.envelopes
+        cached = getattr(self, "_combined_cache", None)
+        if cached is None or cached[0] is not self.delta:
+            cached = (self.delta,
+                      concat_envelope_sets([self.envelopes, self.delta]))
+            self._combined_cache = cached
+        return cached[1]
 
     def to(self, device: DeviceLike) -> "UlisseIndex":
+        """The index on `device`; a lazy collection stays lazy."""
         dev = resolve_device(device)
         return UlisseIndex(
             envelopes=self.envelopes.map(lambda x: x.to(dev)),
             levels=[lvl.to(dev) for lvl in self.levels],
             collection=self.collection.to(dev),
-            breakpoints=self.breakpoints.to(dev), params=self.params)
+            breakpoints=self.breakpoints.to(dev), params=self.params,
+            delta=(None if self.delta is None
+                   else self.delta.map(lambda x: x.to(dev))))
 
 
 # Padding-row fill per EnvelopeSet field.  +inf lo / -inf hi make padding
-# rows unreachable by every lower bound.
+# rows unreachable by every lower bound.  The storage Writer pads its
+# on-disk set from this table too.
 PAD_FILL = {"paa_lo": float("inf"), "paa_hi": -float("inf"), "sym_lo": 0,
             "sym_hi": 0, "series_id": 0, "anchor": 0, "n_master": 0,
             "valid": False}

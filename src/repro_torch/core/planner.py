@@ -13,7 +13,9 @@ the reference:
     `device_leaf_pack`, `device_scan_pack`, and for range the sortless
     `device_range_pack`): batched, every argsort stable as `jnp.argsort`
     is, nothing read back (the only host syncs of a device search are the
-    executor's stop tests and the engine's one result readback);
+    executor's stop tests and the engine's one result readback; a paged
+    engine also reads the plan back once, as its page schedule:
+    `chunk_pages`);
   * the host backend (`prepare_query`, `env_lower_bounds`,
     `block_lower_bounds`, `plan_leaf_order`, `plan_scan_order`): one
     query; the orders are computed on the host by the reference's own
@@ -180,22 +182,23 @@ def device_leaf_pack(env_sid, env_anchor, env_nm, env_valid, blk_lb,
                      n_leaves: int):
     """Pack the approximate pass's candidates (paper Alg. 4, batched).
 
-    The `n_leaves` best leaves in ascending block-LB order, each leaf
-    padded to `chunk` rows (chunk = pow2ceil(block_size)), every row
-    carrying its BLOCK's squared lower bound — so the scan core's
-    per-chunk stop IS Alg. 4's "next leaf cannot improve" stop.  (The
-    JAX package also sweeps an ingestion delta first; the port has no
-    delta yet, so `n_main` is the whole set.)
+    First the ingestion delta (rows [n_main, N) of the combined set),
+    padded to a multiple of `chunk`, with lbs2 = 0 for real rows (the
+    delta has no block cover: it is always swept, which primes the bsf as
+    the host path does); then the `n_leaves` best leaves in ascending
+    block-LB order, each leaf padded to `chunk` rows (chunk =
+    pow2ceil(block_size)), every row carrying its BLOCK's squared lower
+    bound — so the scan core's per-chunk stop IS Alg. 4's "next leaf
+    cannot improve" stop.
 
     Returns (sids, anchors, n_master, lbs2, comb_idx, blk_lb_sorted):
     all (B, n_pad) except blk_lb_sorted (B, Nb); comb_idx maps each
-    packed row back to its envelope index (N for padding).
+    packed row back to its combined-set envelope index (N for padding).
     """
     b_sz, _ = blk_lb.shape
     n_comb = env_sid.shape[0]
-    if n_comb != n_main:
-        raise NotImplementedError(
-            "an ingestion delta is ROADMAP Queue 1 item 2 (not ported yet)")
+    n_delta = n_comb - n_main
+    nd_pad = -(-n_delta // chunk) * chunk
     dev = blk_lb.device
 
     order = torch.argsort(blk_lb, dim=1, stable=True)       # (B, Nb)
@@ -205,7 +208,10 @@ def device_leaf_pack(env_sid, env_anchor, env_nm, env_valid, blk_lb,
     member = torch.arange(chunk, dtype=torch.int64, device=dev)
     lidx = order[:, :n_leaves, None] * block_size + member  # (B, L, chunk)
     lidx = torch.where(member < block_size, lidx, n_comb)
-    comb_idx = lidx.reshape(b_sz, n_leaves * chunk)
+    drow = torch.arange(nd_pad, dtype=torch.int64, device=dev)
+    didx = torch.where(drow < n_delta, n_main + drow, n_comb)
+    comb_idx = torch.cat([didx.expand(b_sz, nd_pad),
+                          lidx.reshape(b_sz, n_leaves * chunk)], dim=1)
 
     real = comb_idx < n_comb
     safe = comb_idx.clamp(max=n_comb - 1)
@@ -213,13 +219,19 @@ def device_leaf_pack(env_sid, env_anchor, env_nm, env_valid, blk_lb,
     anchors = torch.where(real, env_anchor[safe], 0).to(torch.int32)
     nm = torch.where(real & env_valid[safe], env_nm[safe],
                      0).to(torch.int32)
-    row_lb2 = leaf_lb2.repeat_interleave(chunk, dim=1)
+    row_lb2 = torch.cat([leaf_lb2.new_zeros((b_sz, nd_pad)),
+                         leaf_lb2.repeat_interleave(chunk, dim=1)], dim=1)
     lbs2 = torch.where(real & (nm > 0), row_lb2, _INF)
-    # each chunk's FIRST row decides the scan core's stop test: the sorted
-    # main set puts valid rows first, so re-pin the first row of every
-    # chunk to its block bound even when that row is individually invalid
+    # each chunk's FIRST row decides the scan core's stop test: within a
+    # delta chunk the first row is real (padding is a tail), and within a
+    # leaf chunk the sorted main set puts valid rows first — so re-pin the
+    # first row of every chunk to its block (or delta) bound even when
+    # that row is individually invalid
     first = (torch.arange(comb_idx.shape[1], device=dev) % chunk) == 0
-    any_valid = torch.isfinite(leaf_lb2).repeat_interleave(chunk, dim=1)
+    any_valid = torch.cat([
+        torch.full((b_sz, nd_pad), n_delta > 0, dtype=torch.bool,
+                   device=dev),
+        torch.isfinite(leaf_lb2).repeat_interleave(chunk, dim=1)], dim=1)
     lbs2 = torch.where(first[None, :] & any_valid, row_lb2, lbs2)
     return (sids.contiguous(), anchors.contiguous(), nm.contiguous(),
             lbs2.contiguous(), comb_idx.to(torch.int32), blk_sorted)
@@ -293,3 +305,38 @@ def device_range_pack(env_sid, env_anchor, env_nm, lbs, eps2, n_pad: int):
     lbs2p = torch.where(real, torch.gather(lbs2, 1, src), _INF)
     return (pack(env_sid), pack(env_anchor), pack(env_nm),
             lbs2p.contiguous(), src.to(torch.int32))
+
+
+# -- paged access scheduling (host side) ---------------------------------
+#
+# On the paged out-of-core path the packed plan doubles as a page access
+# schedule: the candidate order fixes which series rows chunk i gathers,
+# so chunk i + 1's slab (and the pages behind it) can be read and copied
+# while chunk i computes.
+
+
+def chunk_pages(sids: np.ndarray, i: int, chunk: int, page_rows: int):
+    """Resolve plan chunk i's slab: which series rows, which pages.
+
+    `sids` is the packed (B, n_pad) global series-id plan (host numpy).
+    Returns (uniq, local, pages): the chunk's sorted-unique global series
+    ids, the (B, chunk) slab-local remap of the plan columns (uniq[local]
+    == the original sids), and the sorted-unique page indices those rows
+    live on under `page_rows`-row pages.
+    """
+    cols = np.ascontiguousarray(sids[:, i * chunk:(i + 1) * chunk])
+    uniq = np.unique(cols)
+    local = np.searchsorted(uniq, cols).astype(np.int32)
+    pages = np.unique(uniq // page_rows)
+    return uniq, local, pages
+
+
+def chunk_page_schedule(sids: np.ndarray, page_rows: int, chunk: int):
+    """The full chunk -> page access schedule of a packed plan: a list over
+    chunks of sorted-unique page-index arrays — what a paged scan would
+    read, in visit order, if it ran every chunk (an early stop only
+    truncates it)."""
+    sids = np.asarray(sids)
+    n_chunks = sids.shape[1] // chunk
+    return [chunk_pages(sids, i, chunk, page_rows)[2]
+            for i in range(n_chunks)]

@@ -122,6 +122,45 @@ def host_prefix_stats(rows: np.ndarray):
     return (center64.astype(np.float32), csum, csum_lo, csum2, csum2_lo)
 
 
+@dataclasses.dataclass(frozen=True)
+class PageBlock:
+    """One cached page of a paged payload store (`storage.store`): a
+    fixed-size block of series rows with their prefix-sum statistics,
+    all host numpy float32.  The paged scan assembles pages into slabs
+    on the device; pages themselves stay on the host.
+
+    `start` is the first global series id of the page: row r of the page
+    holds series `start + r`.  `from_rows` goes through
+    `host_prefix_stats`, as `Collection.from_array` does, so a page's
+    planes equal the resident collection's rows bit for bit.
+    """
+
+    start: int                 # first global series id
+    data: np.ndarray           # (R, n) raw values
+    csum: np.ndarray           # (R, n + 1) centered cumsum, hi part
+    csum_lo: np.ndarray        # (R, n + 1) residual
+    csum2: np.ndarray          # (R, n + 1) squared-centered cumsum, hi
+    csum2_lo: np.ndarray       # (R, n + 1) residual
+    center: np.ndarray         # (R,)
+
+    @classmethod
+    def from_rows(cls, start: int, rows: np.ndarray) -> "PageBlock":
+        rows = np.ascontiguousarray(rows, np.float32)
+        center, csum, csum_lo, csum2, csum2_lo = host_prefix_stats(rows)
+        return cls(start=start, data=rows, csum=csum, csum_lo=csum_lo,
+                   csum2=csum2, csum2_lo=csum2_lo, center=center)
+
+    @property
+    def num_rows(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return (self.data.nbytes + self.csum.nbytes + self.csum_lo.nbytes
+                + self.csum2.nbytes + self.csum2_lo.nbytes
+                + self.center.nbytes)
+
+
 # rows per host_prefix_stats call: ~2 GB of float64 temporaries at n=256
 _STATS_BLOCK_ROWS = 1 << 16
 
@@ -227,3 +266,23 @@ class EnvelopeSet:
         package)."""
         return EnvelopeSet(**{f: fn(getattr(self, f))
                               for f in ENVELOPE_FIELDS})
+
+
+def concat_envelope_sets(sets) -> EnvelopeSet:
+    """The envelopes of `sets`, one after another (field by field)."""
+    return EnvelopeSet(**{f: torch.cat([getattr(e, f) for e in sets])
+                          for f in ENVELOPE_FIELDS})
+
+
+def concat_collections(a, b) -> Collection:
+    """Stack two same-length collections along the series axis.
+
+    Every field is row-wise, so this equals `Collection.from_array` of
+    the concatenated raw series — the invariant ingestion relies on.
+    """
+    if a.series_len != b.series_len:
+        raise ValueError(
+            f"cannot concat collections of series_len {a.series_len} "
+            f"and {b.series_len}")
+    return Collection(**{f: torch.cat([getattr(a, f), getattr(b, f)])
+                         for f in _COLLECTION_FIELDS})

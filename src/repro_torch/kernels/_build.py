@@ -88,15 +88,15 @@ SIGNATURES = {
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd,
         # slist, nsurv, dp_out, cand_sid, cand_off, num_series, n, batch,
-        # rows, qlen, g, znorm, n_pad, col0, k, range, stream
+        # rows, qlen, g, znorm, n_pad, col0, k, range, n_chunks, stream
         "ulisse_fused_gather_lb_keogh_chunk": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
             _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L, _L,
-            _I, _I, _V],
+            _I, _I, _I, _V],
         "ulisse_fused_gather_lb_keogh_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
             _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L, _L,
-            _I, _I, _V],
+            _I, _I, _I, _V],
         # data, sids, anchors, mu, sd, out, num_series, n, num_rows, qlen,
         # g, stream
         "ulisse_gather_znorm": [_V, _V, _V, _V, _V, _V, _L, _I, _L, _I, _I,

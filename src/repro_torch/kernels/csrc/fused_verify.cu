@@ -1375,7 +1375,8 @@ LbChunk lb_contract(int rows) {
 int lb_chunk(LbChunk* c, const void* n_master, const void* lbs2,
              const void* cut, const void* ovf, void* stats, void* slist,
              void* nsurv, void* dp_out, void* cand_sid, void* cand_off,
-             int rows, long long n_pad, long long col0, int cut_stride) {
+             int rows, long long n_pad, long long col0, int cut_stride,
+             int n_chunks) {
   if (col0 < 0 || col0 + rows > n_pad || cut_stride < 1 || rows < 1)
     return (int)cudaErrorInvalidValue;
   c->n_master = static_cast<const int*>(n_master);
@@ -1391,7 +1392,7 @@ int lb_chunk(LbChunk* c, const void* n_master, const void* lbs2,
   c->row_stride = n_pad;
   c->col0 = col0;
   c->cut_stride = cut_stride;
-  c->n_chunks = (int)(n_pad / rows);
+  c->n_chunks = n_chunks;
   return 0;
 }
 
@@ -1406,11 +1407,11 @@ int launch_lb_chunk(const void* data, const void* csum, const void* csum2,
                     void* cand_sid, void* cand_off, long long num_series,
                     int n, int batch, int rows, int qlen, int g, int znorm,
                     long long n_pad, long long col0, int k, int range,
-                    void* stream) {
+                    int n_chunks, void* stream) {
   LbChunk c;
   const int err = lb_chunk(&c, n_master, lbs2, cut, ovf, stats, slist, nsurv,
                            dp_out, cand_sid, cand_off, rows, n_pad, col0,
-                           range ? 1 : k);
+                           range ? 1 : k, n_chunks);
   if (err) return err;
   return range ? launch_lb_keogh<2, kLong>(
                      data, csum, csum2, csum_lo, csum2_lo, center, sids,
@@ -1469,7 +1470,9 @@ extern "C" int ulisse_fused_gather_lb_keogh_long_tile(int qlen, int g) {
 // The scan's LB_Keogh step over chunk col0 / rows of the (B, n_pad) plan
 // (sids, anchors, n_master, lbs2), in either cut: k-NN (range = 0; cut
 // the pool's (B, k) d2, strict) or range (range = 1; cut eps2 (B,),
-// inclusive, `active` also reading ovf).  It decides active, keep and
+// inclusive, `active` also reading ovf: the buffer never overflowed
+// while ovf[b] == n_chunks, the whole plan's chunk count; a paged scan's
+// one-chunk slab passes its plan's).  It decides active, keep and
 // the ok candidates itself, adds [active, kept, survivors, ok,
 // survivors, pruned] to stats (B, 6) in place, writes lb2 (+inf where
 // not ok), mu, sd (each (B, rows * g)), the survivor list and count,
@@ -1484,12 +1487,12 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk(
     void* sd, void* slist, void* nsurv, void* dp_out, void* cand_sid,
     void* cand_off, long long num_series, int n, int batch, int rows,
     int qlen, int g, int znorm, long long n_pad, long long col0, int k,
-    int range, void* stream) {
+    int range, int n_chunks, void* stream) {
   return launch_lb_chunk<false>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd, slist, nsurv,
       dp_out, cand_sid, cand_off, num_series, n, batch, rows, qlen, g, znorm,
-      n_pad, col0, k, range, stream);
+      n_pad, col0, k, range, n_chunks, stream);
 }
 
 // The long-row kernel behind the chunk entry's contract (any qlen).
@@ -1502,12 +1505,12 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk_long(
     void* sd, void* slist, void* nsurv, void* dp_out, void* cand_sid,
     void* cand_off, long long num_series, int n, int batch, int rows,
     int qlen, int g, int znorm, long long n_pad, long long col0, int k,
-    int range, void* stream) {
+    int range, int n_chunks, void* stream) {
   return launch_lb_chunk<true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd, slist, nsurv,
       dp_out, cand_sid, cand_off, num_series, n, batch, rows, qlen, g, znorm,
-      n_pad, col0, k, range, stream);
+      n_pad, col0, k, range, n_chunks, stream);
 }
 
 extern "C" int ulisse_gather_znorm(const void* data, const void* sids,

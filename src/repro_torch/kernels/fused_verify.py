@@ -41,6 +41,7 @@ Each wrapper counts its launches in `.launches`.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -288,7 +289,7 @@ fused_gather_ed_chunk_long.launches = 0
 
 def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, qs, eps2, ovf, stats, i, chunk,
-              g, znorm):
+              g, znorm, no_ovf):
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
@@ -297,11 +298,12 @@ def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
     _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
                 anchors, n_master, lbs2, (("qs", qs),), eps2, stats, i,
                 chunk, ovf)
+    no_ovf = n_pad // chunk if no_ovf is None else no_ovf
     if dev.type == "cpu":
         return ref.fused_gather_ed_range_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, qs, eps2, ovf, stats, i=i, chunk=chunk, g=g,
-            znorm=znorm)
+            znorm=znorm, no_ovf=no_ovf)
     ed_chunk_tile(qlen, g, long)            # raises where no block fits
     out = torch.empty((b, chunk * g), dtype=torch.float32, device=dev)
     lib = _build.library("fused_verify")
@@ -313,7 +315,7 @@ def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
         lbs2.data_ptr(), qs.data_ptr(), eps2.data_ptr(), ovf.data_ptr(),
         stats.data_ptr(), out.data_ptr(), s, n, b, chunk, qlen, g,
-        int(znorm), n_pad, i * chunk, n_pad // chunk,
+        int(znorm), n_pad, i * chunk, no_ovf,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
@@ -327,15 +329,18 @@ def fused_gather_ed_range(data: torch.Tensor, csum: torch.Tensor,
                           n_master: torch.Tensor, lbs2: torch.Tensor,
                           qs: torch.Tensor, eps2: torch.Tensor,
                           ovf: torch.Tensor, stats: torch.Tensor, *, i: int,
-                          chunk: int, g: int, znorm: bool) -> torch.Tensor:
+                          chunk: int, g: int, znorm: bool,
+                          no_ovf: Optional[int] = None) -> torch.Tensor:
     """The eps-range scan's ED step over chunk i: the range mode of the
     chunk entry, in one launch of the `fused_gather_ed` kernel.
 
     The plan, qs and stats as in `fused_gather_ed_chunk`; eps2 (B,)
     float32 the squared radii and ovf (B,) int32 the hit buffer's first
-    unwritten chunk (n_pad // chunk while it never overflowed), both read
-    on the device.  Query b is active while the chunk's first bound is
-    finite and <= eps2[b] and ovf[b] is unset; rows with lbs2 <= eps2[b]
+    unwritten chunk, both read on the device; ovf[b] == no_ovf (default
+    n_pad // chunk, the plan's chunk count; a paged scan's one-chunk slab
+    passes the whole plan's) while it never overflowed.  Query b is active
+    while the chunk's first bound is finite and <= eps2[b] and ovf[b] is
+    unset; rows with lbs2 <= eps2[b]
     are kept (inclusive); the counters are added as the k-NN mode adds
     them (`ref.fused_gather_ed_range_ref`).  Returns the dense (B, chunk
     * g) float32 d2 of the ok candidates, +inf wherever not ok.  On the
@@ -346,7 +351,7 @@ def fused_gather_ed_range(data: torch.Tensor, csum: torch.Tensor,
     return _ed_range(
         fused_gather_ed_range_long if long else fused_gather_ed_range, long,
         data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-        n_master, lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm)
+        n_master, lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm, no_ovf)
 
 
 fused_gather_ed_range.launches = 0
@@ -359,14 +364,14 @@ def fused_gather_ed_range_long(data: torch.Tensor, csum: torch.Tensor,
                                n_master: torch.Tensor, lbs2: torch.Tensor,
                                qs: torch.Tensor, eps2: torch.Tensor,
                                ovf: torch.Tensor, stats: torch.Tensor, *,
-                               i: int, chunk: int, g: int,
-                               znorm: bool) -> torch.Tensor:
+                               i: int, chunk: int, g: int, znorm: bool,
+                               no_ovf: Optional[int] = None) -> torch.Tensor:
     """`fused_gather_ed_range` through the long-row kernel, at any qlen:
     the same counters and, at a qlen both take, the same d2 bit for
     bit."""
     return _ed_range(fused_gather_ed_range_long, True, data, csum, csum2,
                      csum_lo, csum2_lo, center, sids, anchors, n_master,
-                     lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm)
+                     lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm, no_ovf)
 
 
 fused_gather_ed_range_long.launches = 0
@@ -443,9 +448,9 @@ fused_gather_lb_keogh_long.launches = 0
 
 def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats,
-              i, chunk, g, znorm):
+              i, chunk, g, znorm, no_ovf=None):
     """The LB chunk entries: k-NN (ovf None, cut the pool's (B, k) d2) or
-    range (cut eps2 (B,), ovf (B,))."""
+    range (cut eps2 (B,), ovf (B,), no_ovf its no-overflow value)."""
     dev = data.device
     s, n = data.shape
     b, qlen = dtw_lo.shape
@@ -456,6 +461,7 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
                 anchors, n_master, lbs2, (("dtw_lo", dtw_lo),
                                           ("dtw_hi", dtw_hi)),
                 cut, stats, i, chunk, ovf)
+    no_ovf = n_pad // chunk if no_ovf is None else no_ovf
     if dev.type == "cpu":
         if ovf is None:
             return ref.fused_gather_lb_keogh_chunk_ref(
@@ -465,7 +471,7 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         return ref.fused_gather_lb_keogh_range_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats, i=i,
-            chunk=chunk, g=g, znorm=znorm)
+            chunk=chunk, g=g, znorm=znorm, no_ovf=no_ovf)
     lb, mu, sd = torch.empty((3, b * chunk, g), dtype=torch.float32,
                              device=dev)
     slist, cand_sid, cand_off = torch.empty((3, b, m), dtype=torch.int32,
@@ -485,7 +491,8 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         slist.data_ptr(), nsurv.data_ptr(), d2.data_ptr(),
         cand_sid.data_ptr(), cand_off.data_ptr(), s, n, b, chunk, qlen, g,
         int(znorm), n_pad, i * chunk, cut.shape[-1] if ovf is None else 1,
-        int(ovf is not None), torch.cuda.current_stream(dev).cuda_stream)
+        int(ovf is not None), no_ovf,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
     return lb, mu, sd, slist, nsurv, d2, cand_sid, cand_off
@@ -562,12 +569,14 @@ def fused_gather_lb_keogh_range(data: torch.Tensor, csum: torch.Tensor,
                                 dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
                                 eps2: torch.Tensor, ovf: torch.Tensor,
                                 stats: torch.Tensor, *, i: int, chunk: int,
-                                g: int, znorm: bool):
+                                g: int, znorm: bool,
+                                no_ovf: Optional[int] = None):
     """The eps-range scan's LB_Keogh step over chunk i: the range mode of
     `fused_gather_lb_keogh_chunk`, in one launch.  eps2 (B,) float32 and
-    ovf (B,) int32 (the hit buffer's first unwritten chunk) replace the
-    pool: a query is active while the chunk's first bound is finite and
-    <= eps2[b] and ovf[b] is unset, and rows and candidates are cut at
+    ovf (B,) int32 (the hit buffer's first unwritten chunk; no_ovf,
+    default n_pad // chunk, while it never overflowed) replace the pool:
+    a query is active while the chunk's first bound is finite and <=
+    eps2[b] and ovf[b] is unset, and rows and candidates are cut at
     <= eps2 (inclusive).  The same outputs and counters
     (`ref.fused_gather_lb_keogh_range_ref`).  On the card a qlen past the
     staged kernel's goes to `fused_gather_lb_keogh_range_long`."""
@@ -577,7 +586,7 @@ def fused_gather_lb_keogh_range(data: torch.Tensor, csum: torch.Tensor,
         fused_gather_lb_keogh_range_long if long
         else fused_gather_lb_keogh_range, long, data, csum, csum2, csum_lo,
         csum2_lo, center, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi,
-        eps2, ovf, stats, i, chunk, g, znorm)
+        eps2, ovf, stats, i, chunk, g, znorm, no_ovf)
 
 
 fused_gather_lb_keogh_range.launches = 0
@@ -589,14 +598,15 @@ def fused_gather_lb_keogh_range_long(
         sids: torch.Tensor, anchors: torch.Tensor, n_master: torch.Tensor,
         lbs2: torch.Tensor, dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
         eps2: torch.Tensor, ovf: torch.Tensor, stats: torch.Tensor, *,
-        i: int, chunk: int, g: int, znorm: bool):
+        i: int, chunk: int, g: int, znorm: bool,
+        no_ovf: Optional[int] = None):
     """`fused_gather_lb_keogh_range` through the long-row kernel, at any
     qlen: the same outputs and counters, bit for bit where both take the
     shape (the survivor list in any order)."""
     return _lb_chunk(fused_gather_lb_keogh_range_long, True, data, csum,
                      csum2, csum_lo, csum2_lo, center, sids, anchors,
                      n_master, lbs2, dtw_lo, dtw_hi, eps2, ovf, stats, i,
-                     chunk, g, znorm)
+                     chunk, g, znorm, no_ovf)
 
 
 fused_gather_lb_keogh_range_long.launches = 0

@@ -13,6 +13,8 @@ wrapper counts its launches in `.launches`.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -20,7 +22,9 @@ from repro_torch.kernels import _build, ref
 
 def range_append(d2: torch.Tensor, sids: torch.Tensor, anchors: torch.Tensor,
                  eps2: torch.Tensor, buf, cnt: torch.Tensor,
-                 ovf: torch.Tensor, *, i: int, chunk: int, g: int) -> None:
+                 ovf: torch.Tensor, *, i: int, chunk: int, g: int,
+                 i_code: Optional[int] = None,
+                 no_ovf: Optional[int] = None) -> None:
     """Append chunk i's hits to the hit buffer, in place.
 
     d2 (B, chunk * g) float32 is the step's dense distance row (+inf
@@ -28,11 +32,13 @@ def range_append(d2: torch.Tensor, sids: torch.Tensor, anchors: torch.Tensor,
     packed plan (position p is plan row i * chunk + p // g, offset p % g);
     eps2 (B,) float32; buf = (d2 float32, sid int32, off int32), each (B,
     cap); cnt (B,) int32 the buffer's fill counts and ovf (B,) int32 the
-    first chunk whose hits were not written (n_pad // chunk while none).
-    A hit is a finite d2 <= eps2[b].  Where cnt + hits > cap nothing is
-    written and ovf becomes i (if unset); else the hits go to slots cnt,
-    cnt + 1, ... in position order and cnt grows by them
-    (`ref.range_append_ref`, bit for bit).
+    first chunk whose hits were not written (no_ovf while none; default
+    n_pad // chunk).  A hit is a finite d2 <= eps2[b].  Where cnt + hits >
+    cap nothing is written and ovf becomes i_code (default i) if unset;
+    else the hits go to slots cnt, cnt + 1, ... in position order and cnt
+    grows by them (`ref.range_append_ref`, bit for bit).  A paged scan
+    hands its one-chunk slab plan's global-id plane as `sids` and the
+    whole plan's chunk index and count as i_code and no_ovf.
     """
     dev = d2.device
     b, m = d2.shape
@@ -52,15 +58,17 @@ def range_append(d2: torch.Tensor, sids: torch.Tensor, anchors: torch.Tensor,
             and (i + 1) * chunk <= n_pad):
         raise ValueError(f"range_append: d2 of {m} positions is not chunk "
                          f"{i} of {chunk} rows x {g} of the plan's {n_pad}")
+    i_code = i if i_code is None else i_code
+    no_ovf = n_pad // chunk if no_ovf is None else no_ovf
     if dev.type == "cpu":
         ref.range_append_ref(d2, sids, anchors, eps2, buf, cnt, ovf, i=i,
-                             chunk=chunk, g=g)
+                             chunk=chunk, g=g, i_code=i_code, no_ovf=no_ovf)
         return
     code = _build.library("range_append").ulisse_range_append(
         d2.data_ptr(), sids.data_ptr(), anchors.data_ptr(), eps2.data_ptr(),
         buf[0].data_ptr(), buf[1].data_ptr(), buf[2].data_ptr(),
-        cnt.data_ptr(), ovf.data_ptr(), b, m, n_pad, i * chunk, g, cap, i,
-        n_pad // chunk, torch.cuda.current_stream(dev).cuda_stream)
+        cnt.data_ptr(), ovf.data_ptr(), b, m, n_pad, i * chunk, g, cap,
+        i_code, no_ovf, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "range_append")
     range_append.launches += 1
 

@@ -137,13 +137,15 @@ def scan_active(lbs2, pool_d2, i: int, chunk: int):
     return torch.isfinite(first) & (first < pool_d2[:, -1])
 
 
-def range_active(lbs2, eps2, ovf, i: int, chunk: int):
+def range_active(lbs2, eps2, ovf, i: int, chunk: int, no_ovf=None):
     """(B,) bool: query b's range scan still runs at chunk i of its packed
     plan — the chunk's first bound is finite and <= eps2, and the hit
-    buffer has not overflowed (ovf == the plan's chunk count)."""
+    buffer has not overflowed (ovf == no_ovf, default the plan's chunk
+    count)."""
     first = lbs2[:, min(i * chunk, lbs2.shape[1] - 1)]
-    return (torch.isfinite(first) & (first <= eps2)
-            & (ovf == lbs2.shape[1] // chunk))
+    if no_ovf is None:
+        no_ovf = lbs2.shape[1] // chunk
+    return torch.isfinite(first) & (first <= eps2) & (ovf == no_ovf)
 
 
 def _chunk_cut(sids, anchors, n_master, lbs2, active, cut, inclusive: bool,
@@ -231,21 +233,24 @@ def fused_gather_ed_chunk_ref(data, csum, csum2, csum_lo, csum2_lo, center,
 def fused_gather_ed_range_ref(data, csum, csum2, csum_lo, csum2_lo, center,
                               sids, anchors, n_master, lbs2, qs, eps2, ovf,
                               stats, *, i: int, chunk: int, g: int,
-                              znorm: bool, dist=None) -> torch.Tensor:
+                              znorm: bool, dist=None,
+                              no_ovf=None) -> torch.Tensor:
     """The range mode of `fused_gather_ed_chunk_ref` (the eps-range
     scan's ED step): query b is active when `range_active` (which reads
-    the hit buffer's ovf (B,)), row r is kept when active and lbs2 <=
+    the hit buffer's ovf (B,) against no_ovf), row r is kept when active
+    and lbs2 <=
     eps2[b] (inclusive), and the counters are added as in the k-NN mode.
     Returns the dense (B, chunk * g) d2 of the ok candidates, +inf
     wherever not ok."""
     return _ed_chunk_d2(
         data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-        n_master, lbs2, qs, stats, range_active(lbs2, eps2, ovf, i, chunk),
-        eps2, True, i, chunk, g, znorm, dist)[0]
+        n_master, lbs2, qs, stats,
+        range_active(lbs2, eps2, ovf, i, chunk, no_ovf), eps2, True, i,
+        chunk, g, znorm, dist)[0]
 
 
 def range_append_ref(d2, sids, anchors, eps2, buf, cnt, ovf, *, i: int,
-                     chunk: int, g: int) -> None:
+                     chunk: int, g: int, i_code=None, no_ovf=None) -> None:
     """Append chunk i's hits to the range scan's hit buffer, in place.
 
     d2 (B, chunk * g) is the step's dense distance row (+inf where no
@@ -254,16 +259,18 @@ def range_append_ref(d2, sids, anchors, eps2, buf, cnt, ovf, *, i: int,
     buf = (d2, sid, off) (B, cap), cnt (B,) int32 its fill counts and ovf
     (B,) int32 the first chunk whose hits were not written (n_pad //
     chunk while none).  A hit is a finite d2 <= eps2.  Where cnt + hits >
-    cap none is written and ovf becomes i (if not set); else the hits go
-    to slots cnt, cnt + 1, ... in position order and cnt grows by them —
-    the reference's buffer, bit for bit."""
+    cap none is written and ovf becomes i_code (default i) if it is still
+    no_ovf (default n_pad // chunk); else the hits go to slots cnt, cnt +
+    1, ... in position order and cnt grows by them — the reference's
+    buffer, bit for bit."""
     bd2, bsid, boff = buf
     cap = bd2.shape[1]
-    n_chunks = sids.shape[1] // chunk
+    n_chunks = sids.shape[1] // chunk if no_ovf is None else no_ovf
+    code = i if i_code is None else i_code
     hit = torch.isfinite(d2) & (d2 <= eps2[:, None])
     nh = hit.sum(dim=1, dtype=torch.int32)
     over = cnt + nh > cap
-    ovf.copy_(torch.where(over & (ovf == n_chunks), i, ovf))
+    ovf.copy_(torch.where(over & (ovf == n_chunks), code, ovf))
     rows, pos = (hit & ~over[:, None]).nonzero(as_tuple=True)
     rank = torch.cumsum(hit, dim=1) - 1
     slot = cnt.long()[rows] + rank[rows, pos]
@@ -429,7 +436,7 @@ def fused_gather_lb_keogh_range_ref(data, csum, csum2, csum_lo, csum2_lo,
                                     center, sids, anchors, n_master, lbs2,
                                     dtw_lo, dtw_hi, eps2, ovf, stats, *,
                                     i: int, chunk: int, g: int,
-                                    znorm: bool):
+                                    znorm: bool, no_ovf=None):
     """The range mode of `fused_gather_lb_keogh_chunk_ref` (the eps-range
     scan's DTW step): query b is active when `range_active` (which reads
     the hit buffer's ovf (B,)); rows are kept and candidates survive at
@@ -438,8 +445,8 @@ def fused_gather_lb_keogh_range_ref(data, csum, csum2, csum_lo, csum2_lo,
     return _lb_chunk_ref(
         data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         n_master, lbs2, dtw_lo, dtw_hi, stats,
-        range_active(lbs2, eps2, ovf, i, chunk), eps2, True, i, chunk, g,
-        znorm)
+        range_active(lbs2, eps2, ovf, i, chunk, no_ovf), eps2, True, i,
+        chunk, g, znorm)
 
 
 def gather_znorm_ref(data, sids, anchors, mu, sd, *, qlen: int, g: int):

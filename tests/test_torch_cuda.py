@@ -22,7 +22,12 @@ device function); the LB chunk entries' (k-NN and range) masks,
 counters, survivor sets and candidate ids exactly, their lb2 within the
 LB tolerance; the ED range entry's dense d2 bit for bit against the
 plain step fed the contract entry's distances; `range_append` bit for
-bit (buffer, counts, overflow chunks).
+bit (buffer, counts, overflow chunks).  The paged scans (slabs through
+pinned memory and a side stream, the slab ids mapped back to global
+ones, the range steps' `i_code` / `no_ovf`) bit for bit against the
+resident scans, a paged engine against a resident one over one saved
+index, the build's prefix sums the same bits in blocks of any size, and
+append -> compact on the card against `build_index` on the card.
 """
 import dataclasses
 
@@ -1326,3 +1331,158 @@ def test_engine_refuses_gamma_past_the_card_chunk_entries(dev):
             fused_gather_lb_keogh_chunk_long.launches) == before
     res = gpu.search(q, QuerySpec(scan_backend="host", **spec))
     assert (res.series[0], res.offsets[0]) == (1, 30)
+
+
+def _paged_inputs(dev, measure, seed, s=512, n=256, b=8, n_pad=1024, qlen=160):
+    """A collection, its store, an LB-sorted plan over it and prepared
+    queries, on the card (the bench parameters' g = 49)."""
+    from repro_torch.core import planner
+    from repro_torch.storage.store import PayloadStore
+    rng = np.random.default_rng(seed)
+    data = np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32)
+    coll = Collection.from_array(data, device=dev)
+    store = PayloadStore.from_arrays(data, page_rows=16,
+                                     cache_limit_bytes=8 * 16 * 1285 * 4,
+                                     device=dev)
+    g = 49
+    sids = rng.integers(0, s, (b, n_pad)).astype(np.int32)
+    anc = rng.integers(0, n - qlen + 1, (b, n_pad)).astype(np.int32)
+    nm = rng.integers(0, g + 1, (b, n_pad)).astype(np.int32)
+    lbs2 = np.sort(rng.random((b, n_pad)).astype(np.float32) * 30, axis=1)
+    lbs2[:, n_pad - 100:] = np.inf
+    q = np.stack([data[i, 40:40 + qlen] + rng.normal(size=qlen).astype(
+        np.float32) * 0.1 for i in range(b)])
+    qs, dlo, dhi, _, _ = planner.prepare_query_batch(
+        torch.from_numpy(q).to(dev), 16, True, measure, 16 if measure ==
+        "dtw" else 0)
+    plan = tuple(_t(x, dev) for x in (sids, anc, nm, lbs2))
+    return coll, store, plan, qs, dlo, dhi, g
+
+
+@pytest.mark.parametrize("measure", ["ed", "dtw"])
+def test_paged_scans_on_cuda_equal_resident(dev, measure):
+    """The paged scans on the card (slabs through pinned memory and a side
+    stream, the slab ids mapped back to global ones, `i_code` / `no_ovf`
+    on the range steps) against the resident scans on the card: pools,
+    hit buffers, counts, overflow chunks and counters bit for bit; 64
+    back-to-back chunks with no early stop reuse each pinned slot 32
+    times."""
+    from repro_torch.core import executor
+    coll, store, plan, qs, dlo, dhi, g = _paged_inputs(dev, measure, 3)
+    b, k = qs.shape[0], 5
+    seed = (torch.full((b, k), float("inf"), device=dev),
+            torch.full((b, k), -1, dtype=torch.int32, device=dev),
+            torch.full((b, k), -1, dtype=torch.int32, device=dev))
+    kw = dict(k=k, g=g, measure=measure, r=16, znorm=True, chunk_size=16)
+    want = executor.device_exact_scan(coll, *plan, qs, dlo, dhi, *seed, **kw)
+    got = executor.paged_exact_scan(store, *plan, qs, dlo, dhi, *seed, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    # every chunk active: a zero bound everywhere and no pool to prune
+    zero = (plan[0], plan[1], plan[2], torch.zeros_like(plan[3]))
+    executor.PAGED["chunks"] = 0
+    want = executor.device_exact_scan(coll, *zero, qs, dlo, dhi, *seed, **kw)
+    got = executor.paged_exact_scan(store, *zero, qs, dlo, dhi, *seed, **kw)
+    assert executor.PAGED["chunks"] == 64
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert store.stats()["evicted_bytes"] > 0
+    eps2 = torch.full((b,), 200.0, device=dev)
+    for cap in (2048, 16):
+        rkw = dict(capacity=cap, g=g, measure=measure, r=16, znorm=True,
+                   chunk_size=16)
+        want = executor.device_range_scan(coll, *plan, qs, dlo, dhi, eps2,
+                                          **rkw)
+        got = executor.paged_range_scan(store, *plan, qs, dlo, dhi, eps2,
+                                        **rkw)
+        assert got[6] == want[6]
+        for x, y in zip(got[:6], want[:6]):
+            assert torch.equal(x, y)
+    assert (got[4] < 64).any(), "the small buffer overflows"
+
+
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_paged_engine_on_cuda_equals_resident(dev, znorm, tmp_path):
+    """A saved index opened on the card twice, resident and under a budget
+    of a quarter of its payload: the same answers and SearchStats on
+    every path (k-NN ED/DTW, approx, range with an overflow)."""
+    rng = np.random.default_rng(9)
+    data = np.cumsum(rng.normal(size=(300, 256)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, gamma=48, card=256,
+                       znorm=znorm)
+    UlisseEngine.from_collection(Collection.from_array(data, device=dev), p,
+                                 device=dev).save(str(tmp_path / "idx"))
+    from repro_torch.storage import open_index
+    budget = open_index(str(tmp_path / "idx"),
+                        device=dev).collection.payload_bytes // 4
+    res = UlisseEngine.open(str(tmp_path / "idx"), device=dev)
+    pag = UlisseEngine.open(str(tmp_path / "idx"), device=dev,
+                            memory_budget_bytes=budget)
+    qs = [data[i, o:o + qlen] + rng.normal(size=qlen).astype(np.float32)
+          * 0.1 for i, o, qlen in ((3, 30, 160), (50, 90, 160),
+                                   (120, 50, 200), (7, 0, 256))]
+    for spec in (QuerySpec(k=5), QuerySpec(k=5, measure="dtw", r=16),
+                 QuerySpec(k=5, mode="approx"), QuerySpec(eps=6.0),
+                 QuerySpec(eps=8.0, measure="dtw", r=16,
+                           range_capacity=16)):
+        for a, b in zip(res.search(qs, spec), pag.search(qs, spec)):
+            np.testing.assert_array_equal(a.dists, b.dists)
+            np.testing.assert_array_equal(a.series, b.series)
+            np.testing.assert_array_equal(a.offsets, b.offsets)
+            assert a.stats == b.stats
+    assert not pag.index.collection.is_materialized
+    assert pag.page_cache_stats()["misses"] > 0
+
+
+
+@pytest.mark.parametrize("n", [256, 1000, 2048])
+def test_build_prefixes_independent_of_block_on_cuda(dev, n):
+    """The card build's prefix sums of a series (Z-normalized and raw) are
+    the same bits whatever block it is built in: blocks of 1 to 70,000
+    series against one block of 140,000 (torch's row scans would pick
+    another thread layout at each of these counts)."""
+    from repro_torch.core.envelope import centered_prefixes, series_prefix
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(np.cumsum(rng.normal(size=(140_000, n)), -1)
+                         .astype(np.float32)).to(dev)
+    whole = centered_prefixes(x) + (series_prefix(x),)
+    for b in (1, 2, 7, 16, 50, 700, 70_000):
+        part = x[13:13 + b]
+        for got, want in zip(centered_prefixes(part) + (series_prefix(part),),
+                             whole):
+            assert torch.equal(got, want[13:13 + b]), b
+
+
+def test_append_compact_on_cuda_equals_build(dev):
+    """append (the delta's envelopes from envelope_znorm, one launch a
+    part of 50, 1 and 49 series) -> compact on the card equals build_index
+    on the card over the whole collection (one launch over every series)
+    in every field and level — each series' envelopes are the same
+    whatever block it is built in; the appended series answer their own
+    windows before and after compaction."""
+    rng = np.random.default_rng(4)
+    data = np.cumsum(rng.normal(size=(700, 256)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, gamma=48, card=256,
+                       znorm=True)
+    eng = UlisseEngine.from_collection(
+        Collection.from_array(data[:600], device=dev), p, device=dev)
+    eng.append(data[600:650])
+    eng.append(data[650])                 # one series
+    eng.append(data[651:])
+    assert eng.delta_size == 100 * p.num_envelopes(256)
+    q = data[660, 20:200] + rng.normal(size=180).astype(np.float32) * 0.05
+    before = eng.search(q, QuerySpec(k=3))
+    assert int(before.series[0]) == 660
+    eng.compact()
+    want = build_index(Collection.from_array(data, device=dev), p,
+                       eng.index.breakpoints)
+    for f in ("paa_lo", "paa_hi", "sym_lo", "sym_hi", "series_id", "anchor",
+              "n_master", "valid"):
+        assert torch.equal(getattr(eng.index.envelopes, f),
+                           getattr(want.envelopes, f)), f
+    for la, lb in zip(eng.index.levels, want.levels):
+        for f in ("paa_lo", "paa_hi", "valid"):
+            assert torch.equal(getattr(la, f), getattr(lb, f)), f
+    after = eng.search(q, QuerySpec(k=3))
+    np.testing.assert_array_equal(after.series, before.series)
+    np.testing.assert_array_equal(after.dists, before.dists)

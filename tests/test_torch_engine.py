@@ -167,9 +167,10 @@ def test_admission_matches_reference(q):
 
 def test_unported_paths_raise(engines):
     """Range search is ported (device and host, ED and DTW) and answers
-    the port's brute force; approx-only and the host backend answer; the
-    paged tier, ingestion and the distributed backend still raise, naming
-    their ROADMAP Queue 1 item."""
+    the port's brute force; approx-only and the host backend answer;
+    ingestion and a memory budget are ported (a resident index stays
+    resident under a budget); the distributed backend still raises,
+    naming its ROADMAP Queue 1 item."""
     znorm, data, _, port, coll = engines
     q = data[0, :96] + np.float32(0.05) * np.sin(np.arange(96),
                                                   dtype=np.float32)
@@ -191,13 +192,15 @@ def test_unported_paths_raise(engines):
         res = port.search(q, QuerySpec(k=3, **kw))
         assert len(res.dists) == 3 and np.isfinite(res.dists).all()
         assert (np.diff(res.dists) >= 0).all()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        port.append(data[:1])
-    with pytest.raises(NotImplementedError, match="item 2"):
-        port.compact()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        UlisseEngine.from_index(port.index, memory_budget_bytes=1 << 20,
-                                device="cpu")
+    grown = UlisseEngine.from_index(port.index, device="cpu")
+    grown.append(data[:1])
+    assert grown.delta_size == port.params.num_envelopes(data.shape[1])
+    assert grown.raw_data.shape[0] == data.shape[0] + 1
+    grown.compact()
+    assert grown.delta_size == 0 and port.delta_size == 0
+    budgeted = UlisseEngine.from_index(port.index, memory_budget_bytes=1,
+                                       device="cpu")
+    assert budgeted.page_cache_stats() is None
     with pytest.raises(NotImplementedError, match="item 4"):
         UlisseEngine.distributed(None, EnvelopeParams(**PARAMS), data)
 
