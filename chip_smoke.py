@@ -117,7 +117,23 @@ Phases (any failed check raises, and the script exits non-zero):
      the page cache) bit-equal to the resident engine (answers and
      SearchStats), with queries/s, page hits, misses and evicted bytes,
      the seconds the scan waited on prefetch, kernel launches, and one
-     traced paged ED batch's launch calls a step.
+     traced paged ED batch's launch calls a step;
+ 18. serving on the card (last: its writer lane grows [3]'s engine):
+     [3]'s engine behind `UlisseServer` (window 2 ms, max_batch 8):
+     warmup of lengths 160, 208, 256 (12 shapes; nothing built or loaded
+     by the first request after it); 64 default-spec and 16 DTW (r 25)
+     requests from 8 closed-loop client threads, counters set to 0 just
+     before and read just after each burst, every answer bit-equal to a
+     serial engine.search of the same query, served and serial queries/s,
+     dispatches, fill, queue wait and latency percentiles, the
+     dispatcher's busy share and the time of a dispatch of the burst's
+     most frequent fill, served and with no client thread alive;
+     then 32 ED requests while 1,000 new series are appended (version 1)
+     and compacted (version 2) between dispatches, answers held to a
+     float64 brute force over their snapshot (the appended windows found
+     after version 1); one query traced with torch annotations (the
+     admission -> queue wait -> dispatch -> engine spans) and one scrape
+     holding serving latency and the engine's pruning counters.
 
 Phase 2 also holds the scan's ED chunk entry and the partials merge
 against the plain step (the contract entry's distances masked, the
@@ -211,6 +227,19 @@ RANGE_HOST = 2
 # their payload thrashes the page cache, so the count is cut for time)
 APPEND_SERIES = 10_000
 PAGED_SERIES = 20_000
+# [18], serving: query lengths (one bucket, 256), closed-loop client
+# threads, requests of the ED, DTW (at r SERVE_DTW_R) and writer-lane
+# bursts, series appended under load (seed + 18), appended windows served
+# again after the compact; the spans one traced served query must leave
+SERVE_LENGTHS = (160, 208, 256)
+SERVE_CLIENTS = 8
+SERVE_ED, SERVE_DTW, SERVE_WRITE = 64, 16, 32
+SERVE_DTW_R = 25
+SERVE_APPEND = 1_000
+SERVE_LATE = 4
+SERVE_SPANS = ("serve.admission", "serve.queue_wait", "serve.dispatch",
+               "query.exact_device", "prepare", "approx_pass", "pack",
+               "device_scan", "merge")
 # H100 SXM, NVIDIA data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -1236,13 +1265,49 @@ def check_long_kernels(torch, dev, rng, g):
     return errs
 
 
-def brute64_ed(torch, data, q, k: int, znorm: bool):
-    """Exact ED k-NN on the card in float64 (`brute64_ed_within` of every
-    window): (series, offsets, dists)."""
-    n_off = data.shape[1] - len(q) + 1
-    idx, d = brute64_ed_within(torch, data, q, znorm, float("inf"))
-    order = np.lexsort((idx, d))[:k]
-    return idx[order] // n_off, idx[order] % n_off, d[order]
+def brute64_ed(torch, data, qs, k: int, znorm: bool):
+    """Exact ED k-NN of equal-length queries on the card in float64: every
+    window's distance by the dot identity over float64 window sums (as
+    `brute64_ed_within`), the window dots of all queries as one product a
+    block of series, each block's k best kept on the card.  Returns
+    [(series, offsets, dists)] a query, numpy, nearest first."""
+    qlen = len(qs[0])
+    s, n = data.shape
+    n_off = n - qlen + 1
+    q = torch.from_numpy(np.stack(qs).astype(np.float64)).to(data.device)
+    if znorm:
+        q = (q - q.mean(1, keepdim=True)) / q.std(
+            1, correction=0, keepdim=True).clamp_min(1e-8)
+    qss, qsum = (q * q).sum(1), q.sum(1)
+    block = max(1, BRUTE_ELEMS // (n_off * qlen))
+    best_d = torch.full((len(qs), k), float("inf"), dtype=torch.float64,
+                        device=data.device)
+    best_i = torch.full((len(qs), k), -1, dtype=torch.int64,
+                        device=data.device)
+    for start in range(0, s, block):
+        x = data[start:start + block].double()
+        dot = x.unfold(1, qlen, 1).reshape(-1, qlen) @ q.T   # (W_b, nq)
+        c1 = torch.nn.functional.pad(x.cumsum(1), (1, 0))
+        c2 = torch.nn.functional.pad((x * x).cumsum(1), (1, 0))
+        s1 = (c1[:, qlen:] - c1[:, :-qlen]).reshape(-1, 1)
+        s2 = (c2[:, qlen:] - c2[:, :-qlen]).reshape(-1, 1)
+        if znorm:
+            mu = s1 / qlen
+            var = (s2 / qlen - mu * mu).clamp_min(0.0)
+            sd = var.sqrt().clamp_min(1e-8)
+            d2 = qlen * var / (sd * sd) - 2 * (dot - mu * qsum) / sd + qss
+        else:
+            d2 = s2 - 2 * dot + qss
+        v, i = torch.topk(d2, min(k, d2.shape[0]), dim=0, largest=False)
+        cand_d = torch.cat([best_d, v.T], 1)
+        cand_i = torch.cat([best_i, i.T + start * n_off], 1)
+        order = torch.argsort(cand_d, dim=1, stable=True)[:, :k]
+        best_d = cand_d.gather(1, order)
+        best_i = cand_i.gather(1, order)
+        del x, dot, c1, c2, d2
+    idx = best_i.cpu().numpy()
+    dist = best_d.clamp_min(0.0).sqrt().cpu().numpy()
+    return [(i // n_off, i % n_off, d) for i, d in zip(idx, dist)]
 
 
 def check_slice3_kernels(torch, dev, p, probe, rng):
@@ -2125,6 +2190,357 @@ def storage_phase(torch, engine, data, p, batches, answers, dtw_batches,
         shutil.rmtree(root, ignore_errors=True)
     return out
 
+
+
+def serve_phase(torch, engine, data, p, zero_counts, read_counts, seed):
+    """[18], serving on the card: [3]'s engine behind
+    `UlisseServer(engine, spec, ServeConfig(window_ms=2.0, max_batch=8))`.
+    (a) warmup of SERVE_LENGTHS (fills 1, 2, 4 and 8), then one request
+    alone (the first served latency; nothing built or loaded after the
+    warmup); (b) SERVE_ED default-spec requests (windows of [3]'s series
+    plus N(0, 0.1) noise at SERVE_LENGTHS, one bucket) from SERVE_CLIENTS
+    closed-loop client threads, with the launch counters set to 0 just
+    before and read just after, the process tracer on (no torch
+    annotations) for the dispatch spans; every answer bit-equal to a
+    serial engine.search of the same query afterwards, on the same
+    snapshot; the served and the serial loop's queries/s; (c) the same for
+    SERVE_DTW DTW requests (r = SERVE_DTW_R); (d) the writer lane under
+    load: SERVE_WRITE ED requests (half windows of SERVE_APPEND new
+    random-walk series) while append and compact are applied between
+    dispatches (versions 1 and 2), every answer's snapshot in {0, 1, 2},
+    every answer (and SERVE_LATE windows of the appended series served
+    after the compact) held to a float64 brute force over its snapshot's
+    series (5e-3; the appended windows found after version 1); (e) one query traced with torch annotations:
+    the admission -> queue wait -> dispatch -> engine spans, device_scan
+    inside the dispatch, the spans in a torch.profiler trace, and one
+    scrape holding serving latency and the engine's pruning counters.
+    Any failed ticket or check raises.  Returns the records."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.core import QuerySpec
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ServeConfig, UlisseServer
+    from repro_torch.train.data import series_batches
+    config = ServeConfig(window_ms=2.0, max_batch=8)
+    rng = np.random.default_rng(seed + 18)
+    out = {"config": {"window_ms": config.window_ms,
+                      "max_batch": config.max_batch,
+                      "clients": SERVE_CLIENTS,
+                      "lengths": list(SERVE_LENGTHS)}}
+
+    def windows(src, n):
+        """n windows of `src` (+ N(0, 0.1)), SERVE_LENGTHS in turn."""
+        qs = [None] * n
+        for j, qlen in enumerate(SERVE_LENGTHS):
+            idx = range(j, n, len(SERVE_LENGTHS))
+            got, _ = window_batch(rng, src, rng.integers(
+                0, src.shape[0], len(idx)), qlen)
+            for i, q in zip(idx, got):
+                qs[i] = q
+        return qs
+
+    def burst(server, qs, during=None):
+        """Closed-loop clients, each submitting its share in turn and
+        waiting for every answer: ([(ticket, result)], wall seconds)."""
+        got = [None] * len(qs)
+        errors = []
+
+        def client(c):
+            try:
+                for i in range(c, len(qs), SERVE_CLIENTS):
+                    t = server.submit(qs[i])
+                    got[i] = (t, t.result(timeout=600))
+            except Exception as e:         # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        if during is not None:
+            during()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads) or None in got:
+            raise AssertionError(f"[18] a served request failed: {errors}")
+        return got, wall
+
+    def served_record(server, wall, n, answered=None):
+        """The burst's serving metrics; raises unless `answered` (default
+        n) requests completed and none failed."""
+        snap = server.metrics.snapshot()["total"]
+        answered = n if answered is None else answered
+        if snap["failed"] or snap["completed"] != answered:
+            raise AssertionError(f"[18] {snap['failed']} failed, "
+                                 f"{snap['completed']} of {answered} "
+                                 f"completed")
+        fills = {}
+        for row in server.metrics.snapshot()["buckets"].values():
+            for f, c in row["fill_hist"].items():
+                fills[f] = fills.get(f, 0) + c
+        return {"queries": n, "wall_s": wall, "queries_per_s": n / wall,
+                "dispatches": snap["dispatches"],
+                "mean_fill": snap["mean_fill"], "fill_hist": fills,
+                "queue_wait_ms": snap["queue_wait_ms"],
+                "latency_ms": snap["latency_ms"]}
+
+    def serial_check(name, spec, got, qs):
+        t0 = time.perf_counter()
+        want = [engine.search(q, spec) for q in qs]
+        wall = time.perf_counter() - t0
+        same_results([r for _, r in got], want, f"[18] {name} served vs "
+                     f"serial", stats=False)
+        return {"wall_s": wall, "queries_per_s": len(qs) / wall}
+
+    # -- (a) warmup and the first served request ----------------------------
+    spec = QuerySpec(k=K)
+    server = UlisseServer(engine, spec, config)
+    t0 = time.perf_counter()
+    traced = server.warmup(SERVE_LENGTHS)
+    warm_s = time.perf_counter() - t0
+    if traced != 3 * 4:
+        raise AssertionError(f"[18] warmup exercised {traced} shapes, not 12")
+    built = dict(_build.COUNTS)
+    t0 = time.perf_counter()
+    server.search(windows(data, 1)[0], timeout=600)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if _build.COUNTS != built:
+        raise AssertionError(f"[18] the first request after warmup built or "
+                             f"loaded kernels: {built} -> {_build.COUNTS}")
+    out["warmup"] = {"shapes": traced, "s": warm_s,
+                     "first_request_ms": first_ms, "build_counts": built}
+
+    # -- (b) the ED k-NN burst ------------------------------------------------
+    tracer = obs.get_tracer()
+    ed_qs = windows(data, SERVE_ED)
+    server.metrics.reset()
+    tracer.configure(enabled=True, torch_annotations=False)
+    tracer.drain()
+    zero_counts()
+    got, wall = burst(server, ed_qs)
+    torch.cuda.synchronize()
+    launches = read_counts(("fused_gather_ed_chunk", "pool_merge_partials",
+                            "mindist_sym", "mindist_paa"))
+    server.close()
+    spans = tracer.drain()
+    tracer.configure(enabled=False)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[18] {name} was not launched by the "
+                                 f"served ED burst")
+    rec = served_record(server, wall, SERVE_ED)
+    rec["launches"] = launches
+    disp = [s.dur for s in spans if s.name == "serve.dispatch"]
+    batches = [s.dur for s in spans if s.name == "query.exact_device"]
+    rec["dispatch_busy_s"] = sum(disp)
+    rec["dispatch_busy_share"] = sum(disp) / wall
+    rec["length_batches"] = len(batches)
+    rec["length_batch_ms_mean"] = float(np.mean(batches)) * 1e3
+    rec["serial"] = serial_check("ED", spec, got, ed_qs)
+    # the GIL's share: the burst's most frequent dispatch fill, served
+    # (median span) against the same number of the burst's queries in one
+    # search with no client thread alive (median of three)
+    fill = max(rec["fill_hist"], key=lambda f: (rec["fill_hist"][f], f))
+    served = [s.dur for s in spans if s.name == "serve.dispatch"
+              and (s.attrs or {}).get("fill") == fill]
+    quiet = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.search(ed_qs[:fill], spec)
+        quiet.append(time.perf_counter() - t0)
+    rec["dispatch_fill"] = fill
+    rec["served_dispatch_ms"] = float(np.median(served)) * 1e3
+    rec["quiet_dispatch_ms"] = float(np.median(quiet)) * 1e3
+    out["ed"] = rec
+    log(f"[18] served ED k-NN: {SERVE_ED} requests from {SERVE_CLIENTS} "
+        f"clients in {wall:.2f} s = {rec['queries_per_s']:.1f} queries/s "
+        f"against the serial loop's {rec['serial']['queries_per_s']:.1f} "
+        f"over the same queries ({rec['queries_per_s'] / rec['serial']['queries_per_s']:.2f}x); "
+        f"{rec['dispatches']} dispatches, mean fill {rec['mean_fill']}, "
+        f"fills {rec['fill_hist']}, {rec['length_batches']} length batches "
+        f"({rec['length_batch_ms_mean']:.1f} ms mean); queue wait p50 "
+        f"{rec['queue_wait_ms']['p50']} ms; latency p50/p95/p99 "
+        f"{rec['latency_ms']['p50']}/{rec['latency_ms']['p95']}/"
+        f"{rec['latency_ms']['p99']} ms (first request after warmup "
+        f"{first_ms:.1f} ms, warmup {warm_s:.2f} s); dispatcher busy "
+        f"{rec['dispatch_busy_share']:.3f} of the burst; a dispatch of "
+        f"{fill} {rec['served_dispatch_ms']:.1f} ms served vs "
+        f"{rec['quiet_dispatch_ms']:.1f} ms quiet; launches "
+        f"{launches}; every answer bit-equal to serial")
+
+    # -- (c) the DTW k-NN burst -----------------------------------------------
+    dspec = QuerySpec(k=K, measure="dtw", r=SERVE_DTW_R)
+    dtw_qs = windows(data, SERVE_DTW)
+    server = UlisseServer(engine, dspec, config)
+    zero_counts()
+    got, wall = burst(server, dtw_qs)
+    torch.cuda.synchronize()
+    launches = read_counts(("fused_gather_lb_keogh_chunk", "dtw_survivors",
+                            "pool_merge", "mindist_sym", "mindist_paa"))
+    server.close()
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[18] {name} was not launched by the "
+                                 f"served DTW burst")
+    rec = served_record(server, wall, SERVE_DTW)
+    rec["launches"] = launches
+    rec["serial"] = serial_check("DTW", dspec, got, dtw_qs)
+    out["dtw"] = rec
+    log(f"[18] served DTW k-NN (r {SERVE_DTW_R}): {SERVE_DTW} requests in "
+        f"{wall:.2f} s = {rec['queries_per_s']:.2f} queries/s against the "
+        f"serial loop's {rec['serial']['queries_per_s']:.2f}; "
+        f"{rec['dispatches']} dispatches, mean fill {rec['mean_fill']}, "
+        f"queue wait p50 {rec['queue_wait_ms']['p50']} ms, latency "
+        f"p50/p95/p99 {rec['latency_ms']['p50']}/{rec['latency_ms']['p95']}"
+        f"/{rec['latency_ms']['p99']} ms; launches {launches}; every answer "
+        f"bit-equal to serial")
+
+    # -- (d) the writer lane under load ---------------------------------------
+    base = engine.index.collection.data
+    n_base = base.shape[0]
+    new = series_batches(SERVE_APPEND, data.shape[1], seed=seed + 18)
+    wr_qs = [q for pair in zip(windows(data, SERVE_WRITE // 2),
+                               windows(new, SERVE_WRITE // 2)) for q in pair]
+    appended = [i % 2 == 1 for i in range(len(wr_qs))]
+    server = UlisseServer(engine, spec, config)
+    ops = {}
+
+    def writer():
+        # append under load, let the next dispatch serve version 1, then
+        # compact
+        time.sleep(0.05)
+        ops["append"] = server.append(new)
+        ops["append"].result(timeout=600)
+        done = server.metrics.snapshot()["total"]["completed"]
+        t0 = time.perf_counter()
+        while (server.metrics.snapshot()["total"]["completed"] == done
+               and time.perf_counter() - t0 < 5.0):
+            time.sleep(0.005)
+        ops["compact"] = server.compact()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    got, wall = burst(server, wr_qs, during=writer)
+    versions = [ops[k].result(timeout=600) for k in ("append", "compact")]
+    late_idx = [i for i, a in enumerate(appended) if a][:SERVE_LATE]
+    late = [server.search(wr_qs[i], timeout=600) for i in late_idx]
+    torch.cuda.synchronize()
+    launches = read_counts(("envelope_znorm", "fused_gather_ed_chunk"))
+    server.close()
+    if versions != [1, 2] or server.version != 2 or [
+            ops[k].snapshot for k in ("append", "compact")] != [1, 2]:
+        raise AssertionError(f"[18] writer versions {versions}")
+    if launches["envelope_znorm"] <= 0:
+        raise AssertionError("[18] the append did not launch envelope_znorm")
+    snaps = [t.snapshot for t, _ in got]
+    if not set(snaps) <= {0, 1, 2}:
+        raise AssertionError(f"[18] snapshots {sorted(set(snaps))}")
+    rec = served_record(server, wall, SERVE_WRITE, SERVE_WRITE + len(late))
+    grown = torch.cat([base, torch.from_numpy(new).to(base.device)])
+    checks = [(q, res, t.snapshot, app)
+              for q, (t, res), app in zip(wr_qs, got, appended)]
+    checks += [(wr_qs[i], r, 2, True) for i, r in zip(late_idx, late)]
+    tb = time.perf_counter()
+    # one brute force a (snapshot's series, query length)
+    groups = {}
+    for j, (q, _, snap, _) in enumerate(checks):
+        groups.setdefault((min(snap, 1), len(q)), []).append(j)
+    oracle = {}
+    for (grown_set, _), js in groups.items():
+        for j, o in zip(js, brute64_ed(
+                torch, grown if grown_set else base,
+                [checks[j][0] for j in js], K, p.znorm)):
+            oracle[j] = o
+    worst, found_after = 0.0, 0
+    for j, (q, res, snap, app) in enumerate(checks):
+        series, offsets, dists = oracle[j]
+        err = float(np.abs(res.dists - dists).max())
+        worst = max(worst, err)
+        if err > 5e-3:
+            raise AssertionError(f"[18] snapshot {snap}: served {res.dists} "
+                                 f"vs float64 brute force {dists}")
+        if app and snap >= 1:
+            if not (res.series[0] == series[0] >= n_base):
+                raise AssertionError(
+                    f"[18] an appended window served at snapshot {snap} "
+                    f"found series {res.series[0]}, not the appended "
+                    f"{series[0]}")
+            found_after += 1
+    del grown
+    rec.update(launches=launches, versions=versions,
+               snapshots={s: snaps.count(s) for s in sorted(set(snaps))},
+               brute_checked=len(checks), brute_max_abs_err=worst,
+               appended_found_after_v1=found_after,
+               brute_s=time.perf_counter() - tb, appended=SERVE_APPEND)
+    if not found_after:
+        raise AssertionError("[18] no appended window was served after "
+                             "version 1")
+    out["writer"] = rec
+    log(f"[18] writer lane: {SERVE_WRITE} ED requests from "
+        f"{SERVE_CLIENTS} clients while {SERVE_APPEND} series were "
+        f"appended (version 1) and compacted (version 2) between "
+        f"dispatches, {wall:.2f} s; answers by snapshot {rec['snapshots']}; "
+        f"{len(checks)} answers ({found_after} appended windows found "
+        f"after version 1) equal a float64 brute "
+        f"force over their snapshot (max |d - d_brute| {worst:.2e}, "
+        f"{rec['brute_s']:.1f} s); launches {launches}")
+
+    # -- (e) one traced query and the scrape ----------------------------------
+    server = UlisseServer(engine, spec, config)
+    server.warmup([SERVE_LENGTHS[0]], [1])
+    tracer.configure(enabled=True, torch_annotations=True)
+    tracer.drain()
+    q = windows(data, 1)[0]
+    try:
+        # the profiler records other threads' ranges (the dispatcher's)
+        # only with profile_all_threads, which older torch lacks
+        from torch._C._profiler import _ExperimentalConfig
+        all_threads = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        all_threads = None
+    try:
+        with profile(activities=[ProfilerActivity.CPU],
+                     experimental_config=all_threads) as prof:
+            server.search(q, timeout=600)
+            server.close()             # joins the dispatcher
+        doc = tracer.chrome_trace(clear=True)
+    finally:
+        tracer.configure(enabled=False, torch_annotations=False)
+    text = server.metrics_text()
+    evs = {}
+    for e in doc["traceEvents"]:
+        if e["ph"] == "X":
+            evs.setdefault(e["name"], e)
+    missing = [n for n in SERVE_SPANS if n not in evs]
+    if missing:
+        raise AssertionError(f"[18] the trace lacks {missing}")
+    d, s = evs["serve.dispatch"], evs["device_scan"]
+    if not (d["ts"] <= s["ts"] and s["ts"] + s["dur"]
+            <= d["ts"] + d["dur"] + 1):
+        raise AssertionError("[18] device_scan lies outside the dispatch")
+    annotated = {ev.name for ev in prof.events()} & set(SERVE_SPANS)
+    if all_threads is not None and "device_scan" not in annotated:
+        raise AssertionError("[18] the spans are not in the torch.profiler "
+                             "trace")
+    for line in ("ulisse_serve_latency_seconds_bucket",
+                 'ulisse_engine_true_dist_computations{backend="device"}'):
+        if line not in text:
+            raise AssertionError(f"[18] the scrape lacks {line}")
+    out["trace"] = {"span_ms": {n: evs[n]["dur"] / 1e3 for n in SERVE_SPANS},
+                    "profiler_ranges": sorted(annotated),
+                    "profile_all_threads": all_threads is not None,
+                    "scrape_lines": len(text.splitlines())}
+    log(f"[18] one traced served query (host ms): "
+        + ", ".join(f"{n} {evs[n]['dur'] / 1e3:.2f}" for n in SERVE_SPANS)
+        + f"; device_scan inside serve.dispatch; {len(annotated)} spans in "
+        f"the torch.profiler trace (all threads: {all_threads is not None})"
+        f"; the scrape ({len(text.splitlines())} "
+        f"lines) holds ulisse_serve_latency_seconds_bucket and "
+        f"ulisse_engine_true_dist_computations{{backend=\"device\"}}")
+    return out
 
 
 def main() -> int:
@@ -3211,9 +3627,8 @@ def main() -> int:
         worst, host_err, host_wall = 0.0, None, None
         if measure == "ed":
             # the port's brute force on the card, in float64
-            for res, q in zip(got, qs_l):
-                series, offs, dists = brute64_ed(torch, qcoll.data, q, K,
-                                                 qp.znorm)
+            for res, (series, offs, dists) in zip(got, brute64_ed(
+                    torch, qcoll.data, qs_l, K, qp.znorm)):
                 if set(zip(res.series.tolist(), res.offsets.tolist())) != \
                         set(zip(series.tolist(), offs.tolist())):
                     raise AssertionError(
@@ -3517,6 +3932,13 @@ def main() -> int:
     results["storage"]["phase_s"] = time.perf_counter() - t0
     log(f"[17] storage and ingestion phase: "
         f"{results['storage']['phase_s']:.1f} s")
+
+    # -- 18. serving on the card (last: its writer lane grows the engine) --
+    t0 = time.perf_counter()
+    results["serve"] = serve_phase(torch, engine, data, p, zero_counts,
+                                   read_counts, args.seed)
+    results["serve"]["phase_s"] = time.perf_counter() - t0
+    log(f"[18] serving phase: {results['serve']['phase_s']:.1f} s")
 
     # launches: each kernel's count on the path it belongs to — the ED main
     # path, the DTW path, the index build, the host backend (ED: batch_ed;

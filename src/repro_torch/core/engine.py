@@ -50,23 +50,30 @@ each chunk's rows are gathered from the store's page cache into a slab
 on the device, bit-equal to the resident scan.  The distributed backend
 raises NotImplementedError naming the ROADMAP item that ports it.
 Engines run on CUDA unless built with device="cpu".
+
+The engine's spans (`query.*`, `prepare`, `approx_pass`, `pack`,
+`device_scan`, `merge`, `host_continuation`) are `repro_torch.obs` spans
+with the reference's names and attributes: free until the tracer is
+enabled.  `warmup` pays a traffic mix's first-use costs ahead of serving
+(`repro_torch.serve`).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function as span
 
 from repro_torch.core import executor, planner
 from repro_torch.core.executor import SearchResult, SearchStats, TopK
 from repro_torch.core.index import UlisseIndex, build_index
 from repro_torch.core.types import (Collection, DeviceLike, EnvelopeParams,
                                     resolve_device)
+from repro_torch.kernels import _build
 from repro_torch.kernels.fused_verify import card_takes
+from repro_torch.obs import span
 from repro_torch.storage import delta as _delta
 from repro_torch.storage import store as _store
 
@@ -271,6 +278,12 @@ class UlisseEngine:
         return None if store is None else store.stats()
 
     @property
+    def is_distributed(self) -> bool:
+        """Always False: the port serves a local index (`distributed`
+        raises)."""
+        return False
+
+    @property
     def raw_data(self) -> np.ndarray:
         """The (S, n) raw series the engine serves, on the host (appended
         but uncompacted series included, in global id order)."""
@@ -304,6 +317,34 @@ class UlisseEngine:
             results = self._local_approx_device(qs, spec)
         return results[0] if single else results
 
+    def warmup(self, lengths: Sequence[int],
+               batch_sizes: Sequence[int] = (1,),
+               spec: QuerySpec = QuerySpec()) -> int:
+        """Pay every first-use cost of a traffic mix before the first real
+        request: on a CUDA engine the kernels' build and load
+        (`_build.load_all`, first), then one throwaway search per (length,
+        batch size) pair on a deterministic query, so that the launches,
+        allocations and host copies of those shapes have happened.  Batch
+        sizes round up to their pow2 bucket as real dispatches do, so
+        warming `(1, max_batch)` covers the common fills.  Returns the
+        number of (length, batch) shapes exercised."""
+        if self.device.type == "cuda":
+            _build.load_all()
+        p = self.params
+        traced = 0
+        for qlen in sorted({int(x) for x in lengths}):
+            if not p.lmin <= qlen <= p.lmax:
+                raise ValueError(
+                    f"query length {qlen} outside [{p.lmin}, {p.lmax}]")
+            # non-degenerate values: znormalize needs a nonzero std
+            q = np.sin(np.linspace(0.0, 6.0, qlen)).astype(np.float32)
+            for bsz in sorted({int(x) for x in batch_sizes}):
+                if bsz < 1:
+                    raise ValueError("batch sizes must be >= 1")
+                self.search([q] * bsz, spec)
+                traced += 1
+        return traced
+
     def _check_card_gamma(self, qs, spec: QuerySpec) -> None:
         """Refuse, before any launch, envelopes of more masters than the
         device scan's chunk entries (k-NN and range) take on the card (g =
@@ -335,7 +376,8 @@ class UlisseEngine:
 
     def _search_local(self, q, spec: QuerySpec) -> SearchResult:
         """The host-driven reference paths, one query."""
-        with span("query.host"):
+        with span("query.host", qlen=len(q),
+                  shape="range" if spec.is_range else spec.mode):
             if spec.is_range:
                 return self._local_range(q, spec)
             if spec.mode == "approx":
@@ -657,7 +699,9 @@ class UlisseEngine:
         env = index.search_envelopes()
         n_comb = env.size
         eps2 = float(spec.eps) ** 2
-        with span("query.range_device"):
+        overflows = 0
+        with span("query.range_device", qlen=len(queries[0]),
+                  batch=b) as qsp:
             with span("prepare"):
                 nseg, qstack, dlo, dhi, qb, qh = self._stack_prepared(
                     queries, spec)
@@ -708,7 +752,8 @@ class UlisseEngine:
                 o = int(ovf[row])
                 if o < n_chunks:     # the buffer overflowed: the host tail
                     stats.range_overflows += 1
-                    with span("host_continuation"):
+                    overflows += 1
+                    with span("host_continuation", query=i):
                         if order_h is None:     # read back on overflow only
                             order_h = executor.to_host(order)
                             slbs2_h = executor.to_host(slbs2).astype(
@@ -717,9 +762,10 @@ class UlisseEngine:
                             self._prepare(qs[i], spec), order_h[row],
                             slbs2_h[row], o * chunk, chunk, eps2, rows,
                             stats, store=store)
-                with span("merge"):
+                with span("merge", query=i):
                     results[i] = self._range_result_rows(rows, stats, qs[i],
                                                          spec)
+            qsp.set(overflows=overflows)
 
     def _range_host_tail(self, pq: planner.PreparedQuery, order, lbs2,
                          pos: int, chunk: int, eps2: float, rows: list,
@@ -759,7 +805,7 @@ class UlisseEngine:
         n_comb = env.size
         for qlen, idxs in self._group_by_len(qs):
             for sub, queries, b in self._padded_batches(qs, idxs):
-                with span("query.exact_device"):
+                with span("query.exact_device", qlen=qlen, batch=b) as sp:
                     with span("prepare"):
                         (nseg, qstack, dlo, dhi, qb,
                          qh) = self._stack_prepared(queries, spec)
@@ -826,6 +872,7 @@ class UlisseEngine:
                             results[i] = self._knn_result_rows(
                                 qs[i], spec, d2[row], sid[row], off[row],
                                 stats)
+                    sp.set(chunks=int(st[:, 0].sum()))
         return results
 
     def _local_approx_device(self, qs, spec: QuerySpec):
@@ -836,7 +883,7 @@ class UlisseEngine:
         n_comb = self._index.search_envelopes().size
         for qlen, idxs in self._group_by_len(qs):
             for sub, queries, b in self._padded_batches(qs, idxs):
-                with span("query.approx_device"):
+                with span("query.approx_device", qlen=qlen, batch=b):
                     with span("prepare"):
                         (nseg, qstack, dlo, dhi, qb,
                          qh) = self._stack_prepared(queries, spec)

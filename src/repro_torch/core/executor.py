@@ -45,7 +45,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function as span
 
 from repro_torch.core.paa import znormalize
 from repro_torch.core.types import Collection
@@ -703,13 +702,14 @@ def _paged_loop(store, plan, chunk: int, device, step, converged) -> None:
     """Run `step(slab, i)` over the plan's chunks with the prefetch worker
     one chunk ahead, testing `converged(i)` before every
     PAGED_SYNC_EVERY-th chunk."""
+    from repro_torch.obs import span            # obs imports executor
     n_chunks = plan[0].shape[1] // chunk
     ring = _SlabRing(store, plan, chunk, device)
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = ex.submit(ring.fill, 0, 0)
         for i in range(n_chunks):
             j = i % 2
-            with span("page.prefetch"):
+            with span("page.prefetch", chunk=i):
                 t0 = time.perf_counter()
                 r = fut.result()
                 PAGED["prefetch_wait_s"] += time.perf_counter() - t0

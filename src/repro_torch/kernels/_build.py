@@ -6,7 +6,9 @@ PyTorch headers are involved, so a build takes seconds.  Libraries go to
 `kernels/build/` (listed in `.gitignore`), named by a hash of the source,
 the `csrc/*.cuh` headers and the flags, so an edited source is rebuilt
 and an unchanged one is reused.  `load_all()` starts one `nvcc` per
-stale source, all at once, and waits for them together.
+stale source, all at once, and waits for them together; it holds a lock,
+so threads that first need a library together build and load it once
+(`COUNTS` counts the builds and loads of this process).
 
 Every exported function takes device pointers and the CUDA stream as
 `void*` and returns `cudaGetLastError()` after its launch; `check` turns
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -156,6 +159,9 @@ SIGNATURES = {
 RESTYPES = {"ulisse_dtw_wide_scratch": _L}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+# libraries compiled and libraries loaded by this process
+COUNTS = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -185,36 +191,46 @@ def build_log(name: str) -> str:
 
 def load_all() -> Dict[str, ctypes.CDLL]:
     """Build every stale kernel library in parallel, then load them all."""
-    pending = {n: _target(n) for n in SIGNATURES
-               if n not in _LIBS and not _target(n).exists()}
-    if pending:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        procs = {}
-        for name, target in pending.items():
-            tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-            procs[name] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, target)
-        failed = []
-        for name, (proc, tmp, target) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name}.cu:\n{out}")
-                continue
-            target.with_suffix(".log").write_text(out)
-            os.replace(tmp, target)
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    for name in SIGNATURES:
-        if name not in _LIBS:
-            lib = ctypes.CDLL(str(_target(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
-            _LIBS[name] = lib
+    with _LOCK:
+        pending = {n: _target(n) for n in SIGNATURES
+                   if n not in _LIBS and not _target(n).exists()}
+        if pending:
+            _build_all(pending)
+        for name in SIGNATURES:
+            if name not in _LIBS:
+                lib = ctypes.CDLL(str(_target(name)))
+                for fn, argtypes in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
+                _LIBS[name] = lib
+                COUNTS["loads"] += 1
     return _LIBS
+
+
+def _build_all(pending: Dict[str, Path]) -> None:
+    """One nvcc per (name -> target) of `pending`, all started at once; a
+    temporary output per process and thread, renamed into place."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, target in pending.items():
+        tmp = target.with_name(
+            f"{target.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{out}")
+            continue
+        target.with_suffix(".log").write_text(out)
+        os.replace(tmp, target)
+        COUNTS["builds"] += 1
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -27,9 +27,14 @@ pinned memory and a side stream, the slab ids mapped back to global
 ones, the range steps' `i_code` / `no_ovf`) bit for bit against the
 resident scans, a paged engine against a resident one over one saved
 index, the build's prefix sums the same bits in blocks of any size, and
-append -> compact on the card against `build_index` on the card.
+append -> compact on the card against `build_index` on the card.  The
+serving tier over a CUDA engine: bursts from client threads bit-equal to
+serial searches (also over a paging engine, against the resident one), a
+refused dispatch failing its ticket, and nothing left to build or load
+after `warmup`.
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -1486,3 +1491,152 @@ def test_append_compact_on_cuda_equals_build(dev):
     after = eng.search(q, QuerySpec(k=3))
     np.testing.assert_array_equal(after.series, before.series)
     np.testing.assert_array_equal(after.dists, before.dists)
+
+
+# -- the serving tier on the card ---------------------------------------------
+
+def _serve_engine(dev, seed=20):
+    from repro_torch.train.data import series_batches
+    data = series_batches(64, 256, seed=seed)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, card=256, gamma=48,
+                       znorm=True)
+    return data, UlisseEngine.from_collection(
+        Collection.from_array(data, device=dev), p, device=dev)
+
+
+@pytest.mark.parametrize("measure", ["ed", "dtw"])
+def test_server_on_cuda_answers_bursts_bit_equal_to_serial(dev, measure):
+    """Four client threads send 16 requests of lengths 160, 208 and 256
+    (one bucket) to a server over a CUDA engine: every answer is bit-equal
+    to a serial engine.search of the same query, none fails, and the
+    dispatcher thread launched the path's chunk entry and merge."""
+    from repro_torch.serve import ServeConfig, UlisseServer
+    data, eng = _serve_engine(dev)
+    spec = (QuerySpec(k=5) if measure == "ed"
+            else QuerySpec(k=5, measure="dtw", r=25))
+    rng = np.random.default_rng(21)
+    qs = []
+    for i in range(16):
+        qlen = (160, 208, 256)[i % 3]
+        s, o = int(rng.integers(0, 64)), int(rng.integers(0, 257 - qlen))
+        qs.append(data[s, o:o + qlen]
+                  + rng.normal(size=qlen).astype(np.float32) * 0.1)
+    server = UlisseServer(eng, spec, ServeConfig(window_ms=2.0,
+                                                 max_batch=8))
+    server.warmup([160, 208, 256])
+    counted = ((fused_gather_ed_chunk, pool_merge_partials)
+               if measure == "ed" else
+               (fused_gather_lb_keogh_chunk, dtw_survivors, pool_merge))
+    before = [w.launches for w in counted]
+    out = [None] * len(qs)
+
+    def client(c):
+        for i in range(c, len(qs), 4):
+            out[i] = server.search(qs[i], timeout=300)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    server.close()
+    torch.cuda.synchronize()
+    assert all(w.launches > b for w, b in zip(counted, before))
+    total = server.metrics.snapshot()["total"]
+    assert total["completed"] == len(qs) and total["failed"] == 0
+    for q, res in zip(qs, out):
+        want = eng.search(q, spec)
+        np.testing.assert_array_equal(res.dists, want.dists)
+        np.testing.assert_array_equal(res.series, want.series)
+        np.testing.assert_array_equal(res.offsets, want.offsets)
+
+
+def test_failing_dispatch_on_cuda_surfaces_through_ticket(dev):
+    """A dispatch the card refuses (g = 14,500 past the LB_Keogh chunk
+    entries, as in the refusal test above) fails its ticket with the
+    engine's ValueError, is counted as failed, and the dispatcher keeps
+    serving: the next request is dispatched and fails the same way."""
+    from repro_torch.serve import ServeConfig, UlisseServer
+    rng = np.random.default_rng(14_500)
+    data = np.cumsum(rng.normal(size=(2, 14_700)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=64, lmax=128, seg_len=16, card=64,
+                       gamma=14_499)
+    gpu = UlisseEngine.from_collection(
+        Collection.from_array(data, device=dev), p, block_size=2,
+        num_levels=1, device=dev)
+    q = data[1, 30:130] + rng.normal(size=100).astype(np.float32) * 0.05
+    server = UlisseServer(gpu, QuerySpec(k=2, measure="dtw", r=5),
+                          ServeConfig(window_ms=0.0, max_batch=4))
+    for _ in range(2):
+        with pytest.raises(ValueError, match="gamma=14499"):
+            server.submit(q).result(timeout=300)
+    server.close()
+    total = server.metrics.snapshot()["total"]
+    assert total["failed"] == 2 and total["completed"] == 0
+
+
+def test_server_over_paged_engine_on_cuda_equals_resident(dev, tmp_path):
+    """The dispatcher thread drives the paged scans (pinned slabs copied on
+    a side stream by the prefetch worker, the compute on the dispatcher's
+    stream): four client threads' ED k-NN and range answers equal the
+    resident engine's bit for bit, with SearchStats."""
+    from repro_torch.serve import ServeConfig, UlisseServer
+    rng = np.random.default_rng(23)
+    data = np.cumsum(rng.normal(size=(300, 256)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, gamma=48, card=256,
+                       znorm=True)
+    UlisseEngine.from_collection(Collection.from_array(data, device=dev), p,
+                                 device=dev).save(str(tmp_path / "idx"))
+    from repro_torch.storage import open_index
+    budget = open_index(str(tmp_path / "idx"),
+                        device=dev).collection.payload_bytes // 4
+    res = UlisseEngine.open(str(tmp_path / "idx"), device=dev)
+    pag = UlisseEngine.open(str(tmp_path / "idx"), device=dev,
+                            memory_budget_bytes=budget)
+    qs = [data[i, o:o + qlen] + rng.normal(size=qlen).astype(np.float32)
+          * 0.1 for i, o, qlen in ((3, 30, 160), (50, 40, 208),
+                                   (120, 0, 256), (7, 0, 160),
+                                   (200, 10, 208), (299, 0, 256))]
+    for spec in (QuerySpec(k=5), QuerySpec(eps=6.0)):
+        server = UlisseServer(pag, spec, ServeConfig(window_ms=2.0,
+                                                     max_batch=8))
+        out = [None] * len(qs)
+
+        def client(c):
+            for i in range(c, len(qs), 4):
+                out[i] = server.search(qs[i], timeout=300)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        server.close()
+        for q, got in zip(qs, out):
+            want = res.search(q, spec)
+            np.testing.assert_array_equal(got.dists, want.dists)
+            np.testing.assert_array_equal(got.series, want.series)
+            np.testing.assert_array_equal(got.offsets, want.offsets)
+            assert got.stats == want.stats
+    assert not pag.index.collection.is_materialized
+    assert pag.page_cache_stats()["misses"] > 0
+
+
+def test_warmup_on_cuda_leaves_nothing_to_build_or_load(dev):
+    """After server.warmup() every kernel library is loaded, and the first
+    served request builds and loads none."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ServeConfig, UlisseServer
+    data, eng = _serve_engine(dev, seed=22)
+    server = UlisseServer(eng, QuerySpec(k=5),
+                          ServeConfig(window_ms=0.0, max_batch=8))
+    assert server.warmup([200]) == 4              # fills 1, 2, 4, 8
+    assert set(_build._LIBS) == set(_build.SIGNATURES)
+    before = dict(_build.COUNTS)
+    res = server.search(data[3, 10:210].copy(), timeout=300)
+    server.close()
+    assert _build.COUNTS == before
+    assert (res.series[0], res.offsets[0]) == (3, 10)

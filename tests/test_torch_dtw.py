@@ -21,13 +21,8 @@ on the same numpy inputs.
     atol 1e-5 — both engines report their float32 DP values unpolished,
     and the two DPs round differently; both agree with the reference's
     brute force within 1e-3;
-  * shapes past the card's warp entries (a band wider than 1024 slots):
-    `dtw_band` and its wide entry at qlen 600, r 600 against the Pallas
-    kernel and the reference's DP; the engine on an index of 560-point
-    series (lmin 520, lmax 544) answering qlen 520-540 queries at r 520
-    and 600: far queries as the reference does, near matches as a
-    float64 brute force does (the reference's float32 closed form
-    cancels there: see the test).
+  * shapes past the card's warp entries (a band wider than 1024 slots)
+    are in test_torch_dtw_long.py.
 
 The DP's plain version (`ref.wavefront_dtw`, what the wrappers run on the
 CPU) is the kernels' own float32 recurrence; the reference's DP is the
@@ -172,25 +167,6 @@ def test_dtw_band_matches_pallas_and_reference(l, r, n):
                                     squared=True))
     for want in (oracle, pallas, core):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_dtw_band_wide_band_matches_pallas_and_reference():
-    """qlen 600 with r 600: a band of 1199 slots, past the warp entries'
-    1024, through `dtw_band` and the wide entry's wrapper (both the plain
-    version here) against the Pallas kernel (interpret mode, ~16 s) and
-    the reference's DP, rtol / atol 1e-4 as above."""
-    rng = np.random.default_rng(600)
-    q = rng.normal(size=600).astype(np.float32)
-    c = rng.normal(size=(3, 600)).astype(np.float32)
-    pallas = np.asarray(dtw_band_pallas(jnp.asarray(q), jnp.asarray(c), 600,
-                                        interpret=True))
-    core = np.asarray(jdtw.dtw_band(jnp.asarray(q), jnp.asarray(c), 600,
-                                    squared=True))
-    for fn in (dtw_band, dtw_band_wide):
-        got = fn(_t(q), _t(c), 600).numpy()
-        assert got.shape == (3,) and got.dtype == np.float32
-        for want in (pallas, core):
-            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_dtw_band_single_point_and_bad_window():
@@ -479,89 +455,6 @@ def test_port_dtw_brute_force_matches_reference(engines):
         np.testing.assert_array_equal(got.offsets, want.offsets)
         np.testing.assert_allclose(got.dists, want.dists, rtol=0,
                                    atol=1e-3)
-
-
-LONG_PARAMS = dict(lmin=520, lmax=544, seg_len=16, card=64, gamma=8)
-
-
-def _brute64(data, q, k, r, znorm):
-    """The exact k-NN oracle of the long-query test: every window's DTW
-    in float64 (the closed form, whose cancellation is ~1e-16 of the band
-    sums there).  Returns (series, offsets, dists)."""
-    qlen = len(q)
-    n_off = data.shape[1] - qlen + 1
-    w = np.lib.stride_tricks.sliding_window_view(
-        data.astype(np.float64), qlen, axis=1).reshape(-1, qlen)
-    q = q.astype(np.float64)
-    if znorm:
-        w = (w - w.mean(1, keepdims=True)) / np.maximum(
-            w.std(1, keepdims=True), 1e-8)
-        q = (q - q.mean()) / max(q.std(), 1e-8)
-    d2 = dtw.dtw_band(torch.from_numpy(q), torch.from_numpy(w), r,
-                      squared=True).numpy()
-    top = np.argsort(d2, kind="stable")[:k]
-    return top // n_off, top % n_off, np.sqrt(d2[top])
-
-
-@pytest.fixture(scope="module", params=[True, False], ids=["znorm", "raw"])
-def long_engines(request):
-    """(znorm, data, reference engine, port engine) on three 560-point
-    series at lmin 520, lmax 544 (w = 34 segments)."""
-    znorm = request.param
-    data = np.cumsum(np.random.default_rng(7).normal(size=(3, 560)),
-                     -1).astype(np.float32)
-    ref = JEngine.from_collection(JCollection.from_array(data),
-                                  JParams(znorm=znorm, **LONG_PARAMS),
-                                  block_size=4, num_levels=1)
-    idx = index_from_arrays(_arrays(ref.index),
-                            EnvelopeParams(znorm=znorm, **LONG_PARAMS),
-                            device="cpu")
-    return znorm, data, ref, UlisseEngine.from_index(idx, device="cpu")
-
-
-def test_port_dtw_engine_long_queries_equal_reference(long_engines):
-    """DTW k-NN past the card's warp entries (qlen >= 513 with r >= 512;
-    before the wide entries the port raised mid-scan): queries of length
-    530 and 520 at r = 520, independent random walks.  `SearchStats`
-    equal the reference's and distances agree within rtol 1e-4 / atol
-    1e-5; the answers equal a float64 brute force, with distances within
-    rtol 1e-4 / atol 1e-5 of the float64 DP.  (The reference's answers
-    may differ at a near tie: its float32 closed form rounds by ~3e-5
-    relative over such a band, ROADMAP Queue 3 F4.)"""
-    znorm, data, ref, port = long_engines
-    rng = np.random.default_rng(8)
-    far = [np.cumsum(rng.normal(size=l)).astype(np.float32)
-           for l in (530, 520)]
-    spec_kw = dict(k=3, measure="dtw", r=520)
-    want = ref.search(far, JQuerySpec(**spec_kw))
-    got = port.search(far, QuerySpec(**spec_kw))
-    for q, a, b in zip(far, got, want):
-        assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats)
-        assert a.stats.dtw_full > 0
-        np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4, atol=1e-5)
-        series, offsets, dists = _brute64(data, q, 3, 520, znorm)
-        np.testing.assert_array_equal(a.series, series)
-        np.testing.assert_array_equal(a.offsets, offsets)
-        np.testing.assert_allclose(a.dists, dists, rtol=1e-4, atol=1e-5)
-
-
-def test_port_dtw_engine_long_near_matches_are_exact(long_engines):
-    """Near matches (data windows + noise) of length 530 and 540 at
-    r = 600 (a band as wide as the row): the port's answers equal a
-    float64 brute force and its distances the float64 DP within rtol
-    1e-4 / atol 1e-5.  The reference is not held here: its DP, the
-    float32 closed form, cancels over such a band on near matches
-    (ROADMAP Queue 3 F4: up to 10% off the float64 DP, and its answers
-    and counters follow its rounding)."""
-    znorm, data, _, port = long_engines
-    near = _queries(data, [(0, 10, 530), (2, 3, 540)], seed=9)
-    got = port.search(near, QuerySpec(k=3, measure="dtw", r=600))
-    for q, a in zip(near, got):
-        series, offsets, dists = _brute64(data, q, 3, 600, znorm)
-        np.testing.assert_array_equal(a.series, series)
-        np.testing.assert_array_equal(a.offsets, offsets)
-        np.testing.assert_allclose(a.dists, dists, rtol=1e-4, atol=1e-5)
-        assert a.stats.dtw_lb_keogh >= a.stats.dtw_full > 0
 
 
 def test_dtw_range_and_approx_still_raise(engines):
