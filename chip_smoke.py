@@ -134,6 +134,28 @@ Phases (any failed check raises, and the script exits non-zero):
      after version 1); one query traced with torch annotations (the
      admission -> queue wait -> dispatch -> engine spans) and one scrape
      holding serving latency and the engine's pruning counters.
+ 19. the sharded search (run before [18], whose writer lane grows the
+     engine [19] is held to): the four k-NN chunk entries with the sharded
+     scan's mesh-wide k-th (`gkth`, half the batch's final k-th) against
+     their plain versions on [3]'s index (ED staged and long-row: pools
+     and counters bit for bit; LB_Keogh staged and long-row: lb2 rtol
+     2e-4, mu, sd, ids and counters bit for bit, survivors at the min
+     cut), the staged ones timed with and without gkth; then [3]'s
+     collection written once to a temporary .npy and served by
+     `UlisseEngine.distributed` in spawned worlds, each rank mmapping it:
+     a world of 1 over NCCL on cuda:0 and a world of 4 over gloo (every
+     rank on cuda:0, 250,000 series a shard; it checks correctness and
+     the loop's overhead, not a four-card speed; --series must divide by
+     4); [4]'s ED and [8]'s DTW batches as exact k-NN (the local
+     engine's (sid, off) in the same order, ED within 1e-9, DTW rtol
+     1e-4), and in the world of 4 [16]'s range batches at capacity 2,048
+     and 16 (the local engine's hit sets but for windows within 5e-3 of
+     eps), [4]'s second batch at max_leaves 1 and 64 (an answer that
+     claims exactness is the exact one) and at sync_every 1 and 64 (the
+     exact answer; 1 visits no more chunks); every rank's answers and
+     counters equal rank 0's; queries/s per path and world, rounds a
+     batch, the collectives' share of wall time (host clock), chunk
+     steps a rank and shard_chunks.
 
 Phase 2 also holds the scan's ED chunk entry and the partials merge
 against the plain step (the contract entry's distances masked, the
@@ -240,6 +262,24 @@ SERVE_LATE = 4
 SERVE_SPANS = ("serve.admission", "serve.queue_wait", "serve.dispatch",
                "query.exact_device", "prepare", "approx_pass", "pack",
                "device_scan", "merge")
+# [19], the sharded search: the worlds (ranks, torch.distributed backend;
+# every rank on cuda:0, so world 4 splits [3]'s collection four ways on
+# the one card and checks correctness and the loop's overhead, not a
+# four-card speed), the seconds a world may take, the chunk rows and the
+# plan chunks of the gkth entries' checks
+SHARDED_WORLDS = ((1, "nccl"), (4, "gloo"))
+SHARDED_TIMEOUT_S = 600
+GKTH_ROWS, GKTH_CHUNKS = 512, 8
+# kernel wrappers a [19] rank counts (module, name)
+SHARDED_WRAPPERS = (
+    ("fused_verify", "fused_gather_ed_chunk"),
+    ("fused_verify", "fused_gather_lb_keogh_chunk"),
+    ("fused_verify", "fused_gather_ed_range"),
+    ("fused_verify", "fused_gather_lb_keogh_range"),
+    ("fused_verify", "fused_gather_ed"), ("pool_merge", "pool_merge"),
+    ("pool_merge", "pool_merge_partials"), ("dtw_band", "dtw_survivors"),
+    ("range_append", "range_append"), ("mindist", "mindist_sym"),
+    ("envelope", "envelope_znorm"))
 # H100 SXM, NVIDIA data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -571,7 +611,7 @@ def gather_bytes(torch, coll, sids, anchors, qlen: int, g: int) -> int:
 
 
 def chunk_args(torch, a0, qn, dlo, dhi, plan, i: int, rows: int, cut, g: int,
-               ovf=None, znorm=True):
+               ovf=None, znorm=True, gkth=None, entry=None):
     """Chunk i of a (B, n_pad) plan through the LB_Keogh chunk entry (its
     k-NN mode under the pool's d2 `cut` (B, k), or its range mode under
     eps2 `cut` (B,) and `ovf`), as the executor's steps run it: returns
@@ -579,15 +619,18 @@ def chunk_args(torch, a0, qn, dlo, dhi, plan, i: int, rows: int, cut, g: int,
     last, so the plain version gets a copy), its outputs, the counters it
     added, and the `dtw_survivors` arguments it leaves (its survivors'
     list and count, the candidates, mu, sd, and the DP output, +inf at
-    every non-survivor)."""
+    every non-survivor).  `gkth` (k-NN): the sharded scan's mesh-wide
+    k-th, in `kw`; `entry` another k-NN entry (the long-row variant)."""
     from repro_torch.kernels.fused_verify import (fused_gather_lb_keogh_chunk,
                                                   fused_gather_lb_keogh_range)
     b = dlo.shape[0]
     lb_in = (*a0, *plan, dlo, dhi, cut) + (() if ovf is None else (ovf,))
     kw = dict(i=i, chunk=rows, g=g, znorm=znorm)
+    if gkth is not None:
+        kw["gkth"] = gkth
     stats = torch.zeros((b, 6), dtype=torch.int32, device=dlo.device)
-    entry = (fused_gather_lb_keogh_chunk if ovf is None
-             else fused_gather_lb_keogh_range)
+    entry = entry or (fused_gather_lb_keogh_chunk if ovf is None
+                      else fused_gather_lb_keogh_range)
     out = entry(*lb_in, stats, **kw)
     _, mu, sd, slist, nsurv, d2, cand_sid, cand_off = out
     return lb_in, kw, out, stats, (a0[0], qn, slist, nsurv, cand_sid,
@@ -622,6 +665,8 @@ def check_chunk_entry(torch, lb_in, kw, got, stats, range_mode=False):
         check_equal(torch, f"fused_gather_lb_keogh_chunk.{name}", x, y)
     b = stats.shape[0]
     cut = lb_in[-2] if range_mode else lb_in[-1][:, -1]
+    if "gkth" in kw:
+        cut = torch.minimum(cut, kw["gkth"])
     rtol, atol = TOL["fused_gather_lb_keogh"]
     ok = torch.isfinite(want[0].reshape(b, -1))
 
@@ -651,12 +696,13 @@ def check_chunk_entry(torch, lb_in, kw, got, stats, range_mode=False):
 
 
 def ed_step_pair(torch, a0, plan, qs, pool, plain, stats, stats_plain, i,
-                 rows, g, znorm):
+                 rows, g, znorm, gkth=None, entry=None):
     """Chunk i of an ED plan through the chunk entry and the partials
     merge (pool, stats) and through the plain step fed the contract
     entry's distances (plain, stats_plain), all in place; raise unless
     the pools and counters are equal bit for bit.  Returns the chunk
-    entry's partials."""
+    entry's partials.  `gkth`: both steps take the sharded scan's
+    mesh-wide k-th; `entry` another chunk entry (the long-row one)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_verify import (fused_gather_ed,
                                                   fused_gather_ed_chunk)
@@ -667,11 +713,12 @@ def ed_step_pair(torch, a0, plan, qs, pool, plain, stats, stats_plain, i,
                            g=g, rows=rows, znorm=znorm)
     part = ref.fused_gather_ed_chunk_ref(*a0, *plan, qs, plain[0],
                                          stats_plain, i=i, chunk=rows, g=g,
-                                         znorm=znorm, dist=dist)
+                                         znorm=znorm, dist=dist, gkth=gkth)
     for t, v in zip(plain, ref.pool_merge_partials_ref(plain, part)):
         t.copy_(v)
-    part = fused_gather_ed_chunk(*a0, *plan, qs, pool[0], stats, i=i,
-                                 chunk=rows, g=g, znorm=znorm)
+    part = (entry or fused_gather_ed_chunk)(
+        *a0, *plan, qs, pool[0], stats, i=i, chunk=rows, g=g, znorm=znorm,
+        **({} if gkth is None else {"gkth": gkth}))
     pool_merge_partials(pool, part)
     for name, x, y in zip(("d2", "sid", "off"), pool, plain):
         check_equal(torch, f"ED chunk step pool {name}", x, y)
@@ -810,19 +857,21 @@ def ok_reads(torch, coll, plan, active_of, cut, inclusive: bool, qlen: int,
 
 
 def ed_chunk_work(torch, coll, plan, pool_d2, qlen: int, rows: int, g: int,
-                  n_chunks: int):
+                  n_chunks: int, gkth=None):
     """(bytes, flops, ok candidates) one call of the ED chunk entry needs,
     averaged over the plan's first n_chunks chunks under pool_d2: the
     chunk's plan entries, the pool, the counters read and written, the
     queries, the ok candidates' reads (`ok_reads`), the partials written;
-    2 qlen flops an ok candidate."""
+    2 qlen flops an ok candidate (`gkth`: the sharded scan's cut, the
+    min of the pool's k-th and it)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_verify import ed_chunk_tile
     lbs2 = plan[3]
     b, k = pool_d2.shape
     read, n_ok = ok_reads(
-        torch, coll, plan, lambda i: ref.scan_active(lbs2, pool_d2, i, rows),
-        pool_d2[:, -1], False, qlen, rows, g, n_chunks)
+        torch, coll, plan,
+        lambda i: ref.scan_active(lbs2, pool_d2, i, rows, gkth),
+        ref.knn_cut(pool_d2, gkth), False, qlen, rows, g, n_chunks)
     tile = ed_chunk_tile(qlen, g)
     parts = 4 * b * -(-rows // tile) * min(k, tile * g) * 4
     nbytes = (read + b * rows * 16 + b * k * 4 + 2 * b * 6 * 4
@@ -852,7 +901,7 @@ def range_chunk_work(torch, coll, plan, eps2, qlen: int, rows: int, g: int,
 
 
 def lb_chunk_work(torch, coll, plan, cut, qlen: int, rows: int, g: int,
-                  n_chunks: int, surv: float, ovf=None):
+                  n_chunks: int, surv: float, ovf=None, gkth=None):
     """(bytes, flops, ok candidates) one call of the LB_Keogh chunk entry
     needs, averaged over the plan's first n_chunks chunks: k-NN under the
     pool's d2 `cut` (B, k), or range under eps2 `cut` (B,) and `ovf`.
@@ -867,10 +916,11 @@ def lb_chunk_work(torch, coll, plan, cut, qlen: int, rows: int, g: int,
     lbs2 = plan[3]
     b = lbs2.shape[0]
     if ovf is None:
-        kth = cut[:, -1]
         read, n_ok = ok_reads(
-            torch, coll, plan, lambda i: ref.scan_active(lbs2, cut, i, rows),
-            kth, False, qlen, rows, g, n_chunks, every_sum=True)
+            torch, coll, plan,
+            lambda i: ref.scan_active(lbs2, cut, i, rows, gkth),
+            ref.knn_cut(cut, gkth), False, qlen, rows, g, n_chunks,
+            every_sum=True)
     else:
         read, n_ok = ok_reads(
             torch, coll, plan,
@@ -1618,7 +1668,8 @@ def range_phase(torch, engine, p, range_cases, dtw_oracle, timings,
     versions on the batch's pack and timed into `timings`, and the range
     scan alone traced per measure at the last length.  Returns (the
     cases' records, each range kernel's launches over the large
-    capacity's runs, the traces)."""
+    capacity's runs, the traces, and the answers: (measure, qlen) ->
+    capacity -> {query: SearchResult})."""
     from repro_torch.core import QuerySpec, executor, planner
     from repro_torch.kernels import ref
     from repro_torch.kernels.dtw_band import dtw_survivors
@@ -1637,7 +1688,7 @@ def range_phase(torch, engine, p, range_cases, dtw_oracle, timings,
     knn_kernels = ("fused_gather_ed_chunk", "fused_gather_lb_keogh_chunk",
                    "pool_merge", "pool_merge_partials", "mindist_paa")
     big_cap = max(RANGE_CAPS)
-    range_launches = {}
+    range_launches, range_answers = {}, {}
     cases = []
     a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
           coll.center)
@@ -1664,7 +1715,7 @@ def range_phase(torch, engine, p, range_cases, dtw_oracle, timings,
         case = {"measure": measure, "qlen": qlen, "r": r, "eps": eps,
                 "knn_s": knn_s, "brute_s": brute_s, "runs": {}}
         cases.append(case)
-        answers_r = {}
+        answers_r = range_answers[(measure, qlen)] = {}
         for cap in RANGE_CAPS:
             small = cap < big_cap
             sub = (checked_q if small and measure == "dtw"
@@ -1909,7 +1960,7 @@ def range_phase(torch, engine, p, range_cases, dtw_oracle, timings,
                 f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {t['timer']}/"
                 f"{t['plain_timer']}; events {t['event_ms']:.4f} / "
                 f"{t['plain_event_ms']:.4f} ms)")
-    return cases, range_launches, traced
+    return cases, range_launches, traced, range_answers
 
 
 
@@ -2541,6 +2592,416 @@ def serve_phase(torch, engine, data, p, zero_counts, read_counts, seed):
         f"lines) holds ulisse_serve_latency_seconds_bucket and "
         f"ulisse_engine_true_dist_computations{{backend=\"device\"}}")
     return out
+
+
+def check_gkth_entries(torch, engine, p, batches, answers, dtw_batches,
+                       dtw_specs, dtw_answers, timings):
+    """[19]'s kernel checks: the four k-NN chunk entries with the sharded
+    scan's gkth, at the main path's shapes (B = 8, GKTH_ROWS rows, qlen
+    256: [4]'s second ED batch and [8]'s second DTW batch on [3]'s index,
+    the LB-sorted plan's first GKTH_CHUNKS chunks, under the batch's final
+    pool and a gkth of half its k-th or the plan's bound 2.5 chunks in,
+    the lesser, +inf for query 0).  ED (staged and
+    long-row entries): the chunk entry + partials merge against the plain
+    step, pools and counters bit for bit; LB (staged and long-row): the
+    chunk entry's checks (lb2 at rtol 2e-4, mu, sd, ids and counters bit
+    for bit, the survivor set at the min cut).  The staged entries are
+    timed with and without gkth on the same chunks into `timings`.
+    Returns the checks' record."""
+    from repro_torch.core import executor, planner
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_verify import (
+        fused_gather_ed_chunk, fused_gather_ed_chunk_long,
+        fused_gather_lb_keogh_chunk, fused_gather_lb_keogh_chunk_long)
+    index = engine.index
+    coll, env = index.collection, index.envelopes
+    dev = coll.data.device
+    g, rows = p.gamma + 1, GKTH_ROWS
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    none = torch.full((BATCH, 1), env.size, dtype=torch.int32, device=dev)
+    zero = torch.zeros(BATCH, dtype=torch.int32, device=dev)
+    rec = {}
+    for measure, qs, ans, r in (("ed", batches[1], answers[1], 0),
+                                ("dtw", dtw_batches[1], dtw_answers[1],
+                                 dtw_specs[1].r)):
+        q = torch.from_numpy(np.stack(qs)).to(dev)
+        qlen = q.shape[1]
+        qn, dlo, dhi, qb, qh = planner.prepare_query_batch(
+            q, p.seg_len, p.znorm, measure, r)
+        lbs = planner.env_lower_bounds_batch(
+            qb, qh, env, index.breakpoints, p.seg_len,
+            p.query_segments(qlen), False)
+        plan = planner.device_scan_pack(
+            env.series_id, env.anchor, env.n_master, lbs, none, zero,
+            chunk=1, n_pad=executor.pow2ceil(env.size))[:4]
+        pool0 = [torch.from_numpy(np.stack([a.dists ** 2 for a in ans])
+                                  .astype(np.float32)).to(dev),
+                 *(torch.from_numpy(np.stack([getattr(a, f) for a in ans])
+                                    .astype(np.int32)).to(dev)
+                   for f in ("series", "offsets"))]
+        # gkth: half the final k-th, or the bound 2.5 chunks into the plan
+        # where that is less (so the cut prunes rows of the checked
+        # chunks); +inf for query 0
+        gk = torch.minimum(0.5 * pool0[0][:, -1],
+                           plan[3][:, rows * GKTH_CHUNKS * 5 // 16]
+                           ).contiguous()
+        gk[0] = float("inf")
+        if measure == "ed":
+            pruned = {}
+            for entry in (fused_gather_ed_chunk, fused_gather_ed_chunk_long):
+                pool = [t.clone() for t in pool0]
+                plain = [t.clone() for t in pool0]
+                st = torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+                st_p = torch.zeros_like(st)
+                for i in range(GKTH_CHUNKS):
+                    ed_step_pair(torch, a0, plan, qn, pool, plain, st, st_p,
+                                 i, rows, g, p.znorm, gkth=gk, entry=entry)
+                pruned[entry.__name__] = int(st[:, 5].sum())
+            rec["ed"] = {"pruned_rows": pruned, "bit_equal": True}
+            name = "fused_gather_ed_chunk"
+        else:
+            surv = {}
+            for entry in (fused_gather_lb_keogh_chunk,
+                          fused_gather_lb_keogh_chunk_long):
+                worst, n_s = 0.0, 0
+                for i in range(GKTH_CHUNKS):
+                    lb_in, kw, got, st, _ = chunk_args(
+                        torch, a0, qn, dlo, dhi, plan, i, rows, pool0[0], g,
+                        znorm=p.znorm, gkth=gk, entry=entry)
+                    err, n = check_chunk_entry(torch, lb_in, kw, got, st)
+                    worst, n_s = max(worst, err), n_s + n
+                surv[entry.__name__] = {"survivors": n_s,
+                                        "lb2_max_abs_err": worst}
+            rec["dtw"] = surv
+            name = "fused_gather_lb_keogh_chunk"
+        for mode, gkk in (("pool", None), ("gkth", gk)):
+            st = torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+            extra = {} if gkk is None else {"gkth": gkk}
+            if measure == "ed":
+                call = [lambda i=i: fused_gather_ed_chunk(
+                    *a0, *plan, qn, pool0[0], st, i=i, chunk=rows, g=g,
+                    znorm=p.znorm, **extra) for i in range(GKTH_CHUNKS)]
+                plain = [lambda i=i: ref.fused_gather_ed_chunk_ref(
+                    *a0, *plan, qn, pool0[0], st.clone(), i=i, chunk=rows,
+                    g=g, znorm=p.znorm, gkth=gkk)
+                    for i in range(GKTH_CHUNKS)]
+                nbytes, ops, n_ok = ed_chunk_work(
+                    torch, coll, plan, pool0[0], qlen, rows, g, GKTH_CHUNKS,
+                    gkth=gkk)
+                shape = f"B={BATCH} rows={rows} qlen={qlen} ok/call={n_ok:.0f}"
+                events = 1
+            else:
+                steps = [chunk_args(torch, a0, qn, dlo, dhi, plan, i, rows,
+                                    pool0[0], g, znorm=p.znorm, gkth=gkk)
+                         for i in range(GKTH_CHUNKS)]
+                call = [lambda c=c: fused_gather_lb_keogh_chunk(
+                    *c[0], c[3], **c[1]) for c in steps]
+                plain = [lambda c=c: ref.fused_gather_lb_keogh_chunk_ref(
+                    *c[0], c[3].clone(), **c[1]) for c in steps]
+                per_call = sum(int(c[2][4].sum()) for c in steps) / len(steps)
+                nbytes, ops, n_ok = lb_chunk_work(
+                    torch, coll, plan, pool0[0], qlen, rows, g, len(steps),
+                    per_call, gkth=gkk)
+                shape = (f"B={BATCH} rows={rows} qlen={qlen} ok/call="
+                         f"{n_ok:.0f} surv/call={per_call:.0f}")
+                events = 2
+            timings[(name, qlen, rows, mode)] = timing(
+                torch, call, plain, nbytes, ops, 0.0, shape, events=events)
+    return rec
+
+
+def sharded_rank(rank, world, backend, tmp, npy, params, jobs):
+    """One rank of a [19] world: join it (a file:// rendezvous in `tmp`),
+    build this rank's shard of the collection at `npy` (mmap'd) through
+    `UlisseEngine.distributed` on its default device (cuda:0), run every
+    job — (name, [(queries, QuerySpec keywords)]) — with the kernel
+    counters, the collectives' counters and the sharded scan's rounds and
+    steps set to 0 just before it (after a barrier) and read just after,
+    and pickle its records to `tmp`."""
+    import importlib
+    import pickle
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(max(1, 8 // (world + 1)))
+    torch.cuda.set_device(0)
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import EnvelopeParams, QuerySpec, UlisseEngine
+    from repro_torch.distributed import collectives, ulisse
+    wrappers = {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{mod}"), name) for mod, name in SHARDED_WRAPPERS}
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                            world_size=world, rank=rank)
+    try:
+        data = np.load(npy, mmap_mode="r")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        eng = UlisseEngine.distributed(None, EnvelopeParams(**params), data)
+        torch.cuda.synchronize()
+        out = {"build_s": time.perf_counter() - t0, "device": str(eng.device),
+               "backend": str(dist.get_backend()),
+               "build_launches": {n: w.launches for n, w in wrappers.items()
+                                  if w.launches}}
+        for name, runs in jobs:
+            for w in wrappers.values():
+                w.launches = 0
+            collectives.STATS.update(calls=0, seconds=0.0)
+            ulisse.sharded_knn.rounds = ulisse.sharded_knn.steps = 0
+            dist.barrier()
+            t = time.perf_counter()
+            res = []
+            for qs, kw in runs:
+                res += eng.search(qs, QuerySpec(**kw))
+            torch.cuda.synchronize()
+            out[name] = {
+                "wall_s": time.perf_counter() - t, "queries": len(res),
+                "batches": len(runs), "rounds": ulisse.sharded_knn.rounds,
+                "steps": ulisse.sharded_knn.steps,
+                "collective_s": collectives.STATS["seconds"],
+                "collective_calls": collectives.STATS["calls"],
+                "launches": {n: w.launches for n, w in wrappers.items()},
+                "answers": [(a.dists, a.series, a.offsets, a.stats.as_dict())
+                            for a in res]}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_sharded_world(world: int, backend: str, npy: str, jobs) -> list:
+    """Start `world` ranks of `sharded_rank` (spawn: CUDA cannot fork),
+    wait for them (SHARDED_TIMEOUT_S, then kill them and fail), and return
+    their records in rank order.  A rank's exception fails the phase."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            sharded_rank, args=(world, backend, tmp, npy, BENCH, jobs),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(),
+                                           0.01)):
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"[19] the world of {world} ({backend}) did not end "
+                        f"in {SHARDED_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        out = []
+        for rank in range(world):
+            with open(f"{tmp}/rank{rank}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _same_knn(got, want, measure: str, what: str) -> float:
+    """A rank's (dists, series, offsets, stats) against a local
+    SearchResult: the same (sid, off) in the same order, ED distances
+    within 1e-9 (both float64 rescores), DTW rtol 1e-4.  Returns the
+    largest distance difference."""
+    d, s, o, _ = got
+    if not (np.array_equal(s, want.series)
+            and np.array_equal(o, want.offsets)):
+        raise AssertionError(f"[19] {what}: answers {list(zip(s, o))} != "
+                             f"local {list(zip(want.series, want.offsets))}")
+    diff = float(np.abs(d - want.dists).max()) if len(d) else 0.0
+    tol = (1e-9 if measure == "ed"
+           else 1e-4 * float(np.abs(want.dists).max()) + 1e-12)
+    if diff > tol:
+        raise AssertionError(f"[19] {what}: distances differ by {diff}")
+    return diff
+
+
+def _same_hits(got, want, eps: float, what: str) -> int:
+    """A rank's range answer against the local one: the same (sid, off)
+    set but for windows whose distance lies within RANGE_BAND of eps (the
+    host continuation rounds otherwise).  Returns the windows in either
+    set alone."""
+    d, s, o, _ = got
+    mine = dict(zip(zip(s.tolist(), o.tolist()), d.tolist()))
+    theirs = dict(zip(zip(want.series.tolist(), want.offsets.tolist()),
+                      want.dists.tolist()))
+    edge = 0
+    for key in set(mine) ^ set(theirs):
+        dist_ = mine.get(key, theirs.get(key))
+        if abs(dist_ - eps) > RANGE_BAND:
+            raise AssertionError(f"[19] {what}: window {key} at {dist_} "
+                                 f"(eps {eps}) in one answer only")
+        edge += 1
+    return edge
+
+
+def sharded_phase(torch, engine, data, p, batches, answers, dtw_batches,
+                  dtw_specs, dtw_answers, range_cases, range_records,
+                  range_answers, timings):
+    """[19], the sharded search on the card.  The gkth entries against
+    their plain versions (`check_gkth_entries`), then [3]'s collection
+    written once to a temporary .npy and served by
+    `UlisseEngine.distributed` in a world of 1 over NCCL and of 4 over
+    gloo (every rank on cuda:0, 250,000 series a shard at full size),
+    each rank mmapping it: [4]'s ED and [8]'s DTW batches as exact k-NN
+    (the same (sid, off) in the same order as the local engine, ED within
+    1e-9, DTW rtol 1e-4), and in the world of 4 also [16]'s range batches
+    at capacity 2,048 and 16 (the local engine's hit sets), an
+    approximate batch at max_leaves 1 and 64 and the ED batch at
+    sync_every 1 and 64; every rank's answers and counters equal rank
+    0's.  Returns the phase's record."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.kernels import _build
+    _build.load_all()           # the ranks load the libraries, not build
+    rec = {"gkth": check_gkth_entries(torch, engine, p, batches, answers,
+                                      dtw_batches, dtw_specs, dtw_answers,
+                                      timings)}
+    for key, t in timings.items():
+        if len(key) == 4 and key[3] in ("pool", "gkth"):
+            log(f"[19] {key[0]:27s} cut {key[3]:4s} {t['shape']:44s} kernel "
+                f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {t['timer']})")
+    log(f"[19] the gkth chunk entries equal their plain versions: "
+        f"{rec['gkth']}")
+    big = max(RANGE_CAPS)
+    knn_jobs = [("ed", [(b, dict(k=K)) for b in batches]),
+                ("dtw", [(b, dict(k=K, measure="dtw", r=s.r))
+                         for b, s in zip(dtw_batches, dtw_specs)])]
+    range_jobs = []
+    for case, (measure, qlen, r, qs) in zip(range_records, range_cases):
+        for cap in RANGE_CAPS:
+            sub = (range(DTW_BRUTE[qlen]) if cap < big and measure == "dtw"
+                   else range(len(qs)))
+            range_jobs.append((f"range-{measure}-{qlen}-{cap}", [(
+                [qs[j] for j in sub], dict(
+                    eps=case["eps"], measure=measure, r=r,
+                    range_capacity=cap,
+                    chunk_size=512 if cap == big else RANGE_SMALL_CHUNK))]))
+    more = [(f"approx-{n}", [(batches[1], dict(k=K, mode="approx",
+                                               max_leaves=n))])
+            for n in (1, 64)]
+    more += [(f"sync-{n}", [(batches[1], dict(k=K, sync_every=n))])
+             for n in (1, 64)]
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    worlds = {}
+    try:
+        npy = os.path.join(tmpdir, "data.npy")
+        np.save(npy, np.ascontiguousarray(data, np.float32))
+        for world, backend in SHARDED_WORLDS:
+            t0 = time.perf_counter()
+            worlds[world] = run_sharded_world(
+                world, backend, npy,
+                knn_jobs + (range_jobs + more if world > 1 else []))
+            rec[f"world_{world}_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    local = {"ed": [a for ans in answers for a in ans],
+             "dtw": [a for ans in dtw_answers for a in ans]}
+    paths = {"ed": ("fused_gather_ed_chunk", "pool_merge_partials",
+                    "mindist_sym"),
+             "dtw": ("fused_gather_lb_keogh_chunk", "dtw_survivors",
+                     "pool_merge", "mindist_sym"),
+             "range-ed": ("fused_gather_ed_range", "range_append"),
+             "range-dtw": ("fused_gather_lb_keogh_range", "dtw_survivors",
+                           "range_append")}
+    for world, backend in SHARDED_WORLDS:
+        ranks = worlds[world]
+        r0 = ranks[0]
+        for other in ranks[1:]:
+            for name, run in r0.items():
+                if not isinstance(run, dict) or "answers" not in run:
+                    continue
+                for a, b in zip(other[name]["answers"], run["answers"]):
+                    if not (all(np.array_equal(x, y)
+                                for x, y in zip(a[:3], b[:3]))
+                            and a[3] == b[3]):
+                        raise AssertionError(f"[19] world {world}: {name}'s "
+                                             f"answers differ across ranks")
+        wrec = {"backend": backend, "build_s": [r["build_s"] for r in ranks],
+                "build_launches": r0["build_launches"], "runs": {}}
+        worst = 0.0
+        for name, run in r0.items():
+            if not isinstance(run, dict) or "answers" not in run:
+                continue
+            walls = [r[name]["wall_s"] for r in ranks]
+            launches = {n: sum(r[name]["launches"][n] for r in ranks)
+                        for n in run["launches"]}
+            kind = name.split("-")[0]
+            measure = (name.split("-")[1] if kind == "range" else
+                       "dtw" if name == "dtw" else "ed")
+            for n in paths.get(name if kind != "range"
+                               else f"range-{measure}", ()):
+                if launches[n] <= 0:
+                    raise AssertionError(f"[19] world {world}: {n} was not "
+                                         f"launched on {name}")
+            got = run["answers"]
+            if name in ("ed", "dtw"):
+                for j, (a, b) in enumerate(zip(got, local[name])):
+                    worst = max(worst, _same_knn(a, b, name,
+                                                 f"world {world} {name} {j}"))
+            elif kind in ("sync", "approx"):
+                for j, (a, b) in enumerate(zip(got, answers[1])):
+                    if kind == "sync" or a[3]["exact_from_approx"]:
+                        _same_knn(a, b, "ed", f"world {world} {name} {j}")
+                    elif a[0][-1] < b.dists[-1] - 1e-9:
+                        raise AssertionError(f"[19] {name}: k-th below the "
+                                             f"exact one")
+            else:
+                _, qlen, cap = name.split("-")[1:]
+                want = range_answers[(measure, int(qlen))][big]
+                eps = next(c["eps"] for c in range_records
+                           if c["measure"] == measure
+                           and c["qlen"] == int(qlen))
+                edge = sum(_same_hits(a, want[j], eps,
+                                      f"world {world} {name} {j}")
+                           for j, a in enumerate(got))
+            stats = [a[3] for a in got]
+            wrec["runs"][name] = {
+                "queries": run["queries"], "batches": run["batches"],
+                "wall_s": walls, "queries_per_s": run["queries"] / max(walls),
+                "rounds_per_batch": run["rounds"] / run["batches"],
+                "collective_share": [r[name]["collective_s"]
+                                     / r[name]["wall_s"] for r in ranks],
+                "collective_calls": run["collective_calls"],
+                "steps_per_rank": [r[name]["steps"] for r in ranks],
+                "mean_shard_chunks": np.mean(
+                    [s["shard_chunks"] for s in stats], axis=0).tolist(),
+                "mean_chunks_visited": float(np.mean(
+                    [s["chunks_visited"] for s in stats])),
+                "overflows": sum(s["range_overflows"] for s in stats),
+                "exact_from_approx": float(np.mean(
+                    [s["exact_from_approx"] for s in stats])),
+                "launches": launches}
+            if kind == "range":
+                wrec["runs"][name]["edge_windows"] = edge
+            x = wrec["runs"][name]
+            log(f"[19] world {world} ({backend}) {name:18s} "
+                f"{x['queries_per_s']:.2f} queries/s, "
+                f"{x['rounds_per_batch']:.1f} rounds a batch, collectives "
+                f"{100 * max(x['collective_share']):.1f}% of wall (host "
+                f"clock, most of a rank), chunk steps a rank "
+                f"{x['steps_per_rank']}, mean shard_chunks "
+                f"{[round(c, 1) for c in x['mean_shard_chunks']]}, "
+                f"overflows {x['overflows']}")
+        if world > 1:
+            on = sum(a[3]["chunks_visited"] for a in r0["sync-1"]["answers"])
+            off = sum(a[3]["chunks_visited"]
+                      for a in r0["sync-64"]["answers"])
+            if on > off:
+                raise AssertionError(f"[19] sync_every 1 visited {on} "
+                                     f"chunks, more than 64's {off}")
+        wrec["max_distance_diff"] = worst
+        rec[f"world_{world}"] = wrec
+        log(f"[19] world {world} ({backend}, every rank on cuda:0): build "
+            f"{max(wrec['build_s']):.1f} s a rank, answers equal the local "
+            f"engine's (max |d - d_local| {worst:.2e}) and across ranks; "
+            f"{rec[f'world_{world}_s']:.1f} s in all")
+    return rec
 
 
 def main() -> int:
@@ -3914,8 +4375,8 @@ def main() -> int:
                     enumerate(QLENS)]
                    + [("dtw", qlen, r, qs) for (qlen, r), qs in
                       zip(DTW_CASES, dtw_batches)])
-    (results["range_path"], range_launches,
-     results["traced_range_scan"]) = range_phase(
+    (results["range_path"], range_launches, results["traced_range_scan"],
+     range_answers) = range_phase(
         torch, engine, p, range_cases, dtw_oracle, timings, zero_counts,
         read_counts)
     results["range_launches"] = range_launches
@@ -3932,6 +4393,18 @@ def main() -> int:
     results["storage"]["phase_s"] = time.perf_counter() - t0
     log(f"[17] storage and ingestion phase: "
         f"{results['storage']['phase_s']:.1f} s")
+
+    # -- 19. the sharded search (before [18]: its writer lane grows the
+    # engine whose answers [19] is held to) ---------------------------------
+    t0 = time.perf_counter()
+    results["sharded"] = sharded_phase(
+        torch, engine, data, p, batches, answers, dtw_batches, dtw_specs,
+        dtw_answers, range_cases, results["range_path"], range_answers,
+        timings)
+    results["sharded"]["phase_s"] = time.perf_counter() - t0
+    results["timings"] = {" ".join(map(str, k)): v
+                          for k, v in timings.items()}
+    log(f"[19] sharded search phase: {results['sharded']['phase_s']:.1f} s")
 
     # -- 18. serving on the card (last: its writer lane grows the engine) --
     t0 = time.perf_counter()

@@ -1,6 +1,7 @@
 """`UlisseEngine`: the query facade of the PyTorch port.
 
     engine = UlisseEngine.from_collection(coll, params)      # on CUDA
+    engine = UlisseEngine.distributed(group, params, data)   # every rank
     res = engine.search(q, QuerySpec(k=5))                   # one query
     ress = engine.search(q_batch, QuerySpec(k=5))            # many queries
 
@@ -47,8 +48,21 @@ whose lazily opened payload is larger than `memory_budget_bytes` (or the
 backend's scans out of core (`executor.paged_exact_scan`,
 `paged_range_scan`): the plan is read back once as the page schedule and
 each chunk's rows are gathered from the store's page cache into a slab
-on the device, bit-equal to the resident scan.  The distributed backend
-raises NotImplementedError naming the ROADMAP item that ports it.
+on the device, bit-equal to the resident scan.
+
+The distributed backend (`distributed`, `repro_torch.distributed`) runs
+over a `torch.distributed` process group, one shard a rank: every rank
+builds the engine from the same data and calls `search` with the same
+queries, and every rank returns the same answers.  The device backend
+runs the sharded k-NN scan (exact, or mode="approx" at max_leaves chunks
+a shard; no approximate pass), pruning every chunk with min(pool k-th,
+the mesh-wide k-th of the last round) through the chunk entries' `gkth`
+input, and the sharded eps-range scan (an overflowed shard finishes on
+its owner's host); `scan_backend="host"` runs the reference's unpruned
+per-shard verify with its exactness escalation (exact ED k-NN only).
+Still to port (ROADMAP Queue 1 item 4b), and raising
+NotImplementedError on a distributed engine: `save`, `append`,
+`compact` (so `delta_size` stays 0) and `open(path, mesh=...)`.
 Engines run on CUDA unless built with device="cpu".
 
 The engine's spans (`query.*`, `prepare`, `approx_pass`, `pack`,
@@ -88,7 +102,8 @@ def _not_ported(what: str, item: str):
 class QuerySpec:
     """Everything about a query except its values (the JAX package's
     fields; see `repro.core.engine.QuerySpec` for each one's meaning).
-    The port serves every spec on a local index."""
+    The port serves every spec on a local index and on a distributed
+    one (`UlisseEngine.distributed`)."""
 
     measure: str = "ed"
     r: int = 0
@@ -133,12 +148,15 @@ class QuerySpec:
 
 
 class UlisseEngine:
-    """Query facade over one local ULISSE index on one device."""
+    """Query facade over one ULISSE index: a local one on one device, or
+    (`distributed`) this rank's shard of one over a process group."""
 
-    def __init__(self, index: UlisseIndex, max_batch: int = 8,
-                 memory_budget_bytes: Optional[int] = None):
+    def __init__(self, index: Optional[UlisseIndex] = None,
+                 max_batch: int = 8,
+                 memory_budget_bytes: Optional[int] = None, shard=None):
         self._index = index
-        self.params = index.params
+        self._shard = shard       # a `distributed.ulisse.Shard`, or None
+        self.params = index.params if index is not None else shard.params
         self.max_batch = max_batch
         if memory_budget_bytes is None:
             env = os.environ.get("ULISSE_MEMORY_BUDGET_BYTES", "")
@@ -184,8 +202,24 @@ class UlisseEngine:
                    memory_budget_bytes=memory_budget_bytes)
 
     @classmethod
-    def distributed(cls, *args, **kwargs):
-        raise _not_ported("the distributed backend", "4")
+    def distributed(cls, group, params: EnvelopeParams, data,
+                    breakpoints=None, max_batch: int = 8,
+                    device: DeviceLike = None) -> "UlisseEngine":
+        """This rank's engine over a `torch.distributed` process group
+        (`group`; None: the default group), one shard a rank.
+
+        Every rank calls it with the same full (S, n) `data` and then
+        `search` with the same queries and spec, and every rank returns
+        the same results.  A rank keeps only its own rows [rank * S / P,
+        (rank + 1) * S / P) on `device` (default cuda:{current device};
+        raises without CUDA unless "cpu"), with their prefix sums and
+        envelope set; the breakpoints come from the whole collection.  A
+        non-divisible S and series shorter than lmax are refused first.
+        The collectives move tensors as the group's backend takes them
+        (NCCL: one GPU a rank; gloo: host copies)."""
+        from repro_torch.distributed.ulisse import build_shard
+        return cls(max_batch=max_batch, shard=build_shard(
+            group, params, data, breakpoints=breakpoints, device=device))
 
     # -- persistence (repro_torch.storage) ---------------------------------
 
@@ -198,11 +232,11 @@ class UlisseEngine:
         (default CUDA): the sorted envelopes and block levels are read,
         the raw series mmap'd lazily, so a cold open reads O(index), not
         O(raw data).  `params`: the expected EnvelopeParams; a mismatch
-        raises IndexCompatibilityError.  A `mesh` (the distributed
-        backend) raises NotImplementedError."""
+        raises IndexCompatibilityError.  A `mesh` (a distributed open)
+        raises NotImplementedError."""
         if mesh is not None:
-            raise _not_ported("open with a mesh (the distributed backend)",
-                              "4")
+            raise _not_ported("open with a mesh (distributed save/open)",
+                              "4b")
         return cls.from_index(
             _store.open_index(path, params=params, mmap=mmap, device=device),
             max_batch=8 if max_batch is None else max_batch,
@@ -212,6 +246,7 @@ class UlisseEngine:
         """Persist the index to `path` (atomic commit): sorted envelopes,
         levels, breakpoints, raw shards and the delta, if series were
         appended and not compacted."""
+        self._refuse_distributed("save")
         return _store.save_index(path, self._index)
 
     @classmethod
@@ -230,6 +265,7 @@ class UlisseEngine:
         """Check, without changing anything, that `series` — one (n,)
         series or an (S, n) batch — can be appended; raises the
         ValueError `append` would and returns the row count."""
+        self._refuse_distributed("append")
         return _delta.as_series_rows(
             series, self._index.collection.series_len).shape[0]
 
@@ -237,17 +273,26 @@ class UlisseEngine:
         """Ingest new series, searchable at once through the delta set:
         O(new series) work, no re-sort, no block rebuild.  Call `compact()`
         once appends have accumulated."""
+        self._refuse_distributed("append")
         self._index = _delta.extend_index(self._index, series)
 
     def compact(self) -> None:
         """Merge the delta into the main sorted set and rebuild the block
         levels: equal to a from-scratch build in every field and level."""
+        self._refuse_distributed("compact")
         self._index = _delta.compact_index(self._index)
+
+    def _refuse_distributed(self, what: str) -> None:
+        if self.is_distributed:
+            raise _not_ported(f"{what} on a distributed engine", "4b")
 
     @property
     def delta_size(self) -> int:
-        """Envelopes waiting in the ingestion delta (0 when compacted)."""
-        return 0 if self._index.delta is None else self._index.delta.size
+        """Envelopes waiting in the ingestion delta (0 when compacted; a
+        distributed engine has none: it cannot append yet)."""
+        if self.is_distributed or self._index.delta is None:
+            return 0
+        return self._index.delta.size
 
     def _paged_store(self):
         """The PayloadStore behind the paged scans, or None.
@@ -260,6 +305,8 @@ class UlisseEngine:
         host and card) hold the rows of a chunk each on top of it, at most
         B x chunk series (`executor._SlabRing`).
         """
+        if self.is_distributed:
+            return None
         coll = self._index.collection
         if (self.memory_budget_bytes is None
                 or not isinstance(coll, _store.PayloadStore)
@@ -279,22 +326,28 @@ class UlisseEngine:
 
     @property
     def is_distributed(self) -> bool:
-        """Always False: the port serves a local index (`distributed`
-        raises)."""
-        return False
+        return self._shard is not None
 
     @property
     def raw_data(self) -> np.ndarray:
         """The (S, n) raw series the engine serves, on the host (appended
-        but uncompacted series included, in global id order)."""
+        but uncompacted series included, in global id order; a
+        distributed engine all-gathers every rank's rows: a collective,
+        on request only)."""
+        if self.is_distributed:
+            from repro_torch.distributed.ulisse import gather_data
+            return gather_data(self._shard)
         return self._index.collection.data.cpu().numpy()
 
     @property
-    def index(self) -> UlisseIndex:
+    def index(self) -> Optional[UlisseIndex]:
+        """The local index (None for a distributed engine)."""
         return self._index
 
     @property
     def device(self) -> torch.device:
+        if self.is_distributed:
+            return self._shard.device
         return self._index.device
 
     # ------------------------------------------------------------------
@@ -307,7 +360,14 @@ class UlisseEngine:
         array or sequence of 1-D arrays -> list of SearchResult)."""
         single, qs = self._normalize_queries(queries)
         self._check_card_gamma(qs, spec)
-        if spec.scan_backend == "host":
+        if self.is_distributed:
+            if spec.scan_backend == "host":
+                results = self._search_distributed(qs, spec)
+            elif spec.is_range:
+                results = self._distributed_range_device(qs, spec)
+            else:
+                results = self._distributed_knn_device(qs, spec)
+        elif spec.scan_backend == "host":
             results = [self._search_local(q, spec) for q in qs]
         elif spec.is_range:
             results = self._local_range_device(qs, spec)
@@ -506,8 +566,8 @@ class UlisseEngine:
         cand = np.nonzero((lbs ** 2) <= eps2)[0]
         stats.chunks_planned = -(-len(cand) // spec.chunk_size)
         rows: list = []
-        self._range_host_tail(pq, cand, lbs[cand] ** 2, 0, spec.chunk_size,
-                              eps2, rows, stats)
+        executor.range_host_tail(index, pq, cand, lbs[cand] ** 2, 0,
+                                 spec.chunk_size, eps2, rows, stats)
         return self._range_result_rows(rows, stats, q, spec)
 
     # -- the device pipeline ---------------------------------------------
@@ -628,18 +688,7 @@ class UlisseEngine:
             data, rows = self._local_host_data(), sid
         else:
             data, rows = store.take_rows(sid), np.arange(len(sid))
-        w = data[rows[:, None], off[:, None] + np.arange(len(q))] \
-            .astype(np.float64)
-        qn = np.asarray(q, np.float64)
-        if self.params.znorm:
-            qn = (qn - qn.mean()) / max(qn.std(), 1e-8)
-            mu = w.mean(1, keepdims=True)
-            sd = np.maximum(w.std(1, keepdims=True), 1e-8)
-            w -= mu
-            w /= sd
-        w -= qn
-        np.square(w, out=w)
-        return w.sum(1)
+        return executor.ed_rescore64(data, rows, off, q, self.params.znorm)
 
     def _knn_result_rows(self, q, spec: QuerySpec, d2, sid, off,
                          stats) -> SearchResult:
@@ -758,35 +807,14 @@ class UlisseEngine:
                             order_h = executor.to_host(order)
                             slbs2_h = executor.to_host(slbs2).astype(
                                 np.float64)
-                        self._range_host_tail(
-                            self._prepare(qs[i], spec), order_h[row],
+                        executor.range_host_tail(
+                            index, self._prepare(qs[i], spec), order_h[row],
                             slbs2_h[row], o * chunk, chunk, eps2, rows,
                             stats, store=store)
                 with span("merge", query=i):
                     results[i] = self._range_result_rows(rows, stats, qs[i],
                                                          spec)
             qsp.set(overflows=overflows)
-
-    def _range_host_tail(self, pq: planner.PreparedQuery, order, lbs2,
-                         pos: int, chunk: int, eps2: float, rows: list,
-                         stats: SearchStats, store=None) -> None:
-        """Verify one query's candidates `order` (with their `lbs2`) from
-        row `pos` on through the host path, a chunk at a time, into the
-        collected rows: every row is a candidate (lb2 <= eps2) and +inf
-        marks a padding tail.  The host backend runs all of its
-        candidates; the device scan replays a packed plan from the chunk
-        where its hit buffer overflowed (a paged engine through its
-        store's page cache, `store`)."""
-        sink = TopK(1)   # unused: the collector takes the hits
-        while pos < len(order):
-            keep = np.isfinite(lbs2[pos:pos + chunk])
-            if not keep[0]:
-                break
-            executor.verify_envelopes(
-                self._index, pq, order[pos:pos + chunk][keep], sink, stats,
-                eps2=eps2, collector=rows, store=store)
-            stats.chunks_visited += 1
-            pos += chunk
 
     def _local_exact_device(self, qs, spec: QuerySpec):
         """Exact k-NN on the device (paper Alg. 5 incl. its line-1
@@ -913,3 +941,165 @@ class UlisseEngine:
                                 qs[i], spec, ad2[row], asid[row],
                                 aoff[row], stats)
         return results
+
+    # -- the distributed backend (this rank's half of every search) --------
+
+    def _check_lengths(self, qs) -> None:
+        p = self.params
+        for qlen in sorted({len(q) for q in qs}):
+            if not p.lmin <= qlen <= p.lmax:
+                raise ValueError(
+                    f"query length {qlen} outside [{p.lmin}, {p.lmax}]")
+
+    def _shard_batches(self, qs, idxs):
+        """Sub-batches of one length group padded to the pow2 bucket by
+        repeating the first query, as the reference's sharded paths pad."""
+        for sub, b in self._device_batches(idxs):
+            queries = [qs[i] for i in sub]
+            yield sub, queries + [queries[0]] * (b - len(sub)), b
+
+    def _shard_lower_bounds(self, qb, qh, nseg: int, spec: QuerySpec):
+        index = self._shard.index
+        return planner.env_lower_bounds_batch(
+            qb, qh, index.envelopes, index.breakpoints, self.params.seg_len,
+            nseg, spec.use_paa_bounds)
+
+    def _distributed_knn_device(self, qs, spec: QuerySpec):
+        """Sharded k-NN, exact or (mode="approx") budget-capped at
+        max_leaves chunks a shard, from empty pools (no approximate pass,
+        as in the reference): `distributed.ulisse.sharded_knn` a padded
+        same-length batch, its rounds' one all-gather each, one final
+        all-gather.  Exactness is structural; approximate mode reads the
+        certificate.  ED rows carry their owner's float64 rescore."""
+        from repro_torch.distributed import ulisse as dist_ulisse
+        shard, p = self._shard, self.params
+        budget = spec.max_leaves if spec.mode == "approx" else 0
+        n_env = p.num_envelopes(shard.series_len) * shard.num_series
+        self._check_lengths(qs)
+        results: List[Optional[SearchResult]] = [None] * len(qs)
+        for qlen, idxs in self._group_by_len(qs):
+            for sub, queries, b in self._shard_batches(qs, idxs):
+                with span("query.sharded_knn", qlen=qlen, batch=b,
+                          shards=shard.shards):
+                    with span("prepare"):
+                        (nseg, qstack, dlo, dhi, qb,
+                         qh) = self._stack_prepared(queries, spec)
+                    with span("device_scan"):
+                        out = dist_ulisse.sharded_knn(
+                            shard, queries, qstack, dlo, dhi,
+                            self._shard_lower_bounds(qb, qh, nseg, spec),
+                            k=spec.k, measure=spec.measure, r=spec.r,
+                            chunk_size=spec.chunk_size,
+                            sync_every=spec.sync_every, budget_chunks=budget)
+                    with span("merge"):
+                        for row, i in enumerate(sub):
+                            stats = dist_ulisse.fold_knn_stats(
+                                out.stats, row, n_env,
+                                shard.shards * out.n_chunks)
+                            if budget:
+                                stats.exact_from_approx = bool(out.cert[row])
+                            filled = out.sid[row] >= 0
+                            d2 = (out.d2_64 if spec.measure == "ed"
+                                  else out.d2)[row][filled].astype(np.float64)
+                            order = np.argsort(d2, kind="stable")
+                            results[i] = SearchResult(
+                                dists=np.sqrt(np.maximum(d2[order], 0.0)),
+                                series=out.sid[row][filled][order],
+                                offsets=out.off[row][filled][order],
+                                stats=stats)
+        return results
+
+    def _distributed_range_device(self, qs, spec: QuerySpec):
+        """Sharded eps-range: `distributed.ulisse.sharded_range` a padded
+        same-length batch (each rank's own hit buffer, an overflowed
+        (query, shard) pair finished on its owner's host), hits in shard
+        order, ED distances their owner's float64 rescore, sorted stably
+        by distance."""
+        from repro_torch.distributed import ulisse as dist_ulisse
+        shard, p = self._shard, self.params
+        eps2 = float(spec.eps) ** 2
+        n_env = p.num_envelopes(shard.series_len) * shard.num_series
+        self._check_lengths(qs)
+        results: List[Optional[SearchResult]] = [None] * len(qs)
+        for qlen, idxs in self._group_by_len(qs):
+            for sub, queries, b in self._shard_batches(qs, idxs):
+                with span("query.sharded_range", qlen=qlen, batch=b,
+                          shards=shard.shards):
+                    with span("prepare"):
+                        (nseg, qstack, dlo, dhi, qb,
+                         qh) = self._stack_prepared(queries, spec)
+                    with span("device_scan"):
+                        counters, hits, n_chunks = dist_ulisse.sharded_range(
+                            shard, queries, len(sub), qstack, dlo, dhi,
+                            self._shard_lower_bounds(qb, qh, nseg, spec),
+                            eps2=eps2, measure=spec.measure, r=spec.r,
+                            capacity=spec.range_capacity,
+                            chunk_size=spec.chunk_size)
+                    for row, i in enumerate(sub):
+                        stats = dist_ulisse.fold_range_stats(
+                            counters, row, n_env, shard.shards * n_chunks)
+                        with span("merge", query=i):
+                            got = np.concatenate(
+                                [h[h[:, 0] == row, 1:] for h in hits])
+                            order = np.argsort(got[:, 2], kind="stable")
+                            results[i] = SearchResult(
+                                dists=np.sqrt(np.maximum(got[order, 2], 0.0)),
+                                series=got[order, 0].astype(np.int64),
+                                offsets=got[order, 1].astype(np.int64),
+                                stats=stats)
+        return results
+
+    def _search_distributed(self, qs, spec: QuerySpec) -> List[SearchResult]:
+        """The distributed host backend (the reference's unpruned
+        per-shard verify): exact ED k-NN, by length bucket, max_batch
+        queries a chunk, each chunk's escalation loop in `_run_chunk`."""
+        if (spec.measure != "ed" or spec.is_range or spec.mode != "exact"
+                or spec.use_paa_bounds):
+            raise NotImplementedError(
+                "the legacy distributed host backend answers exact ED "
+                "k-NN with quantized breakpoint bounds only; use "
+                "scan_backend='device' (the default) for distributed "
+                "DTW / range / approximate / use_paa_bounds queries")
+        self._check_lengths(qs)
+        results: List[Optional[SearchResult]] = [None] * len(qs)
+        by_bucket = {}
+        for i, q in enumerate(qs):
+            by_bucket.setdefault(
+                planner.length_bucket(len(q), self.params.lmax), []).append(i)
+        for _, idxs in sorted(by_bucket.items()):
+            for start in range(0, len(idxs), self.max_batch):
+                chunk = idxs[start:start + self.max_batch]
+                for i, res in zip(chunk, self._run_chunk(qs, chunk, spec)):
+                    results[i] = res
+        return results
+
+    def _run_chunk(self, qs, chunk, spec: QuerySpec) -> List[SearchResult]:
+        """One chunk of the host backend with its exactness escalation:
+        queries whose certificate fails are retried with doubled
+        verify_top until it holds or the whole shard is verified
+        (`escalations` counts the chunk's retries so far)."""
+        from repro_torch.distributed import ulisse as dist_ulisse
+        shard = self._shard
+        out: List[Optional[SearchResult]] = [None] * len(chunk)
+        pending = list(range(len(chunk)))
+        vt, escalations, cap = spec.verify_top, 0, shard.env_rows
+        while pending:
+            d, codes, exact = dist_ulisse.sharded_host_knn(
+                shard, [qs[chunk[ci]] for ci in pending], spec.k,
+                min(vt, cap))
+            exact = exact | (vt >= cap)
+            still = []
+            for row, ci in enumerate(pending):
+                if exact[row]:
+                    out[ci] = SearchResult(
+                        dists=d[row].astype(np.float64),
+                        series=codes[row, :, 0], offsets=codes[row, :, 1],
+                        stats=dist_ulisse.host_result_stats(
+                            shard, escalations, min(vt, cap)))
+                else:
+                    still.append(ci)
+            pending = still
+            if pending:
+                vt *= 2
+                escalations += 1
+        return out

@@ -296,6 +296,47 @@ def verify_windows(windows, all_sids: np.ndarray, offs_np: np.ndarray,
         pool.push(d2, all_sids, offs_np)
 
 
+def range_host_tail(index, pq, order, lbs2, pos: int, chunk: int,
+                    eps2: float, rows: list, stats: SearchStats,
+                    store=None) -> None:
+    """Verify one query's range candidates `order` (indices into the
+    index's candidate set, with their squared bounds `lbs2`) from row
+    `pos` on through the host path, a chunk at a time, into the collected
+    (sid, off, d2) rows: every row is a candidate (lb2 <= eps2) and +inf
+    marks a padding tail.  The host backend runs all of its candidates;
+    a device range scan (a shard's, on the distributed backend) replays
+    its packed plan from the chunk where its hit buffer overflowed (a
+    paged engine through its store's page cache, `store`)."""
+    sink = TopK(1)   # unused: the collector takes the hits
+    while pos < len(order):
+        keep = np.isfinite(lbs2[pos:pos + chunk])
+        if not keep[0]:
+            break
+        verify_envelopes(index, pq, order[pos:pos + chunk][keep], sink,
+                         stats, eps2=eps2, collector=rows, store=store)
+        stats.chunks_visited += 1
+        pos += chunk
+
+
+def ed_rescore64(data: np.ndarray, rows: np.ndarray, off: np.ndarray, q,
+                 znorm: bool) -> np.ndarray:
+    """Direct float64 squared ED of the windows data[rows, off : off +
+    len(q)] to q: the polish every ED result path shares (the kernels' dot
+    identity cancels near d = 0)."""
+    w = data[rows[:, None], off[:, None] + np.arange(len(q))] \
+        .astype(np.float64)
+    qn = np.asarray(q, np.float64)
+    if znorm:
+        qn = (qn - qn.mean()) / max(qn.std(), 1e-8)
+        mu = w.mean(1, keepdims=True)
+        sd = np.maximum(w.std(1, keepdims=True), 1e-8)
+        w -= mu
+        w /= sd
+    w -= qn
+    np.square(w, out=w)
+    return w.sum(1)
+
+
 def pow2ceil(x: int) -> int:
     b = 1
     while b < x:
@@ -303,10 +344,28 @@ def pow2ceil(x: int) -> int:
     return b
 
 
+def shard_pack_geometry(n_rows: int, delta_rows: int, chunk_size: int):
+    """Chunk geometry of a shard's packed k-NN plan with a delta-first
+    region (the JAX package's, line for line).
+
+    The sharded scan packs a shard's `delta_rows` unsorted delta envelopes
+    first, padded up to whole chunks, then the LB-sorted main rows, and
+    pow2-pads the total.  Returns (n_pad, chunk, nd_pad): the plan's
+    width, the scan's chunk size and the padded delta region's width (a
+    multiple of chunk; nd_pad // chunk always-visited delta chunks stretch
+    the approximate budget).  With delta_rows == 0 this is the classic
+    geometry (n_pad = pow2ceil(n_rows), nd_pad = 0).
+    """
+    chunk = min(pow2ceil(chunk_size), pow2ceil(max(n_rows, 1)))
+    nd_pad = -(-delta_rows // chunk) * chunk
+    n_pad = pow2ceil((n_rows - delta_rows) + nd_pad)
+    return n_pad, chunk, nd_pad
+
+
 def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
                      dtw_lo, dtw_hi, i: int, pool, stats, *, k: int, g: int,
                      chunk: int, znorm: bool, measure: str, r: int,
-                     gmap=None):
+                     gmap=None, gkth=None):
     """Verify chunk `i` of the packed plan into the (B, k) pool, in place.
 
     ED: ONE launch of `fused_gather_ed_chunk`, which decides which
@@ -337,13 +396,17 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
     ids, which the pool must hold as global ones, so they are mapped
     through it on the device before the merge (an empty partial's -1
     maps to -1).
+
+    `gkth`: the sharded scan's (B,) float32 mesh-wide k-th (None locally):
+    both entries then cut active, keep and pruned (and the DTW survivors)
+    at min(pool k-th, gkth), the JAX package's `kth` of its sharded step.
     """
     a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
           coll.center)
     if measure == "ed":
         part = fused_gather_ed_chunk(
             *a0, sids, anchors, n_master, lbs2, qs, pool[0], stats, i=i,
-            chunk=chunk, g=g, znorm=znorm)
+            chunk=chunk, g=g, znorm=znorm, gkth=gkth)
         if gmap is not None:
             part[1] = gmap[part[1].long()]
         pool_merge_partials(pool, part)
@@ -351,7 +414,7 @@ def _scan_chunk_step(coll: Collection, sids, anchors, n_master, lbs2, qs,
     cand_sid, cand_off, db = _dtw_step(
         fused_gather_lb_keogh_chunk(
             *a0, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, pool[0],
-            stats, i=i, chunk=chunk, g=g, znorm=znorm),
+            stats, i=i, chunk=chunk, g=g, znorm=znorm, gkth=gkth),
         coll, qs, r, znorm)
     if gmap is not None:
         cand_sid = gmap[cand_sid.long()]

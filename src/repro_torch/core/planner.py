@@ -10,11 +10,12 @@ the lower bounds go through the `mindist` kernels.  Two flavours, as in
 the reference:
 
   * the device pipeline (`prepare_query_batch`, `*_lower_bounds_batch`,
-    `device_leaf_pack`, `device_scan_pack`, and for range the sortless
-    `device_range_pack`): batched, every argsort stable as `jnp.argsort`
-    is, nothing read back (the only host syncs of a device search are the
-    executor's stop tests and the engine's one result readback; a paged
-    engine also reads the plan back once, as its page schedule:
+    `device_leaf_pack`, `device_scan_pack`, the sharded scan's
+    `device_shard_pack`, and for range the sortless `device_range_pack`):
+    batched, every argsort stable as `jnp.argsort` is, nothing read back
+    (the only host syncs of a device search are the executor's stop tests
+    and the engine's one result readback; a paged engine also reads the
+    plan back once, as its page schedule:
     `chunk_pages`);
   * the host backend (`prepare_query`, `env_lower_bounds`,
     `block_lower_bounds`, `plan_leaf_order`, `plan_scan_order`): one
@@ -270,6 +271,65 @@ def device_scan_pack(env_sid, env_anchor, env_nm, lbs, comb_idx,
     lbs2 = torch.nn.functional.pad(lbs_sorted ** 2, (0, pad), value=_INF)
     return (pack(env_sid, 0), pack(env_anchor, 0), pack(env_nm, 0),
             lbs2, order)
+
+
+def device_shard_pack(env_sid, env_anchor, env_nm, lbs, n_pad: int,
+                      n_delta: int = 0, chunk: int = 1):
+    """LB-sort + pack one shard's candidate rows on the device (the
+    sharded scan's plan; the JAX package's, step for step).
+
+    `lbs` (B, N) are the shard's lower bounds and env_* its envelope
+    columns (series ids local to the shard).  There is no approximate
+    pass on the sharded path, so nothing is excluded: the rows are
+    stably argsorted per query and right-padded to `n_pad` (zeros, +inf
+    bounds).  The last `n_delta` rows are a per-shard ingestion delta:
+    they are packed first, in their own order, chunk-padded, with their
+    real squared bounds except each delta chunk's head, pinned to 0 so
+    the scan's chunk-head stop test never skips an unsorted delta chunk
+    (invalid delta rows get n_master 0); the LB-sorted main rows follow.
+    `n_pad`, `chunk` and the delta width come from
+    `executor.shard_pack_geometry`.
+
+    Returns (sids, anchors, n_master, lbs2), each (B, n_pad).
+    """
+    b_sz, n = lbs.shape
+    dev = lbs.device
+    pad = torch.nn.functional.pad
+    if n_delta == 0:
+        order = torch.argsort(lbs, dim=1, stable=True)
+        lbs_sorted = torch.gather(lbs, 1, order)
+
+        def pack(col):
+            return pad(col[order].to(torch.int32), (0, n_pad - n))
+
+        return (pack(env_sid), pack(env_anchor), pack(env_nm),
+                pad(lbs_sorted ** 2, (0, n_pad - n), value=_INF))
+    n_main = n - n_delta
+    nd_pad = -(-n_delta // chunk) * chunk
+    didx = torch.arange(nd_pad, dtype=torch.int64, device=dev)
+    dreal = didx < n_delta
+    dsafe = n_main + didx.clamp(max=n_delta - 1)
+
+    def dpack(col):
+        out = torch.where(dreal, col[dsafe], 0).to(torch.int32)
+        return out[None, :].expand(b_sz, nd_pad)
+
+    d_lb2 = pad(lbs[:, n_main:] ** 2, (0, nd_pad - n_delta), value=_INF)
+    d_nm = torch.where(torch.isfinite(d_lb2), dpack(env_nm), 0)
+    head = ((didx % chunk) == 0) & dreal
+    d_lb2 = torch.where(head[None, :], 0.0, d_lb2)
+    m_pad = n_pad - nd_pad
+    order = torch.argsort(lbs[:, :n_main], dim=1, stable=True)
+    lbs_sorted = torch.gather(lbs[:, :n_main], 1, order)
+
+    def mpack(col):
+        return pad(col[:n_main][order].to(torch.int32), (0, m_pad - n_main))
+
+    m_lb2 = pad(lbs_sorted ** 2, (0, m_pad - n_main), value=_INF)
+    return tuple(torch.cat([a, b], dim=1).contiguous() for a, b in (
+        (dpack(env_sid), mpack(env_sid)),
+        (dpack(env_anchor), mpack(env_anchor)),
+        (d_nm.to(torch.int32), mpack(env_nm)), (d_lb2, m_lb2)))
 
 
 def device_range_pack(env_sid, env_anchor, env_nm, lbs, eps2, n_pad: int):

@@ -62,14 +62,14 @@ SIGNATURES = {
         "ulisse_fused_gather_lb_keogh_tile": [_I, _I],
         "ulisse_fused_gather_lb_keogh_long_tile": [_I, _I],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-        # n_master, lbs2, qs, pool_d2, stats, part, num_series, n, batch,
-        # rows, qlen, g, znorm, n_pad, col0, k, stream
+        # n_master, lbs2, qs, pool_d2, gkth, stats, part, num_series, n,
+        # batch, rows, qlen, g, znorm, n_pad, col0, k, stream
         "ulisse_fused_gather_ed_chunk": [
-            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
-            _I, _I, _I, _I, _I, _L, _L, _I, _V],
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
+            _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
         "ulisse_fused_gather_ed_chunk_long": [
-            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I,
-            _I, _I, _I, _I, _I, _L, _L, _I, _V],
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
+            _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, qs, eps2, ovf, stats, out, num_series, n, batch,
         # rows, qlen, g, znorm, n_pad, col0, n_chunks, stream
@@ -89,17 +89,18 @@ SIGNATURES = {
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I,
             _I, _I, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-        # n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd,
-        # slist, nsurv, dp_out, cand_sid, cand_off, num_series, n, batch,
-        # rows, qlen, g, znorm, n_pad, col0, k, range, n_chunks, stream
+        # n_master, lbs2, dtw_lo, dtw_hi, cut, gkth, ovf, stats, lb, mu,
+        # sd, slist, nsurv, dp_out, cand_sid, cand_off, num_series, n,
+        # batch, rows, qlen, g, znorm, n_pad, col0, k, range, n_chunks,
+        # stream
         "ulisse_fused_gather_lb_keogh_chunk": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
-            _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L, _L,
-            _I, _I, _I, _V],
+            _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L,
+            _L, _I, _I, _I, _V],
         "ulisse_fused_gather_lb_keogh_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
-            _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L, _L,
-            _I, _I, _I, _V],
+            _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L,
+            _L, _I, _I, _I, _V],
         # data, sids, anchors, mu, sd, out, num_series, n, num_rows, qlen,
         # g, stream
         "ulisse_gather_znorm": [_V, _V, _V, _V, _V, _V, _L, _I, _L, _I, _I,

@@ -33,6 +33,11 @@
 // (B, n_blocks, kp) partials buffer (topk.cuh), for the pool merge
 // (pool_merge.cu).  A candidate with d2 >= kth cannot enter a sorted
 // pool whose incumbents win ties, so nothing else leaves the block.
+// The sharded scan passes gkth (B,), the mesh-wide k-th of its last
+// round (nullptr on every local path): active, keep and pruned then cut
+// at min(pool k-th, gkth[b]), while the pre-select stays at the pool's
+// own k-th (a shard merges every candidate of a kept row that can enter
+// its own pool, as the JAX package's sharded scan does).
 // ulisse_fused_gather_ed_range is the same entry in its range mode (the
 // eps-range scan's step, paper Alg. 5 with bsf := eps): eps2 (B,) in
 // place of the pool's k-th, inclusive cuts (keep = lbs2 <= eps2), a query
@@ -74,7 +79,9 @@
 // ulisse_fused_gather_lb_keogh_chunk, the scan's entry over the same
 // device function, takes the whole (B, n_pad) LB-sorted plan as the ED
 // chunk entry does and the cut: the pool's k-th (k-NN, lb2 < kth) or
-// eps2 (range, lb2 <= eps2, `active` also reading ovf).  It decides
+// eps2 (range, lb2 <= eps2, `active` also reading ovf), and in k-NN the
+// optional gkth (B,) of the sharded scan, whose cut is then min(kth,
+// gkth[b]) for active, keep and the survivors.  It decides
 // active, keep and the ok candidates (chunk_block_rows), adds [active,
 // kept rows, survivors, ok candidates, survivors, pruned rows] to the
 // counters, writes lb2 = +inf where not ok, lists each survivor of query
@@ -195,10 +202,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // fills row_sid / row_anc / row_jl (offsets j < jl are ok candidates;
 // all g in the contract entries) and, in a chunk entry, adds the block's
 // counters to stats (active, kept rows, ok candidates in column ok_col,
-// pruned rows) and zeroes count_s.  Every thread gets the cut (+inf in
-// the contract entries) and whether any row of the block has work.
-//   k-NN:  cut = pool_d2[b, k - 1] (the pool's k-th), active = the
-//          chunk's first bound is finite and < cut, keep = lb < cut;
+// pruned rows) and zeroes count_s.  Every thread gets the pool's own k-th
+// (kth_out), the cut (cut_out; both +inf in the contract entries) and
+// whether any row of the block has work.
+//   k-NN:  cut = pool_d2[b, k - 1] (the pool's k-th), or, where gkth is
+//          given (the sharded scan's mesh-wide k-th, (B,)), min(pool_d2[b,
+//          k - 1], gkth[b]); active = the chunk's first bound is finite
+//          and < cut, keep = lb < cut;
 //   range: cut = pool_d2[b] (eps2, k = 1), active = the first bound is
 //          finite and <= cut and ovf[b] == n_chunks (the hit buffer never
 //          overflowed), keep = lb <= cut: inclusive, since lb <= d, so a
@@ -207,24 +217,26 @@ template <int kMode>
 __device__ __forceinline__ bool chunk_block_rows(
     const int* __restrict__ sids, const int* __restrict__ anchors,
     const int* __restrict__ n_master, const float* __restrict__ lbs2,
-    const float* __restrict__ pool_d2, const int* __restrict__ ovf,
-    int* __restrict__ stats, int n, int rows, int qlen, int g,
-    long long row_stride, long long col0, int k, int n_chunks, int tile,
-    int ok_col, int* row_sid, int* row_anc, int* row_jl, int* count_s,
-    float* kth_out) {
+    const float* __restrict__ pool_d2, const float* __restrict__ gkth,
+    const int* __restrict__ ovf, int* __restrict__ stats, int n, int rows,
+    int qlen, int g, long long row_stride, long long col0, int k,
+    int n_chunks, int tile, int ok_col, int* row_sid, int* row_anc,
+    int* row_jl, int* count_s, float* kth_out, float* cut_out) {
   constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
   const int tid = threadIdx.x;
-  float kth = INFINITY;
+  float own = INFINITY, kth = INFINITY;
   bool active = true;
   if (kChunk) {
-    kth = pool_d2[(long long)b * k + k - 1];
+    own = pool_d2[(long long)b * k + k - 1];
+    kth = !kRange && gkth != nullptr ? fminf(own, gkth[b]) : own;
     const float first = lbs2[(long long)b * row_stride + col0];
     active = isfinite(first) &&
              (kRange ? first <= kth && ovf[b] == n_chunks : first < kth);
   }
-  *kth_out = kth;
+  *kth_out = own;
+  *cut_out = kth;
   int jl = 0;
   if (tid < 32) {
     int keep = 0, pruned = 0;
@@ -389,7 +401,8 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
     long long num_series, int n, int rows, int qlen, int g, int znorm,
     long long row_stride, long long col0, int k, int kp, int tile,
     int qlen_pad, int ngrp, int stride, int run_stride,
-    const int* __restrict__ ovf, int n_chunks) {
+    const int* __restrict__ ovf, int n_chunks,
+    const float* __restrict__ gkth) {
   constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   extern __shared__ __align__(16) float ed_smem[];
   float* q_s = ed_smem;                       // [qlen_pad], 0 beyond qlen
@@ -406,11 +419,13 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
   const int r0 = blockIdx.x * tile;
   const int tid = threadIdx.x;
   const int reg = qlen + g - 1;
-  float kth;
+  // kth: the pool's own k-th, the pre-select's cut (a shard's pool takes
+  // every candidate below it, whatever the mesh-wide k-th)
+  float kth, cut;
   const bool work = chunk_block_rows<kMode>(
-      sids, anchors, n_master, lbs2, pool_d2, ovf, stats, n, rows, qlen, g,
-      row_stride, col0, k, n_chunks, tile, 2, row_sid, row_anc, row_jl,
-      &count_s, &kth);
+      sids, anchors, n_master, lbs2, pool_d2, gkth, ovf, stats, n, rows,
+      qlen, g, row_stride, col0, k, n_chunks, tile, 2, row_sid, row_anc,
+      row_jl, &count_s, &kth, &cut);
   const long long at = ((long long)b * gridDim.x + blockIdx.x) * kp;
   const int* rsid = row_sid;
   const int* ranc = row_anc;
@@ -579,7 +594,8 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
     long long num_series, int n, int rows, int qlen, int g, int znorm,
     long long row_stride, long long col0, int k, int kp, int tile,
     int qlen_pad, int ngrp, int stride, int ptile,
-    const int* __restrict__ ovf, int n_chunks) {
+    const int* __restrict__ ovf, int n_chunks,
+    const float* __restrict__ gkth) {
   constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   extern __shared__ __align__(16) float ed_smem[];
   float* q_s = ed_smem;                       // [ptile]
@@ -594,11 +610,13 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
   const int r0 = blockIdx.x * tile;
   const int tid = threadIdx.x;
   const int reg = qlen + g - 1;
-  float kth;
+  // kth: the pool's own k-th, the pre-select's cut (a shard's pool takes
+  // every candidate below it, whatever the mesh-wide k-th)
+  float kth, cut;
   const bool work = chunk_block_rows<kMode>(
-      sids, anchors, n_master, lbs2, pool_d2, ovf, stats, n, rows, qlen, g,
-      row_stride, col0, k, n_chunks, tile, 2, row_sid, row_anc, row_jl,
-      &count_s, &kth);
+      sids, anchors, n_master, lbs2, pool_d2, gkth, ovf, stats, n, rows,
+      qlen, g, row_stride, col0, k, n_chunks, tile, 2, row_sid, row_anc,
+      row_jl, &count_s, &kth, &cut);
   const long long at = ((long long)b * gridDim.x + blockIdx.x) * kp;
   const int* rsid = row_sid;
   const int* ranc = row_anc;
@@ -769,6 +787,7 @@ struct LbChunk {
   const int* n_master;
   const float* lbs2;
   const float* cut;
+  const float* gkth;
   const int* ovf;
   int* stats;
   int* slist;
@@ -790,10 +809,11 @@ __device__ __forceinline__ void lb_block_rows(
     const int* __restrict__ sids, const int* __restrict__ anchors,
     const LbChunk& c, int n, int rows, int qlen, int g, int tile,
     int* row_sid, int* row_anc, int* row_jl, int* count_s, float* cut) {
-  chunk_block_rows<kMode>(sids, anchors, c.n_master, c.lbs2, c.cut, c.ovf,
-                          c.stats, n, rows, qlen, g, c.row_stride, c.col0,
-                          c.cut_stride, c.n_chunks, tile, 3, row_sid,
-                          row_anc, row_jl, count_s, cut);
+  float own;
+  chunk_block_rows<kMode>(sids, anchors, c.n_master, c.lbs2, c.cut, c.gkth,
+                          c.ovf, c.stats, n, rows, qlen, g, c.row_stride,
+                          c.col0, c.cut_stride, c.n_chunks, tile, 3,
+                          row_sid, row_anc, row_jl, count_s, &own, cut);
 }
 
 // The tile's results (res_s: lb2, mu, sd, each [tile * g]) out.  The
@@ -1103,7 +1123,8 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
               const void* pool_d2, void* stats, void* part,
               long long num_series, int n, int batch, int rows, int qlen,
               int g, int znorm, long long row_stride, long long col0, int k,
-              void* stream, const void* ovf = nullptr, int n_chunks = 0) {
+              void* stream, const void* ovf = nullptr, int n_chunks = 0,
+              const void* gkth = nullptr) {
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
       batch > 65535 || k < 1)
     return (int)cudaErrorInvalidValue;
@@ -1138,7 +1159,8 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
       p ? p + 2 * plane : nullptr, p ? p + 3 * plane : nullptr, num_series,
       n, rows, qlen, g, znorm, row_stride, col0, k, kp, s.tile, s.qlen_pad,
       s.ngrp, s.stride, kLong ? kLongPoints : s.run_stride,
-      static_cast<const int*>(ovf), n_chunks);
+      static_cast<const int*>(ovf), n_chunks,
+      static_cast<const float*>(gkth));
   return (int)cudaGetLastError();
 }
 
@@ -1190,14 +1212,15 @@ extern "C" int ulisse_fused_gather_ed_chunk(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* n_master,
-    const void* lbs2, const void* qs, const void* pool_d2, void* stats,
-    void* part, long long num_series, int n, int batch, int rows, int qlen,
-    int g, int znorm, long long n_pad, long long col0, int k, void* stream) {
+    const void* lbs2, const void* qs, const void* pool_d2, const void* gkth,
+    void* stats, void* part, long long num_series, int n, int batch,
+    int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
+    int k, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
   return launch_ed<1, false>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, qs, nullptr, pool_d2, stats, part, num_series, n, batch, rows,
-      qlen, g, znorm, n_pad, col0, k, stream);
+      qlen, g, znorm, n_pad, col0, k, stream, nullptr, 0, gkth);
 }
 
 // The long-row kernel behind the chunk entry's contract (any qlen).
@@ -1205,14 +1228,15 @@ extern "C" int ulisse_fused_gather_ed_chunk_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* n_master,
-    const void* lbs2, const void* qs, const void* pool_d2, void* stats,
-    void* part, long long num_series, int n, int batch, int rows, int qlen,
-    int g, int znorm, long long n_pad, long long col0, int k, void* stream) {
+    const void* lbs2, const void* qs, const void* pool_d2, const void* gkth,
+    void* stats, void* part, long long num_series, int n, int batch,
+    int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
+    int k, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
   return launch_ed<1, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, qs, nullptr, pool_d2, stats, part, num_series, n, batch, rows,
-      qlen, g, znorm, n_pad, col0, k, stream);
+      qlen, g, znorm, n_pad, col0, k, stream, nullptr, 0, gkth);
 }
 
 // The range mode of the chunk entry: eps2 (B,) in place of the pool,
@@ -1373,7 +1397,8 @@ LbChunk lb_contract(int rows) {
 // (rows columns), the cut (cut_stride = k: the pool's (B, k) d2; 1:
 // eps2), ovf (range), the counters and the outputs.
 int lb_chunk(LbChunk* c, const void* n_master, const void* lbs2,
-             const void* cut, const void* ovf, void* stats, void* slist,
+             const void* cut, const void* gkth, const void* ovf,
+             void* stats, void* slist,
              void* nsurv, void* dp_out, void* cand_sid, void* cand_off,
              int rows, long long n_pad, long long col0, int cut_stride,
              int n_chunks) {
@@ -1382,6 +1407,7 @@ int lb_chunk(LbChunk* c, const void* n_master, const void* lbs2,
   c->n_master = static_cast<const int*>(n_master);
   c->lbs2 = static_cast<const float*>(lbs2);
   c->cut = static_cast<const float*>(cut);
+  c->gkth = static_cast<const float*>(gkth);
   c->ovf = static_cast<const int*>(ovf);
   c->stats = static_cast<int*>(stats);
   c->slist = static_cast<int*>(slist);
@@ -1402,16 +1428,18 @@ int launch_lb_chunk(const void* data, const void* csum, const void* csum2,
                     const void* center, const void* sids, const void* anchors,
                     const void* n_master, const void* lbs2,
                     const void* dtw_lo, const void* dtw_hi, const void* cut,
-                    const void* ovf, void* stats, void* lb, void* mu,
+                    const void* gkth, const void* ovf, void* stats, void* lb,
+                    void* mu,
                     void* sd, void* slist, void* nsurv, void* dp_out,
                     void* cand_sid, void* cand_off, long long num_series,
                     int n, int batch, int rows, int qlen, int g, int znorm,
                     long long n_pad, long long col0, int k, int range,
                     int n_chunks, void* stream) {
   LbChunk c;
-  const int err = lb_chunk(&c, n_master, lbs2, cut, ovf, stats, slist, nsurv,
-                           dp_out, cand_sid, cand_off, rows, n_pad, col0,
-                           range ? 1 : k, n_chunks);
+  if (range && gkth != nullptr) return (int)cudaErrorInvalidValue;
+  const int err = lb_chunk(&c, n_master, lbs2, cut, gkth, ovf, stats, slist,
+                           nsurv, dp_out, cand_sid, cand_off, rows, n_pad,
+                           col0, range ? 1 : k, n_chunks);
   if (err) return err;
   return range ? launch_lb_keogh<2, kLong>(
                      data, csum, csum2, csum_lo, csum2_lo, center, sids,
@@ -1469,7 +1497,8 @@ extern "C" int ulisse_fused_gather_lb_keogh_long_tile(int qlen, int g) {
 
 // The scan's LB_Keogh step over chunk col0 / rows of the (B, n_pad) plan
 // (sids, anchors, n_master, lbs2), in either cut: k-NN (range = 0; cut
-// the pool's (B, k) d2, strict) or range (range = 1; cut eps2 (B,),
+// the pool's (B, k) d2, strict, or min(its k-th, gkth[b]) where the
+// sharded scan's gkth (B,) is given; nullptr otherwise) or range (range = 1; cut eps2 (B,),
 // inclusive, `active` also reading ovf: the buffer never overflowed
 // while ovf[b] == n_chunks, the whole plan's chunk count; a paged scan's
 // one-chunk slab passes its plan's).  It decides active, keep and
@@ -1483,14 +1512,14 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk(
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* n_master,
     const void* lbs2, const void* dtw_lo, const void* dtw_hi,
-    const void* cut, const void* ovf, void* stats, void* lb, void* mu,
-    void* sd, void* slist, void* nsurv, void* dp_out, void* cand_sid,
-    void* cand_off, long long num_series, int n, int batch, int rows,
-    int qlen, int g, int znorm, long long n_pad, long long col0, int k,
-    int range, int n_chunks, void* stream) {
+    const void* cut, const void* gkth, const void* ovf, void* stats,
+    void* lb, void* mu, void* sd, void* slist, void* nsurv, void* dp_out,
+    void* cand_sid, void* cand_off, long long num_series, int n, int batch,
+    int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
+    int k, int range, int n_chunks, void* stream) {
   return launch_lb_chunk<false>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
-      lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd, slist, nsurv,
+      lbs2, dtw_lo, dtw_hi, cut, gkth, ovf, stats, lb, mu, sd, slist, nsurv,
       dp_out, cand_sid, cand_off, num_series, n, batch, rows, qlen, g, znorm,
       n_pad, col0, k, range, n_chunks, stream);
 }
@@ -1501,14 +1530,14 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk_long(
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* n_master,
     const void* lbs2, const void* dtw_lo, const void* dtw_hi,
-    const void* cut, const void* ovf, void* stats, void* lb, void* mu,
-    void* sd, void* slist, void* nsurv, void* dp_out, void* cand_sid,
-    void* cand_off, long long num_series, int n, int batch, int rows,
-    int qlen, int g, int znorm, long long n_pad, long long col0, int k,
-    int range, int n_chunks, void* stream) {
+    const void* cut, const void* gkth, const void* ovf, void* stats,
+    void* lb, void* mu, void* sd, void* slist, void* nsurv, void* dp_out,
+    void* cand_sid, void* cand_off, long long num_series, int n, int batch,
+    int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
+    int k, int range, int n_chunks, void* stream) {
   return launch_lb_chunk<true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
-      lbs2, dtw_lo, dtw_hi, cut, ovf, stats, lb, mu, sd, slist, nsurv,
+      lbs2, dtw_lo, dtw_hi, cut, gkth, ovf, stats, lb, mu, sd, slist, nsurv,
       dp_out, cand_sid, cand_off, num_series, n, batch, rows, qlen, g, znorm,
       n_pad, col0, k, range, n_chunks, stream);
 }

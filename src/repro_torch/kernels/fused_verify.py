@@ -176,11 +176,12 @@ def ed_chunk_tile(qlen: int, g: int, long: bool = False) -> int:
 
 def _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
                 anchors, n_master, lbs2, queries, cut, stats, i, chunk,
-                ovf=None):
+                ovf=None, gkth=None):
     """Raise unless the chunk entries' inputs are what the kernels take:
     the (B, n_pad) plan with chunk i inside it, the queries (name, tensor)
     (B, qlen), the cut (the pool's (B, k) d2, or eps2 (B,)), the (B, 6)
-    counters and, for range, ovf (B,)."""
+    counters, for range ovf (B,) and, where given, the sharded scan's
+    gkth (B,) float32."""
     b = queries[0][1].shape[0]
     n_pad = sids.shape[1]
     _check(what, data, csum, csum2, csum_lo, csum2_lo, center,
@@ -193,7 +194,8 @@ def _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
         ("pool_d2" if ovf is None else "eps2", cut, torch.float32,
          (b, cut.shape[-1]) if ovf is None else (b,)),
         ("stats", stats, torch.int32, (b, 6)),
-        *(() if ovf is None else (("ovf", ovf, torch.int32, (b,)),))))
+        *(() if ovf is None else (("ovf", ovf, torch.int32, (b,)),)),
+        *(() if gkth is None else (("gkth", gkth, torch.float32, (b,)),))))
     if not (chunk >= 1 and 0 <= i * chunk and (i + 1) * chunk <= n_pad):
         raise ValueError(f"{what}: chunk {i} of {chunk} rows outside the "
                          f"plan's {n_pad} columns")
@@ -201,7 +203,7 @@ def _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
 
 def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, qs, pool_d2, stats, i, chunk, g,
-              znorm):
+              znorm, gkth):
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
@@ -210,12 +212,12 @@ def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
     what = wrapper.__name__
     _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
                 anchors, n_master, lbs2, (("qs", qs),), pool_d2, stats, i,
-                chunk)
+                chunk, gkth=gkth)
     if dev.type == "cpu":
         return ref.fused_gather_ed_chunk_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, qs, pool_d2, stats, i=i, chunk=chunk, g=g,
-            znorm=znorm)
+            znorm=znorm, gkth=gkth)
     lib = _build.library("fused_verify")
     tile = ed_chunk_tile(qlen, g, long)
     part = torch.empty((4, b, -(-chunk // tile) * min(k, tile * g)),
@@ -226,7 +228,8 @@ def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
         csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
         sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
-        lbs2.data_ptr(), qs.data_ptr(), pool_d2.data_ptr(), stats.data_ptr(),
+        lbs2.data_ptr(), qs.data_ptr(), pool_d2.data_ptr(),
+        None if gkth is None else gkth.data_ptr(), stats.data_ptr(),
         part.data_ptr(), s, n, b, chunk, qlen, g, int(znorm), n_pad,
         i * chunk, k, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
@@ -241,7 +244,9 @@ def fused_gather_ed_chunk(data: torch.Tensor, csum: torch.Tensor,
                           n_master: torch.Tensor, lbs2: torch.Tensor,
                           qs: torch.Tensor, pool_d2: torch.Tensor,
                           stats: torch.Tensor, *, i: int, chunk: int,
-                          g: int, znorm: bool) -> torch.Tensor:
+                          g: int, znorm: bool,
+                          gkth: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """The scan's ED step over chunk i, in one launch of the
     `fused_gather_ed` kernel.
 
@@ -257,12 +262,16 @@ def fused_gather_ed_chunk(data: torch.Tensor, csum: torch.Tensor,
     d2 < the pool's k-th; on the CPU the partials are every candidate
     (+inf where not ok).  On the card a qlen past the staged kernel's
     goes to `fused_gather_ed_chunk_long`.
+
+    `gkth` (B,) float32, the sharded scan's mesh-wide k-th (None on every
+    local path): active, keep and pruned then cut at min(pool k-th,
+    gkth[b]), while the card's pre-select stays at the pool's own k-th.
     """
     long = qs.device.type == "cuda" and not staged("ed", qs.shape[1], g)
     return _ed_chunk(
         fused_gather_ed_chunk_long if long else fused_gather_ed_chunk, long,
         data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-        n_master, lbs2, qs, pool_d2, stats, i, chunk, g, znorm)
+        n_master, lbs2, qs, pool_d2, stats, i, chunk, g, znorm, gkth)
 
 
 fused_gather_ed_chunk.launches = 0
@@ -275,13 +284,15 @@ def fused_gather_ed_chunk_long(data: torch.Tensor, csum: torch.Tensor,
                                n_master: torch.Tensor, lbs2: torch.Tensor,
                                qs: torch.Tensor, pool_d2: torch.Tensor,
                                stats: torch.Tensor, *, i: int, chunk: int,
-                               g: int, znorm: bool) -> torch.Tensor:
+                               g: int, znorm: bool,
+                               gkth: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """`fused_gather_ed_chunk` through the long-row kernel, at any qlen:
     the same counters and, at a qlen both take, the same partials bit
     for bit (blocks of `ed_chunk_tile(qlen, g, long=True)` rows)."""
     return _ed_chunk(fused_gather_ed_chunk_long, True, data, csum, csum2,
                      csum_lo, csum2_lo, center, sids, anchors, n_master,
-                     lbs2, qs, pool_d2, stats, i, chunk, g, znorm)
+                     lbs2, qs, pool_d2, stats, i, chunk, g, znorm, gkth)
 
 
 fused_gather_ed_chunk_long.launches = 0
@@ -448,9 +459,10 @@ fused_gather_lb_keogh_long.launches = 0
 
 def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats,
-              i, chunk, g, znorm, no_ovf=None):
-    """The LB chunk entries: k-NN (ovf None, cut the pool's (B, k) d2) or
-    range (cut eps2 (B,), ovf (B,), no_ovf its no-overflow value)."""
+              i, chunk, g, znorm, no_ovf=None, gkth=None):
+    """The LB chunk entries: k-NN (ovf None, cut the pool's (B, k) d2,
+    gkth the sharded scan's (B,) or None) or range (cut eps2 (B,), ovf
+    (B,), no_ovf its no-overflow value)."""
     dev = data.device
     s, n = data.shape
     b, qlen = dtw_lo.shape
@@ -460,14 +472,14 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
     _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
                 anchors, n_master, lbs2, (("dtw_lo", dtw_lo),
                                           ("dtw_hi", dtw_hi)),
-                cut, stats, i, chunk, ovf)
+                cut, stats, i, chunk, ovf, gkth)
     no_ovf = n_pad // chunk if no_ovf is None else no_ovf
     if dev.type == "cpu":
         if ovf is None:
             return ref.fused_gather_lb_keogh_chunk_ref(
                 data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
                 n_master, lbs2, dtw_lo, dtw_hi, cut, stats, i=i, chunk=chunk,
-                g=g, znorm=znorm)
+                g=g, znorm=znorm, gkth=gkth)
         return ref.fused_gather_lb_keogh_range_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats, i=i,
@@ -486,7 +498,8 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
         sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
         lbs2.data_ptr(), dtw_lo.data_ptr(), dtw_hi.data_ptr(),
-        cut.data_ptr(), None if ovf is None else ovf.data_ptr(),
+        cut.data_ptr(), None if gkth is None else gkth.data_ptr(),
+        None if ovf is None else ovf.data_ptr(),
         stats.data_ptr(), lb.data_ptr(), mu.data_ptr(), sd.data_ptr(),
         slist.data_ptr(), nsurv.data_ptr(), d2.data_ptr(),
         cand_sid.data_ptr(), cand_off.data_ptr(), s, n, b, chunk, qlen, g,
@@ -505,7 +518,8 @@ def fused_gather_lb_keogh_chunk(data: torch.Tensor, csum: torch.Tensor,
                                 n_master: torch.Tensor, lbs2: torch.Tensor,
                                 dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
                                 pool_d2: torch.Tensor, stats: torch.Tensor,
-                                *, i: int, chunk: int, g: int, znorm: bool):
+                                *, i: int, chunk: int, g: int, znorm: bool,
+                                gkth: Optional[torch.Tensor] = None):
     """The scan's LB_Keogh step over chunk i, in one launch of the
     `fused_gather_lb_keogh` kernel.
 
@@ -529,6 +543,10 @@ def fused_gather_lb_keogh_chunk(data: torch.Tensor, csum: torch.Tensor,
     the device: no torch op and no host sync around it.  On the card a
     qlen past the staged kernel's goes to
     `fused_gather_lb_keogh_chunk_long`.
+
+    `gkth` (B,) float32, the sharded scan's mesh-wide k-th (None on every
+    local path): active, keep, pruned and the survivors then cut at
+    min(pool k-th, gkth[b]).
     """
     long = (dtw_lo.device.type == "cuda"
             and not staged("dtw", dtw_lo.shape[1], g))
@@ -536,7 +554,7 @@ def fused_gather_lb_keogh_chunk(data: torch.Tensor, csum: torch.Tensor,
         fused_gather_lb_keogh_chunk_long if long
         else fused_gather_lb_keogh_chunk, long, data, csum, csum2, csum_lo,
         csum2_lo, center, sids, anchors, n_master, lbs2, dtw_lo, dtw_hi,
-        pool_d2, None, stats, i, chunk, g, znorm)
+        pool_d2, None, stats, i, chunk, g, znorm, gkth=gkth)
 
 
 fused_gather_lb_keogh_chunk.launches = 0
@@ -548,14 +566,14 @@ def fused_gather_lb_keogh_chunk_long(
         sids: torch.Tensor, anchors: torch.Tensor, n_master: torch.Tensor,
         lbs2: torch.Tensor, dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
         pool_d2: torch.Tensor, stats: torch.Tensor, *, i: int, chunk: int,
-        g: int, znorm: bool):
+        g: int, znorm: bool, gkth: Optional[torch.Tensor] = None):
     """`fused_gather_lb_keogh_chunk` through the long-row kernel, at any
     qlen: the same outputs and counters, bit for bit where both take the
     shape (the survivor list in any order)."""
     return _lb_chunk(fused_gather_lb_keogh_chunk_long, True, data, csum,
                      csum2, csum_lo, csum2_lo, center, sids, anchors,
                      n_master, lbs2, dtw_lo, dtw_hi, pool_d2, None, stats, i,
-                     chunk, g, znorm)
+                     chunk, g, znorm, gkth=gkth)
 
 
 fused_gather_lb_keogh_chunk_long.launches = 0

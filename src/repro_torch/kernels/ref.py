@@ -129,12 +129,19 @@ def chunk_candidates(csid, canc, cnm, keep, qlen: int, n: int, g: int):
         b_sz, rows * g), offs.reshape(b_sz, rows * g))
 
 
-def scan_active(lbs2, pool_d2, i: int, chunk: int):
+def knn_cut(pool_d2, gkth=None):
+    """(B,) the k-NN step's cut: the pool's k-th distance, or its min with
+    the sharded scan's mesh-wide k-th `gkth` (B,) where that is given."""
+    kth = pool_d2[:, -1]
+    return kth if gkth is None else torch.minimum(kth, gkth)
+
+
+def scan_active(lbs2, pool_d2, i: int, chunk: int, gkth=None):
     """(B,) bool: query b still scans at chunk i of its LB-sorted plan —
-    the chunk's first bound (its best case) is finite and below the
-    pool's k-th distance."""
+    the chunk's first bound (its best case) is finite and below the cut
+    (`knn_cut`: the pool's k-th distance, or its min with gkth)."""
     first = lbs2[:, min(i * chunk, lbs2.shape[1] - 1)]
-    return torch.isfinite(first) & (first < pool_d2[:, -1])
+    return torch.isfinite(first) & (first < knn_cut(pool_d2, gkth))
 
 
 def range_active(lbs2, eps2, ovf, i: int, chunk: int, no_ovf=None):
@@ -207,12 +214,15 @@ def _ed_chunk_d2(data, csum, csum2, csum_lo, csum2_lo, center, sids,
 def fused_gather_ed_chunk_ref(data, csum, csum2, csum_lo, csum2_lo, center,
                               sids, anchors, n_master, lbs2, qs, pool_d2,
                               stats, *, i: int, chunk: int, g: int,
-                              znorm: bool, dist=None) -> torch.Tensor:
+                              znorm: bool, dist=None,
+                              gkth=None) -> torch.Tensor:
     """The scan's ED step over chunk i of the (B, n_pad) LB-sorted plan
     (sids, anchors, n_master, lbs2), against the pool's (B, k) d2.
 
     Query b is active when `scan_active`; row r is kept when active and
-    lbs2 < kth = pool_d2[b, k - 1]; candidate (r, j) is ok where
+    lbs2 < kth = pool_d2[b, k - 1] (the sharded scan passes gkth (B,),
+    its mesh-wide k-th, and kth is then min(pool_d2[b, k - 1], gkth[b]):
+    `knn_cut`); candidate (r, j) is ok where
     `chunk_candidates` says so.  Adds [active, kept rows, ok candidates,
     0, 0, pruned rows] to the (B, 6) int32 `stats` in place (pruned: a
     finite bound of an active query that was not kept).  `dist` is the
@@ -223,8 +233,9 @@ def fused_gather_ed_chunk_ref(data, csum, csum2, csum_lo, csum2_lo, center,
     b_sz = qs.shape[0]
     d2, cand_sid, cand_off = _ed_chunk_d2(
         data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-        n_master, lbs2, qs, stats, scan_active(lbs2, pool_d2, i, chunk),
-        pool_d2[:, -1], False, i, chunk, g, znorm, dist)
+        n_master, lbs2, qs, stats,
+        scan_active(lbs2, pool_d2, i, chunk, gkth), knn_cut(pool_d2, gkth),
+        False, i, chunk, g, znorm, dist)
     pos = torch.arange(chunk * g, dtype=torch.int32, device=qs.device)
     return torch.stack([d2.view(torch.int32), cand_sid, cand_off,
                         pos.expand(b_sz, chunk * g)])
@@ -406,17 +417,18 @@ def fused_gather_lb_keogh_chunk_ref(data, csum, csum2, csum_lo, csum2_lo,
                                     center, sids, anchors, n_master, lbs2,
                                     dtw_lo, dtw_hi, pool_d2, stats, *,
                                     i: int, chunk: int, g: int,
-                                    znorm: bool):
+                                    znorm: bool, gkth=None):
     """The scan's LB_Keogh step over chunk i of the (B, n_pad) LB-sorted
     plan (sids, anchors, n_master, lbs2), against the pool's (B, k) d2:
     `fused_gather_lb_keogh_ref` of the chunk's rows, masked, its
     survivors listed, the DP's output prepared and the counters added.
 
     Query b is active when `scan_active`, a row kept when active and
-    lbs2 < kth = pool_d2[b, k - 1], candidate (r, j) ok where
-    `chunk_candidates` says so, and a survivor an ok candidate with lb2 <
-    kth.  Adds [active, kept rows, survivors, ok candidates, survivors,
-    pruned rows] to the (B, 6) int32 `stats` in place.  Returns (lb2,
+    lbs2 < kth = pool_d2[b, k - 1] (or its min with the sharded scan's
+    gkth (B,): `knn_cut`), candidate (r, j) ok where `chunk_candidates`
+    says so, and a survivor an ok candidate with lb2 < kth.  Adds
+    [active, kept rows, survivors, ok candidates, survivors, pruned rows]
+    to the (B, 6) int32 `stats` in place.  Returns (lb2,
     mu, sd, slist, nsurv, d2, cand_sid, cand_off): lb2/mu/sd (B * chunk,
     g) with lb2 = +inf where not ok; query b's survivors are the
     positions slist[b, :nsurv[b]] (int32, ascending here; the kernel's
@@ -428,8 +440,8 @@ def fused_gather_lb_keogh_chunk_ref(data, csum, csum2, csum_lo, csum2_lo,
     return _lb_chunk_ref(
         data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         n_master, lbs2, dtw_lo, dtw_hi, stats,
-        scan_active(lbs2, pool_d2, i, chunk), pool_d2[:, -1], False, i,
-        chunk, g, znorm)
+        scan_active(lbs2, pool_d2, i, chunk, gkth), knn_cut(pool_d2, gkth),
+        False, i, chunk, g, znorm)
 
 
 def fused_gather_lb_keogh_range_ref(data, csum, csum2, csum_lo, csum2_lo,

@@ -14,8 +14,8 @@ process tracer enabled, then writes three artifacts into --out:
     metrics.prom   Prometheus text exposition of the full registry
     metrics.json   the same registry as a JSON snapshot
 
-Runs on CUDA unless --device cpu; --devices above 1 (the sharded
-backend) is not ported.
+Runs on CUDA unless --device cpu; --devices above 1 (a server over a
+distributed engine) is not ported yet.
 """
 import argparse
 import json
@@ -52,7 +52,8 @@ def main(argv=None):
     from repro_torch.train.data import series_batches
 
     if args.devices > 1:
-        raise _not_ported("the distributed backend", "4")
+        raise _not_ported("--devices (a server over a distributed engine)",
+                          "4b")
     tracer = obs.get_tracer().configure(
         enabled=True, sample_every=args.sample_every,
         torch_annotations=args.torch_annotations)

@@ -11,8 +11,8 @@ submits a query, waits for its answer, submits the next.  Requests
 coalesce into pow2 length buckets and dispatch as padded device batches
 after --window-ms (or when a bucket fills to --batch); the serial
 one-request-at-a-time loop is timed first as the baseline.  Runs on CUDA
-unless --device cpu; --devices above 1 (the sharded backend) is not
-ported.
+unless --device cpu; --devices above 1 (a server over a distributed
+engine) is not ported yet.
 """
 import argparse
 import sys
@@ -50,7 +50,8 @@ def main(argv=None):
     from repro_torch.train.data import series_batches
 
     if args.devices > 1:
-        raise _not_ported("the distributed backend", "4")
+        raise _not_ported("--devices (a server over a distributed engine)",
+                          "4b")
     ns = args.series
     data = series_batches(ns, args.series_len, seed=11)
     p = EnvelopeParams(lmin=args.series_len // 2,

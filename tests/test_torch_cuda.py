@@ -151,13 +151,15 @@ def _seed_pool(rng, dev, d2_all, k):
 
 def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0,
                    entry=fused_gather_ed_chunk, counted=fused_gather_ed_chunk,
-                   n=256):
+                   n=256, gkth=False):
     """Every chunk of a plan through (chunk entry + partials merge) and
     through the plain step (the contract entry's distances masked, the
     counters, the stable-sort merge) from one seed: the pools and
     counters must be equal bit for bit after every step.  `entry` is
     the chunk wrapper called, `counted` the one whose launch it counts;
-    n the series length."""
+    n the series length.  `gkth`: both steps also take a sharded scan's
+    mesh-wide k-th, a quarter of each query's median candidate d2 (+inf
+    for query 3, 0 for query 4: never active)."""
     rng = np.random.default_rng(seed + k + qlen + znorm + chunk)
     g, b = 49, 8
     n_pad = chunk * n_chunks
@@ -170,6 +172,12 @@ def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0,
     d2_all = d2_all.reshape(b, -1).cpu().numpy()
     lbs2 = _ed_bounds(rng, dev, d2_all, n_pad)
     pool = _seed_pool(rng, dev, d2_all, k)
+    gk = None
+    if gkth:
+        med = np.array([np.median(r[np.isfinite(r)]) for r in d2_all])
+        gk_np = (0.25 * med).astype(np.float32)
+        gk_np[3], gk_np[4] = np.inf, 0.0
+        gk = _t(gk_np, dev)
     plain = [t.clone() for t in pool]
     st = torch.zeros((b, 6), dtype=torch.int32, device=dev)
     st_plain = st.clone()
@@ -180,12 +188,13 @@ def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0,
                                g=g, rows=chunk, znorm=znorm)
         part = ref.fused_gather_ed_chunk_ref(
             *a0, sids, anchors, n_master, lbs2, qs, plain[0], st_plain, i=i,
-            chunk=chunk, g=g, znorm=znorm, dist=dist)
+            chunk=chunk, g=g, znorm=znorm, dist=dist, gkth=gk)
         for t, v in zip(plain, ref.pool_merge_partials_ref(plain, part)):
             t.copy_(v)
         before = (counted.launches, pool_merge_partials.launches)
         part = entry(*a0, sids, anchors, n_master, lbs2, qs, pool[0], st,
-                     i=i, chunk=chunk, g=g, znorm=znorm)
+                     i=i, chunk=chunk, g=g, znorm=znorm,
+                     **({} if gk is None else {"gkth": gk}))
         pool_merge_partials(pool, part)
         torch.cuda.synchronize()
         assert (counted.launches, pool_merge_partials.launches) == \
@@ -459,17 +468,24 @@ def _lb_plan(dev, rng, args, rows, b, g):
 
 
 def _lb_chunk_check(dev, rng, args, rows, znorm, counted=None, b=8, g=49,
-                    range_mode=False):
+                    range_mode=False, gkth=False):
     """The LB chunk entry over chunk 1 of `_lb_plan`'s plan (one launch
     counted by `counted`: default the staged entry of the mode) against
     its plain version: see test_fused_gather_lb_keogh_chunk_matches_plain.
-    The cut is each query's 10% quantile of its lb2."""
+    The cut is each query's 10% quantile of its lb2; `gkth` (k-NN): both
+    also take a sharded scan's mesh-wide k-th, half the cut (+inf for the
+    last query), so the effective cut is the min of the two."""
     a0, plan, env = _lb_plan(dev, rng, args, rows, b, g)
     lb_all = ref.fused_gather_lb_keogh_ref(*args, g=g, rows=rows,
                                            znorm=znorm)[0].reshape(b, -1)
     cut = lb_all.sort(dim=1).values[:, rows * g // 10].contiguous()
     cut[0] = 0.0 if range_mode else -float("inf")
     cut[b - 1] = float("inf")
+    extra, eff = {}, cut
+    if gkth:
+        gk = (cut * 0.5).contiguous()
+        gk[b - 1] = float("inf")
+        extra, eff = {"gkth": gk}, torch.minimum(cut, gk)
     st = torch.zeros((b, 6), dtype=torch.int32, device=dev)
     st_plain = st.clone()
     kw = dict(i=1, chunk=rows, g=g, znorm=znorm)
@@ -483,8 +499,8 @@ def _lb_chunk_check(dev, rng, args, rows, znorm, counted=None, b=8, g=49,
         plain = ref.fused_gather_lb_keogh_chunk_ref
     counted = counted or entry
     before = counted.launches
-    got = entry(*a0, *plan, *env, *tail, st, **kw)
-    want = plain(*a0, *plan, *env, *tail, st_plain, **kw)
+    got = entry(*a0, *plan, *env, *tail, st, **kw, **extra)
+    want = plain(*a0, *plan, *env, *tail, st_plain, **kw, **extra)
     torch.cuda.synchronize()
     assert counted.launches == before + 1
     _close(got[0], want[0], 2e-4, 2e-3)
@@ -494,7 +510,7 @@ def _lb_chunk_check(dev, rng, args, rows, znorm, counted=None, b=8, g=49,
     # (an lb2 within rounding of the cut may fall on either side)
     ok = torch.isfinite(want[0].reshape(b, -1))
     lb = got[0].reshape(b, -1)
-    below = lb <= cut[:, None] if range_mode else lb < cut[:, None]
+    below = lb <= eff[:, None] if range_mode else lb < eff[:, None]
     surv = ok & below
     assert torch.equal(got[4], surv.sum(dim=1, dtype=torch.int32))
     assert int(got[4][1 if range_mode else 0]) == 0
@@ -509,10 +525,10 @@ def _lb_chunk_check(dev, rng, args, rows, znorm, counted=None, b=8, g=49,
     # against the plain version's set: they differ only where the plain
     # lb2 lies within the LB tolerance of the cut
     plain_lb = want[0].reshape(b, -1)
-    plain_below = (plain_lb <= cut[:, None] if range_mode
-                   else plain_lb < cut[:, None])
+    plain_below = (plain_lb <= eff[:, None] if range_mode
+                   else plain_lb < eff[:, None])
     differ = surv != (ok & plain_below)
-    near = (plain_lb - cut[:, None]).abs() <= 2e-3 + 2e-4 * cut.abs()[:, None]
+    near = (plain_lb - eff[:, None]).abs() <= 2e-3 + 2e-4 * eff.abs()[:, None]
     assert bool((near | ~differ).all())
 
 
@@ -1640,3 +1656,80 @@ def test_warmup_on_cuda_leaves_nothing_to_build_or_load(dev):
     server.close()
     assert _build.COUNTS == before
     assert (res.series[0], res.offsets[0]) == (3, 10)
+
+
+# -- the sharded scan's mesh-wide k-th, and the distributed engine --------
+
+@pytest.mark.parametrize("k", [5, 64])
+@pytest.mark.parametrize("long", [False, True], ids=["staged", "long"])
+def test_fused_gather_ed_chunk_with_gkth_equals_plain_step(dev, k, long):
+    """The ED chunk entries with the sharded scan's gkth: active, keep and
+    pruned cut at min(pool k-th, gkth), the pre-select at the pool's own
+    k-th; pools and counters bit-equal to the plain step's; query 4
+    (gkth 0) never active."""
+    entry = fused_gather_ed_chunk_long if long else fused_gather_ed_chunk
+    _, st = _ed_chunk_walk(dev, k, 256, True, chunk=100, entry=entry,
+                           counted=entry, n=456 if long else 256, gkth=True)
+    assert int(st[4].abs().sum()) == 0 and int(st[2:4, 5].sum()) > 0
+
+
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_fused_gather_lb_keogh_chunk_with_gkth_matches_plain(dev, znorm):
+    """The LB chunk entries (staged at qlen 256, the long-row variant at
+    19,305) with the sharded scan's gkth against their plain versions:
+    the chunk test's checks at the effective cut min(cut, gkth)."""
+    rng = np.random.default_rng(21 + znorm)
+    _lb_chunk_check(dev, rng, _chunk_args(dev, rng, 512, 256, 25), 512,
+                    znorm, gkth=True)
+    _lb_chunk_check(dev, rng, _long_args(dev, rng, 19_305, 3, 8, dtw_r=193),
+                    8, znorm, counted=fused_gather_lb_keogh_chunk_long, b=3,
+                    gkth=True)
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_distributed_engine_on_cuda_equals_local(dev, world, backend):
+    """`UlisseEngine.distributed` on the card (each rank's default device,
+    cuda:0): a world of 1 over NCCL and of 2 over gloo (host copies)
+    answer as the local CUDA engine does — ED and DTW k-NN the same (sid,
+    off) in the same order, ED within 1e-9, DTW rtol 1e-4; range the same
+    hit sets — and the sharded steps launched the gkth chunk entries."""
+    import torch_worlds
+    rng = np.random.default_rng(31)
+    data = np.cumsum(rng.normal(size=(64, 256)), -1).astype(np.float32)
+    params = dict(lmin=160, lmax=256, seg_len=16, gamma=48, card=256,
+                  znorm=True)
+    qs = [data[s, o:o + 200] + rng.normal(size=200).astype(np.float32) * .1
+          for s, o in ((3, 10), (40, 50), (17, 0))]
+    p = EnvelopeParams(**params)
+    local = UlisseEngine.from_collection(Collection.from_array(data, dev), p,
+                                         device=dev)
+    bp = local.index.breakpoints.cpu().numpy()
+    # eps halfway between the 20th and 21st neighbours: no window on the
+    # boundary, where the host continuation's rounding may differ
+    d = local.search(qs[0], QuerySpec(k=21)).dists
+    eps = float(d[19] + d[20]) / 2
+    specs = {"ed": dict(k=5), "dtw": dict(k=5, measure="dtw", r=20),
+             "range": dict(eps=eps), "range-16": dict(eps=eps,
+                                                      range_capacity=16)}
+    cases = {name: ("e", qs, spec) for name, spec in specs.items()}
+    out = torch_worlds.run_world(world, torch_worlds.engine_matrix_job,
+                                 {"e": (data, params, bp, 4)}, cases, None,
+                                 backend=backend, timeout=300)
+    arrays, _, launches = out[0]
+    assert launches["fused_gather_ed_chunk"] > 0
+    assert launches["fused_gather_lb_keogh_chunk"] > 0
+    for name, spec in specs.items():
+        want = local.search(qs, QuerySpec(**spec))
+        for j, b in enumerate(want):
+            key = f"{world}/{name}/{j}/"
+            got = {f: arrays[key + f] for f in ("dists", "series",
+                                                "offsets")}
+            if name.startswith("range"):
+                assert set(zip(got["series"], got["offsets"])) == \
+                    set(zip(b.series, b.offsets))
+                continue
+            np.testing.assert_array_equal(got["series"], b.series)
+            np.testing.assert_array_equal(got["offsets"], b.offsets)
+            np.testing.assert_allclose(got["dists"], b.dists,
+                                       rtol=1e-4 if name == "dtw" else 0,
+                                       atol=0 if name == "dtw" else 1e-9)

@@ -169,8 +169,9 @@ def test_unported_paths_raise(engines):
     """Range search is ported (device and host, ED and DTW) and answers
     the port's brute force; approx-only and the host backend answer;
     ingestion and a memory budget are ported (a resident index stays
-    resident under a budget); the distributed backend still raises,
-    naming its ROADMAP Queue 1 item."""
+    resident under a budget); the distributed search is ported
+    (tests/test_torch_distributed*.py), and its open with a mesh still
+    raises, naming its ROADMAP Queue 1 item."""
     znorm, data, _, port, coll = engines
     q = data[0, :96] + np.float32(0.05) * np.sin(np.arange(96),
                                                   dtype=np.float32)
@@ -201,8 +202,8 @@ def test_unported_paths_raise(engines):
     budgeted = UlisseEngine.from_index(port.index, memory_budget_bytes=1,
                                        device="cpu")
     assert budgeted.page_cache_stats() is None
-    with pytest.raises(NotImplementedError, match="item 4"):
-        UlisseEngine.distributed(None, EnvelopeParams(**PARAMS), data)
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        UlisseEngine.open("unused", mesh=object(), device="cpu")
 
 
 def test_engine_raises_without_cuda_unless_cpu_asked(engines):
