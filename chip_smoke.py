@@ -155,7 +155,31 @@ Phases (any failed check raises, and the script exits non-zero):
      exact answer; 1 visits no more chunks); every rank's answers and
      counters equal rank 0's; queries/s per path and world, rounds a
      batch, the collectives' share of wall time (host clock), chunk
-     steps a rank and shard_chunks.
+     steps a rank and shard_chunks.  The world of 4 runs first (see
+     [20]).
+ 20. the distributed engine's writes, persistence and serving, inside
+     [19]'s worlds after their searches: first the two k-NN chunk
+     entries as the sharded scan's delta family runs them, with gkth
+     over a rank-like [main; delta] block packed delta-first with pinned
+     chunk heads (GMAP_MAIN of [3]'s series, GMAP_DELTA of [17]'s part),
+     their ids mapped through its gmap, against their plain versions
+     (ED pools and counters bit for bit, LB as in [19]) and timed; then
+     on every rank of each world: [17]'s 10,000 series appended
+     (envelope_znorm launched on every rank), [17]'s ED, DTW (r 16) and
+     ED range (capacity 2,048) batches of windows of them equal to [17]'s
+     local engine's answers after the same append (series ids included;
+     every k-NN chunk step ran a gkth chunk entry with a gmap), a save
+     (the delta with it) and a cold open in the same world whose ED and
+     DTW batches equal the warm ones bit for bit with its index unbuilt
+     until the first search, compact equal in every shard field to a
+     fresh sharded build of the grown collection with the same
+     breakpoints; the world of 4 then serves [4]'s two ED batches from
+     rank 0 (4 client threads, the other ranks following) bit-equal to
+     serial search and appends 1,000 series through the writer lane,
+     found by the next dispatch; the world of 1 first opens the world of
+     4's save (re-sharded and rebuilt: the fresh build its compact is
+     held to), its ED and DTW batches equal to the local answers.  Every
+     time is printed with the card's name and power limit.
 
 Phase 2 also holds the scan's ED chunk entry and the partials merge
 against the plain step (the contract entry's distances masked, the
@@ -267,9 +291,16 @@ SERVE_SPANS = ("serve.admission", "serve.queue_wait", "serve.dispatch",
 # the one card and checks correctness and the loop's overhead, not a
 # four-card speed), the seconds a world may take, the chunk rows and the
 # plan chunks of the gkth entries' checks
-SHARDED_WORLDS = ((1, "nccl"), (4, "gloo"))
+SHARDED_WORLDS = ((4, "gloo"), (1, "nccl"))
 SHARDED_TIMEOUT_S = 600
 GKTH_ROWS, GKTH_CHUNKS = 512, 8
+# [20], the distributed engine's writes, persistence and serving (inside
+# [19]'s worlds): the rank-like block of the gkth + gmap entries' checks
+# ([3]'s first GMAP_MAIN series and GMAP_DELTA of [17]'s part: 4 delta
+# chunks of GKTH_ROWS rows), the client threads of the world-4 burst and
+# the series its writer lane appends (seed + 20)
+GMAP_MAIN, GMAP_DELTA = 25_000, 1_000
+SERVE20_CLIENTS, SERVE20_APPEND = 4, 1_000
 # kernel wrappers a [19] rank counts (module, name)
 SHARDED_WRAPPERS = (
     ("fused_verify", "fused_gather_ed_chunk"),
@@ -357,6 +388,13 @@ REPLACES = {
     # not a Pallas kernel: the range scan's cumsum/searchsorted hit append
     "range_append": ("src/repro_torch/kernels/csrc/range_append.cu",
                      "src/repro/core/executor.py:767"),
+    # the k-NN chunk entries in the sharded scan's delta family
+    "fused_gather_ed_chunk_gkth_gmap": (
+        "src/repro_torch/kernels/csrc/fused_verify.cu",
+        "src/repro/kernels/fused_verify.py:181"),
+    "fused_gather_lb_keogh_chunk_gkth_gmap": (
+        "src/repro_torch/kernels/csrc/fused_verify.cu",
+        "src/repro/kernels/fused_verify.py:219"),
 }
 
 
@@ -696,13 +734,15 @@ def check_chunk_entry(torch, lb_in, kw, got, stats, range_mode=False):
 
 
 def ed_step_pair(torch, a0, plan, qs, pool, plain, stats, stats_plain, i,
-                 rows, g, znorm, gkth=None, entry=None):
+                 rows, g, znorm, gkth=None, entry=None, gmap=None):
     """Chunk i of an ED plan through the chunk entry and the partials
     merge (pool, stats) and through the plain step fed the contract
     entry's distances (plain, stats_plain), all in place; raise unless
     the pools and counters are equal bit for bit.  Returns the chunk
     entry's partials.  `gkth`: both steps take the sharded scan's
-    mesh-wide k-th; `entry` another chunk entry (the long-row one)."""
+    mesh-wide k-th; `entry` another chunk entry (the long-row one);
+    `gmap`: both map the partials' ids through it before the merge, as
+    the sharded scan's delta family does (`executor._scan_chunk_step`)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_verify import (fused_gather_ed,
                                                   fused_gather_ed_chunk)
@@ -714,11 +754,15 @@ def ed_step_pair(torch, a0, plan, qs, pool, plain, stats, stats_plain, i,
     part = ref.fused_gather_ed_chunk_ref(*a0, *plan, qs, plain[0],
                                          stats_plain, i=i, chunk=rows, g=g,
                                          znorm=znorm, dist=dist, gkth=gkth)
+    if gmap is not None:
+        part[1] = gmap[part[1].long()]
     for t, v in zip(plain, ref.pool_merge_partials_ref(plain, part)):
         t.copy_(v)
     part = (entry or fused_gather_ed_chunk)(
         *a0, *plan, qs, pool[0], stats, i=i, chunk=rows, g=g, znorm=znorm,
         **({} if gkth is None else {"gkth": gkth}))
+    if gmap is not None:
+        part[1] = gmap[part[1].long()]
     pool_merge_partials(pool, part)
     for name, x, y in zip(("d2", "sid", "off"), pool, plain):
         check_equal(torch, f"ED chunk step pool {name}", x, y)
@@ -2001,7 +2045,9 @@ def storage_phase(torch, engine, data, p, batches, answers, dtw_batches,
     same index opened resident: ED and DTW k-NN, ED range, and ED range
     at capacity 16 (overflow, host continuation through the page cache),
     with the page cache's counters, the prefetch waits and launch calls
-    a step.  Returns the records."""
+    a step.  Returns (the records, (the appended part, the batch of its
+    windows, the opened engine's ED / DTW / range answers to it before
+    the compact)) — [20] holds the sharded engine to those answers."""
     import os
     import shutil
     import tempfile
@@ -2102,6 +2148,7 @@ def storage_phase(torch, engine, data, p, batches, answers, dtw_batches,
                  "range": QuerySpec(eps=range_eps)}
         before = {name: opened.search(qs, spec)
                   for name, spec in specs.items()}
+        appended = (new, qs, before)       # [20] is held to these
         for j, (s, o) in enumerate(truth):
             e, d, r = (before[x][j] for x in ("ed", "dtw", "range"))
             if (int(e.series[0]), int(e.offsets[0])) != (n0 + s, o):
@@ -2239,8 +2286,7 @@ def storage_phase(torch, engine, data, p, batches, answers, dtw_batches,
             f"equal the resident engine's")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return out
-
+    return out, appended
 
 
 def serve_phase(torch, engine, data, p, zero_counts, read_counts, seed):
@@ -2711,14 +2757,267 @@ def check_gkth_entries(torch, engine, p, batches, answers, dtw_batches,
     return rec
 
 
-def sharded_rank(rank, world, backend, tmp, npy, params, jobs):
+def check_gmap_entries(torch, engine, data, p, batches, answers,
+                       dtw_batches, dtw_specs, dtw_answers, part, timings):
+    """[20]'s kernel checks: the two k-NN chunk entries as the sharded
+    scan's delta family runs them, with gkth and a gmap over a rank's
+    [main; delta] block (GMAP_MAIN of [3]'s series and the first
+    GMAP_DELTA of [17]'s appended part, their global ids), its envelope
+    set packed delta-first with pinned chunk heads: [4]'s second ED and
+    [8]'s second DTW batch (B = 8, qlen 256), the plan's first GKTH_CHUNKS
+    chunks of GKTH_ROWS rows (the delta's, then the main rows'), from an
+    empty pool under a gkth of the batch's final k-th (+inf for query 0).
+    ED: the chunk entry + gmap + partials merge against the plain step,
+    pools (global ids) and counters bit for bit; LB: the chunk entry's
+    checks (lb2 rtol 2e-4, mu, sd, ids and counters bit for bit, the
+    survivor set at the cut).  Both timed on these chunks into
+    `timings` under mode "gkth+gmap".  Returns the checks' record."""
+    from repro_torch.core import Collection, executor, planner
+    from repro_torch.core.envelope import build_envelope_set
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_verify import (fused_gather_ed_chunk,
+                                                  fused_gather_lb_keogh_chunk)
+    dev = engine.device
+    bp = engine.index.breakpoints
+    block = np.concatenate([data[:GMAP_MAIN], part[:GMAP_DELTA]])
+    coll = Collection.from_array(block, device=dev)
+    env = build_envelope_set(coll, p, bp)
+    d_rows = GMAP_DELTA * p.num_envelopes(SERIES_LEN)
+    gmap = torch.from_numpy(np.concatenate([
+        np.arange(GMAP_MAIN), len(data) + np.arange(GMAP_DELTA),
+        [-1]]).astype(np.int32)).to(dev)
+    g, rows = p.gamma + 1, GKTH_ROWS
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    rec = {"block": [GMAP_MAIN, GMAP_DELTA]}
+    for measure, qs, ans, r in (("ed", batches[1], answers[1], 0),
+                                ("dtw", dtw_batches[1], dtw_answers[1],
+                                 dtw_specs[1].r)):
+        q = torch.from_numpy(np.stack(qs)).to(dev)
+        qlen = q.shape[1]
+        qn, dlo, dhi, qb, qh = planner.prepare_query_batch(
+            q, p.seg_len, p.znorm, measure, r)
+        lbs = planner.env_lower_bounds_batch(
+            qb, qh, env, bp, p.seg_len, p.query_segments(qlen), False)
+        n_pad, chunk, nd_pad = executor.shard_pack_geometry(
+            env.size, d_rows, rows)
+        plan = planner.device_shard_pack(
+            env.series_id, env.anchor, env.n_master, lbs, n_pad=n_pad,
+            n_delta=d_rows, chunk=chunk)
+        gk = torch.from_numpy(np.array([a.dists[-1] ** 2 for a in ans],
+                                       np.float32)).to(dev)
+        gk[0] = float("inf")
+        empty = [torch.full((BATCH, K), float("inf"), device=dev),
+                 torch.full((BATCH, K), -1, dtype=torch.int32, device=dev),
+                 torch.full((BATCH, K), -1, dtype=torch.int32, device=dev)]
+        if measure == "ed":
+            pool = [t.clone() for t in empty]
+            plain = [t.clone() for t in empty]
+            st = torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+            st_p = torch.zeros_like(st)
+            for i in range(GKTH_CHUNKS):
+                ed_step_pair(torch, a0, plan, qn, pool, plain, st, st_p, i,
+                             rows, g, p.znorm, gkth=gk, gmap=gmap)
+            sid = pool[1][pool[1] >= 0]
+            rec["ed"] = {"bit_equal": True, "delta_chunks": nd_pad // chunk,
+                         "chunks_visited": int(st[:, 0].sum()),
+                         "pruned_rows": int(st[:, 5].sum()),
+                         "delta_ids_in_pool": int((sid >= len(data)).sum())}
+            call = [lambda i=i: fused_gather_ed_chunk(
+                *a0, *plan, qn, empty[0], st, i=i, chunk=rows, g=g,
+                znorm=p.znorm, gkth=gk) for i in range(GKTH_CHUNKS)]
+            plain_call = [lambda i=i: ref.fused_gather_ed_chunk_ref(
+                *a0, *plan, qn, empty[0], st.clone(), i=i, chunk=rows, g=g,
+                znorm=p.znorm, gkth=gk) for i in range(GKTH_CHUNKS)]
+            nbytes, ops, n_ok = ed_chunk_work(
+                torch, coll, plan, empty[0], qlen, rows, g, GKTH_CHUNKS,
+                gkth=gk)
+            shape = f"B={BATCH} rows={rows} qlen={qlen} ok/call={n_ok:.0f}"
+            name, events = "fused_gather_ed_chunk", 1
+        else:
+            worst, n_s, steps = 0.0, 0, []
+            for i in range(GKTH_CHUNKS):
+                c = chunk_args(torch, a0, qn, dlo, dhi, plan, i, rows,
+                               empty[0], g, znorm=p.znorm, gkth=gk)
+                err, n = check_chunk_entry(torch, c[0], c[1], c[2], c[3])
+                worst, n_s = max(worst, err), n_s + n
+                steps.append(c)
+            rec["dtw"] = {"survivors": n_s, "lb2_max_abs_err": worst}
+            call = [lambda c=c: fused_gather_lb_keogh_chunk(
+                *c[0], c[3], **c[1]) for c in steps]
+            plain_call = [lambda c=c: ref.fused_gather_lb_keogh_chunk_ref(
+                *c[0], c[3].clone(), **c[1]) for c in steps]
+            per_call = sum(int(c[2][4].sum()) for c in steps) / len(steps)
+            nbytes, ops, n_ok = lb_chunk_work(
+                torch, coll, plan, empty[0], qlen, rows, g, len(steps),
+                per_call, gkth=gk)
+            shape = (f"B={BATCH} rows={rows} qlen={qlen} ok/call="
+                     f"{n_ok:.0f} surv/call={per_call:.0f}")
+            name, events = "fused_gather_lb_keogh_chunk", 2
+        timings[(name, qlen, rows, "gkth+gmap")] = timing(
+            torch, call, plain_call, nbytes, ops,
+            rec["dtw"]["lb2_max_abs_err"] if measure == "dtw" else 0.0,
+            shape, events=events)
+    return rec
+
+
+def ingest_rank(torch, dist, eng, data, world, rank, ing, wrappers):
+    """[20] on one rank of a [19] world, after its searches: (world 1
+    first: the world-4 save opened here, re-sharded and rebuilt, its ED
+    and DTW batches) the part appended (envelope_znorm launches on this
+    rank), [17]'s ED, DTW and range batches searched (answers, the chunk
+    entries' launches, the steps that ran with a gmap), a save and a cold
+    open of it in this world (seconds; the cold ED and DTW answers),
+    compact (seconds) against a fresh sharded build of the grown
+    collection with the same breakpoints (every shard field bit for bit;
+    in world 1 the world-4 save's rebuild is that build), the ED batch
+    after it, and (world 4) a served burst from rank 0 with the other
+    ranks following, and an append through the writer lane.  Each step
+    starts after a barrier.  Returns its records."""
+    import os
+    import shutil
+    import threading
+    from repro_torch.core import QuerySpec, UlisseEngine
+    from repro_torch.distributed import ulisse
+    from repro_torch.serve import ServeConfig, UlisseServer, follow
+    group = dist.group.WORLD
+    part = np.load(ing["part"])
+    specs = {n: QuerySpec(**kw) for n, kw in ing["specs"].items()}
+    qs = ing["queries"]
+    out = {}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+        ulisse.sharded_knn.gmap_steps = 0
+
+    def timed(fn):
+        dist.barrier()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def answers(e, names=tuple(specs)):
+        return {n: [(a.dists, a.series, a.offsets, a.stats.as_dict())
+                    for a in e.search(qs, specs[n])] for n in names}
+
+    knn = ("ed", "dtw")
+    elastic = None
+    if ing.get("elastic"):
+        elastic, open_s = timed(lambda: UlisseEngine.open(ing["elastic"],
+                                                          mesh=group))
+        got, search_s = timed(lambda: answers(elastic, knn))
+        out["elastic"] = {"open_s": open_s, "search_s": search_s,
+                          "rows": elastic.raw_data.shape[0],
+                          "delta_size": elastic.delta_size,
+                          "cold": elastic._shard.sections is not None,
+                          "answers": got}
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(ing["elastic"], ignore_errors=True)
+    zero()
+    _, append_s = timed(lambda: eng.append(part))
+    out["append"] = {"s": append_s, "delta_size": eng.delta_size,
+                     "envelope_znorm": wrappers["envelope_znorm"].launches}
+    zero()
+    warm, search_s = timed(lambda: answers(eng))
+    out["search"] = {"s": search_s, "answers": warm,
+                     "gmap_steps": ulisse.sharded_knn.gmap_steps,
+                     "launches": {n: w.launches
+                                  for n, w in wrappers.items()}}
+    path = os.path.join(ing["root"], f"world{world}")
+    _, save_s = timed(lambda: eng.save(path))
+    cold, open_s = timed(lambda: UlisseEngine.open(path, mesh=group))
+    unbuilt = cold._shard.built is None
+    got, first_s = timed(lambda: answers(cold, knn))
+    out["save_open"] = {"save_s": save_s, "open_s": open_s,
+                        "first_search_s": first_s, "unbuilt": unbuilt,
+                        "bit_equal": all(
+                            all(np.array_equal(x, y)
+                                for x, y in zip(a[:3], b[:3]))
+                            and a[3] == b[3]
+                            for n in got for a, b in zip(got[n], warm[n]))}
+    del cold
+    torch.cuda.empty_cache()
+    if not ing.get("keep_save"):
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(path, ignore_errors=True)
+    bp = eng._shard.breakpoints
+    _, compact_s = timed(eng.compact)
+    if elastic is None:
+        fresh, fresh_s = timed(lambda: UlisseEngine.distributed(
+            None, eng.params, np.concatenate([data, part]), breakpoints=bp))
+    else:      # the world-4 save of the same rows and breakpoints, rebuilt
+        fresh, fresh_s = elastic, out["elastic"]["open_s"]
+    a, b = eng._shard, fresh._shard
+    diff = [f for f in ("data", "csum", "csum2", "csum_lo", "csum2_lo",
+                        "center")
+            if not torch.equal(getattr(a.index.collection, f),
+                               getattr(b.index.collection, f))]
+    diff += [f for f in ("paa_lo", "paa_hi", "sym_lo", "sym_hi",
+                         "series_id", "anchor", "n_master", "valid")
+             if not torch.equal(getattr(a.index.envelopes, f),
+                                getattr(b.index.envelopes, f))]
+    if not np.array_equal(a.main_rows, b.main_rows):
+        diff.append("main_rows")
+    if not torch.equal(a.breakpoints, b.breakpoints):
+        diff.append("breakpoints")
+    del fresh, a, b, elastic
+    torch.cuda.empty_cache()
+    out["compact"] = {"s": compact_s, "fresh_build_s": fresh_s,
+                      "differences": diff, "delta_size": eng.delta_size,
+                      "answers": answers(eng, ("ed",))}
+    sv = ing.get("serve")
+    if sv is not None:
+        spec = QuerySpec(k=K)
+        serial = [eng.search(q, spec) for q in sv["queries"]]
+        if rank == 0:
+            server = UlisseServer(eng, spec, ServeConfig(window_ms=2.0,
+                                                         max_batch=BATCH))
+            got = [None] * len(sv["queries"])
+
+            def client(c):
+                for i in range(c, len(got), SERVE20_CLIENTS):
+                    got[i] = server.search(sv["queries"][i], timeout=300)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE20_CLIENTS)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            served_s = time.perf_counter() - t
+            version = server.append(np.load(sv["part"])).result(300)
+            probe = server.search(sv["probe"], timeout=300)
+            server.close()
+            out["serve"] = {
+                "served_s": served_s, "version": version,
+                "bit_equal": all(
+                    np.array_equal(x.series, y.series)
+                    and np.array_equal(x.offsets, y.offsets)
+                    and np.array_equal(x.dists, y.dists)
+                    and x.stats.as_dict() == y.stats.as_dict()
+                    for x, y in zip(got, serial)),
+                "probe": (probe.series[:1].tolist(),
+                          probe.offsets[:1].tolist()),
+                "dispatches": server.metrics.snapshot()["total"]}
+        else:
+            out["serve"] = {"replayed": follow(eng)}
+    return out
+
+
+def sharded_rank(rank, world, backend, tmp, npy, params, jobs, ingest=None):
     """One rank of a [19] world: join it (a file:// rendezvous in `tmp`),
     build this rank's shard of the collection at `npy` (mmap'd) through
     `UlisseEngine.distributed` on its default device (cuda:0), run every
     job — (name, [(queries, QuerySpec keywords)]) — with the kernel
     counters, the collectives' counters and the sharded scan's rounds and
     steps set to 0 just before it (after a barrier) and read just after,
-    and pickle its records to `tmp`."""
+    then [20] (`ingest_rank`, with `ingest` its inputs), and pickle its
+    records to `tmp`."""
     import importlib
     import pickle
     import torch
@@ -2763,6 +3062,9 @@ def sharded_rank(rank, world, backend, tmp, npy, params, jobs):
                 "launches": {n: w.launches for n, w in wrappers.items()},
                 "answers": [(a.dists, a.series, a.offsets, a.stats.as_dict())
                             for a in res]}
+        if ingest is not None:
+            out["ingest"] = ingest_rank(torch, dist, eng, data, world, rank,
+                                        ingest, wrappers)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -2770,7 +3072,8 @@ def sharded_rank(rank, world, backend, tmp, npy, params, jobs):
         pickle.dump(out, f)
 
 
-def run_sharded_world(world: int, backend: str, npy: str, jobs) -> list:
+def run_sharded_world(world: int, backend: str, npy: str, jobs,
+                      ingest=None) -> list:
     """Start `world` ranks of `sharded_rank` (spawn: CUDA cannot fork),
     wait for them (SHARDED_TIMEOUT_S, then kill them and fail), and return
     their records in rank order.  A rank's exception fails the phase."""
@@ -2779,7 +3082,8 @@ def run_sharded_world(world: int, backend: str, npy: str, jobs) -> list:
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
-            sharded_rank, args=(world, backend, tmp, npy, BENCH, jobs),
+            sharded_rank, args=(world, backend, tmp, npy, BENCH, jobs,
+                                ingest),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + SHARDED_TIMEOUT_S
         try:
@@ -2840,7 +3144,7 @@ def _same_hits(got, want, eps: float, what: str) -> int:
 
 def sharded_phase(torch, engine, data, p, batches, answers, dtw_batches,
                   dtw_specs, dtw_answers, range_cases, range_records,
-                  range_answers, timings):
+                  range_answers, timings, appended, range_eps, card, seed):
     """[19], the sharded search on the card.  The gkth entries against
     their plain versions (`check_gkth_entries`), then [3]'s collection
     written once to a temporary .npy and served by
@@ -2852,7 +3156,11 @@ def sharded_phase(torch, engine, data, p, batches, answers, dtw_batches,
     at capacity 2,048 and 16 (the local engine's hit sets), an
     approximate batch at max_leaves 1 and 64 and the ED batch at
     sync_every 1 and 64; every rank's answers and counters equal rank
-    0's.  Returns the phase's record."""
+    0's.  Then [20] in the same worlds (`check_gmap_entries` first, then
+    `ingest_rank` on every rank, world 4 first, whose save world 1
+    opens): `appended` is [17]'s part, the batch of its windows and the
+    opened local engine's answers, which the sharded answers must equal.
+    Returns the phase's record."""
     import os
     import shutil
     import tempfile
@@ -2868,6 +3176,18 @@ def sharded_phase(torch, engine, data, p, batches, answers, dtw_batches,
                 f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {t['timer']})")
     log(f"[19] the gkth chunk entries equal their plain versions: "
         f"{rec['gkth']}")
+    new, aqs, before = appended
+    rec["gmap"] = check_gmap_entries(torch, engine, data, p, batches,
+                                     answers, dtw_batches, dtw_specs,
+                                     dtw_answers, new, timings)
+    for key, t in timings.items():
+        if len(key) == 4 and key[3] == "gkth+gmap":
+            log(f"[20] {key[0]:27s} gkth+gmap {t['shape']:44s} kernel "
+                f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {t['timer']}) "
+                f"[{card}]")
+    log(f"[20] the chunk entries with gkth and a gmap over a delta-first "
+        f"plan equal their plain versions: {rec['gmap']}")
     big = max(RANGE_CAPS)
     knn_jobs = [("ed", [(b, dict(k=K)) for b in batches]),
                 ("dtw", [(b, dict(k=K, measure="dtw", r=s.r))
@@ -2889,14 +3209,35 @@ def sharded_phase(torch, engine, data, p, batches, answers, dtw_batches,
              for n in (1, 64)]
     tmpdir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
     worlds = {}
+    from repro_torch.train.data import series_batches
+    srng = np.random.default_rng(seed + 20)
+    serve_part = series_batches(SERVE20_APPEND, SERIES_LEN, seed=seed + 20)
+    probe = (serve_part[7, 20:20 + QLENS[0]]
+             + srng.normal(size=QLENS[0]).astype(np.float32) * 0.1)
     try:
         npy = os.path.join(tmpdir, "data.npy")
         np.save(npy, np.ascontiguousarray(data, np.float32))
+        part_npy = os.path.join(tmpdir, "part.npy")
+        np.save(part_npy, new)
+        serve_npy = os.path.join(tmpdir, "serve_part.npy")
+        np.save(serve_npy, serve_part)
+        ingest = dict(part=part_npy, queries=aqs, root=tmpdir, specs={
+            "ed": dict(k=K), "dtw": dict(k=K, measure="dtw",
+                                         r=dtw_specs[0].r),
+            "range": dict(eps=range_eps)})
+        rec["disk_free_gib"] = shutil.disk_usage(tmpdir).free / 2 ** 30
         for world, backend in SHARDED_WORLDS:
+            ing = dict(ingest)
+            if world > 1:
+                ing.update(keep_save=True, serve=dict(
+                    queries=list(batches[0]) + list(batches[1]),
+                    part=serve_npy, probe=probe))
+            else:
+                ing["elastic"] = os.path.join(tmpdir, "world4")
             t0 = time.perf_counter()
             worlds[world] = run_sharded_world(
                 world, backend, npy,
-                knn_jobs + (range_jobs + more if world > 1 else []))
+                knn_jobs + (range_jobs + more if world > 1 else []), ing)
             rec[f"world_{world}_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
@@ -3001,7 +3342,134 @@ def sharded_phase(torch, engine, data, p, batches, answers, dtw_batches,
             f"{max(wrec['build_s']):.1f} s a rank, answers equal the local "
             f"engine's (max |d - d_local| {worst:.2e}) and across ranks; "
             f"{rec[f'world_{world}_s']:.1f} s in all")
+    rec["ingest"] = {world: ingest_checks(worlds[world], world, backend,
+                                          p, len(data), before, range_eps,
+                                          card)
+                     for world, backend in SHARDED_WORLDS}
     return rec
+
+
+class _Result:
+    """A rank's (dists, series, offsets) as `_same_knn`'s local side."""
+
+    def __init__(self, dists, series, offsets):
+        self.dists, self.series, self.offsets = dists, series, offsets
+
+
+def _same_ingest(got, before, eps: float, what: str) -> float:
+    """A rank's [20] ED / DTW (/ range) answers against the local engine's
+    after the same append ([17]'s); returns the largest distance
+    difference of the k-NN answers."""
+    worst = 0.0
+    for name in ("ed", "dtw"):
+        for j, (a, b) in enumerate(zip(got[name], before[name])):
+            worst = max(worst, _same_knn(a, b, name, f"{what} {name} {j}"))
+    for j, (a, b) in enumerate(zip(got.get("range", ()), before["range"])):
+        _same_hits(a, b, eps, f"{what} range {j}")
+    return worst
+
+
+def ingest_checks(ranks, world: int, backend: str, p, n0: int, before,
+                  eps: float, card: str) -> dict:
+    """[20]'s gates on one world's rank records (`ingest_rank`), and its
+    record: the append launched envelope_znorm on every rank and grew
+    delta_size; the searches after it equal the local engine's after the
+    same append ([17]), on every rank, and ran every k-NN step through a
+    gkth chunk entry and a gmap; the cold open's k-NN answers were the
+    warm engine's bit for bit, its index unbuilt until the first search;
+    compact equalled a fresh sharded build in every shard field and
+    answered as before; (world 1) the world-4 save opened here answered
+    as the local engine; (world 4) every served answer equalled serial
+    search and the writer lane's append was found."""
+    r0 = [r["ingest"] for r in ranks]
+    what = f"[20] world {world}"
+    delta = APPEND_SERIES * p.num_envelopes(SERIES_LEN)
+    for r in r0:
+        if r["append"]["envelope_znorm"] <= 0:
+            raise AssertionError(f"{what}: a rank's append launched no "
+                                 f"envelope_znorm")
+        if r["append"]["delta_size"] != delta:
+            raise AssertionError(f"{what}: delta_size "
+                                 f"{r['append']['delta_size']}")
+    worst = max(_same_ingest(r["search"]["answers"], before, eps,
+                             f"{what} rank {i}") for i, r in enumerate(r0))
+    launches = {n: sum(r["search"]["launches"][n] for r in r0)
+                for n in r0[0]["search"]["launches"]}
+    gmap_steps = sum(r["search"]["gmap_steps"] for r in r0)
+    knn_launches = (launches["fused_gather_ed_chunk"]
+                    + launches["fused_gather_lb_keogh_chunk"])
+    if min(launches["fused_gather_ed_chunk"],
+           launches["fused_gather_lb_keogh_chunk"]) <= 0 \
+            or gmap_steps != knn_launches:
+        raise AssertionError(f"{what}: {gmap_steps} gmap steps against "
+                             f"{launches} chunk-entry launches")
+    for r in r0:
+        so, c = r["save_open"], r["compact"]
+        if not (so["bit_equal"] and so["unbuilt"]):
+            raise AssertionError(f"{what}: the cold open {so}")
+        if c["differences"] or c["delta_size"]:
+            raise AssertionError(f"{what}: compact differs from a fresh "
+                                 f"build in {c['differences']}")
+        for j, (a, b) in enumerate(zip(c["answers"]["ed"],
+                                       r["search"]["answers"]["ed"])):
+            _same_knn(a, _Result(*b[:3]), "ed", f"{what} compacted ed {j}")
+    out = {"backend": backend, "append_s": [r["append"]["s"] for r in r0],
+           "envelope_znorm_launches": [r["append"]["envelope_znorm"]
+                                       for r in r0],
+           "search_s": max(r["search"]["s"] for r in r0),
+           "launches": launches, "gmap_steps": gmap_steps,
+           "save_s": max(r["save_open"]["save_s"] for r in r0),
+           "open_s": max(r["save_open"]["open_s"] for r in r0),
+           "cold_first_search_s": max(r["save_open"]["first_search_s"]
+                                      for r in r0),
+           "compact_s": max(r["compact"]["s"] for r in r0),
+           "fresh_build_s": max(r["compact"]["fresh_build_s"] for r in r0),
+           "max_distance_diff": worst}
+    log(f"[20] world {world} ({backend}): append of {APPEND_SERIES} series "
+        f"{max(out['append_s']):.3f} s (envelope_znorm "
+        f"{out['envelope_znorm_launches']} a rank); [17]'s ED, DTW and "
+        f"range batches equal the local engine's after the same append "
+        f"(max |d - d_local| {worst:.2e}) in {out['search_s']:.2f} s, "
+        f"{knn_launches} chunk-entry launches with gkth and a gmap "
+        f"(launches over the ranks: "
+        f"{ {n: c for n, c in launches.items() if c} }); save "
+        f"{out['save_s']:.2f} s, cold open "
+        f"{out['open_s']:.3f} s, its first ED and DTW batches "
+        f"{out['cold_first_search_s']:.2f} s, bit-equal; compact "
+        f"{out['compact_s']:.2f} s, bit-equal to a fresh sharded build "
+        f"({out['fresh_build_s']:.2f} s) [{card}]")
+    if "elastic" in r0[0]:
+        for i, r in enumerate(r0):
+            e = r["elastic"]
+            if (e["rows"], e["delta_size"], e["cold"]) != (
+                    n0 + APPEND_SERIES, 0, False):
+                raise AssertionError(f"{what}: the elastic open {e}")
+            _same_ingest(e["answers"], before, eps,
+                         f"{what} rank {i} elastic")
+        e = r0[0]["elastic"]
+        out["elastic"] = {"open_s": e["open_s"], "search_s": e["search_s"]}
+        log(f"[20] world {world}: the world-4 save (with its delta) opened "
+            f"here in {e['open_s']:.2f} s (re-sharded and rebuilt: the "
+            f"fresh build compact is held to), its ED and DTW batches "
+            f"{e['search_s']:.2f} s, equal to the local engine's [{card}]")
+    if "serve" in r0[0]:
+        sv = r0[0]["serve"]
+        want = n0 + APPEND_SERIES + 7
+        if not sv["bit_equal"] or sv["version"] != 1 \
+                or sv["probe"][0] != [want]:
+            raise AssertionError(f"{what}: the served burst {sv}")
+        if any(r["serve"].get("replayed", 1) <= 0 for r in r0[1:]):
+            raise AssertionError(f"{what}: a follower replayed nothing")
+        out["serve"] = {"served_s": sv["served_s"],
+                        "dispatches": sv["dispatches"],
+                        "replayed": [r["serve"].get("replayed")
+                                     for r in r0[1:]]}
+        log(f"[20] world {world}: {2 * BATCH} requests served from rank 0 "
+            f"({SERVE20_CLIENTS} client threads, the other ranks "
+            f"following) in {sv['served_s']:.2f} s, bit-equal to serial "
+            f"search; {SERVE20_APPEND} series appended through the writer "
+            f"lane and found by the next dispatch (series {want}) [{card}]")
+    return out
 
 
 def main() -> int:
@@ -4387,7 +4855,7 @@ def main() -> int:
     range_eps = next(c["eps"] for c in results["range_path"]
                      if c["measure"] == "ed" and c["qlen"] == QLENS[0])
     t0 = time.perf_counter()
-    results["storage"] = storage_phase(
+    results["storage"], appended = storage_phase(
         torch, engine, data, p, batches, answers, dtw_batches, dtw_specs,
         dtw_answers, range_eps, zero_counts, read_counts, args.seed)
     results["storage"]["phase_s"] = time.perf_counter() - t0
@@ -4400,7 +4868,7 @@ def main() -> int:
     results["sharded"] = sharded_phase(
         torch, engine, data, p, batches, answers, dtw_batches, dtw_specs,
         dtw_answers, range_cases, results["range_path"], range_answers,
-        timings)
+        timings, appended, range_eps, card, args.seed)
     results["sharded"]["phase_s"] = time.perf_counter() - t0
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
@@ -4448,7 +4916,16 @@ def main() -> int:
                                                LQ_ED, 128),
                 "fused_gather_lb_keogh_range_long": (
                     "fused_gather_lb_keogh_range_long", LQ_DTW, 128),
-                "range_append": ("range_append", "ed", 256)}
+                "range_append": ("range_append", "ed", 256),
+                # [20]: the k-NN chunk entries as the sharded scan's delta
+                # family runs them (gkth, a delta-first plan, the ids then
+                # mapped through the rank's gmap)
+                "fused_gather_ed_chunk_gkth_gmap": (
+                    "fused_gather_ed_chunk", 256, GKTH_ROWS, "gkth+gmap"),
+                "fused_gather_lb_keogh_chunk_gkth_gmap": (
+                    "fused_gather_lb_keogh_chunk", 256, GKTH_ROWS,
+                    "gkth+gmap")}
+    ingest = results["sharded"]["ingest"]
     path_launches = dict(
         launches, fused_gather_ed=launches["fused_gather_ed_chunk"],
         pool_merge=launches["pool_merge_partials"],
@@ -4475,7 +4952,11 @@ def main() -> int:
         fused_gather_ed_range_long=lq["ed_range"]["launches"][
             "fused_gather_ed_range_long"],
         fused_gather_lb_keogh_range_long=lq["dtw_range"]["launches"][
-            "fused_gather_lb_keogh_range_long"])
+            "fused_gather_lb_keogh_range_long"],
+        **{f"{name}_gkth_gmap": sum(w["launches"][name]
+                                    for w in ingest.values())
+           for name in ("fused_gather_ed_chunk",
+                        "fused_gather_lb_keogh_chunk")})
     for name, key in headline.items():
         t = timings[key]
         src, replaces = REPLACES[name]

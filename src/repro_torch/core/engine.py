@@ -59,11 +59,15 @@ a shard; no approximate pass), pruning every chunk with min(pool k-th,
 the mesh-wide k-th of the last round) through the chunk entries' `gkth`
 input, and the sharded eps-range scan (an overflowed shard finishes on
 its owner's host); `scan_backend="host"` runs the reference's unpruned
-per-shard verify with its exactness escalation (exact ED k-NN only).
-Still to port (ROADMAP Queue 1 item 4b), and raising
-NotImplementedError on a distributed engine: `save`, `append`,
-`compact` (so `delta_size` stays 0) and `open(path, mesh=...)`.
-Engines run on CUDA unless built with device="cpu".
+per-shard verify with its exactness escalation (exact ED k-NN only, and
+only with no delta and no cold sections, as in the reference).  Every
+rank also calls the writes with the same arguments: `append` row-shards
+a part over the ranks into per-rank delta buffers (their global ids in a
+gmap; the k-NN scan packs them first with pinned chunk heads), `compact`
+folds them in global id order and re-shards, `save` writes each rank's
+shard in the reference's distributed format and `open(path, mesh=group)`
+reopens it in O(index) on a group of the saved size (re-sharding
+otherwise).  Engines run on CUDA unless built with device="cpu".
 
 The engine's spans (`query.*`, `prepare`, `approx_pass`, `pack`,
 `device_scan`, `merge`, `host_continuation`) are `repro_torch.obs` spans
@@ -90,12 +94,6 @@ from repro_torch.kernels.fused_verify import card_takes
 from repro_torch.obs import span
 from repro_torch.storage import delta as _delta
 from repro_torch.storage import store as _store
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 "
-        f"item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,25 +226,43 @@ class UlisseEngine:
              mesh=None, max_batch: Optional[int] = None,
              mmap: bool = True, memory_budget_bytes: Optional[int] = None,
              device: DeviceLike = None) -> "UlisseEngine":
-        """Open a saved local index (either package's) on `device`
-        (default CUDA): the sorted envelopes and block levels are read,
-        the raw series mmap'd lazily, so a cold open reads O(index), not
-        O(raw data).  `params`: the expected EnvelopeParams; a mismatch
-        raises IndexCompatibilityError.  A `mesh` (a distributed open)
-        raises NotImplementedError."""
+        """Open a saved index (either package's) on `device` (default
+        CUDA).
+
+        Without `mesh`: a local save; the sorted envelopes and block
+        levels are read, the raw series mmap'd lazily, so a cold open
+        reads O(index), not O(raw data).  With `mesh` (a process group,
+        as `distributed` takes it; `dist.group.WORLD` for the default
+        one), every rank of it calls `open` and gets its shard
+        (`distributed.ulisse.open_shard`): a distributed save with index
+        sections whose shard count is the group's reopens in O(index)
+        (each rank mmaps its own shard, nothing is summarized, the payload
+        reaches the device at the first search); any other save (another
+        shard count, a local save, one without sections) is re-sharded
+        from its raw series and rebuilt, appended rows kept.  `params`:
+        the expected EnvelopeParams; a mismatch raises
+        IndexCompatibilityError.  `max_batch` defaults to the save's."""
         if mesh is not None:
-            raise _not_ported("open with a mesh (distributed save/open)",
-                              "4b")
+            from repro_torch.distributed.ulisse import open_shard
+            shard, saved_batch = open_shard(mesh, path, params=params,
+                                            device=device)
+            return cls(max_batch=saved_batch if max_batch is None
+                       else max_batch, shard=shard)
         return cls.from_index(
             _store.open_index(path, params=params, mmap=mmap, device=device),
             max_batch=8 if max_batch is None else max_batch,
             memory_budget_bytes=memory_budget_bytes, device=device)
 
     def save(self, path: str) -> str:
-        """Persist the index to `path` (atomic commit): sorted envelopes,
-        levels, breakpoints, raw shards and the delta, if series were
-        appended and not compacted."""
-        self._refuse_distributed("save")
+        """Persist the index to `path` (atomic commit).  Local: sorted
+        envelopes, levels, breakpoints, raw shards and the delta, if
+        series were appended and not compacted.  Distributed (every rank
+        calls it): each rank's main rows, delta rows with their global
+        ids, and index sections over its [main; delta] block, so that
+        `open(path, mesh=...)` on a group of this size reads O(index)."""
+        if self.is_distributed:
+            from repro_torch.distributed.ulisse import save_shard
+            return save_shard(self._shard, path, self.max_batch)
         return _store.save_index(path, self._index)
 
     @classmethod
@@ -254,43 +270,75 @@ class UlisseEngine:
                     memory_budget_bytes: Optional[int] = None,
                     device: DeviceLike = None) -> "UlisseEngine":
         """Finalize a `storage.Writer` bulk build and open it (on the
-        writer's device unless `device` is given)."""
-        return cls.open(writer.finalize(), mmap=mmap, mesh=mesh,
-                        memory_budget_bytes=memory_budget_bytes,
-                        device=writer.device if device is None else device)
+        writer's device unless `device` is given).  With `mesh`, every
+        rank calls it and rank 0 alone holds the Writer (the others pass
+        None): rank 0 finalizes, every rank learns the path and opens it
+        on the group."""
+        if mesh is None:
+            return cls.open(writer.finalize(), mmap=mmap,
+                            memory_budget_bytes=memory_budget_bytes,
+                            device=writer.device if device is None
+                            else device)
+        from repro_torch.distributed import collectives
+        if device is None and writer is not None:
+            device = writer.device
+        path = collectives.broadcast_object(
+            None if writer is None else writer.finalize(), group=mesh,
+            device=device)
+        return cls.open(path, mesh=mesh, device=device)
 
     # -- incremental ingestion (storage.delta) ------------------------------
 
     def validate_append(self, series) -> int:
         """Check, without changing anything, that `series` — one (n,)
         series or an (S, n) batch — can be appended; raises the
-        ValueError `append` would and returns the row count."""
-        self._refuse_distributed("append")
-        return _delta.as_series_rows(
-            series, self._index.collection.series_len).shape[0]
+        ValueError `append` would and returns the row count.  A
+        distributed engine also refuses a part that does not divide by
+        the rank count."""
+        if not self.is_distributed:
+            return _delta.as_series_rows(
+                series, self._index.collection.series_len).shape[0]
+        from repro_torch.distributed.ulisse import require_part
+        arr = _delta.as_series_rows(series, self._shard.series_len)
+        require_part(arr.shape[0], self._shard.shards)
+        return arr.shape[0]
 
     def append(self, series) -> None:
         """Ingest new series, searchable at once through the delta set:
-        O(new series) work, no re-sort, no block rebuild.  Call `compact()`
-        once appends have accumulated."""
-        self._refuse_distributed("append")
+        O(new series) work, no re-sort, no block rebuild.  Distributed
+        (every rank calls it with the same part): the part row-shards
+        over the group as the build does, rank r taking rows [r * q, (r +
+        1) * q) with their global ids (`distributed.ulisse.append_part`).
+        Call `compact()` once appends have accumulated."""
+        if self.is_distributed:
+            from repro_torch.distributed.ulisse import append_part
+            self.validate_append(series)
+            append_part(self._shard, _delta.as_series_rows(
+                series, self._shard.series_len))
+            return
         self._index = _delta.extend_index(self._index, series)
 
     def compact(self) -> None:
         """Merge the delta into the main sorted set and rebuild the block
-        levels: equal to a from-scratch build in every field and level."""
-        self._refuse_distributed("compact")
-        self._index = _delta.compact_index(self._index)
-
-    def _refuse_distributed(self, what: str) -> None:
+        levels: equal to a from-scratch build in every field and level.
+        Distributed (every rank calls it): the deltas fold in in global id
+        order and the collection re-shards evenly, equal in every shard
+        field to `distributed` over the concatenated data with the same
+        breakpoints; a cold shard's sections are dropped."""
         if self.is_distributed:
-            raise _not_ported(f"{what} on a distributed engine", "4b")
+            from repro_torch.distributed.ulisse import compact_shard
+            self._shard = compact_shard(self._shard)
+            return
+        self._index = _delta.compact_index(self._index)
 
     @property
     def delta_size(self) -> int:
-        """Envelopes waiting in the ingestion delta (0 when compacted; a
-        distributed engine has none: it cannot append yet)."""
-        if self.is_distributed or self._index.delta is None:
+        """Envelopes waiting in the ingestion delta (0 when compacted);
+        on a distributed engine the count over every rank."""
+        if self.is_distributed:
+            return (self.params.num_envelopes(self._shard.series_len)
+                    * self._shard.delta_total)
+        if self._index.delta is None:
             return 0
         return self._index.delta.size
 
@@ -332,8 +380,8 @@ class UlisseEngine:
     def raw_data(self) -> np.ndarray:
         """The (S, n) raw series the engine serves, on the host (appended
         but uncompacted series included, in global id order; a
-        distributed engine all-gathers every rank's rows: a collective,
-        on request only)."""
+        distributed engine all-gathers every rank's rows and scatters the
+        delta rows to their ids: a collective, on request only)."""
         if self.is_distributed:
             from repro_torch.distributed.ulisse import gather_data
             return gather_data(self._shard)
@@ -349,6 +397,18 @@ class UlisseEngine:
         if self.is_distributed:
             return self._shard.device
         return self._index.device
+
+    @property
+    def group(self):
+        """A distributed engine's process group (None: the default
+        group)."""
+        return self._shard.group if self.is_distributed else None
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in a distributed engine's group (0 for a
+        local engine)."""
+        return self._shard.rank if self.is_distributed else 0
 
     # ------------------------------------------------------------------
     # the one entry point
@@ -974,7 +1034,8 @@ class UlisseEngine:
         from repro_torch.distributed import ulisse as dist_ulisse
         shard, p = self._shard, self.params
         budget = spec.max_leaves if spec.mode == "approx" else 0
-        n_env = p.num_envelopes(shard.series_len) * shard.num_series
+        n_env = self.delta_size + p.num_envelopes(shard.series_len) \
+            * shard.num_series
         self._check_lengths(qs)
         results: List[Optional[SearchResult]] = [None] * len(qs)
         for qlen, idxs in self._group_by_len(qs):
@@ -1018,7 +1079,8 @@ class UlisseEngine:
         from repro_torch.distributed import ulisse as dist_ulisse
         shard, p = self._shard, self.params
         eps2 = float(spec.eps) ** 2
-        n_env = p.num_envelopes(shard.series_len) * shard.num_series
+        n_env = self.delta_size + p.num_envelopes(shard.series_len) \
+            * shard.num_series
         self._check_lengths(qs)
         results: List[Optional[SearchResult]] = [None] * len(qs)
         for qlen, idxs in self._group_by_len(qs):
@@ -1060,6 +1122,12 @@ class UlisseEngine:
                 "k-NN with quantized breakpoint bounds only; use "
                 "scan_backend='device' (the default) for distributed "
                 "DTW / range / approximate / use_paa_bounds queries")
+        if self._shard.delta_active:
+            raise NotImplementedError(
+                "the legacy distributed host backend predates per-"
+                "shard delta buffers and cold-opened index sections; "
+                "compact() first, or use scan_backend='device' (the "
+                "default), which searches the delta in-graph")
         self._check_lengths(qs)
         results: List[Optional[SearchResult]] = [None] * len(qs)
         by_bucket = {}

@@ -21,12 +21,18 @@ shard 0's ring accumulation (its own pool, then shard P - 1's, P - 2's,
 ..., 1's), replayed locally from one all-gather instead of P - 1
 point-to-point rounds, with the same bits.
 
+Beside the search's collectives: `agree` (every rank's success flag,
+one all-reduce: the distributed save's commit protocol), and
+`broadcast_object` / `all_gather_object` (pickled Python objects: the
+server's engine ops from its leader, the save's shard tables).
+
 `STATS` counts this process's collective calls and the host seconds
 spent inside them (the device work before a call is waited for first,
 so the seconds are the exchange's own).
 """
 from __future__ import annotations
 
+import pickle
 import time
 from typing import Tuple
 
@@ -37,7 +43,16 @@ STATS = {"calls": 0, "seconds": 0.0}
 
 
 def world(group=None) -> Tuple[int, int]:
-    """(world size, this rank) of `group` (None: the default group)."""
+    """(world size, this rank) of `group` (None: the default group);
+    raises unless a process group is initialized and `group` is one."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a distributed engine needs an initialized torch.distributed "
+            "process group: call dist.init_process_group(...) on every "
+            "rank first")
+    if group is not None and not isinstance(group, dist.ProcessGroup):
+        raise TypeError(f"expected a torch.distributed process group, got "
+                        f"{type(group).__name__}")
     return dist.get_world_size(group), dist.get_rank(group)
 
 
@@ -72,6 +87,56 @@ def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM,
     STATS["seconds"] += time.perf_counter() - t0
     STATS["calls"] += 1
     return src.to(t.device)
+
+
+def _wire_device(group, device=None) -> torch.device:
+    """Where a collective's own tensors live: `device` (default the
+    current CUDA device) under NCCL, the host otherwise."""
+    if dist.get_backend(group) != dist.Backend.NCCL:
+        return torch.device("cpu")
+    if device is not None and torch.device(device).type == "cuda":
+        return torch.device(device)
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def agree(ok: bool, group=None, device=None) -> bool:
+    """True when `ok` holds on every rank: one all-reduce (MIN) of every
+    rank's flag.  Every rank calls it at the same point, so it is also a
+    barrier."""
+    flag = torch.tensor([1 if ok else 0], dtype=torch.int32,
+                        device=_wire_device(group, device))
+    return bool(all_reduce(flag, dist.ReduceOp.MIN, group).item())
+
+
+def broadcast_object(obj=None, src: int = 0, group=None, device=None):
+    """`src`'s picklable `obj`, on every rank (the others pass anything):
+    its pickle's length, then its bytes, in two broadcasts.  Under NCCL
+    the bytes ride a tensor on `device` (default the current CUDA
+    device), otherwise the host."""
+    dev = _wire_device(group, device)
+    mine = dist.get_rank(group) == src
+    data = pickle.dumps(obj) if mine else b""
+    size = torch.tensor([len(data)], dtype=torch.int64, device=dev)
+    root = dist.get_global_rank(group, src) if group is not None else src
+    t0 = time.perf_counter()
+    dist.broadcast(size, root, group=group)
+    buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+           if mine else torch.empty(int(size.item()), dtype=torch.uint8,
+                                    device=dev))
+    dist.broadcast(buf, root, group=group)
+    STATS["seconds"] += time.perf_counter() - t0
+    STATS["calls"] += 2
+    return obj if mine else pickle.loads(buf.cpu().numpy().tobytes())
+
+
+def all_gather_object(obj, group=None, device=None) -> list:
+    """Every rank's picklable `obj`, in rank order (`all_gather_rows` of
+    their pickles)."""
+    dev = _wire_device(group, device)
+    data = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                            dtype=torch.uint8).to(dev)
+    return [pickle.loads(x.cpu().numpy().tobytes())
+            for x in all_gather_rows(data, group)]
 
 
 def all_gather_rows(rows: torch.Tensor, group=None) -> list:

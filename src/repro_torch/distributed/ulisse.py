@@ -1,6 +1,6 @@
 """Distributed ULISSE on a `torch.distributed` process group: the rank's
-shard of the index, and the sharded k-NN (exact and approximate),
-eps-range and host-backend searches.
+shard of the index, its ingestion delta and persistence, and the sharded
+k-NN (exact and approximate), eps-range and host-backend searches.
 
 The JAX package runs one controller over a `shard_map` mesh.  Here every
 rank is a process holding one shard (SPMD): every rank passes the same
@@ -34,6 +34,20 @@ its own hit buffer; a rank whose buffer overflowed finishes its own plan
 tail through the host path; then the hits (ED ones rescored in float64 by
 their owner) and the counters are gathered in shard order.
 
+Ingestion (the reference's per-shard delta buffers): an appended part
+row-shards over the ranks as the build does (`append_part`: rank r takes
+rows [r * q, (r + 1) * q) with their global ids, their envelopes built on
+its device at once, series ids local to its [main; delta] block).  A
+shard with a delta, or opened cold, runs the reference's delta/gmap
+family: the k-NN pack puts the delta's rows first with pinned chunk
+heads (`planner.device_shard_pack(n_delta=...)`, the approximate budget
+stretched by those chunks), the chunk step maps the pool's ids through
+the rank's gmap, and range hits leave through it too.  `compact_shard`
+gathers every rank's rows in global id order and rebuilds its shard with
+the same breakpoints: `build_shard` of the grown collection, bit for
+bit.  `save_shard` / `open_shard` write and reopen a rank's shard in the
+reference's distributed format (`storage.store`).
+
 The host backend (`sharded_host_knn`, the reference's
 `make_batched_distributed_query`) verifies each rank's `verify_top`
 least-bound envelopes, every offset, through the contract entry of
@@ -44,7 +58,8 @@ escalation loop reads the certificate.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import functools
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -54,10 +69,13 @@ from repro_torch.core.envelope import build_envelope_set
 from repro_torch.core.executor import STATS_WIDTH, SearchStats
 from repro_torch.core.index import UlisseIndex, default_breakpoints
 from repro_torch.core.types import (Collection, DeviceLike, EnvelopeParams,
-                                    resolve_device)
+                                    EnvelopeSet, concat_collections,
+                                    concat_envelope_sets, resolve_device)
 from repro_torch.distributed import collectives
 from repro_torch.kernels.fused_verify import fused_gather_ed
 from repro_torch.obs import span
+from repro_torch.storage import format as fmt
+from repro_torch.storage import store as _store
 
 # the reference's sharded index fields, in its order
 SHARDED_INDEX_FIELDS = (
@@ -115,33 +133,131 @@ def build_host_index(p: EnvelopeParams, breakpoints, data) -> dict:
 @dataclasses.dataclass
 class Shard:
     """One rank's share of a distributed engine: its rows' index (the
-    collection and the unsorted envelope set, series ids local, as a
-    block-free `UlisseIndex`), its raw rows on the host (the float64
-    polish and the overflow tail read them), and where it sits in the
-    group."""
+    collection and the unsorted envelope set over its [main; delta]
+    block, series ids local to the block, as a block-free
+    `UlisseIndex`), its raw rows on the host (the float64 polish and the
+    overflow tail read them), its ingestion delta and where it sits in
+    the group.
+
+    The delta (the reference's `_shard_delta`, `_delta_gmaps`,
+    `_delta_total`): the rows of every appended part this rank took
+    (`append_part`), after its main rows, with their global series ids
+    (`delta_gmap`; append parts interleave the ranks, so the map is not
+    affine).  A cold-opened shard (`open_shard`) holds its saved index
+    `sections` (host arrays, mmap'd) and builds no index until the first
+    search reads `index`; parts appended before that wait in `pending`,
+    their envelopes already built on the device."""
 
     group: object
     rank: int
     shards: int
     params: EnvelopeParams
-    index: UlisseIndex
-    host_rows: np.ndarray
-    num_series: int             # the whole collection's
+    breakpoints: torch.Tensor   # (card - 1,) on `device`
+    device: torch.device
+    main_rows: np.ndarray       # (S / P, n) main rows (mmap'd when cold)
+    num_series: int             # the whole collection's main series
     series_len: int
+    delta_rows: np.ndarray      # (d, n) this rank's appended rows
+    delta_gmap: np.ndarray      # (d,) int64, their global series ids
+    delta_total: int = 0        # series appended over the whole group
+    sections: Optional[dict] = None   # cold: INDEX_SECTION_FIELDS arrays
+    pending: list = dataclasses.field(default_factory=list)
+    built: Optional[UlisseIndex] = None
 
     @property
-    def device(self) -> torch.device:
-        return self.index.device
+    def index(self) -> UlisseIndex:
+        """The device index over the [main; delta] block, assembled at
+        first use on a cold shard (its sections copied to the device,
+        nothing summarized) and after an append (the pending parts'
+        collections and envelopes concatenated)."""
+        if self.built is None:
+            self.built = _index_from_sections(self)
+        if self.pending:
+            colls = [self.built.collection] + [c for c, _ in self.pending]
+            coll = functools.reduce(concat_collections, colls)
+            env = concat_envelope_sets([self.built.envelopes]
+                                       + [e for _, e in self.pending])
+            self.built = UlisseIndex(envelopes=env, levels=[],
+                                     collection=coll,
+                                     breakpoints=self.breakpoints,
+                                     params=self.params)
+            self.pending = []
+        return self.built
 
     @property
     def row0(self) -> int:
-        """The global id of this rank's first series."""
-        return self.rank * (self.num_series // self.shards)
+        """The global id of this rank's first main series."""
+        return self.rank * self.main_rows.shape[0]
+
+    @property
+    def delta_env_rows(self) -> int:
+        """Envelope rows of this rank's delta (the trailing rows of its
+        envelope set: the k-NN pack's unsorted delta region)."""
+        return self.params.num_envelopes(self.series_len) * len(
+            self.delta_rows)
+
+    @property
+    def delta_active(self) -> bool:
+        """Whether searches run the reference's delta/gmap families: rows
+        were appended, or the shard was opened cold (with no delta the
+        two families compute the same)."""
+        return self.delta_total > 0 or self.sections is not None
+
+    @property
+    def gmap(self) -> np.ndarray:
+        """(S / P + d,) int64: local row -> global series id, ascending
+        (the main rows' ids are below every appended id, and parts arrive
+        in id order)."""
+        r_m = self.main_rows.shape[0]
+        return np.concatenate([np.arange(self.row0, self.row0 + r_m),
+                               self.delta_gmap])
 
     @property
     def env_rows(self) -> int:
-        """Envelope rows per shard (the host backend's verify cap)."""
+        """Envelope rows of the shard (the host backend's verify cap)."""
         return self.index.envelopes.size
+
+    def take_rows(self, local) -> np.ndarray:
+        """Host rows of local series ids (main, then delta)."""
+        local = np.asarray(local, np.int64)
+        r_m = self.main_rows.shape[0]
+        out = np.empty((len(local), self.series_len), np.float32)
+        main = local < r_m
+        out[main] = self.main_rows[local[main]]
+        out[~main] = self.delta_rows[local[~main] - r_m]
+        return out
+
+    def to_local(self, gsid) -> np.ndarray:
+        """Local rows of global series ids this rank holds."""
+        return np.searchsorted(self.gmap, np.asarray(gsid, np.int64))
+
+
+def _index_from_sections(shard: Shard) -> UlisseIndex:
+    """A cold shard's device index from its sections: the prefix sums
+    and envelope rows as saved, the raw rows they cover read from the
+    mmap'd payload (the first bytes of it the shard reads)."""
+    sec = shard.sections
+    dev = shard.device
+    cov = int(sec["center"].shape[0])
+    r_m = shard.main_rows.shape[0]
+    rows = np.empty((cov, shard.series_len), np.float32)
+    rows[:r_m] = shard.main_rows            # sections cover main, then
+    rows[r_m:] = shard.delta_rows[:cov - r_m]   # the delta as saved
+
+    def put(x):
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    coll = Collection(data=put(rows), **{f: put(sec[f]) for f in
+                                         SHARDED_INDEX_FIELDS[1:6]})
+    env = EnvelopeSet(**{f: put(sec[f]) for f in SHARDED_INDEX_FIELDS[6:]})
+    return UlisseIndex(envelopes=env, levels=[], collection=coll,
+                       breakpoints=shard.breakpoints, params=shard.params)
+
+
+def _resolve(device: DeviceLike) -> torch.device:
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+    return resolve_device(device)
 
 
 def build_shard(group, p: EnvelopeParams, data, breakpoints=None,
@@ -159,14 +275,12 @@ def build_shard(group, p: EnvelopeParams, data, breakpoints=None,
     require_divisible(s, shards)
     if n < p.lmax:
         raise ValueError("series shorter than lmax")
-    if device is None and torch.cuda.is_available():
-        device = torch.device("cuda", torch.cuda.current_device())
-    dev = resolve_device(device)
+    dev = _resolve(device)
     if breakpoints is None:
         head = np.array(arr[:min(1024, s)], np.float32)
         bp = default_breakpoints(p, torch.from_numpy(head).to(dev))
     else:
-        bp = torch.as_tensor(np.asarray(breakpoints, np.float32)).to(dev)
+        bp = torch.as_tensor(breakpoints, dtype=torch.float32).to(dev)
     lo, hi = shard_rows(s, shards, rank)
     rows = np.array(arr[lo:hi], np.float32)     # a copy of its rows alone
     coll = Collection.from_array(rows, device=dev)
@@ -174,15 +288,161 @@ def build_shard(group, p: EnvelopeParams, data, breakpoints=None,
     index = UlisseIndex(envelopes=env, levels=[], collection=coll,
                         breakpoints=bp, params=p)
     return Shard(group=group, rank=rank, shards=shards, params=p,
-                 index=index, host_rows=rows, num_series=s, series_len=n)
+                 breakpoints=bp, device=dev, main_rows=rows, num_series=s,
+                 series_len=n, delta_rows=np.zeros((0, n), np.float32),
+                 delta_gmap=np.zeros((0,), np.int64), built=index)
+
+
+def require_part(rows: int, shards: int) -> None:
+    """Refuse an appended part that does not divide by the rank count
+    (the reference's words: its mesh is this group)."""
+    if rows % shards != 0:
+        raise ValueError(
+            f"appended part of {rows} series is not divisible by the "
+            f"{shards}-shard mesh; pad the part to a multiple of the shard "
+            "count (row-sharded delta placement follows the build layout)")
+
+
+def append_part(shard: Shard, part: np.ndarray) -> None:
+    """Append a validated (S', n) part, the same on every rank: this rank
+    takes rows [rank * q, (rank + 1) * q) of it (q = S' / P), with global
+    ids base + rank * q + arange(q), base = S + the series appended
+    before (the ids a local engine gives the same stream).  Their prefix
+    sums and envelopes are built at once on the device (`envelope_znorm`
+    on the card), series ids local to the rank's [main; delta] block;
+    the envelope set grows at the next search.  O(part) work."""
+    q = part.shape[0] // shard.shards
+    base = shard.num_series + shard.delta_total
+    shard.delta_total += part.shape[0]
+    if q == 0:
+        return
+    rows = np.array(part[shard.rank * q:(shard.rank + 1) * q], np.float32)
+    coll = Collection.from_array(rows, device=shard.device)
+    env = build_envelope_set(coll, shard.params, shard.breakpoints)
+    local0 = shard.main_rows.shape[0] + len(shard.delta_rows)
+    shard.pending.append((coll, dataclasses.replace(
+        env, series_id=env.series_id + local0)))
+    shard.delta_rows = np.concatenate([shard.delta_rows, rows])
+    shard.delta_gmap = np.concatenate(
+        [shard.delta_gmap,
+         base + shard.rank * q + np.arange(q, dtype=np.int64)])
 
 
 def gather_data(shard: Shard) -> np.ndarray:
-    """The whole (S, n) collection on the host, in global id order: one
-    all-gather of every rank's rows (on request only)."""
-    rows = torch.from_numpy(shard.host_rows).to(shard.device)
-    return collectives.all_gather(rows, shard.group).reshape(
-        shard.num_series, shard.series_len).cpu().numpy()
+    """The whole (S + appended, n) collection on the host, in global id
+    order: one all-gather of every rank's [main; delta] rows and one of
+    their delta ids, the delta rows scattered to their ids (on request
+    only)."""
+    r_m, d = shard.main_rows.shape[0], len(shard.delta_rows)
+    rows = np.concatenate([shard.main_rows, shard.delta_rows]) if d \
+        else np.asarray(shard.main_rows)
+    allr = collectives.all_gather(
+        torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(
+            shard.device), shard.group).cpu().numpy()
+    out = np.empty((shard.num_series + shard.delta_total, shard.series_len),
+                   np.float32)
+    out[:shard.num_series] = allr[:, :r_m].reshape(-1, shard.series_len)
+    if d:
+        gmaps = collectives.all_gather(
+            torch.from_numpy(shard.delta_gmap).to(shard.device),
+            shard.group).cpu().numpy()
+        out[gmaps.reshape(-1)] = allr[:, r_m:].reshape(-1, shard.series_len)
+    return out
+
+
+def compact_shard(shard: Shard) -> Shard:
+    """The mesh-wide compaction (the reference's `compact`): every rank's
+    delta folds into the main rows in global id order and the collection
+    re-shards evenly (rows move between ranks): one `gather_data`, then
+    each rank builds its new shard on the device with the existing
+    breakpoints, which is exactly `build_shard` of the concatenated data
+    (bit for bit).  Drops a cold shard's sections.
+
+    Where no row moves (a group of one, or nothing appended) every rank
+    already holds its new rows in global id order, with their prefix sums
+    and envelopes (series ids local to the block), and keeps them: every
+    step of a build is per series, so they are the build's bits too.
+    Every rank takes the same branch."""
+    if shard.delta_total == 0 and shard.sections is None:
+        return shard
+    if shard.shards > 1 and shard.delta_total > 0:
+        return build_shard(shard.group, shard.params, gather_data(shard),
+                           breakpoints=shard.breakpoints,
+                           device=shard.device)
+    index = shard.index
+    rows = (np.concatenate([shard.main_rows, shard.delta_rows])
+            if len(shard.delta_rows) else shard.main_rows)
+    return Shard(group=shard.group, rank=shard.rank, shards=shard.shards,
+                 params=shard.params, breakpoints=shard.breakpoints,
+                 device=shard.device, main_rows=rows,
+                 num_series=shard.num_series + shard.delta_total,
+                 series_len=shard.series_len,
+                 delta_rows=np.zeros((0, shard.series_len), np.float32),
+                 delta_gmap=np.zeros((0,), np.int64), built=index)
+
+
+def shard_sections(shard: Shard) -> dict:
+    """The host INDEX_SECTION_FIELDS arrays of the rank's [main; delta]
+    block (what a distributed save stores, so that the next open on a
+    group of this size reads them instead of summarizing)."""
+    idx = shard.index
+    src = {f: idx.collection for f in SHARDED_INDEX_FIELDS[1:6]}
+    src.update({f: idx.envelopes for f in SHARDED_INDEX_FIELDS[6:]})
+    return {f: getattr(src[f], f).cpu().numpy()
+            for f in INDEX_SECTION_FIELDS}
+
+
+def save_shard(shard: Shard, path: str, max_batch: int) -> str:
+    """Every rank's half of a distributed save (`store.save_distributed`):
+    this rank writes its main rows, its delta and their ids, and its
+    index sections."""
+    return _store.save_distributed(
+        path, shard.params, shard.breakpoints.cpu().numpy(),
+        shard.main_rows, group=shard.group, device=shard.device,
+        max_batch=max_batch, delta_rows=shard.delta_rows,
+        delta_gmap=shard.delta_gmap, section=shard_sections(shard))
+
+
+def open_shard(group, path: str, params: Optional[EnvelopeParams] = None,
+               device: DeviceLike = None):
+    """This rank's shard of a saved index (either package's), and the
+    manifest's max_batch.  Rank 0 first recovers a crashed commit
+    (`gc_stale_tmp`), and every rank waits for it.  A distributed save
+    with sections whose shard count is the group's opens in O(index):
+    the rank mmaps its own shard's payload, delta and sections and reads
+    its delta ids and the breakpoints, nothing more, and summarizes
+    nothing.  Any other save (another shard count, a local save, a save
+    without sections) is read whole (`store.load_raw_data`, delta rows
+    back at their ids), re-sharded and rebuilt."""
+    shards, rank = collectives.world(group)
+    dev = _resolve(device)
+    err = None
+    if rank == 0:
+        try:
+            fmt.gc_stale_tmp(path)
+        except OSError as e:       # every rank waits for rank 0 first
+            err = e
+    if not collectives.agree(err is None, group, device=dev):
+        raise err if err is not None else fmt.IndexFormatError(
+            f"rank 0 could not recover {path!r}")
+    manifest = fmt.read_manifest(path)
+    max_batch = manifest.get("max_batch", 8)
+    if (manifest["kind"] == fmt.KIND_DISTRIBUTED
+            and manifest.get("index_sections")
+            and len(manifest["collection_shards"]) == shards):
+        (stored, bp, manifest, main, delta, gmap,
+         section) = _store.load_distributed_sections(path, rank, params)
+        return Shard(
+            group=group, rank=rank, shards=shards, params=stored,
+            breakpoints=torch.from_numpy(np.array(bp, np.float32)).to(dev),
+            device=dev, main_rows=main,
+            num_series=int(manifest["num_series"]),
+            series_len=int(manifest["series_len"]), delta_rows=delta,
+            delta_gmap=gmap, delta_total=len(gmap) * shards,
+            sections=section), max_batch
+    stored, bp, data, _ = _store.load_raw_data(path, params)
+    return build_shard(group, stored, data, breakpoints=bp,
+                       device=dev), max_batch
 
 
 def distributed_index_stats(shards: int, p: EnvelopeParams,
@@ -246,17 +506,25 @@ def sharded_knn(shard: Shard, queries, qstack, dlo, dhi, lbs, *, k: int,
     qstack/dlo/dhi (B, qlen) the prepared queries and their DTW
     envelopes; lbs (B, N) this shard's envelope lower bounds.
     `budget_chunks` > 0 is the approximate mode's chunk budget a shard.
-    Counts its rounds and chunk steps in `sharded_knn.rounds` / `.steps`.
+    A shard with a delta (or opened cold) packs the delta first and maps
+    the pool's ids through its gmap in every step.  Counts its rounds and
+    chunk steps in `sharded_knn.rounds` / `.steps`, and the steps with a
+    gmap in `.gmap_steps`.
     """
     p = shard.params
     coll, env, group = shard.index.collection, shard.index.envelopes, \
         shard.group
     b, dev = qstack.shape[0], qstack.device
-    n_pad, chunk, nd_pad = executor.shard_pack_geometry(env.size, 0,
+    d_rows = shard.delta_env_rows
+    n_pad, chunk, nd_pad = executor.shard_pack_geometry(env.size, d_rows,
                                                         chunk_size)
     sids, anc, nm, lbs2 = planner.device_shard_pack(
         env.series_id, env.anchor, env.n_master, lbs, n_pad=n_pad,
-        n_delta=0, chunk=chunk)
+        n_delta=d_rows, chunk=chunk)
+    # the delta/gmap family: the step maps the pool's ids to global ones
+    # (a (R + 1,) table, -1 last for empty entries)
+    gmap = (torch.from_numpy(np.append(shard.gmap, -1).astype(np.int32))
+            .to(dev) if shard.delta_active else None)
     n_chunks = n_pad // chunk
     budget = (min(budget_chunks + nd_pad // chunk, n_chunks)
               if budget_chunks else n_chunks)
@@ -279,8 +547,9 @@ def sharded_knn(shard: Shard, queries, qstack, dlo, dhi, lbs, *, k: int,
                 executor._scan_chunk_step(
                     coll, sids, anc, nm, lbs2, qstack, dlo, dhi, j, pool,
                     stats, k=k, g=p.gamma + 1, chunk=chunk, znorm=p.znorm,
-                    measure=measure, r=r, gkth=gk)
+                    measure=measure, r=r, gmap=gmap, gkth=gk)
                 sharded_knn.steps += 1
+                sharded_knn.gmap_steps += gmap is not None
         i += sync_every
         sharded_knn.rounds += 1
         gkth, mine, cont = _round_end(pool[0], head_at(i), k, group)
@@ -289,15 +558,17 @@ def sharded_knn(shard: Shard, queries, qstack, dlo, dhi, lbs, *, k: int,
     # first unvisited chunk's, budget < n_chunks only), the counters and
     # the owner's float64 rescore of its own rows (ED)
     psid = pool[1]
-    gsid = torch.where(psid >= 0, psid + shard.row0, -1)
+    gsid = psid if gmap is not None else torch.where(psid >= 0,
+                                                     psid + shard.row0, -1)
     resc = torch.zeros((b, k), dtype=torch.float64)
     if measure == "ed":
-        sid_h, off_h = psid.cpu().numpy(), pool[2].cpu().numpy()
+        sid_h, off_h = gsid.cpu().numpy(), pool[2].cpu().numpy()
         for row in range(b):
             live = sid_h[row] >= 0
             if live.any():
+                rows = shard.take_rows(shard.to_local(sid_h[row, live]))
                 resc[row, live] = torch.from_numpy(executor.ed_rescore64(
-                    shard.host_rows, sid_h[row, live], off_h[row, live],
+                    rows, np.arange(len(rows)), off_h[row, live],
                     queries[row], p.znorm))
     payload = torch.cat([pool[0].double(), gsid.double(), pool[2].double(),
                          (heads[:, budget] if budget < n_chunks else none)
@@ -319,6 +590,7 @@ def sharded_knn(shard: Shard, queries, qstack, dlo, dhi, lbs, *, k: int,
 
 sharded_knn.rounds = 0
 sharded_knn.steps = 0
+sharded_knn.gmap_steps = 0
 
 
 # -- the sharded eps-range scan -------------------------------------------
@@ -358,6 +630,7 @@ def sharded_range(shard: Shard, queries, n_real: int, qstack, dlo, dhi,
     n_chunks = n_pad // chunk
     counters = np.zeros((n_real, 13), np.int64)
     hits: List[np.ndarray] = []
+    gmap = shard.gmap
     src_h = lbs2_h = None
     for row in range(n_real):
         counters[row, :6] = st[row]
@@ -384,9 +657,9 @@ def sharded_range(shard: Shard, queries, n_real: int, qstack, dlo, dhi,
             lsid = got[:, 0].astype(np.int64)
             if measure == "ed":
                 got[:, 2] = executor.ed_rescore64(
-                    shard.host_rows, lsid, got[:, 1].astype(np.int64),
-                    queries[row], p.znorm)
-            got[:, 0] = lsid + shard.row0
+                    shard.take_rows(lsid), np.arange(len(lsid)),
+                    got[:, 1].astype(np.int64), queries[row], p.znorm)
+            got[:, 0] = gmap[lsid]
             hits.append(np.concatenate(
                 [np.full((len(got), 1), row, np.float64), got], axis=1))
     mine = (np.concatenate(hits) if hits else np.zeros((0, 4)))

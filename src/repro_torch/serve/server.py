@@ -36,6 +36,17 @@ module is what exploits it under load:
     each request leaves admission -> queue_wait -> dispatch spans that
     nest around the engine's prepare/pack/device-scan/merge spans.
 
+  * **Distributed engines.**  Over `UlisseEngine.distributed` every
+    rank must make the same engine calls, in the same order, with the
+    same batches, or the collectives inside them deadlock; independent
+    dispatchers with their own hold windows would not.  So rank 0 leads:
+    it runs the server (admission, bucket queues, the adaptive window,
+    the writer lane), and its dispatcher sends each engine op (`search`
+    of a batch and spec, `append`, `compact`, `warmup`, then `close`) to
+    the other ranks in one broadcast on the engine's group before it
+    runs the op; every other rank runs `follow(engine)`, which replays
+    them.  Served answers are the same on every rank.
+
 Typical use::
 
     server = UlisseServer(engine, QuerySpec(k=5),
@@ -45,6 +56,12 @@ Typical use::
     t = server.submit(q); ...; res = t.result()
     server.append(new_series).result()       # via the writer lane
     server.close()
+
+    # a distributed engine: rank 0 serves, the other ranks follow
+    if engine.rank == 0:
+        server = UlisseServer(engine, spec); ...; server.close()
+    else:
+        follow(engine)
 """
 from __future__ import annotations
 
@@ -54,9 +71,12 @@ import time
 from collections import deque
 from typing import Deque, Dict, Optional, Sequence
 
+import torch
+
 from repro_torch import obs
 from repro_torch.core import planner
 from repro_torch.core.engine import QuerySpec, UlisseEngine
+from repro_torch.distributed import collectives
 from repro_torch.obs import span
 from repro_torch.serve.metrics import ServeMetrics
 
@@ -96,6 +116,7 @@ THREAD_METHODS = {
     "UlisseServer._timeout_locked": "dispatcher+locked",
     "UlisseServer._dispatch": "dispatcher",
     "UlisseServer._apply_writer": "dispatcher",
+    "UlisseServer._replicate": "dispatcher",
     "Ticket.done": "any",
     "Ticket.result": "client",
     # close() fails queued tickets from the client thread, so _fail is
@@ -248,6 +269,10 @@ class UlisseServer:
                  spec: QuerySpec = QuerySpec(),
                  config: ServeConfig = ServeConfig(),
                  start: bool = True):
+        if engine.rank != 0:
+            raise ValueError(
+                f"rank {engine.rank} of a distributed engine follows the "
+                "server of rank 0: call serve.follow(engine)")
         self.engine = engine
         self.spec = spec
         self.config = config
@@ -425,8 +450,13 @@ class UlisseServer:
 
     def _loop(self) -> None:
         window = self.config.window_ms / 1e3
+        dev = self.engine.device
+        if dev.type == "cuda" and dev.index is not None:
+            # the thread's own current device: the engine's card
+            torch.cuda.set_device(dev)
         while True:
             op = batch = bucket = None
+            done = False
             with self._cond:
                 while True:
                     if self._writer:
@@ -442,9 +472,13 @@ class UlisseServer:
                                             else 0.0)
                         break
                     if self._closed:
-                        return       # drained (or flushed by close)
+                        done = True  # drained (or flushed by close)
+                        break
                     self._cond.wait(self._timeout_locked(
                         self._eff_window))
+            if done:
+                self._replicate("close")     # the followers return
+                return
             if op is not None:
                 self._apply_writer(op)
             else:
@@ -507,8 +541,9 @@ class UlisseServer:
                 # ONE engine call: per exact length present this is one
                 # padded device batch with one result readback (plus
                 # the scan's stop tests)
-                results = self.engine.search([r.q for r in batch],
-                                             self.spec)
+                queries = [r.q for r in batch]
+                self._replicate("search", queries, self.spec)
+                results = self.engine.search(queries, self.spec)
             except Exception as e:  # noqa: BLE001 — fail the tickets,
                 for r in batch:     # keep serving
                     r.ticket._fail(e)
@@ -539,6 +574,10 @@ class UlisseServer:
         engine's snapshot is swapped, on the only thread that runs
         scans — a batch can never observe a half-applied index."""
         try:
+            if op.kind == "warmup":
+                self._replicate("warmup", *op.payload, self.spec)
+            else:
+                self._replicate(op.kind, op.payload)
             if op.kind == "append":
                 self.engine.append(op.payload)
                 self._version += 1
@@ -556,3 +595,40 @@ class UlisseServer:
                 op.ticket._complete(traced)
         except Exception as e:     # noqa: BLE001
             op.ticket._fail(e)
+
+    def _replicate(self, kind: str, *args) -> None:
+        """Send one engine op to the other ranks of a distributed engine
+        (one broadcast on its group, from rank 0), before rank 0 runs it;
+        a no-op on a local engine."""
+        if self.engine.is_distributed:
+            collectives.broadcast_object((kind,) + args,
+                                         group=self.engine.group,
+                                         device=self.engine.device)
+
+
+def follow(engine: UlisseEngine) -> int:
+    """The other ranks' half of a server over a distributed engine: replay
+    every engine op that rank 0's dispatcher broadcasts, in its order,
+    until it closes; returns the ops replayed.  An op that raises here
+    raises on rank 0 too (the same call on the same inputs), which fails
+    its tickets and serves on: so does this loop."""
+    replayed = 0
+    while True:
+        op = collectives.broadcast_object(group=engine.group,
+                                          device=engine.device)
+        kind, args = op[0], op[1:]
+        if kind == "close":
+            return replayed
+        try:
+            if kind == "search":
+                engine.search(*args)
+            elif kind == "append":
+                engine.append(*args)
+            elif kind == "compact":
+                engine.compact()
+            else:                                  # warmup
+                lengths, batch_sizes, spec = args
+                engine.warmup(lengths, batch_sizes, spec=spec)
+        except Exception:  # noqa: BLE001 — rank 0 fails the same op
+            pass
+        replayed += 1

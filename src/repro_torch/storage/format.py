@@ -15,9 +15,9 @@ An index is a *directory*:
                                 #   table in the manifest names them)
       delta/<field>.npy         # optional: unsorted ingestion buffer
 
-Distributed saves (kind == "distributed"; the port's distributed backend
-is ROADMAP Queue 1 item 4, so this package writes and opens local saves
-only) add, all additive under the same FORMAT_VERSION:
+Distributed saves (kind == "distributed"; `store.save_distributed`, every
+rank of a process group writing its own shard) add, all additive under
+the same FORMAT_VERSION:
 
       shards/shard_<s>.npy        # per-shard MAIN raw rows
       delta/shard_<s>.npy         # per-shard uncompacted delta rows

@@ -11,10 +11,17 @@ envelope and level payloads (the first lower bounds need them) onto the
 engine's device, but wraps the raw series in a `PayloadStore`, so an open
 costs O(index) I/O, not O(raw data); the series shards are mmap'd and
 read only when verification first needs windows.
+
+The distributed format (`save_distributed`, `load_distributed_sections`,
+`load_raw_data`): per-shard main rows, delta rows with their global ids
+and index sections, written by every rank of a process group for its own
+shard and committed by rank 0; a group of the saved size reopens from
+the sections, any other from the raw rows.
 """
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 import warnings
 from collections import OrderedDict
@@ -460,3 +467,181 @@ def open_index(path: str, params: Optional[EnvelopeParams] = None,
         envelopes=env, levels=levels, collection=collection,
         breakpoints=_load(path, arrays["breakpoints"], dev),
         params=stored, delta=delta)
+
+
+# --------------------------------------------------------------------------
+# distributed indexes (per-shard raw payloads, one shard a rank)
+# --------------------------------------------------------------------------
+
+def _fail_all(errors: list, path: str, mine) -> None:
+    """Raise on every rank once any rank failed a step of a save: the
+    failing rank its own error, the others one naming it."""
+    if mine is not None:
+        raise mine
+    rank, msg = next((r, m) for r, m in enumerate(errors) if m is not None)
+    raise OSError(f"distributed save to {path!r} failed on rank {rank}: "
+                  f"{msg}")
+
+
+def save_distributed(path: str, params: EnvelopeParams, breakpoints,
+                     main_rows, *, group=None, device: DeviceLike = None,
+                     axes=("data",), max_batch: int = 8, delta_rows=None,
+                     delta_gmap=None, section: Optional[dict] = None) -> str:
+    """A distributed engine's save, in the JAX package's layout: every
+    rank of `group` calls it with its own shard's arrays (SPMD) and writes
+    only its own files.
+
+      shards/shard_{s:05d}            the rank's (S / P, n) MAIN rows;
+      delta/shard_{s:05d}, ..._gmap   its uncompacted delta rows and their
+                                      GLOBAL ids (append parts interleave
+                                      the ranks: the map is not affine);
+      index/shard_{s:05d}_{field}     its INDEX_SECTION_FIELDS over the
+                                      [main; delta] block (envelope rows
+                                      and prefix sums, series ids local):
+                                      the next open on a group of this
+                                      size reads them, summarizing nothing.
+
+    The protocol: rank 0 stages `<path>.tmp/`; every rank waits for it;
+    each writes its files; an all-reduce of every rank's success flag (a
+    failure anywhere fails the save on every rank and commits nothing:
+    rank 0 removes the staging); rank 0 writes the manifest from every
+    rank's file table and commits (`fmt.commit`, the atomic rename); a
+    last all-reduce of rank 0's outcome, so every rank returns or raises
+    together.  Every rank sees the same file system.
+    """
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.ulisse import INDEX_SECTION_FIELDS
+    shards, rank = collectives.world(group)
+    delta_rows = (np.zeros((0, main_rows.shape[1]), np.float32)
+                  if delta_rows is None else delta_rows)
+    has_delta = len(delta_rows) > 0        # the same on every rank
+    dirs = ["shards"] + (["delta"] if has_delta else []) \
+        + (["index"] if section is not None else [])
+    tmp = fmt.tmp_path(path)
+
+    def step(fn):
+        """Run `fn` and agree on the outcome with every rank."""
+        err = out = None
+        try:
+            out = fn()
+        except Exception as e:  # noqa: BLE001 — every rank must hear it
+            err = e
+        if not collectives.agree(err is None, group, device):
+            errors = collectives.all_gather_object(
+                None if err is None else repr(err), group, device)
+            if rank == 0:
+                shutil.rmtree(tmp, ignore_errors=True)
+            _fail_all(errors, path, err)
+        return out
+
+    step(lambda: fmt.stage_dir(path, *dirs) if rank == 0 else None)
+
+    def write_mine():
+        rel = f"shards/shard_{rank:05d}"
+        shard = fmt.save_array(tmp, rel, np.asarray(main_rows, np.float32))
+        arrays = {}
+        if has_delta:
+            rel = f"delta/shard_{rank:05d}"
+            arrays[rel] = fmt.save_array(tmp, rel, np.asarray(delta_rows,
+                                                              np.float32))
+            arrays[rel + "_gmap"] = fmt.save_array(
+                tmp, rel + "_gmap", np.asarray(delta_gmap, np.int64))
+        if section is not None:
+            for field in INDEX_SECTION_FIELDS:
+                rel = f"index/shard_{rank:05d}_{field}"
+                arrays[rel] = fmt.save_array(tmp, rel, section[field])
+        return shard, arrays
+
+    mine = step(write_mine)
+    tables = collectives.all_gather_object(mine, group, device)
+
+    def commit():
+        if rank != 0:
+            return None
+        arrays = {"breakpoints": fmt.save_array(tmp, "breakpoints",
+                                                np.asarray(breakpoints))}
+        for _, a in tables:
+            arrays.update(a)
+        fmt.write_manifest(tmp, {
+            "kind": fmt.KIND_DISTRIBUTED,
+            "params": fmt.params_to_dict(params),
+            "num_series": int(sum(t[0]["shape"][0] for t in tables)),
+            "series_len": int(tables[0][0]["shape"][1]),
+            "axes": list(axes),
+            "max_batch": max_batch,
+            "delta_rows_per_shard": int(len(delta_rows)),
+            "index_sections": section is not None,
+            "arrays": arrays,
+            "collection_shards": [t[0] for t in tables],
+        })
+        return fmt.commit(path)
+
+    step(commit)
+    return path
+
+
+def load_distributed_sections(path: str, shard: int,
+                              params: Optional[EnvelopeParams] = None):
+    """The O(index) cold-open payload of shard `shard` of a distributed
+    save, or None.
+
+    Returns (params, breakpoints, manifest, main, delta, delta_gmap,
+    section): main and delta mmap handles (no payload byte read), the
+    delta ids read, section a dict of mmap'd INDEX_SECTION_FIELDS arrays.
+    None when `path` holds a local index or a distributed save without
+    sections (callers then fall back to `load_raw_data`).  The caller
+    runs the crash recovery (`fmt.gc_stale_tmp`) first: a group's rank 0
+    alone, while the others wait.
+    """
+    from repro_torch.distributed.ulisse import INDEX_SECTION_FIELDS
+    manifest = fmt.read_manifest(path)
+    if (manifest["kind"] != fmt.KIND_DISTRIBUTED
+            or not manifest.get("index_sections")):
+        return None
+    stored = fmt.params_from_dict(manifest["params"])
+    fmt.validate_params(stored, params)
+    arrays = manifest["arrays"]
+    main = fmt.load_array(path, manifest["collection_shards"][shard],
+                          mmap=True)
+    key = f"delta/shard_{shard:05d}"
+    if key in arrays:
+        delta = fmt.load_array(path, arrays[key], mmap=True)
+        gmap = np.asarray(fmt.load_array(path, arrays[f"{key}_gmap"]),
+                          np.int64)
+    else:
+        delta = np.zeros((0, int(manifest["series_len"])), np.float32)
+        gmap = np.zeros((0,), np.int64)
+    section = {f: fmt.load_array(
+        path, arrays[f"index/shard_{shard:05d}_{f}"], mmap=True)
+        for f in INDEX_SECTION_FIELDS}
+    bp = fmt.load_array(path, arrays["breakpoints"])
+    return stored, bp, manifest, main, delta, gmap, section
+
+
+def load_raw_data(path: str, params: Optional[EnvelopeParams] = None):
+    """Raw series + params + breakpoints from an index of EITHER kind:
+    the re-sharding entry point (a distributed engine restored on a group
+    of any size, or a local index promoted to a distributed one).
+    Uncompacted delta rows of a distributed save fold back in at their
+    recorded GLOBAL ids, so re-sharding keeps every appended series.
+    Returns (params, breakpoints, data, manifest); the caller runs the
+    crash recovery first, as for `load_distributed_sections`."""
+    manifest = fmt.read_manifest(path)
+    stored = fmt.params_from_dict(manifest["params"])
+    fmt.validate_params(stored, params)
+    arrays = manifest["arrays"]
+    parts = [fmt.load_array(path, e, mmap=True)
+             for e in manifest["collection_shards"]]
+    d = int(manifest.get("delta_rows_per_shard", 0))
+    total = sum(p.shape[0] for p in parts) + d * len(parts)
+    data = np.empty((total, int(manifest["series_len"])), np.float32)
+    start = 0
+    for part in parts:
+        data[start:start + part.shape[0]] = part
+        start += part.shape[0]
+    for s in range(len(parts) if d else 0):
+        key = f"delta/shard_{s:05d}"
+        gmap = np.asarray(fmt.load_array(path, arrays[f"{key}_gmap"]))
+        data[gmap] = fmt.load_array(path, arrays[key], mmap=True)
+    bp = fmt.load_array(path, arrays["breakpoints"])
+    return stored, bp, data, manifest

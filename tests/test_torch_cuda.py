@@ -31,7 +31,10 @@ append -> compact on the card against `build_index` on the card.  The
 serving tier over a CUDA engine: bursts from client threads bit-equal to
 serial searches (also over a paging engine, against the resident one), a
 refused dispatch failing its ticket, and nothing left to build or load
-after `warmup`.
+after `warmup`.  The sharded scan: the chunk entries with a mesh-wide
+k-th (`gkth`), also with a rank's gmap over a delta-first plan with
+pinned chunk heads (the delta family's step), and the distributed engine
+in worlds of 1 (NCCL) and 2 (gloo) against the local engine.
 """
 import dataclasses
 import threading
@@ -1733,3 +1736,103 @@ def test_distributed_engine_on_cuda_equals_local(dev, world, backend):
             np.testing.assert_allclose(got["dists"], b.dists,
                                        rtol=1e-4 if name == "dtw" else 0,
                                        atol=0 if name == "dtw" else 1e-9)
+
+
+@pytest.mark.parametrize("measure", ["ed", "dtw"])
+def test_chunk_step_with_gkth_gmap_and_delta_heads(dev, measure):
+    """The sharded scan's delta family on the card: one rank's [main;
+    delta] block (48 main series, rows 48-95 of the collection; 16
+    appended ones with global ids 1,000 + 3j), its envelope set packed
+    delta-first with pinned chunk heads (`device_shard_pack`, n_delta >
+    0), every chunk through `executor._scan_chunk_step` with the rank's
+    gmap and a mesh-wide k-th (`gkth`; +inf for query 0).  ED: pools
+    (global ids) and counters bit-equal after every chunk to the plain
+    step (the plain chunk entry fed the contract entry's distances, the
+    ids mapped through the same gmap, the stable-sort merge).  DTW: the
+    same walk on the CPU (the plain versions): counters, ids and offsets
+    equal, d2 rtol 1e-4.  Every query visits the pinned delta chunks."""
+    from repro_torch.core import executor, planner
+    rng = np.random.default_rng(41)
+    p = EnvelopeParams(lmin=160, lmax=256, seg_len=16, gamma=48, card=256,
+                       znorm=True)
+    main = np.cumsum(rng.normal(size=(48, 256)), -1).astype(np.float32)
+    delta = np.cumsum(rng.normal(size=(16, 256)), -1).astype(np.float32)
+    rows = np.concatenate([main, delta])
+    c = Collection.from_array(rows, device=dev)
+    env = build_envelope_set(c, p, isax.gaussian_breakpoints(p.card, dev))
+    d_rows = 16 * p.num_envelopes(256)
+    gmap = _t(np.concatenate([np.arange(48, 96), 1000 + 3 * np.arange(16),
+                              [-1]]).astype(np.int32), dev)
+    qs = np.stack([rows[s, o:o + 200] + rng.normal(size=200).astype(
+        np.float32) * .1 for s, o in zip(rng.integers(0, 64, 8),
+                                         rng.integers(0, 57, 8))])
+    r = 20 if measure == "dtw" else 0
+    qn, dlo, dhi, qb, qh = planner.prepare_query_batch(
+        _t(qs, dev), p.seg_len, p.znorm, measure, r)
+    lbs = planner.env_lower_bounds_batch(
+        qb, qh, env, isax.gaussian_breakpoints(p.card, dev), p.seg_len,
+        p.query_segments(200), False)
+    n_pad, chunk, nd_pad = executor.shard_pack_geometry(env.size, d_rows, 64)
+    plan = planner.device_shard_pack(env.series_id, env.anchor,
+                                     env.n_master, lbs, n_pad=n_pad,
+                                     n_delta=d_rows, chunk=chunk)
+    assert nd_pad > 0 and float(plan[3][:, 0].max()) == 0.0  # pinned head
+    # gkth: each query's lower quartile of its positive main-row bounds
+    lb = plan[3][:, nd_pad:].cpu().numpy()
+    gk_np = np.array([np.quantile(x[np.isfinite(x) & (x > 0)], 0.25)
+                      for x in lb], np.float32)
+    gk_np[0] = np.inf
+    gk = _t(gk_np, dev)
+    k, g, b = 5, p.gamma + 1, len(qs)
+    a0 = (c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center)
+
+    def empty(d):
+        return [torch.full((b, k), float("inf"), device=d),
+                torch.full((b, k), -1, dtype=torch.int32, device=d),
+                torch.full((b, k), -1, dtype=torch.int32, device=d)]
+
+    pool, st = empty(dev), torch.zeros((b, 6), dtype=torch.int32,
+                                       device=dev)
+    if measure == "ed":
+        plain = empty(dev)
+        st_plain = st.clone()
+    else:
+        cpu = torch.device("cpu")
+        plain, st_plain = empty(cpu), st.cpu()
+        c_cpu = Collection(**{f: getattr(c, f).cpu() for f in (
+            "data", "csum", "csum2", "center", "csum_lo", "csum2_lo")})
+        args_cpu = [x.cpu() for x in (*plan, qn, dlo, dhi)]
+    for i in range(n_pad // chunk):
+        executor._scan_chunk_step(c, *plan, qn, dlo, dhi, i, pool, st, k=k,
+                                  g=g, chunk=chunk, znorm=p.znorm,
+                                  measure=measure, r=r, gmap=gmap, gkth=gk)
+        if measure == "dtw":
+            executor._scan_chunk_step(c_cpu, *args_cpu, i, plain, st_plain,
+                                      k=k, g=g, chunk=chunk, znorm=p.znorm,
+                                      measure=measure, r=r, gmap=gmap.cpu(),
+                                      gkth=gk.cpu())
+            continue
+        cols = slice(i * chunk, (i + 1) * chunk)
+        dist = fused_gather_ed(*a0, plan[0][:, cols].reshape(-1).contiguous(),
+                               plan[1][:, cols].reshape(-1).contiguous(), qn,
+                               g=g, rows=chunk, znorm=p.znorm)
+        part = ref.fused_gather_ed_chunk_ref(
+            *a0, *plan, qn, plain[0], st_plain, i=i, chunk=chunk, g=g,
+            znorm=p.znorm, dist=dist, gkth=gk)
+        part[1] = gmap[part[1].long()]
+        for t, v in zip(plain, ref.pool_merge_partials_ref(plain, part)):
+            t.copy_(v)
+        torch.cuda.synchronize()
+        for x, y in zip(pool, plain):
+            assert torch.equal(x, y), f"step {i}: pools differ"
+        assert torch.equal(st, st_plain), f"step {i}: counters differ"
+    if measure == "dtw":
+        assert torch.equal(st.cpu(), st_plain)
+        for x, y in zip(pool[1:], plain[1:]):
+            assert torch.equal(x.cpu(), y)
+        torch.testing.assert_close(pool[0].cpu(), plain[0], rtol=1e-4,
+                                   atol=0)
+    sid = pool[1].cpu().numpy()
+    assert set(sid[sid >= 0].tolist()) <= set(gmap.cpu().numpy().tolist())
+    assert bool((st[:, 0] >= nd_pad // chunk).all())
+    assert int(st[1:, 5].sum()) > 0                # the gkth cut prunes

@@ -28,8 +28,9 @@ size), against the reference in subprocesses on 4 forced host devices:
     distances within 5e-3 of the reference's and of a brute force;
   * the engine's surface: a non-divisible S ("not divisible") and
     series shorter than lmax refused, the default device refused without
-    CUDA, the shard's rows and local ids, `raw_data`, the local-only
-    methods refused (ROADMAP item 4b), warmup.
+    CUDA, the shard's rows and local ids, `raw_data`, the write surface
+    (a part that does not divide refused, validate_append, append, save,
+    `open(path, mesh=...)`, compact), warmup.
 The k-NN and range halves of the reference's engine matrix are in
 tests/test_torch_distributed_scan.py and test_torch_distributed_range.py.
 """
@@ -349,7 +350,8 @@ def runs(tmp_path_factory):
                 jobs += [(torch_worlds.collectives_job,
                           (d2, sid, off, bsf, ids, k)),
                          (torch_worlds.engine_basics_job,
-                          (data, dict(PARAMS, znorm=True), bps[True]))]
+                          (data, dict(PARAMS, znorm=True), bps[True],
+                           os.path.join(tmp, "basics")))]
             port[world] = torch_worlds.run_world(
                 world, torch_worlds.multi_job, jobs)
     except BaseException:
@@ -427,7 +429,8 @@ def test_every_rank_returns_the_same(runs):
 
 def test_engine_surface(runs):
     """Refusals first, the shard's rows and local ids, raw_data's
-    all-gather, the local-only methods refused, warmup."""
+    all-gather, the write surface (validate_append, append, save, open
+    on the group, compact), warmup."""
     _, port, _, _ = runs
     data = _inputs()[0]
     p = EnvelopeParams(znorm=True, **PARAMS)
@@ -445,6 +448,15 @@ def test_engine_surface(runs):
             env["series_id"], np.repeat(np.arange(4), n_env))
         assert got["flags"] == (True, True, 0, "cpu", None)
         np.testing.assert_array_equal(got["raw_data"], data)
-        assert all(v is not None and "4b" in v
-                   for v in got["refused"].values()), got["refused"]
+        # the write surface works on a world of 4: a part of 5 refused in
+        # the reference's words, one of 4 appended, saved, opened on the
+        # group (the delta kept), compacted
+        w = got["writes"]
+        assert "not divisible by the 4-shard mesh" in w["refused"]
+        assert w["validate_append"] == 4
+        grown = np.concatenate([data, data[:4]])
+        for key, delta in (("appended", 4 * n_env), ("opened", 4 * n_env),
+                           ("compacted", 0)):
+            assert w[key][0] == delta, key
+            np.testing.assert_array_equal(w[key][1], grown, err_msg=key)
         assert got["warmup"] == 4

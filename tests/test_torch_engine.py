@@ -169,9 +169,9 @@ def test_unported_paths_raise(engines):
     """Range search is ported (device and host, ED and DTW) and answers
     the port's brute force; approx-only and the host backend answer;
     ingestion and a memory budget are ported (a resident index stays
-    resident under a budget); the distributed search is ported
-    (tests/test_torch_distributed*.py), and its open with a mesh still
-    raises, naming its ROADMAP Queue 1 item."""
+    resident under a budget); the distributed search, its writes and
+    its open with a mesh are ported (tests/test_torch_distributed*.py):
+    an open with a mesh but no process group raises."""
     znorm, data, _, port, coll = engines
     q = data[0, :96] + np.float32(0.05) * np.sin(np.arange(96),
                                                   dtype=np.float32)
@@ -202,7 +202,9 @@ def test_unported_paths_raise(engines):
     budgeted = UlisseEngine.from_index(port.index, memory_budget_bytes=1,
                                        device="cpu")
     assert budgeted.page_cache_stats() is None
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    # open with a mesh is ported too (tests/test_torch_distributed_storage
+    # .py); without a process group it refuses rather than opening locally
+    with pytest.raises(RuntimeError, match="process group"):
         UlisseEngine.open("unused", mesh=object(), device="cpu")
 
 

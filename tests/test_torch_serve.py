@@ -24,8 +24,9 @@ package's `repro.serve` on the same numpy inputs.
     cross-thread and frozen-attribute writes;
   * `kernels/_build.load_all` from several threads at once builds and
     loads each library once (a stubbed compiler: no nvcc here);
-  * both launchers run on the CPU at a tiny size, and refuse the sharded
-    backend.
+  * both launchers run on the CPU at a tiny size, with one engine and
+    with `--devices 2` (two spawned gloo ranks serving a distributed
+    engine, the backend in the banner).
 
 Queries are data windows plus N(0, 0.05) noise (ROADMAP Queue 3 P3).
 """
@@ -505,17 +506,22 @@ def test_load_all_builds_and_loads_once_across_threads(tmp_path,
 
 # -- the launchers --------------------------------------------------------------
 
-def test_serve_launcher_on_cpu(capsys):
-    assert launch_serve.main(["--device", "cpu", "--series", "32",
-                              "--series-len", "128", "--queries", "6",
-                              "--clients", "3", "--window-ms", "5"]) == 0
-    out = capsys.readouterr().out
+def test_serve_launcher_on_cpu(capfd):
+    args = ["--device", "cpu", "--series", "32", "--series-len", "128",
+            "--queries", "6", "--clients", "3", "--window-ms", "5"]
+    assert launch_serve.main(args) == 0
+    out = capfd.readouterr().out
     assert "serial baseline" in out and "served 6 queries" in out
-    with pytest.raises(NotImplementedError, match="item 4"):
-        launch_serve.main(["--device", "cpu", "--devices", "2"])
+    assert "local pipeline on cpu" in out
+    # two ranks (spawned; rank 0 prints): a server over a distributed
+    # engine, the backend in the banner
+    assert launch_serve.main(args + ["--devices", "2"]) == 0
+    out = capfd.readouterr().out
+    assert "sharded scan, 2 ranks over gloo on cpu" in out
+    assert "serial baseline" in out and "served 6 queries" in out
 
 
-def test_obs_launcher_writes_three_artifacts(tmp_path):
+def test_obs_launcher_writes_three_artifacts(tmp_path, capfd):
     from repro_torch import obs
     prev_tr = obs.set_tracer(obs.Tracer())
     prev_reg = obs.set_registry(obs.MetricsRegistry())
@@ -538,5 +544,19 @@ def test_obs_launcher_writes_three_artifacts(tmp_path):
     assert 'ulisse_engine_queries{backend="device"}' in prom
     snap = json.loads((out / "metrics.json").read_text())
     assert snap["ulisse_serve_completed_total"]["kind"] == "counter"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        launch_obs.main(["--device", "cpu", "--devices", "2"])
+    # two ranks: rank 0 traces the distributed engine and writes the
+    # artifacts
+    out2 = tmp_path / "obs2"
+    assert launch_obs.main(["--device", "cpu", "--devices", "2", "--series",
+                            "16", "--series-len", "128", "--queries", "6",
+                            "--out", str(out2)]) == 0
+    assert "the distributed engine (2 ranks over gloo on cpu)" in \
+        capfd.readouterr().out
+    assert sorted(os.listdir(out2)) == ["metrics.json", "metrics.prom",
+                                        "trace.json"]
+    names = {e["name"] for e in json.loads(
+        (out2 / "trace.json").read_text())["traceEvents"]}
+    assert {"serve.dispatch", "query.sharded_knn",
+            "query.sharded_range"} <= names
+    assert 'ulisse_engine_queries{backend="distributed"}' in \
+        (out2 / "metrics.prom").read_text()

@@ -352,8 +352,23 @@ def test_append_rejects_bad_width_and_mesh(walk, tmp_path):
     assert eng.delta_size == 0
     path = str(tmp_path / "idx")
     eng.save(path)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        UlisseEngine.open(path, mesh=object(), device="cpu")
+    # a local save opens on a process group too (re-sharded from its raw
+    # series): here a gloo world of one in this process
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rv",
+                            world_size=1, rank=0)
+    try:
+        promoted = UlisseEngine.open(path, mesh=dist.group.WORLD,
+                                     device="cpu")
+        assert promoted.is_distributed and promoted.delta_size == 0
+        np.testing.assert_array_equal(promoted.raw_data, walk)
+        q = walk[5, 30:126] + np.float32(0.05)
+        want, got = (e.search(q, QuerySpec(k=5)) for e in (eng, promoted))
+        np.testing.assert_array_equal(got.series, want.series)
+        np.testing.assert_array_equal(got.offsets, want.offsets)
+        np.testing.assert_allclose(got.dists, want.dists, rtol=0, atol=1e-9)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_crash_safety_stale_tmp_ignored_and_gcd(walk, tmp_path):
