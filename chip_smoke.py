@@ -43,7 +43,8 @@ Phases (any failed check raises, and the script exits non-zero):
      the first two qlen-160 answers (DTW_BRUTE) checked against a float64
      DP brute force on the card (which keeps each query's DTW_KEEP
      nearest windows for [16]);
-  9. time the DTW kernels on that path's inputs, as in 6 (the LB
+  9. time the DTW kernels on that path's inputs at qlen 256 (both
+     lengths checked), as in 6 (the LB
      kernel's contract entry and its chunk entry, the DP's two entries,
      the dense pool merge beside torch.topk), and check LB_Keogh <= DTW
      on every survivor of one chunk;
@@ -53,15 +54,17 @@ Phases (any failed check raises, and the script exits non-zero):
      makes at most 4.5 kernel launch calls a step (the LB chunk entry,
      the DP, the dense merge's two kernels, the stop test's two every 8
      steps);
- 11. the host backend (`scan_backend="host"`), ED and DTW: two queries
-     each, counters set to 0 just before and read just after; answers
-     equal the brute-force-checked device answers of the same queries as
-     (series, offset) sets, distances within 5e-3; host syncs per query;
+ 11. the host backend (`scan_backend="host"`), ED and DTW: one query
+     each (qlen 256), counters set to 0 just before and read just after;
+     answers equal the brute-force-checked device answers of the same
+     queries as (series, offset) sets, distances within 5e-3; host syncs
+     per query;
  12. approx-only (`mode="approx"`), one ED and one DTW batch, counters
      around each: the k-th distance is never below the exact one, and
      the answer equals the exact one wherever `exact_from_approx` is set;
  13. time the index build's and the host backend's kernels at their
-     path's inputs, as in 6, and the wide DP entries at qlen 600, r 600;
+     path's inputs (qlen 256; both lengths checked), as in 6, and the
+     wide DP entries at qlen 600, r 600;
  14. the long-query DTW path: an index of LONG_SERIES series of 1,024
      points (lmin 512, lmax 1024, seg_len 32), exact DTW k-NN at qlen
      600 with r = 600 (a band of 1,199 slots, past the warp entries')
@@ -178,8 +181,39 @@ Phases (any failed check raises, and the script exits non-zero):
      serial search and appends 1,000 series through the writer lane,
      found by the next dispatch; the world of 1 first opens the world of
      4's save (re-sharded and rebuilt: the fresh build its compact is
-     held to), its ED and DTW batches equal to the local answers.  Every
-     time is printed with the card's name and power limit.
+     held to), its ED and DTW batches equal to the local answers; world
+     1's ED range runs at capacity RANGE20_WORLD1_CAP (no overflow; the
+     world of 4 runs the overflow and its host tail).
+ 21. P5 on the card (after [19]): an index of LARGE_G_SERIES random walks
+     of LARGE_G_LEN points at lmin 128, lmax 256, seg_len 16, gamma
+     20,479 (g = 20,480, past the g one block of a row takes: 18,688 ED,
+     13,760 LB_Keogh; 2,048 envelope rows, the long traces users index),
+     searched through `UlisseEngine.search` on the device backend: ED and
+     DTW (r = 10% of |Q|) k-NN and eps-range, B = 8 at qlen 128 and 256,
+     counters around each (the offset-tiled long-row entries launched,
+     the staged ones not); ED answers held to a float64 brute force on
+     the card, DTW ones to an LB_Keogh-pruned float64 DP brute force and,
+     LARGE_G_HOST queries a length, to the host backend; the tiled
+     entries against their plain versions at g = 20,480, a forced tile
+     of LARGE_G_FORCED_T offsets bit for bit against the untiled entries
+     at g = 49, and the tiled k-NN chunk entries timed beside their
+     bound.
+ 22. rank grids and the training collectives: the first GRID_SERIES
+     series of [3] served by `UlisseEngine.distributed` over a 2 x 2
+     DeviceMesh ("data", "model") in a gloo world of 4 on the one card,
+     at axes ("data", "model") (4 shards) and ("data",) (2 shards x 2
+     replicas): [4]'s and [8]'s second batches equal a local engine's
+     over the same series on every rank; each grid's save opened under
+     the other (cold) and the 2-shard save re-sharded on the group; the
+     training collectives in that world and in an NCCL world of 1 against
+     a plain computation.
+ 23. the host-sync budget (`repro_torch.analysis`) under
+     `torch.cuda.set_sync_debug_mode`: [3]'s engine's local paths at B =
+     1 and 8 and the delta, paged and sharded (NCCL world of 1) paths,
+     every count equal to the port's own counters; then each example
+     (`examples/*_torch.py`) once at its default size.  Every time is
+     printed with the card's name and power limit, and each phase's
+     seconds on a line as it ends.
 
 Phase 2 also holds the scan's ED chunk entry and the partials merge
 against the plain step (the contract entry's distances masked, the
@@ -230,6 +264,9 @@ BENCH = dict(lmin=160, lmax=256, seg_len=16, gamma=48, card=256, znorm=True)
 BATCH = 8
 BATCHES = 4             # query batches of BATCH on the main path
 QLENS = (160, 256)
+# the query length whose kernels [9] and [13] time (both lengths are
+# checked; the kernels line reads this one)
+TIMED_QLEN = 256
 K = 5
 # DTW path: (qlen, r) with r = 10% of |Q| (the paper's Fig. 25 window)
 DTW_CASES = ((160, 16), (256, 25))
@@ -272,7 +309,7 @@ RANGE_HOST = 2
 # (1%), and the paged scans' series (the first of [3]'s; a budget of half
 # their payload thrashes the page cache, so the count is cut for time)
 APPEND_SERIES = 10_000
-PAGED_SERIES = 20_000
+PAGED_SERIES = 10_000
 # [18], serving: query lengths (one bucket, 256), closed-loop client
 # threads, requests of the ED, DTW (at r SERVE_DTW_R) and writer-lane
 # bursts, series appended under load (seed + 18), appended windows served
@@ -301,6 +338,24 @@ GKTH_ROWS, GKTH_CHUNKS = 512, 8
 # the series its writer lane appends (seed + 20)
 GMAP_MAIN, GMAP_DELTA = 25_000, 1_000
 SERVE20_CLIENTS, SERVE20_APPEND = 4, 1_000
+# world 1's range capacity in [20] (world 4 keeps the default 2,048 and
+# its overflow)
+RANGE20_WORLD1_CAP = 1 << 18
+# [21], P5 on the card: long traces (seismic, ECG) queried at a few
+# hundred points, g = gamma + 1 = 20,480 past the g one block of a row
+# takes (18,688 ED, 13,760 LB_Keogh), so the long-row entries tile a
+# row's offsets; the queries a length also answered on the host backend
+# (DTW), the chunk rows of the kernel checks, and the forced offset tile
+# held bit for bit against the untiled entries at g = 49
+LARGE_G = dict(lmin=128, lmax=256, seg_len=16, gamma=20_479, card=256,
+               znorm=True)
+LARGE_G_SERIES, LARGE_G_LEN = 1_024, 40_960
+LARGE_G_QLENS = (128, 256)
+LARGE_G_HOST = 1
+LARGE_G_ROWS = 8
+LARGE_G_FORCED_T = 16
+# [22], rank grids: the first GRID_SERIES of [3]'s series on a 2 x 2 grid
+GRID_SERIES = 100_000
 # kernel wrappers a [19] rank counts (module, name)
 SHARDED_WRAPPERS = (
     ("fused_verify", "fused_gather_ed_chunk"),
@@ -318,6 +373,8 @@ L2_BYTES = 50 * 2 ** 20     # H100 L2, where the device does not say
 # kernel timing: traces tried before falling back to CUDA events, and the
 # spin ahead of the events' loop (cycles at the H100's 1.98 GHz boost)
 TRACE_TRIES = 5
+# a function slower than this a call is traced one call at a time
+TRACE_ONE_S = 0.02
 SPIN_HZ, SPIN_MAX_S = 1.98e9, 0.1
 # (rtol, atol).  LB_Keogh's mu and sd: the reference kernel test's
 # tolerances (sd = sqrt(s2 / L - mu^2) cancels when |mu| >> sd, so an ulp
@@ -395,6 +452,12 @@ REPLACES = {
     "fused_gather_lb_keogh_chunk_gkth_gmap": (
         "src/repro_torch/kernels/csrc/fused_verify.cu",
         "src/repro/kernels/fused_verify.py:219"),
+    "fused_gather_ed_tiled": (
+        "src/repro_torch/kernels/csrc/fused_verify.cu",
+        "src/repro/kernels/fused_verify.py:181"),
+    "fused_gather_lb_keogh_tiled": (
+        "src/repro_torch/kernels/csrc/fused_verify.cu",
+        "src/repro/kernels/fused_verify.py:219"),
 }
 
 
@@ -452,10 +515,13 @@ def time_calls(torch, fns, reps=20, budget_s=0.25, events=1):
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / reps
+    # a slow function (a plain version of thousands of launches) is traced
+    # one call at a time: the trace's processing grows with its events
+    traced = 1 if per_call > TRACE_ONE_S else reps
     for _ in range(TRACE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for r in range(reps):
+            for r in range(traced):
                 fns[r % len(fns)]()
             torch.cuda.synchronize()
         evs = device_events(prof)
@@ -466,8 +532,8 @@ def time_calls(torch, fns, reps=20, budget_s=0.25, events=1):
             return (sum(sum(v) / len(v) for v in names.values()) / 1e3,
                     event_ms, "profiler by name")
         # every call makes at least `events` device activities
-        if events == 1 and len(evs) >= reps:
-            return device_ms(prof) / reps, event_ms, "profiler"
+        if events == 1 and len(evs) >= traced:
+            return device_ms(prof) / traced, event_ms, "profiler"
     return None, event_ms, "events"
 
 
@@ -901,23 +967,25 @@ def ok_reads(torch, coll, plan, active_of, cut, inclusive: bool, qlen: int,
 
 
 def ed_chunk_work(torch, coll, plan, pool_d2, qlen: int, rows: int, g: int,
-                  n_chunks: int, gkth=None):
+                  n_chunks: int, gkth=None, long: bool = False):
     """(bytes, flops, ok candidates) one call of the ED chunk entry needs,
     averaged over the plan's first n_chunks chunks under pool_d2: the
     chunk's plan entries, the pool, the counters read and written, the
     queries, the ok candidates' reads (`ok_reads`), the partials written;
     2 qlen flops an ok candidate (`gkth`: the sharded scan's cut, the
-    min of the pool's k-th and it)."""
+    min of the pool's k-th and it; `long`: the long-row entry's partials,
+    a list a (row block, offset tile))."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_verify import ed_chunk_tile
+    from repro_torch.kernels.fused_verify import ed_chunk_tile, offset_tile
     lbs2 = plan[3]
     b, k = pool_d2.shape
     read, n_ok = ok_reads(
         torch, coll, plan,
         lambda i: ref.scan_active(lbs2, pool_d2, i, rows, gkth),
         ref.knn_cut(pool_d2, gkth), False, qlen, rows, g, n_chunks)
-    tile = ed_chunk_tile(qlen, g)
-    parts = 4 * b * -(-rows // tile) * min(k, tile * g) * 4
+    tile = ed_chunk_tile(qlen, g, long)
+    t = offset_tile("ed", qlen, g) if long else g
+    parts = 4 * b * -(-rows // tile) * -(-g // t) * min(k, tile * t) * 4
     nbytes = (read + b * rows * 16 + b * k * 4 + 2 * b * 6 * 4
               + b * qlen * 4 + parts)
     return nbytes, 2 * qlen * n_ok, n_ok
@@ -1182,10 +1250,10 @@ def check_build_envelopes(torch, coll, index, p) -> dict:
 
 
 def brute64_dtw(torch, data, q, k: int, r: int, znorm: bool):
-    """Exact DTW k-NN on the card in float64 (`brute64_dtw_top`):
+    """Exact DTW k-NN on the card in float64 (`brute64_dtw_lb`):
     (series, offsets, dists)."""
     n_off = data.shape[1] - len(q) + 1
-    idx, d = brute64_dtw_top(torch, data, q, r, znorm, k)
+    idx, d = brute64_dtw_lb(torch, data, q, r, znorm, k=k)
     return idx // n_off, idx % n_off, d
 
 
@@ -1509,41 +1577,6 @@ def check_lower_bounds(torch, index, data, p, queries, n_sample: int, seed):
     return worst
 
 
-def brute64_dtw_top(torch, data, q, r: int, znorm: bool, keep: int):
-    """The `keep` nearest windows of q under banded DTW, in float64 on the
-    card: every window of every series, the plain DP (core/dtw.dtw_band,
-    whose closed form does not cancel in float64) in blocks of series.
-    Returns (flat index series * n_off + offset, distance), numpy, sorted
-    by (distance, index)."""
-    from repro_torch.core import dtw
-    qlen = len(q)
-    s, n = data.shape
-    n_off = n - qlen + 1
-    qt = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
-    if znorm:
-        qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
-    block = max(1, BRUTE_ELEMS // (n_off * (qlen + 8 * (2 * r + 1))))
-    best_d = torch.empty(0, dtype=torch.float64, device=data.device)
-    best_i = torch.empty(0, dtype=torch.int64, device=data.device)
-    for start in range(0, s, block):
-        w = data[start:start + block].double().unfold(1, qlen, 1).reshape(
-            -1, qlen)
-        if znorm:
-            w = (w - w.mean(-1, keepdim=True)) / w.std(
-                -1, keepdim=True, correction=0).clamp_min(1e-8)
-        d2 = torch.cat([best_d, dtw.dtw_band(qt, w, r, squared=True)])
-        idx = torch.cat([best_i, torch.arange(
-            start * n_off, start * n_off + w.shape[0],
-            device=data.device)])
-        top = torch.topk(d2, min(keep, d2.numel()), largest=False).indices
-        best_d, best_i = d2[top], idx[top]
-        del w
-    d = np.sqrt(np.maximum(best_d.cpu().numpy(), 0.0))
-    i = best_i.cpu().numpy()
-    order = np.lexsort((i, d))
-    return i[order], d[order]
-
-
 def brute64_ed_within(torch, data, q, znorm: bool, radius: float):
     """Every window of q's length within `radius` of q under ED, in
     float64 on the card, by the dot identity over float64 window sums
@@ -1579,13 +1612,16 @@ def brute64_ed_within(torch, data, q, znorm: bool, radius: float):
     return torch.cat(out_i).cpu().numpy(), torch.cat(out_d).cpu().numpy()
 
 
-def ed_band(qlen: int, eps: float) -> float:
+def ed_band(qlen: int, eps: float, xmax: float = 0.0) -> float:
     """The band around eps in which an ED window's membership may differ
     from the float64 brute force: RANGE_BAND, or where larger the
     float32 dot identity's error at this length (the kernels sum the dot
     in float32 over qlen terms: ~2 qlen sqrt(qlen) ulps of d2, measured
-    up to ~0.2 of d2 at qlen 29,000)."""
-    return max(RANGE_BAND, 2.0 * qlen ** 1.5 * 2.0 ** -24 / max(eps, 1e-6))
+    up to ~0.2 of d2 at qlen 29,000), or, given the series' largest
+    magnitude xmax, the dot's rounding on raw values that large (~qlen
+    xmax ulps of the dot, doubled in d2 and again by 1 / sd)."""
+    return max(RANGE_BAND, 2.0 * qlen ** 1.5 * 2.0 ** -24 / max(eps, 1e-6),
+               4.0 * qlen * xmax * 2.0 ** -24 / max(eps, 1e-6))
 
 
 def range_set_check(res, idx, d, eps: float, n_off: int, what: str,
@@ -1668,18 +1704,30 @@ def trace_range_scan(torch, coll, index, p, queries, spec):
 def dtw64_windows(torch, data, q, series, offsets, r: int, znorm: bool):
     """The float64 DTW distance of q to each (series, offset) window (the
     plain DP, Z-normalized where the index is), numpy."""
+    return dtw64_many(torch, data, [(q, series, offsets)], r, znorm)[0]
+
+
+def dtw64_many(torch, data, jobs, r: int, znorm: bool):
+    """`dtw64_windows` of several (q, series, offsets) jobs of one query
+    length in ONE DP over every window (a query a candidate: the plain
+    DP's row loop runs once), a numpy array a job."""
     from repro_torch.core import dtw
-    qlen = len(q)
-    if len(series) == 0:
-        return np.zeros(0)
-    w = torch.stack([data[s_, o:o + qlen] for s_, o in zip(series, offsets)]
-                    ).double()
-    qt = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
+    sizes = [len(s_) for _, s_, _ in jobs]
+    if sum(sizes) == 0:
+        return [np.zeros(0) for _ in jobs]
+    qlen = len(jobs[0][0])
+    w = torch.stack([data[s_, o:o + qlen] for _, ser, offs in jobs
+                     for s_, o in zip(ser, offs)]).double()
+    qt = torch.from_numpy(np.stack([np.asarray(q, np.float64)
+                                    for (q, _, _), m in zip(jobs, sizes)
+                                    for _ in range(m)])).to(data.device)
     if znorm:
         w = (w - w.mean(-1, keepdim=True)) / w.std(
             -1, keepdim=True, correction=0).clamp_min(1e-8)
-        qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
-    return torch.sqrt(dtw.dtw_band(qt, w, r, squared=True)).cpu().numpy()
+        qt = (qt - qt.mean(-1, keepdim=True)) / qt.std(
+            -1, keepdim=True, correction=0).clamp_min(1e-8)
+    d = torch.sqrt(dtw.dtw_band(qt, w, r, squared=True)).cpu().numpy()
+    return np.split(d, np.cumsum(sizes)[:-1])
 
 
 def same_answers(a, b, atol: float, what: str) -> float:
@@ -3234,6 +3282,10 @@ def sharded_phase(torch, engine, data, p, batches, answers, dtw_batches,
                     part=serve_npy, probe=probe))
             else:
                 ing["elastic"] = os.path.join(tmpdir, "world4")
+                # a buffer the batch's hits fit: world 4 runs the
+                # overflow and its host tail, world 1 the plain scan
+                ing["specs"] = dict(ing["specs"], range=dict(
+                    eps=range_eps, range_capacity=RANGE20_WORLD1_CAP))
             t0 = time.perf_counter()
             worlds[world] = run_sharded_world(
                 world, backend, npy,
@@ -3472,6 +3524,780 @@ def ingest_checks(ranks, world: int, backend: str, p, n0: int, before,
     return out
 
 
+# -- [21] large g ------------------------------------------------------------
+
+def brute64_dtw_lb(torch, data, q, r: int, znorm: bool, k: int = 0,
+                   radius: float = 0.0):
+    """Exact banded DTW in float64 on the card over every window of q's
+    length, pruned by LB_Keogh in float64 (a true lower bound of the same
+    DTW): every window's bound in blocks of series, then the plain DP
+    (core/dtw.dtw_band) over the windows in bound order, a block at a
+    time, until the next bound passes the k-th distance found (k > 0) or
+    `radius` (the windows within it).  Returns (flat index series * n_off
+    + offset, distance), numpy, sorted by (distance, index)."""
+    from repro_torch.core import dtw
+    qlen = len(q)
+    s, n = data.shape
+    n_off = n - qlen + 1
+    rr = min(r, qlen - 1)
+    qt = torch.from_numpy(np.asarray(q, np.float64)).to(data.device)
+    if znorm:
+        qt = (qt - qt.mean()) / qt.std(correction=0).clamp_min(1e-8)
+    lo, hi = dtw.dtw_envelope(qt, rr)
+
+    def windows(x):
+        w = x.double()
+        if znorm:
+            w = (w - w.mean(-1, keepdim=True)) / w.std(
+                -1, keepdim=True, correction=0).clamp_min(1e-8)
+        return w
+    block = max(1, BRUTE_ELEMS // (n_off * qlen))
+    lbs = []
+    for start in range(0, s, block):
+        w = windows(data[start:start + block].unfold(1, qlen, 1))
+        lbs.append(dtw.lb_keogh(lo, hi, w, squared=True).reshape(-1))
+        del w
+    lb = torch.cat(lbs)
+    order = torch.argsort(lb)
+    lb_sorted = lb[order]
+    wins = data.unfold(1, qlen, 1)           # a view: windows by index
+    best_d = torch.empty(0, dtype=torch.float64, device=data.device)
+    best_i = torch.empty(0, dtype=torch.int64, device=data.device)
+    # windows a DP step: the element budget of a brute-force block (the
+    # DP's row loop runs once a step, so fewer, larger steps are faster)
+    step = max(1 << 14, BRUTE_ELEMS // (qlen + 8 * (2 * rr + 1)))
+    for pos in range(0, lb.numel(), step):
+        cut = (radius * radius if k == 0 else
+               float(best_d[k - 1]) if best_d.numel() >= k else float("inf"))
+        if float(lb_sorted[pos]) > cut:
+            break
+        idx = order[pos:pos + step]
+        d2 = dtw.dtw_band(qt, windows(wins[idx // n_off, idx % n_off]), rr,
+                          squared=True)
+        if k == 0:
+            keep = d2 <= cut
+            best_d, best_i = torch.cat([best_d, d2[keep]]), torch.cat(
+                [best_i, idx[keep]])
+        else:
+            cd, ci = torch.cat([best_d, d2]), torch.cat([best_i, idx])
+            top = torch.argsort(cd, stable=True)[:k]
+            best_d, best_i = cd[top], ci[top]
+    d = np.sqrt(np.maximum(best_d.cpu().numpy(), 0.0))
+    i = best_i.cpu().numpy()
+    o = np.lexsort((i, d))
+    return i[o], d[o]
+
+
+def large_g_queries(rng, data, qlen: int):
+    """B windows of the large-g collection plus N(0, 0.1) noise."""
+    s, n = data.shape
+    return [data[a, o:o + qlen] + rng.normal(size=qlen).astype(np.float32)
+            * 0.1 for a, o in zip(rng.integers(0, s, BATCH),
+                                  rng.integers(0, n - qlen + 1, BATCH))]
+
+
+def check_offset_tiles(torch, coll, data, rng):
+    """[21]'s bit-for-bit check: at g = 49 (where one block takes a row)
+    the long-row entries with a forced offset tile of LARGE_G_FORCED_T
+    against the untiled long-row entries, on B = 8 rows 64 of `coll`,
+    qlen 256: the ED contract entry's d2, the ED k-NN chunk entry's pools
+    after the partials merge and its counters over two chunks, the ED
+    range entry's dense d2 and counters, the LB_Keogh contract entry's
+    (lb2, mu, sd), and the LB k-NN and range chunk entries' outputs,
+    survivor sets and counters.  Returns the record."""
+    from repro_torch.core import planner
+    from repro_torch.kernels.fused_verify import (
+        fused_gather_ed_chunk_long, fused_gather_ed_long,
+        fused_gather_ed_range_long, fused_gather_lb_keogh_chunk_long,
+        fused_gather_lb_keogh_long, fused_gather_lb_keogh_range_long)
+    from repro_torch.kernels.pool_merge import pool_merge_partials
+    dev = coll.data.device
+    s, n = coll.data.shape
+    g, rows, qlen, t = 49, 64, 256, LARGE_G_FORCED_T
+    n_pad = 2 * rows
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    sids = torch.from_numpy(rng.integers(0, s, (BATCH, n_pad)).astype(
+        np.int32)).to(dev)
+    anc = torch.from_numpy(rng.integers(0, n - qlen - g + 2, (
+        BATCH, n_pad)).astype(np.int32)).to(dev)
+    nm = torch.from_numpy(rng.integers(1, g + 1, (BATCH, n_pad)).astype(
+        np.int32)).to(dev)
+    lbs2 = torch.from_numpy(np.sort(rng.random((BATCH, n_pad)), 1).astype(
+        np.float32) * 40).to(dev)
+    plan = (sids, anc, nm, lbs2)
+    q = torch.from_numpy(np.stack(large_g_queries(rng, data, qlen))).to(dev)
+    qn, dlo, dhi, _, _ = planner.prepare_query_batch(q, 16, True, "dtw", 25)
+    flat = (sids[:, :rows].reshape(-1).contiguous(),
+            anc[:, :rows].reshape(-1).contiguous())
+    check_equal(torch, "tiled ED contract",
+                fused_gather_ed_long(*a0, *flat, qn, g=g, rows=rows,
+                                     znorm=True, otile=t),
+                fused_gather_ed_long(*a0, *flat, qn, g=g, rows=rows,
+                                     znorm=True))
+    pools = [[torch.full((BATCH, K), float("inf"), device=dev),
+              torch.full((BATCH, K), -1, dtype=torch.int32, device=dev),
+              torch.full((BATCH, K), -1, dtype=torch.int32, device=dev)]
+             for _ in range(2)]
+    sts = [torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+           for _ in range(2)]
+    for i in range(2):
+        for pool, st, extra in zip(pools, sts, ({}, {"otile": t})):
+            part = fused_gather_ed_chunk_long(
+                *a0, *plan, qn, pool[0], st, i=i, chunk=rows, g=g,
+                znorm=True, **extra)
+            pool_merge_partials(pool, part)
+        for x, y in zip(pools[0], pools[1]):
+            check_equal(torch, "tiled ED chunk pool", y, x)
+        check_equal(torch, "tiled ED chunk counters", sts[1], sts[0])
+    eps2 = pools[0][0][:, -1].contiguous()
+    ovf = torch.full((BATCH,), 2, dtype=torch.int32, device=dev)
+    for i in range(2):
+        st = [torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+              for _ in range(2)]
+        outs = [fused_gather_ed_range_long(
+            *a0, *plan, qn, eps2, ovf, st[j], i=i, chunk=rows, g=g,
+            znorm=True, **extra) for j, extra in enumerate(({},
+                                                           {"otile": t}))]
+        check_equal(torch, "tiled ED range d2", outs[1], outs[0])
+        check_equal(torch, "tiled ED range counters", st[1], st[0])
+    for x, y in zip(fused_gather_lb_keogh_long(*a0, *flat, dlo, dhi, g=g,
+                                               rows=rows, znorm=True),
+                    fused_gather_lb_keogh_long(*a0, *flat, dlo, dhi, g=g,
+                                               rows=rows, znorm=True,
+                                               otile=t)):
+        check_equal(torch, "tiled LB contract", y, x)
+    survivors = 0
+    for entry, tail in ((fused_gather_lb_keogh_chunk_long,
+                         (pools[0][0],)),
+                        (fused_gather_lb_keogh_range_long, (eps2, ovf))):
+        for i in range(2):
+            st = [torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+                  for _ in range(2)]
+            a, z = (entry(*a0, *plan, dlo, dhi, *tail, st[j], i=i,
+                          chunk=rows, g=g, znorm=True, **extra)
+                    for j, extra in enumerate(({}, {"otile": t})))
+            for j in (0, 1, 2, 4, 6, 7):
+                check_equal(torch, f"tiled {entry.__name__} output {j}",
+                            z[j], a[j])
+            check_equal(torch, f"tiled {entry.__name__} counters", st[1],
+                        st[0])
+            for b in range(BATCH):
+                m = int(a[4][b])
+                check_equal(torch, "tiled survivor list",
+                            z[3][b, :m].sort().values,
+                            a[3][b, :m].sort().values)
+                survivors += m
+    return {"g": g, "forced_otile": t, "rows": rows, "qlen": qlen,
+            "survivors": survivors, "bit_equal": True}
+
+
+def large_g_phase(torch, dev, seed, timings, zero_counts, read_counts):
+    """[21], P5 on the card: an index of LARGE_G_SERIES random walks of
+    LARGE_G_LEN points at gamma LARGE_G["gamma"] (g = 20,480, past the g
+    one block of a row takes: 18,688 ED, 13,760 LB_Keogh), searched on
+    the device backend through the offset-tiled long-row entries: ED and
+    DTW (r = 10% of |Q|) k-NN and eps-range, B = 8 at qlen 128 and 256,
+    counters around each (the tiled entries launched, the staged ones
+    not); every answer held to a float64 brute force on the card
+    (`brute64_ed`, `brute64_ed_within`, the LB-pruned `brute64_dtw_lb`),
+    DTW also to the host backend on LARGE_G_HOST queries a length.  Then
+    the tiled entries against their plain versions at g = 20,480, a
+    forced small tile bit for bit against the untiled entries at g = 49
+    (`check_offset_tiles`), and the tiled k-NN chunk entries timed at
+    qlen 256 beside their bound.  Returns (record, launches)."""
+    from repro_torch.core import (Collection, EnvelopeParams, QuerySpec,
+                                  UlisseEngine, planner)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_verify import (
+        fused_gather_ed, fused_gather_ed_chunk, fused_gather_ed_range,
+        fused_gather_lb_keogh, fused_gather_lb_keogh_chunk, offset_tile)
+    lp = EnvelopeParams(**LARGE_G)
+    g = lp.gamma + 1
+    rng = np.random.default_rng(seed + 21)
+    data = np.cumsum(rng.normal(size=(LARGE_G_SERIES, LARGE_G_LEN)),
+                     -1).astype(np.float32)
+    coll = Collection.from_array(data, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    engine = UlisseEngine.from_collection(coll, lp, device=dev)
+    torch.cuda.synchronize()
+    rec = {"series": LARGE_G_SERIES, "series_len": LARGE_G_LEN,
+           "params": LARGE_G, "g": g,
+           "build_s": time.perf_counter() - t0,
+           "build_launches": read_counts(("envelope_znorm",)),
+           "envelopes": engine.index.num_envelopes,
+           "offset_tiles": {f"{m} {ql}": offset_tile(m, ql, g)
+                            for m in ("ed", "dtw")
+                            for ql in LARGE_G_QLENS}}
+    for key, t in rec["offset_tiles"].items():
+        if not t < g:
+            raise AssertionError(f"[21] {key}: g = {g} is not offset-tiled")
+    log(f"[21] large-g index: {LARGE_G_SERIES} x {LARGE_G_LEN} (lmin "
+        f"{lp.lmin}, lmax {lp.lmax}, gamma {lp.gamma}: g {g}) -> "
+        f"{rec['envelopes']} envelopes in {rec['build_s']:.2f} s; offset "
+        f"tiles {rec['offset_tiles']}")
+    launches = {}
+    knn_names = {"ed": ("fused_gather_ed_chunk_long", "pool_merge_partials"),
+                 "dtw": ("fused_gather_lb_keogh_chunk_long", "dtw_survivors",
+                         "pool_merge")}
+    staged = {"ed": "fused_gather_ed_chunk", "dtw":
+              "fused_gather_lb_keogh_chunk"}
+    range_names = {"ed": ("fused_gather_ed_range_long", "range_append"),
+                   "dtw": ("fused_gather_lb_keogh_range_long",
+                           "dtw_survivors", "range_append")}
+    answers = {}
+    for qlen in LARGE_G_QLENS:
+        r = qlen // 10
+        qs = large_g_queries(rng, data, qlen)
+        n_off = LARGE_G_LEN - qlen + 1
+        for measure in ("ed", "dtw"):
+            spec = QuerySpec(k=K, measure=measure, r=r)
+            zero_counts()
+            t0 = time.perf_counter()
+            got = engine.search(qs, spec)
+            wall = time.perf_counter() - t0
+            cnt = read_counts(knn_names[measure] + (staged[measure],))
+            if any(cnt[nm] <= 0 for nm in knn_names[measure]) \
+                    or cnt[staged[measure]]:
+                raise AssertionError(f"[21] {measure} k-NN at qlen {qlen} "
+                                     f"did not run the tiled entries: {cnt}")
+            for nm in knn_names[measure]:
+                launches[nm] = launches.get(nm, 0) + cnt[nm]
+            check_answers(got, K)
+            worst = 0.0
+            if measure == "ed":
+                oracle = brute64_ed(torch, coll.data, qs, K, lp.znorm)
+            else:
+                oracle = []
+                for q in qs:
+                    i64, d64 = brute64_dtw_lb(torch, coll.data, q, r,
+                                              lp.znorm, k=K)
+                    oracle.append((i64 // n_off, i64 % n_off, d64))
+            own64 = (dtw64_many(torch, coll.data, [
+                (q, res.series, res.offsets) for res, q in zip(got, qs)],
+                r, lp.znorm) if measure == "dtw" else [None] * len(got))
+            for res, own, (ser, off, d) in zip(got, own64, oracle):
+                # ED: the same windows (float64 rescores); DTW (float32
+                # distances): the brute force's distances, and each
+                # reported window's own float64 DP distance
+                if measure == "ed" and set(zip(
+                        res.series.tolist(), res.offsets.tolist())) != set(
+                        zip(ser.tolist(), off.tolist())):
+                    raise AssertionError(
+                        f"[21] ED qlen {qlen}: answers "
+                        f"{list(zip(res.series, res.offsets))} vs the "
+                        f"float64 brute force {list(zip(ser, off))}")
+                worst = max(worst, float(np.abs(res.dists - d).max()))
+                if own is not None:
+                    worst = max(worst, float(np.abs(res.dists - own).max()))
+            if worst > 5e-3:
+                raise AssertionError(f"[21] {measure} qlen {qlen}: "
+                                     f"distances off float64 by {worst}")
+            host_err = None
+            if measure == "dtw":
+                host = engine.search(qs[:LARGE_G_HOST], QuerySpec(
+                    k=K, measure="dtw", r=r, scan_backend="host",
+                    chunk_size=16))
+                host_err = max(same_answers(a, b, 5e-3, "[21] DTW vs host")
+                               for a, b in zip(got, host))
+            answers[(measure, qlen)] = (qs, got)
+            rec[f"{measure}_knn_{qlen}"] = {
+                "r": r, "wall_s": wall, "queries_per_s": len(qs) / wall,
+                "launches": cnt, "max_abs_err_vs_float64": worst,
+                "max_abs_err_vs_host": host_err}
+            log(f"[21] {measure} k-NN qlen {qlen}"
+                + (f" r {r}" if measure == "dtw" else "")
+                + f": {len(qs)} queries in {wall:.2f} s; launches {cnt}; "
+                f"answers = the float64 brute force (max |d - d64| "
+                f"{worst:.2e})" + ("" if host_err is None else
+                                   f" and the host backend's"))
+            # eps-range just past the batch's least k-th distance (a few
+            # hits a query: these smooth long traces give some queries
+            # millions of windows within the median k-th)
+            eps = 1.02 * float(min(a.dists[-1] for a in got))
+            zero_counts()
+            t0 = time.perf_counter()
+            rgot = engine.search(qs, QuerySpec(eps=eps, measure=measure,
+                                               r=r))
+            rwall = time.perf_counter() - t0
+            rc = read_counts(range_names[measure])
+            if any(v <= 0 for v in rc.values()):
+                raise AssertionError(f"[21] {measure} range at qlen {qlen} "
+                                     f"did not run the tiled entries: {rc}")
+            band = (ed_band(qlen, eps, float(np.abs(data).max()))
+                    if measure == "ed" else RANGE_BAND)
+            hits = edge = 0
+            for res, q in zip(rgot, qs):
+                if measure == "ed":
+                    i64, d64 = brute64_ed_within(torch, coll.data, q,
+                                                 lp.znorm, eps + band)
+                else:
+                    i64, d64 = brute64_dtw_lb(torch, coll.data, q, r,
+                                              lp.znorm, radius=eps + band)
+                h, e = range_set_check(res, i64, d64, eps, n_off,
+                                       f"[21] {measure} range", band)
+                hits, edge = hits + h, edge + e
+            if measure == "dtw":
+                hgot = engine.search(qs[:LARGE_G_HOST], QuerySpec(
+                    eps=eps, measure="dtw", r=r, scan_backend="host",
+                    chunk_size=16))
+                odds = [sorted(set(zip(res.series.tolist(),
+                                       res.offsets.tolist()))
+                               ^ set(zip(hres.series.tolist(),
+                                         hres.offsets.tolist())))
+                        for res, hres in zip(rgot, hgot)]
+                for d_odd in dtw64_many(torch, coll.data, [
+                        (q, [x[0] for x in odd], [x[1] for x in odd])
+                        for q, odd in zip(qs, odds)], r, lp.znorm):
+                    if (np.abs(d_odd - eps) > RANGE_BAND).any():
+                        raise AssertionError("[21] DTW range: device and "
+                                             "host hits differ off eps")
+            rec[f"{measure}_range_{qlen}"] = {
+                "eps": eps, "wall_s": rwall, "launches": rc, "hits": hits,
+                "boundary_windows": edge,
+                "overflows": sum(x.stats.range_overflows for x in rgot)}
+            log(f"[21] {measure} range qlen {qlen}: eps {eps:.4f}, "
+                f"{len(qs)} queries in {rwall:.2f} s; launches {rc}; "
+                f"{hits} hits = the float64 brute force's ({edge} within "
+                f"{band:.3g} of eps)")
+
+    # the tiled entries against their plain versions at g = 20,480 (B =
+    # 8, LARGE_G_ROWS rows a chunk, two chunks of envelope rows, every
+    # bound 0; the k-NN cut the batch's final pool, range's its k-th)
+    index = engine.index
+    env = index.envelopes
+    qlen = LARGE_G_QLENS[-1]
+    rows = LARGE_G_ROWS
+    n_pad = 2 * rows
+    real = torch.nonzero(env.n_master > 0)[:, 0]
+    pick = real[torch.from_numpy(rng.integers(0, real.numel(), (
+        BATCH, n_pad))).to(dev)]
+    plan = (env.series_id[pick].contiguous(), env.anchor[pick].contiguous(),
+            env.n_master[pick].contiguous(),
+            torch.zeros((BATCH, n_pad), device=dev))
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    kernel = {}
+    for measure in ("ed", "dtw"):
+        qs, got = answers[(measure, qlen)]
+        r = qlen // 10
+        q = torch.from_numpy(np.stack(qs)).to(dev)
+        qn, dlo, dhi, _, _ = planner.prepare_query_batch(
+            q, lp.seg_len, lp.znorm, measure, r)
+        # the cut: the batch's final k-NN distances
+        pool_d2 = torch.from_numpy(np.stack([a.dists ** 2 for a in got])
+                                   .astype(np.float32)).to(dev)
+        if measure == "ed":
+            flat = (plan[0][:, :rows].reshape(-1).contiguous(),
+                    plan[1][:, :rows].reshape(-1).contiguous())
+            kernel["ed_contract_err"] = check_close(
+                torch, "fused_gather_ed", fused_gather_ed(
+                    *a0, *flat, qn, g=g, rows=rows, znorm=True),
+                ref.fused_gather_ed_ref(*a0, *flat, qn, g=g, rows=rows,
+                                        znorm=True), scale=2 * qlen)
+            pool = [pool_d2.clone(),
+                    torch.zeros((BATCH, K), dtype=torch.int32, device=dev),
+                    torch.zeros((BATCH, K), dtype=torch.int32, device=dev)]
+            plain = [t.clone() for t in pool]
+            st = torch.zeros((BATCH, 6), dtype=torch.int32, device=dev)
+            st_p = torch.zeros_like(st)
+            for i in range(2):
+                ed_step_pair(torch, a0, plan, qn, pool, plain, st, st_p, i,
+                             rows, g, True)
+            eps2 = pool_d2[:, -1].contiguous()
+            ovf = torch.full((BATCH,), 2, dtype=torch.int32, device=dev)
+            for i in range(2):
+                cols = slice(i * rows, (i + 1) * rows)
+                dist = fused_gather_ed(
+                    *a0, plan[0][:, cols].reshape(-1).contiguous(),
+                    plan[1][:, cols].reshape(-1).contiguous(), qn, g=g,
+                    rows=rows, znorm=True)
+                st_r = torch.zeros((BATCH, 6), dtype=torch.int32,
+                                   device=dev)
+                st_rp = torch.zeros_like(st_r)
+                check_equal(torch, "[21] ED range entry",
+                            fused_gather_ed_range(
+                                *a0, *plan, qn, eps2, ovf, st_r, i=i,
+                                chunk=rows, g=g, znorm=True),
+                            ref.fused_gather_ed_range_ref(
+                                *a0, *plan, qn, eps2, ovf, st_rp, i=i,
+                                chunk=rows, g=g, znorm=True, dist=dist))
+                check_equal(torch, "[21] ED range counters", st_r, st_rp)
+            call = [lambda i=i: fused_gather_ed_chunk(
+                *a0, *plan, qn, pool_d2, st, i=i, chunk=rows, g=g,
+                znorm=True) for i in range(2)]
+            plain_call = [lambda i=i: ref.fused_gather_ed_chunk_ref(
+                *a0, *plan, qn, pool_d2, st.clone(), i=i, chunk=rows, g=g,
+                znorm=True) for i in range(2)]
+            nbytes, ops, n_ok = ed_chunk_work(torch, coll, plan, pool_d2,
+                                              qlen, rows, g, 2, long=True)
+            shape = f"B={BATCH} rows={rows} qlen={qlen} g={g} ok/call={n_ok:.0f}"
+            timings[("fused_gather_ed_chunk_long_tiled", qlen, rows)] = \
+                timing(torch, call, plain_call, nbytes, ops,
+                       kernel["ed_contract_err"], shape)
+        else:
+            flat = (plan[0][:, :rows].reshape(-1).contiguous(),
+                    plan[1][:, :rows].reshape(-1).contiguous())
+            lbc = fused_gather_lb_keogh(*a0, *flat, dlo, dhi, g=g,
+                                        rows=rows, znorm=True)
+            lbw = ref.fused_gather_lb_keogh_ref(*a0, *flat, dlo, dhi, g=g,
+                                                rows=rows, znorm=True)
+            kernel["lb_contract_err"] = check_close(
+                torch, "fused_gather_lb_keogh", lbc[0], lbw[0])
+            check_equal(torch, "[21] LB mu", lbc[1], lbw[1])
+            check_equal(torch, "[21] LB sd", lbc[2], lbw[2])
+            steps, worst, n_s = [], 0.0, 0
+            for i in range(2):
+                c = chunk_args(torch, a0, qn, dlo, dhi, plan, i, rows,
+                               pool_d2, g)
+                err, ns_ = check_chunk_entry(torch, c[0], c[1], c[2], c[3])
+                worst, n_s = max(worst, err), n_s + ns_
+                steps.append(c)
+            eps2 = pool_d2[:, -1].contiguous()
+            ovf = torch.full((BATCH,), 2, dtype=torch.int32, device=dev)
+            for i in range(2):
+                c = chunk_args(torch, a0, qn, dlo, dhi, plan, i, rows, eps2,
+                               g, ovf=ovf)
+                err, ns_ = check_chunk_entry(torch, c[0], c[1], c[2], c[3],
+                                             range_mode=True)
+                worst = max(worst, err)
+            kernel["lb_chunk_err"], kernel["lb_survivors"] = worst, n_s
+            call = [lambda c=c: fused_gather_lb_keogh_chunk(
+                *c[0], c[3], **c[1]) for c in steps]
+            plain_call = [lambda c=c: ref.fused_gather_lb_keogh_chunk_ref(
+                *c[0], c[3].clone(), **c[1]) for c in steps]
+            per_call = sum(int(c[2][4].sum()) for c in steps) / len(steps)
+            nbytes, ops, n_ok = lb_chunk_work(torch, coll, plan, pool_d2,
+                                              qlen, rows, g, 2, per_call)
+            shape = (f"B={BATCH} rows={rows} qlen={qlen} g={g} ok/call="
+                     f"{n_ok:.0f} surv/call={per_call:.0f}")
+            timings[("fused_gather_lb_keogh_chunk_long_tiled", qlen,
+                     rows)] = timing(torch, call, plain_call, nbytes, ops,
+                                     worst, shape, events=2)
+    rec["kernels_vs_plain"] = kernel
+    rec["forced_tile"] = check_offset_tiles(torch, coll, data, rng)
+    for name in ("fused_gather_ed_chunk_long_tiled",
+                 "fused_gather_lb_keogh_chunk_long_tiled"):
+        t = timings[(name, qlen, rows)]
+        log(f"[21] {name:40s} {t['shape']:54s} kernel {t['ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.3f}")
+    log(f"[21] the tiled entries equal their plain versions at g {g} (ED "
+        f"contract max abs err {kernel['ed_contract_err']:.2e}, LB lb2 "
+        f"{kernel['lb_chunk_err']:.2e}; the ED chunk step, the range entry, "
+        f"mu, sd, ids and counters bit for bit), and at g 49 a forced tile "
+        f"of {LARGE_G_FORCED_T} equals the untiled entries bit for bit")
+    del engine, index, env, coll
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+# -- [22] rank grids and the training collectives -----------------------------
+
+def grid_rank(rank, world, tmp, npy, params, bp, cases, train):
+    """One rank of [22]'s gloo world of 4, every rank on cuda:0: a 2 x 2
+    DeviceMesh ("data", "model"); engines over the collection at `npy` at
+    axes ("data", "model") (4 shards) and ("data",) (2 shards, each held
+    by 2 replicas) with the breakpoints `bp`, `cases` searched on each;
+    each engine saved and its save opened under the other grid's axes
+    (the save's own axes win: cold) and, the 2-shard save, on the whole
+    group as a one-axis grid of 4 (re-sharded); then the training
+    collectives on this rank's slices of `train`.  Pickles its records to
+    `tmp`."""
+    import os
+    import pickle
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import EnvelopeParams, QuerySpec, UlisseEngine
+    from repro_torch.distributed import collectives as c
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            world_size=world, rank=rank)
+    out = {}
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        data = np.load(npy, mmap_mode="r")
+        p = EnvelopeParams(**params)
+
+        def answers(e):
+            return {n: [(a.dists, a.series, a.offsets, a.stats.as_dict())
+                        for a in e.search(qs, QuerySpec(**kw))]
+                    for n, (qs, kw) in cases.items()}
+
+        def info(e):
+            s = e._shard
+            return (s.shards, s.rank, s.replica, s.sections is not None)
+        grids = {"dm": ("data", "model"), "d": ("data",)}
+        for label, axes in grids.items():
+            dist.barrier()
+            t = time.perf_counter()
+            eng = UlisseEngine.distributed(mesh, p, data, breakpoints=bp,
+                                           axes=axes)
+            build_s = time.perf_counter() - t
+            t = time.perf_counter()
+            got = answers(eng)
+            out[label] = {"build_s": build_s, "info": info(eng),
+                          "search_s": time.perf_counter() - t,
+                          "answers": got}
+            eng.save(os.path.join(tmp, label))
+            del eng
+            torch.cuda.empty_cache()
+        for label, other in (("dm", "d"), ("d", "dm")):
+            dist.barrier()
+            t = time.perf_counter()
+            eng = UlisseEngine.open(os.path.join(tmp, label), mesh=mesh,
+                                    axes=grids[other])
+            open_s = time.perf_counter() - t
+            out[f"{label}>{other}"] = {"open_s": open_s, "info": info(eng),
+                                       "answers": answers(eng)}
+            del eng
+        dist.barrier()
+        t = time.perf_counter()
+        eng = UlisseEngine.open(os.path.join(tmp, "d"),
+                                mesh=dist.group.WORLD)
+        out["d>world"] = {"open_s": time.perf_counter() - t,
+                          "info": info(eng), "answers": answers(eng)}
+        del eng
+        torch.cuda.empty_cache()
+        dev = torch.device("cuda", 0)
+        x = torch.from_numpy(train["x"][rank]).to(dev)
+        err = torch.from_numpy(train["err"][rank]).to(dev)
+        red, new = c.ef_int8_allreduce(x, err)
+        grads = {k: torch.from_numpy(v).to(dev)
+                 for k, v in train["grads"].items()}
+        tg = c.make_compressed_grad_transform(mesh)(grads)
+        m = train["xm"].shape[0] // world
+        y = c.ring_allgather_matmul(
+            torch.from_numpy(np.ascontiguousarray(
+                train["xm"][rank * m:(rank + 1) * m])).to(dev),
+            torch.from_numpy(train["w"]).to(dev))
+        out["train"] = {"ef": red.cpu().numpy(), "err": new.cpu().numpy(),
+                        "grads": {k: v.cpu().numpy() for k, v in tg.items()},
+                        "ring": y.cpu().numpy()}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def train_inputs(seed, world: int):
+    """The training collectives' inputs for a world: x and err (world,
+    m), replicated grads, xm (world * 6, 16) and w (16, 8)."""
+    rng = np.random.default_rng(seed + world)
+    return {"x": rng.normal(size=(world, 4096)).astype(np.float32),
+            "err": (rng.normal(size=(world, 4096)) * 0.01).astype(
+                np.float32),
+            "grads": {"w": rng.normal(size=(64, 32)).astype(np.float32),
+                      "b": rng.normal(size=(32,)).astype(np.float32)},
+            "xm": rng.normal(size=(world * 6, 16)).astype(np.float32),
+            "w": rng.normal(size=(16, 8)).astype(np.float32)}
+
+
+def check_train(got, inp, what: str) -> dict:
+    """A rank's training collectives against a plain computation: the
+    error feedback bit for bit (y - round(y / s) s, numpy float32, the
+    reference's quantizer), the mean within rtol 1e-6 of the plain mean
+    of the dequantized values, each gradient leaf (every rank the same
+    grads: its own quantization), and the ring's product within rtol 1e-6
+    / atol 1e-6 of its largest entry against xm @ w."""
+    def deq(y):
+        s = np.float32(max(np.abs(y).max(), np.float32(1e-8)) / np.float32(
+            127.0))
+        qv = np.clip(np.round(y / s), -127, 127).astype(np.float32)
+        return qv * s
+    y = inp["x"] + inp["err"]
+    d = np.stack([deq(row) for row in y])
+    rank = got["rank"]
+    if not np.array_equal(got["err"], y[rank] - d[rank]):
+        raise AssertionError(f"[22] {what}: error feedback differs")
+    np.testing.assert_allclose(got["ef"], d.mean(0), rtol=1e-6, atol=1e-7,
+                               err_msg=f"[22] {what}: ef_int8_allreduce")
+    for k, v in got["grads"].items():
+        np.testing.assert_allclose(v, deq(inp["grads"][k]), rtol=1e-6,
+                                   atol=1e-7, err_msg=f"[22] {what}: {k}")
+    want = inp["xm"] @ inp["w"]
+    np.testing.assert_allclose(got["ring"], want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max(),
+                               err_msg=f"[22] {what}: ring matmul")
+    return {"max_ef_err": float(np.abs(got["ef"] - d.mean(0)).max())}
+
+
+def grid_phase(torch, engine, data, p, batches, dtw_batches, dtw_specs,
+               seed):
+    """[22], rank grids and the training collectives on the card: the
+    first GRID_SERIES series of [3]'s collection served by
+    `UlisseEngine.distributed` over a 2 x 2 DeviceMesh in a gloo world of
+    4 (every rank on cuda:0) at axes ("data", "model") and ("data",),
+    [4]'s second ED batch and [8]'s second DTW batch on each, held to a
+    local engine over the same series and breakpoints (the same (sid,
+    off) in order, ED within 1e-9, DTW rtol 1e-4) and across ranks; each
+    grid's save opened under the other grid and the 2-shard save
+    re-sharded on the whole group (answers equal the fresh engine's);
+    the training collectives in that gloo world of 4 and in an NCCL world
+    of 1 (this process) against a plain computation.  Returns its
+    record."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.analysis.audit import world_of_one
+    from repro_torch.core import Collection, QuerySpec, UlisseEngine
+    from repro_torch.distributed import collectives as c
+    dev = engine.device
+    sub = np.ascontiguousarray(data[:GRID_SERIES])
+    bp = engine.index.breakpoints.cpu().numpy()
+    cases = {"ed": (batches[1], dict(k=K)),
+             "dtw": (dtw_batches[1], dict(k=K, measure="dtw",
+                                          r=dtw_specs[1].r))}
+    t0 = time.perf_counter()
+    local = UlisseEngine.from_collection(
+        Collection.from_array(sub, device=dev), p, breakpoints=torch.from_numpy(
+            bp).to(dev), device=dev)
+    want = {n: local.search(qs, QuerySpec(**kw))
+            for n, (qs, kw) in cases.items()}
+    local_s = time.perf_counter() - t0
+    del local
+    torch.cuda.empty_cache()
+    train4 = train_inputs(seed, 4)
+    rec = {"series": GRID_SERIES, "local_s": local_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        npy = f"{tmp}/grid.npy"
+        np.save(npy, sub)
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            grid_rank, args=(4, tmp, npy, BENCH, bp, cases, train4),
+            nprocs=4, join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARDED_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(),
+                                           0.01)):
+                if time.monotonic() > deadline:
+                    raise AssertionError("[22] the grid world did not end")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        ranks = []
+        for r in range(4):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        rec["world_s"] = time.perf_counter() - t0
+    expect = {"dm": lambda r: (4, r, 0, False),
+              "d": lambda r: (2, r // 2, r % 2, False),
+              "dm>d": lambda r: (4, r, 0, True),
+              "d>dm": lambda r: (2, r // 2, r % 2, True),
+              "d>world": lambda r: (4, r, 0, False)}
+    for r, out in enumerate(ranks):
+        for label, info in expect.items():
+            if tuple(out[label]["info"]) != info(r):
+                raise AssertionError(f"[22] rank {r} {label}: shard "
+                                     f"{out[label]['info']} != {info(r)}")
+            for n, got in out[label]["answers"].items():
+                for j, (a, w) in enumerate(zip(got, want[n])):
+                    _same_knn(a, w, cases[n][1].get("measure", "ed"),
+                              f"[22] rank {r} {label} {n} q{j}")
+        out["train"]["rank"] = r
+        check_train(out["train"], train4, f"gloo world 4 rank {r}")
+    rec["grids"] = {label: {"build_s": ranks[0][label].get("build_s"),
+                            "search_s": ranks[0][label].get("search_s"),
+                            "open_s": ranks[0][label].get("open_s"),
+                            "info": [o[label]["info"] for o in ranks]}
+                    for label in expect}
+    train1 = train_inputs(seed, 1)
+    with world_of_one(dev):
+        x = torch.from_numpy(train1["x"][0]).to(dev)
+        e = torch.from_numpy(train1["err"][0]).to(dev)
+        red, new = c.ef_int8_allreduce(x, e)
+        tg = c.make_compressed_grad_transform()(
+            {k: torch.from_numpy(v).to(dev)
+             for k, v in train1["grads"].items()})
+        y = c.ring_allgather_matmul(torch.from_numpy(train1["xm"]).to(dev),
+                                    torch.from_numpy(train1["w"]).to(dev))
+        backend = str(torch.distributed.get_backend())
+        check_train({"rank": 0, "ef": red.cpu().numpy(),
+                     "err": new.cpu().numpy(),
+                     "grads": {k: v.cpu().numpy() for k, v in tg.items()},
+                     "ring": y.cpu().numpy()}, train1,
+                    f"{backend} world 1")
+    rec["train"] = {"gloo_world": 4, "nccl_world": 1, "backend_1": backend}
+    g = rec["grids"]
+    log(f"[22] a 2 x 2 grid over gloo (4 ranks on cuda:0), {GRID_SERIES} "
+        f"series: axes (data, model) 4 shards built in "
+        f"{g['dm']['build_s']:.2f} s, searched in {g['dm']['search_s']:.2f}"
+        f" s; axes (data,) 2 shards x 2 replicas built in "
+        f"{g['d']['build_s']:.2f} s, searched in {g['d']['search_s']:.2f} "
+        f"s; each grid's save opened under the other (cold: "
+        f"{g['dm>d']['open_s']:.2f} / {g['d>dm']['open_s']:.2f} s) and "
+        f"the 2-shard save re-sharded on the group "
+        f"({g['d>world']['open_s']:.2f} s): every rank's ED and DTW "
+        f"answers = the local engine's; the training collectives in the "
+        f"gloo world of 4 and a {backend} world of 1 = a plain "
+        f"computation; world {rec['world_s']:.1f} s")
+    return rec
+
+
+# -- [23] the host-sync budget and the examples -------------------------------
+
+def audit_examples_phase(torch, engine, data, p, seed):
+    """[23]: the host-sync audit (`repro_torch.analysis.audit`) on the
+    card under `torch.cuda.set_sync_debug_mode`, its local paths on [3]'s
+    engine at qlen 160 (B = 1 and 8), the delta, paged and sharded paths
+    on the audit's small engines in an NCCL world of 1 (this process):
+    every count equal to the port's own counters, nothing over budget but
+    the accepted paged excess; then each example (`examples/*_torch.py`)
+    once at its default size, the serving one in a world of 1, each
+    checking itself against the brute force.  Returns its record."""
+    import os
+    from repro_torch.analysis import audit
+    t0 = time.perf_counter()
+    rows = audit.audit_host_sync(engine.device, batches=(1, BATCH),
+                                 local=engine, local_data=data,
+                                 local_qlen=QLENS[0])
+    bad = audit.findings(rows)
+    if bad:
+        raise AssertionError(f"[23] over the host-sync budget: {bad}")
+    for row in rows:
+        if not row["accepted"] and row["syncs"] != sum(
+                row["counters"].values()):
+            raise AssertionError(f"[23] {row['path']} b{row['b']}: "
+                                 f"{row['syncs']} syncs under the debug "
+                                 f"mode, the port counts {row['counters']}")
+    audit_s = time.perf_counter() - t0
+    for row in rows:
+        log(f"[23] R2 {row['path']:24s} b={row['b']:<2d} syncs "
+            f"{row['syncs']:4d} = port {row['counters']}"
+            + (" (accepted excess)" if row["accepted"] else ""))
+    rec = {"audit": [{k: v for k, v in row.items() if k != "sites"}
+                     for row in rows], "audit_s": audit_s, "examples": {}}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for name, ok_line in (("quickstart_torch", "quickstart OK"),
+                          ("dedup_pipeline_torch", "dedup OK"),
+                          ("serve_ulisse_torch", "serve OK")):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                                  f"{name}.py")],
+                             capture_output=True, text=True, env=env,
+                             timeout=600, cwd=str(ROOT))
+        wall = time.perf_counter() - t0
+        if out.returncode != 0 or ok_line not in out.stdout:
+            raise AssertionError(f"[23] {name} failed ({out.returncode}): "
+                                 f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+        rec["examples"][name] = {"wall_s": wall,
+                                 "last": out.stdout.strip().splitlines()[-1]}
+        log(f"[23] examples/{name}.py at its default size: {wall:.1f} s, "
+            f"{rec['examples'][name]['last']}")
+    log(f"[23] host-sync audit: {len(rows)} path runs in {audit_s:.1f} s, "
+        f"every count under the sync debug mode = the port's own counters "
+        f"(paged: the accepted excess)")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--series", type=int, default=FULL_SERIES,
@@ -3565,6 +4391,15 @@ def main() -> int:
     def read_counts(names):
         return {name: all_wrappers[name].launches for name in names}
     results = {"card": card, "series": args.series, "params": BENCH}
+    # each phase's seconds, on a line of its own as it ends
+    phase_s = results["phase_s"] = {}
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        log(f"[{name}] phase seconds: {phase_s[name]:.1f}")
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -3575,6 +4410,8 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {name}.cu: {line.strip()}")
+
+    phase_done("1")
 
     # -- 2. kernels against their plain versions, main-path shapes --------
     p = EnvelopeParams(**BENCH)
@@ -3666,6 +4503,8 @@ def main() -> int:
         f"{LQ_ED // LQ['seg_len']} and 6000, and the build past its "
         f"staging, hold theirs")
 
+    phase_done("2")
+
     # -- 3. the index on the card ------------------------------------------
     t0 = time.perf_counter()
     data = series_batches(args.series, SERIES_LEN, seed=args.seed)
@@ -3709,6 +4548,8 @@ def main() -> int:
         f"computed on the card block by block: {built['differ']} of "
         f"{built['checked']} (lo, hi) elements differ, {built['blocks']} "
         f"blocks, {time.perf_counter() - tb:.1f} s")
+
+    phase_done("3")
 
     # -- 4. the main path --------------------------------------------------
     qrng = np.random.default_rng(args.seed + 2)
@@ -3774,6 +4615,8 @@ def main() -> int:
         f"chunks {results['main_path']['mean_chunks_visited']:.1f}, "
         f"pruning power {results['main_path']['mean_pruning_power']:.5f}")
 
+    phase_done("4")
+
     # -- 5. answers against the brute force on the card ---------------------
     worst = 0.0
     for ans, qs in ((answers[0], batches[0]), (answers[1], batches[1])):
@@ -3787,6 +4630,8 @@ def main() -> int:
     results["brute_force_max_abs_err"] = worst
     log(f"[5] engine answers match the brute force on the card (4 queries,"
         f" max |d - d_brute| {worst:.2e}, tolerance 5e-3)")
+
+    phase_done("5")
 
     # -- 6. kernel timings at main-path inputs -------------------------------
     env = index.envelopes
@@ -3925,6 +4770,8 @@ def main() -> int:
             f"ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']}; events "
             f"{t['event_ms']:.4f} / {t['plain_event_ms']:.4f} ms)")
 
+    phase_done("6")
+
     # -- 7. where a batch's time goes (one traced batch) -------------------
     zero_counts()
     tr = trace_batch(torch, engine, batches[1], spec)
@@ -3954,6 +4801,8 @@ def main() -> int:
                              "calls a chunk step")
     if sc["sort_kernel_events"]:
         raise AssertionError("the ED scan runs a sort kernel")
+
+    phase_done("7")
 
     # -- 8. the DTW path -----------------------------------------------------
     dtw_wrappers = {"fused_gather_lb_keogh_chunk": fused_gather_lb_keogh_chunk,
@@ -4017,8 +4866,8 @@ def main() -> int:
     for (qlen, r), ans, qs in zip(DTW_CASES, dtw_answers, dtw_batches):
         tq = time.perf_counter()
         for j, (res, q) in enumerate(list(zip(ans, qs))[:DTW_BRUTE[qlen]]):
-            _, d = dtw_oracle[(qlen, j)] = brute64_dtw_top(
-                torch, coll.data, q, r, p.znorm, DTW_KEEP)
+            _, d = dtw_oracle[(qlen, j)] = brute64_dtw_lb(
+                torch, coll.data, q, r, p.znorm, k=DTW_KEEP)
             err = float(np.abs(res.dists - d[:K]).max())
             worst, checked = max(worst, err), checked + 1
             if err > 5e-3:
@@ -4033,6 +4882,8 @@ def main() -> int:
         f"tolerance 5e-3; {time.perf_counter() - tb:.1f} s, per query "
         + ", ".join(f"qlen {q}: {t:.1f} s" for q, t in brute_s.items())
         + ")")
+
+    phase_done("8")
 
     # -- 9. DTW kernel timings at the DTW path's inputs ----------------------
     n_pad = executor.pow2ceil(env.size)
@@ -4074,9 +4925,10 @@ def main() -> int:
         # per window point: subtract, divide, two subtracts, two max,
         # two multiplies, two adds
         ops = 10 * BATCH * rows * g * qlen
-        timings[("fused_gather_lb_keogh", qlen, rows)] = timing(
-            torch, call, plain, nbytes, ops, err,
-            f"B={BATCH} rows={rows} qlen={qlen} g={g}")
+        if qlen == TIMED_QLEN:
+            timings[("fused_gather_lb_keogh", qlen, rows)] = timing(
+                torch, call, plain, nbytes, ops, err,
+                f"B={BATCH} rows={rows} qlen={qlen} g={g}")
         # the scan's chunk entry and the DP over its survivors, under the
         # batch's final k-th distance (what the scan's later chunks see)
         # (the plan's chunks 0-23 under a pool whose k-th is the batch's
@@ -4095,10 +4947,11 @@ def main() -> int:
         # its bound: the LB of the ok candidates alone
         c_bytes, c_ops, ok_c = lb_chunk_work(torch, coll, plan, kth, qlen,
                                              rows, g, len(steps), per_call)
-        timings[("fused_gather_lb_keogh_chunk", qlen, rows)] = timing(
-            torch, call, plain, c_bytes, c_ops, err,
-            f"B={BATCH} rows={rows} qlen={qlen} g={g} ok/call={ok_c:.0f} "
-            f"surv/call={per_call:.0f}", events=2)
+        if qlen == TIMED_QLEN:
+            timings[("fused_gather_lb_keogh_chunk", qlen, rows)] = timing(
+                torch, call, plain, c_bytes, c_ops, err,
+                f"B={BATCH} rows={rows} qlen={qlen} g={g} "
+                f"ok/call={ok_c:.0f} surv/call={per_call:.0f}", events=2)
         # LB_Keogh <= DTW on every survivor of the first chunk that has
         # any (the LB kernel's bound and the DP kernel's distance, one
         # normalization)
@@ -4134,10 +4987,12 @@ def main() -> int:
         nbytes = (per_call * (qlen * 4 + 6 * 4) + BATCH * qlen * 4
                   + BATCH * 4)
         ops = 5 * per_call * dtw_cells(qlen, r)
-        timings[("dtw_survivors", qlen)] = timing(
-            torch, call, plain, nbytes, ops, err,
-            f"B={BATCH} M={rows * g} r={r} surv/call={per_call:.0f}")
-        timings[("dtw_survivors", qlen)]["survivors_per_call"] = per_call
+        if qlen == TIMED_QLEN:
+            timings[("dtw_survivors", qlen)] = timing(
+                torch, call, plain, nbytes, ops, err,
+                f"B={BATCH} M={rows * g} r={r} surv/call={per_call:.0f}")
+            timings[("dtw_survivors", qlen)]["survivors_per_call"] = \
+                per_call
         # the function entry: q_0 against windows of the collection, more
         # than twice the L2 of them
         cands = znormalize(coll.data[:-(-2 * l2 // (qlen * 4)), :qlen]
@@ -4147,10 +5002,11 @@ def main() -> int:
         call = [lambda: dtw_band(q0, cands, r)]
         plain = [lambda: ref.dtw_band_ref(q0, cands, r)]
         err = check_close(torch, "dtw_band", call[0](), plain[0]())
-        timings[("dtw_band", qlen)] = timing(
-            torch, call, plain, ncand * qlen * 4 + qlen * 4 + ncand * 4,
-            5 * ncand * dtw_cells(qlen, r), err,
-            f"N={ncand} qlen={qlen} r={r}")
+        if qlen == TIMED_QLEN:
+            timings[("dtw_band", qlen)] = timing(
+                torch, call, plain, ncand * qlen * 4 + qlen * 4 + ncand * 4,
+                5 * ncand * dtw_cells(qlen, r), err,
+                f"N={ncand} qlen={qlen} r={r}")
         # the dense pool merge of the DP's output over the same 8 chunks,
         # under the batch's final pool
         pool0 = [torch.from_numpy(np.stack([a.dists ** 2 for a in ans])
@@ -4173,10 +5029,11 @@ def main() -> int:
         library = [lambda c=c: torch.topk(c, K, dim=1, largest=False)
                    for c in cat]
         nbytes, live = merge_work(torch, pool0[0], dense[0][0])
-        timings[("pool_merge_dense", qlen)] = timing(
-            torch, call, plain, nbytes, 0, 0.0,
-            f"B={BATCH} k={K} M={rows * g} live={live}", library=library,
-            events=2)
+        if qlen == TIMED_QLEN:
+            timings[("pool_merge_dense", qlen)] = timing(
+                torch, call, plain, nbytes, 0, 0.0,
+                f"B={BATCH} k={K} M={rows * g} live={live}",
+                library=library, events=2)
         del cands, surv_inputs, chunks, steps, dense, pools, cat
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
@@ -4191,6 +5048,8 @@ def main() -> int:
                 f"{t['plain_timer']}; "
                 f"events {t['event_ms']:.4f} / {t['plain_event_ms']:.4f} "
                 f"ms)")
+
+    phase_done("9")
 
     # -- 10. where a DTW batch's time goes (one traced batch) ---------------
     zero_counts()
@@ -4229,15 +5088,18 @@ def main() -> int:
         raise AssertionError("the DTW scan makes more than 4.5 kernel launch "
                              "calls a chunk step")
 
+    phase_done("10")
+
     # -- 11. the host backend ------------------------------------------------
-    # two queries per measure whose device answers were checked against
-    # the brute force in [5] and [8]
+    # one query per measure (qlen 256) whose device answer was checked
+    # against the brute force in [5] and [8] (one a measure keeps the
+    # script inside its time)
     host_cases = {
         "ed": [(batches[i][0], answers[i][0], QuerySpec(
-            k=K, scan_backend="host")) for i in (0, 1)],
+            k=K, scan_backend="host")) for i in (1,)],
         "dtw": [(dtw_batches[i][0], dtw_answers[i][0], QuerySpec(
             k=K, measure="dtw", r=r, scan_backend="host"))
-            for i, (_, r) in enumerate(DTW_CASES)]}
+            for i, (_, r) in enumerate(DTW_CASES) if i == 1]}
     host_kernels = {"ed": ("batch_ed", "mindist_sym", "mindist_paa"),
                     "dtw": ("lb_keogh", "dtw_band", "mindist_sym",
                             "mindist_paa")}
@@ -4271,6 +5133,8 @@ def main() -> int:
             f"{h['host_syncs_per_query']:.1f}; chunks {h['chunks_visited']};"
             f" answers = the device's (max |d - d_device| {worst:.2e}, "
             f"tolerance 5e-3)")
+
+    phase_done("11")
 
     # -- 12. approx-only -----------------------------------------------------
     approx_cases = {
@@ -4316,6 +5180,8 @@ def main() -> int:
             f"syncs {ap['stop_test_syncs']} + 1 readback; certified exact "
             f"{certified}/{len(qs)} (equal to the exact answer); mean "
             f"approx/exact k-th distance {ap['mean_kth_ratio']:.4f}")
+
+    phase_done("12")
 
     # -- 13. the index build's and the host backend's kernel timings ---------
     n_env1 = p.num_envelopes(SERIES_LEN)
@@ -4406,13 +5272,14 @@ def main() -> int:
                 err = check_close(torch, "batch_ed", call[0](), plain[0]())
                 lib = None if znorm else [
                     lambda c=c: torch.cdist(c, qs_t) ** 2 for c in chunks]
-                timings[("batch_ed", qlen, qb,
-                         "znorm" if znorm else "raw")] = timing(
-                    torch, call, plain,
-                    (nw * qlen + qb * qlen + nw * qb) * 4,
-                    nw * qlen * (2 * qb + 3), err,
-                    f"N={nw} qlen={qlen} Qb={qb} "
-                    f"{'znorm' if znorm else 'raw'}", library=lib)
+                if qlen == TIMED_QLEN:
+                    timings[("batch_ed", qlen, qb,
+                             "znorm" if znorm else "raw")] = timing(
+                        torch, call, plain,
+                        (nw * qlen + qb * qlen + nw * qb) * 4,
+                        nw * qlen * (2 * qb + 3), err,
+                        f"N={nw} qlen={qlen} Qb={qb} "
+                        f"{'znorm' if znorm else 'raw'}", library=lib)
         wns = [znormalize(c) for c in chunks]
         del chunks
         call = [lambda c=c: lb_keogh(pq.dtw_lo, pq.dtw_hi, c) for c in wns]
@@ -4420,9 +5287,10 @@ def main() -> int:
                  for c in wns]
         err = check_close(torch, "lb_keogh", call[0](), plain[0]())
         # per point two subtracts, two max, two multiplies, two adds
-        timings[("lb_keogh", qlen)] = timing(
-            torch, call, plain, (nw * qlen + 2 * qlen + nw) * 4,
-            8 * nw * qlen, err, f"N={nw} qlen={qlen} r={r}")
+        if qlen == TIMED_QLEN:
+            timings[("lb_keogh", qlen)] = timing(
+                torch, call, plain, (nw * qlen + 2 * qlen + nw) * 4,
+                8 * nw * qlen, err, f"N={nw} qlen={qlen} r={r}")
         del wns
     for key, t in timings.items():
         if key[0] in ("envelope_znorm", "batch_ed", "lb_keogh",
@@ -4436,6 +5304,8 @@ def main() -> int:
                 f"{t['plain_event_ms']:.4f} ms)")
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
+
+    phase_done("13")
 
     # -- 14. the long-query DTW path ----------------------------------------
     lp = EnvelopeParams(**LONG)
@@ -4497,6 +5367,8 @@ def main() -> int:
             f"query; answers = the float64 brute force (max |d - d64| "
             f"{worst:.2e})")
     del lengine, lcoll
+
+    phase_done("14")
 
     # -- 15. the long-query path ----------------------------------------------
     # an index whose build passes the card build's old staging, queried
@@ -4573,9 +5445,10 @@ def main() -> int:
             host_wall = time.perf_counter() - t1
             host_err = max(same_answers(a, b, 5e-3, "long DTW device vs host")
                            for a, b in zip(got, host))
-            for res, q in zip(got, qs_l):
-                d64 = dtw64_windows(torch, qcoll.data, q, res.series,
-                                    res.offsets, LQ_R, qp.znorm)
+            for res, d64 in zip(got, dtw64_many(
+                    torch, qcoll.data, [(q, res.series, res.offsets)
+                                        for res, q in zip(got, qs_l)],
+                    LQ_R, qp.znorm)):
                 worst = max(worst, float(np.abs(res.dists - d64).max()))
         if worst > 5e-3:
             raise AssertionError(f"long {measure} distances off float64 by "
@@ -4613,22 +5486,26 @@ def main() -> int:
         else:
             hgot = qengine.search(qs_l, QuerySpec(
                 eps=eps_l, measure="dtw", r=LQ_R, scan_backend="host"))
+            # the windows in one hit set only, and every device hit, in
+            # one float64 DP
+            odds, jobs = [], []
             for res, hres, q in zip(rgot, hgot, qs_l):
                 a_ = set(zip(res.series.tolist(), res.offsets.tolist()))
                 b_ = set(zip(hres.series.tolist(), hres.offsets.tolist()))
                 odd = sorted(a_ ^ b_)
-                d_odd = dtw64_windows(torch, qcoll.data, q,
-                                      [x[0] for x in odd],
-                                      [x[1] for x in odd], LQ_R, qp.znorm)
+                odds.append(odd)
+                jobs += [(q, [x[0] for x in odd], [x[1] for x in odd]),
+                         (q, res.series, res.offsets)]
+                r_hits, r_edge = r_hits + len(a_), r_edge + len(odd)
+            d64s = dtw64_many(torch, qcoll.data, jobs, LQ_R, qp.znorm)
+            for j, res in enumerate(rgot):
+                d_odd, d_dev = d64s[2 * j], d64s[2 * j + 1]
                 if (np.abs(d_odd - eps_l) > RANGE_BAND).any():
                     raise AssertionError("long DTW range: device and host "
                                          "hit sets differ off the boundary")
-                d_dev = dtw64_windows(torch, qcoll.data, q, res.series,
-                                      res.offsets, LQ_R, qp.znorm)
                 if len(d_dev) and np.abs(d_dev - res.dists).max() > 5e-3:
                     raise AssertionError("long DTW range distances off the "
                                          "float64 DP")
-                r_hits, r_edge = r_hits + len(a_), r_edge + len(odd)
         st = [r_.stats for r_ in got]
         lq[measure + "_range"] = {
             "eps": eps_l, "band": band_l, "wall_s": range_wall,
@@ -4838,6 +5715,8 @@ def main() -> int:
                           for k, v in timings.items()}
     del qengine, qcoll
 
+    phase_done("15")
+
     # -- 16. eps-range at full size ------------------------------------------
     range_cases = ([("ed", qlen, 0, batches[i]) for i, qlen in
                     enumerate(QLENS)]
@@ -4851,6 +5730,8 @@ def main() -> int:
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
 
+    phase_done("16")
+
     # -- 17. storage and ingestion -----------------------------------------
     range_eps = next(c["eps"] for c in results["range_path"]
                      if c["measure"] == "ed" and c["qlen"] == QLENS[0])
@@ -4861,6 +5742,8 @@ def main() -> int:
     results["storage"]["phase_s"] = time.perf_counter() - t0
     log(f"[17] storage and ingestion phase: "
         f"{results['storage']['phase_s']:.1f} s")
+
+    phase_done("17")
 
     # -- 19. the sharded search (before [18]: its writer lane grows the
     # engine whose answers [19] is held to) ---------------------------------
@@ -4873,6 +5756,23 @@ def main() -> int:
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
     log(f"[19] sharded search phase: {results['sharded']['phase_s']:.1f} s")
+    phase_done("19+20")
+
+    # -- 21. P5 on the card: g past one block, the offset-tiled entries --
+    results["large_g"], large_g_launches = large_g_phase(
+        torch, dev, args.seed, timings, zero_counts, read_counts)
+    results["timings"] = {" ".join(map(str, k)): v
+                          for k, v in timings.items()}
+    phase_done("21")
+
+    # -- 22. rank grids and the training collectives ----------------------
+    results["grid"] = grid_phase(torch, engine, data, p, batches,
+                                 dtw_batches, dtw_specs, args.seed)
+    phase_done("22")
+
+    # -- 23. the host-sync budget and the examples --------------------------
+    results["r2"] = audit_examples_phase(torch, engine, data, p, args.seed)
+    phase_done("23")
 
     # -- 18. serving on the card (last: its writer lane grows the engine) --
     t0 = time.perf_counter()
@@ -4880,6 +5780,10 @@ def main() -> int:
                                    read_counts, args.seed)
     results["serve"]["phase_s"] = time.perf_counter() - t0
     log(f"[18] serving phase: {results['serve']['phase_s']:.1f} s")
+    phase_done("18")
+    log("phase seconds: " + json.dumps({k: round(v, 1)
+                                        for k, v in phase_s.items()})
+        + f"; total {sum(phase_s.values()):.1f}")
 
     # launches: each kernel's count on the path it belongs to — the ED main
     # path, the DTW path, the index build, the host backend (ED: batch_ed;
@@ -4924,7 +5828,14 @@ def main() -> int:
                     "fused_gather_ed_chunk", 256, GKTH_ROWS, "gkth+gmap"),
                 "fused_gather_lb_keogh_chunk_gkth_gmap": (
                     "fused_gather_lb_keogh_chunk", 256, GKTH_ROWS,
-                    "gkth+gmap")}
+                    "gkth+gmap"),
+                # [21]: the long-row k-NN chunk entries past one block's
+                # g, a row's offsets tiled across blocks (g = 20,480)
+                "fused_gather_ed_tiled": (
+                    "fused_gather_ed_chunk_long_tiled", 256, LARGE_G_ROWS),
+                "fused_gather_lb_keogh_tiled": (
+                    "fused_gather_lb_keogh_chunk_long_tiled", 256,
+                    LARGE_G_ROWS)}
     ingest = results["sharded"]["ingest"]
     path_launches = dict(
         launches, fused_gather_ed=launches["fused_gather_ed_chunk"],
@@ -4956,7 +5867,10 @@ def main() -> int:
         **{f"{name}_gkth_gmap": sum(w["launches"][name]
                                     for w in ingest.values())
            for name in ("fused_gather_ed_chunk",
-                        "fused_gather_lb_keogh_chunk")})
+                        "fused_gather_lb_keogh_chunk")},
+        fused_gather_ed_tiled=large_g_launches["fused_gather_ed_chunk_long"],
+        fused_gather_lb_keogh_tiled=large_g_launches[
+            "fused_gather_lb_keogh_chunk_long"])
     for name, key in headline.items():
         t = timings[key]
         src, replaces = REPLACES[name]

@@ -90,7 +90,6 @@ from repro_torch.core.index import UlisseIndex, build_index
 from repro_torch.core.types import (Collection, DeviceLike, EnvelopeParams,
                                     resolve_device)
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_verify import card_takes
 from repro_torch.obs import span
 from repro_torch.storage import delta as _delta
 from repro_torch.storage import store as _store
@@ -200,11 +199,17 @@ class UlisseEngine:
                    memory_budget_bytes=memory_budget_bytes)
 
     @classmethod
-    def distributed(cls, group, params: EnvelopeParams, data,
+    def distributed(cls, mesh, params: EnvelopeParams, data,
                     breakpoints=None, max_batch: int = 8,
-                    device: DeviceLike = None) -> "UlisseEngine":
+                    device: DeviceLike = None,
+                    axes=("data",)) -> "UlisseEngine":
         """This rank's engine over a `torch.distributed` process group
-        (`group`; None: the default group), one shard a rank.
+        (`mesh`; None: the default group), one shard a rank, or over a
+        rank grid: a `torch.distributed.device_mesh.DeviceMesh` with named
+        dims whose rows shard over the dims `axes` (the shard index
+        row-major over them); ranks that differ only in the other dims are
+        replicas, holding and searching the same shard
+        (`distributed.ulisse.grid_groups`).
 
         Every rank calls it with the same full (S, n) `data` and then
         `search` with the same queries and spec, and every rank returns
@@ -215,9 +220,11 @@ class UlisseEngine:
         non-divisible S and series shorter than lmax are refused first.
         The collectives move tensors as the group's backend takes them
         (NCCL: one GPU a rank; gloo: host copies)."""
-        from repro_torch.distributed.ulisse import build_shard
+        from repro_torch.distributed.ulisse import build_shard, grid_groups
+        grid = grid_groups(mesh, axes)
         return cls(max_batch=max_batch, shard=build_shard(
-            group, params, data, breakpoints=breakpoints, device=device))
+            grid.group, params, data, breakpoints=breakpoints, device=device,
+            grid=grid))
 
     # -- persistence (repro_torch.storage) ---------------------------------
 
@@ -225,7 +232,7 @@ class UlisseEngine:
     def open(cls, path: str, *, params: Optional[EnvelopeParams] = None,
              mesh=None, max_batch: Optional[int] = None,
              mmap: bool = True, memory_budget_bytes: Optional[int] = None,
-             device: DeviceLike = None) -> "UlisseEngine":
+             device: DeviceLike = None, axes=("data",)) -> "UlisseEngine":
         """Open a saved index (either package's) on `device` (default
         CUDA).
 
@@ -241,11 +248,14 @@ class UlisseEngine:
         shard count, a local save, one without sections) is re-sharded
         from its raw series and rebuilt, appended rows kept.  `params`:
         the expected EnvelopeParams; a mismatch raises
-        IndexCompatibilityError.  `max_batch` defaults to the save's."""
+        IndexCompatibilityError.  `max_batch` defaults to the save's.  On
+        a DeviceMesh the rows shard over the save's recorded `axes` (else
+        the given ones), as the reference reopens: O(index) where the
+        product of their sizes is the saved shard count."""
         if mesh is not None:
             from repro_torch.distributed.ulisse import open_shard
             shard, saved_batch = open_shard(mesh, path, params=params,
-                                            device=device)
+                                            device=device, axes=axes)
             return cls(max_batch=saved_batch if max_batch is None
                        else max_batch, shard=shard)
         return cls.from_index(
@@ -280,11 +290,12 @@ class UlisseEngine:
                             device=writer.device if device is None
                             else device)
         from repro_torch.distributed import collectives
+        from repro_torch.distributed.ulisse import grid_groups
         if device is None and writer is not None:
             device = writer.device
         path = collectives.broadcast_object(
-            None if writer is None else writer.finalize(), group=mesh,
-            device=device)
+            None if writer is None else writer.finalize(),
+            group=grid_groups(mesh).mesh_group, device=device)
         return cls.open(path, mesh=mesh, device=device)
 
     # -- incremental ingestion (storage.delta) ------------------------------
@@ -400,15 +411,18 @@ class UlisseEngine:
 
     @property
     def group(self):
-        """A distributed engine's process group (None: the default
-        group)."""
-        return self._shard.group if self.is_distributed else None
+        """A distributed engine's process group over all its ranks,
+        replicas included (None: the default group)."""
+        return self._shard.mesh_group if self.is_distributed else None
 
     @property
     def rank(self) -> int:
         """This process's rank in a distributed engine's group (0 for a
         local engine)."""
-        return self._shard.rank if self.is_distributed else 0
+        if not self.is_distributed:
+            return 0
+        from repro_torch.distributed import collectives
+        return collectives.world(self._shard.mesh_group)[1]
 
     # ------------------------------------------------------------------
     # the one entry point
@@ -419,7 +433,6 @@ class UlisseEngine:
         """Answer one query (1-D input -> SearchResult) or a batch (2-D
         array or sequence of 1-D arrays -> list of SearchResult)."""
         single, qs = self._normalize_queries(queries)
-        self._check_card_gamma(qs, spec)
         if self.is_distributed:
             if spec.scan_backend == "host":
                 results = self._search_distributed(qs, spec)
@@ -464,23 +477,6 @@ class UlisseEngine:
                 self.search([q] * bsz, spec)
                 traced += 1
         return traced
-
-    def _check_card_gamma(self, qs, spec: QuerySpec) -> None:
-        """Refuse, before any launch, envelopes of more masters than the
-        device scan's chunk entries (k-NN and range) take on the card (g =
-        gamma + 1 past 18,688 for ED, 13,760 for DTW: their shared memory
-        grows with g; ROADMAP Queue 3 P5).  Every query length runs; the
-        host backend and the CPU have no such limit."""
-        if self.device.type != "cuda" or spec.scan_backend != "device":
-            return
-        g = self.params.gamma + 1
-        for qlen in sorted({len(q) for q in qs}):
-            if not card_takes(spec.measure, qlen, g):
-                raise ValueError(
-                    f"gamma={self.params.gamma}: the device scan's "
-                    f"{spec.measure} chunk entry takes no {g} masters an "
-                    f"envelope on the card (its shared memory grows with "
-                    f"g); use scan_backend='host'")
 
     def _normalize_queries(self, queries):
         if isinstance(queries, (list, tuple)):
@@ -655,8 +651,10 @@ class UlisseEngine:
             yield sub, queries, b
 
     def _stack_prepared(self, queries, spec: QuerySpec):
-        """Shared per-length-group query prep on the device, no sync."""
-        q = torch.from_numpy(np.stack(queries)).to(self.device)
+        """Shared per-length-group query prep on the device, no sync (the
+        queries go up non-blocking)."""
+        q = torch.from_numpy(np.stack(queries)).to(self.device,
+                                                   non_blocking=True)
         qn, dlo, dhi, qb, qh = planner.prepare_query_batch(
             q, self.params.seg_len, self.params.znorm, spec.measure,
             spec.r)
@@ -839,8 +837,8 @@ class UlisseEngine:
                         eps2_t, **kw)
                 bd2, bsid, boff, cnt, ovf, st, chunk = scan
                 # THE one result readback of the batch (overflow excepted)
-                bd2, bsid, boff, cnt, ovf, st = (
-                    t.cpu().numpy() for t in (bd2, bsid, boff, cnt, ovf, st))
+                bd2, bsid, boff, cnt, ovf, st = executor.read_back(
+                    bd2, bsid, boff, cnt, ovf, st)
             n_chunks = n_pad // chunk
             order_h = slbs2_h = None
             for row, i in enumerate(sub):
@@ -932,9 +930,9 @@ class UlisseEngine:
                             (ssids, sanc, snm, slbs2), qstack, dlo, dhi,
                             seed, k, spec, spec.chunk_size)
                         # THE one result readback of the batch
-                        (d2, sid, off, st, ast, cert, leaf_v) = (
-                            t.cpu().numpy() for t in
-                            (d2, sid, off, st, ast, cert, leaf_v))
+                        (d2, sid, off, st, ast, cert,
+                         leaf_v) = executor.read_back(
+                            d2, sid, off, st, ast, cert, leaf_v)
                     planned = n_pad // min(
                         executor.pow2ceil(spec.chunk_size), n_pad)
                     with span("merge"):
@@ -980,9 +978,9 @@ class UlisseEngine:
                          nblk, aplan) = self._device_approx_stage(
                             qstack, dlo, dhi, qb, qh, nseg, k, spec)
                         # the one result readback of the batch
-                        (ad2, asid, aoff, ast, cert, leaf_v) = (
-                            t.cpu().numpy() for t in
-                            (ad2, asid, aoff, ast, cert, leaf_v))
+                        (ad2, asid, aoff, ast, cert,
+                         leaf_v) = executor.read_back(
+                            ad2, asid, aoff, ast, cert, leaf_v)
                     with span("merge"):
                         for row, i in enumerate(sub):
                             stats = SearchStats(

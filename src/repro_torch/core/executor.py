@@ -41,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -161,6 +161,36 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 
 to_host.syncs = 0
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+              torch.int32: np.int32, torch.int64: np.int64,
+              torch.bool: np.bool_, torch.uint8: np.uint8}
+
+
+def read_back(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """The tensors' values on the host in ONE device-to-host copy, so one
+    sync: their bytes packed into one device buffer, copied once, split
+    on the host.  A device path's result readback (and a paged scan's
+    plan readback), counted in `read_back.syncs`."""
+    read_back.syncs += 1
+    flat = []
+    for t in tensors:
+        f = t.detach().reshape(-1)
+        if f.numel() and f.stride(0) != 1:   # a strided column (or one
+            f = torch.empty(f.shape, dtype=f.dtype,      # strided entry)
+                            device=f.device).copy_(f)
+        flat.append(f.view(torch.uint8))
+    host = torch.cat(flat).cpu().numpy()
+    out, at = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        out.append(host[at:at + n].view(_NP_DTYPES[t.dtype])
+                   .reshape(tuple(t.shape)).copy())
+        at += n
+    return out
+
+
+read_back.syncs = 0
 
 
 def host_envelopes(index) -> dict:
@@ -791,8 +821,7 @@ def _paged_loop(store, plan, chunk: int, device, step, converged) -> None:
 def _host_plan(sids, anchors, n_master, lbs2):
     """The plan's host copies (the paged scans' page schedule): one
     planned readback."""
-    return tuple(np.ascontiguousarray(t.cpu().numpy())
-                 for t in (sids, anchors, n_master, lbs2))
+    return tuple(read_back(sids, anchors, n_master, lbs2))
 
 
 def paged_exact_scan(store, sids, anchors, n_master, lbs2, qs, dtw_lo,

@@ -59,8 +59,10 @@ class PreparedQuery:
 
 def prepare_query(q, p: EnvelopeParams, measure: str = "ed", r: int = 0, *,
                   device) -> PreparedQuery:
-    """One query's prep on `device` (`prepare_query_batch` at B = 1)."""
-    q = torch.as_tensor(np.asarray(q, np.float32), device=device)
+    """One query's prep on `device` (`prepare_query_batch` at B = 1; the
+    query goes up non-blocking, no sync)."""
+    q = torch.from_numpy(np.array(q, np.float32)).to(device,
+                                                     non_blocking=True)
     qlen = int(q.shape[-1])
     nseg = p.query_segments(qlen)
     qn, dlo, dhi, qb, qh = prepare_query_batch(q[None], p.seg_len, p.znorm,

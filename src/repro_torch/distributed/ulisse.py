@@ -108,6 +108,70 @@ def require_divisible(num_series: int, shards: int) -> None:
             "UlisseEngine.distributed")
 
 
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """Where this rank sits in a rank grid (the reference's multi-axis
+    mesh): `group` is the shard group, the ranks that share this rank's
+    replica coordinates (the dims outside `axes`), in row-major order of
+    their coordinates over `axes`, so a rank's shard is its rank in the
+    group (`_shard_row_index`); `mesh_group` every rank of the grid;
+    `replica` the row-major index of this rank's coordinates outside
+    `axes` (0 of `replicas`).  A plain process group is the one-axis
+    grid: `group` and `mesh_group` are it, one replica."""
+
+    group: object
+    mesh_group: object
+    replica: int = 0
+    replicas: int = 1
+    axes: tuple = ("data",)
+
+
+def grid_groups(mesh, axes=("data",)) -> Grid:
+    """The `Grid` of `mesh` for rows sharded over `axes`: a
+    `torch.distributed.device_mesh.DeviceMesh` with named dims (every
+    rank of the default group calls this with the same mesh and axes, in
+    the same order), or a process group (None: the default group), the
+    one-axis case.  On a DeviceMesh the shard groups are built with
+    `dist.new_group` for every replica coordinate, in the same order on
+    every rank (new_group is collective over the default group); a shard
+    group's rank order is its ranks' order, so the mesh must number its
+    ranks row-major over `axes` (as `init_device_mesh` does with `axes`
+    in the mesh's dim order)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    axes = tuple(axes)
+    if not isinstance(mesh, DeviceMesh):
+        collectives.world(mesh)
+        return Grid(group=mesh, mesh_group=mesh)
+    names = tuple(mesh.mesh_dim_names or ())
+    missing = [a for a in axes if a not in names]
+    if not axes or missing or len(set(axes)) != len(axes):
+        raise ValueError(f"axes {axes} must name distinct dims of the mesh "
+                         f"{names}")
+    ranks = mesh.mesh.cpu().numpy()
+    rest = tuple(d for d in names if d not in axes)
+    # (replicas, shards): ranks by replica coordinate, then row-major
+    # over axes
+    grid = ranks.transpose([names.index(d) for d in rest + axes]).reshape(
+        int(np.prod([ranks.shape[names.index(d)] for d in rest] or [1])), -1)
+    me = dist.get_rank()
+    groups = []
+    for row in grid:
+        if list(row) != sorted(row):
+            raise ValueError(
+                f"the mesh numbers its ranks {ranks.tolist()}: the shards "
+                f"over {axes} must be in rank order; list `axes` in the "
+                f"mesh's dim order {names}")
+        groups.append(dist.new_group([int(x) for x in row]))
+    if grid.size == dist.get_world_size():
+        mesh_group = None
+    else:
+        mesh_group = dist.new_group(sorted(int(x) for x in ranks.ravel()))
+    replica = int(np.argwhere(grid == me)[0, 0])
+    return Grid(group=groups[replica], mesh_group=mesh_group,
+                replica=replica, replicas=grid.shape[0], axes=axes)
+
+
 def shard_rows(num_series: int, shards: int, rank: int):
     """The [lo, hi) series rows of `rank` (the reference's
     `shard_collection` row split)."""
@@ -163,6 +227,20 @@ class Shard:
     sections: Optional[dict] = None   # cold: INDEX_SECTION_FIELDS arrays
     pending: list = dataclasses.field(default_factory=list)
     built: Optional[UlisseIndex] = None
+    grid: Optional[Grid] = None     # a rank grid's; None: `group` alone
+
+    @property
+    def mesh_group(self):
+        """Every rank of the engine (the shard group where one replica)."""
+        return self.group if self.grid is None else self.grid.mesh_group
+
+    @property
+    def replica(self) -> int:
+        return 0 if self.grid is None else self.grid.replica
+
+    @property
+    def axes(self) -> tuple:
+        return ("data",) if self.grid is None else self.grid.axes
 
     @property
     def index(self) -> UlisseIndex:
@@ -261,14 +339,17 @@ def _resolve(device: DeviceLike) -> torch.device:
 
 
 def build_shard(group, p: EnvelopeParams, data, breakpoints=None,
-                device: DeviceLike = None) -> Shard:
+                device: DeviceLike = None, grid: Optional[Grid] = None
+                ) -> Shard:
     """This rank's shard of `data` (S, n), the same on every rank: its
     rows [rank * S / P, (rank + 1) * S / P) on `device` (default
     cuda:{current device}; raises without CUDA unless "cpu"), their
     prefix sums, and their envelope set built there (`envelope_znorm` on
     the card).  The breakpoints come from the whole collection (or are
     given), so they are the same on every rank.  Refuses a non-divisible
-    S and series shorter than lmax before any other work."""
+    S and series shorter than lmax before any other work.  `grid`: the
+    rank grid `group` is a shard group of (replicas build the same
+    shard)."""
     arr = np.asarray(data)
     shards, rank = collectives.world(group)
     s, n = arr.shape
@@ -290,7 +371,8 @@ def build_shard(group, p: EnvelopeParams, data, breakpoints=None,
     return Shard(group=group, rank=rank, shards=shards, params=p,
                  breakpoints=bp, device=dev, main_rows=rows, num_series=s,
                  series_len=n, delta_rows=np.zeros((0, n), np.float32),
-                 delta_gmap=np.zeros((0,), np.int64), built=index)
+                 delta_gmap=np.zeros((0,), np.int64), built=index,
+                 grid=grid)
 
 
 def require_part(rows: int, shards: int) -> None:
@@ -368,7 +450,7 @@ def compact_shard(shard: Shard) -> Shard:
     if shard.shards > 1 and shard.delta_total > 0:
         return build_shard(shard.group, shard.params, gather_data(shard),
                            breakpoints=shard.breakpoints,
-                           device=shard.device)
+                           device=shard.device, grid=shard.grid)
     index = shard.index
     rows = (np.concatenate([shard.main_rows, shard.delta_rows])
             if len(shard.delta_rows) else shard.main_rows)
@@ -378,7 +460,8 @@ def compact_shard(shard: Shard) -> Shard:
                  num_series=shard.num_series + shard.delta_total,
                  series_len=shard.series_len,
                  delta_rows=np.zeros((0, shard.series_len), np.float32),
-                 delta_gmap=np.zeros((0,), np.int64), built=index)
+                 delta_gmap=np.zeros((0,), np.int64), built=index,
+                 grid=shard.grid)
 
 
 def shard_sections(shard: Shard) -> dict:
@@ -395,16 +478,33 @@ def shard_sections(shard: Shard) -> dict:
 def save_shard(shard: Shard, path: str, max_batch: int) -> str:
     """Every rank's half of a distributed save (`store.save_distributed`):
     this rank writes its main rows, its delta and their ids, and its
-    index sections."""
-    return _store.save_distributed(
-        path, shard.params, shard.breakpoints.cpu().numpy(),
-        shard.main_rows, group=shard.group, device=shard.device,
-        max_batch=max_batch, delta_rows=shard.delta_rows,
-        delta_gmap=shard.delta_gmap, section=shard_sections(shard))
+    index sections; the manifest records the grid's axes.  On a grid with
+    replicas only replica 0's shard group writes (one file set a shard,
+    as the reference's `shard_host_arrays` de-duplicates), and every rank
+    of the grid returns or raises with it."""
+    err = None
+    if shard.replica == 0:
+        try:
+            _store.save_distributed(
+                path, shard.params, shard.breakpoints.cpu().numpy(),
+                shard.main_rows, group=shard.group, device=shard.device,
+                axes=shard.axes, max_batch=max_batch,
+                delta_rows=shard.delta_rows, delta_gmap=shard.delta_gmap,
+                section=shard_sections(shard))
+        except Exception as e:  # noqa: BLE001 — the replicas must hear it
+            err = e
+    if shard.grid is not None and shard.grid.replicas > 1:
+        if not collectives.agree(err is None, shard.mesh_group,
+                                 device=shard.device):
+            raise err if err is not None else OSError(
+                f"the distributed save of {path!r} failed on replica 0")
+    elif err is not None:
+        raise err
+    return path
 
 
-def open_shard(group, path: str, params: Optional[EnvelopeParams] = None,
-               device: DeviceLike = None):
+def open_shard(mesh, path: str, params: Optional[EnvelopeParams] = None,
+               device: DeviceLike = None, axes=("data",)):
     """This rank's shard of a saved index (either package's), and the
     manifest's max_batch.  Rank 0 first recovers a crashed commit
     (`gc_stale_tmp`), and every rank waits for it.  A distributed save
@@ -413,19 +513,29 @@ def open_shard(group, path: str, params: Optional[EnvelopeParams] = None,
     its delta ids and the breakpoints, nothing more, and summarizes
     nothing.  Any other save (another shard count, a local save, a save
     without sections) is read whole (`store.load_raw_data`, delta rows
-    back at their ids), re-sharded and rebuilt."""
-    shards, rank = collectives.world(group)
+    back at their ids), re-sharded and rebuilt.  `mesh` is a process
+    group or a DeviceMesh (`grid_groups`): on a mesh the rows shard over
+    the manifest's `axes` where it records them (else the given ones), as
+    the reference reopens, and the recovery is the whole grid's (its rank
+    0 recovers, every rank of it waits)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    grid = grid_groups(mesh, axes)
+    top = grid.mesh_group
     dev = _resolve(device)
     err = None
-    if rank == 0:
+    if collectives.world(top)[1] == 0:
         try:
             fmt.gc_stale_tmp(path)
         except OSError as e:       # every rank waits for rank 0 first
             err = e
-    if not collectives.agree(err is None, group, device=dev):
+    if not collectives.agree(err is None, top, device=dev):
         raise err if err is not None else fmt.IndexFormatError(
             f"rank 0 could not recover {path!r}")
     manifest = fmt.read_manifest(path)
+    if isinstance(mesh, DeviceMesh):
+        grid = grid_groups(mesh, tuple(manifest.get("axes", list(axes))))
+    group = grid.group
+    shards, rank = collectives.world(group)
     max_batch = manifest.get("max_batch", 8)
     if (manifest["kind"] == fmt.KIND_DISTRIBUTED
             and manifest.get("index_sections")
@@ -439,10 +549,10 @@ def open_shard(group, path: str, params: Optional[EnvelopeParams] = None,
             num_series=int(manifest["num_series"]),
             series_len=int(manifest["series_len"]), delta_rows=delta,
             delta_gmap=gmap, delta_total=len(gmap) * shards,
-            sections=section), max_batch
+            sections=section, grid=grid), max_batch
     stored, bp, data, _ = _store.load_raw_data(path, params)
     return build_shard(group, stored, data, breakpoints=bp,
-                       device=dev), max_batch
+                       device=dev, grid=grid), max_batch
 
 
 def distributed_index_stats(shards: int, p: EnvelopeParams,
@@ -487,13 +597,14 @@ def _round_end(pool_d2, head, k: int, group):
     chunk-head bound (B,) (+inf past the budget) gathered; returns (gkth
     (B,) on the host, this rank active, any rank active), exactly as the
     reference's global_kth and pmax over local_active."""
-    allp = collectives.all_gather(torch.cat([pool_d2, head[:, None]], 1),
-                                  group).cpu()
+    allp = collectives.all_gather_host(
+        torch.cat([pool_d2, head[:, None]], 1), group, pool_d2.device)
     d2, f = allp[:, :, :k], allp[:, :, k]
     gkth = collectives.kth_of_union(d2, k)
-    rem = torch.isfinite(f) & (f < torch.minimum(d2[:, :, k - 1], gkth))
+    rem = np.isfinite(f) & (f < np.minimum(d2[:, :, k - 1], gkth))
     rank = collectives.world(group)[1]
-    return gkth, bool(rem[rank].any()), bool(rem.any())
+    return (torch.from_numpy(gkth), bool(rem[rank].any()),
+            bool(rem.any()))
 
 
 def sharded_knn(shard: Shard, queries, qstack, dlo, dhi, lbs, *, k: int,
@@ -524,7 +635,7 @@ def sharded_knn(shard: Shard, queries, qstack, dlo, dhi, lbs, *, k: int,
     # the delta/gmap family: the step maps the pool's ids to global ones
     # (a (R + 1,) table, -1 last for empty entries)
     gmap = (torch.from_numpy(np.append(shard.gmap, -1).astype(np.int32))
-            .to(dev) if shard.delta_active else None)
+            .to(dev, non_blocking=True) if shard.delta_active else None)
     n_chunks = n_pad // chunk
     budget = (min(budget_chunks + nd_pad // chunk, n_chunks)
               if budget_chunks else n_chunks)
@@ -557,35 +668,38 @@ def sharded_knn(shard: Shard, queries, qstack, dlo, dhi, lbs, *, k: int,
     # the final gather: pools (global ids), the certificate's head (the
     # first unvisited chunk's, budget < n_chunks only), the counters and
     # the owner's float64 rescore of its own rows (ED)
+    # (one readback of this rank's part, the rescore on the host, one
+    # exchange of host values)
     psid = pool[1]
     gsid = psid if gmap is not None else torch.where(psid >= 0,
                                                      psid + shard.row0, -1)
-    resc = torch.zeros((b, k), dtype=torch.float64)
+    d2_h, sid_h, off_h, head_h, st_h = executor.read_back(
+        pool[0], gsid, pool[2],
+        heads[:, budget] if budget < n_chunks else none, stats)
+    resc = np.zeros((b, k), np.float64)
     if measure == "ed":
-        sid_h, off_h = gsid.cpu().numpy(), pool[2].cpu().numpy()
         for row in range(b):
             live = sid_h[row] >= 0
             if live.any():
                 rows = shard.take_rows(shard.to_local(sid_h[row, live]))
-                resc[row, live] = torch.from_numpy(executor.ed_rescore64(
+                resc[row, live] = executor.ed_rescore64(
                     rows, np.arange(len(rows)), off_h[row, live],
-                    queries[row], p.znorm))
-    payload = torch.cat([pool[0].double(), gsid.double(), pool[2].double(),
-                         (heads[:, budget] if budget < n_chunks else none)
-                         [:, None].double(), stats.double(),
-                         resc.to(dev)], 1)
-    allp = collectives.all_gather(payload, group).cpu()
-    d2s = allp[..., :k].float()
-    fb = allp[..., 3 * k].float()
+                    queries[row], p.znorm)
+    payload = np.concatenate(
+        [d2_h.astype(np.float64), sid_h.astype(np.float64),
+         off_h.astype(np.float64), head_h[:, None].astype(np.float64),
+         st_h.astype(np.float64), resc], 1)
+    allp = collectives.all_gather_host(payload, group, dev)
+    d2s = allp[..., :k].astype(np.float32)
+    fb = allp[..., 3 * k].astype(np.float32)
     gk = collectives.kth_of_union(d2s, k)
-    rem = torch.isfinite(fb) & (fb < torch.minimum(d2s[:, :, k - 1], gk))
+    rem = np.isfinite(fb) & (fb < np.minimum(d2s[:, :, k - 1], gk))
     md2, msid, moff, m64 = collectives.ring_order_merge(
-        (d2s, allp[..., k:2 * k].long(), allp[..., 2 * k:3 * k].long(),
-         allp[..., 3 * k + 7:]), k)
-    return KnnOut(d2=md2.numpy(), sid=msid.numpy(), off=moff.numpy(),
-                  d2_64=m64.numpy(),
-                  stats=allp[..., 3 * k + 1:3 * k + 7].long().numpy(),
-                  cert=(~rem.any(0)).numpy(), n_chunks=n_chunks)
+        (d2s, allp[..., k:2 * k].astype(np.int64),
+         allp[..., 2 * k:3 * k].astype(np.int64), allp[..., 3 * k + 7:]), k)
+    return KnnOut(d2=md2, sid=msid, off=moff, d2_64=m64,
+                  stats=allp[..., 3 * k + 1:3 * k + 7].astype(np.int64),
+                  cert=~rem.any(0), n_chunks=n_chunks)
 
 
 sharded_knn.rounds = 0
@@ -625,8 +739,8 @@ def sharded_range(shard: Shard, queries, n_real: int, qstack, dlo, dhi,
         index.collection, sids, anc, nm, lbs2, qstack, dlo, dhi, eps2_t,
         capacity=capacity, g=p.gamma + 1, measure=measure, r=r,
         znorm=p.znorm, chunk_size=chunk_size)
-    bd2, bsid, boff, cnt, ovf, st = (
-        t.cpu().numpy() for t in (bd2, bsid, boff, cnt, ovf, st))
+    bd2, bsid, boff, cnt, ovf, st = executor.read_back(
+        bd2, bsid, boff, cnt, ovf, st)
     n_chunks = n_pad // chunk
     counters = np.zeros((n_real, 13), np.int64)
     hits: List[np.ndarray] = []
@@ -663,11 +777,9 @@ def sharded_range(shard: Shard, queries, n_real: int, qstack, dlo, dhi,
             hits.append(np.concatenate(
                 [np.full((len(got), 1), row, np.float64), got], axis=1))
     mine = (np.concatenate(hits) if hits else np.zeros((0, 4)))
-    all_counters = collectives.all_gather(
-        torch.from_numpy(counters).to(dev), group).cpu().numpy()
-    all_hits = collectives.all_gather_rows(
-        torch.from_numpy(mine).to(dev), group)
-    return all_counters, [h.cpu().numpy() for h in all_hits], n_chunks
+    all_counters = collectives.all_gather_host(counters, group, dev)
+    all_hits = collectives.all_gather_rows_host(mine, group, dev)
+    return all_counters, all_hits, n_chunks
 
 
 def fold_range_stats(counters, row: int, n_env: int,

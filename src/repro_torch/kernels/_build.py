@@ -53,14 +53,19 @@ SIGNATURES = {
         # qs, out, num_series, n, batch, rows, qlen, g, znorm, stream
         "ulisse_fused_gather_ed": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
                                    _L, _I, _I, _I, _I, _I, _I, _V],
-        # the same arguments: the long-row kernel
+        # the same arguments and otile (before the stream): the long-row
+        # kernel
         "ulisse_fused_gather_ed_long": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
-                                        _V, _L, _I, _I, _I, _I, _I, _I, _V],
-        # qlen, g
+                                        _V, _L, _I, _I, _I, _I, _I, _I, _I,
+                                        _V],
+        # qlen, g (the long entries: and otile)
         "ulisse_fused_gather_ed_chunk_tile": [_I, _I],
-        "ulisse_fused_gather_ed_chunk_long_tile": [_I, _I],
+        "ulisse_fused_gather_ed_chunk_long_tile": [_I, _I, _I],
         "ulisse_fused_gather_lb_keogh_tile": [_I, _I],
-        "ulisse_fused_gather_lb_keogh_long_tile": [_I, _I],
+        "ulisse_fused_gather_lb_keogh_long_tile": [_I, _I, _I],
+        # qlen, g, force
+        "ulisse_fused_gather_ed_long_otile": [_I, _I, _I],
+        "ulisse_fused_gather_lb_keogh_long_otile": [_I, _I, _I],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, qs, pool_d2, gkth, stats, part, num_series, n,
         # batch, rows, qlen, g, znorm, n_pad, col0, k, stream
@@ -69,7 +74,7 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
         "ulisse_fused_gather_ed_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
-            _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
+            _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, qs, eps2, ovf, stats, out, num_series, n, batch,
         # rows, qlen, g, znorm, n_pad, col0, n_chunks, stream
@@ -78,7 +83,7 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
         "ulisse_fused_gather_ed_range_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
-            _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
+            _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # dtw_lo, dtw_hi, lb, mu, sd, num_series, n, batch, rows, qlen, g,
         # znorm, stream
@@ -87,7 +92,7 @@ SIGNATURES = {
                                          _I, _I, _V],
         "ulisse_fused_gather_lb_keogh_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I,
-            _I, _I, _I, _I, _V],
+            _I, _I, _I, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, dtw_lo, dtw_hi, cut, gkth, ovf, stats, lb, mu,
         # sd, slist, nsurv, dp_out, cand_sid, cand_off, num_series, n,
@@ -100,7 +105,7 @@ SIGNATURES = {
         "ulisse_fused_gather_lb_keogh_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
             _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L,
-            _L, _I, _I, _I, _V],
+            _L, _I, _I, _I, _I, _V],
         # data, sids, anchors, mu, sd, out, num_series, n, num_rows, qlen,
         # g, stream
         "ulisse_gather_znorm": [_V, _V, _V, _V, _V, _V, _L, _I, _L, _I, _I,

@@ -2,7 +2,10 @@
 // Hopper.  Two kernels over one region gather and one prefix-sum window
 // statistic, each with the TPU kernel's contract entry and the scan's
 // chunk entry: ulisse_fused_gather_ed (_chunk) and
-// ulisse_fused_gather_lb_keogh (_chunk).
+// ulisse_fused_gather_lb_keogh (_chunk).  Each entry has a long-row
+// variant (_long) for queries past its staging; past the g = gamma + 1
+// one block of a row takes, the long-row variants split a row's offsets
+// into tiles, a block each (grid z), with the same results.
 //
 // ulisse_fused_gather_ed
 // Replaces repro/kernels/fused_verify.py::fused_gather_ed (Pallas body
@@ -213,6 +216,11 @@ __device__ __forceinline__ void cp_async_wait() {
 //          finite and <= cut and ovf[b] == n_chunks (the hit buffer never
 //          overflowed), keep = lb <= cut: inclusive, since lb <= d, so a
 //          boundary hit with lb == d == eps survives.
+// An offset-tiled block (the long kernels past one block's g) takes only
+// offsets [j_lo, j_lo + gt) of its rows (gt >= 0; -1: all g): row_anc
+// then holds anchor + j_lo, the tile's region start, and row_jl the
+// tile's ok offsets, clipped to [0, gt).  Ok candidates add up over a
+// row's tiles; `active`, kept and pruned rows are counted by its first.
 template <int kMode>
 __device__ __forceinline__ bool chunk_block_rows(
     const int* __restrict__ sids, const int* __restrict__ anchors,
@@ -221,7 +229,8 @@ __device__ __forceinline__ bool chunk_block_rows(
     const int* __restrict__ ovf, int* __restrict__ stats, int n, int rows,
     int qlen, int g, long long row_stride, long long col0, int k,
     int n_chunks, int tile, int ok_col, int* row_sid, int* row_anc,
-    int* row_jl, int* count_s, float* kth_out, float* cut_out) {
+    int* row_jl, int* count_s, float* kth_out, float* cut_out,
+    int j_lo = 0, int gt = -1) {
   constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
@@ -259,6 +268,11 @@ __device__ __forceinline__ bool chunk_block_rows(
         } else {
           jl = g;
         }
+        if (gt >= 0) {            // this block's offset tile
+          jl -= j_lo;
+          jl = jl < 0 ? 0 : (jl > gt ? gt : jl);
+          anc += j_lo;
+        }
       }
       row_sid[tid] = sid;
       row_anc[tid] = anc;
@@ -270,10 +284,11 @@ __device__ __forceinline__ bool chunk_block_rows(
       const int n_pruned = __reduce_add_sync(kFull, pruned);
       if (tid == 0) {
         int* st = stats + (long long)b * kStatsWidth;
-        if (blockIdx.x == 0 && active) atomicAdd(st + 0, 1);
-        if (n_keep) atomicAdd(st + 1, n_keep);
+        const bool lead = j_lo == 0;   // a row's first offset tile
+        if (blockIdx.x == 0 && lead && active) atomicAdd(st + 0, 1);
+        if (n_keep && lead) atomicAdd(st + 1, n_keep);
         if (n_ok) atomicAdd(st + ok_col, n_ok);
-        if (n_pruned) atomicAdd(st + 5, n_pruned);
+        if (n_pruned && lead) atomicAdd(st + 5, n_pruned);
         *count_s = 0;
       }
     }
@@ -367,17 +382,28 @@ __device__ __forceinline__ void ed_stage(
 }
 
 // The range entries' output of one block: its rows' dense d2, cd_s[le *
-// g + j] (+inf wherever not an ok candidate; all +inf where the block has
+// gt + j] (+inf wherever not an ok candidate; all +inf where the block has
 // no work), out in coalesced stores at positions r0 * g ... of query b's
-// (B, rows * g) row.
+// (B, rows * g) row; an offset-tiled block (gt < g) writes offsets
+// [j_lo, j_lo + gt) of each of its rows.
 __device__ __forceinline__ void ed_range_out(const float* cd_s, bool work,
                                              float* __restrict__ out,
-                                             int rows, int g, int tile) {
+                                             int rows, int g, int tile,
+                                             int j_lo = 0, int gt = -1) {
   const int r0 = blockIdx.x * tile;
-  const long long at0 = ((long long)blockIdx.y * rows + r0) * g;
-  const int count = (rows - r0 < tile ? rows - r0 : tile) * g;
-  for (int idx = threadIdx.x; idx < count; idx += blockDim.x)
-    out[at0 + idx] = work ? cd_s[idx] : INFINITY;
+  const long long at0 = ((long long)blockIdx.y * rows + r0) * g + j_lo;
+  if (gt < 0 || gt == g) {
+    const int count = (rows - r0 < tile ? rows - r0 : tile) * g;
+    for (int idx = threadIdx.x; idx < count; idx += blockDim.x)
+      out[at0 + idx] = work ? cd_s[idx] : INFINITY;
+    return;
+  }
+  const int count = (rows - r0 < tile ? rows - r0 : tile) * gt;
+  for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
+    const int le = idx / gt;
+    out[at0 + (long long)le * g + (idx - le * gt)] =
+        work ? cd_s[idx] : INFINITY;
+  }
 }
 
 // One block: query b = blockIdx.y, rows [r0, r0 + tile) of its chunk
@@ -402,7 +428,7 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
     long long row_stride, long long col0, int k, int kp, int tile,
     int qlen_pad, int ngrp, int stride, int run_stride,
     const int* __restrict__ ovf, int n_chunks,
-    const float* __restrict__ gkth) {
+    const float* __restrict__ gkth, int /*otile: the long kernel's*/) {
   constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   extern __shared__ __align__(16) float ed_smem[];
   float* q_s = ed_smem;                       // [qlen_pad], 0 beyond qlen
@@ -580,6 +606,14 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
 // the window sums from the prefix sums in place (window_sums), the values
 // the staged kernel's runs hold, and sum(q^2) is taken from device memory
 // in the staged kernel's order; so d2 has the staged kernel's bits too.
+// Past the g one block takes (its candidate buffer and region tile grow
+// with g), a row's offsets are split into tiles of `otile`: block
+// (x, b, z) takes offsets [z otile, (z + 1) otile) of its rows, stages
+// only their region (qlen + otile - 1 points, streamed as above) and
+// writes its own partials (k-NN: a list per (row block, offset tile),
+// every candidate keyed by its position r g + j in the chunk, so the
+// merge is the untiled one's) or its part of the dense d2 (range).  Each
+// window is computed as the untiled kernel computes it: the same bits.
 template <int kMode>
 __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
     const float* __restrict__ data, const float* __restrict__ csum,
@@ -595,13 +629,13 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
     long long row_stride, long long col0, int k, int kp, int tile,
     int qlen_pad, int ngrp, int stride, int ptile,
     const int* __restrict__ ovf, int n_chunks,
-    const float* __restrict__ gkth) {
+    const float* __restrict__ gkth, int otile) {
   constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   extern __shared__ __align__(16) float ed_smem[];
   float* q_s = ed_smem;                       // [ptile]
   float* reg_s = q_s + ptile;                 // [tile * stride]
-  float* cd_s = reg_s + tile * stride;        // chunk: [tile * g] d2
-  int* cp_s = reinterpret_cast<int*>(cd_s + tile * g);   // and positions
+  float* cd_s = reg_s + tile * stride;        // chunk: [tile * otile] d2
+  int* cp_s = reinterpret_cast<int*>(cd_s + tile * otile);  // and positions
   __shared__ int row_sid[kEdTile], row_anc[kEdTile], row_jl[kEdTile];
   __shared__ float qss_s;
   __shared__ int count_s;
@@ -609,31 +643,35 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
   const int tid = threadIdx.x;
-  const int reg = qlen + g - 1;
+  // this block's offsets [j_lo, j_lo + gt); row_anc holds anchor + j_lo
+  const int j_lo = blockIdx.z * otile;
+  const int gt = g - j_lo < otile ? g - j_lo : otile;
+  const int reg = qlen + gt - 1;
   // kth: the pool's own k-th, the pre-select's cut (a shard's pool takes
   // every candidate below it, whatever the mesh-wide k-th)
   float kth, cut;
   const bool work = chunk_block_rows<kMode>(
       sids, anchors, n_master, lbs2, pool_d2, gkth, ovf, stats, n, rows,
       qlen, g, row_stride, col0, k, n_chunks, tile, 2, row_sid, row_anc,
-      row_jl, &count_s, &kth, &cut);
-  const long long at = ((long long)b * gridDim.x + blockIdx.x) * kp;
+      row_jl, &count_s, &kth, &cut, j_lo, gt);
+  const long long at =
+      (((long long)b * gridDim.x + blockIdx.x) * gridDim.z + blockIdx.z) * kp;
   const int* rsid = row_sid;
   const int* ranc = row_anc;
   auto sid_off = [=](int p, int* sid, int* off) {
     const int r = p / g;
     *sid = rsid[r - r0];
-    *off = ranc[r - r0] + (p - r * g);
+    *off = ranc[r - r0] + (p - r * g) - j_lo;
   };
   if (!work) {
     if (kMode == 1)
       write_block_topk(cd_s, cp_s, 0, kp, part_d2 + at, part_sid + at,
                        part_off + at, part_pos + at, sid_off);
-    if (kRange) ed_range_out(cd_s, false, out, rows, g, tile);
+    if (kRange) ed_range_out(cd_s, false, out, rows, g, tile, j_lo, gt);
     return;
   }
   if (kRange)   // the dense d2: +inf but at the ok candidates
-    for (int idx = tid; idx < tile * g; idx += blockDim.x)
+    for (int idx = tid; idx < tile * gt; idx += blockDim.x)
       cd_s[idx] = INFINITY;
   if (!znorm && tid < 32) {
     const float* q = qs + (long long)b * qlen;
@@ -676,13 +714,13 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
           const float d2 = ed_d2(s1, s2, acc[jj], qlen, znorm,
                                  znorm ? 0.f : center[sid], qss_s);
           if (!kChunk) {
-            out[((long long)b * rows + r) * g + j] = d2;
+            out[((long long)b * rows + r) * g + j_lo + j] = d2;
           } else if (kRange) {
-            cd_s[le * g + j] = d2;
+            cd_s[le * gt + j] = d2;
           } else if (d2 < kth) {
             const int slot = atomicAdd(&count_s, 1);
             cd_s[slot] = d2;
-            cp_s[slot] = r * g + j;
+            cp_s[slot] = r * g + j_lo + j;
           }
         }
       }
@@ -692,7 +730,7 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
   if (kMode == 1)
     write_block_topk(cd_s, cp_s, count_s, kp, part_d2 + at, part_sid + at,
                      part_off + at, part_pos + at, sid_off);
-  if (kRange) ed_range_out(cd_s, true, out, rows, g, tile);
+  if (kRange) ed_range_out(cd_s, true, out, rows, g, tile, j_lo, gt);
 }
 
 // Squared LB_Keogh of kLbJ consecutive windows j0 .. j0 + kLbJ - 1 of
@@ -808,12 +846,14 @@ template <int kMode>
 __device__ __forceinline__ void lb_block_rows(
     const int* __restrict__ sids, const int* __restrict__ anchors,
     const LbChunk& c, int n, int rows, int qlen, int g, int tile,
-    int* row_sid, int* row_anc, int* row_jl, int* count_s, float* cut) {
+    int* row_sid, int* row_anc, int* row_jl, int* count_s, float* cut,
+    int j_lo = 0, int gt = -1) {
   float own;
   chunk_block_rows<kMode>(sids, anchors, c.n_master, c.lbs2, c.cut, c.gkth,
                           c.ovf, c.stats, n, rows, qlen, g, c.row_stride,
                           c.col0, c.cut_stride, c.n_chunks, tile, 3,
-                          row_sid, row_anc, row_jl, count_s, &own, cut);
+                          row_sid, row_anc, row_jl, count_s, &own, cut, j_lo,
+                          gt);
 }
 
 // The tile's results (res_s: lb2, mu, sd, each [tile * g]) out.  The
@@ -826,28 +866,34 @@ __device__ __forceinline__ void lb_block_rows(
 // launch; the list's order varies from run to run); write +inf into the
 // DP's output at every other position; write every candidate's (sid,
 // off); and add the block's survivors (the DPs to run) to the counters'
-// true-distance and full-DP columns.
+// true-distance and full-DP columns.  An offset-tiled block (gt < g:
+// res_s holds its rows' offsets [j_lo, j_lo + gt), row_anc their tile's
+// region start) writes that part of each of its rows.
 template <int kMode>
 __device__ __forceinline__ void lb_write_out(
     const float* res_s, int tg, float* __restrict__ lb_out,
     float* __restrict__ mu_out, float* __restrict__ sd_out,
     const LbChunk& c, const int* row_sid, const int* row_anc,
     const int* row_jl, int* count_s, float cut, int rows, int g,
-    int tile) {
+    int tile, int j_lo = 0, int gt = -1) {
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
-  const long long at0 = ((long long)b * rows + r0) * g;
-  const int count = (rows - r0 < tile ? rows - r0 : tile) * g;
+  const bool whole = gt < 0 || gt == g;
+  if (whole) gt = g;
+  const long long at0 = ((long long)b * rows + r0) * g + j_lo;
+  const int count = (rows - r0 < tile ? rows - r0 : tile) * gt;
   const int lane = threadIdx.x & 31;
   for (int base = 0; base < count; base += blockDim.x) {   // warp-uniform
     const int idx = base + threadIdx.x;
     const bool in = idx < count;
-    const long long at = at0 + idx;
+    const int le = idx / gt, j = idx - le * gt;
+    // position le * g + j (+ j_lo) of the block's rows
+    const int pos = whole ? idx : le * g + j;
+    const long long at = at0 + pos;
     float lb = in ? res_s[idx] : 0.f;
     if (kMode != 0) {
       bool surv = false;
       if (in) {
-        const int le = idx / g, j = idx - le * g;
         if (j >= row_jl[le]) lb = INFINITY;
         else surv = kMode == 2 ? lb <= cut : lb < cut;
         c.cand_sid[at] = row_sid[le];
@@ -864,7 +910,7 @@ __device__ __forceinline__ void lb_write_out(
         slot = __shfl_sync(kFull, slot, leader) +
                __popc(mask & ((1u << lane) - 1u));
         if (surv)
-          c.slist[(long long)b * rows * g + slot] = r0 * g + idx;
+          c.slist[(long long)b * rows * g + slot] = r0 * g + j_lo + pos;
       }
       if (in && !surv) c.dp_out[at] = INFINITY;
     }
@@ -971,7 +1017,12 @@ __global__ void __launch_bounds__(kLbMaxThreads)
 // windows' (mu, sd) and sums in registers across the tiles, sliding over
 // each tile as the staged kernel slides over the whole row: the same
 // normalized values summed in the same order, so (lb2, mu, sd) have the
-// staged kernel's bits.  kMode as the staged kernel's.
+// staged kernel's bits.  kMode as the staged kernel's.  Past the g one
+// block takes, a row's offsets are split into tiles of `otile` as in the
+// long ED kernel: block (x, b, z) takes offsets [z otile, (z + 1) otile)
+// of its rows, stages their region only, and writes that part of the
+// dense outputs; its survivors join the same list, and the counters add
+// up as the untiled block's (chunk_block_rows).
 template <int kMode>
 __global__ void __launch_bounds__(kLbMaxThreads)
     fused_gather_lb_keogh_long_kernel(
@@ -983,27 +1034,30 @@ __global__ void __launch_bounds__(kLbMaxThreads)
         float* __restrict__ lb_out, float* __restrict__ mu_out,
         float* __restrict__ sd_out, const LbChunk c, long long num_series,
         int n, int rows, int qlen, int g, int znorm, int tile, int qlen_pad,
-        int ngrp, int stride, int ptile) {
+        int ngrp, int stride, int ptile, int otile) {
   extern __shared__ float smem[];
   float2* env_s = reinterpret_cast<float2*>(smem);   // [ptile]
   float* reg_s = smem + 2 * ptile;                   // [tile * stride]
-  float* res_s = reg_s + tile * stride;              // [3][tile * g]
+  float* res_s = reg_s + tile * stride;              // [3][tile * otile]
   __shared__ int row_sid[kLbTile], row_anc[kLbTile], row_jl[kLbTile];
   __shared__ int count_s;
-  const int tg = tile * g;
+  // this block's offsets [j_lo, j_lo + gt); row_anc holds anchor + j_lo
+  const int j_lo = blockIdx.z * otile;
+  const int gt = g - j_lo < otile ? g - j_lo : otile;
+  const int tg = tile * gt;
 
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * tile;
   float cut = INFINITY;
   lb_block_rows<kMode>(sids, anchors, c, n, rows, qlen, g, tile, row_sid,
-                       row_anc, row_jl, &count_s, &cut);
+                       row_anc, row_jl, &count_s, &cut, j_lo, gt);
   const long long last = num_series * (long long)(n + 1) - 1;
   for (int base = 0; base < tile * ngrp; base += blockDim.x) {
     const int item = base + threadIdx.x;
     const int le = item % tile, grp = item / tile;
     const int r = r0 + le;
-    const bool mine = item < tile * ngrp && r < rows;
     const int j0 = grp * kLbJ;
+    const bool mine = item < tile * ngrp && r < rows && j0 < gt;
     float mu[kLbJ], sd[kLbJ], y[kLbJ], acc[kLbJ];
     if (mine)
       lb_window_stats(csum, csum2, csum_lo, csum2_lo, center, row_sid[le],
@@ -1018,16 +1072,17 @@ __global__ void __launch_bounds__(kLbMaxThreads)
                                  : make_float2(-INFINITY, INFINITY);
       }
       stage_regions(data, row_sid, row_anc, reg_s, num_series, n, rows, r0,
-                    tile, stride, qlen + g - 1, t0);
+                    tile, stride, qlen + gt - 1, t0);
       __syncthreads();
       if (mine)
         lb_windows(reg_s + le * stride + j0, env_s, len, mu, sd, y, acc);
     }
-    if (mine) lb_results(res_s, tg, le, j0, g, mu, sd, acc);
+    if (mine) lb_results(res_s, tg, le, j0, gt, mu, sd, acc);
   }
   __syncthreads();
   lb_write_out<kMode>(res_s, tg, lb_out, mu_out, sd_out, c, row_sid,
-                      row_anc, row_jl, &count_s, cut, rows, g, tile);
+                      row_anc, row_jl, &count_s, cut, rows, g, tile, j_lo,
+                      gt);
 }
 
 // The normalized windows w (E * g, qlen) of the LB and DP tiers, from
@@ -1060,8 +1115,21 @@ namespace {
 // exceed their budgets.
 struct EdShape {
   int tile, qlen_pad, ngrp, stride, run_stride, threads;
+  int otile, n_otiles;   // offsets a block takes, offset tiles a row
   size_t smem;
 };
+
+// The offsets a long kernel's block takes at g: `force` where given (a
+// test's), else all g where one block of a row fits kSmemMax, else the
+// row's offsets split into the fewest tiles of at most `most` (the
+// largest a block of one row takes), balanced, a multiple of `unit`.
+int offset_tile(int g, int most, int unit, int force) {
+  if (force > 0) return force < g ? force : g;
+  if (g <= most) return g;
+  const int tiles = (g + most - 1) / most;
+  const int t = ((g + tiles - 1) / tiles + unit - 1) / unit * unit;
+  return t < most ? t : most;
+}
 
 EdShape ed_shape(int qlen, int g, bool chunk) {
   EdShape s;
@@ -1084,6 +1152,8 @@ EdShape ed_shape(int qlen, int g, bool chunk) {
   s.smem = smem_for(s.tile);
   s.threads = (s.tile * s.ngrp + 31) / 32 * 32;
   if (s.threads < kEdMinThreads) s.threads = kEdMinThreads;
+  s.otile = g;
+  s.n_otiles = 1;
   return s;
 }
 
@@ -1091,15 +1161,23 @@ EdShape ed_shape(int qlen, int g, bool chunk) {
 // and the rows' region points it reads; up to kEdTile rows a block, fewer
 // where the items or the shared memory would exceed their budgets.  It
 // does not grow with qlen (items past kEdThreads take rounds).
-EdShape ed_long_shape(int qlen, int g, bool chunk) {
+EdShape ed_long_shape(int qlen, int g, bool chunk, int force = 0) {
   EdShape s;
+  // a block of one row at T offsets: the query tile, a region tile of
+  // ceil(T / kEdJ) kEdJ + kLongPoints - 1 words and (chunk) 2 T of
+  // candidates; the largest T a multiple of kEdJ within kSmemMax
+  const int most = ((int)(kSmemMax / sizeof(float)) - 2 * kLongPoints + 1) /
+                   (chunk ? 3 : 1) / kEdJ * kEdJ;
+  s.otile = offset_tile(g, most, kEdJ, force);
+  s.n_otiles = (g + s.otile - 1) / s.otile;
+  const int gt = s.otile;
   s.qlen_pad = (qlen + kEdJ - 1) / kEdJ * kEdJ;
-  s.ngrp = (g + kEdJ - 1) / kEdJ;
+  s.ngrp = (gt + kEdJ - 1) / kEdJ;
   s.stride = s.ngrp * kEdJ + kLongPoints - 1;   // odd
   s.run_stride = 0;
   auto smem_for = [&](int t) {
     return sizeof(float) * ((size_t)kLongPoints + (size_t)t * s.stride +
-                            (chunk ? 2 * (size_t)t * g : 0));
+                            (chunk ? 2 * (size_t)t * gt : 0));
   };
   s.tile = kEdTile;
   while (s.tile > 1 && (s.tile * s.ngrp > kEdThreads ||
@@ -1124,12 +1202,13 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
               long long num_series, int n, int batch, int rows, int qlen,
               int g, int znorm, long long row_stride, long long col0, int k,
               void* stream, const void* ovf = nullptr, int n_chunks = 0,
-              const void* gkth = nullptr) {
+              const void* gkth = nullptr, int otile = 0) {
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
-      batch > 65535 || k < 1)
+      batch > 65535 || k < 1 || otile < 0)
     return (int)cudaErrorInvalidValue;
-  const EdShape s = kLong ? ed_long_shape(qlen, g, kMode != 0)
+  const EdShape s = kLong ? ed_long_shape(qlen, g, kMode != 0, otile)
                           : ed_shape(qlen, g, kMode != 0);
+  if (s.n_otiles > 65535) return (int)cudaErrorInvalidValue;
   if (s.threads > kEdThreads || s.smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   // the two kernels take the same arguments; the last is the staged
@@ -1142,11 +1221,12 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
     if (err) return err;
   }
   const int n_blocks = (rows + s.tile - 1) / s.tile;
-  const int kp = k < s.tile * g ? k : s.tile * g;
-  // partials (4, B, n_blocks, kp) int32: d2 (float bits), sid, off, pos
-  const long long plane = (long long)batch * n_blocks * kp;
+  const int kp = k < s.tile * s.otile ? k : s.tile * s.otile;
+  // partials (4, B, n_blocks, n_otiles, kp) int32: d2 (float bits), sid,
+  // off, pos
+  const long long plane = (long long)batch * n_blocks * s.n_otiles * kp;
   int* p = static_cast<int*>(part);
-  const dim3 grid(n_blocks, batch);
+  const dim3 grid(n_blocks, batch, s.n_otiles);
   kernel<<<grid, s.threads, s.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(data), static_cast<const float*>(csum),
       static_cast<const float*>(csum2), static_cast<const float*>(csum_lo),
@@ -1160,7 +1240,7 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
       n, rows, qlen, g, znorm, row_stride, col0, k, kp, s.tile, s.qlen_pad,
       s.ngrp, s.stride, kLong ? kLongPoints : s.run_stride,
       static_cast<const int*>(ovf), n_chunks,
-      static_cast<const float*>(gkth));
+      static_cast<const float*>(gkth), s.otile);
   return (int)cudaGetLastError();
 }
 
@@ -1178,17 +1258,18 @@ extern "C" int ulisse_fused_gather_ed(
       qlen, g, znorm, rows, 0, 1, stream);
 }
 
-// The long-row kernel behind the same contract (any qlen).
+// The long-row kernel behind the same contract (any qlen and g; otile
+// the offsets a block takes, 0: from the shape).
 extern "C" int ulisse_fused_gather_ed_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* qs, void* out,
     long long num_series, int n, int batch, int rows, int qlen, int g,
-    int znorm, void* stream) {
+    int znorm, int otile, void* stream) {
   return launch_ed<0, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, nullptr,
       nullptr, qs, out, nullptr, nullptr, nullptr, num_series, n, batch, rows,
-      qlen, g, znorm, rows, 0, 1, stream);
+      qlen, g, znorm, rows, 0, 1, stream, nullptr, 0, nullptr, otile);
 }
 
 // Rows a block of the chunk entry takes at (qlen, g): its partials are
@@ -1200,12 +1281,23 @@ extern "C" int ulisse_fused_gather_ed_chunk_tile(int qlen, int g) {
   return s.threads > kEdThreads || s.smem > kSmemMax ? -1 : s.tile;
 }
 
-// The same for the long-row chunk entry, at any qlen; -1 where no block
-// fits (g past 18,688: its candidate buffer and region tile grow with g).
-extern "C" int ulisse_fused_gather_ed_chunk_long_tile(int qlen, int g) {
-  if (qlen < 1 || g < 1) return -1;
-  const EdShape s = ed_long_shape(qlen, g, true);
+// The same for the long-row chunk entry, at any qlen and g, its blocks
+// taking otile offsets a row (0: from the shape): its partials are (B,
+// ceil(rows / tile) * ceil(g / otile), min(k, tile * otile)).
+extern "C" int ulisse_fused_gather_ed_chunk_long_tile(int qlen, int g,
+                                                      int otile) {
+  if (qlen < 1 || g < 1 || otile < 0) return -1;
+  const EdShape s = ed_long_shape(qlen, g, true, otile);
   return s.smem > kSmemMax ? -1 : s.tile;
+}
+
+// The offsets a block of the long-row ED chunk entries (k-NN and range)
+// takes at (qlen, g): g where one block of a row fits, else the offset
+// tile (force > 0: that tile, as a test forces it).
+extern "C" int ulisse_fused_gather_ed_long_otile(int qlen, int g,
+                                                 int force) {
+  if (qlen < 1 || g < 1 || force < 0) return -1;
+  return ed_long_shape(qlen, g, true, force).otile;
 }
 
 extern "C" int ulisse_fused_gather_ed_chunk(
@@ -1223,7 +1315,8 @@ extern "C" int ulisse_fused_gather_ed_chunk(
       qlen, g, znorm, n_pad, col0, k, stream, nullptr, 0, gkth);
 }
 
-// The long-row kernel behind the chunk entry's contract (any qlen).
+// The long-row kernel behind the chunk entry's contract (any qlen and g;
+// otile as ulisse_fused_gather_ed_long's).
 extern "C" int ulisse_fused_gather_ed_chunk_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
@@ -1231,12 +1324,12 @@ extern "C" int ulisse_fused_gather_ed_chunk_long(
     const void* lbs2, const void* qs, const void* pool_d2, const void* gkth,
     void* stats, void* part, long long num_series, int n, int batch,
     int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
-    int k, void* stream) {
+    int k, int otile, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
   return launch_ed<1, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, qs, nullptr, pool_d2, stats, part, num_series, n, batch, rows,
-      qlen, g, znorm, n_pad, col0, k, stream, nullptr, 0, gkth);
+      qlen, g, znorm, n_pad, col0, k, stream, nullptr, 0, gkth, otile);
 }
 
 // The range mode of the chunk entry: eps2 (B,) in place of the pool,
@@ -1259,7 +1352,8 @@ extern "C" int ulisse_fused_gather_ed_range(
       g, znorm, n_pad, col0, 1, stream, ovf, n_chunks);
 }
 
-// The long-row kernel behind the range entry's contract (any qlen).
+// The long-row kernel behind the range entry's contract (any qlen and g;
+// otile as ulisse_fused_gather_ed_long's).
 extern "C" int ulisse_fused_gather_ed_range_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
@@ -1267,12 +1361,12 @@ extern "C" int ulisse_fused_gather_ed_range_long(
     const void* lbs2, const void* qs, const void* eps2, const void* ovf,
     void* stats, void* out, long long num_series, int n, int batch,
     int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
-    int n_chunks, void* stream) {
+    int n_chunks, int otile, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
   return launch_ed<2, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, qs, out, eps2, stats, nullptr, num_series, n, batch, rows, qlen,
-      g, znorm, n_pad, col0, 1, stream, ovf, n_chunks);
+      g, znorm, n_pad, col0, 1, stream, ovf, n_chunks, nullptr, otile);
 }
 
 namespace {
@@ -1281,6 +1375,7 @@ namespace {
 // where the shared memory would exceed its budget.
 struct LbShape {
   int tile, qlen_pad, ngrp, stride, threads;
+  int otile, n_otiles;   // offsets a block takes, offset tiles a row
   size_t smem;
 };
 
@@ -1301,6 +1396,8 @@ LbShape lb_shape(int qlen, int g) {
   s.threads = s.tile * s.ngrp;
   s.threads = s.threads > kLbMaxThreads ? kLbMaxThreads
                                         : (s.threads + 31) / 32 * 32;
+  s.otile = g;
+  s.n_otiles = 1;
   return s;
 }
 
@@ -1308,14 +1405,22 @@ LbShape lb_shape(int qlen, int g) {
 // points and the rows' region points it reads; up to kLbTile rows a
 // block, fewer where the shared memory would exceed its budget.  It does
 // not grow with qlen.
-LbShape lb_long_shape(int qlen, int g) {
+LbShape lb_long_shape(int qlen, int g, int force = 0) {
   LbShape s;
+  // a block of one row at T offsets: the envelope tile, a region tile of
+  // ceil(T / kLbJ) kLbJ + kLongPoints - 1 words and 3 T of results; the
+  // largest T a multiple of kLbJ within kSmemMax
+  const int most = ((int)(kSmemMax / sizeof(float)) - 3 * kLongPoints + 1) /
+                   4 / kLbJ * kLbJ;
+  s.otile = offset_tile(g, most, kLbJ, force);
+  s.n_otiles = (g + s.otile - 1) / s.otile;
+  const int gt = s.otile;
   s.qlen_pad = (qlen + kLbJ - 1) / kLbJ * kLbJ;
-  s.ngrp = (g + kLbJ - 1) / kLbJ;
+  s.ngrp = (gt + kLbJ - 1) / kLbJ;
   s.stride = s.ngrp * kLbJ + kLongPoints - 1;   // odd
   auto smem_for = [&](int t) {
     return sizeof(float) * (2 * (size_t)kLongPoints + (size_t)t * s.stride +
-                            3 * (size_t)t * g);
+                            3 * (size_t)t * gt);
   };
   s.tile = kLbTile;
   while (s.tile > 1 && smem_for(s.tile) > kSmemBudget) s.tile /= 2;
@@ -1336,11 +1441,13 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
                     const void* dtw_lo, const void* dtw_hi, void* lb,
                     void* mu, void* sd, const LbChunk& c,
                     long long num_series, int n, int batch, int rows,
-                    int qlen, int g, int znorm, void* stream) {
+                    int qlen, int g, int znorm, void* stream, int otile = 0) {
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
-      batch > 65535)
+      batch > 65535 || otile < 0)
     return (int)cudaErrorInvalidValue;
-  const LbShape sh = kLong ? lb_long_shape(qlen, g) : lb_shape(qlen, g);
+  const LbShape sh = kLong ? lb_long_shape(qlen, g, otile)
+                           : lb_shape(qlen, g);
+  if (sh.n_otiles > 65535) return (int)cudaErrorInvalidValue;
   const int tile = sh.tile, qlen_pad = sh.qlen_pad, ngrp = sh.ngrp;
   const int stride = sh.stride;
   const size_t smem = sh.smem;
@@ -1353,7 +1460,7 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
   }
-  const dim3 grid((rows + tile - 1) / tile, batch);
+  const dim3 grid((rows + tile - 1) / tile, batch, sh.n_otiles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kMode != 0) {
     const int err =
@@ -1377,7 +1484,7 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
     fused_gather_lb_keogh_long_kernel<kMode><<<grid, sh.threads, smem, st>>>(
         a_data, a_cs, a_cs2, a_cl, a_cl2, a_c, a_sids, a_anc, a_lo, a_hi,
         a_lb, a_mu, a_sd, c, num_series, n, rows, qlen, g, znorm, tile,
-        qlen_pad, ngrp, stride, kLongPoints);
+        qlen_pad, ngrp, stride, kLongPoints, sh.otile);
   else
     fused_gather_lb_keogh_kernel<kMode><<<grid, sh.threads, smem, st>>>(
         a_data, a_cs, a_cs2, a_cl, a_cl2, a_c, a_sids, a_anc, a_lo, a_hi,
@@ -1434,7 +1541,7 @@ int launch_lb_chunk(const void* data, const void* csum, const void* csum2,
                     void* cand_sid, void* cand_off, long long num_series,
                     int n, int batch, int rows, int qlen, int g, int znorm,
                     long long n_pad, long long col0, int k, int range,
-                    int n_chunks, void* stream) {
+                    int n_chunks, void* stream, int otile = 0) {
   LbChunk c;
   if (range && gkth != nullptr) return (int)cudaErrorInvalidValue;
   const int err = lb_chunk(&c, n_master, lbs2, cut, gkth, ovf, stats, slist,
@@ -1444,11 +1551,11 @@ int launch_lb_chunk(const void* data, const void* csum, const void* csum2,
   return range ? launch_lb_keogh<2, kLong>(
                      data, csum, csum2, csum_lo, csum2_lo, center, sids,
                      anchors, dtw_lo, dtw_hi, lb, mu, sd, c, num_series, n,
-                     batch, rows, qlen, g, znorm, stream)
+                     batch, rows, qlen, g, znorm, stream, otile)
                : launch_lb_keogh<1, kLong>(
                      data, csum, csum2, csum_lo, csum2_lo, center, sids,
                      anchors, dtw_lo, dtw_hi, lb, mu, sd, c, num_series, n,
-                     batch, rows, qlen, g, znorm, stream);
+                     batch, rows, qlen, g, znorm, stream, otile);
 }
 
 }  // namespace
@@ -1465,17 +1572,19 @@ extern "C" int ulisse_fused_gather_lb_keogh(
       qlen, g, znorm, stream);
 }
 
-// The long-row kernel behind the same contract (any qlen).
+// The long-row kernel behind the same contract (any qlen and g; otile
+// the offsets a block takes, 0: from the shape).
 extern "C" int ulisse_fused_gather_lb_keogh_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* dtw_lo,
     const void* dtw_hi, void* lb, void* mu, void* sd, long long num_series,
-    int n, int batch, int rows, int qlen, int g, int znorm, void* stream) {
+    int n, int batch, int rows, int qlen, int g, int znorm, int otile,
+    void* stream) {
   return launch_lb_keogh<0, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
       dtw_hi, lb, mu, sd, lb_contract(rows), num_series, n, batch, rows,
-      qlen, g, znorm, stream);
+      qlen, g, znorm, stream, otile);
 }
 
 // Rows a block of the LB_Keogh entries takes at (qlen, g); -1 where no
@@ -1487,12 +1596,22 @@ extern "C" int ulisse_fused_gather_lb_keogh_tile(int qlen, int g) {
   return s.smem > kSmemMax ? -1 : s.tile;
 }
 
-// The same for the long-row entries, at any qlen; -1 where no block fits
-// (g past 13,760: the block's results and region tile grow with g).
-extern "C" int ulisse_fused_gather_lb_keogh_long_tile(int qlen, int g) {
-  if (qlen < 1 || g < 1) return -1;
-  const LbShape s = lb_long_shape(qlen, g);
+// The same for the long-row entries, at any qlen and g, its blocks
+// taking otile offsets a row (0: from the shape).
+extern "C" int ulisse_fused_gather_lb_keogh_long_tile(int qlen, int g,
+                                                      int otile) {
+  if (qlen < 1 || g < 1 || otile < 0) return -1;
+  const LbShape s = lb_long_shape(qlen, g, otile);
   return s.smem > kSmemMax ? -1 : s.tile;
+}
+
+// The offsets a block of the long-row LB_Keogh entries takes at (qlen,
+// g): g where one block of a row fits, else the offset tile (force > 0:
+// that tile).
+extern "C" int ulisse_fused_gather_lb_keogh_long_otile(int qlen, int g,
+                                                       int force) {
+  if (qlen < 1 || g < 1 || force < 0) return -1;
+  return lb_long_shape(qlen, g, force).otile;
 }
 
 // The scan's LB_Keogh step over chunk col0 / rows of the (B, n_pad) plan
@@ -1524,7 +1643,8 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk(
       n_pad, col0, k, range, n_chunks, stream);
 }
 
-// The long-row kernel behind the chunk entry's contract (any qlen).
+// The long-row kernel behind the chunk entry's contract (any qlen and g;
+// otile as ulisse_fused_gather_lb_keogh_long's).
 extern "C" int ulisse_fused_gather_lb_keogh_chunk_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
@@ -1534,12 +1654,12 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk_long(
     void* lb, void* mu, void* sd, void* slist, void* nsurv, void* dp_out,
     void* cand_sid, void* cand_off, long long num_series, int n, int batch,
     int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
-    int k, int range, int n_chunks, void* stream) {
+    int k, int range, int n_chunks, int otile, void* stream) {
   return launch_lb_chunk<true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, dtw_lo, dtw_hi, cut, gkth, ovf, stats, lb, mu, sd, slist, nsurv,
       dp_out, cand_sid, cand_off, num_series, n, batch, rows, qlen, g, znorm,
-      n_pad, col0, k, range, n_chunks, stream);
+      n_pad, col0, k, range, n_chunks, stream, otile);
 }
 
 extern "C" int ulisse_gather_znorm(const void* data, const void* sids,

@@ -28,7 +28,10 @@ LB_Keogh at g = 49) it hands the call to its long-row variant
 `fused_gather_lb_keogh_chunk_long`, `fused_gather_lb_keogh_range_long`:
 the same contract and the same bits, the query streamed through shared
 memory in tiles of points), each a wrapper of its own with its own
-count, so any qlen runs on the card.  The kernels are
+count, so any qlen runs on the card.  Past the g one block of a row takes
+(18,688 for ED, 13,760 for LB_Keogh), the long-row variants split a row's
+offsets into tiles of `offset_tile` offsets, a block each: the same
+results, so any g runs on the card too.  The kernels are
 `csrc/fused_verify.cu`; the plain versions are `ref.fused_gather_ed_ref`,
 `ref.fused_gather_ed_chunk_ref`, `ref.fused_gather_ed_range_ref`,
 `ref.fused_gather_lb_keogh_ref`, `ref.fused_gather_lb_keogh_chunk_ref`,
@@ -82,25 +85,38 @@ def staged(measure: str, qlen: int, g: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def card_takes(measure: str, qlen: int, g: int) -> bool:
-    """Whether the card's chunk entries of `measure` (k-NN and range: a
-    range entry's block is its k-NN entry's) take (qlen, g) at all,
-    staged or through their long-row variants: the variants' shared
-    memory does not grow with qlen but does with g (they take g <= 18,688
-    for ED and g <= 13,760 for LB_Keogh)."""
+def offset_tile(measure: str, qlen: int, g: int, force: int = 0) -> int:
+    """The offsets a block of the long-row chunk entries (k-NN and range)
+    of `measure` ("ed" or "dtw") takes at (qlen, g): g where one block of
+    a row fits shared memory, else the row's offsets split into the
+    fewest balanced tiles that fit (a block each); `force` > 0 a tile of
+    that many offsets (a test's, to hold the tiled blocks against the
+    untiled ones at a g both take)."""
     lib = _build.library("fused_verify")
-    tile = (lib.ulisse_fused_gather_ed_chunk_long_tile if measure == "ed"
-            else lib.ulisse_fused_gather_lb_keogh_long_tile)
-    return staged(measure, qlen, g) or tile(qlen, g) > 0
+    if measure == "ed":
+        return lib.ulisse_fused_gather_ed_long_otile(qlen, g, force)
+    return lib.ulisse_fused_gather_lb_keogh_long_otile(qlen, g, force)
+
+
+def _otile(what, otile):
+    """A forced offset tile (None: from the shape) as the entries take
+    it."""
+    if otile is None:
+        return 0
+    if otile < 1:
+        raise ValueError(f"{what}: otile={otile} must be >= 1")
+    return int(otile)
 
 
 def _ed(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center,
-        sids, anchors, qs, g, rows, znorm):
+        sids, anchors, qs, g, rows, znorm, otile=None):
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
     _check(wrapper.__name__, data, csum, csum2, csum_lo, csum2_lo, center,
            sids, anchors, rows, (("qs", qs),))
+    long = entry.endswith("_long")
+    otile = _otile(wrapper.__name__, otile)
     if dev.type == "cpu":
         return ref.fused_gather_ed_ref(data, csum, csum2, csum_lo, csum2_lo,
                                        center, sids, anchors, qs, g=g,
@@ -110,7 +126,7 @@ def _ed(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center,
         data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
         csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
         sids.data_ptr(), anchors.data_ptr(), qs.data_ptr(), out.data_ptr(),
-        s, n, b, rows, qlen, g, int(znorm),
+        s, n, b, rows, qlen, g, int(znorm), *((otile,) if long else ()),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
@@ -149,25 +165,30 @@ def fused_gather_ed_long(data: torch.Tensor, csum: torch.Tensor,
                          csum2_lo: torch.Tensor, center: torch.Tensor,
                          sids: torch.Tensor, anchors: torch.Tensor,
                          qs: torch.Tensor, *, g: int, rows: int,
-                         znorm: bool) -> torch.Tensor:
-    """`fused_gather_ed` through the long-row kernel, at any qlen: the
-    same result, bit for bit where both take the shape."""
+                         znorm: bool, otile: Optional[int] = None
+                         ) -> torch.Tensor:
+    """`fused_gather_ed` through the long-row kernel, at any qlen and g:
+    the same result, bit for bit where both take the shape.  `otile`
+    forces the offsets a block takes (default `offset_tile`)."""
     return _ed(fused_gather_ed_long, "ulisse_fused_gather_ed_long", data,
                csum, csum2, csum_lo, csum2_lo, center, sids, anchors, qs, g,
-               rows, znorm)
+               rows, znorm, otile)
 
 
 fused_gather_ed_long.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def ed_chunk_tile(qlen: int, g: int, long: bool = False) -> int:
+def ed_chunk_tile(qlen: int, g: int, long: bool = False,
+                  otile: int = 0) -> int:
     """Rows a block of the ED chunk entry (of its long-row variant where
-    `long`) takes at (qlen, g): its partials are (4, B, ceil(rows / tile)
-    * min(k, tile * g))."""
+    `long`, its blocks taking `otile` offsets a row, 0: `offset_tile`'s)
+    takes at (qlen, g): its partials are (4, B, ceil(rows / tile) *
+    ceil(g / T) * min(k, tile * T)), T the offsets a block takes (g for
+    the staged entry)."""
     lib = _build.library("fused_verify")
-    tile = (lib.ulisse_fused_gather_ed_chunk_long_tile if long
-            else lib.ulisse_fused_gather_ed_chunk_tile)(qlen, g)
+    tile = (lib.ulisse_fused_gather_ed_chunk_long_tile(qlen, g, otile) if long
+            else lib.ulisse_fused_gather_ed_chunk_tile(qlen, g))
     if tile < 1:
         raise ValueError(f"fused_gather_ed_chunk: no block fits qlen={qlen},"
                          f" g={g}")
@@ -203,7 +224,7 @@ def _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
 
 def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, qs, pool_d2, stats, i, chunk, g,
-              znorm, gkth):
+              znorm, gkth, otile=None):
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
@@ -213,15 +234,17 @@ def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
     _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
                 anchors, n_master, lbs2, (("qs", qs),), pool_d2, stats, i,
                 chunk, gkth=gkth)
+    force = _otile(what, otile)
     if dev.type == "cpu":
         return ref.fused_gather_ed_chunk_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, qs, pool_d2, stats, i=i, chunk=chunk, g=g,
             znorm=znorm, gkth=gkth)
     lib = _build.library("fused_verify")
-    tile = ed_chunk_tile(qlen, g, long)
-    part = torch.empty((4, b, -(-chunk // tile) * min(k, tile * g)),
-                       dtype=torch.int32, device=dev)
+    tile = ed_chunk_tile(qlen, g, long, force)
+    t = offset_tile("ed", qlen, g, force) if long else g
+    part = torch.empty((4, b, -(-chunk // tile) * -(-g // t)
+                        * min(k, tile * t)), dtype=torch.int32, device=dev)
     entry = (lib.ulisse_fused_gather_ed_chunk_long if long
              else lib.ulisse_fused_gather_ed_chunk)
     code = entry(
@@ -231,7 +254,8 @@ def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         lbs2.data_ptr(), qs.data_ptr(), pool_d2.data_ptr(),
         None if gkth is None else gkth.data_ptr(), stats.data_ptr(),
         part.data_ptr(), s, n, b, chunk, qlen, g, int(znorm), n_pad,
-        i * chunk, k, torch.cuda.current_stream(dev).cuda_stream)
+        i * chunk, k, *((force,) if long else ()),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
     return part
@@ -285,14 +309,20 @@ def fused_gather_ed_chunk_long(data: torch.Tensor, csum: torch.Tensor,
                                qs: torch.Tensor, pool_d2: torch.Tensor,
                                stats: torch.Tensor, *, i: int, chunk: int,
                                g: int, znorm: bool,
-                               gkth: Optional[torch.Tensor] = None
+                               gkth: Optional[torch.Tensor] = None,
+                               otile: Optional[int] = None
                                ) -> torch.Tensor:
-    """`fused_gather_ed_chunk` through the long-row kernel, at any qlen:
-    the same counters and, at a qlen both take, the same partials bit
-    for bit (blocks of `ed_chunk_tile(qlen, g, long=True)` rows)."""
+    """`fused_gather_ed_chunk` through the long-row kernel, at any qlen
+    and g: the same counters and, at a qlen both take, the same partials
+    bit for bit (blocks of `ed_chunk_tile(qlen, g, long=True)` rows).
+    Past one block's g (or at a forced `otile`) a row's offsets take a
+    block each `offset_tile`: a partials list a (row block, offset
+    tile), so the pool after `pool_merge_partials` is the untiled one's
+    bit for bit."""
     return _ed_chunk(fused_gather_ed_chunk_long, True, data, csum, csum2,
                      csum_lo, csum2_lo, center, sids, anchors, n_master,
-                     lbs2, qs, pool_d2, stats, i, chunk, g, znorm, gkth)
+                     lbs2, qs, pool_d2, stats, i, chunk, g, znorm, gkth,
+                     otile)
 
 
 fused_gather_ed_chunk_long.launches = 0
@@ -300,7 +330,7 @@ fused_gather_ed_chunk_long.launches = 0
 
 def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, qs, eps2, ovf, stats, i, chunk,
-              g, znorm, no_ovf):
+              g, znorm, no_ovf, otile=None):
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
@@ -310,12 +340,13 @@ def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
                 anchors, n_master, lbs2, (("qs", qs),), eps2, stats, i,
                 chunk, ovf)
     no_ovf = n_pad // chunk if no_ovf is None else no_ovf
+    force = _otile(what, otile)
     if dev.type == "cpu":
         return ref.fused_gather_ed_range_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, qs, eps2, ovf, stats, i=i, chunk=chunk, g=g,
             znorm=znorm, no_ovf=no_ovf)
-    ed_chunk_tile(qlen, g, long)            # raises where no block fits
+    ed_chunk_tile(qlen, g, long, force)     # raises where no block fits
     out = torch.empty((b, chunk * g), dtype=torch.float32, device=dev)
     lib = _build.library("fused_verify")
     entry = (lib.ulisse_fused_gather_ed_range_long if long
@@ -326,7 +357,7 @@ def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
         lbs2.data_ptr(), qs.data_ptr(), eps2.data_ptr(), ovf.data_ptr(),
         stats.data_ptr(), out.data_ptr(), s, n, b, chunk, qlen, g,
-        int(znorm), n_pad, i * chunk, no_ovf,
+        int(znorm), n_pad, i * chunk, no_ovf, *((force,) if long else ()),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
@@ -376,25 +407,29 @@ def fused_gather_ed_range_long(data: torch.Tensor, csum: torch.Tensor,
                                qs: torch.Tensor, eps2: torch.Tensor,
                                ovf: torch.Tensor, stats: torch.Tensor, *,
                                i: int, chunk: int, g: int, znorm: bool,
-                               no_ovf: Optional[int] = None) -> torch.Tensor:
-    """`fused_gather_ed_range` through the long-row kernel, at any qlen:
-    the same counters and, at a qlen both take, the same d2 bit for
-    bit."""
+                               no_ovf: Optional[int] = None,
+                               otile: Optional[int] = None) -> torch.Tensor:
+    """`fused_gather_ed_range` through the long-row kernel, at any qlen
+    and g: the same counters and, at a qlen both take, the same d2 bit
+    for bit, offset-tiled or not (`otile` forces the tile)."""
     return _ed_range(fused_gather_ed_range_long, True, data, csum, csum2,
                      csum_lo, csum2_lo, center, sids, anchors, n_master,
-                     lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm, no_ovf)
+                     lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm, no_ovf,
+                     otile)
 
 
 fused_gather_ed_range_long.launches = 0
 
 
 def _lb(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center, sids,
-        anchors, dtw_lo, dtw_hi, g, rows, znorm):
+        anchors, dtw_lo, dtw_hi, g, rows, znorm, otile=None):
     dev = data.device
     s, n = data.shape
     b, qlen = dtw_lo.shape
     _check(wrapper.__name__, data, csum, csum2, csum_lo, csum2_lo, center,
            sids, anchors, rows, (("dtw_lo", dtw_lo), ("dtw_hi", dtw_hi)))
+    long = entry.endswith("_long")
+    otile = _otile(wrapper.__name__, otile)
     if dev.type == "cpu":
         return ref.fused_gather_lb_keogh_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
@@ -406,7 +441,7 @@ def _lb(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center, sids,
         csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
         sids.data_ptr(), anchors.data_ptr(), dtw_lo.data_ptr(),
         dtw_hi.data_ptr(), lb.data_ptr(), mu.data_ptr(), sd.data_ptr(),
-        s, n, b, rows, qlen, g, int(znorm),
+        s, n, b, rows, qlen, g, int(znorm), *((otile,) if long else ()),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
@@ -446,12 +481,14 @@ def fused_gather_lb_keogh_long(data: torch.Tensor, csum: torch.Tensor,
                                csum2_lo: torch.Tensor, center: torch.Tensor,
                                sids: torch.Tensor, anchors: torch.Tensor,
                                dtw_lo: torch.Tensor, dtw_hi: torch.Tensor, *,
-                               g: int, rows: int, znorm: bool):
-    """`fused_gather_lb_keogh` through the long-row kernel, at any qlen:
-    the same (lb2, mu, sd), bit for bit where both take the shape."""
+                               g: int, rows: int, znorm: bool,
+                               otile: Optional[int] = None):
+    """`fused_gather_lb_keogh` through the long-row kernel, at any qlen
+    and g: the same (lb2, mu, sd), bit for bit where both take the shape
+    (`otile` forces the offsets a block takes)."""
     return _lb(fused_gather_lb_keogh_long, "ulisse_fused_gather_lb_keogh_long",
                data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
-               dtw_lo, dtw_hi, g, rows, znorm)
+               dtw_lo, dtw_hi, g, rows, znorm, otile)
 
 
 fused_gather_lb_keogh_long.launches = 0
@@ -459,7 +496,7 @@ fused_gather_lb_keogh_long.launches = 0
 
 def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats,
-              i, chunk, g, znorm, no_ovf=None, gkth=None):
+              i, chunk, g, znorm, no_ovf=None, gkth=None, otile=None):
     """The LB chunk entries: k-NN (ovf None, cut the pool's (B, k) d2,
     gkth the sharded scan's (B,) or None) or range (cut eps2 (B,), ovf
     (B,), no_ovf its no-overflow value)."""
@@ -474,6 +511,7 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
                                           ("dtw_hi", dtw_hi)),
                 cut, stats, i, chunk, ovf, gkth)
     no_ovf = n_pad // chunk if no_ovf is None else no_ovf
+    force = _otile(what, otile)
     if dev.type == "cpu":
         if ovf is None:
             return ref.fused_gather_lb_keogh_chunk_ref(
@@ -504,7 +542,7 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         slist.data_ptr(), nsurv.data_ptr(), d2.data_ptr(),
         cand_sid.data_ptr(), cand_off.data_ptr(), s, n, b, chunk, qlen, g,
         int(znorm), n_pad, i * chunk, cut.shape[-1] if ovf is None else 1,
-        int(ovf is not None), no_ovf,
+        int(ovf is not None), no_ovf, *((force,) if long else ()),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
@@ -566,14 +604,16 @@ def fused_gather_lb_keogh_chunk_long(
         sids: torch.Tensor, anchors: torch.Tensor, n_master: torch.Tensor,
         lbs2: torch.Tensor, dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
         pool_d2: torch.Tensor, stats: torch.Tensor, *, i: int, chunk: int,
-        g: int, znorm: bool, gkth: Optional[torch.Tensor] = None):
+        g: int, znorm: bool, gkth: Optional[torch.Tensor] = None,
+        otile: Optional[int] = None):
     """`fused_gather_lb_keogh_chunk` through the long-row kernel, at any
-    qlen: the same outputs and counters, bit for bit where both take the
-    shape (the survivor list in any order)."""
+    qlen and g: the same outputs and counters, bit for bit where both
+    take the shape (the survivor list in any order), offset-tiled or not
+    (`otile` forces the offsets a block takes)."""
     return _lb_chunk(fused_gather_lb_keogh_chunk_long, True, data, csum,
                      csum2, csum_lo, csum2_lo, center, sids, anchors,
                      n_master, lbs2, dtw_lo, dtw_hi, pool_d2, None, stats, i,
-                     chunk, g, znorm, gkth=gkth)
+                     chunk, g, znorm, gkth=gkth, otile=otile)
 
 
 fused_gather_lb_keogh_chunk_long.launches = 0
@@ -617,14 +657,15 @@ def fused_gather_lb_keogh_range_long(
         lbs2: torch.Tensor, dtw_lo: torch.Tensor, dtw_hi: torch.Tensor,
         eps2: torch.Tensor, ovf: torch.Tensor, stats: torch.Tensor, *,
         i: int, chunk: int, g: int, znorm: bool,
-        no_ovf: Optional[int] = None):
+        no_ovf: Optional[int] = None, otile: Optional[int] = None):
     """`fused_gather_lb_keogh_range` through the long-row kernel, at any
-    qlen: the same outputs and counters, bit for bit where both take the
-    shape (the survivor list in any order)."""
+    qlen and g: the same outputs and counters, bit for bit where both
+    take the shape (the survivor list in any order), offset-tiled or not
+    (`otile` forces the offsets a block takes)."""
     return _lb_chunk(fused_gather_lb_keogh_range_long, True, data, csum,
                      csum2, csum_lo, csum2_lo, center, sids, anchors,
                      n_master, lbs2, dtw_lo, dtw_hi, eps2, ovf, stats, i,
-                     chunk, g, znorm, no_ovf)
+                     chunk, g, znorm, no_ovf, otile=otile)
 
 
 fused_gather_lb_keogh_range_long.launches = 0

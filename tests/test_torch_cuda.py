@@ -34,7 +34,13 @@ refused dispatch failing its ticket, and nothing left to build or load
 after `warmup`.  The sharded scan: the chunk entries with a mesh-wide
 k-th (`gkth`), also with a rank's gmap over a delta-first plan with
 pinned chunk heads (the delta family's step), and the distributed engine
-in worlds of 1 (NCCL) and 2 (gloo) against the local engine.
+in worlds of 1 (NCCL) and 2 (gloo) against the local engine.  The
+long-row entries past the g one block of a row takes (g = 20,480): a
+row's offsets tiled across blocks, against their plain versions (the
+chunk-entry checks above), a forced small tile bit for bit against the
+untiled entries at g = 49, and the engine answering such an index on
+the device backend (ED and DTW, k-NN and range) as a float64 brute
+force and the host backend do.
 """
 import dataclasses
 import threading
@@ -154,7 +160,7 @@ def _seed_pool(rng, dev, d2_all, k):
 
 def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0,
                    entry=fused_gather_ed_chunk, counted=fused_gather_ed_chunk,
-                   n=256, gkth=False):
+                   n=256, gkth=False, g=49, s=512):
     """Every chunk of a plan through (chunk entry + partials merge) and
     through the plain step (the contract entry's distances masked, the
     counters, the stable-sort merge) from one seed: the pools and
@@ -164,10 +170,10 @@ def _ed_chunk_walk(dev, k, qlen, znorm, chunk, n_chunks=3, seed=0,
     mesh-wide k-th, a quarter of each query's median candidate d2 (+inf
     for query 3, 0 for query 4: never active)."""
     rng = np.random.default_rng(seed + k + qlen + znorm + chunk)
-    g, b = 49, 8
+    b = 8
     n_pad = chunk * n_chunks
     c, sids, anchors, n_master, qs_np = _ed_plan(rng, dev, b, n_pad, qlen,
-                                                 n=n)
+                                                 n=n, g=g, s=s)
     qs = _t(qs_np, dev)
     a0 = (c.data, c.csum, c.csum2, c.csum_lo, c.csum2_lo, c.center)
     d2_all = fused_gather_ed(*a0, sids.reshape(-1), anchors.reshape(-1), qs,
@@ -1172,11 +1178,11 @@ def test_mindist_long_queries_match_plain(dev, b, nseg):
                                    atol=1e-6)
 
 
-def _long_args(dev, rng, qlen, b, rows, s=4, g=49, dtw_r=None):
-    """Regions of B * rows rows over s series of qlen + 200 points (row 0
-    overruns its series) and B queries (or, with dtw_r, their DTW
-    envelopes)."""
-    n = qlen + 200
+def _long_args(dev, rng, qlen, b, rows, s=4, g=49, dtw_r=None, n=None):
+    """Regions of B * rows rows over s series of n (default qlen + 200)
+    points (row 0 overruns its series) and B queries (or, with dtw_r,
+    their DTW envelopes)."""
+    n = qlen + 200 if n is None else n
     data = np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32)
     sids = rng.integers(0, s, b * rows).astype(np.int32)
     anchors = rng.integers(0, n - qlen + 1, b * rows).astype(np.int32)
@@ -1332,29 +1338,216 @@ def test_envelope_build_long_spans_bit_equal_to_plain(dev, s, n, lmin, lmax,
         assert torch.isfinite(k).any()
 
 
-def test_engine_refuses_gamma_past_the_card_chunk_entries(dev):
-    """Envelopes of more masters than the device scan's LB_Keogh chunk
-    entry takes (g = 14,500: past its long-row variant's 13,760 and, at
-    qlen 100, the staged kernel's ~14,450; their shared memory grows with
-    g) are refused before any launch, naming gamma; the host backend
-    answers."""
-    rng = np.random.default_rng(14_500)
-    data = np.cumsum(rng.normal(size=(2, 14_700)), -1).astype(np.float32)
-    p = EnvelopeParams(lmin=64, lmax=128, seg_len=16, card=64,
-                       gamma=14_499)
+@pytest.mark.parametrize("otile", [8, 16, 24])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_offset_tiled_ed_entries_equal_untiled(dev, otile, znorm):
+    """The long-row ED entries with a row's 49 offsets forced into tiles
+    of `otile` (a block each): the contract entry's d2 bit-equal to the
+    untiled and staged entries', the k-NN chunk entry's pools (after the
+    partials merge) and counters bit-equal to the plain step fed the
+    staged d2 over three chunks, and the range entry's dense d2 and
+    counters bit-equal to the staged range entry's."""
+    import functools
+    rng = np.random.default_rng(otile + znorm)
+    args = _long_args(dev, rng, 256, 3, 24)
+    tiled = fused_gather_ed_long(*args, g=49, rows=24, znorm=znorm,
+                                 otile=otile)
+    assert torch.equal(tiled, fused_gather_ed_long(*args, g=49, rows=24,
+                                                   znorm=znorm))
+    assert torch.equal(tiled, fused_gather_ed(*args, g=49, rows=24,
+                                              znorm=znorm))
+    _ed_chunk_walk(dev, 5, 256, znorm, chunk=40,
+                   entry=functools.partial(fused_gather_ed_chunk_long,
+                                           otile=otile),
+                   counted=fused_gather_ed_chunk_long)
+    b, g, rows = 8, 49, 64
+    coll, sids, anchors, nm, qs = _ed_plan(rng, dev, b, 3 * rows, 256)
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    q = _t(qs, dev)
+    d2_all = fused_gather_ed(*a0, sids.reshape(-1), anchors.reshape(-1), q,
+                             g=g, rows=3 * rows, znorm=znorm).reshape(b, -1)
+    lbs2 = _ed_bounds(rng, dev, d2_all.cpu().numpy(), 3 * rows)
+    eps2 = d2_all.median(dim=1).values.contiguous()
+    ovf = torch.full((b,), 3, dtype=torch.int32, device=dev)
+    st = [torch.zeros((b, 6), dtype=torch.int32, device=dev)
+          for _ in range(2)]
+    for i in range(3):
+        want = fused_gather_ed_range(*a0, sids, anchors, nm, lbs2, q, eps2,
+                                     ovf, st[0], i=i, chunk=rows, g=g,
+                                     znorm=znorm)
+        got = fused_gather_ed_range_long(*a0, sids, anchors, nm, lbs2, q,
+                                         eps2, ovf, st[1], i=i, chunk=rows,
+                                         g=g, znorm=znorm, otile=otile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(st[0], st[1])
+
+
+@pytest.mark.parametrize("otile", [2, 16, 30])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_offset_tiled_lb_keogh_entries_equal_untiled(dev, otile, znorm):
+    """The long-row LB_Keogh entries with a row's 49 offsets forced into
+    tiles of `otile`: (lb2, mu, sd) of the contract entry, and the chunk
+    entries' outputs and counters, k-NN and range, bit-equal to the
+    untiled long entries' (the survivor lists as sets)."""
+    rng = np.random.default_rng(otile + znorm + 7)
+    g, rows, b = 49, 24, 3
+    args = _long_args(dev, rng, 256, b, rows, dtw_r=25)
+    for x, y in zip(fused_gather_lb_keogh_long(*args, g=g, rows=rows,
+                                               znorm=znorm),
+                    fused_gather_lb_keogh_long(*args, g=g, rows=rows,
+                                               znorm=znorm, otile=otile)):
+        assert torch.equal(x, y)
+    a0, plan, env = _lb_plan(dev, rng, args, rows, b, g)
+    cut = _t(np.full(b, np.inf, np.float32), dev)
+    cut[0] = 0.0
+    cut[1] = float(ref.fused_gather_lb_keogh_ref(
+        *args, g=g, rows=rows, znorm=znorm)[0][rows:2 * rows].median())
+    ovf = torch.full((b,), 2, dtype=torch.int32, device=dev)
+    for entry, tail in ((fused_gather_lb_keogh_chunk_long,
+                         (cut[:, None].contiguous(),)),
+                        (fused_gather_lb_keogh_range_long, (cut, ovf))):
+        st = [torch.zeros((b, 6), dtype=torch.int32, device=dev)
+              for _ in range(2)]
+        a = entry(*a0, *plan, *env, *tail, st[0], i=1, chunk=rows, g=g,
+                  znorm=znorm)
+        z = entry(*a0, *plan, *env, *tail, st[1], i=1, chunk=rows, g=g,
+                  znorm=znorm, otile=otile)
+        torch.cuda.synchronize()
+        for i in (0, 1, 2, 4, 6, 7):
+            assert torch.equal(a[i], z[i])
+        assert torch.equal(st[0], st[1])
+        surv = torch.zeros_like(a[5], dtype=torch.bool)
+        for q in range(b):
+            n_q = int(a[4][q])
+            assert torch.equal(a[3][q, :n_q].sort().values,
+                               z[3][q, :n_q].sort().values)
+            surv[q, a[3][q, :n_q].long()] = True
+        assert torch.isinf(a[5][~surv]).all()
+        assert torch.isinf(z[5][~surv]).all()
+
+
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_long_entries_past_one_block_g_match_plain(dev, znorm):
+    """g = 20,480, past the g one block of a row takes (18,688 ED, 13,760
+    LB_Keogh): the long-row entries split each row's offsets into tiles
+    (`offset_tile`) and match their plain versions: the ED contract
+    entry within rtol 1e-4 / atol 1e-3, its k-NN chunk entry and the
+    partials merge bit-equal to the plain step over two chunks, its
+    range entry bit-equal to the plain step fed the contract entry's d2;
+    the LB_Keogh contract entry (lb2 within rtol 2e-4 / atol 2e-3, mu and
+    sd bit-equal) and its chunk entries in both cuts (the chunk test's
+    checks)."""
+    from repro_torch.kernels.fused_verify import offset_tile, staged
+    g, qlen, rows, b = 20_480, 128, 4, 3
+    assert not staged("ed", qlen, g) and not staged("dtw", qlen, g)
+    assert offset_tile("ed", qlen, g) < g and offset_tile("dtw", qlen, g) < g
+    rng = np.random.default_rng(g + znorm)
+    n = qlen + g + 300
+    args = _long_args(dev, rng, qlen, b, rows, g=g, n=n)
+    got = fused_gather_ed(*args, g=g, rows=rows, znorm=znorm)
+    want = ref.fused_gather_ed_ref(*args, g=g, rows=rows, znorm=znorm)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    _ed_chunk_walk(dev, 5, qlen, znorm, chunk=4, n_chunks=2,
+                   counted=fused_gather_ed_chunk_long, g=g,
+                   n=qlen + 4 * g, s=8)
+    b8, n_pad = 8, 8
+    coll, sids, anchors, nm, qs = _ed_plan(rng, dev, b8, n_pad, qlen, s=8,
+                                           n=qlen + 4 * g, g=g)
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    q = _t(qs, dev)
+    d2_all = fused_gather_ed(*a0, sids.reshape(-1), anchors.reshape(-1), q,
+                             g=g, rows=n_pad, znorm=znorm).reshape(b8, -1)
+    lbs2 = _ed_bounds(rng, dev, d2_all.cpu().numpy(), n_pad)
+    eps2 = d2_all.median(dim=1).values.contiguous()
+    ovf = torch.full((b8,), 2, dtype=torch.int32, device=dev)
+    st = torch.zeros((b8, 6), dtype=torch.int32, device=dev)
+    st_plain = st.clone()
+    for i in range(2):
+        cols = slice(i * 4, (i + 1) * 4)
+        dist = fused_gather_ed(*a0, sids[:, cols].reshape(-1).contiguous(),
+                               anchors[:, cols].reshape(-1).contiguous(), q,
+                               g=g, rows=4, znorm=znorm)
+        want = ref.fused_gather_ed_range_ref(
+            *a0, sids, anchors, nm, lbs2, q, eps2, ovf, st_plain, i=i,
+            chunk=4, g=g, znorm=znorm, dist=dist)
+        before = fused_gather_ed_range_long.launches
+        got = fused_gather_ed_range(*a0, sids, anchors, nm, lbs2, q, eps2,
+                                    ovf, st, i=i, chunk=4, g=g, znorm=znorm)
+        torch.cuda.synchronize()
+        assert fused_gather_ed_range_long.launches == before + 1
+        assert torch.equal(got, want) and torch.equal(st, st_plain)
+    args = _long_args(dev, rng, qlen, b, rows, g=g, n=n, dtw_r=12)
+    got = fused_gather_lb_keogh(*args, g=g, rows=rows, znorm=znorm)
+    want = ref.fused_gather_lb_keogh_ref(*args, g=g, rows=rows, znorm=znorm)
+    _close(got[0], want[0], 2e-4, 2e-3)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    _lb_chunk_check(dev, rng, args, rows, znorm,
+                    counted=fused_gather_lb_keogh_chunk_long, b=b, g=g)
+    _lb_chunk_check(dev, rng, args, rows, znorm,
+                    counted=fused_gather_lb_keogh_range_long, b=b, g=g,
+                    range_mode=True)
+
+
+def test_engine_takes_gamma_past_one_block_on_the_card(dev):
+    """Envelopes of 20,480 masters (past the g one block of a row takes:
+    18,688 ED, 13,760 LB_Keogh) run on the device scan, ED and DTW, k-NN
+    and range, through the offset-tiled long-row chunk entries: the
+    answers equal a float64 brute force (ED) and the host backend
+    (DTW); nothing is refused and the host backend is not used in the
+    device scan's place."""
+    from repro_torch.kernels.dtw_band import dtw_survivors as surv_entry
+    rng = np.random.default_rng(20_480)
+    data = np.cumsum(rng.normal(size=(4, 41_000)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=128, lmax=256, seg_len=16, card=64,
+                       gamma=20_479)
     gpu = UlisseEngine.from_collection(
-        Collection.from_array(data, device=dev), p, block_size=2,
-        num_levels=1, device=dev)
-    q = data[1, 30:130] + rng.normal(size=100).astype(np.float32) * 0.05
-    spec = dict(k=2, measure="dtw", r=5)
-    before = (mindist_paa.launches, fused_gather_lb_keogh_chunk.launches,
-              fused_gather_lb_keogh_chunk_long.launches)
-    with pytest.raises(ValueError, match="gamma=14499"):
-        gpu.search(q, QuerySpec(**spec))
-    assert (mindist_paa.launches, fused_gather_lb_keogh_chunk.launches,
-            fused_gather_lb_keogh_chunk_long.launches) == before
-    res = gpu.search(q, QuerySpec(scan_backend="host", **spec))
-    assert (res.series[0], res.offsets[0]) == (1, 30)
+        Collection.from_array(data, device=dev), p, num_levels=1,
+        device=dev)
+    q = data[2, 9_000:9_160] + rng.normal(size=160).astype(np.float32) * 0.05
+    before = (fused_gather_ed_chunk_long.launches,
+              fused_gather_lb_keogh_chunk_long.launches,
+              fused_gather_ed_range_long.launches,
+              fused_gather_lb_keogh_range_long.launches,
+              surv_entry.launches)
+    ed = gpu.search(q, QuerySpec(k=3))
+    win = np.lib.stride_tricks.sliding_window_view(
+        data.astype(np.float64), 160, axis=1)
+    qn = (q - q.mean()) / q.std()
+    mu, sd = win.mean(-1), win.std(-1)
+    d2 = (((win - mu[..., None]) / np.maximum(sd, 1e-8)[..., None]
+           - qn) ** 2).sum(-1)
+    best = np.sort(d2.ravel())[:3]
+    np.testing.assert_allclose(np.asarray(ed.dists) ** 2, best,
+                               rtol=1e-3, atol=5e-3)
+    dspec = dict(k=3, measure="dtw", r=16)
+    dt = gpu.search(q, QuerySpec(**dspec))
+    host = gpu.search(q, QuerySpec(scan_backend="host", **dspec))
+    assert (list(dt.series), list(dt.offsets)) == \
+        (list(host.series), list(host.offsets))
+    np.testing.assert_allclose(dt.dists, host.dists, rtol=1e-4,
+                               atol=1e-5)
+    eps = float(ed.dists[-1]) * 1.5
+    er = gpu.search(q, QuerySpec(eps=eps))
+    # the float64 hit set, but for windows within 5e-3 of eps^2
+    near = np.abs(d2 - eps * eps) <= 5e-3
+    want = set(map(tuple, np.argwhere((d2 <= eps * eps) & ~near).tolist()))
+    got = set(zip(er.series.tolist(), er.offsets.tolist()))
+    assert want <= got <= want | set(map(tuple, np.argwhere(near).tolist()))
+    drr = gpu.search(q, QuerySpec(eps=float(dt.dists[-1]), **dspec))
+    drh = gpu.search(q, QuerySpec(eps=float(dt.dists[-1]),
+                                  scan_backend="host", **dspec))
+    assert sorted(zip(drr.series, drr.offsets)) == \
+        sorted(zip(drh.series, drh.offsets))
+    torch.cuda.synchronize()
+    after = (fused_gather_ed_chunk_long.launches,
+             fused_gather_lb_keogh_chunk_long.launches,
+             fused_gather_ed_range_long.launches,
+             fused_gather_lb_keogh_range_long.launches, surv_entry.launches)
+    assert all(a > b for a, b in zip(after, before))
 
 
 def _paged_inputs(dev, measure, seed, s=512, n=256, b=8, n_pad=1024, qlen=160):

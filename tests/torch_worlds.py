@@ -634,3 +634,155 @@ def elastic_job(rank, world, qs, specs, port_path, ref_path, base, params,
     out.update(_searches(world, "built", build_engine(base, params, None, 4),
                          qs, specs))
     return out, rec
+
+
+# -- rank grids (multi-axis meshes) -------------------------------------------
+
+# The reference's side of the grid tests: argv as REFERENCE takes them; the
+# job a pickled (data, params, breakpoints, {label: axes}, cases), every
+# engine on jax.make_mesh((2, 2), ("data", "model")).
+REFERENCE_GRID = r"""
+import pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.core import EnvelopeParams, QuerySpec, UlisseEngine
+sys.path.insert(0, sys.argv[3])
+from torch_worlds import flatten
+with open(sys.argv[1], "rb") as f:
+    data, params, bp, grids, cases = pickle.load(f)
+mesh = jax.make_mesh((2, 2), ("data", "model"))
+out = {}
+for label, axes in grids.items():
+    eng = UlisseEngine.distributed(mesh, EnvelopeParams(**params), data,
+                                   breakpoints=jnp.asarray(bp), axes=axes)
+    for name, (qs, spec) in cases.items():
+        out.update(flatten(label, name, eng.search(qs, QuerySpec(**spec))))
+np.savez(sys.argv[2], **out)
+"""
+
+
+def grid_job(rank, world, data, params, bp, grids, cases, tmp):
+    """Distributed engines over a 2 x 2 DeviceMesh ("data", "model") of
+    this world, one for each {label: axes} of `grids`: `cases` (name ->
+    (queries, spec kwargs)) searched on each; each engine saved under
+    `tmp`/label and the save opened under every grid's axes on the same
+    mesh (the save's recorded axes win, as the reference reopens) and on
+    the whole group as a one-axis grid of 4 (a re-shard where the save
+    holds 2 shards), each opened engine searched again; and a burst
+    served by rank 0 over the first grid while every other rank,
+    replicas included, follows.  Returns (arrays keyed "label/case",
+    "label>opened_axes/case" and "served/case", {label: (shards, shard
+    index, replica, cold)} for every engine built or opened)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import EnvelopeParams, QuerySpec, UlisseEngine
+    from repro_torch.serve import ServeConfig, UlisseServer, follow
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    p = EnvelopeParams(**params)
+    out, info = {}, {}
+
+    def record(label, eng):
+        s = eng._shard
+        info[label] = (s.shards, s.rank, s.replica, s.sections is not None)
+        for name, (qs, spec) in cases.items():
+            out.update(flatten(label, name, eng.search(qs, QuerySpec(**spec))))
+
+    engines = {}
+    for label, axes in grids.items():
+        engines[label] = eng = UlisseEngine.distributed(
+            mesh, p, data, breakpoints=bp, device="cpu", axes=axes)
+        record(label, eng)
+        eng.save(os.path.join(tmp, label))
+    for label in grids:
+        path = os.path.join(tmp, label)
+        for other, axes in grids.items():
+            record(f"{label}>{other}", UlisseEngine.open(
+                path, mesh=mesh, axes=axes, device="cpu"))
+        record(f"{label}>world", UlisseEngine.open(
+            path, mesh=dist.group.WORLD, device="cpu"))
+    eng = engines[next(iter(grids))]
+    name, (qs, spec) = next(iter(cases.items()))
+    if rank == 0:
+        server = UlisseServer(eng, QuerySpec(**spec),
+                              ServeConfig(window_ms=20, max_batch=4))
+        got = [server.search(q, timeout=120) for q in qs]
+        server.close()
+        out.update(flatten("served", name, got))
+        info["served"] = server.metrics.snapshot()["total"]["completed"]
+    else:
+        info["replayed"] = follow(eng)
+    return out, info
+
+
+# -- the training collectives ---------------------------------------------------
+
+# The reference's side: argv as REFERENCE takes them; the job a pickled
+# list of (world, x (world, m), err (world, m), grads {name: array}, xm
+# (world * r, c), w (c, n)), each run under shard_map on a mesh of the
+# first `world` of the 4 forced host devices.
+REFERENCE_TRAIN = r"""
+import pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, PartitionSpec as P
+from repro.distributed.collectives import (
+    ef_int8_allreduce, make_compressed_grad_transform,
+    ring_allgather_matmul)
+from repro.distributed.compat import shard_map
+with open(sys.argv[1], "rb") as f:
+    job = pickle.load(f)
+out = {}
+for world, x, err, grads, xm, w in job:
+    mesh = Mesh(np.array(jax.devices()[:world]), ("x",))
+
+    def local(xs, es):
+        red, new = ef_int8_allreduce(xs[0], es[0], "x")
+        return red[None], new[None]
+    red, new = shard_map(local, mesh=mesh, in_specs=(P("x"), P("x")),
+                         out_specs=(P("x"), P("x")), check=False)(
+        jnp.asarray(x), jnp.asarray(err))
+    out[f"{world}/ef"] = np.asarray(red)
+    out[f"{world}/err"] = np.asarray(new)
+    g = make_compressed_grad_transform(mesh, axes=("x",))(
+        {k: jnp.asarray(v) for k, v in grads.items()})
+    for k, v in g.items():
+        out[f"{world}/grad/{k}"] = np.asarray(v)
+
+    def ring(xs, ws):
+        return ring_allgather_matmul(xs, ws, "x", world)[None]
+    y = shard_map(ring, mesh=mesh, in_specs=(P("x"), P()),
+                  out_specs=P("x"), check=False)(jnp.asarray(xm),
+                                                 jnp.asarray(w))
+    out[f"{world}/ring"] = np.asarray(y)
+np.savez(sys.argv[2], **out)
+"""
+
+
+def train_job(rank, world, x, err, grads, xm, w):
+    """The training collectives on this rank's slices: its row of x and
+    err through `ef_int8_allreduce` (and `int8_quantize` of x + err), the
+    replicated `grads` ({name: array}, and a list and tuple of them)
+    through `make_compressed_grad_transform` over a one-dim DeviceMesh
+    and over the default group, and its block of xm through
+    `ring_allgather_matmul` with w."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import collectives as c
+    xt, et = (torch.from_numpy(np.ascontiguousarray(a[rank]))
+              for a in (x, err))
+    red, new = c.ef_int8_allreduce(xt, et)
+    codes, scale = c.int8_quantize(xt + et)
+    tree = {k: torch.from_numpy(v) for k, v in grads.items()}
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    on_mesh = c.make_compressed_grad_transform(mesh)(tree)
+    nested = c.make_compressed_grad_transform()(
+        [tuple(tree.values()), {"a": tree}])
+    m = xm.shape[0] // world
+    y = c.ring_allgather_matmul(
+        torch.from_numpy(np.ascontiguousarray(xm[rank * m:(rank + 1) * m])),
+        torch.from_numpy(w))
+    return {"ef": red.numpy(), "err": new.numpy(), "codes": codes.numpy(),
+            "scale": float(scale),
+            "grad": {k: v.numpy() for k, v in on_mesh.items()},
+            "nested": (type(nested).__name__, type(nested[0]).__name__,
+                       [v.numpy() for v in nested[0]],
+                       {k: v.numpy() for k, v in nested[1]["a"].items()}),
+            "ring": y.numpy()}
