@@ -283,6 +283,10 @@ LQ = dict(lmin=20_000, lmax=30_000, seg_len=16, gamma=48, card=256,
           znorm=True)
 LQ_ED, LQ_DTW = 29_000, 20_000
 LQ_R = LQ_DTW // 100
+# the wide DP entries timed at the long phase's (qlen, r): candidates of
+# dtw_band_wide ([13]) and the chunk's candidates a query of
+# dtw_survivors_wide ([15], every fourth a survivor)
+LQ_DP_CANDS, LQ_DP_M = 132, 512
 # [2]'s long-row checks per measure: a qlen just past the staged chunk
 # entry at g = 49, and a qlen both kernels take
 LONG_CHECK = {"ed": (28_769, 4_000), "dtw": (19_305, 4_000)}
@@ -419,6 +423,10 @@ REPLACES = {
                            "src/repro/kernels/dtw_band.py:73"),
     "dtw_band_wide": ("src/repro_torch/kernels/csrc/dtw_band.cu",
                       "src/repro/kernels/dtw_band.py:73"),
+    "dtw_survivors_wide_long": ("src/repro_torch/kernels/csrc/dtw_band.cu",
+                                "src/repro/kernels/dtw_band.py:73"),
+    "dtw_band_wide_long": ("src/repro_torch/kernels/csrc/dtw_band.cu",
+                           "src/repro/kernels/dtw_band.py:73"),
     "envelope_znorm": ("src/repro_torch/kernels/csrc/envelope.cu",
                        "src/repro/kernels/envelope.py:65"),
     "batch_ed": ("src/repro_torch/kernels/csrc/batch_ed.cu",
@@ -538,14 +546,20 @@ def time_calls(torch, fns, reps=20, budget_s=0.25, events=1):
 
 
 def timing(torch, call, plain, nbytes, ops, err, shape, library=None,
-           events=1):
+           events=1, plain_ms=None):
     """One timing record: kernel and plain version (and the one PyTorch
     call computing the same function, where there is one), each by its
     device time where the profiler saw the card (else by CUDA events,
     and the record says which), beside the bound.  `events`: the device
-    activities one call of the kernel's wrapper makes."""
+    activities one call of the kernel's wrapper makes.  `plain_ms`: the
+    plain version's time, taken by CUDA events around its one call (a
+    plain wavefront of 40,000 diagonals, ~16 s a call), in place of
+    timing `plain` again."""
     k_dev, k_ev, k_timer = time_calls(torch, call, events=events)
-    p_dev, p_ev, p_timer = time_calls(torch, plain)
+    if plain_ms is None:
+        p_dev, p_ev, p_timer = time_calls(torch, plain)
+    else:
+        p_dev, p_ev, p_timer = None, plain_ms, "events, one call"
     lib_ms = None
     if library is not None:
         l_dev, l_ev, _ = time_calls(torch, library)
@@ -1161,8 +1175,8 @@ def survivor_inputs(torch, dev, rng, data, qlen: int, b: int = BATCH,
 
 def check_wide_kernels(torch, dev, rng):
     """The shapes past the warp entries and the host kernels' staging:
-    the wide DP entries against their plain versions at qlen 600 / r 600
-    and qlen 1536 / r 1535, and against the warp entries bit for bit at
+    the wide DP entries against their plain versions bit for bit at qlen
+    600 / r 600 and qlen 1536 / r 1535, and against the warp entries at
     W = 1023; batch_ed (L 12,300, Qb 1; L 2,048, Qb 8) and lb_keogh
     (L 6,200).  Returns the max abs error of each."""
     from repro_torch.core import dtw
@@ -1180,16 +1194,14 @@ def check_wide_kernels(torch, dev, rng):
         q = torch.from_numpy(rng.normal(size=qlen).astype(np.float32)).to(dev)
         c = torch.from_numpy(rng.normal(size=(n_cand, qlen)).astype(
             np.float32)).to(dev)
-        errs["dtw_band_wide"] = max(errs["dtw_band_wide"], check_close(
-            torch, "dtw_band_wide", dtw_band_wide(q, c, r),
-            ref.dtw_band_ref(q, c, r)))
+        check_equal(torch, "dtw_band_wide", dtw_band_wide(q, c, r),
+                    ref.dtw_band_ref(q, c, r))
         args, d2 = survivor_inputs(torch, dev, rng, data, qlen,
                                    m=256 if qlen < 1000 else 32)
-        errs["dtw_survivors_wide"] = max(errs["dtw_survivors_wide"],
-                                         check_close(
-            torch, "dtw_survivors_wide",
-            dtw_survivors_wide(*args, d2.clone(), r=r, znorm=True),
-            ref.dtw_survivors_ref(*args, d2.clone(), r=r, znorm=True)))
+        check_equal(torch, "dtw_survivors_wide",
+                    dtw_survivors_wide(*args, d2.clone(), r=r, znorm=True),
+                    ref.dtw_survivors_ref(*args, d2.clone(), r=r,
+                                          znorm=True))
     # W = 1023: both entries take it, with the same bits
     q = torch.from_numpy(rng.normal(size=700).astype(np.float32)).to(dev)
     c = torch.from_numpy(rng.normal(size=(256, 700)).astype(np.float32)
@@ -1268,6 +1280,19 @@ def envelope_work(p, n: int):
     per = np.maximum(longest - first + 1, 0)
     return (int(per.sum()), int((longest - p.lmin + 1).sum()),
             int((per > 0).sum()))
+
+
+def timed_call(torch, fn):
+    """(fn(), its ms by CUDA events): one call of a slow plain version,
+    checked and timed at once."""
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    out = fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return out, ev0.elapsed_time(ev1)
 
 
 def check_equal(torch, name, got, want):
@@ -5228,7 +5253,7 @@ def main() -> int:
         size=(4_096, wq)), -1).astype(np.float32)).to(dev)).contiguous()
     call = [lambda: dtw_band_wide(q_w, c_w, wr)]
     plain = [lambda: ref.dtw_band_ref(q_w, c_w, wr)]
-    err = check_close(torch, "dtw_band_wide", call[0](), plain[0]())
+    err = check_equal(torch, "dtw_band_wide", call[0](), plain[0]())
     timings[("dtw_band_wide", wq)] = timing(
         torch, call, plain, c_w.numel() * 4 + wq * 4 + c_w.shape[0] * 4,
         5 * c_w.shape[0] * dtw_cells(wq, wr), err,
@@ -5241,11 +5266,28 @@ def main() -> int:
                                        znorm=True)]
     plain = [lambda: ref.dtw_survivors_ref(*s_args, s_d2.clone(), r=wr,
                                            znorm=True)]
-    err = check_close(torch, "dtw_survivors_wide", call[0](), plain[0]())
+    err = check_equal(torch, "dtw_survivors_wide", call[0](), plain[0]())
     timings[("dtw_survivors_wide", wq)] = timing(
         torch, call, plain, n_surv * (wq * 4 + 6 * 4) + BATCH * wq * 4
         + BATCH * 4, 5 * n_surv * dtw_cells(wq, wr), err,
         f"B={BATCH} M=512 r={wr} surv={n_surv}")
+    # dtw_band_wide at the long-query phase's shape ([15]: qlen 20,000, r
+    # 200, a band of one warp streamed past 6,144 points); the plain
+    # version's 40,000 diagonals run once, checked and timed
+    q_l = torch.from_numpy(wrng.normal(size=LQ_DTW).astype(np.float32)).to(
+        dev)
+    c_l = znormalize(torch.from_numpy(np.cumsum(wrng.normal(
+        size=(LQ_DP_CANDS, LQ_DTW)), -1).astype(np.float32)).to(dev)
+                     ).contiguous()
+    call = [lambda: dtw_band_wide(q_l, c_l, LQ_R)]
+    want, p_ms = timed_call(torch, lambda: ref.dtw_band_ref(q_l, c_l, LQ_R))
+    err = check_equal(torch, "dtw_band_wide at [15]'s shape", call[0](),
+                      want)
+    timings[("dtw_band_wide", LQ_DTW)] = timing(
+        torch, call, None, c_l.numel() * 4 + LQ_DTW * 4 + LQ_DP_CANDS * 4,
+        5 * LQ_DP_CANDS * dtw_cells(LQ_DTW, LQ_R), err,
+        f"N={LQ_DP_CANDS} qlen={LQ_DTW} r={LQ_R}", plain_ms=p_ms)
+    del q_l, c_l
     del c_w, ldata_t, s_args, s_d2
     host = executor.host_envelopes(index)
     for qlen, r in DTW_CASES:
@@ -5294,7 +5336,8 @@ def main() -> int:
         del wns
     for key, t in timings.items():
         if key[0] in ("envelope_znorm", "batch_ed", "lb_keogh",
-                      "dtw_band_wide", "dtw_survivors_wide"):
+                      "dtw_band_wide", "dtw_survivors_wide") and (
+                key[0] != "dtw_survivors_wide" or key[1] != LQ_DTW):
             lib = (f"  library {t['library_ms']:.4f} ms"
                    if t["library_ms"] is not None else "")
             log(f"[13] {key[0]:18s} {t['shape']:34s} kernel {t['ms']:.4f} ms"
@@ -5439,10 +5482,17 @@ def main() -> int:
         else:
             # the host backend's answers, and a float64 DP of every
             # reported window
+            zero_counts()
             t1 = time.perf_counter()
             host = qengine.search(qs_l, QuerySpec(
                 k=K, measure="dtw", r=LQ_R, scan_backend="host"))
             host_wall = time.perf_counter() - t1
+            lq["dtw_host_launches"] = read_counts(("dtw_band_wide",
+                                                   "dtw_band", "lb_keogh"))
+            if lq["dtw_host_launches"]["dtw_band_wide"] <= 0 or \
+                    lq["dtw_host_launches"]["dtw_band"]:
+                raise AssertionError("the long host DTW query did not run "
+                                     "its DP through dtw_band_wide")
             host_err = max(same_answers(a, b, 5e-3, "long DTW device vs host")
                            for a, b in zip(got, host))
             for res, d64 in zip(got, dtw64_many(
@@ -5526,6 +5576,17 @@ def main() -> int:
                                                   for x in st])),
             "mean_true_dists": float(np.mean([x.true_dist_computations
                                               for x in st]))}
+        if measure == "dtw":
+            # the DP's work on this path: survivors a query and a launch
+            lq[measure]["mean_dtw_full"] = float(np.mean([x.dtw_full
+                                                          for x in st]))
+            lq[measure]["dtw_per_launch"] = (
+                sum(x.dtw_full for x in st)
+                / max(1, ll["dtw_survivors_wide"]))
+            log(f"[15] long DTW path: {lq[measure]['mean_dtw_full']:.1f} "
+                f"DPs a query, {lq[measure]['dtw_per_launch']:.1f} a "
+                f"dtw_survivors_wide launch; the host query's launches "
+                f"{lq['dtw_host_launches']}")
         log(f"[15] long {measure} path: {len(qs_l)} queries of qlen {qlen}"
             + (f" at r {LQ_R}" if measure == "dtw" else "")
             + f" in {wall:.2f} s; launches {ll}; mean chunks "
@@ -5644,6 +5705,21 @@ def main() -> int:
                                   got[0], want[0])
                 for x, y in zip(got[1:3], want[1:3]):
                     check_equal(torch, f"{name} mu/sd", x, y)
+                # the survivors (lb2 exactly 0 at this cut) and every
+                # counter: the plain version's
+                st_a, st_b = (torch.zeros((BATCH, 6), dtype=torch.int32,
+                                          device=dev) for _ in range(2))
+                got_s = entry(*a0, *plan, dlo, dhi, *tail, st_a, i=0,
+                              chunk=rows, g=g, znorm=True)
+                want_s = plain_fn(*a0, *plan, dlo, dhi, *tail, st_b, i=0,
+                                  chunk=rows, g=g, znorm=True)
+                check_equal(torch, f"{name} counters", st_a, st_b)
+                check_equal(torch, f"{name} nsurv", got_s[4], want_s[4])
+                for b_ in range(BATCH):
+                    n_b = int(want_s[4][b_])
+                    check_equal(torch, f"{name} survivors",
+                                got_s[3][b_, :n_b].sort().values,
+                                want_s[3][b_, :n_b].sort().values)
                 ok_c = int(st_l[:, 3].sum())      # the entry's own count
                 if ok_c != m:
                     raise AssertionError(f"{name}: {ok_c} of {m} candidates "
@@ -5653,6 +5729,26 @@ def main() -> int:
                     f"B={BATCH} rows={rows} qlen={qlen} r={LQ_R} "
                     f"ok/call={ok_c} surv/call={int(got[4].sum())}",
                     events=2)
+            # the DP over a chunk's survivors at this (qlen, r): M =
+            # LQ_DP_M candidates a query, every fourth a survivor (the
+            # path above runs ~2,300 a launch; the plain version's 40,000
+            # diagonals run once, checked and timed)
+            s_args, s_d2 = survivor_inputs(torch, dev, lq_rng, qcoll.data,
+                                           qlen, m=LQ_DP_M)
+            n_surv = int(s_args[3].sum())
+            call = [lambda: dtw_survivors_wide(*s_args, s_d2.clone(),
+                                               r=LQ_R, znorm=True)]
+            want, p_ms = timed_call(torch, lambda: ref.dtw_survivors_ref(
+                *s_args, s_d2.clone(), r=LQ_R, znorm=True))
+            err = check_equal(torch, "dtw_survivors_wide at [15]'s shape",
+                              call[0](), want)
+            timings[("dtw_survivors_wide", qlen)] = timing(
+                torch, call, None, n_surv * (qlen * 4 + 6 * 4)
+                + BATCH * qlen * 4 + BATCH * 4,
+                5 * n_surv * dtw_cells(qlen, LQ_R), err,
+                f"B={BATCH} M={LQ_DP_M} r={LQ_R} surv={n_surv}",
+                plain_ms=p_ms)
+            del s_args, s_d2
         del call, plain
         # mindist over the long index's envelopes and blocks at this nseg
         nseg = qp.query_segments(qlen)
@@ -5701,9 +5797,11 @@ def main() -> int:
     lq["envelope_znorm_cells"] = LQ_SERIES * cells
     del xc, sums
     for key, t in timings.items():
-        if key[0] in ("fused_gather_ed_long", "fused_gather_lb_keogh_long") \
-                or (key[0].startswith("mindist") and key[1] in (LQ_ED,
-                                                                 LQ_DTW)):
+        if key[0] in ("fused_gather_ed_long", "fused_gather_lb_keogh_long",
+                      "fused_gather_ed_range_long",
+                      "fused_gather_lb_keogh_range_long") \
+                or (key[0].startswith(("mindist", "dtw_")) and key[1] in (
+                    LQ_ED, LQ_DTW)):
             log(f"[15] {key[0]:26s} {t['shape']:40s} kernel {t['ms']:.4f} ms"
                 f"  plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} "
                 f"ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']})")
@@ -5802,6 +5900,9 @@ def main() -> int:
                 "dtw_band": ("dtw_band", 256),
                 "dtw_survivors_wide": ("dtw_survivors_wide", LONG_CASE[0]),
                 "dtw_band_wide": ("dtw_band_wide", LONG_CASE[0]),
+                # the wide entries at the long-query phase's (qlen, r)
+                "dtw_survivors_wide_long": ("dtw_survivors_wide", LQ_DTW),
+                "dtw_band_wide_long": ("dtw_band_wide", LQ_DTW),
                 "envelope_znorm": ("envelope_znorm",),
                 "batch_ed": ("batch_ed", 256, 1, "znorm"),
                 "lb_keogh": ("lb_keogh", 256),
@@ -5852,6 +5953,8 @@ def main() -> int:
             "dtw_survivors_wide"],
         dtw_band_wide=results["long_path"]["host"]["launches"][
             "dtw_band_wide"],
+        dtw_survivors_wide_long=lq["dtw"]["launches"]["dtw_survivors_wide"],
+        dtw_band_wide_long=lq["dtw_host_launches"]["dtw_band_wide"],
         fused_gather_ed_long=lq["ed"]["launches"][
             "fused_gather_ed_chunk_long"],
         fused_gather_lb_keogh_long=lq["dtw"]["launches"][

@@ -62,10 +62,8 @@ SIGNATURES = {
         "ulisse_fused_gather_ed_chunk_tile": [_I, _I],
         "ulisse_fused_gather_ed_chunk_long_tile": [_I, _I, _I],
         "ulisse_fused_gather_lb_keogh_tile": [_I, _I],
-        "ulisse_fused_gather_lb_keogh_long_tile": [_I, _I, _I],
         # qlen, g, force
         "ulisse_fused_gather_ed_long_otile": [_I, _I, _I],
-        "ulisse_fused_gather_lb_keogh_long_otile": [_I, _I, _I],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, qs, pool_d2, gkth, stats, part, num_series, n,
         # batch, rows, qlen, g, znorm, n_pad, col0, k, stream
@@ -90,9 +88,10 @@ SIGNATURES = {
         "ulisse_fused_gather_lb_keogh": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
                                          _V, _V, _V, _V, _L, _I, _I, _I, _I,
                                          _I, _I, _V],
+        # the same and items, ptile: the long-row kernel
         "ulisse_fused_gather_lb_keogh_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I,
-            _I, _I, _I, _I, _I, _V],
+            _I, _I, _I, _I, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, dtw_lo, dtw_hi, cut, gkth, ovf, stats, lb, mu,
         # sd, slist, nsurv, dp_out, cand_sid, cand_off, num_series, n,
@@ -102,10 +101,11 @@ SIGNATURES = {
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
             _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L,
             _L, _I, _I, _I, _V],
+        # the same and items, ptile: the long-row kernel
         "ulisse_fused_gather_lb_keogh_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
             _V, _V, _V, _V, _V, _V, _V, _V, _L, _I, _I, _I, _I, _I, _I, _L,
-            _L, _I, _I, _I, _I, _V],
+            _L, _I, _I, _I, _I, _I, _V],
         # data, sids, anchors, mu, sd, out, num_series, n, num_rows, qlen,
         # g, stream
         "ulisse_gather_znorm": [_V, _V, _V, _V, _V, _V, _L, _I, _L, _I, _I,
@@ -120,12 +120,16 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _V],
         # l, r (returns floats, a long long)
         "ulisse_dtw_wide_scratch": [_I, _I],
-        # q, candidates, out, scratch, scratch_blocks, num, l, r, stream
-        "ulisse_dtw_band_wide": [_V, _V, _V, _V, _I, _L, _I, _I, _V],
+        # q, candidates, out, scratch, scratch_blocks, num, l, r, pairs,
+        # segs, stream
+        "ulisse_dtw_band_wide": [_V, _V, _V, _V, _I, _L, _I, _I, _I, _I,
+                                 _V],
         # data, qs, slist, nsurv, cand_sid, cand_off, mu, sd, out, scratch,
-        # scratch_blocks, num_series, n, batch, m, l, r, znorm, stream
+        # scratch_blocks, num_series, n, batch, m, l, r, znorm, pairs,
+        # segs, stream
         "ulisse_dtw_survivors_wide": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
-                                      _I, _L, _I, _I, _I, _I, _I, _I, _V],
+                                      _I, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _V],
     },
     "envelope": {
         # csum, csum2, lo, hi, num_series, n, n_env, lmin, lmax, gamma,

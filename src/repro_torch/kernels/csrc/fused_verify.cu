@@ -3,9 +3,11 @@
 // statistic, each with the TPU kernel's contract entry and the scan's
 // chunk entry: ulisse_fused_gather_ed (_chunk) and
 // ulisse_fused_gather_lb_keogh (_chunk).  Each entry has a long-row
-// variant (_long) for queries past its staging; past the g = gamma + 1
-// one block of a row takes, the long-row variants split a row's offsets
-// into tiles, a block each (grid z), with the same results.
+// variant (_long) for queries past its staging, with the same results:
+// past the g = gamma + 1 one block of a row takes, the long-row ED
+// variants split a row's offsets into tiles, a block each (grid z); the
+// long-row LB_Keogh variants take blocks of consecutive windows, so any
+// g fits them.
 //
 // ulisse_fused_gather_ed
 // Replaces repro/kernels/fused_verify.py::fused_gather_ed (Pallas body
@@ -135,7 +137,9 @@ constexpr int kSmemMax = 227 * 1024;
 constexpr int kLbJ = 2;         // LB_Keogh: window offsets per thread
 constexpr int kLbTile = 16;     // LB_Keogh: envelope rows per block
 constexpr int kLbMaxThreads = 512;
-constexpr int kLongPoints = 1024;   // long kernels: query points a tile
+constexpr int kLongPoints = 1024;   // long ED kernel: query points a tile
+constexpr int kLbFlatMaxThreads = 1024;   // long LB_Keogh kernel: windows a
+                                          // block (one a thread), at most
 constexpr unsigned kFull = 0xffffffffu;
 
 // Stage points [t0, t0 + stride) of the regions of rows [r0, r0 + tile)
@@ -765,55 +769,6 @@ __device__ __forceinline__ void lb_windows(const float* base,
   }
 }
 
-// The long-row LB_Keogh kernel's pieces (lb_window_stats, lb_results).
-// The staged kernel below writes the same arithmetic out in place: built
-// from these helpers it ran ~2% slower at qlen 256 on an H100.
-// (mu, sd, 1 / sd) of kLbJ consecutive windows of series sid starting at
-// off0, from the prefix sums (raw: 0, 1), and their sums zeroed: the
-// plain version's divides and square root, s2 / L - mu_c^2 without
-// contraction.
-__device__ __forceinline__ void lb_window_stats(
-    const float* __restrict__ csum, const float* __restrict__ csum2,
-    const float* __restrict__ csum_lo, const float* __restrict__ csum2_lo,
-    const float* __restrict__ center, long long sid, int off0, int n,
-    int qlen, long long last, int znorm, float (&mu)[kLbJ],
-    float (&sd)[kLbJ], float (&y)[kLbJ], float (&acc)[kLbJ]) {
-#pragma unroll
-  for (int jj = 0; jj < kLbJ; ++jj) {
-    mu[jj] = 0.f;
-    sd[jj] = 1.f;
-    if (znorm) {
-      float s1, s2;
-      window_sums(csum, csum2, csum_lo, csum2_lo, sid, off0 + jj, n, qlen,
-                  last, &s1, &s2);
-      const float mu_c = s1 / qlen;
-      const float var = __fsub_rn(s2 / qlen, __fmul_rn(mu_c, mu_c));
-      sd[jj] = fmaxf(sqrtf(fmaxf(var, 0.f)), 1e-8f);
-      mu[jj] = mu_c + center[sid];
-    }
-    y[jj] = __frcp_rn(sd[jj]);
-    acc[jj] = 0.f;
-  }
-}
-
-// Windows j0 .. j0 + kLbJ - 1 of tile row le into res_s (lb2, mu, sd,
-// each [tg]).
-__device__ __forceinline__ void lb_results(float* res_s, int tg, int le,
-                                           int j0, int g,
-                                           const float (&mu)[kLbJ],
-                                           const float (&sd)[kLbJ],
-                                           const float (&acc)[kLbJ]) {
-#pragma unroll
-  for (int jj = 0; jj < kLbJ; ++jj) {
-    const int j = j0 + jj;
-    if (j < g) {
-      res_s[le * g + j] = acc[jj];
-      res_s[tg + le * g + j] = mu[jj];
-      res_s[2 * tg + le * g + j] = sd[jj];
-    }
-  }
-}
-
 // The LB_Keogh chunk entries' own arguments (the contract entries pass
 // row_stride = rows, col0 = 0 and nothing else): the (B, n_pad) plan's
 // n_master and lbs2 (sids and anchors are the kernel's), the cut (the
@@ -1008,23 +963,91 @@ __global__ void __launch_bounds__(kLbMaxThreads)
                       row_anc, row_jl, &count_s, cut, rows, g, tile);
 }
 
-// The long-row LB_Keogh kernel: the staged kernel's contract, for queries
-// whose DTW envelope and regions do not fit shared memory whole.  Each
-// thread takes the items (row le, window pair grp) tid, tid + threads,
-// ... in rounds (more than one only past kLbMaxThreads items); the
-// envelope and the tile's regions stream through shared memory in tiles
-// of `ptile` points (a multiple of kLbJ), and the thread keeps its
-// windows' (mu, sd) and sums in registers across the tiles, sliding over
-// each tile as the staged kernel slides over the whole row: the same
-// normalized values summed in the same order, so (lb2, mu, sd) have the
-// staged kernel's bits.  kMode as the staged kernel's.  Past the g one
-// block takes, a row's offsets are split into tiles of `otile` as in the
-// long ED kernel: block (x, b, z) takes offsets [z otile, (z + 1) otile)
-// of its rows, stages their region only, and writes that part of the
-// dense outputs; its survivors join the same list, and the counters add
-// up as the untiled block's (chunk_block_rows).
+// The long-row LB_Keogh kernel's window statistics: (mu, sd, 1 / sd) of
+// the window of series sid at off from the prefix sums (raw: 0, 1, 1):
+// the plain version's divides and square root, s2 / L - mu_c^2 without
+// contraction, as the staged kernel computes them.
+__device__ __forceinline__ void lb_window_stat(
+    const float* __restrict__ csum, const float* __restrict__ csum2,
+    const float* __restrict__ csum_lo, const float* __restrict__ csum2_lo,
+    const float* __restrict__ center, long long sid, int off, int n,
+    int qlen, long long last, int znorm, float* mu, float* sd, float* y) {
+  *mu = 0.f;
+  *sd = 1.f;
+  if (znorm) {
+    float s1, s2;
+    window_sums(csum, csum2, csum_lo, csum2_lo, sid, off, n, qlen, last,
+                &s1, &s2);
+    const float mu_c = s1 / qlen;
+    const float var = __fsub_rn(s2 / qlen, __fmul_rn(mu_c, mu_c));
+    *sd = fmaxf(sqrtf(fmaxf(var, 0.f)), 1e-8f);
+    *mu = mu_c + center[sid];
+  }
+  *y = __frcp_rn(*sd);
+}
+
+// The long-row LB_Keogh kernel's block: `items` consecutive windows of
+// query b's chunk (window e = r g + j: offset j of row r), of at most
+// rmax rows; per row its (sid, anchor), ok offsets (jl), first offset in
+// the block (ja) and the block position of that window (first).
+struct LbFlatRows {
+  int *sid, *anc, *jl, *ja, *first;
+};
+
+// Stage tile t0 (ptile points) of the envelope (as (lo, hi) pairs; past
+// qlen (-inf, +inf), which adds 0) and of the regions of the block's rows
+// that hold an ok window (row le's points [anc + ja + t0, + cnt + ptile
+// - 1) at reg_s[le ptile + first]: window (le, j) at block position k
+// reads point t of the tile at reg_s[le ptile + k + t]), with cp.async,
+// one flat read per point clipped to the array.
+__device__ __forceinline__ void lb_flat_stage(
+    const float* __restrict__ data, const float* __restrict__ dtw_lo,
+    const float* __restrict__ dtw_hi, float* env_s, float* reg_s,
+    const LbFlatRows& rw, int nr, long long i0, long long iend, int g,
+    long long num_series, int n, int qlen, int t0, int ptile) {
+  const int b = blockIdx.y;
+  for (int t = threadIdx.x; t < ptile; t += blockDim.x) {
+    if (t0 + t < qlen) {
+      const long long at = (long long)b * qlen + t0 + t;
+      cp_async4(env_s + 2 * t, dtw_lo + at);
+      cp_async4(env_s + 2 * t + 1, dtw_hi + at);
+    } else {
+      env_s[2 * t] = -INFINITY;
+      env_s[2 * t + 1] = INFINITY;
+    }
+  }
+  const long long total = num_series * (long long)n;
+  for (int le = 0; le < nr; ++le) {
+    const int ja = rw.ja[le];
+    if (rw.jl[le] <= ja) continue;         // no ok window of the row here
+    const long long r = i0 / g + le;
+    const int cnt = (int)(min(iend, (r + 1) * g) - (r * g + ja));
+    const long long base = (long long)rw.sid[le] * n + rw.anc[le] + ja + t0;
+    float* dst = reg_s + le * ptile + rw.first[le];
+    for (int u = threadIdx.x; u < cnt + ptile - 1; u += blockDim.x) {
+      long long flat = base + u;
+      flat = flat < 0 ? 0 : (flat >= total ? total - 1 : flat);
+      cp_async4(dst + u, data + flat);
+    }
+  }
+}
+
+// The long-row LB_Keogh kernel: the staged kernel's contract for any qlen
+// and g.  Block (x, b) takes the `items` windows [x items, (x + 1)
+// items) of query b's rows * g (row-major; a row may span two blocks),
+// one a thread; the envelope and the rows' regions stream through shared
+// memory in tiles of `ptile` points, double-buffered with cp.async (the
+// next tile's copies fly while the current one is summed).  A thread
+// sums its window's points in query order in one register, as the
+// staged kernel does, so (lb2, mu, sd) have its bits.  The chunk entries
+// (kMode 1, 2) decide each row's keep and ok offsets as the staged
+// kernel does (a row is counted kept or pruned by the block holding its
+// first window; ok windows and survivors add up over blocks) and sum
+// only the ok windows: a pruned row's windows cost their statistics
+// (mu and sd are written for every window) but no points.  Outputs go
+// out straight from the threads in coalesced stores.
 template <int kMode>
-__global__ void __launch_bounds__(kLbMaxThreads)
+__global__ void __launch_bounds__(kLbFlatMaxThreads)
     fused_gather_lb_keogh_long_kernel(
         const float* __restrict__ data, const float* __restrict__ csum,
         const float* __restrict__ csum2, const float* __restrict__ csum_lo,
@@ -1033,56 +1056,179 @@ __global__ void __launch_bounds__(kLbMaxThreads)
         const float* __restrict__ dtw_lo, const float* __restrict__ dtw_hi,
         float* __restrict__ lb_out, float* __restrict__ mu_out,
         float* __restrict__ sd_out, const LbChunk c, long long num_series,
-        int n, int rows, int qlen, int g, int znorm, int tile, int qlen_pad,
-        int ngrp, int stride, int ptile, int otile) {
-  extern __shared__ float smem[];
-  float2* env_s = reinterpret_cast<float2*>(smem);   // [ptile]
-  float* reg_s = smem + 2 * ptile;                   // [tile * stride]
-  float* res_s = reg_s + tile * stride;              // [3][tile * otile]
-  __shared__ int row_sid[kLbTile], row_anc[kLbTile], row_jl[kLbTile];
-  __shared__ int count_s;
-  // this block's offsets [j_lo, j_lo + gt); row_anc holds anchor + j_lo
-  const int j_lo = blockIdx.z * otile;
-  const int gt = g - j_lo < otile ? g - j_lo : otile;
-  const int tg = tile * gt;
+        int n, int rows, int qlen, int g, int znorm, int items, int ptile,
+        int rmax) {
+  constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
+  extern __shared__ __align__(16) float smem[];
+  const int rstride = items + rmax * ptile;
+  float* env_s = smem;                           // [2][2 ptile]
+  float* reg_s = smem + 4 * ptile;               // [2][rstride]
+  LbFlatRows rw;
+  rw.sid = reinterpret_cast<int*>(reg_s + 2 * rstride);
+  rw.anc = rw.sid + rmax;
+  rw.jl = rw.anc + rmax;
+  rw.ja = rw.jl + rmax;
+  rw.first = rw.ja + rmax;
+  __shared__ int count_s, ok_s;
 
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * tile;
-  float cut = INFINITY;
-  lb_block_rows<kMode>(sids, anchors, c, n, rows, qlen, g, tile, row_sid,
-                       row_anc, row_jl, &count_s, &cut, j_lo, gt);
-  const long long last = num_series * (long long)(n + 1) - 1;
-  for (int base = 0; base < tile * ngrp; base += blockDim.x) {
-    const int item = base + threadIdx.x;
-    const int le = item % tile, grp = item / tile;
-    const int r = r0 + le;
-    const int j0 = grp * kLbJ;
-    const bool mine = item < tile * ngrp && r < rows && j0 < gt;
-    float mu[kLbJ], sd[kLbJ], y[kLbJ], acc[kLbJ];
-    if (mine)
-      lb_window_stats(csum, csum2, csum_lo, csum2_lo, center, row_sid[le],
-                      row_anc[le] + j0, n, qlen, last, znorm, mu, sd, y,
-                      acc);
-    for (int t0 = 0; t0 < qlen_pad; t0 += ptile) {
-      const int len = qlen_pad - t0 < ptile ? qlen_pad - t0 : ptile;
-      __syncthreads();                  // the last tile is consumed
-      for (int t = threadIdx.x; t < len; t += blockDim.x) {
-        const long long at = (long long)b * qlen + t0 + t;
-        env_s[t] = t0 + t < qlen ? make_float2(dtw_lo[at], dtw_hi[at])
-                                 : make_float2(-INFINITY, INFINITY);
-      }
-      stage_regions(data, row_sid, row_anc, reg_s, num_series, n, rows, r0,
-                    tile, stride, qlen + gt - 1, t0);
-      __syncthreads();
-      if (mine)
-        lb_windows(reg_s + le * stride + j0, env_s, len, mu, sd, y, acc);
-    }
-    if (mine) lb_results(res_s, tg, le, j0, gt, mu, sd, acc);
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const long long m = (long long)rows * g;
+  const long long i0 = (long long)blockIdx.x * items;
+  const long long iend = min(i0 + items, m);
+  const long long ra = i0 / g;
+  const int nr = (int)((iend - 1) / g - ra + 1);
+  float own = INFINITY, cut = INFINITY;
+  bool active = true;
+  if (kChunk) {
+    own = c.cut[(long long)b * c.cut_stride + c.cut_stride - 1];
+    cut = !kRange && c.gkth != nullptr ? fminf(own, c.gkth[b]) : own;
+    const float first = c.lbs2[(long long)b * c.row_stride + c.col0];
+    active = isfinite(first) &&
+             (kRange ? first <= cut && c.ovf[b] == c.n_chunks
+                     : first < cut);
+  }
+  if (tid == 0) {
+    count_s = 0;
+    ok_s = 0;
   }
   __syncthreads();
-  lb_write_out<kMode>(res_s, tg, lb_out, mu_out, sd_out, c, row_sid,
-                      row_anc, row_jl, &count_s, cut, rows, g, tile, j_lo,
-                      gt);
+  int keep = 0, pruned = 0;
+  if (tid < nr) {
+    const long long r = ra + tid;
+    const long long e = (long long)b * c.row_stride + c.col0 + r;
+    const int sid = sids[e], anc = anchors[e];
+    int jl = g;
+    if (kChunk) {
+      const float lb = c.lbs2[e];
+      const bool kp = active && (kRange ? lb <= cut : lb < cut);
+      const int fit = n - qlen - anc + 1;        // offsets that fit
+      const int nm = c.n_master[e];
+      int lim = nm < fit ? nm : fit;
+      lim = lim < g ? lim : g;
+      jl = kp && lim > 0 ? lim : 0;
+      const int ja = (int)(i0 > r * g ? i0 - r * g : 0);
+      const int jb = (int)(iend - r * g < g ? iend - r * g : g);
+      keep = kp && ja == 0;                    // a row's first block
+      pruned = active && !kp && isfinite(lb) && ja == 0;
+      const int n_ok = (jl < jb ? jl : jb) - ja;
+      if (n_ok > 0) atomicAdd(&ok_s, n_ok);
+    }
+    const int ja = (int)(i0 > r * g ? i0 - r * g : 0);
+    rw.sid[tid] = sid;
+    rw.anc[tid] = anc;
+    rw.jl[tid] = jl;
+    rw.ja[tid] = ja;
+    rw.first[tid] = (int)(r * g + ja - i0);
+  }
+  if (kChunk) {
+    const int n_keep = __syncthreads_count(keep);
+    const int n_pruned = __syncthreads_count(pruned);
+    if (tid == 0) {
+      int* st = c.stats + (long long)b * kStatsWidth;
+      if (blockIdx.x == 0 && active) atomicAdd(st + 0, 1);
+      if (n_keep) atomicAdd(st + 1, n_keep);
+      if (ok_s) atomicAdd(st + 3, ok_s);
+      if (n_pruned) atomicAdd(st + 5, n_pruned);
+    }
+  } else {
+    __syncthreads();
+  }
+
+  // this thread's window: block position tid, row le, offset j
+  const long long pos = i0 + tid;
+  const bool in = pos < iend;
+  const int le = in ? (int)(pos / g - ra) : 0;
+  const int j = in ? (int)(pos - (ra + le) * g) : 0;
+  const bool ok = in && j < rw.jl[le];
+  const long long sid = rw.sid[le];
+  const long long last = num_series * (long long)(n + 1) - 1;
+  float mu = 0.f, sd = 1.f, y = 1.f;
+  if (in)
+    lb_window_stat(csum, csum2, csum_lo, csum2_lo, center, sid,
+                   rw.anc[le] + j, n, qlen, last, znorm, &mu, &sd, &y);
+  float acc = 0.f;
+  if (__syncthreads_or(ok)) {
+    const int n_tiles = (qlen + ptile - 1) / ptile;
+    lb_flat_stage(data, dtw_lo, dtw_hi, env_s, reg_s, rw, nr, i0, iend, g,
+                  num_series, n, qlen, 0, ptile);
+    cp_async_commit();
+    const int base = le * ptile + tid;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int buf = it & 1;
+      if (it + 1 < n_tiles)
+        lb_flat_stage(data, dtw_lo, dtw_hi, env_s + (buf ^ 1) * 2 * ptile,
+                      reg_s + (buf ^ 1) * rstride, rw, nr, i0, iend, g,
+                      num_series, n, qlen, (it + 1) * ptile, ptile);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();                   // tile `it` is in place
+      if (ok) {
+        const float* x = reg_s + buf * rstride + base;
+        const float4* env = reinterpret_cast<const float4*>(
+            env_s + buf * 2 * ptile);
+        // the tile's points up to qlen, in multiples of 8 (the envelope's
+        // (-inf, +inf) past qlen adds 0)
+        const int len = min(ptile, qlen - it * ptile);
+        const int len8 = (len + 7) & ~7;
+        for (int t = 0; t < len8; t += 8) {
+#pragma unroll
+          for (int tt = 0; tt < 8; ++tt) {
+            const float4 lh2 = env[(t + tt) >> 1];   // two points' (lo, hi)
+            const float lo = tt & 1 ? lh2.z : lh2.x;
+            const float hi = tt & 1 ? lh2.w : lh2.y;
+            const float w = znorm_point(x[t + tt], mu, sd, y);
+            // lo <= hi: w - hi and lo - w are not both positive, so the
+            // square of the larger is the staged kernel's over^2 + under^2
+            const float d = fmaxf(fmaxf(__fsub_rn(w, hi), __fsub_rn(lo, w)),
+                                  0.f);
+            acc = __fadd_rn(acc, __fmul_rn(d, d));
+          }
+        }
+      }
+      __syncthreads();                   // buffer `buf` may be restaged
+    }
+  }
+
+  // out: lb2 (+inf where not ok), mu, sd; the chunk entries also each
+  // window's (sid, off), the survivors listed by a warp-aggregated
+  // atomicAdd on nsurv[b] (the list's order varies from run to run), and
+  // +inf into the DP's output at every other window
+  const long long at = (long long)b * m + pos;
+  bool surv = false;
+  if (in) {
+    float lb = acc;
+    if (kChunk) {
+      if (!ok) lb = INFINITY;
+      surv = ok && (kRange ? lb <= cut : lb < cut);
+      c.cand_sid[at] = (int)sid;
+      c.cand_off[at] = rw.anc[le] + j;
+      if (!surv) c.dp_out[at] = INFINITY;
+    }
+    lb_out[at] = lb;
+    mu_out[at] = mu;
+    sd_out[at] = sd;
+  }
+  if (kChunk) {
+    const int lane = tid & 31;
+    const unsigned mask = __ballot_sync(kFull, surv);
+    if (mask) {
+      const int leader = __ffs(mask) - 1;
+      int slot = 0;
+      if (lane == leader) {
+        slot = atomicAdd(c.nsurv + b, __popc(mask));
+        atomicAdd(&count_s, __popc(mask));
+      }
+      slot = __shfl_sync(kFull, slot, leader) +
+             __popc(mask & ((1u << lane) - 1u));
+      if (surv) c.slist[(long long)b * m + slot] = (int)pos;
+    }
+    __syncthreads();
+    if (tid == 0 && count_s) {
+      int* st = c.stats + (long long)b * kStatsWidth;
+      atomicAdd(st + 2, count_s);
+      atomicAdd(st + 4, count_s);
+    }
+  }
 }
 
 // The normalized windows w (E * g, qlen) of the LB and DP tiers, from
@@ -1375,7 +1521,6 @@ namespace {
 // where the shared memory would exceed its budget.
 struct LbShape {
   int tile, qlen_pad, ngrp, stride, threads;
-  int otile, n_otiles;   // offsets a block takes, offset tiles a row
   size_t smem;
 };
 
@@ -1396,44 +1541,24 @@ LbShape lb_shape(int qlen, int g) {
   s.threads = s.tile * s.ngrp;
   s.threads = s.threads > kLbMaxThreads ? kLbMaxThreads
                                         : (s.threads + 31) / 32 * 32;
-  s.otile = g;
-  s.n_otiles = 1;
   return s;
 }
 
-// The long LB_Keogh kernel's block shape: a tile of kLongPoints envelope
-// points and the rows' region points it reads; up to kLbTile rows a
-// block, fewer where the shared memory would exceed its budget.  It does
-// not grow with qlen.
-LbShape lb_long_shape(int qlen, int g, int force = 0) {
-  LbShape s;
-  // a block of one row at T offsets: the envelope tile, a region tile of
-  // ceil(T / kLbJ) kLbJ + kLongPoints - 1 words and 3 T of results; the
-  // largest T a multiple of kLbJ within kSmemMax
-  const int most = ((int)(kSmemMax / sizeof(float)) - 3 * kLongPoints + 1) /
-                   4 / kLbJ * kLbJ;
-  s.otile = offset_tile(g, most, kLbJ, force);
-  s.n_otiles = (g + s.otile - 1) / s.otile;
-  const int gt = s.otile;
-  s.qlen_pad = (qlen + kLbJ - 1) / kLbJ * kLbJ;
-  s.ngrp = (gt + kLbJ - 1) / kLbJ;
-  s.stride = s.ngrp * kLbJ + kLongPoints - 1;   // odd
-  auto smem_for = [&](int t) {
-    return sizeof(float) * (2 * (size_t)kLongPoints + (size_t)t * s.stride +
-                            3 * (size_t)t * gt);
-  };
-  s.tile = kLbTile;
-  while (s.tile > 1 && smem_for(s.tile) > kSmemBudget) s.tile /= 2;
-  s.smem = smem_for(s.tile);
-  s.threads = s.tile * s.ngrp;
-  s.threads = s.threads > kLbMaxThreads ? kLbMaxThreads
-                                        : (s.threads + 31) / 32 * 32;
-  return s;
+// The long LB_Keogh kernel's rows a block of `items` windows spans, and
+// its shared memory at ptile points a tile: two (lo, hi) tiles, two
+// region buffers of items + rmax ptile floats, five ints a row.
+int lb_flat_rmax(int g, int items) { return (items + g - 2) / g + 1; }
+
+size_t lb_flat_smem(int g, int items, int ptile) {
+  const size_t rmax = lb_flat_rmax(g, items);
+  return sizeof(float) * (4 * (size_t)ptile + 2 * (items + rmax * ptile) +
+                          5 * rmax);
 }
 
 // kMode: 0 the contract entry, 1 the k-NN chunk entry, 2 the range chunk
 // entry.  The chunk entries zero nsurv before their launch (a memset on
-// the stream, not a kernel).
+// the stream, not a kernel).  The long kernel's blocks take `items`
+// windows and tiles of `ptile` points (fused_verify.lb_long_shape).
 template <int kMode, bool kLong>
 int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
                     const void* csum_lo, const void* csum2_lo,
@@ -1441,26 +1566,38 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
                     const void* dtw_lo, const void* dtw_hi, void* lb,
                     void* mu, void* sd, const LbChunk& c,
                     long long num_series, int n, int batch, int rows,
-                    int qlen, int g, int znorm, void* stream, int otile = 0) {
+                    int qlen, int g, int znorm, void* stream, int items = 0,
+                    int ptile = 0) {
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
-      batch > 65535 || otile < 0)
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const LbShape sh = kLong ? lb_long_shape(qlen, g, otile)
-                           : lb_shape(qlen, g);
-  if (sh.n_otiles > 65535) return (int)cudaErrorInvalidValue;
-  const int tile = sh.tile, qlen_pad = sh.qlen_pad, ngrp = sh.ngrp;
-  const int stride = sh.stride;
-  const size_t smem = sh.smem;
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const void* kernel =
       kLong ? (const void*)fused_gather_lb_keogh_long_kernel<kMode>
             : (const void*)fused_gather_lb_keogh_kernel<kMode>;
+  LbShape sh = {};
+  size_t smem;
+  dim3 grid, block;
+  if (kLong) {
+    if (items < 1 || items > kLbFlatMaxThreads || ptile < 32 ||
+        ptile % 32 != 0)
+      return (int)cudaErrorInvalidValue;
+    const long long blocks = ((long long)rows * g + items - 1) / items;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    smem = lb_flat_smem(g, items, ptile);
+    grid = dim3((unsigned)blocks, batch);
+    block = dim3((items + 31) / 32 * 32);
+  } else {
+    sh = lb_shape(qlen, g);
+    smem = sh.smem;
+    grid = dim3((rows + sh.tile - 1) / sh.tile, batch);
+    block = dim3(sh.threads);
+  }
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > kSmemBudget) {
     const int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
   }
-  const dim3 grid((rows + tile - 1) / tile, batch, sh.n_otiles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kMode != 0) {
     const int err =
@@ -1481,15 +1618,15 @@ int launch_lb_keogh(const void* data, const void* csum, const void* csum2,
   float* a_mu = static_cast<float*>(mu);
   float* a_sd = static_cast<float*>(sd);
   if (kLong)
-    fused_gather_lb_keogh_long_kernel<kMode><<<grid, sh.threads, smem, st>>>(
+    fused_gather_lb_keogh_long_kernel<kMode><<<grid, block, smem, st>>>(
         a_data, a_cs, a_cs2, a_cl, a_cl2, a_c, a_sids, a_anc, a_lo, a_hi,
-        a_lb, a_mu, a_sd, c, num_series, n, rows, qlen, g, znorm, tile,
-        qlen_pad, ngrp, stride, kLongPoints, sh.otile);
+        a_lb, a_mu, a_sd, c, num_series, n, rows, qlen, g, znorm, items,
+        ptile, lb_flat_rmax(g, items));
   else
-    fused_gather_lb_keogh_kernel<kMode><<<grid, sh.threads, smem, st>>>(
+    fused_gather_lb_keogh_kernel<kMode><<<grid, block, smem, st>>>(
         a_data, a_cs, a_cs2, a_cl, a_cl2, a_c, a_sids, a_anc, a_lo, a_hi,
-        a_lb, a_mu, a_sd, c, num_series, n, rows, qlen, g, znorm, tile,
-        qlen_pad, ngrp, stride);
+        a_lb, a_mu, a_sd, c, num_series, n, rows, qlen, g, znorm, sh.tile,
+        sh.qlen_pad, sh.ngrp, sh.stride);
   return (int)cudaGetLastError();
 }
 
@@ -1541,7 +1678,8 @@ int launch_lb_chunk(const void* data, const void* csum, const void* csum2,
                     void* cand_sid, void* cand_off, long long num_series,
                     int n, int batch, int rows, int qlen, int g, int znorm,
                     long long n_pad, long long col0, int k, int range,
-                    int n_chunks, void* stream, int otile = 0) {
+                    int n_chunks, void* stream, int items = 0,
+                    int ptile = 0) {
   LbChunk c;
   if (range && gkth != nullptr) return (int)cudaErrorInvalidValue;
   const int err = lb_chunk(&c, n_master, lbs2, cut, gkth, ovf, stats, slist,
@@ -1551,11 +1689,11 @@ int launch_lb_chunk(const void* data, const void* csum, const void* csum2,
   return range ? launch_lb_keogh<2, kLong>(
                      data, csum, csum2, csum_lo, csum2_lo, center, sids,
                      anchors, dtw_lo, dtw_hi, lb, mu, sd, c, num_series, n,
-                     batch, rows, qlen, g, znorm, stream, otile)
+                     batch, rows, qlen, g, znorm, stream, items, ptile)
                : launch_lb_keogh<1, kLong>(
                      data, csum, csum2, csum_lo, csum2_lo, center, sids,
                      anchors, dtw_lo, dtw_hi, lb, mu, sd, c, num_series, n,
-                     batch, rows, qlen, g, znorm, stream, otile);
+                     batch, rows, qlen, g, znorm, stream, items, ptile);
 }
 
 }  // namespace
@@ -1572,19 +1710,20 @@ extern "C" int ulisse_fused_gather_lb_keogh(
       qlen, g, znorm, stream);
 }
 
-// The long-row kernel behind the same contract (any qlen and g; otile
-// the offsets a block takes, 0: from the shape).
+// The long-row kernel behind the same contract (any qlen and g; blocks
+// of `items` windows, tiles of `ptile` points: fused_verify.
+// lb_long_shape).
 extern "C" int ulisse_fused_gather_lb_keogh_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* dtw_lo,
     const void* dtw_hi, void* lb, void* mu, void* sd, long long num_series,
-    int n, int batch, int rows, int qlen, int g, int znorm, int otile,
-    void* stream) {
+    int n, int batch, int rows, int qlen, int g, int znorm, int items,
+    int ptile, void* stream) {
   return launch_lb_keogh<0, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, dtw_lo,
       dtw_hi, lb, mu, sd, lb_contract(rows), num_series, n, batch, rows,
-      qlen, g, znorm, stream, otile);
+      qlen, g, znorm, stream, items, ptile);
 }
 
 // Rows a block of the LB_Keogh entries takes at (qlen, g); -1 where no
@@ -1594,24 +1733,6 @@ extern "C" int ulisse_fused_gather_lb_keogh_tile(int qlen, int g) {
   if (qlen < 1 || g < 1) return -1;
   const LbShape s = lb_shape(qlen, g);
   return s.smem > kSmemMax ? -1 : s.tile;
-}
-
-// The same for the long-row entries, at any qlen and g, its blocks
-// taking otile offsets a row (0: from the shape).
-extern "C" int ulisse_fused_gather_lb_keogh_long_tile(int qlen, int g,
-                                                      int otile) {
-  if (qlen < 1 || g < 1 || otile < 0) return -1;
-  const LbShape s = lb_long_shape(qlen, g, otile);
-  return s.smem > kSmemMax ? -1 : s.tile;
-}
-
-// The offsets a block of the long-row LB_Keogh entries takes at (qlen,
-// g): g where one block of a row fits, else the offset tile (force > 0:
-// that tile).
-extern "C" int ulisse_fused_gather_lb_keogh_long_otile(int qlen, int g,
-                                                       int force) {
-  if (qlen < 1 || g < 1 || force < 0) return -1;
-  return lb_long_shape(qlen, g, force).otile;
 }
 
 // The scan's LB_Keogh step over chunk col0 / rows of the (B, n_pad) plan
@@ -1644,7 +1765,7 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk(
 }
 
 // The long-row kernel behind the chunk entry's contract (any qlen and g;
-// otile as ulisse_fused_gather_lb_keogh_long's).
+// items and ptile as ulisse_fused_gather_lb_keogh_long's).
 extern "C" int ulisse_fused_gather_lb_keogh_chunk_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
@@ -1654,12 +1775,12 @@ extern "C" int ulisse_fused_gather_lb_keogh_chunk_long(
     void* lb, void* mu, void* sd, void* slist, void* nsurv, void* dp_out,
     void* cand_sid, void* cand_off, long long num_series, int n, int batch,
     int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
-    int k, int range, int n_chunks, int otile, void* stream) {
+    int k, int range, int n_chunks, int items, int ptile, void* stream) {
   return launch_lb_chunk<true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, dtw_lo, dtw_hi, cut, gkth, ovf, stats, lb, mu, sd, slist, nsurv,
       dp_out, cand_sid, cand_off, num_series, n, batch, rows, qlen, g, znorm,
-      n_pad, col0, k, range, n_chunks, stream, otile);
+      n_pad, col0, k, range, n_chunks, stream, items, ptile);
 }
 
 extern "C" int ulisse_gather_znorm(const void* data, const void* sids,

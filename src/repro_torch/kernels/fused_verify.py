@@ -29,12 +29,14 @@ LB_Keogh at g = 49) it hands the call to its long-row variant
 the same contract and the same bits, the query streamed through shared
 memory in tiles of points), each a wrapper of its own with its own
 count, so any qlen runs on the card.  Past the g one block of a row takes
-(18,688 for ED, 13,760 for LB_Keogh), the long-row variants split a row's
-offsets into tiles of `offset_tile` offsets, a block each: the same
-results, so any g runs on the card too.  The kernels are
-`csrc/fused_verify.cu`; the plain versions are `ref.fused_gather_ed_ref`,
-`ref.fused_gather_ed_chunk_ref`, `ref.fused_gather_ed_range_ref`,
-`ref.fused_gather_lb_keogh_ref`, `ref.fused_gather_lb_keogh_chunk_ref`,
+(18,688), the long-row ED variants split a row's offsets into tiles of
+`offset_tile` offsets, a block each; the long-row LB_Keogh variants take
+blocks of consecutive windows of a query's chunk, one a thread
+(`lb_long_shape`), so any g runs on the card too, with the same
+results.  The kernels are `csrc/fused_verify.cu`; the plain versions
+are `ref.fused_gather_ed_ref`, `ref.fused_gather_ed_chunk_ref`,
+`ref.fused_gather_ed_range_ref`, `ref.fused_gather_lb_keogh_ref`,
+`ref.fused_gather_lb_keogh_chunk_ref`,
 `ref.fused_gather_lb_keogh_range_ref` and `ref.gather_znorm_ref`.
 
 Inputs are checked on every device against what the kernel takes; then
@@ -86,16 +88,65 @@ def staged(measure: str, qlen: int, g: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def offset_tile(measure: str, qlen: int, g: int, force: int = 0) -> int:
-    """The offsets a block of the long-row chunk entries (k-NN and range)
-    of `measure` ("ed" or "dtw") takes at (qlen, g): g where one block of
-    a row fits shared memory, else the row's offsets split into the
-    fewest balanced tiles that fit (a block each); `force` > 0 a tile of
-    that many offsets (a test's, to hold the tiled blocks against the
-    untiled ones at a g both take)."""
+    """The most offsets of a row a block of the long-row entries of
+    `measure` ("ed" or "dtw") takes at (qlen, g).  ED: g where one block
+    of a row fits shared memory, else the row's offsets split into the
+    fewest balanced tiles that fit (a block each).  LB_Keogh: a block
+    takes consecutive windows of the chunk (at most _LB_ITEMS[0], or
+    `force`).  `force` > 0: a tile of that many offsets (a test's, to
+    hold the tiled blocks against the untiled ones at a g both take)."""
+    if measure == "dtw":
+        return min(g, force or _LB_ITEMS[0])
     lib = _build.library("fused_verify")
-    if measure == "ed":
-        return lib.ulisse_fused_gather_ed_long_otile(qlen, g, force)
-    return lib.ulisse_fused_gather_lb_keogh_long_otile(qlen, g, force)
+    return lib.ulisse_fused_gather_ed_long_otile(qlen, g, force)
+
+
+# csrc/fused_verify.cu's long-row LB_Keogh kernel: the windows a block
+# takes (largest first), the most it takes, the shared memory it plans
+# for, and the most the card gives a block
+_LB_ITEMS = (256, 128, 64, 32)
+_LB_MAX_ITEMS = 1024
+_LB_SMEM_PLAN = 32 * 1024
+_SMEM_MAX = 227 * 1024
+
+
+def _lb_smem(g: int, items: int, ptile: int) -> int:
+    """Bytes of shared memory of a long-row LB_Keogh block (the kernel's
+    lb_flat_smem): two (lo, hi) tiles, two region buffers of items +
+    rmax ptile floats (rmax the rows `items` windows span), five ints a
+    row."""
+    rmax = (items + g - 2) // g + 1
+    return 4 * (4 * ptile + 2 * (items + rmax * ptile) + 5 * rmax)
+
+
+@functools.lru_cache(maxsize=None)
+def lb_long_shape(batch: int, rows: int, g: int, sms: int,
+                  force: int = 0) -> tuple:
+    """(items, ptile) of the long-row LB_Keogh entries for B = batch
+    queries of `rows` rows of g windows on a card of `sms` SMs: a block
+    takes `items` consecutive windows of a query's chunk, one a thread
+    (`force` where given, else the largest of _LB_ITEMS that still gives
+    every SM 4 blocks, so that a chunk of few windows fills the card),
+    and streams the envelope and its rows' regions in tiles of `ptile`
+    points (the most, a multiple of 32 up to 1,024, within
+    _LB_SMEM_PLAN).  Raises where no block takes the shape."""
+    total = batch * rows * g
+    items = force or next((t for t in _LB_ITEMS
+                           if -(-total // t) >= 4 * sms), _LB_ITEMS[-1])
+    if items > _LB_MAX_ITEMS:
+        raise ValueError(f"long-row LB_Keogh: {items} windows a block, at "
+                         f"most {_LB_MAX_ITEMS}")
+    ptile = 1024
+    while ptile > 32 and _lb_smem(g, items, ptile) > _LB_SMEM_PLAN:
+        ptile -= 32
+    if _lb_smem(g, items, ptile) > _SMEM_MAX:
+        raise ValueError(f"long-row LB_Keogh: {items} windows a block at g "
+                         f"= {g} need more shared memory than a block has")
+    return items, ptile
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _otile(what, otile):
@@ -434,14 +485,16 @@ def _lb(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center, sids,
         return ref.fused_gather_lb_keogh_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             dtw_lo, dtw_hi, g=g, rows=rows, znorm=znorm)
+    lib = _build.library("fused_verify")
+    shape = lb_long_shape(b, rows, g, _sm_count(dev), otile) if long else ()
     lb, mu, sd = torch.empty((3, b * rows, g), dtype=torch.float32,
                              device=dev)
-    code = getattr(_build.library("fused_verify"), entry)(
+    code = getattr(lib, entry)(
         data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
         csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
         sids.data_ptr(), anchors.data_ptr(), dtw_lo.data_ptr(),
         dtw_hi.data_ptr(), lb.data_ptr(), mu.data_ptr(), sd.data_ptr(),
-        s, n, b, rows, qlen, g, int(znorm), *((otile,) if long else ()),
+        s, n, b, rows, qlen, g, int(znorm), *shape,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
@@ -485,7 +538,7 @@ def fused_gather_lb_keogh_long(data: torch.Tensor, csum: torch.Tensor,
                                otile: Optional[int] = None):
     """`fused_gather_lb_keogh` through the long-row kernel, at any qlen
     and g: the same (lb2, mu, sd), bit for bit where both take the shape
-    (`otile` forces the offsets a block takes)."""
+    (`otile` forces the windows a block takes, `lb_long_shape`)."""
     return _lb(fused_gather_lb_keogh_long, "ulisse_fused_gather_lb_keogh_long",
                data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
                dtw_lo, dtw_hi, g, rows, znorm, otile)
@@ -522,13 +575,14 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, dtw_lo, dtw_hi, cut, ovf, stats, i=i,
             chunk=chunk, g=g, znorm=znorm, no_ovf=no_ovf)
+    lib = _build.library("fused_verify")
+    shape = lb_long_shape(b, chunk, g, _sm_count(dev), force) if long else ()
     lb, mu, sd = torch.empty((3, b * chunk, g), dtype=torch.float32,
                              device=dev)
     slist, cand_sid, cand_off = torch.empty((3, b, m), dtype=torch.int32,
                                             device=dev)
     nsurv = torch.empty(b, dtype=torch.int32, device=dev)   # zeroed there
     d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
-    lib = _build.library("fused_verify")
     entry = (lib.ulisse_fused_gather_lb_keogh_chunk_long if long
              else lib.ulisse_fused_gather_lb_keogh_chunk)
     code = entry(
@@ -542,7 +596,7 @@ def _lb_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         slist.data_ptr(), nsurv.data_ptr(), d2.data_ptr(),
         cand_sid.data_ptr(), cand_off.data_ptr(), s, n, b, chunk, qlen, g,
         int(znorm), n_pad, i * chunk, cut.shape[-1] if ovf is None else 1,
-        int(ovf is not None), no_ovf, *((force,) if long else ()),
+        int(ovf is not None), no_ovf, *shape,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
@@ -608,8 +662,8 @@ def fused_gather_lb_keogh_chunk_long(
         otile: Optional[int] = None):
     """`fused_gather_lb_keogh_chunk` through the long-row kernel, at any
     qlen and g: the same outputs and counters, bit for bit where both
-    take the shape (the survivor list in any order), offset-tiled or not
-    (`otile` forces the offsets a block takes)."""
+    take the shape (the survivor list in any order), whatever the blocks
+    (`otile` forces the windows a block takes, `lb_long_shape`)."""
     return _lb_chunk(fused_gather_lb_keogh_chunk_long, True, data, csum,
                      csum2, csum_lo, csum2_lo, center, sids, anchors,
                      n_master, lbs2, dtw_lo, dtw_hi, pool_d2, None, stats, i,
@@ -660,8 +714,8 @@ def fused_gather_lb_keogh_range_long(
         no_ovf: Optional[int] = None, otile: Optional[int] = None):
     """`fused_gather_lb_keogh_range` through the long-row kernel, at any
     qlen and g: the same outputs and counters, bit for bit where both
-    take the shape (the survivor list in any order), offset-tiled or not
-    (`otile` forces the offsets a block takes)."""
+    take the shape (the survivor list in any order), whatever the blocks
+    (`otile` forces the windows a block takes, `lb_long_shape`)."""
     return _lb_chunk(fused_gather_lb_keogh_range_long, True, data, csum,
                      csum2, csum_lo, csum2_lo, center, sids, anchors,
                      n_master, lbs2, dtw_lo, dtw_hi, eps2, ovf, stats, i,

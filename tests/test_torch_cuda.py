@@ -2029,3 +2029,128 @@ def test_chunk_step_with_gkth_gmap_and_delta_heads(dev, measure):
     assert set(sid[sid >= 0].tolist()) <= set(gmap.cpu().numpy().tolist())
     assert bool((st[:, 0] >= nd_pad // chunk).all())
     assert int(st[1:, 5].sum()) > 0                # the gkth cut prunes
+
+
+# -- slice 14: the long-query DTW path's kernels, redesigned --------------
+
+def _survivor_counts(dev, rng, qlen, counts, m, s=6, n=None):
+    """A chunk's DP inputs whose queries list exactly `counts` survivors
+    (in a shuffled order; offsets past both ends of the series, clipped)."""
+    b = len(counts)
+    n = n or qlen + 40
+    data = _t(np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32), dev)
+    slist = np.zeros((b, m), np.int32)
+    surv = np.zeros((b, m), bool)
+    for i, k in enumerate(counts):
+        pos = rng.permutation(m)[:k]
+        slist[i, :k] = pos
+        surv[i, pos] = True
+    d2 = np.where(surv, np.nan, np.inf).astype(np.float32)
+    return (data, _t(rng.normal(size=(b, qlen)).astype(np.float32), dev),
+            _t(slist, dev), _t(np.array(counts, np.int32), dev),
+            _t(rng.integers(0, s, (b, m)).astype(np.int32), dev),
+            _t(rng.integers(-5, n - qlen + 6, (b, m)).astype(np.int32), dev),
+            _t(rng.normal(size=(b, m)).astype(np.float32), dev),
+            _t((rng.random((b, m)) + 0.5).astype(np.float32), dev)), d2
+
+
+@pytest.mark.parametrize("l,r,n,m", [
+    (600, 600, 8, 16),          # a full band: the strip kernel
+    (600, 512, 8, 16),          # W = 1,025 + 1: 3 warps of 8 pairs
+    (1_100, 1_099, 3, 8),       # a full band past 1,024 rows: 5 warps
+    (20_000, 200, 3, 4),        # W = 401 at l past 6,144: one warp
+    (29_100, 3, 2, 3),          # q and w past 227 KB, streamed
+    (16_000, 16_000, 2, 3)])    # past 7,680 slots: the block kernel and
+                                # its global scratch (buffer past 227 KB)
+def test_dtw_wide_entries_bit_equal_to_plain(dev, l, r, n, m):
+    """The wide DP entries against the plain wavefront on the card, bit
+    for bit, through each of their kernels (`wide_plan`): `dtw_band_wide`
+    and `dtw_survivors_wide` (z-normalized windows; survivor lists
+    empty, of one, and of every candidate), positions off the list left
+    as they were."""
+    from repro_torch.kernels.dtw_band import wide_plan
+    assert (wide_plan(l, r)[1] == 0) == (l == 16_000)
+    rng = np.random.default_rng(l + r)
+    q = _t(rng.normal(size=l).astype(np.float32), dev)
+    c = _t(rng.normal(size=(n, l)).astype(np.float32), dev)
+    before = dtw_band_wide.launches
+    got = dtw_band_wide(q, c, r)
+    torch.cuda.synchronize()
+    assert dtw_band_wide.launches == before + 1
+    assert torch.equal(got, ref.dtw_band_ref(q, c, r))
+    args, d2 = _survivor_counts(dev, rng, l, (0, 1, m), m)
+    before = dtw_survivors_wide.launches
+    got = dtw_survivors_wide(*args, _t(d2, dev), r=r, znorm=True)
+    torch.cuda.synchronize()
+    assert dtw_survivors_wide.launches == before + 1
+    want = ref.dtw_survivors_ref(*args, _t(d2, dev), r=r, znorm=True)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert int((~got.isnan() & torch.isfinite(got)).sum()) == 1 + m
+
+
+@pytest.mark.parametrize("rows", [128, 37])
+@pytest.mark.parametrize("otile", [None, 16])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_long_lb_entries_bit_equal_to_staged(dev, rows, otile, znorm):
+    """The long-row LB_Keogh entries at qlen 4,000 (both kernels take it)
+    on a plan whose queries keep no row (inactive), some rows (a finite
+    cut, every seventh bound 1e30) and every row: the contract entry's
+    (lb2, mu, sd) and the k-NN and range entries' outputs and counters
+    bit-equal to the staged entries' (the survivor lists as sets), at the
+    default block and a forced one of 16 windows; and against the plain
+    versions: mu, sd, each candidate's (sid, off) and the counters but
+    the survivors exactly, lb2 within the LB tolerance."""
+    rng = np.random.default_rng(rows + (otile or 0) + znorm)
+    g, b, qlen = 49, 3, 4_000
+    kw = {} if otile is None else {"otile": otile}
+    args = _long_args(dev, rng, qlen, b, rows, dtw_r=400)
+    for x, y in zip(fused_gather_lb_keogh(*args, g=g, rows=rows, znorm=znorm),
+                    fused_gather_lb_keogh_long(*args, g=g, rows=rows,
+                                               znorm=znorm, **kw)):
+        assert torch.equal(x, y)
+    a0, plan, env = _lb_plan(dev, rng, args, rows, b, g)
+    plan[3][2] = 0.0                    # query 2: every row kept
+    cut = _t(np.full(b, np.inf, np.float32), dev)
+    cut[0] = 0.0                        # query 0: inactive (k-NN)
+    # query 1: active, its rows with a bound of 1e30 pruned, and the
+    # windows with lb2 up to its median + 1 survivors
+    cut[1] = float(ref.fused_gather_lb_keogh_ref(
+        *args, g=g, rows=rows, znorm=znorm)[0][rows:2 * rows].median()) + 1
+    ovf = torch.full((b,), 2, dtype=torch.int32, device=dev)
+    ovf[0] = 0                          # query 0: inactive (range)
+    for staged_e, long_e, plain_e, tail in (
+            (fused_gather_lb_keogh_chunk, fused_gather_lb_keogh_chunk_long,
+             ref.fused_gather_lb_keogh_chunk_ref,
+             (cut[:, None].contiguous(),)),
+            (fused_gather_lb_keogh_range, fused_gather_lb_keogh_range_long,
+             ref.fused_gather_lb_keogh_range_ref, (cut, ovf))):
+        st = [torch.zeros((b, 6), dtype=torch.int32, device=dev)
+              for _ in range(3)]
+        before = long_e.launches
+        a = staged_e(*a0, *plan, *env, *tail, st[0], i=1, chunk=rows, g=g,
+                     znorm=znorm)
+        z = long_e(*a0, *plan, *env, *tail, st[1], i=1, chunk=rows, g=g,
+                   znorm=znorm, **kw)
+        p = plain_e(*a0, *plan, *env, *tail, st[2], i=1, chunk=rows, g=g,
+                    znorm=znorm)
+        torch.cuda.synchronize()
+        assert long_e.launches == before + 1
+        for i in (0, 1, 2, 4, 6, 7):
+            assert torch.equal(a[i], z[i])
+        assert torch.equal(st[0], st[1])
+        surv = torch.zeros_like(a[5], dtype=torch.bool)
+        for q in range(b):
+            n_q = int(a[4][q])
+            assert torch.equal(a[3][q, :n_q].sort().values,
+                               z[3][q, :n_q].sort().values)
+            surv[q, a[3][q, :n_q].long()] = True
+        assert torch.isinf(z[5][~surv]).all()
+        assert int(z[4][0]) == 0 and int(st[1][0, 1]) == 0
+        assert int(st[1][2, 1]) == rows and int(st[1][2, 5]) == 0
+        assert 0 < int(st[1][1, 1]) < rows
+        _close(z[0], p[0], 2e-4, 2e-3)
+        for i in (1, 2, 6, 7):
+            assert torch.equal(z[i], p[i])
+        cols = [0, 1, 3, 5]
+        assert torch.equal(st[1][:, cols], st[2][:, cols])

@@ -43,7 +43,10 @@ RUNNER = (
 @pytest.mark.parametrize("name", list(EXAMPLES))
 def test_example_checks_itself_on_the_cpu(name):
     args, ok_line = EXAMPLES[name]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one torch thread: the tier-1 run has six workers on the same cores,
+    # and the plain DP's small per-diagonal ops on torch's default pool
+    # oversubscribe them (as the other port tests cap their threads)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     out = subprocess.run(
         [sys.executable, "-c", RUNNER, str(ROOT / "examples" / f"{name}.py"),
