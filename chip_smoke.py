@@ -34,6 +34,9 @@ Phases (any failed check raises, and the script exits non-zero):
      the scan's ED chunk entry and the partials merge at the exact
      scan's chunks under the batch's final k-th distance, the merge
      beside torch.topk over the same values (the library yardstick);
+     mindist also over every envelope's PAA bounds (the PAA entry as a
+     spec with use_paa_bounds runs it, 2,002,944 envelopes at full
+     size), each mindist output bit-equal to its plain version;
   7. trace one batch of the main path (device busy and idle share,
      kernel launch calls and device activities a chunk step: at most 4
      calls, and no sort kernel);
@@ -85,8 +88,9 @@ Phases (any failed check raises, and the script exits non-zero):
      the range entries' long-row variants (eps 1.02x the batch's median
      5th-neighbour distance; ED held to a float64 brute force, DTW to the
      host backend), counters around each; then the long-row chunk entries
-     (k-NN and range modes), mindist and the unstaged build timed at this
-     phase's shapes;
+     (k-NN and range modes), mindist (bit-equal to its plain version) and
+     the unstaged build timed at this phase's shapes, and the batches'
+     walls printed;
  16. eps-range at full size on [3]'s index: ED and DTW (r 16 / 25), B = 8
      at qlen 160 and 256 ([4]'s and [8]'s batches), each batch's eps the
      median of its queries' 64th-nearest distances (one exact k = 64
@@ -997,7 +1001,9 @@ def ed_chunk_work(torch, coll, plan, pool_d2, qlen: int, rows: int, g: int,
         torch, coll, plan,
         lambda i: ref.scan_active(lbs2, pool_d2, i, rows, gkth),
         ref.knn_cut(pool_d2, gkth), False, qlen, rows, g, n_chunks)
-    tile = ed_chunk_tile(qlen, g, long)
+    sms = torch.cuda.get_device_properties(
+        pool_d2.device).multi_processor_count
+    tile = ed_chunk_tile(qlen, g, long, batch=b, rows=rows, sms=sms)
     t = offset_tile("ed", qlen, g) if long else g
     parts = 4 * b * -(-rows // tile) * -(-g // t) * min(k, tile * t) * 4
     nbytes = (read + b * rows * 16 + b * k * 4 + 2 * b * 6 * 4
@@ -4665,8 +4671,11 @@ def main() -> int:
                  0) or L2_BYTES
     # enough copies of each kernel's envelope intervals that a round of
     # calls streams twice the L2 through it, so every call reads from HBM
+    # (mindist_paa_env: the PAA entry over every envelope, as a spec with
+    # use_paa_bounds runs it)
     env_ins = {"mindist_sym": (env.sym_lo, env.sym_hi, env.valid),
-               "mindist_paa": (fine.paa_lo, fine.paa_hi, fine.valid)}
+               "mindist_paa": (fine.paa_lo, fine.paa_hi, fine.valid),
+               "mindist_paa_env": (env.paa_lo, env.paa_hi, env.valid)}
     for name, ins in env_ins.items():
         in_bytes = sum(t.numel() * t.element_size() for t in ins)
         env_ins[name] = [ins] + [tuple(t.clone() for t in ins)
@@ -4680,7 +4689,8 @@ def main() -> int:
                                                        p.znorm)
         bpt = index.breakpoints
         for name, n_rows in (("mindist_sym", env.size),
-                             ("mindist_paa", fine.size)):
+                             ("mindist_paa", fine.size),
+                             ("mindist_paa_env", env.size)):
             ins = env_ins[name]
             if name == "mindist_sym":
                 call = [lambda c=c: mindist_sym(qb, qh, c[0], c[1], bpt,
@@ -4694,7 +4704,11 @@ def main() -> int:
                         for c in ins]
                 plain = [lambda c=c: ref.mindist_ref(qb, qh, *c, p.seg_len,
                                                      nseg) for c in ins]
-            err = check_close(torch, name, call[0](), plain[0]())
+            got, want = call[0](), plain[0]()
+            err = check_close(torch, name.replace("_env", ""), got, want)
+            # both kernels sum in the plain version's order: bit for bit
+            check_equal(torch, f"{name} at qlen {qlen}", got, want)
+            del got, want
             nbytes = (2 * n_rows * nseg * 4 + n_rows + BATCH * n_rows * 4
                       + 2 * BATCH * nseg * 4 + (p.card - 1) * 4)
             ops = 7 * BATCH * n_rows * nseg
@@ -5595,6 +5609,10 @@ def main() -> int:
                f"host backend's ({host_wall:.2f} s, max |d - d_host| "
                f"{host_err:.2e}) and a float64 DP of each reported window")
             + f" (max |d - d64| {worst:.2e})")
+    log(f"[15] batch walls (host clock, B = {BATCH}): ED k-NN "
+        f"{lq['ed']['wall_s']:.4f} s, ED range {lq['ed_range']['wall_s']:.4f}"
+        f" s, DTW k-NN {lq['dtw']['wall_s']:.4f} s, DTW range "
+        f"{lq['dtw_range']['wall_s']:.4f} s")
     # the long-row chunk entries, mindist and the unstaged build at this
     # phase's shapes (B = 8; the chunk entries over 128 kept rows, every
     # window in its series)
@@ -5628,7 +5646,10 @@ def main() -> int:
                 *a0, *plan, qn, pool_inf, st_k.clone(), i=i, chunk=rows,
                 g=g, znorm=True) for i in range(4)]
             ok_c = BATCH * rows * g
-            tile = fused_verify_mod.ed_chunk_tile(qlen, g, True)
+            tile = fused_verify_mod.ed_chunk_tile(
+                qlen, g, True, batch=BATCH, rows=rows,
+                sms=torch.cuda.get_device_properties(dev)
+                .multi_processor_count)
             nbytes = (covered + BATCH * rows * 16 + BATCH * qlen * 4
                       + 4 * BATCH * -(-rows // tile) * min(K, tile * g) * 4)
             timings[("fused_gather_ed_long", qlen, rows)] = timing(
@@ -5770,7 +5791,10 @@ def main() -> int:
                  [lambda: ref.mindist_ref(qb, qh, fine_l.paa_lo,
                                           fine_l.paa_hi, fine_l.valid,
                                           qp.seg_len, nseg)])):
-            err = check_close(torch, name, call[0](), plain[0]())
+            got, want = call[0](), plain[0]()
+            err = check_close(torch, name, got, want)
+            check_equal(torch, f"{name} at qlen {qlen}", got, want)
+            del got, want
             errs[name] = max(errs[name], err)
             timings[(name, qlen)] = timing(
                 torch, call, plain,

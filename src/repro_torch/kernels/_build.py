@@ -40,39 +40,37 @@ _F = ctypes.c_float
 SIGNATURES = {
     "mindist": {
         # lo, hi, breakpoints, card, q_lo, q_hi, q_stride, valid, out,
-        # n, w, nseg, batch, seg_len, stream
+        # n, w, nseg, batch, seg_len, the plan (vec, qb, te, st), stream
         "ulisse_mindist_sym": [_V, _V, _V, _I, _V, _V, _I, _V, _V,
-                               _L, _I, _I, _I, _F, _V],
+                               _L, _I, _I, _I, _F, _I, _I, _I, _I, _V],
         # lo, hi, q_lo, q_hi, q_stride, valid, out, n, w, nseg, batch,
-        # seg_len, stream
+        # seg_len, the plan (vec, qb, te, st), stream
         "ulisse_mindist_paa": [_V, _V, _V, _V, _I, _V, _V,
-                               _L, _I, _I, _I, _F, _V],
+                               _L, _I, _I, _I, _F, _I, _I, _I, _I, _V],
     },
     "fused_verify": {
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # qs, out, num_series, n, batch, rows, qlen, g, znorm, stream
         "ulisse_fused_gather_ed": [_V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
                                    _L, _I, _I, _I, _I, _I, _I, _V],
-        # the same arguments and otile (before the stream): the long-row
-        # kernel
+        # the same arguments and (tile, otile, ptile) before the stream:
+        # the long-row kernel
         "ulisse_fused_gather_ed_long": [_V, _V, _V, _V, _V, _V, _V, _V, _V,
                                         _V, _L, _I, _I, _I, _I, _I, _I, _I,
-                                        _V],
-        # qlen, g (the long entries: and otile)
+                                        _I, _I, _V],
+        # qlen, g
         "ulisse_fused_gather_ed_chunk_tile": [_I, _I],
-        "ulisse_fused_gather_ed_chunk_long_tile": [_I, _I, _I],
         "ulisse_fused_gather_lb_keogh_tile": [_I, _I],
-        # qlen, g, force
-        "ulisse_fused_gather_ed_long_otile": [_I, _I, _I],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, qs, pool_d2, gkth, stats, part, num_series, n,
         # batch, rows, qlen, g, znorm, n_pad, col0, k, stream
         "ulisse_fused_gather_ed_chunk": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
             _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
+        # ... and (tile, otile, ptile): the long-row kernel
         "ulisse_fused_gather_ed_chunk_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
-            _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _V],
+            _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # n_master, lbs2, qs, eps2, ovf, stats, out, num_series, n, batch,
         # rows, qlen, g, znorm, n_pad, col0, n_chunks, stream
@@ -81,7 +79,7 @@ SIGNATURES = {
             _I, _I, _I, _I, _I, _I, _L, _L, _I, _V],
         "ulisse_fused_gather_ed_range_long": [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L,
-            _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _V],
+            _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I, _V],
         # data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
         # dtw_lo, dtw_hi, lb, mu, sd, num_series, n, batch, rows, qlen, g,
         # znorm, stream

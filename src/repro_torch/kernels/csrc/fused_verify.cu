@@ -3,11 +3,13 @@
 // statistic, each with the TPU kernel's contract entry and the scan's
 // chunk entry: ulisse_fused_gather_ed (_chunk) and
 // ulisse_fused_gather_lb_keogh (_chunk).  Each entry has a long-row
-// variant (_long) for queries past its staging, with the same results:
-// past the g = gamma + 1 one block of a row takes, the long-row ED
-// variants split a row's offsets into tiles, a block each (grid z); the
-// long-row LB_Keogh variants take blocks of consecutive windows, so any
-// g fits them.
+// variant (_long) for queries past its staging, with the same results
+// at any qlen and g: the long-row ED variants take blocks of a few rows
+// and up to 1,024 offsets of each, one thread a row and 4 offsets (a
+// row's offsets past 1,024 split into tiles, a block each: grid z), the
+// query and the regions streamed in double-buffered cp.async tiles
+// (fused_gather_ed_long_kernel); the long-row LB_Keogh variants take
+// blocks of consecutive windows, one a thread.
 //
 // ulisse_fused_gather_ed
 // Replaces repro/kernels/fused_verify.py::fused_gather_ed (Pallas body
@@ -137,7 +139,9 @@ constexpr int kSmemMax = 227 * 1024;
 constexpr int kLbJ = 2;         // LB_Keogh: window offsets per thread
 constexpr int kLbTile = 16;     // LB_Keogh: envelope rows per block
 constexpr int kLbMaxThreads = 512;
-constexpr int kLongPoints = 1024;   // long ED kernel: query points a tile
+constexpr int kEdLongJ = 4;          // long ED kernel: offsets a thread
+constexpr int kEdLongThreads = 256;  // long ED kernel: largest block
+constexpr int kEdLongRows = 32;      // long ED kernel: rows a block, at most
 constexpr int kLbFlatMaxThreads = 1024;   // long LB_Keogh kernel: windows a
                                           // block (one a thread), at most
 constexpr unsigned kFull = 0xffffffffu;
@@ -597,29 +601,214 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_kernel(
   if (kRange) ed_range_out(cd_s, true, out, rows, g, tile);
 }
 
-// The long-row ED kernel: the staged kernel's contract, for queries whose
-// region and query do not fit shared memory whole.  Rows as in the staged
-// kernel (chunk_block_rows, the same modes); the query and the rows' regions stream through
-// shared memory in tiles of `ptile` points (a multiple of kEdJ and of
-// 32), and each thread keeps its kEdJ dots in registers across the tiles
-// and slides over each tile as the staged kernel slides over the whole
-// row, so its dots, summed in the same order, have the same bits.  A
-// thread takes the items (row le, offset group) tid, tid + threads, ...
-// in rounds (more than one only past kEdThreads items: g > 4,096 at one
-// row a block), each round streaming the query again.  The epilogue reads
-// the window sums from the prefix sums in place (window_sums), the values
-// the staged kernel's runs hold, and sum(q^2) is taken from device memory
-// in the staged kernel's order; so d2 has the staged kernel's bits too.
-// Past the g one block takes (its candidate buffer and region tile grow
-// with g), a row's offsets are split into tiles of `otile`: block
-// (x, b, z) takes offsets [z otile, (z + 1) otile) of its rows, stages
-// only their region (qlen + otile - 1 points, streamed as above) and
-// writes its own partials (k-NN: a list per (row block, offset tile),
-// every candidate keyed by its position r g + j in the chunk, so the
-// merge is the untiled one's) or its part of the dense d2 (range).  Each
-// window is computed as the untiled kernel computes it: the same bits.
+// The long-row ED kernel's sliding dots: kEdLongJ = 4 offsets j0 .. j0 + 3
+// of one row over `len` query points (a multiple of 8) of a tile:
+// acc[jj] = fmaf(region[j0 + t + jj], q[t], acc[jj]) in query order, the
+// staged kernel's chain (ed_slide), so the same bits.  base (16-byte
+// aligned) points at region word j0 of the row's tile, q at the tile's
+// query; the region comes in 16-byte reads (neighbouring threads read
+// neighbouring 16 bytes), the query in broadcast 16-byte reads, and the
+// next 8 points' words are read while these 8 are summed.  Reads base[0,
+// len + 12) and q[0, len + 8).
+__device__ __forceinline__ void ed_slide_long(const float* base,
+                                              const float* q, int len,
+                                              float (&acc)[kEdLongJ]) {
+  const float4* r4 = reinterpret_cast<const float4*>(base);
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+  float4 ra = r4[0], rb = r4[1], rc = r4[2], qa = q4[0], qb = q4[1];
+#pragma unroll 2
+  for (int i = 0; i < len / 4; i += 2) {     // i: float4 index of t0
+    const float4 nb = r4[i + 3], nc = r4[i + 4];
+    const float4 nqa = q4[i + 2], nqb = q4[i + 3];
+    const float rv[12] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y,
+                          rb.z, rb.w, rc.x, rc.y, rc.z, rc.w};
+    const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+    for (int tt = 0; tt < 8; ++tt) {
+#pragma unroll
+      for (int jj = 0; jj < kEdLongJ; ++jj)
+        acc[jj] = fmaf(rv[tt + jj], qv[tt], acc[jj]);
+    }
+    ra = rc;
+    rb = nb;
+    rc = nc;
+    qa = nqa;
+    qb = nqb;
+  }
+}
+
+// The long ED kernel's region row stride (floats) at ngrp offset groups a
+// row and tiles of ptile points: the words a row's threads read (ngrp
+// kEdLongJ + ptile + 8, ed_slide_long), rounded up to 16 bytes, and then
+// to s4 16-byte words with s4 = ngrp (mod 8): thread (row le, group grp)
+// reads word le s4 + grp + i at step 4 i, = its flat index le ngrp + grp
+// + i (mod 8), so the 8 threads of a quarter warp read 8 distinct 16-byte
+// bank groups, also across a row's end.
+__host__ __device__ inline int ed_long_stride(int ngrp, int ptile) {
+  int s4 = (ngrp * kEdLongJ + ptile + 8 + 3) / 4;
+  s4 += ((ngrp - s4) % 8 + 8) % 8;
+  return 4 * s4;
+}
+
+// The Hopper bulk copy (cp.async.bulk, the TMA's one-dimensional form)
+// and the shared-memory barrier (mbarrier) that counts its bytes.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One arrival that expects `bytes` more of bulk copies in this phase.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      " .reg .pred done;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Stage tile t0 (len points; q_s[len, len + 8) is never summed) of the
+// query and of the regions of the block's rows with work into one buffer:
+// q_s[t] = q[t0 + t] (0 past qlen) and, for row le, reg_s[le stride + u]
+// = data[vs + t0 + u] for u < width, vs = the flat start of the row's
+// region rounded down to 16 bytes (row_sh[le] words below it), so region
+// point p sits at u = p + row_sh[le] - t0.  Thread 0 copies the query's
+// 16-byte words and every row that lies inside the array with bulk
+// copies counted by `bar` (their words past the region only ever meet
+// the query's zero padding, so they need not be the staged kernel's
+// zeros); the rest goes through cp.async, word by word where a piece
+// holds a point past the region (0 there, as the staged kernel pads) or
+// past the array (clipped to it, as the staged kernel reads).  Every
+// call arrives on `bar` once.
+__device__ __forceinline__ void ed_long_stage(
+    const float* __restrict__ data, const float* __restrict__ qs,
+    float* q_s, float* reg_s, const int* row_sid, const int* row_anc,
+    const int* row_jl, const int* row_sh, long long num_series, int n,
+    int qlen, int reg, int tile, int stride, int width, int t0, int len,
+    unsigned long long* bar) {
+  const int tid = threadIdx.x;
+  const float* q = qs + (long long)blockIdx.y * qlen + t0;
+  const int valid = qlen - t0 < len ? qlen - t0 : len;
+  const int nq = (reinterpret_cast<unsigned long long>(q) & 15) == 0
+                     ? valid & ~3 : 0;       // query words by bulk copy
+  const long long total = num_series * (long long)n;
+  const bool data16 = (reinterpret_cast<unsigned long long>(data) & 15) == 0;
+  auto base_of = [&](int le) {
+    return (long long)row_sid[le] * n + row_anc[le] - row_sh[le] + t0;
+  };
+  auto bulk_row = [&](int le) {
+    const long long base = base_of(le);
+    return data16 && row_jl[le] > 0 && base >= 0 && base + width <= total;
+  };
+  if (tid == 0) {
+    unsigned bytes = 4u * nq;
+    for (int le = 0; le < tile; ++le)
+      if (bulk_row(le)) bytes += 4u * width;
+    // the buffer's last reads and writes (the threads', cp.async's) come
+    // before these copies (the caller's barrier)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect(bar, bytes);
+    if (nq) bulk_copy(q_s, q, 4u * nq, bar);
+    for (int le = 0; le < tile; ++le)
+      if (bulk_row(le))
+        bulk_copy(reg_s + le * stride, data + base_of(le), 4u * width, bar);
+  }
+  for (int t = nq + tid; t < len; t += blockDim.x) {
+    if (t < valid)
+      cp_async4(q_s + t, q + t);
+    else
+      q_s[t] = 0.f;
+  }
+  for (int le = 0; le < tile; ++le) {
+    if (row_jl[le] == 0 || bulk_row(le)) continue;
+    float* dst = reg_s + le * stride;
+    const long long base = base_of(le);
+    const int live = reg - t0 + row_sh[le];   // words below: region points
+    for (int u = 4 * tid; u < width; u += 4 * blockDim.x) {
+      if (data16 && u + 4 <= live && base + u >= 0 && base + u + 4 <= total) {
+        cp_async16(dst + u, data + base + u);
+      } else {
+        for (int e = 0; e < 4; ++e) {
+          if (u + e < live) {
+            long long flat = base + u + e;
+            flat = flat < 0 ? 0 : (flat >= total ? total - 1 : flat);
+            cp_async4(dst + u + e, data + flat);
+          } else {
+            dst[u + e] = 0.f;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The long-row ED kernel: the staged kernel's contract at any qlen and g.
+// Rows as in the staged kernel (chunk_block_rows, the same modes).  Block
+// (x, b, z) takes `tile` rows and the offsets [z otile, (z + 1) otile) of
+// each (one offset tile: all g where otile >= g), one thread a (row,
+// group of kEdLongJ offsets), threads of a row next to each other: a
+// warp's region reads are 16-byte words side by side (ed_long_stride).
+// A row's words in shared memory start at its region's flat start
+// rounded down to 16 bytes, so a row's tile is one bulk copy (the TMA's
+// one-dimensional cp.async.bulk, counted by a shared-memory barrier; a
+// row at the array's ends goes word by word through cp.async); its
+// first group starts up to 3 offsets early (those offsets are none of
+// the row's: ngrp covers otile + 3).  The query and the rows' regions
+// stream through shared memory in tiles of `ptile` points, double-
+// buffered: after one barrier a tile, the next tile's copies fly while
+// this one is summed, issued by one thread, so the summing threads
+// spend no instructions on them (the 16-byte cp.async pieces they
+// replaced cost ~25% of the kernel's time at [15]'s shape).  Each thread keeps its 4 dots in
+// registers across the tiles and sums them in query order over the
+// zero-padded qlen_pad, as the staged kernel does, so its d2 has the
+// staged kernel's bits.  The epilogue reads the window sums from the
+// prefix sums in place (window_sums), the values the staged kernel's
+// runs hold, and sum(q^2) from device memory in the staged kernel's
+// order.  The k-NN entry keeps a block's candidates with d2 < the pool's
+// k-th and writes its kp best to the partials list of (row block, offset
+// tile), every candidate keyed by its position r g + j in the chunk, so
+// the merge is the untiled one's; the range entry writes its part of the
+// dense d2.  The host picks (tile, otile, ptile) from (B, rows, g, qlen)
+// and the SM count (fused_verify.ed_long_shape).
+// Bound on the card: operations (2 qlen flops a window: at [15]'s B = 8,
+// 128 rows, g 49, qlen 29,000, 2.9 GFLOP, 0.043 ms at 67 TFLOP/s).  Each
+// dot is one in-order chain of qlen FMAs (the staged kernel's bits), so
+// the work is 50,176 chains there: at 4 offsets a thread, 416 warps, one
+// a scheduler, each bound by its own issue (~5 instructions a point: 4
+// FMAs, a quarter of two 16-byte reads) and by shared memory (a warp's
+// region and query reads take 2 of its 128-byte cycles a point).  Fewer
+// offsets a thread would give more warps but read more shared memory a
+// FMA; more would leave schedulers idle.
 template <int kMode>
-__global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
+__global__ void __launch_bounds__(kEdLongThreads) fused_gather_ed_long_kernel(
     const float* __restrict__ data, const float* __restrict__ csum,
     const float* __restrict__ csum2, const float* __restrict__ csum_lo,
     const float* __restrict__ csum2_lo, const float* __restrict__ center,
@@ -636,11 +825,13 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
     const float* __restrict__ gkth, int otile) {
   constexpr bool kChunk = kMode != 0, kRange = kMode == 2;
   extern __shared__ __align__(16) float ed_smem[];
-  float* q_s = ed_smem;                       // [ptile]
-  float* reg_s = q_s + ptile;                 // [tile * stride]
-  float* cd_s = reg_s + tile * stride;        // chunk: [tile * otile] d2
-  int* cp_s = reinterpret_cast<int*>(cd_s + tile * otile);  // and positions
-  __shared__ int row_sid[kEdTile], row_anc[kEdTile], row_jl[kEdTile];
+  float* q_s = ed_smem;                           // [2][ptile + 8]
+  float* reg_s = q_s + 2 * (ptile + 8);           // [2][tile * stride]
+  float* cd_s = reg_s + 2 * tile * stride;        // chunk: [tile * otile]
+  int* cp_s = reinterpret_cast<int*>(cd_s + tile * otile);  // positions
+  __shared__ int row_sid[kEdLongRows], row_anc[kEdLongRows],
+      row_jl[kEdLongRows], row_sh[kEdLongRows];
+  __shared__ __align__(8) unsigned long long bars[2];   // a buffer's
   __shared__ float qss_s;
   __shared__ int count_s;
 
@@ -685,47 +876,74 @@ __global__ void __launch_bounds__(kEdThreads) fused_gather_ed_long_kernel(
     if (tid == 0) qss_s = part;
   }
 
-  const long long last = num_series * (long long)(n + 1) - 1;
-  for (int base = 0; base < tile * ngrp; base += blockDim.x) {
-    const int item = base + tid;
-    const int le = item % tile, grp = item / tile;
-    const int j0 = grp * kEdJ;
-    const int row_lim = row_jl[le];
-    const bool mine = item < tile * ngrp && j0 < row_lim;
-    float acc[kEdJ];
+  // a row's words in the tiles start at its region's flat start rounded
+  // down to 16 bytes, row_sh words below it (so 16-byte copies)
+  if (tid < tile)
+    row_sh[tid] = (int)(((long long)row_sid[tid] * n + row_anc[tid]) & 3);
+  if (tid == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // this thread: row le, the 4 offsets j0 .. j0 + 3 of the block's,
+  // j0 = 4 grp - row_sh[le] (the offsets below 0 are none of the row's)
+  const int le = tid / ngrp, grp = tid - le * ngrp;
+  const int row_lim = le < tile ? row_jl[le] : 0;
+  const int j0 = grp * kEdLongJ - (le < tile ? row_sh[le] : 0);
+  const bool mine = j0 + kEdLongJ > 0 && j0 < row_lim;
+  const int width = ngrp * kEdLongJ + ptile + 8;
+  const int n_tiles = (qlen_pad + ptile - 1) / ptile;
+  float acc[kEdLongJ];
 #pragma unroll
-    for (int jj = 0; jj < kEdJ; ++jj) acc[jj] = 0.f;
-    for (int t0 = 0; t0 < qlen_pad; t0 += ptile) {
-      const int len = qlen_pad - t0 < ptile ? qlen_pad - t0 : ptile;
-      __syncthreads();                  // the last tile is consumed
-      ed_stage(data, qs, q_s, reg_s, row_sid, row_anc, row_jl, num_series,
-               n, qlen, reg, tile, stride, t0, len);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (mine) ed_slide(reg_s + le * stride + j0, q_s, len, acc);
-    }
+  for (int jj = 0; jj < kEdLongJ; ++jj) acc[jj] = 0.f;
+  ed_long_stage(data, qs, q_s, reg_s, row_sid, row_anc, row_jl, row_sh,
+                num_series, n, qlen, reg, tile, stride, width, 0,
+                qlen_pad < ptile ? qlen_pad : ptile, &bars[0]);
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();     // tile `it`'s word copies in place; the other
+                         // buffer consumed
+    const int t1 = (it + 1) * ptile;
+    if (t1 < qlen_pad)
+      ed_long_stage(data, qs, q_s + (buf ^ 1) * (ptile + 8),
+                    reg_s + (buf ^ 1) * tile * stride, row_sid, row_anc,
+                    row_jl, row_sh, num_series, n, qlen, reg, tile, stride,
+                    width, t1, qlen_pad - t1 < ptile ? qlen_pad - t1 : ptile,
+                    &bars[buf ^ 1]);
+    cp_async_commit();
+    mbar_wait(&bars[buf], (it >> 1) & 1);   // and its bulk copies
     if (mine) {
-      const int r = r0 + le;
-      const long long sid = row_sid[le];
+      const int len = qlen_pad - it * ptile < ptile ? qlen_pad - it * ptile
+                                                    : ptile;
+      ed_slide_long(reg_s + buf * tile * stride + le * stride +
+                        grp * kEdLongJ,
+                    q_s + buf * (ptile + 8), len, acc);
+    }
+  }
+  if (mine) {      // (qss_s is in place: a tile's barrier came after it)
+    const int r = r0 + le;
+    const long long sid = row_sid[le];
+    const long long last = num_series * (long long)(n + 1) - 1;
 #pragma unroll
-      for (int jj = 0; jj < kEdJ; ++jj) {
-        const int j = j0 + jj;
-        if (j < row_lim) {
-          float s1, s2;
-          window_sums(csum, csum2, csum_lo, csum2_lo, sid, row_anc[le] + j,
-                      n, qlen, last, &s1, &s2);
-          const float d2 = ed_d2(s1, s2, acc[jj], qlen, znorm,
-                                 znorm ? 0.f : center[sid], qss_s);
-          if (!kChunk) {
-            out[((long long)b * rows + r) * g + j_lo + j] = d2;
-          } else if (kRange) {
-            cd_s[le * gt + j] = d2;
-          } else if (d2 < kth) {
-            const int slot = atomicAdd(&count_s, 1);
-            cd_s[slot] = d2;
-            cp_s[slot] = r * g + j_lo + j;
-          }
+    for (int jj = 0; jj < kEdLongJ; ++jj) {
+      const int j = j0 + jj;
+      if (j >= 0 && j < row_lim) {
+        float s1, s2;
+        window_sums(csum, csum2, csum_lo, csum2_lo, sid, row_anc[le] + j, n,
+                    qlen, last, &s1, &s2);
+        const float d2 = ed_d2(s1, s2, acc[jj], qlen, znorm,
+                               znorm ? 0.f : center[sid], qss_s);
+        if (!kChunk) {
+          out[((long long)b * rows + r) * g + j_lo + j] = d2;
+        } else if (kRange) {
+          cd_s[le * gt + j] = d2;
+        } else if (d2 < kth) {
+          const int slot = atomicAdd(&count_s, 1);
+          cd_s[slot] = d2;
+          cp_s[slot] = r * g + j_lo + j;
         }
       }
     }
@@ -1265,18 +1483,6 @@ struct EdShape {
   size_t smem;
 };
 
-// The offsets a long kernel's block takes at g: `force` where given (a
-// test's), else all g where one block of a row fits kSmemMax, else the
-// row's offsets split into the fewest tiles of at most `most` (the
-// largest a block of one row takes), balanced, a multiple of `unit`.
-int offset_tile(int g, int most, int unit, int force) {
-  if (force > 0) return force < g ? force : g;
-  if (g <= most) return g;
-  const int tiles = (g + most - 1) / most;
-  const int t = ((g + tiles - 1) / tiles + unit - 1) / unit * unit;
-  return t < most ? t : most;
-}
-
 EdShape ed_shape(int qlen, int g, bool chunk) {
   EdShape s;
   s.qlen_pad = (qlen + kEdJ - 1) / kEdJ * kEdJ;
@@ -1303,36 +1509,30 @@ EdShape ed_shape(int qlen, int g, bool chunk) {
   return s;
 }
 
-// The long ED kernel's block shape: a tile of kLongPoints query points
-// and the rows' region points it reads; up to kEdTile rows a block, fewer
-// where the items or the shared memory would exceed their budgets.  It
-// does not grow with qlen (items past kEdThreads take rounds).
-EdShape ed_long_shape(int qlen, int g, bool chunk, int force = 0) {
-  EdShape s;
-  // a block of one row at T offsets: the query tile, a region tile of
-  // ceil(T / kEdJ) kEdJ + kLongPoints - 1 words and (chunk) 2 T of
-  // candidates; the largest T a multiple of kEdJ within kSmemMax
-  const int most = ((int)(kSmemMax / sizeof(float)) - 2 * kLongPoints + 1) /
-                   (chunk ? 3 : 1) / kEdJ * kEdJ;
-  s.otile = offset_tile(g, most, kEdJ, force);
+// The long ED kernel's block shape from the host's plan
+// (fused_verify.ed_long_shape): `tile` rows, otile offsets a row (all g
+// where otile >= g) and tiles of ptile query points (a multiple of 8);
+// one thread a (row, group of kEdLongJ offsets).  threads = 0 where the
+// plan is not one the kernel takes.
+EdShape ed_long_shape(int qlen, int g, int tile, int otile, int ptile) {
+  EdShape s = {};
+  if (tile < 1 || tile > kEdLongRows || otile < 1 || ptile < 8 ||
+      ptile % 8 != 0 || ptile > (1 << 16))
+    return s;
+  s.tile = tile;
+  s.otile = otile < g ? otile : g;
   s.n_otiles = (g + s.otile - 1) / s.otile;
-  const int gt = s.otile;
-  s.qlen_pad = (qlen + kEdJ - 1) / kEdJ * kEdJ;
-  s.ngrp = (gt + kEdJ - 1) / kEdJ;
-  s.stride = s.ngrp * kEdJ + kLongPoints - 1;   // odd
-  s.run_stride = 0;
-  auto smem_for = [&](int t) {
-    return sizeof(float) * ((size_t)kLongPoints + (size_t)t * s.stride +
-                            (chunk ? 2 * (size_t)t * gt : 0));
-  };
-  s.tile = kEdTile;
-  while (s.tile > 1 && (s.tile * s.ngrp > kEdThreads ||
-                        smem_for(s.tile) > kEdSmemBudget))
-    s.tile /= 2;
-  s.smem = smem_for(s.tile);
-  s.threads = (s.tile * s.ngrp + 31) / 32 * 32;
-  if (s.threads < kEdMinThreads) s.threads = kEdMinThreads;
-  if (s.threads > kEdThreads) s.threads = kEdThreads;
+  s.qlen_pad = (qlen + kEdJ - 1) / kEdJ * kEdJ;   // the staged kernel's
+  // a row's offsets start up to 3 words into its first group
+  s.ngrp = (s.otile + 3 + kEdLongJ - 1) / kEdLongJ;
+  s.stride = ed_long_stride(s.ngrp, ptile);
+  s.run_stride = ptile;          // the kernel's points a tile
+  s.threads = (tile * s.ngrp + 31) / 32 * 32;
+  // two query tiles, two region tiles, (chunk) the candidates' d2 and
+  // positions
+  s.smem = sizeof(float) * (2 * ((size_t)ptile + 8) +
+                            2 * (size_t)tile * s.stride +
+                            2 * (size_t)tile * s.otile);
   return s;
 }
 
@@ -1348,16 +1548,18 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
               long long num_series, int n, int batch, int rows, int qlen,
               int g, int znorm, long long row_stride, long long col0, int k,
               void* stream, const void* ovf = nullptr, int n_chunks = 0,
-              const void* gkth = nullptr, int otile = 0) {
+              const void* gkth = nullptr, int tile = 0, int otile = 0,
+              int ptile = 0) {
   if (batch < 1 || rows < 1 || g < 1 || qlen < 1 || qlen > n ||
-      batch > 65535 || k < 1 || otile < 0)
+      batch > 65535 || k < 1)
     return (int)cudaErrorInvalidValue;
-  const EdShape s = kLong ? ed_long_shape(qlen, g, kMode != 0, otile)
+  const EdShape s = kLong ? ed_long_shape(qlen, g, tile, otile, ptile)
                           : ed_shape(qlen, g, kMode != 0);
-  if (s.n_otiles > 65535) return (int)cudaErrorInvalidValue;
-  if (s.threads > kEdThreads || s.smem > kSmemMax)
+  if (s.threads < 1 || s.n_otiles > 65535) return (int)cudaErrorInvalidValue;
+  if (s.threads > (kLong ? kEdLongThreads : kEdThreads) ||
+      s.smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  // the two kernels take the same arguments; the last is the staged
+  // the two kernels take the same arguments; run_stride is the staged
   // kernel's run stride or the long kernel's points a tile
   auto kernel = kLong ? fused_gather_ed_long_kernel<kMode>
                       : fused_gather_ed_kernel<kMode>;
@@ -1384,7 +1586,7 @@ int launch_ed(const void* data, const void* csum, const void* csum2,
       reinterpret_cast<float*>(p), p ? p + plane : nullptr,
       p ? p + 2 * plane : nullptr, p ? p + 3 * plane : nullptr, num_series,
       n, rows, qlen, g, znorm, row_stride, col0, k, kp, s.tile, s.qlen_pad,
-      s.ngrp, s.stride, kLong ? kLongPoints : s.run_stride,
+      s.ngrp, s.stride, s.run_stride,
       static_cast<const int*>(ovf), n_chunks,
       static_cast<const float*>(gkth), s.otile);
   return (int)cudaGetLastError();
@@ -1404,18 +1606,20 @@ extern "C" int ulisse_fused_gather_ed(
       qlen, g, znorm, rows, 0, 1, stream);
 }
 
-// The long-row kernel behind the same contract (any qlen and g; otile
-// the offsets a block takes, 0: from the shape).
+// The long-row kernel behind the same contract (any qlen and g; blocks
+// of `tile` rows and otile offsets a row, tiles of ptile query points:
+// fused_verify.ed_long_shape).
 extern "C" int ulisse_fused_gather_ed_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
     const void* sids, const void* anchors, const void* qs, void* out,
     long long num_series, int n, int batch, int rows, int qlen, int g,
-    int znorm, int otile, void* stream) {
+    int znorm, int tile, int otile, int ptile, void* stream) {
   return launch_ed<0, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, nullptr,
       nullptr, qs, out, nullptr, nullptr, nullptr, num_series, n, batch, rows,
-      qlen, g, znorm, rows, 0, 1, stream, nullptr, 0, nullptr, otile);
+      qlen, g, znorm, rows, 0, 1, stream, nullptr, 0, nullptr, tile, otile,
+      ptile);
 }
 
 // Rows a block of the chunk entry takes at (qlen, g): its partials are
@@ -1425,25 +1629,6 @@ extern "C" int ulisse_fused_gather_ed_chunk_tile(int qlen, int g) {
   if (qlen < 1 || g < 1) return -1;
   const EdShape s = ed_shape(qlen, g, true);
   return s.threads > kEdThreads || s.smem > kSmemMax ? -1 : s.tile;
-}
-
-// The same for the long-row chunk entry, at any qlen and g, its blocks
-// taking otile offsets a row (0: from the shape): its partials are (B,
-// ceil(rows / tile) * ceil(g / otile), min(k, tile * otile)).
-extern "C" int ulisse_fused_gather_ed_chunk_long_tile(int qlen, int g,
-                                                      int otile) {
-  if (qlen < 1 || g < 1 || otile < 0) return -1;
-  const EdShape s = ed_long_shape(qlen, g, true, otile);
-  return s.smem > kSmemMax ? -1 : s.tile;
-}
-
-// The offsets a block of the long-row ED chunk entries (k-NN and range)
-// takes at (qlen, g): g where one block of a row fits, else the offset
-// tile (force > 0: that tile, as a test forces it).
-extern "C" int ulisse_fused_gather_ed_long_otile(int qlen, int g,
-                                                 int force) {
-  if (qlen < 1 || g < 1 || force < 0) return -1;
-  return ed_long_shape(qlen, g, true, force).otile;
 }
 
 extern "C" int ulisse_fused_gather_ed_chunk(
@@ -1462,7 +1647,8 @@ extern "C" int ulisse_fused_gather_ed_chunk(
 }
 
 // The long-row kernel behind the chunk entry's contract (any qlen and g;
-// otile as ulisse_fused_gather_ed_long's).
+// tile, otile and ptile as ulisse_fused_gather_ed_long's): its partials
+// are (B, ceil(rows / tile) * ceil(g / otile), min(k, tile * otile)).
 extern "C" int ulisse_fused_gather_ed_chunk_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
@@ -1470,12 +1656,13 @@ extern "C" int ulisse_fused_gather_ed_chunk_long(
     const void* lbs2, const void* qs, const void* pool_d2, const void* gkth,
     void* stats, void* part, long long num_series, int n, int batch,
     int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
-    int k, int otile, void* stream) {
+    int k, int tile, int otile, int ptile, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
   return launch_ed<1, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, qs, nullptr, pool_d2, stats, part, num_series, n, batch, rows,
-      qlen, g, znorm, n_pad, col0, k, stream, nullptr, 0, gkth, otile);
+      qlen, g, znorm, n_pad, col0, k, stream, nullptr, 0, gkth, tile, otile,
+      ptile);
 }
 
 // The range mode of the chunk entry: eps2 (B,) in place of the pool,
@@ -1499,7 +1686,7 @@ extern "C" int ulisse_fused_gather_ed_range(
 }
 
 // The long-row kernel behind the range entry's contract (any qlen and g;
-// otile as ulisse_fused_gather_ed_long's).
+// tile, otile and ptile as ulisse_fused_gather_ed_long's).
 extern "C" int ulisse_fused_gather_ed_range_long(
     const void* data, const void* csum, const void* csum2,
     const void* csum_lo, const void* csum2_lo, const void* center,
@@ -1507,12 +1694,13 @@ extern "C" int ulisse_fused_gather_ed_range_long(
     const void* lbs2, const void* qs, const void* eps2, const void* ovf,
     void* stats, void* out, long long num_series, int n, int batch,
     int rows, int qlen, int g, int znorm, long long n_pad, long long col0,
-    int n_chunks, int otile, void* stream) {
+    int n_chunks, int tile, int otile, int ptile, void* stream) {
   if (col0 < 0 || col0 + rows > n_pad) return (int)cudaErrorInvalidValue;
   return launch_ed<2, true>(
       data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors, n_master,
       lbs2, qs, out, eps2, stats, nullptr, num_series, n, batch, rows, qlen,
-      g, znorm, n_pad, col0, 1, stream, ovf, n_chunks, nullptr, otile);
+      g, znorm, n_pad, col0, 1, stream, ovf, n_chunks, nullptr, tile, otile,
+      ptile);
 }
 
 namespace {

@@ -28,12 +28,13 @@ LB_Keogh at g = 49) it hands the call to its long-row variant
 `fused_gather_lb_keogh_chunk_long`, `fused_gather_lb_keogh_range_long`:
 the same contract and the same bits, the query streamed through shared
 memory in tiles of points), each a wrapper of its own with its own
-count, so any qlen runs on the card.  Past the g one block of a row takes
-(18,688), the long-row ED variants split a row's offsets into tiles of
-`offset_tile` offsets, a block each; the long-row LB_Keogh variants take
-blocks of consecutive windows of a query's chunk, one a thread
-(`lb_long_shape`), so any g runs on the card too, with the same
-results.  The kernels are `csrc/fused_verify.cu`; the plain versions
+count, so any qlen runs on the card.  The long-row ED variants take
+blocks of a few rows and up to 1,020 offsets of each, one thread a row
+and 4 offsets (`ed_long_shape`, from the SM count; past 1,020 a row's
+offsets split into tiles of `offset_tile` offsets, a block each); the
+long-row LB_Keogh variants take blocks of consecutive windows of a
+query's chunk, one a thread (`lb_long_shape`), so any g runs on the card
+too, with the same results.  The kernels are `csrc/fused_verify.cu`; the plain versions
 are `ref.fused_gather_ed_ref`, `ref.fused_gather_ed_chunk_ref`,
 `ref.fused_gather_ed_range_ref`, `ref.fused_gather_lb_keogh_ref`,
 `ref.fused_gather_lb_keogh_chunk_ref`,
@@ -89,16 +90,104 @@ def staged(measure: str, qlen: int, g: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def offset_tile(measure: str, qlen: int, g: int, force: int = 0) -> int:
     """The most offsets of a row a block of the long-row entries of
-    `measure` ("ed" or "dtw") takes at (qlen, g).  ED: g where one block
-    of a row fits shared memory, else the row's offsets split into the
-    fewest balanced tiles that fit (a block each).  LB_Keogh: a block
-    takes consecutive windows of the chunk (at most _LB_ITEMS[0], or
-    `force`).  `force` > 0: a tile of that many offsets (a test's, to
+    `measure` ("ed" or "dtw") takes at (qlen, g).  ED: g up to
+    _ED_MAX_OTILE (1,020: a block's 256 threads at 4 offsets each, the
+    first group of a row starting up to 3 offsets early), else the row's
+    offsets split into the fewest balanced tiles of at most that, a
+    multiple of 4 (a block each; `ed_long_shape`).  LB_Keogh: a
+    block takes consecutive windows of the chunk (at most _LB_ITEMS[0],
+    or `force`).  `force` > 0: a tile of that many offsets (a test's, to
     hold the tiled blocks against the untiled ones at a g both take)."""
     if measure == "dtw":
         return min(g, force or _LB_ITEMS[0])
-    lib = _build.library("fused_verify")
-    return lib.ulisse_fused_gather_ed_long_otile(qlen, g, force)
+    if force:
+        return min(g, force)
+    if g <= _ED_MAX_OTILE:
+        return g
+    tiles = -(-g // _ED_MAX_OTILE)
+    return min(_ED_MAX_OTILE, -(-(-(-g // tiles)) // _ED_J) * _ED_J)
+
+
+# csrc/fused_verify.cu's long-row ED kernel: offsets a thread (kEdLongJ),
+# threads and rows a block at most (kEdLongThreads, kEdLongRows), the
+# offsets a block of one row takes at most, the query points a tile at
+# most, and the shared memory the plan keeps a block within
+_ED_J = 4
+_ED_MAX_THREADS = 256
+_ED_MAX_ROWS = 32
+_ED_MAX_OTILE = _ED_J * _ED_MAX_THREADS - 4
+_ED_PTILE = 2048
+_ED_SMEM_PLAN = 96 * 1024
+
+
+def _ed_groups(otile: int) -> int:
+    """Threads a row of the long ED kernel at `otile` offsets a block:
+    groups of 4 offsets, the row's first offset up to 3 words into the
+    first (its region read from a 16-byte boundary)."""
+    return -(-(otile + 3) // _ED_J)
+
+
+def _ed_stride(ngrp: int, ptile: int) -> int:
+    """The long ED kernel's region row stride in floats (ed_long_stride):
+    the ngrp 4 + ptile + 8 words a row's threads read, in s4 16-byte
+    words with s4 = ngrp (mod 8), so that a quarter warp's 16-byte reads
+    fall in distinct banks."""
+    s4 = -(-(ngrp * _ED_J + ptile + 8) // 4)
+    s4 += (ngrp - s4) % 8
+    return 4 * s4
+
+
+def _ed_smem(tile: int, otile: int, ptile: int) -> int:
+    """Bytes of shared memory of a long-row ED block (the kernel's
+    ed_long_shape): two query tiles of ptile + 8 floats, two region tiles
+    of `tile` rows, and the candidates' d2 and positions."""
+    stride = _ed_stride(_ed_groups(otile), ptile)
+    return 4 * (2 * (ptile + 8) + 2 * tile * stride + 2 * tile * otile)
+
+
+@functools.lru_cache(maxsize=None)
+def ed_long_shape(batch: int, rows: int, g: int, qlen: int, sms: int,
+                  force: int = 0, tile: int = 0, ptile: int = 0) -> tuple:
+    """(tile, otile, ptile) of the long-row ED entries for B = batch
+    queries of `rows` rows of g offsets at qlen on a card of `sms` SMs.
+    A block takes `tile` rows and `otile` offsets of each (`offset_tile`;
+    `force` forces it), one thread a (row, group of 4 offsets: `_ed_groups`
+    a row), so at most 256 threads: `tile` is the most rows (a power of two, at most 32
+    and at most `rows`) whose threads fit, halved while the blocks would
+    not give every SM one (the card's 4 schedulers each take a warp: the
+    dots are in-order chains, so more warps a block would only share a
+    scheduler).  The query and the rows' regions stream in tiles of
+    `ptile` points (a multiple of 8, at most 2,048 and at most qlen
+    rounded up to 8), shrunk while a block would pass _ED_SMEM_PLAN (two
+    blocks an SM; timed on the card at [15]'s shape, tiles of 2,048 ran
+    ~7% faster than of 1,024, and 4,096 slower).
+    `tile` and `ptile` > 0 force those (a test's).  Raises where no
+    block takes the shape."""
+    otile = offset_tile("ed", qlen, g, force)
+    ngrp = _ed_groups(otile)
+    if ngrp > _ED_MAX_THREADS:
+        raise ValueError(f"long-row ED: {otile} offsets a block, at most "
+                         f"{_ED_MAX_OTILE}")
+    n_ot = -(-g // otile)
+    if not tile:
+        tile = 1
+        while (2 * tile <= min(_ED_MAX_ROWS, rows)
+               and 2 * tile * ngrp <= _ED_MAX_THREADS):
+            tile *= 2
+        while tile > 1 and batch * -(-rows // tile) * n_ot < sms:
+            tile //= 2
+    if not 1 <= tile <= _ED_MAX_ROWS or tile * ngrp > _ED_MAX_THREADS:
+        raise ValueError(f"long-row ED: {tile} rows of {otile} offsets a "
+                         "block, more threads than a block has")
+    if not ptile:
+        ptile = min(_ED_PTILE, -(-qlen // 8) * 8)
+        while ptile > 64 and _ed_smem(tile, otile, ptile) > _ED_SMEM_PLAN:
+            ptile -= 64
+    if ptile < 8 or ptile % 8 or _ed_smem(tile, otile, ptile) > _SMEM_MAX:
+        raise ValueError(f"long-row ED: tiles of {ptile} points at {tile} "
+                         f"rows of {otile} offsets: not a block the card "
+                         "takes")
+    return tile, otile, ptile
 
 
 # csrc/fused_verify.cu's long-row LB_Keogh kernel: the windows a block
@@ -159,8 +248,19 @@ def _otile(what, otile):
     return int(otile)
 
 
+def _block(what, block):
+    """A forced (rows a block, points a tile) of the long-row ED entries
+    (None: from the shape)."""
+    if block is None:
+        return 0, 0
+    tile, ptile = block
+    if tile < 1 or ptile < 1:
+        raise ValueError(f"{what}: block={block} must be positive")
+    return int(tile), int(ptile)
+
+
 def _ed(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center,
-        sids, anchors, qs, g, rows, znorm, otile=None):
+        sids, anchors, qs, g, rows, znorm, otile=None, block=None):
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
@@ -168,16 +268,20 @@ def _ed(wrapper, entry, data, csum, csum2, csum_lo, csum2_lo, center,
            sids, anchors, rows, (("qs", qs),))
     long = entry.endswith("_long")
     otile = _otile(wrapper.__name__, otile)
+    block = _block(wrapper.__name__, block)
     if dev.type == "cpu":
         return ref.fused_gather_ed_ref(data, csum, csum2, csum_lo, csum2_lo,
                                        center, sids, anchors, qs, g=g,
                                        rows=rows, znorm=znorm)
+    lib = _build.library("fused_verify")
+    shape = (ed_long_shape(b, rows, g, qlen, _sm_count(dev), otile, *block)
+             if long else ())
     out = torch.empty((b * rows, g), dtype=torch.float32, device=dev)
-    code = getattr(_build.library("fused_verify"), entry)(
+    code = getattr(lib, entry)(
         data.data_ptr(), csum.data_ptr(), csum2.data_ptr(),
         csum_lo.data_ptr(), csum2_lo.data_ptr(), center.data_ptr(),
         sids.data_ptr(), anchors.data_ptr(), qs.data_ptr(), out.data_ptr(),
-        s, n, b, rows, qlen, g, int(znorm), *((otile,) if long else ()),
+        s, n, b, rows, qlen, g, int(znorm), *shape,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
@@ -216,30 +320,38 @@ def fused_gather_ed_long(data: torch.Tensor, csum: torch.Tensor,
                          csum2_lo: torch.Tensor, center: torch.Tensor,
                          sids: torch.Tensor, anchors: torch.Tensor,
                          qs: torch.Tensor, *, g: int, rows: int,
-                         znorm: bool, otile: Optional[int] = None
-                         ) -> torch.Tensor:
+                         znorm: bool, otile: Optional[int] = None,
+                         block: Optional[tuple] = None) -> torch.Tensor:
     """`fused_gather_ed` through the long-row kernel, at any qlen and g:
-    the same result, bit for bit where both take the shape.  `otile`
-    forces the offsets a block takes (default `offset_tile`)."""
+    the same result, bit for bit where both take the shape, whatever the
+    blocks.  A block takes `tile` rows and `otile` offsets of each (one
+    thread a row and 4 offsets), the query and the regions streamed in
+    tiles of `ptile` points: `ed_long_shape`, from the batch, the rows,
+    g, qlen and the SM count.  `otile` forces the offsets a block takes
+    and `block` = (tile, ptile) the rest (a test's)."""
     return _ed(fused_gather_ed_long, "ulisse_fused_gather_ed_long", data,
                csum, csum2, csum_lo, csum2_lo, center, sids, anchors, qs, g,
-               rows, znorm, otile)
+               rows, znorm, otile, block)
 
 
 fused_gather_ed_long.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def ed_chunk_tile(qlen: int, g: int, long: bool = False,
-                  otile: int = 0) -> int:
-    """Rows a block of the ED chunk entry (of its long-row variant where
-    `long`, its blocks taking `otile` offsets a row, 0: `offset_tile`'s)
-    takes at (qlen, g): its partials are (4, B, ceil(rows / tile) *
-    ceil(g / T) * min(k, tile * T)), T the offsets a block takes (g for
-    the staged entry)."""
-    lib = _build.library("fused_verify")
-    tile = (lib.ulisse_fused_gather_ed_chunk_long_tile(qlen, g, otile) if long
-            else lib.ulisse_fused_gather_ed_chunk_tile(qlen, g))
+def ed_chunk_tile(qlen: int, g: int, long: bool = False, otile: int = 0,
+                  batch: int = 1, rows: int = 1, sms: int = 0) -> int:
+    """Rows a block of the ED chunk entry takes at (qlen, g): the staged
+    entry's (up to 8, fewer where its threads or shared memory would pass
+    their budgets) or, where `long`, the long-row entry's for B = batch
+    queries of a `rows`-row chunk on a card of `sms` SMs, its blocks
+    taking `otile` offsets a row (0: `offset_tile`'s): `ed_long_shape`'s
+    tile.  The partials are (4, B, ceil(rows / tile) * ceil(g / T) *
+    min(k, tile * T)), T the offsets a block takes (g for the staged
+    entry)."""
+    if long:
+        return ed_long_shape(batch, rows, g, qlen, sms, otile)[0]
+    tile = _build.library("fused_verify").ulisse_fused_gather_ed_chunk_tile(
+        qlen, g)
     if tile < 1:
         raise ValueError(f"fused_gather_ed_chunk: no block fits qlen={qlen},"
                          f" g={g}")
@@ -275,7 +387,7 @@ def _check_plan(what, data, csum, csum2, csum_lo, csum2_lo, center, sids,
 
 def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, qs, pool_d2, stats, i, chunk, g,
-              znorm, gkth, otile=None):
+              znorm, gkth, otile=None, block=None):
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
@@ -286,14 +398,19 @@ def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
                 anchors, n_master, lbs2, (("qs", qs),), pool_d2, stats, i,
                 chunk, gkth=gkth)
     force = _otile(what, otile)
+    block = _block(what, block)
     if dev.type == "cpu":
         return ref.fused_gather_ed_chunk_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, qs, pool_d2, stats, i=i, chunk=chunk, g=g,
             znorm=znorm, gkth=gkth)
     lib = _build.library("fused_verify")
-    tile = ed_chunk_tile(qlen, g, long, force)
-    t = offset_tile("ed", qlen, g, force) if long else g
+    if long:
+        shape = ed_long_shape(b, chunk, g, qlen, _sm_count(dev), force,
+                              *block)
+        tile, t = shape[:2]
+    else:
+        shape, tile, t = (), ed_chunk_tile(qlen, g), g
     part = torch.empty((4, b, -(-chunk // tile) * -(-g // t)
                         * min(k, tile * t)), dtype=torch.int32, device=dev)
     entry = (lib.ulisse_fused_gather_ed_chunk_long if long
@@ -305,8 +422,7 @@ def _ed_chunk(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         lbs2.data_ptr(), qs.data_ptr(), pool_d2.data_ptr(),
         None if gkth is None else gkth.data_ptr(), stats.data_ptr(),
         part.data_ptr(), s, n, b, chunk, qlen, g, int(znorm), n_pad,
-        i * chunk, k, *((force,) if long else ()),
-        torch.cuda.current_stream(dev).cuda_stream)
+        i * chunk, k, *shape, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
     return part
@@ -361,19 +477,19 @@ def fused_gather_ed_chunk_long(data: torch.Tensor, csum: torch.Tensor,
                                stats: torch.Tensor, *, i: int, chunk: int,
                                g: int, znorm: bool,
                                gkth: Optional[torch.Tensor] = None,
-                               otile: Optional[int] = None
+                               otile: Optional[int] = None,
+                               block: Optional[tuple] = None
                                ) -> torch.Tensor:
     """`fused_gather_ed_chunk` through the long-row kernel, at any qlen
-    and g: the same counters and, at a qlen both take, the same partials
-    bit for bit (blocks of `ed_chunk_tile(qlen, g, long=True)` rows).
-    Past one block's g (or at a forced `otile`) a row's offsets take a
-    block each `offset_tile`: a partials list a (row block, offset
-    tile), so the pool after `pool_merge_partials` is the untiled one's
-    bit for bit."""
+    and g: the same counters and, after `pool_merge_partials`, the same
+    pool bit for bit, whatever the blocks (`ed_long_shape`: `tile` rows
+    and `otile` offsets of each a block, a partials list a (row block,
+    offset tile) of min(k, tile * otile) entries).  `otile` and `block`
+    = (tile, ptile) force the shape as in `fused_gather_ed_long`."""
     return _ed_chunk(fused_gather_ed_chunk_long, True, data, csum, csum2,
                      csum_lo, csum2_lo, center, sids, anchors, n_master,
                      lbs2, qs, pool_d2, stats, i, chunk, g, znorm, gkth,
-                     otile)
+                     otile, block)
 
 
 fused_gather_ed_chunk_long.launches = 0
@@ -381,7 +497,7 @@ fused_gather_ed_chunk_long.launches = 0
 
 def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
               sids, anchors, n_master, lbs2, qs, eps2, ovf, stats, i, chunk,
-              g, znorm, no_ovf, otile=None):
+              g, znorm, no_ovf, otile=None, block=None):
     dev = data.device
     s, n = data.shape
     b, qlen = qs.shape
@@ -392,14 +508,20 @@ def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
                 chunk, ovf)
     no_ovf = n_pad // chunk if no_ovf is None else no_ovf
     force = _otile(what, otile)
+    block = _block(what, block)
     if dev.type == "cpu":
         return ref.fused_gather_ed_range_ref(
             data, csum, csum2, csum_lo, csum2_lo, center, sids, anchors,
             n_master, lbs2, qs, eps2, ovf, stats, i=i, chunk=chunk, g=g,
             znorm=znorm, no_ovf=no_ovf)
-    ed_chunk_tile(qlen, g, long, force)     # raises where no block fits
-    out = torch.empty((b, chunk * g), dtype=torch.float32, device=dev)
     lib = _build.library("fused_verify")
+    if long:      # both raise where no block takes the shape
+        shape = ed_long_shape(b, chunk, g, qlen, _sm_count(dev), force,
+                              *block)
+    else:
+        shape = ()
+        ed_chunk_tile(qlen, g)
+    out = torch.empty((b, chunk * g), dtype=torch.float32, device=dev)
     entry = (lib.ulisse_fused_gather_ed_range_long if long
              else lib.ulisse_fused_gather_ed_range)
     code = entry(
@@ -408,7 +530,7 @@ def _ed_range(wrapper, long, data, csum, csum2, csum_lo, csum2_lo, center,
         sids.data_ptr(), anchors.data_ptr(), n_master.data_ptr(),
         lbs2.data_ptr(), qs.data_ptr(), eps2.data_ptr(), ovf.data_ptr(),
         stats.data_ptr(), out.data_ptr(), s, n, b, chunk, qlen, g,
-        int(znorm), n_pad, i * chunk, no_ovf, *((force,) if long else ()),
+        int(znorm), n_pad, i * chunk, no_ovf, *shape,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, what)
     wrapper.launches += 1
@@ -459,14 +581,17 @@ def fused_gather_ed_range_long(data: torch.Tensor, csum: torch.Tensor,
                                ovf: torch.Tensor, stats: torch.Tensor, *,
                                i: int, chunk: int, g: int, znorm: bool,
                                no_ovf: Optional[int] = None,
-                               otile: Optional[int] = None) -> torch.Tensor:
+                               otile: Optional[int] = None,
+                               block: Optional[tuple] = None
+                               ) -> torch.Tensor:
     """`fused_gather_ed_range` through the long-row kernel, at any qlen
     and g: the same counters and, at a qlen both take, the same d2 bit
-    for bit, offset-tiled or not (`otile` forces the tile)."""
+    for bit, whatever the blocks (`ed_long_shape`; `otile` and `block`
+    = (tile, ptile) force the shape as in `fused_gather_ed_long`)."""
     return _ed_range(fused_gather_ed_range_long, True, data, csum, csum2,
                      csum_lo, csum2_lo, center, sids, anchors, n_master,
                      lbs2, qs, eps2, ovf, stats, i, chunk, g, znorm, no_ovf,
-                     otile)
+                     otile, block)
 
 
 fused_gather_ed_range_long.launches = 0

@@ -40,7 +40,10 @@ row's offsets tiled across blocks, against their plain versions (the
 chunk-entry checks above), a forced small tile bit for bit against the
 untiled entries at g = 49, and the engine answering such an index on
 the device backend (ED and DTW, k-NN and range) as a float64 brute
-force and the host backend do.
+force and the host backend do.  The redesigned long-row ED entries bit
+for bit against the staged ones (or their own plan) at forced block
+shapes, and both mindist entries bit for bit (torch.equal) against
+their plain versions at every kernel and forced plan.
 """
 import dataclasses
 import threading
@@ -1765,23 +1768,25 @@ def test_server_on_cuda_answers_bursts_bit_equal_to_serial(dev, measure):
 
 
 def test_failing_dispatch_on_cuda_surfaces_through_ticket(dev):
-    """A dispatch the card refuses (g = 14,500 past the LB_Keogh chunk
-    entries, as in the refusal test above) fails its ticket with the
-    engine's ValueError, is counted as failed, and the dispatcher keeps
-    serving: the next request is dispatched and fails the same way."""
+    """A dispatch that fails on the card fails its ticket with the
+    engine's error, is counted as failed, and the dispatcher keeps
+    serving: the next request is dispatched and fails the same way.  The
+    failure is one the port has at any shape: a range spec whose hit
+    buffer (a query's pow2ceil(range_capacity) = 2**40 slots of d2, sid
+    and offset, 12 TiB) the card cannot allocate, so the device range
+    scan raises torch's out-of-memory error on the dispatcher thread."""
     from repro_torch.serve import ServeConfig, UlisseServer
     rng = np.random.default_rng(14_500)
-    data = np.cumsum(rng.normal(size=(2, 14_700)), -1).astype(np.float32)
-    p = EnvelopeParams(lmin=64, lmax=128, seg_len=16, card=64,
-                       gamma=14_499)
+    data = np.cumsum(rng.normal(size=(4, 400)), -1).astype(np.float32)
+    p = EnvelopeParams(lmin=64, lmax=128, seg_len=16, card=64, gamma=16)
     gpu = UlisseEngine.from_collection(
         Collection.from_array(data, device=dev), p, block_size=2,
         num_levels=1, device=dev)
     q = data[1, 30:130] + rng.normal(size=100).astype(np.float32) * 0.05
-    server = UlisseServer(gpu, QuerySpec(k=2, measure="dtw", r=5),
+    server = UlisseServer(gpu, QuerySpec(eps=5.0, range_capacity=2 ** 40),
                           ServeConfig(window_ms=0.0, max_batch=4))
     for _ in range(2):
-        with pytest.raises(ValueError, match="gamma=14499"):
+        with pytest.raises(torch.OutOfMemoryError):
             server.submit(q).result(timeout=300)
     server.close()
     total = server.metrics.snapshot()["total"]
@@ -2154,3 +2159,141 @@ def test_long_lb_entries_bit_equal_to_staged(dev, rows, otile, znorm):
             assert torch.equal(z[i], p[i])
         cols = [0, 1, 3, 5]
         assert torch.equal(st[1][:, cols], st[2][:, cols])
+
+
+# -- slice 15: the long-query ED path's two kernels redesigned --------------
+
+# forced (otile, (rows a block, points a tile)) of the long-row ED entries
+# (None: `ed_long_shape`'s): blocks of one row to 32, a tile of 8 points
+# to 1,024, an offset tile that is and is not a multiple of the 4 offsets
+# a thread takes
+_ED_SHAPES = {49: [(None, None), (None, (16, 8)), (8, (32, 64)),
+                   (24, (2, 1_024)), (49, (1, 1_016))],
+              1_500: [(None, None), (1_020, (1, 256)), (100, (2, 8)),
+                      (None, (1, 1_016))]}
+
+
+@pytest.mark.parametrize("qlen,g", [(256, 49), (4_000, 49), (28_769, 49),
+                                    (256, 1_500), (28_769, 1_500)])
+@pytest.mark.parametrize("znorm", [False, True], ids=["raw", "znorm"])
+def test_long_ed_entries_bit_equal_across_blocks(dev, qlen, g, znorm):
+    """The long-row ED entries at forced block shapes (`_ED_SHAPES`: rows
+    a block, offsets a block, points a tile) give the reference entry's
+    bits: the staged entry where it takes (qlen, g), else the long entry
+    at its own plan (`ed_long_shape`; g 1,500 splits a row's offsets past
+    one block's 1,020).  The contract entry's d2 (torch.equal), the k-NN
+    chunk entry's pools after the partials merge and its counters against
+    the plain step fed the reference's d2 over three chunks, and the
+    range entry's dense d2 and counters against the reference range
+    entry's over three chunks."""
+    import functools
+    from repro_torch.kernels.fused_verify import ed_long_shape, staged
+    rng = np.random.default_rng(qlen + g + znorm)
+    rows, b = 24, 3
+    n = qlen + 4 * g + 200
+    args = _long_args(dev, rng, qlen, b, rows, g=g, n=n)
+    ref_d2 = fused_gather_ed(*args, g=g, rows=rows, znorm=znorm)
+    assert staged("ed", qlen, g) == (qlen < 28_769)
+    if g > 1_020:
+        assert ed_long_shape(b, rows, g, qlen, 132)[1] < g
+    for otile, block in _ED_SHAPES[g]:
+        kw = dict(otile=otile, block=block)
+        before = fused_gather_ed_long.launches
+        got = fused_gather_ed_long(*args, g=g, rows=rows, znorm=znorm, **kw)
+        torch.cuda.synchronize()
+        assert fused_gather_ed_long.launches == before + 1
+        assert torch.equal(got, ref_d2), (otile, block)
+        _ed_chunk_walk(dev, 5, qlen, znorm, chunk=24,
+                       entry=functools.partial(fused_gather_ed_chunk_long,
+                                               **kw),
+                       counted=fused_gather_ed_chunk_long, n=n, g=g, s=64)
+    bq, chunk = 8, 16
+    coll, sids, anchors, nm, qs = _ed_plan(rng, dev, bq, 3 * chunk, qlen,
+                                           s=64, n=n, g=g)
+    a0 = (coll.data, coll.csum, coll.csum2, coll.csum_lo, coll.csum2_lo,
+          coll.center)
+    q = _t(qs, dev)
+    d2_all = fused_gather_ed(*a0, sids.reshape(-1), anchors.reshape(-1), q,
+                             g=g, rows=3 * chunk, znorm=znorm).reshape(bq, -1)
+    lbs2 = _ed_bounds(rng, dev, d2_all.cpu().numpy(), 3 * chunk)
+    eps2 = d2_all.nan_to_num(posinf=0.0).median(dim=1).values.contiguous()
+    ovf = torch.full((bq,), 3, dtype=torch.int32, device=dev)
+    for otile, block in _ED_SHAPES[g]:
+        st = [torch.zeros((bq, 6), dtype=torch.int32, device=dev)
+              for _ in range(2)]
+        for i in range(3):
+            want = fused_gather_ed_range(*a0, sids, anchors, nm, lbs2, q,
+                                         eps2, ovf, st[0], i=i, chunk=chunk,
+                                         g=g, znorm=znorm)
+            got = fused_gather_ed_range_long(
+                *a0, sids, anchors, nm, lbs2, q, eps2, ovf, st[1], i=i,
+                chunk=chunk, g=g, znorm=znorm, otile=otile, block=block)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (otile, block, i)
+            assert torch.equal(st[0], st[1]), (otile, block, i)
+
+
+def test_long_ed_entries_refuse_a_block_past_the_card(dev):
+    """A forced shape no block takes raises in the wrapper, counting no
+    launch: more threads than a block has (32 rows of 49 offsets), or an
+    offset tile past 1,020 offsets."""
+    rng = np.random.default_rng(5)
+    args = _long_args(dev, rng, 256, 3, 24)
+    before = fused_gather_ed_long.launches
+    for kw in (dict(block=(32, 64)), dict(otile=1_028)):
+        with pytest.raises(ValueError):
+            fused_gather_ed_long(*args, g=1_500, rows=24, znorm=True, **kw)
+    assert fused_gather_ed_long.launches == before
+
+
+def _mindist_inputs(dev, rng, b, n, w):
+    """n envelopes of w segments (row 0's first 5 segments unconstrained:
+    -inf / +inf; every tenth row and row 1 invalid), their int32 symbols
+    under 255 sorted breakpoints, and b query intervals."""
+    lo = rng.normal(size=(n, w)).astype(np.float32)
+    hi = lo + np.abs(rng.normal(size=(n, w))).astype(np.float32)
+    lo[0, :5], hi[0, :5] = -np.inf, np.inf
+    lo[2, 3], hi[4, 7] = -np.inf, np.inf
+    bp = np.sort(rng.normal(size=255)).astype(np.float32)
+    sym_lo = np.searchsorted(bp, lo, side="right").astype(np.int32)
+    sym_hi = np.searchsorted(bp, hi, side="right").astype(np.int32)
+    valid = rng.random(n) > 0.1
+    valid[1] = False
+    q = rng.normal(size=(b, w)).astype(np.float32)
+    return (_t(q, dev), _t(q + rng.random((b, w)).astype(np.float32), dev),
+            _t(sym_lo, dev), _t(sym_hi, dev), _t(bp, dev), _t(lo, dev),
+            _t(hi, dev), _t(valid, dev))
+
+
+@pytest.mark.parametrize("nseg", [16, 1_812, 6_000])
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_mindist_bit_equal_to_plain(dev, b, nseg):
+    """Both mindist entries equal their plain versions bit for bit
+    (torch.equal; invalid rows +inf, unconstrained segments adding 0), at
+    the plan's kernel and at forced plans: the tile kernel at every
+    queries-a-thread the batch takes, one envelope a block and the most,
+    tiles of 4 and of 32 segments; at nseg 16 the vector kernel too (the
+    PAA entry's included)."""
+    from repro_torch.kernels.mindist import mindist_plan
+    rng = np.random.default_rng(b * 7 + nseg)
+    n, w = 3_001, nseg
+    ql, qh, sym_lo, sym_hi, bpt, lo, hi, v = _mindist_inputs(dev, rng, b, n,
+                                                             w)
+    want_sym = ref.mindist_sym_ref(ql, qh, sym_lo, sym_hi, bpt, v, 16, nseg)
+    want_paa = ref.mindist_ref(ql, qh, lo, hi, v, 16, nseg)
+    bpow = 1 << (b - 1).bit_length()
+    plans = [None] + [(0, qb, te, st) for qb in (1, 2, 4, 8) if qb <= bpow
+                      for te in (1, 256 * qb // bpow) for st in (4, 32)]
+    if nseg <= 16:
+        plans.append((1, 0, 0, 0))
+    assert mindist_plan(True, b, n, w, nseg, 132)[0] == (nseg <= 16)
+    for plan in plans:
+        for fn, args, want in (
+                (mindist_sym, (ql, qh, sym_lo, sym_hi, bpt, v, 16, nseg),
+                 want_sym),
+                (mindist_paa, (ql, qh, lo, hi, v, 16, nseg), want_paa)):
+            before = fn.launches
+            got = fn(*args, plan=plan)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert torch.equal(got, want), (fn.__name__, plan)
