@@ -1,4 +1,5 @@
-"""Time the long-query ED path's kernels on the card, for A/B calls.
+"""Time the long-query ED path's kernels and the index build on the card,
+for A/B calls.
 
 Times the long-row ED chunk entries (k-NN and range) and the two mindist
 entries at chip_smoke.py's shapes: [15] (B = 8, 128 rows of a 32 x
@@ -16,22 +17,33 @@ digest of the kernel's output (a float64 sum of its finite values and a
 count of the rest), so two trees' runs can be compared for equal
 results.
 
+`--envelope` times the index build (`envelope_znorm` over the prefix sums
+the build itself makes, `centered_prefixes`) instead: [13]'s blocks of
+[3]'s random walks (21,399 and 198,988 series x 256, 16 segments), [14]
+(128 x 1,024, lmin 512, lmax 1,024, seg_len 32: 32 segments), [15] (32 x
+32,768, lmin 20,000, lmax 30,000, seg_len 16: 1,875 segments; chip_smoke
+[15]'s series) and [21] (1,024 x 40,960 at gamma 20,479), each with the
+float64 digest and a sha256 of its (lo, hi) bytes, so that two trees'
+envelopes can be held equal bit for bit.
+
 It imports `repro_torch` from the path, so one call can time a parent
 tree and this one in turns:
 
     PYTHONPATH=_archive/parent/src python3 chip_kernels.py --out p1.json
     PYTHONPATH=src python3 chip_kernels.py --out c1.json
 
-On a tree whose wrappers take forced plans (`plan=` on mindist, `otile=`
-/ `block=` on the long ED entries) it also times the alternatives the
-plan functions chose among (`--alternatives`).  `--check-mindist` holds
-both mindist entries against their plain versions bit for bit
+On a tree whose wrappers take forced plans (`plan=` on mindist and the
+build, `otile=` / `block=` on the long ED entries) it also times the
+alternatives the plan functions chose among (`--alternatives`).
+`--check-mindist` holds both mindist entries against their plain
+versions bit for bit
 (torch.equal) at nseg 16, 1,812 and 6,000 and B 1, 4 and 8, and prints
 every case that differs.  Needs a CUDA device; exits 1 without one.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import subprocess
@@ -273,6 +285,75 @@ def mindist_times(torch, dev, rng, rec, reps, alternatives):
         del ql, qh, sl, sh, bpt, lo, hi, v, sets
 
 
+# the builds --envelope times: tag, series, points, (lmin, lmax, gamma,
+# seg_len), the data's seed offset (6: chip_smoke [15]'s series), reps
+# ([15], the longest, last: its heat does not reach the others)
+ENVELOPE_SHAPES = (
+    ("[13] build block", 21_399, 256, (160, 256, 48, 16), 13, 20),
+    ("[13] 1M build block", 198_988, 256, (160, 256, 48, 16), 13, 10),
+    ("[14]", 128, 1_024, (512, 1_024, 48, 32), 14, 20),
+    ("[21]", 1_024, 40_960, (128, 256, 20_479, 16), 21, 10),
+    ("[15]", 32, 32_768, (20_000, 30_000, 48, 16), 6, 2))
+# forced plans --alternatives times beside the build's own, by segments
+# (kind, lengths a tile, warps a block; (0, 0, 4) the one-pass kernel,
+# past 16 segments in passes of 16)
+ENVELOPE_ALTERNATIVES = {
+    16: ((1, 96, 4), (1, 96, 2)),
+    32: ((1, 288, 2), (1, 512, 2), (1, 544, 4)),
+    1_875: ((0, 0, 4), (1, 512, 8), (1, 256, 4), (1, 256, 1), (1, 512, 2))}
+
+
+def envelope_times(torch, dev, seed, rec, reps, alternatives, shapes=None):
+    """The index build at the paths' shapes (the tags in `shapes`, else
+    all): ms a launch (CUDA events), its operations bound, the float64
+    digest and a sha256 of (lo, hi); with `alternatives` also
+    ENVELOPE_ALTERNATIVES' plans at the shape's w."""
+    from repro_torch.core.envelope import centered_prefixes
+    from repro_torch.kernels import envelope as ev
+    has_plan = "plan" in inspect.signature(ev.envelope_znorm).parameters
+    for tag, s, n, (lmin, lmax, gamma, seg), off, n_reps in ENVELOPE_SHAPES:
+        if shapes and tag not in shapes:
+            continue
+        rng = np.random.default_rng(seed + off)
+        data = np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32)
+        sums = centered_prefixes(torch.from_numpy(data).to(dev))
+        del data
+        kw = dict(lmin=lmin, lmax=lmax, gamma=gamma, seg_len=seg)
+        w, g = lmax // seg, gamma + 1
+        # chip_smoke's operations bound: 4 a valid (master, l', segment)
+        # cell, 9 a valid (master, l'), 2 a (master, segment) with a cell
+        off_ = np.arange(-(-(n - lmin + 1) // g) * g)
+        off_ = off_[off_ + lmin <= n]
+        longest = np.minimum(lmax, n - off_)[:, None]
+        first = np.maximum(lmin, (np.arange(w) + 1) * seg)[None, :]
+        per = np.maximum(longest - first + 1, 0)
+        ops = (4 * int(per.sum()) + 9 * int((longest - lmin + 1).sum())
+               + 2 * int((per > 0).sum()))
+        bound = s * ops / PEAK_F32 * 1e3
+        plans = [None]
+        if has_plan and alternatives:
+            plans += list(ENVELOPE_ALTERNATIVES.get(w, ()))
+        for plan in plans:
+            kw_p = {} if plan is None else {"plan": plan}
+            call = [lambda: ev.envelope_znorm(*sums, **kw, **kw_p)]
+            ms = events_ms(torch, call, min(reps, n_reps))
+            lo, hi = call[0]()
+            torch.cuda.synchronize()
+            h = hashlib.sha256(lo.cpu().numpy().tobytes())
+            h.update(hi.cpu().numpy().tobytes())
+            own = (ev.envelope_plan(n, lmin, lmax, gamma, seg)
+                   if has_plan and plan is None else plan)
+            rec[f"{tag} envelope_znorm" + ("" if plan is None else
+                                           f" plan={plan}")] = dict(
+                ms=ms, bound_ms=bound, plan=own,
+                shape=f"S={s} n={n} lmin={lmin} lmax={lmax} g={g} w={w}",
+                digest=digest(torch, lo) + digest(torch, hi),
+                sha256=h.hexdigest()[:16])
+            del lo, hi
+        del sums
+        torch.cuda.empty_cache()
+
+
 def check_mindist(torch, dev) -> list:
     """Every (entry, B, nseg) where the kernel differs from its plain
     version by a bit."""
@@ -306,6 +387,11 @@ def main() -> int:
     ap.add_argument("--alternatives", action="store_true")
     ap.add_argument("--check-mindist", action="store_true")
     ap.add_argument("--only", default="ed,large_g,mindist")
+    ap.add_argument("--envelope", action="store_true",
+                    help="time the index build alone (--only envelope)")
+    ap.add_argument("--shapes", default="",
+                    help="with --envelope: the tags to time, "
+                    "'[14],[15]'")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -316,7 +402,7 @@ def main() -> int:
     rec = {"card": card_line(), "tree": str(Path(
         repro_torch.__file__).resolve().parents[2])}
     print(rec["card"], flush=True)
-    only = set(args.only.split(","))
+    only = {"envelope"} if args.envelope else set(args.only.split(","))
     if args.check_mindist:
         rec["mindist_differs"] = check_mindist(torch, dev)
         print("mindist cases off their plain versions by a bit: "
@@ -327,10 +413,16 @@ def main() -> int:
             fn(torch, dev, np.random.default_rng(args.seed), rec, args.reps,
                args.alternatives)
             torch.cuda.empty_cache()
+    if "envelope" in only:
+        envelope_times(torch, dev, args.seed, rec, args.reps,
+                       args.alternatives,
+                       [t for t in args.shapes.split(",") if t])
     for key, r in rec.items():
         if isinstance(r, dict) and "ms" in r:
             print(f"{key:70s} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"
-                  f" digest {r['digest']}", flush=True)
+                  f" digest {r['digest']}"
+                  + (f" sha256 {r['sha256']} plan {r['plan']}"
+                     if "sha256" in r else ""), flush=True)
         elif isinstance(r, dict) and "refused" in r:
             print(f"{key:70s} refused: {r['refused']}", flush=True)
     if args.out is not None:

@@ -66,11 +66,14 @@ Phases (any failed check raises, and the script exits non-zero):
      around each: the k-th distance is never below the exact one, and
      the answer equals the exact one wherever `exact_from_approx` is set;
  13. time the index build's and the host backend's kernels at their
-     path's inputs (qlen 256; both lengths checked), as in 6, and the
-     wide DP entries at qlen 600, r 600;
+     path's inputs (qlen 256; both lengths checked), as in 6, the build
+     at [14]'s shape (32 segments: the one-pass kernel's two passes of
+     16, bit for bit against its plain version), and the wide DP entries
+     at qlen 600, r 600;
  14. the long-query DTW path: an index of LONG_SERIES series of 1,024
      points (lmin 512, lmax 1024, seg_len 32), exact DTW k-NN at qlen
-     600 with r = 600 (a band of 1,199 slots, past the warp entries')
+     600 with r = 600 (a band of 1,199 slots, past the warp entries';
+     the build's wall printed)
      through `UlisseEngine.search` on the device backend (the wide
      survivors entry) and the host backend (the wide band entry), counters
      set to 0 just before and read just after each; answers checked
@@ -89,8 +92,12 @@ Phases (any failed check raises, and the script exits non-zero):
      5th-neighbour distance; ED held to a float64 brute force, DTW to the
      host backend), counters around each; then the long-row chunk entries
      (k-NN and range modes), mindist (bit-equal to its plain version) and
-     the unstaged build timed at this phase's shapes, and the batches'
-     walls printed;
+     the build past 16 segments (the slab kernel; its plan, its bound
+     and the cells' issue floor beside it, bit-equal to its plain
+     version on the first and the last series, timed on the first, and a
+     sha256 of every envelope, the digest chip_kernels.py --envelope gives on any
+     tree) timed at this phase's shapes, and the batches' and the
+     build's walls printed;
  16. eps-range at full size on [3]'s index: ED and DTW (r 16 / 25), B = 8
      at qlen 160 and 256 ([4]'s and [8]'s batches), each batch's eps the
      median of its queries' 64th-nearest distances (one exact k = 64
@@ -252,6 +259,7 @@ CUDA device and nvcc; imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -433,6 +441,9 @@ REPLACES = {
                            "src/repro/kernels/dtw_band.py:73"),
     "envelope_znorm": ("src/repro_torch/kernels/csrc/envelope.cu",
                        "src/repro/kernels/envelope.py:65"),
+    # the build past 16 segments (the slab kernel), at [15]'s index
+    "envelope_znorm_long": ("src/repro_torch/kernels/csrc/envelope.cu",
+                            "src/repro/kernels/envelope.py:65"),
     "batch_ed": ("src/repro_torch/kernels/csrc/batch_ed.cu",
                  "src/repro/kernels/batch_ed.py:47"),
     "lb_keogh": ("src/repro_torch/kernels/csrc/lb_keogh.cu",
@@ -4359,7 +4370,7 @@ def main() -> int:
     from repro_torch.kernels.dtw_band import (dtw_band, dtw_band_wide,
                                               dtw_survivors,
                                               dtw_survivors_wide)
-    from repro_torch.kernels.envelope import envelope_znorm
+    from repro_torch.kernels.envelope import envelope_plan, envelope_znorm
     from repro_torch.kernels.fused_verify import (
         fused_gather_ed, fused_gather_ed_chunk, fused_gather_ed_chunk_long,
         fused_gather_ed_long, fused_gather_ed_range,
@@ -4378,6 +4389,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"], capture_output=True,
@@ -5274,6 +5286,26 @@ def main() -> int:
         f"N={c_w.shape[0]} qlen={wq} r={wr}")
     ldata_t = torch.from_numpy(np.cumsum(wrng.normal(
         size=(LONG_SERIES, LONG_LEN)), -1).astype(np.float32)).to(dev)
+    # [14]'s build (w 32: the one-pass kernel's two passes of 16) on
+    # these random walks
+    lp13 = EnvelopeParams(**LONG)
+    sums = core_envelope.centered_prefixes(ldata_t)
+    lkw = dict(lmin=lp13.lmin, lmax=lp13.lmax, gamma=lp13.gamma,
+               seg_len=lp13.seg_len)
+    call = [lambda: envelope_znorm(*sums, **lkw)]
+    plain = [lambda: ref.envelope_znorm_ref(*sums, **lkw)]
+    for k_, c_ in zip(call[0](), plain[0]()):
+        check_equal(torch, "envelope_znorm at [14]'s shape", k_, c_)
+    cells, len_pairs, seg_pairs = envelope_work(lp13, LONG_LEN)
+    n_env14 = lp13.num_envelopes(LONG_LEN)
+    l_plan = envelope_plan(LONG_LEN, lp13.lmin, lp13.lmax, lp13.gamma,
+                           lp13.seg_len)
+    timings[("envelope_znorm", "w32")] = timing(
+        torch, call, plain,
+        LONG_SERIES * (2 * (LONG_LEN + 1) * 4 + 2 * n_env14 * lp13.w * 4),
+        LONG_SERIES * (4 * cells + 9 * len_pairs + 2 * seg_pairs), 0.0,
+        f"S={LONG_SERIES} n={LONG_LEN} w={lp13.w} plan={l_plan}")
+    del sums, call, plain
     s_args, s_d2 = survivor_inputs(torch, dev, wrng, ldata_t, wq)
     n_surv = int(s_args[3].sum())
     call = [lambda: dtw_survivors_wide(*s_args, s_d2.clone(), r=wr,
@@ -5370,8 +5402,18 @@ def main() -> int:
     ldata = np.cumsum(lrng.normal(size=(LONG_SERIES, LONG_LEN)), -1).astype(
         np.float32)
     lcoll = Collection.from_array(ldata, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
     lengine = UlisseEngine.from_collection(lcoll, lp, block_size=16,
                                            num_levels=2, device=dev)
+    torch.cuda.synchronize()
+    l_build_s = time.perf_counter() - t0
+    l_build = read_counts(("envelope_znorm",))
+    if l_build["envelope_znorm"] <= 0:
+        raise AssertionError("the long DTW index build did not launch "
+                             "envelope_znorm")
+    log(f"[14] long DTW index: {LONG_SERIES} x {LONG_LEN} (w {lp.w}) built "
+        f"on the card in {l_build_s:.3f} s; launches {l_build}")
     lq, lr = LONG_CASE
     long_qs = [ldata[s_, o:o + lq] + lrng.normal(size=lq).astype(np.float32)
                * 0.1 for s_, o in zip(lrng.integers(0, LONG_SERIES, 2),
@@ -5381,7 +5423,9 @@ def main() -> int:
                    "pool_merge", "mindist_sym", "mindist_paa"),
         "host": ("lb_keogh", "dtw_band_wide", "mindist_sym", "mindist_paa")}
     results["long_path"] = {"series": LONG_SERIES, "series_len": LONG_LEN,
-                            "params": LONG, "qlen": lq, "r": lr}
+                            "params": LONG, "qlen": lq, "r": lr,
+                            "build_s": l_build_s,
+                            "build_launches": l_build}
     for backend, names in long_kernels.items():
         qs_b = long_qs if backend == "device" else long_qs[:1]
         zero_counts()
@@ -5801,25 +5845,48 @@ def main() -> int:
                 2 * n_rows * nseg * 4 + n_rows + BATCH * n_rows * 4
                 + 2 * BATCH * nseg * 4, 7 * BATCH * n_rows * nseg, err,
                 f"B={BATCH} N={n_rows} nseg={nseg}")
-    # the unstaged build: one launch over the phase's collection (CUDA
-    # events; its plain version at this size would take minutes)
-    xc = qcoll.data - qcoll.data.mean(dim=-1, keepdim=True)
-    sums = (core_envelope._prefix(xc), core_envelope._prefix(xc * xc))
+    # the build past 16 segments (the slab kernel) over the phase's
+    # collection, from the build's own prefix sums; its plain version on
+    # the first series (timed) and on the last (a series offset and a
+    # block order other than 0's; at 32 it would take minutes), bit for
+    # bit; a digest of every envelope (chip_kernels.py --envelope gives the same
+    # one on any tree: the parent's envelopes equal these)
+    sums = core_envelope.centered_prefixes(qcoll.data)
     ekw_l = dict(lmin=qp.lmin, lmax=qp.lmax, gamma=qp.gamma,
                  seg_len=qp.seg_len)
-    envelope_znorm(*sums, **ekw_l)
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    envelope_znorm(*sums, **ekw_l)
-    ev1.record()
-    torch.cuda.synchronize()
+    lq_plan = envelope_plan(LQ_LEN, qp.lmin, qp.lmax, qp.gamma, qp.seg_len)
+    got_l = envelope_znorm(*sums, **ekw_l)
+    want_l, p_ms = timed_call(torch, lambda: ref.envelope_znorm_ref(
+        sums[0][:1], sums[1][:1], **ekw_l))
+    for k_, c_ in zip(got_l, want_l):
+        check_equal(torch, "envelope_znorm at [15]'s shape (series 0)",
+                    k_[:1], c_)
+    want_l = ref.envelope_znorm_ref(sums[0][-1:], sums[1][-1:], **ekw_l)
+    for k_, c_ in zip(got_l, want_l):
+        check_equal(torch, f"envelope_znorm at [15]'s shape (series "
+                    f"{LQ_SERIES - 1})", k_[-1:], c_)
+    env_sha = hashlib.sha256(got_l[0].cpu().numpy().tobytes())
+    env_sha.update(got_l[1].cpu().numpy().tobytes())
+    del got_l, want_l
     cells, len_pairs, seg_pairs = envelope_work(qp, LQ_LEN)
-    lq["envelope_znorm_ms"] = ev0.elapsed_time(ev1)
-    lq["envelope_znorm_bound_ms"] = LQ_SERIES * (
-        4 * cells + 9 * len_pairs + 2 * seg_pairs) / PEAK_F32 * 1e3
+    n_env_l = qp.num_envelopes(LQ_LEN)
+    t_l = timings[("envelope_znorm", "long")] = timing(
+        torch, [lambda: envelope_znorm(*sums, **ekw_l)], None,
+        LQ_SERIES * (2 * (LQ_LEN + 1) * 4 + 2 * n_env_l * qp.w * 4),
+        LQ_SERIES * (4 * cells + 9 * len_pairs + 2 * seg_pairs), 0.0,
+        f"S={LQ_SERIES} n={LQ_LEN} w={qp.w} plan={lq_plan} (plain: S=1)",
+        plain_ms=p_ms)
+    lq["envelope_znorm_ms"] = t_l["ms"]
+    lq["envelope_znorm_bound_ms"] = t_l["bound_ms"]
     lq["envelope_znorm_cells"] = LQ_SERIES * cells
-    del xc, sums
+    lq["envelope_znorm_plan"] = lq_plan
+    lq["envelope_sha256"] = env_sha.hexdigest()[:16]
+    # the cells' own issue at full rate: 6 slots a cell (znorm_point's
+    # subtract, multiply and 2 FMAs, a min and a max), 4 schedulers of 32
+    # lanes an SM at the boost clock
+    lq["envelope_znorm_issue_floor_ms"] = (
+        6 * LQ_SERIES * cells / (sms * 4 * 32 * SPIN_HZ) * 1e3)
+    del sums
     for key, t in timings.items():
         if key[0] in ("fused_gather_ed_long", "fused_gather_lb_keogh_long",
                       "fused_gather_ed_range_long",
@@ -5829,10 +5896,13 @@ def main() -> int:
             log(f"[15] {key[0]:26s} {t['shape']:40s} kernel {t['ms']:.4f} ms"
                 f"  plain {t['plain_ms']:.4f} ms  bound {t['bound_ms']:.4f} "
                 f"ms ({t['bound_by']}, {t['timer']}/{t['plain_timer']})")
-    log(f"[15] envelope_znorm past its staging: "
+    log(f"[15] envelope_znorm past 16 segments (plan {lq_plan}): "
         f"{lq['envelope_znorm_ms']:.1f} ms a launch over {LQ_SERIES} x "
         f"{LQ_LEN} ({lq['envelope_znorm_cells']} cells; bound "
-        f"{lq['envelope_znorm_bound_ms']:.1f} ms, operations; CUDA events)")
+        f"{lq['envelope_znorm_bound_ms']:.1f} ms, operations; issue floor "
+        f"{lq['envelope_znorm_issue_floor_ms']:.1f} ms; {t_l['timer']}); "
+        f"plain {p_ms:.1f} ms on 1 series; envelopes sha256 "
+        f"{lq['envelope_sha256']}; the index built in {lq_build_s:.3f} s")
     results["timings"] = {" ".join(map(str, k)): v
                           for k, v in timings.items()}
     del qengine, qcoll
@@ -5928,6 +5998,9 @@ def main() -> int:
                 "dtw_survivors_wide_long": ("dtw_survivors_wide", LQ_DTW),
                 "dtw_band_wide_long": ("dtw_band_wide", LQ_DTW),
                 "envelope_znorm": ("envelope_znorm",),
+                # the build past 16 segments: [15]'s index (its plain
+                # version timed on the first series, as its shape says)
+                "envelope_znorm_long": ("envelope_znorm", "long"),
                 "batch_ed": ("batch_ed", 256, 1, "znorm"),
                 "lb_keogh": ("lb_keogh", 256),
                 "pool_merge": ("pool_merge", 256),
@@ -5979,6 +6052,7 @@ def main() -> int:
             "dtw_band_wide"],
         dtw_survivors_wide_long=lq["dtw"]["launches"]["dtw_survivors_wide"],
         dtw_band_wide_long=lq["dtw_host_launches"]["dtw_band_wide"],
+        envelope_znorm_long=lq_build["envelope_znorm"],
         fused_gather_ed_long=lq["ed"]["launches"][
             "fused_gather_ed_chunk_long"],
         fused_gather_lb_keogh_long=lq["dtw"]["launches"][

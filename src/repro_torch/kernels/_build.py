@@ -131,9 +131,9 @@ SIGNATURES = {
     },
     "envelope": {
         # csum, csum2, lo, hi, num_series, n, n_env, lmin, lmax, gamma,
-        # seg_len, stream
+        # seg_len, the plan (kind, tile, warps), stream
         "ulisse_envelope_znorm": [_V, _V, _V, _V, _L, _I, _I, _I, _I, _I,
-                                  _I, _V],
+                                  _I, _I, _I, _I, _V],
         # segmean, s1, s2, offsets, lo, hi, m, w, n_len, n, lmin, seg_len,
         # stream
         "ulisse_envelope_znorm_masters": [_V, _V, _V, _V, _V, _V, _L, _I,

@@ -43,7 +43,9 @@ the device backend (ED and DTW, k-NN and range) as a float64 brute
 force and the host backend do.  The redesigned long-row ED entries bit
 for bit against the staged ones (or their own plan) at forced block
 shapes, and both mindist entries bit for bit (torch.equal) against
-their plain versions at every kernel and forced plan.
+their plain versions at every kernel and forced plan.  The build's slab
+kernel (past 16 segments) bit for bit against its plain version at
+shapes that cross the regime, under its own plan and every forced one.
 """
 import dataclasses
 import threading
@@ -64,7 +66,8 @@ from repro_torch.kernels.batch_ed import batch_ed  # noqa: E402
 from repro_torch.kernels.dtw_band import (dtw_band,  # noqa: E402
                                           dtw_band_wide, dtw_survivors,
                                           dtw_survivors_wide)
-from repro_torch.kernels.envelope import (envelope_znorm,  # noqa: E402
+from repro_torch.kernels.envelope import (envelope_plan,  # noqa: E402
+                                          envelope_znorm,
                                           envelope_znorm_masters)
 from repro_torch.kernels.lb_keogh import lb_keogh  # noqa: E402
 from repro_torch.kernels.fused_verify import (  # noqa: E402
@@ -1037,7 +1040,7 @@ def test_envelope_build_bit_equal_to_plain(dev, n, lmin, lmax, gamma, seg):
     """The redesigned build entry, bit for bit against its plain version
     (on the card and on the CPU): today's four shapes, seg_len = lmin,
     lmin = lmax, gamma = 0, n = 258 (the last envelope holds one master)
-    and w = 34 segments (three passes of 16)."""
+    and w = 34 segments (the slab kernel)."""
     rng = np.random.default_rng(n + lmin + gamma + seg)
     x = _t(np.cumsum(rng.normal(size=(200, n)), -1).astype(np.float32), dev)
     xc = x - x.mean(dim=-1, keepdim=True)
@@ -1321,12 +1324,17 @@ def test_fused_gather_lb_keogh_long_variant_equals_staged(dev, qlen, znorm):
 
 
 @pytest.mark.parametrize("s,n,lmin,lmax,seg", [
-    (2, 14_100, 1_000, 14_000, 64), (3, 30_100, 29_000, 30_000, 16)])
+    (2, 14_100, 1_000, 14_000, 64), (2, 14_100, 1_000, 14_000, 450),
+    (3, 30_100, 29_000, 30_000, 16)])
 def test_envelope_build_long_spans_bit_equal_to_plain(dev, s, n, lmin, lmax,
                                                       seg):
-    """Builds whose staging passes the card's 227 KB: 13,001 lengths up to
-    14,000 (59,108 floats at g = 49), and lmax 30,000; the build entry
-    reads the prefix sums in place and gives the plain version's bits."""
+    """Builds whose one-pass staging would pass the card's 227 KB: 13,001
+    lengths up to 14,000 (59,108 floats at g = 49; 218 segments, and 31,
+    where the plan keeps the one-pass kernel unstaged), and lmax 30,000;
+    the slab kernel reads the prefix sums in place, and both kernels
+    give the plain version's bits, under the plan and under forced ones
+    (1 to 8 warps, tiles of 64 to 512 lengths; the one-pass kernel
+    unstaged, in passes of 16)."""
     rng = np.random.default_rng(n + lmin)
     x = _t(np.cumsum(rng.normal(size=(s, n)), -1).astype(np.float32), dev)
     xc = x - x.mean(dim=-1, keepdim=True)
@@ -1336,9 +1344,55 @@ def test_envelope_build_long_spans_bit_equal_to_plain(dev, s, n, lmin, lmax,
     got = envelope_znorm(csum, csum2, **kw)
     torch.cuda.synchronize()
     assert envelope_znorm.launches == before + 1
-    for k, c in zip(got, ref.envelope_znorm_ref(csum, csum2, **kw)):
+    want = ref.envelope_znorm_ref(csum, csum2, **kw)
+    for k, c in zip(got, want):
         assert torch.equal(k, c)
         assert torch.isfinite(k).any()
+    for plan in ((1, 512, 4), (1, 256, 8), (1, 64, 1), (0, 0, 4)):
+        for k, c in zip(envelope_znorm(csum, csum2, plan=plan, **kw), want):
+            assert torch.equal(k, c), plan
+
+
+# forced slab plans: (kind 1, lengths a tile, warps)
+_SLAB_PLANS = ((1, 32, 4), (1, 64, 1), (1, 288, 8), (1, 512, 3), (1, 96, 2))
+
+
+@pytest.mark.parametrize("n,lmin,lmax,gamma,seg", [
+    (256, 160, 256, 48, 16),        # w 16: one-pass, and forced slabs
+    (300, 200, 272, 5, 16),         # w 17
+    (1_024, 512, 1_024, 48, 32),    # w 32: [14]
+    (600, 520, 544, 8, 16),         # w 34: a slab boundary inside nseg
+    (400, 16, 320, 8, 16),          # seg_len = lmin, w 20
+    (600, 520, 544, 0, 16),         # gamma 0
+    (1_100, 512, 1_024, 48, 32),    # the last envelope: one master
+    (700, 300, 550, 40, 1)])        # 550 segments: groups at 1 warp
+def test_envelope_slab_build_bit_equal_to_plain(dev, n, lmin, lmax, gamma,
+                                                seg):
+    """The build past 16 segments (the slab kernel: each (master, l')'s
+    statistics once, swept across slabs of segments; the plan's past 32)
+    bit for bit against its plain version, including the -inf / +inf of
+    untouched segments, under `envelope_plan`'s plan and every forced
+    plan (the one-pass kernel's too, in passes of 16 past 16): w 16, 17,
+    32 and 34, a slab whose segments become valid inside the length
+    range, seg_len = lmin, gamma 0, a last envelope of one master and
+    segment groups across grid y."""
+    rng = np.random.default_rng(n + lmin + gamma + seg)
+    x = _t(np.cumsum(rng.normal(size=(40, n)), -1).astype(np.float32), dev)
+    xc = x - x.mean(dim=-1, keepdim=True)
+    csum, csum2 = _prefix(xc), _prefix(xc * xc)
+    kw = dict(lmin=lmin, lmax=lmax, gamma=gamma, seg_len=seg)
+    want = ref.envelope_znorm_ref(csum, csum2, **kw)
+    assert torch.isinf(want[0]).any()
+    assert envelope_plan(n, lmin, lmax, gamma, seg)[0] == (lmax // seg > 32)
+    plans = [None, *_SLAB_PLANS, (0, 0, 4)]
+    for plan in plans:
+        before = envelope_znorm.launches
+        got = envelope_znorm(csum, csum2, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert envelope_znorm.launches == before + 1
+        for k, c in zip(got, want):
+            assert torch.equal(k, c), plan
+            assert torch.isfinite(k).any()
 
 
 @pytest.mark.parametrize("otile", [8, 16, 24])

@@ -582,6 +582,9 @@ def storage_job(rank, world, base, extra, more, params, qs, specs, root,
         os.rename = rename
     rec["crash_left"] = (os.path.exists(crash),
                          os.path.exists(crash + ".old"))
+    # every rank looks before rank 0's open recovers the save (a slow
+    # rank would else see the recovered directories)
+    dist.barrier(group)
     back = UlisseEngine.open(crash, mesh=group, device="cpu")
     rec["rolled_back"] = (os.path.exists(crash),
                           os.path.exists(crash + ".old"),
